@@ -5,26 +5,42 @@
 
 Phases, each of which must pass:
 
-  1. build    both CUDA kernels from csrc/ (one nvcc per source, in parallel);
-  2. kernels  each kernel against its plain PyTorch version on the card,
-              bit for bit, at the shapes of the main path (24 rounds, plus
-              a reduced-round case), with its time, the plain version's
-              time and the least time the card could take (bound);
-  3. sumvec   the main path: Prio3SumVec(length=1000, bits=16) at batch
-              1024 through make_report_batch and two_party_step, with a few
-              reports corrupted; the count must exclude exactly those, the
-              two aggregate shares must sum to the numpy ground truth, and
-              both kernels must have launched during the step (launch counts
-              are set to 0 just before the step and read just after); a
-              small batch must agree with the plain path on the CPU; then
-              two_party_step and helper_init_step are timed;
-  4. count    Prio3Count at batch 8192, the same checks (the Field64 path,
-              through the single-block kernel).
+  1. build         the three CUDA kernels from csrc/ (one nvcc per source,
+                   all started together);
+  2. kernels       each kernel against its plain PyTorch version on the
+                   card, bit for bit, at the shapes of the paths that run it
+                   (24 rounds, plus a reduced-round case), with its time, the
+                   plain version's time and the least time the card could
+                   take (bound);
+  3. sumvec        the fast-mode main path: Prio3SumVec(length=1000, bits=16)
+                   at batch 1024 through make_report_batch and two_party_step,
+                   with a few reports corrupted; the count must exclude
+                   exactly those, the two aggregate shares must sum to the
+                   numpy ground truth, the path's kernels must have launched
+                   during the step and the other kernels not (launch counts
+                   are set to 0 just before the step and read just after); a
+                   small batch must agree with the plain path on the CPU;
+                   then two_party_step and helper_init_step are timed and one
+                   step is profiled;
+  4. count         Prio3Count at batch 8192, the same checks (the Field64
+                   path, through the single-block kernel);
+  5. draft-sumvec  the same SumVec in draft mode (VDAF-07 sponge, the full
+                   Keccak-f[1600] kernel, none of the fast-mode kernels) at
+                   batch 1024, the same checks; its small CPU batch runs at
+                   3 Keccak rounds on both sides, since the plain
+                   permutation's ~9,000 sequential calls at 24 rounds would
+                   take minutes on the host (the kernel phase holds the
+                   kernel at 24 rounds);
+  6. draft-count   Prio3Count in draft mode at batch 8192 (Field64
+                   rejection sampling), the same checks;
+  7. sponge        the wall time per block of the draft-sumvec path's two
+                   long sponge chains (absorb and squeeze) at batch 1024.
 
-Output: JSON lines (build, kernels, one per path, a profile of one step),
-then the card's name and power limit as nvidia-smi gives them, and last
-{"ok": true, "device": {...}}. Without CUDA, or without the package
-beside this script, it exits non-zero and prints no result.
+Output: JSON lines (build, a profile of one fast sumvec step, the sponge
+chains, the kernels, one line per path), then the card's name and power
+limit as nvidia-smi gives them, and last {"ok": true, "device": {...}}.
+Without CUDA, or without the package beside this script, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -168,10 +184,60 @@ def phase_kernels(torch, dev):
                       "bound_ms": b_ms, "bound_by": b_by})
         del got, want
     results["expand_f128"] = cases
+    del prefix
+
+    # kernel 3: one sponge permutation over one state per report: 1024
+    # (draft sumvec), 8192 (draft count) and, for the bound, 2,340,864
+    cases = []
+    for n in (1024, 8192, batch * blocks):
+        state = lanes((25, n))
+        for rounds in (24, 3):
+            got = keccak_cuda.keccak_f1600(state, rounds=rounds)
+            want = torch.stack(keccak_cuda.keccak_f1600_plain(state.unbind(0), rounds=rounds))
+            torch.cuda.synchronize()
+            err = max_abs_err(torch, got, want)
+            ms = time_cuda(torch, lambda: keccak_cuda.keccak_f1600(state, rounds=rounds), reps=20)
+            plain_ms = time_cuda(
+                torch, lambda: keccak_cuda.keccak_f1600_plain(state.unbind(0), rounds=rounds), reps=2
+            )
+            b_ms, b_by = bound_ms(n * rounds * KECCAK_OPS_PER_ROUND, n * 25 * 8 * 2)
+            cases.append({"states": n, "rounds": rounds, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by})
+            del got, want
+        del state
+    results["keccak_f1600"] = cases
     bad = [c for cs in results.values() for c in cs if c["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
     return results
+
+
+def phase_sponge(torch, dev):
+    """Wall time of the draft sponge's two long chains at batch 1024, as
+    the draft-sumvec step runs them: a joint-rand part (1,525 absorbed
+    blocks, one squeezed) and a measurement share (one absorbed block,
+    1,526 squeezed), each one kernel-3 launch per block."""
+    import numpy as np
+
+    from janus_tpu_torch.ops import keccak_cuda
+    from janus_tpu_torch.vdaf.keccak import shake128_squeeze_lanes
+
+    a = np.random.default_rng(SEED + 2).integers(0, 2**63, size=(1024, 1525, 21), dtype=np.uint64)
+    msg = torch.from_numpy(a.view(np.int64)).to(dev)
+    out = {}
+    for name, m, out_blocks in (("absorb", msg, 1), ("squeeze", msg[:, :1].contiguous(), 1526)):
+        shake128_squeeze_lanes(m, out_blocks)  # warm-up
+        torch.cuda.synchronize()
+        keccak_cuda.keccak_f1600.launches = 0
+        t0 = time.perf_counter()
+        shake128_squeeze_lanes(m, out_blocks)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        perms = m.shape[1] + out_blocks - 1
+        if keccak_cuda.keccak_f1600.launches != perms:
+            raise AssertionError(f"{name} chain: {keccak_cuda.keccak_f1600.launches} launches, {perms} blocks")
+        out[name] = {"launches": perms, "s": secs, "us_per_block": secs / perms * 1e6}
+    return out
 
 
 def _bump_rows(torch, p3, field, rows):
@@ -187,17 +253,22 @@ def _bump_rows(torch, p3, field, rows):
     return out
 
 
-def run_path(torch, dev, inst, batch: int, bad_rows, kernels, reps: int, shard_chunk: int, small_batch: int):
+def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: int, shard_chunk: int,
+             small_batch: int, small_rounds: int = 24):
     """Drive one path through the entry points; returns (its JSON record,
-    (the step function, its arguments))."""
+    (the step function, its arguments)). `kernels` must launch during the
+    step, every other kernel must not. The small batch held against the
+    CPU runs at `small_rounds` Keccak rounds on both sides."""
     import numpy as np
 
     from janus_tpu_torch.ops import expand_cuda, keccak_cuda
     from janus_tpu_torch.parallel import api
+    from janus_tpu_torch.vdaf import keccak
     from janus_tpu_torch.vdaf.registry import prio3_batched
     from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
 
-    counters = {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128}
+    counters = {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
+                "keccak_f1600": keccak_cuda.keccak_f1600}
     p3 = prio3_batched(inst, dev)
     meas = random_measurements(inst, batch, np.random.default_rng(SEED))
     t0 = time.perf_counter()
@@ -227,18 +298,28 @@ def run_path(torch, dev, inst, batch: int, bad_rows, kernels, reps: int, shard_c
         raise AssertionError("aggregate != numpy sum of the valid measurements")
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing} ({launches})")
+        raise AssertionError(f"kernels not launched on the {name} path: {missing} ({launches})")
+    stray = [k for k in counters if k not in kernels and launches[k] != 0]
+    if stray:
+        raise AssertionError(f"kernels of another path launched on the {name} path: {stray} ({launches})")
 
     # a small batch agrees with the plain path on the CPU
     small = meas[:small_batch]
     outs = []
-    for d in (dev, "cpu"):
-        sargs, _ = make_report_batch(inst, small, seed=SEED + 1, device=d)
-        s0, s1, sc = api.two_party_step(inst, VERIFY_KEY, device=d)(*sargs)
-        sp3 = prio3_batched(inst, d)
-        outs.append(([int(x) for x in sp3.tf.to_ints(sp3.merge_agg_shares(s0, s1))], int(sc)))
+    full_rounds = keccak.KECCAK_ROUNDS
+    keccak.KECCAK_ROUNDS = small_rounds
+    try:
+        for d in (dev, "cpu"):
+            sargs, _ = make_report_batch(inst, small, seed=SEED + 1, device=d)
+            s0, s1, sc = api.two_party_step(inst, VERIFY_KEY, device=d)(*sargs)
+            sp3 = prio3_batched(inst, d)
+            outs.append(([int(x) for x in sp3.tf.to_ints(sp3.merge_agg_shares(s0, s1))], int(sc)))
+    finally:
+        keccak.KECCAK_ROUNDS = full_rounds
     if outs[0] != outs[1]:
         raise AssertionError("small batch: card and CPU plain path disagree")
+    if outs[0] != ([int(x) for x in np.asarray(small).sum(axis=0).reshape(-1)], small_batch):
+        raise AssertionError("small batch: aggregate != numpy sum")
 
     # timing after a warm-up
     helper = api.helper_init_step(inst, VERIFY_KEY, device=dev)
@@ -262,13 +343,14 @@ def run_path(torch, dev, inst, batch: int, bad_rows, kernels, reps: int, shard_c
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     return {
-        "path": inst.kind,
+        "path": name,
         "vdaf": inst.to_dict(),
         "batch": batch,
         "corrupted": len(bad_rows),
         "count": int(count),
         "aggregate_ok": True,
         "small_batch_matches_cpu": True,
+        "small_batch_rounds": small_rounds,
         "launches": launches,
         "shard_s": shard_s,
         "first_step_s": first_step_s,
@@ -339,23 +421,34 @@ def main() -> int:
 
     phase("build", phase_build)
     checks = phase("kernels", phase_kernels, torch, dev) if not failed else None
-    paths = []
+    paths = {}
+    fast = ("keccak_single_block", "expand_f128")
     sumvec = phase(
-        "sumvec", run_path, torch, dev, VdafInstance.sum_vec(1000, 16), 1024, (5, 300, 1000),
-        ("keccak_single_block", "expand_f128"), 3, 256, 4,
+        "sumvec", run_path, torch, dev, "sumvec", VdafInstance.sum_vec(1000, 16), 1024, (5, 300, 1000),
+        fast, 3, 256, 4,
     ) if not failed else None
     if sumvec is not None:
-        paths.append(sumvec[0])
+        paths["sumvec"] = sumvec[0]
         step_s = sumvec[0]["two_party_step_s"]
         prof = phase("profile", profile_step, torch, *sumvec[1], sum(step_s) / len(step_s))
         if prof is not None:
             emit({"profile": {"path": "sumvec", "batch": 1024, **prof}})
-    count = phase(
-        "count", run_path, torch, dev, VdafInstance.count(), 8192, (7, 4000, 8000),
-        ("keccak_single_block",), 5, 0, 8,
-    ) if not failed else None
-    if count is not None:
-        paths.append(count[0])
+    runs = (
+        ("count", VdafInstance.count(), 8192, (7, 4000, 8000), ("keccak_single_block",), 5, 0, 8, 24),
+        ("draft-sumvec", VdafInstance("sumvec", bits=16, length=1000, xof_mode="draft"), 1024, (5, 300, 1000),
+         ("keccak_f1600",), 3, 256, 4, 3),
+        ("draft-count", VdafInstance("count", xof_mode="draft"), 8192, (7, 4000, 8000), ("keccak_f1600",),
+         5, 0, 8, 24),
+    )
+    for name, inst, batch, bad, kernels_of_path, reps, chunk, small, small_rounds in runs:
+        out = phase(
+            name, run_path, torch, dev, name, inst, batch, bad, kernels_of_path, reps, chunk, small, small_rounds
+        ) if not failed else None
+        if out is not None:
+            paths[name] = out[0]
+    sponge = phase("sponge", phase_sponge, torch, dev) if not failed else None
+    if sponge is not None:
+        emit({"sponge": {"batch": 1024, **sponge}})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -368,11 +461,14 @@ def main() -> int:
         log(f"chip_smoke: FAILED phases: {failed}")
         return 1
 
-    main_launches = paths[0]["launches"]
+    # each kernel's launches are read from the path that runs it
+    main_path = {"keccak_single_block": "sumvec", "expand_f128": "sumvec", "keccak_f1600": "draft-sumvec"}
     source = {"keccak_single_block": "janus_tpu_torch/csrc/keccak.cu",
-              "expand_f128": "janus_tpu_torch/csrc/expand_f128.cu"}
+              "expand_f128": "janus_tpu_torch/csrc/expand_f128.cu",
+              "keccak_f1600": "janus_tpu_torch/csrc/keccak_f1600.cu"}
     replaces = {"keccak_single_block": "janus_tpu/ops/keccak_pallas.py:236",
-                "expand_f128": "janus_tpu/ops/expand_pallas.py:249"}
+                "expand_f128": "janus_tpu/ops/expand_pallas.py:249",
+                "keccak_f1600": "janus_tpu/ops/keccak_pallas.py:169"}
     kernels = []
     for name, cases in checks.items():
         main_case = cases[0]
@@ -381,7 +477,9 @@ def main() -> int:
             "route": "cuda",
             "source": source[name],
             "replaces": replaces[name],
-            "launches": main_launches[name],
+            "launches": paths[main_path[name]]["launches"][name],
+            "launches_path": main_path[name],
+            "launches_by_path": {p: rec["launches"][name] for p, rec in paths.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"],
@@ -391,8 +489,8 @@ def main() -> int:
             "cases": cases,
         })
     emit({"kernels": kernels})
-    for p in paths:
-        emit(p)
+    for rec in paths.values():
+        emit(rec)
     print(smi.stdout.strip(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

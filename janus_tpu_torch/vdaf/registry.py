@@ -3,7 +3,8 @@
 A serializable description of one VDAF configuration (the JAX
 package's vdaf/registry.py VdafInstance, for the four Prio3 kinds on the
 device path) that resolves to a circuit and to a Prio3Batched engine on
-a device. Only the fast XOF mode runs here.
+a device. Both XOF modes run here: "fast" on Prio3Batched, "draft"
+(VDAF-07) on Prio3BatchedDraft for the circuits it takes.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import torch
 
 from ..device import resolve_device
 from .circuits import Circuit, Count, Histogram, Sum, SumVec
+from .draft import Prio3BatchedDraft
+from .feasibility import device_memory_budget
 from .prio3 import Prio3Batched
 
 
@@ -56,7 +59,7 @@ class VdafInstance:
 
 @lru_cache(maxsize=None)
 def circuit_for(inst: VdafInstance) -> Circuit:
-    if inst.xof_mode != "fast":
+    if inst.xof_mode not in ("fast", "draft"):
         raise ValueError(f"xof_mode {inst.xof_mode!r} has no device path in janus_tpu_torch")
     ch = inst.chunk_length or None
     if inst.kind == "count":
@@ -72,10 +75,17 @@ def circuit_for(inst: VdafInstance) -> Circuit:
 
 @lru_cache(maxsize=None)
 def _prio3_batched(inst: VdafInstance, device: torch.device) -> Prio3Batched:
-    return Prio3Batched(circuit_for(inst), device=device)
+    circ = circuit_for(inst)
+    if inst.xof_mode == "draft":
+        refusal = Prio3BatchedDraft.refusal(circ, device_memory_budget(device))
+        if refusal is not None:
+            raise ValueError(f"no device draft engine for {inst.to_dict()}: {refusal}")
+        return Prio3BatchedDraft(circ, device=device)
+    return Prio3Batched(circ, device=device)
 
 
 def prio3_batched(inst: VdafInstance, device=None) -> Prio3Batched:
     """The batched engine of `inst` on `device` (CUDA unless the caller
-    passes "cpu"), cached per (instance, device)."""
+    passes "cpu"), cached per (instance, device). A draft instance whose
+    streams or memory the draft engine cannot take raises ValueError."""
     return _prio3_batched(inst, resolve_device(device))

@@ -1,6 +1,7 @@
-"""XOF framing of the fast mode: counter-mode SHAKE128 (host oracle).
+"""XOF framings over hashlib (host oracles): fast mode's counter-mode
+SHAKE128, and at the end of the module draft mode's VDAF-07 sponge.
 
-The framing the device path reproduces byte for byte:
+The fast framing, which the device path reproduces byte for byte:
 
 1. Counter-mode output:
 
@@ -139,3 +140,69 @@ class XofCtr128:
         size = field.ENCODED_SIZE + 8
         p = field.MODULUS
         return [int.from_bytes(self.next(size), "little") % p for _ in range(length)]
+
+
+# ---------------------------------------------------------------------------
+# Draft framing (`xof_mode: "draft"`): the VDAF-07 sequential sponge
+# ---------------------------------------------------------------------------
+
+DRAFT_VERSION = 7
+
+
+def draft_dst(algo_id: int, usage: int) -> bytes:
+    """VDAF-07-style 8-byte domain-separation tag:
+    version || class || algo id (u32be) || usage (u16be)."""
+    return (
+        bytes([DRAFT_VERSION, ALGO_CLASS_VDAF])
+        + algo_id.to_bytes(4, "big")
+        + usage.to_bytes(2, "big")
+    )
+
+
+class XofSponge128:
+    """Sequential-sponge SHAKE128 XOF with rejection sampling over
+    hashlib: the VDAF-07 XofShake128 construction, and the oracle for
+    the device sponge (vdaf/keccak.py shake128_squeeze_lanes).
+
+    Framing: absorb ``byte(len(dst)) || dst || seed || binder``, squeeze
+    the output stream sequentially. Field elements are rejection-sampled
+    from ENCODED_SIZE-byte little-endian chunks (resample on >= p).
+    """
+
+    SEED_SIZE = SEED_SIZE
+
+    def __init__(self, seed: bytes, dst_: bytes, binder: bytes = b""):
+        assert len(seed) == SEED_SIZE
+        self._absorbed = bytes([len(dst_)]) + dst_ + seed + binder
+        self._off = 0
+        self._squeezed = b""
+
+    def next(self, n: int) -> bytes:
+        # Sequential squeezing of one sponge is successive bytes of one
+        # arbitrary-length SHAKE128 output. hashlib cannot extend a
+        # digest, so re-digest with doubling lengths (amortized O(total)).
+        end = self._off + n
+        if end > len(self._squeezed):
+            self._squeezed = hashlib.shake_128(self._absorbed).digest(
+                max(end, 2 * len(self._squeezed), 256)
+            )
+        chunk = self._squeezed[self._off : end]
+        self._off = end
+        return chunk
+
+    def next_vec(self, field, length: int) -> list[int]:
+        size = field.ENCODED_SIZE
+        p = field.MODULUS
+        out: list[int] = []
+        while len(out) < length:
+            want = length - len(out)
+            buf = self.next(size * want)
+            for i in range(want):
+                x = int.from_bytes(buf[i * size : (i + 1) * size], "little")
+                if x < p:
+                    out.append(x)
+        return out
+
+    @classmethod
+    def derive_seed(cls, seed: bytes, dst_: bytes, binder: bytes = b"") -> bytes:
+        return cls(seed, dst_, binder).next(SEED_SIZE)

@@ -2,7 +2,7 @@
 
 These need an NVIDIA GPU (sm_90a, nvcc on PATH or under /usr/local/cuda)
 and skip elsewhere; on such a machine run them with
-`python -m pytest tests/test_torch_kernels_cuda.py -m cuda`. The plain
+`python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda`. The plain
 versions themselves are held against janus_tpu by the CPU tests.
 """
 
@@ -51,6 +51,35 @@ def test_expand_kernel_matches_plain(cuda, rounds):
         want = expand_cuda.expand_f128_plain(prefix, 40, 275, block_offset=offset, rounds=rounds)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("rounds", [24, 3])
+def test_keccak_f1600_kernel_matches_plain(cuda, rounds):
+    state = _lanes((25, 5 * 333), rounds, cuda)
+    before = keccak_cuda.keccak_f1600.launches
+    got = keccak_cuda.keccak_f1600(state, rounds=rounds)
+    want = torch.stack(keccak_cuda.keccak_f1600_plain(state.unbind(0), rounds=rounds))
+    torch.cuda.synchronize()
+    assert keccak_cuda.keccak_f1600.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_draft_two_party_step_on_card_matches_cpu(cuda):
+    """Draft mode runs the full-permutation kernel and neither fast-mode kernel."""
+    inst = VdafInstance("sumvec", bits=4, length=10, xof_mode="draft")
+    meas = random_measurements(inst, 16, np.random.default_rng(5))
+    outs = {}
+    for dev in ("cpu", cuda):
+        for fn in (keccak_cuda.keccak_single_block, expand_cuda.expand_f128, keccak_cuda.keccak_f1600):
+            fn.launches = 0
+        args, _ = make_report_batch(inst, meas, seed=6, device=dev)
+        agg0, agg1, count = api.two_party_step(inst, bytes(16), device=dev)(*args)
+        p3 = prio3_batched(inst, dev)
+        outs[str(dev)] = ([int(x) for x in p3.tf.to_ints(p3.merge_agg_shares(agg0, agg1))], int(count))
+        assert (keccak_cuda.keccak_f1600.launches > 0) == (dev != "cpu")
+        assert keccak_cuda.keccak_single_block.launches == 0 and expand_cuda.expand_f128.launches == 0
+    assert outs["cpu"] == outs["cuda"]
+    assert outs["cpu"] == ([int(x) for x in np.asarray(meas).sum(axis=0)], 16)
 
 
 def test_two_party_step_on_card_matches_cpu(cuda):

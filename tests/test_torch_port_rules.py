@@ -31,6 +31,12 @@ def _imported_modules(path: Path):
             yield node.module
 
 
+def test_port_files_include_every_module_of_the_package():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("vdaf/draft.py", "vdaf/feasibility.py", "vdaf/keccak.py", "ops/keccak_cuda.py"):
+        assert f"janus_tpu_torch/{module}" in names, module
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_nothing_of_janus_tpu(path):
     assert path.exists(), path
@@ -50,6 +56,8 @@ def test_no_cuda_and_no_cpu_request_raises(monkeypatch):
         api.two_party_step(VdafInstance.count(), bytes(16))
     with pytest.raises(RuntimeError, match="CUDA"):
         make_report_batch(VdafInstance.count(), [0, 1])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.two_party_step(VdafInstance("count", xof_mode="draft"), bytes(16))
     assert Prio3Batched(SumVec(length=2, bits=2), device="cpu").device == torch.device("cpu")
 
 
@@ -59,13 +67,20 @@ def test_wrappers_refuse_other_devices():
         keccak_cuda.keccak_single_block(meta, 2)
     with pytest.raises(ValueError):
         expand_cuda.expand_f128(torch.empty((2, 4), dtype=torch.int64, device="meta"), 2, 10)
+    with pytest.raises(ValueError):
+        keccak_cuda.keccak_f1600(torch.empty((25, 3), dtype=torch.int64, device="meta"))
 
 
-@pytest.mark.parametrize("kind", ["count", "sumvec"])
+@pytest.mark.parametrize("kind", ["count", "sumvec", "draft-count", "draft-sumvec"])
 def test_cpu_run_leaves_launch_counters_at_zero(kind):
-    inst = VdafInstance.count() if kind == "count" else VdafInstance.sum_vec(3, 2)
-    keccak_cuda.keccak_single_block.launches = 0
-    expand_cuda.expand_f128.launches = 0
+    mode = "draft" if kind.startswith("draft") else "fast"
+    if kind.endswith("count"):
+        inst = VdafInstance("count", xof_mode=mode)
+    else:
+        inst = VdafInstance("sumvec", bits=2, length=3, xof_mode=mode)
+    counters = (keccak_cuda.keccak_single_block, expand_cuda.expand_f128, keccak_cuda.keccak_f1600)
+    for fn in counters:
+        fn.launches = 0
     meas = random_measurements(inst, 3, np.random.default_rng(1))
     args, _ = make_report_batch(inst, meas, seed=2, device="cpu")
     agg0, agg1, count = api.two_party_step(inst, bytes(16), device="cpu")(*args)
@@ -74,5 +89,4 @@ def test_cpu_run_leaves_launch_counters_at_zero(kind):
     assert [int(x) for x in p3.tf.to_ints(p3.merge_agg_shares(agg0, agg1))] == list(
         np.asarray(meas).sum(axis=0).reshape(-1)
     )
-    assert keccak_cuda.keccak_single_block.launches == 0
-    assert expand_cuda.expand_f128.launches == 0
+    assert [fn.launches for fn in counters] == [0, 0, 0]

@@ -67,7 +67,9 @@ def test_registry_builds_the_slice_circuits_and_refuses_the_rest():
     assert VdafInstance.sum_vec(40, 8, chunk_length=5).to_dict() == {
         "kind": "sumvec", "bits": 8, "length": 40, "chunk_length": 5
     }
+    # both XOF modes share the circuit; any other mode is refused
+    assert circuit_for(VdafInstance("sumvec", bits=8, length=4, xof_mode="draft")).input_len == 32
     with pytest.raises(ValueError):
-        circuit_for(VdafInstance("sumvec", bits=8, length=4, xof_mode="draft"))
+        circuit_for(VdafInstance("sumvec", bits=8, length=4, xof_mode="spec"))
     with pytest.raises(ValueError):
         circuit_for(VdafInstance("poplar1", bits=8))
