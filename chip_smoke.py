@@ -6,7 +6,8 @@
 Phases, each of which must pass:
 
   1. build         the three CUDA kernels from csrc/ (one nvcc per source,
-                   all started together);
+                   all started together): the single-block Keccak, the fused
+                   Field128 expansion and the whole draft sponge;
   2. kernels       each kernel against its plain PyTorch version on the
                    card, bit for bit, at the shapes of the paths that run it
                    (24 rounds, plus a reduced-round case), with its time, the
@@ -20,25 +21,27 @@ Phases, each of which must pass:
                    during the step and the other kernels not (launch counts
                    are set to 0 just before the step and read just after); a
                    small batch must agree with the plain path on the CPU;
-                   then two_party_step and helper_init_step are timed and one
-                   step is profiled;
+                   then two_party_step and helper_init_step are timed;
   4. count         Prio3Count at batch 8192, the same checks (the Field64
                    path, through the single-block kernel);
-  5. draft-sumvec  the same SumVec in draft mode (VDAF-07 sponge, the full
-                   Keccak-f[1600] kernel, none of the fast-mode kernels) at
-                   batch 1024, the same checks; its small CPU batch runs at
-                   3 Keccak rounds on both sides, since the plain
-                   permutation's ~9,000 sequential calls at 24 rounds would
-                   take minutes on the host (the kernel phase holds the
-                   kernel at 24 rounds);
+  5. draft-sumvec  the same SumVec in draft mode (VDAF-07 sponge: one
+                   whole-sponge kernel launch per XOF call, none of the
+                   fast-mode kernels) at batch 1024, the same checks, and one
+                   step profiled; its small CPU batch runs at 3 Keccak rounds
+                   on both sides, since the plain permutation's ~9,000
+                   sequential calls at 24 rounds would take minutes on the
+                   host (the kernel phase holds the kernel at 24 rounds);
   6. draft-count   Prio3Count in draft mode at batch 8192 (Field64
                    rejection sampling), the same checks;
-  7. sponge        the wall time per block of the draft-sumvec path's two
-                   long sponge chains (absorb and squeeze) at batch 1024.
+  7. sponge        the draft-sumvec path's two long sponge chains (a
+                   joint-rand part's 1,525-block absorb, a measurement
+                   share's 1,524-block squeeze with sampling) at batch 1024,
+                   one launch each, timed beside their bound.
 
-Output: JSON lines (build, a profile of one fast sumvec step, the sponge
-chains, the kernels, one line per path), then the card's name and power
-limit as nvidia-smi gives them, and last {"ok": true, "device": {...}}.
+Output: JSON lines (build, the profile of one draft sumvec step, the
+sponge chains, the kernels, one line per path, the run's wall time),
+then the card's name and power limit as nvidia-smi gives them, and last
+{"ok": true, "device": {...}}.
 Without CUDA, or without the package beside this script, it exits
 non-zero and prints no result.
 """
@@ -70,6 +73,9 @@ KECCAK_OPS_PER_ROUND = 180
 # two folds and two conditional corrections of carry-chained 32-bit adds,
 # about 40 instructions.
 F128_REDUCE_OPS = 40
+# The two fields' moduli (the sponge kernel takes its modulus as an argument).
+F64 = 2**64 - 2**32 + 1
+F128 = 2**128 - 7 * 2**66 + 1
 
 
 def log(msg: str) -> None:
@@ -143,7 +149,7 @@ def phase_kernels(torch, dev):
         return torch.from_numpy(a.view(np.int64)).to(dev)
 
     batch, blocks, length = 1024, 2286, 16000  # SumVec(1000, 16): 16000 F128 elements a report
-    results = {}
+    results = {"keccak_sponge": []}  # the path's kernel first
 
     # kernel 1: the leader binder's tree-digest leaf level is 1024 x 2286
     # states (out_lanes 2); counter-mode streams take out_lanes 21
@@ -186,57 +192,148 @@ def phase_kernels(torch, dev):
     results["expand_f128"] = cases
     del prefix
 
-    # kernel 3: one sponge permutation over one state per report: 1024
-    # (draft sumvec), 8192 (draft count) and, for the bound, 2,340,864
+    # kernel 3: whole draft XOF calls, one launch each. (name, batch, head
+    # bytes, body elements, body limbs, mode, rounds), mode an out_lanes
+    # count or a (length, limbs, modulus) sample; F128/F64 the fields' p
     cases = []
-    for n in (1024, 8192, batch * blocks):
-        state = lanes((25, n))
-        for rounds in (24, 3):
-            got = keccak_cuda.keccak_f1600(state, rounds=rounds)
-            want = torch.stack(keccak_cuda.keccak_f1600_plain(state.unbind(0), rounds=rounds))
-            torch.cuda.synchronize()
-            err = max_abs_err(torch, got, want)
-            ms = time_cuda(torch, lambda: keccak_cuda.keccak_f1600(state, rounds=rounds), reps=20)
-            plain_ms = time_cuda(
-                torch, lambda: keccak_cuda.keccak_f1600_plain(state.unbind(0), rounds=rounds), reps=2
-            )
-            b_ms, b_by = bound_ms(n * rounds * KECCAK_OPS_PER_ROUND, n * 25 * 8 * 2)
-            cases.append({"states": n, "rounds": rounds, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": b_ms, "bound_by": b_by})
-            del got, want
-        del state
-    results["keccak_f1600"] = cases
+    for name, n, head_bytes, elems, limbs, mode, rounds in (
+        ("joint-rand part, full", 1024, 42, length, 2, 2, 3),
+        ("F128 sample of 16000", 1024, 26, 0, 0, (length, 2, F128), 3),
+        ("joint-rand part, 38 blocks", 1024, 42, 400, 2, 2, 24),
+        ("F128 sample of 350", 1024, 26, 0, 0, (350, 2, F128), 24),
+        ("F64 sample of 1000", 8192, 26, 0, 0, (1000, 1, F64), 24),
+        ("F128 sample, half rejected", 1024, 26, 0, 0, (400, 2, 2**127), 24),
+        ("F64 sample, half rejected", 1024, 26, 0, 0, (400, 1, 2**63), 24),
+        ("F128 sample, 1/32 rejected", 1024, 42, 40, 2, (300, 2, 2**128 - 2**123), 24),
+    ):
+        head, msg_len, body = sponge_inputs(lanes, n, head_bytes, elems, limbs)
+        cases.append({"case": name, "states": n, "msg_bytes": msg_len, "rounds": rounds,
+                      "mode": mode if isinstance(mode, int) else list(mode[:2]),
+                      **check_sponge(torch, head, msg_len, body, head_bytes, mode, rounds)})
+        del head, body
+    results["keccak_sponge"] = cases
     bad = [c for cs in results.values() for c in cs if c["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
     return results
 
 
+def sponge_inputs(lanes, n: int, head_bytes: int, elems: int, limbs: int):
+    """A random head of head_bytes bytes ([n, h] lanes, zero past its end)
+    and a body of `limbs` random limb planes [n, elems] right after it."""
+    head = lanes((n, -(-head_bytes // 8)))
+    if head_bytes % 8:
+        head[:, -1] &= (1 << (8 * (head_bytes % 8))) - 1
+    body = tuple(lanes((n, elems)) for _ in range(limbs))
+    return head, head_bytes + 8 * elems * limbs, body
+
+
+def sponge_permutations(torch, msg_len: int, stream, mode) -> int:
+    """Permutations a call needs over all reports: the absorbed blocks,
+    and in sampling the squeezed blocks up to the one where the output
+    filled or the window ran out (from the plain stream, per report)."""
+    from janus_tpu_torch.fields.tfield import i64, ult
+    from janus_tpu_torch.ops.sponge_cuda import REJECT_WINDOW, candidate_count
+
+    n = stream.shape[0]
+    absorbed = msg_len // 168 + 1
+    if isinstance(mode, int):
+        return n * absorbed
+    length, limbs, modulus = mode
+    c = [stream[:, j : candidate_count(length) * limbs : limbs] for j in range(limbs)]
+    if limbs == 1:
+        accept = ult(c[0], i64(modulus))
+    else:
+        p_lo, p_hi = i64(modulus & (2**64 - 1)), i64(modulus >> 64)
+        accept = ult(c[1], p_hi) | ((c[1] == p_hi) & ult(c[0], p_lo))
+    stop = (torch.cumsum(accept.long(), 1) >= length) | (torch.cumsum((~accept).long(), 1) > REJECT_WINDOW)
+    consumed = (stop.int().argmax(dim=1) + 1) * limbs  # stream lanes read
+    squeezed = (consumed + 20) // 21
+    return int((absorbed + squeezed - 1).sum())
+
+
+def check_sponge(torch, head, msg_len: int, body, body_off: int, mode, rounds: int):
+    """The sponge kernel against its plain version, piece by piece (the
+    plain time is the sum of the pieces'), with the bound of this call."""
+    from janus_tpu_torch.ops import sponge_cuda as sc
+
+    kw = {"out_lanes": mode} if isinstance(mode, int) else {"sample": mode}
+    got = sc.keccak_sponge(head, msg_len, body, body_off, rounds=rounds, **kw)
+    got = (got,) if isinstance(mode, int) else got
+    n = head.shape[0]
+    out_blocks = 1 if isinstance(mode, int) else sc.stream_blocks(mode[0], mode[1])
+    plain = {}
+    msg = time_once(torch, plain, "message", lambda: sc.sponge_message(head, msg_len, body, body_off))
+    stream = time_once(torch, plain, "squeeze", lambda: sc.sponge_squeeze_plain(msg, out_blocks, rounds))
+    stream = stream.reshape(n, -1)
+    del msg
+    if isinstance(mode, int):
+        want = (stream[:, :mode],)
+    else:
+        want = time_once(torch, plain, "sample", lambda: sc.reject_sample_scan(stream, *mode))
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    perms = sponge_permutations(torch, msg_len, stream, mode)
+    del stream, want
+    ms = time_cuda(torch, lambda: sc.keccak_sponge(head, msg_len, body, body_off, rounds=rounds, **kw), reps=5)
+    out_words = n * (mode if isinstance(mode, int) else mode[0] * mode[1])
+    in_bytes = head.numel() * 8 + sum(p.numel() * 8 for p in body)
+    b_ms, b_by = bound_ms(perms * rounds * KECCAK_OPS_PER_ROUND, in_bytes + out_words * 8)
+    return {"permutations": perms, "max_abs_err": err, "ms": ms, "plain_ms": sum(plain.values()),
+            "plain_ms_by_piece": plain, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def time_once(torch, into: dict, key: str, fn):
+    """fn() once, its milliseconds on the card recorded under `key`."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    into[key] = start.elapsed_time(end)
+    return out
+
+
 def phase_sponge(torch, dev):
     """Wall time of the draft sponge's two long chains at batch 1024, as
-    the draft-sumvec step runs them: a joint-rand part (1,525 absorbed
-    blocks, one squeezed) and a measurement share (one absorbed block,
-    1,526 squeezed), each one kernel-3 launch per block."""
+    the draft-sumvec step runs them, at 24 rounds: a joint-rand part (a
+    256,042-byte message, 1,525 absorbed blocks) and a measurement share
+    (one absorbed block, then squeezed blocks until 16,000 Field128
+    elements are drawn: 1,524 without a reject), one kernel launch each,
+    with the bound of each chain."""
     import numpy as np
 
-    from janus_tpu_torch.ops import keccak_cuda
-    from janus_tpu_torch.vdaf.keccak import shake128_squeeze_lanes
+    from janus_tpu_torch.ops import sponge_cuda as sc
 
-    a = np.random.default_rng(SEED + 2).integers(0, 2**63, size=(1024, 1525, 21), dtype=np.uint64)
-    msg = torch.from_numpy(a.view(np.int64)).to(dev)
+    rng = np.random.default_rng(SEED + 2)
+
+    def lanes(shape):
+        a = rng.integers(0, 2**64 - 1, size=shape, dtype=np.uint64, endpoint=True)
+        return torch.from_numpy(a.view(np.int64)).to(dev)
+
     out = {}
-    for name, m, out_blocks in (("absorb", msg, 1), ("squeeze", msg[:, :1].contiguous(), 1526)):
-        shake128_squeeze_lanes(m, out_blocks)  # warm-up
+    for name, head_bytes, elems, mode in (("absorb", 42, 16000, 2), ("squeeze", 26, 0, (16000, 2, F128))):
+        head, msg_len, body = sponge_inputs(lanes, 1024, head_bytes, elems, 2 if elems else 0)
+        kw = {"out_lanes": mode} if isinstance(mode, int) else {"sample": mode}
+        sc.keccak_sponge(head, msg_len, body, head_bytes, **kw)  # warm-up
         torch.cuda.synchronize()
-        keccak_cuda.keccak_f1600.launches = 0
+        sc.keccak_sponge.launches = 0
         t0 = time.perf_counter()
-        shake128_squeeze_lanes(m, out_blocks)
+        sc.keccak_sponge(head, msg_len, body, head_bytes, **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        perms = m.shape[1] + out_blocks - 1
-        if keccak_cuda.keccak_f1600.launches != perms:
-            raise AssertionError(f"{name} chain: {keccak_cuda.keccak_f1600.launches} launches, {perms} blocks")
-        out[name] = {"launches": perms, "s": secs, "us_per_block": secs / perms * 1e6}
+        if sc.keccak_sponge.launches != 1:
+            raise AssertionError(f"{name} chain: {sc.keccak_sponge.launches} launches")
+        # permutations a report: the absorbed blocks, plus in sampling the
+        # squeezed blocks that 16,000 Field128 candidates fill (Field128
+        # rejects a candidate with probability 2^-68)
+        perms = msg_len // 168 + 1 + (0 if isinstance(mode, int) else -(-16000 * 2 // 21) - 1)
+        out_bytes = 8 * mode if isinstance(mode, int) else 8 * 16000 * 2
+        b_ms, b_by = bound_ms(1024 * perms * 24 * KECCAK_OPS_PER_ROUND, 1024 * (msg_len + out_bytes))
+        out[name] = {"launches": 1, "permutations": perms, "s": secs, "us_per_permutation": secs / perms * 1e6,
+                     "bound_ms": b_ms, "bound_by": b_by}
     return out
 
 
@@ -261,14 +358,14 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
     CPU runs at `small_rounds` Keccak rounds on both sides."""
     import numpy as np
 
-    from janus_tpu_torch.ops import expand_cuda, keccak_cuda
+    from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
     from janus_tpu_torch.parallel import api
     from janus_tpu_torch.vdaf import keccak
     from janus_tpu_torch.vdaf.registry import prio3_batched
     from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
 
     counters = {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
-                "keccak_f1600": keccak_cuda.keccak_f1600}
+                "keccak_sponge": sponge_cuda.keccak_sponge}
     p3 = prio3_batched(inst, dev)
     meas = random_measurements(inst, batch, np.random.default_rng(SEED))
     t0 = time.perf_counter()
@@ -363,20 +460,24 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
 
 
 def profile_step(torch, step, args, step_s: float):
-    """Device time by kernel over one step (torch.profiler), and the share
-    of the unprofiled step time `step_s` that the card was busy."""
+    """Device time by kernel over one step (torch.profiler), the share of
+    the unprofiled step time `step_s` that the card was busy, and the
+    host's self time by operator."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(*args)
         torch.cuda.synchronize()
     rows = []
+    host = []
     for e in prof.key_averages():
         dev_us = getattr(e, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "cuda_time_total", 0)
         rows.append((e.key, dev_us / 1e3, e.count))
+        host.append((e.key, e.self_cpu_time_total / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
+    host.sort(key=lambda r: -r[1])
     # device kernels only: operator rows (aten::) and runtime API rows
     # (cudaLaunchKernel and the like, no device time) are left out
     kernels_only = [r for r in rows if r[1] > 0 and not r[0].startswith(("aten::", "cuda"))]
@@ -387,6 +488,8 @@ def profile_step(torch, step, args, step_s: float):
         "step_s": step_s,
         "device_busy_share": device_ms / 1e3 / step_s,
         "top": [[k, ms, c] for k, ms, c in kernels_only[:15]],
+        # host time by operator and runtime call (self time, profiled)
+        "top_host": [[k, ms, c] for k, ms, c in host[:12]],
     }
 
 
@@ -406,6 +509,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     failed = []
+    run_t0 = time.perf_counter()
 
     def phase(name, fn, *a):
         log(f"chip_smoke: phase {name}")
@@ -429,15 +533,11 @@ def main() -> int:
     ) if not failed else None
     if sumvec is not None:
         paths["sumvec"] = sumvec[0]
-        step_s = sumvec[0]["two_party_step_s"]
-        prof = phase("profile", profile_step, torch, *sumvec[1], sum(step_s) / len(step_s))
-        if prof is not None:
-            emit({"profile": {"path": "sumvec", "batch": 1024, **prof}})
     runs = (
         ("count", VdafInstance.count(), 8192, (7, 4000, 8000), ("keccak_single_block",), 5, 0, 8, 24),
         ("draft-sumvec", VdafInstance("sumvec", bits=16, length=1000, xof_mode="draft"), 1024, (5, 300, 1000),
-         ("keccak_f1600",), 3, 256, 4, 3),
-        ("draft-count", VdafInstance("count", xof_mode="draft"), 8192, (7, 4000, 8000), ("keccak_f1600",),
+         ("keccak_sponge",), 3, 256, 4, 3),
+        ("draft-count", VdafInstance("count", xof_mode="draft"), 8192, (7, 4000, 8000), ("keccak_sponge",),
          5, 0, 8, 24),
     )
     for name, inst, batch, bad, kernels_of_path, reps, chunk, small, small_rounds in runs:
@@ -446,6 +546,11 @@ def main() -> int:
         ) if not failed else None
         if out is not None:
             paths[name] = out[0]
+            if name == "draft-sumvec":
+                step_s = out[0]["two_party_step_s"]
+                prof = phase("draft-profile", profile_step, torch, *out[1], sum(step_s) / len(step_s))
+                if prof is not None:
+                    emit({"profile": {"path": name, "batch": batch, **prof}})
     sponge = phase("sponge", phase_sponge, torch, dev) if not failed else None
     if sponge is not None:
         emit({"sponge": {"batch": 1024, **sponge}})
@@ -462,13 +567,13 @@ def main() -> int:
         return 1
 
     # each kernel's launches are read from the path that runs it
-    main_path = {"keccak_single_block": "sumvec", "expand_f128": "sumvec", "keccak_f1600": "draft-sumvec"}
+    main_path = {"keccak_single_block": "sumvec", "expand_f128": "sumvec", "keccak_sponge": "draft-sumvec"}
     source = {"keccak_single_block": "janus_tpu_torch/csrc/keccak.cu",
               "expand_f128": "janus_tpu_torch/csrc/expand_f128.cu",
-              "keccak_f1600": "janus_tpu_torch/csrc/keccak_f1600.cu"}
+              "keccak_sponge": "janus_tpu_torch/csrc/keccak_sponge.cu"}
     replaces = {"keccak_single_block": "janus_tpu/ops/keccak_pallas.py:236",
                 "expand_f128": "janus_tpu/ops/expand_pallas.py:249",
-                "keccak_f1600": "janus_tpu/ops/keccak_pallas.py:169"}
+                "keccak_sponge": "janus_tpu/ops/keccak_pallas.py:169"}
     kernels = []
     for name, cases in checks.items():
         main_case = cases[0]
@@ -491,6 +596,7 @@ def main() -> int:
     emit({"kernels": kernels})
     for rec in paths.values():
         emit(rec)
+    emit({"run_s": time.perf_counter() - run_t0})
     print(smi.stdout.strip(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,8 @@
 // Keccak-f[1600] on one state held in 25 uint64 registers.
 //
-// Shared by keccak.cu (single-block permutation) and expand_f128.cu
-// (fused counter-mode expansion). Lane (x, y) sits at index x + 5*y, as
+// Shared by keccak.cu (single-block permutation), expand_f128.cu
+// (fused counter-mode expansion) and keccak_sponge.cu (whole draft XOF
+// calls). Lane (x, y) sits at index x + 5*y, as
 // in the JAX package's keccak_jax.py. Every loop over lanes is unrolled,
 // so the arrays below are registers; each 64-bit rotation by a constant
 // compiles to a pair of 32-bit funnel shifts.

@@ -395,6 +395,15 @@ def fzeros(tf, shape, device):
     return tuple(torch.zeros(shape, dtype=I64, device=device) for _ in range(tf.LIMBS))
 
 
+def fencode_lanes(v):
+    """Field value [batch, n] -> its little-endian encoding as lanes
+    [batch, n * limbs] (each element's limbs lo..hi in lane order, as
+    Field.encode_vec)."""
+    if len(v) == 1:
+        return v[0]
+    return torch.stack(v, dim=-1).reshape(v[0].shape[0], -1)
+
+
 def fshape(v):
     return tuple(v[0].shape)
 

@@ -1,4 +1,4 @@
-"""Keccak-f[1600] on the card: two CUDA kernels and their plain version.
+"""Keccak-f[1600] on the card: the single-block kernel and the plain permutation.
 
 `keccak_single_block` (csrc/keccak.cu) replaces janus_tpu/ops/
 keccak_pallas.py keccak_single_block_pallas: the permutation of
@@ -7,26 +7,22 @@ are zero), the first `out_lanes` lanes out. Every seed derivation, every
 counter-mode stream block and every tree-digest node of the fast-mode
 XOF is one such permutation.
 
-`keccak_f1600` (csrc/keccak_f1600.cu) replaces keccak_pallas.py
-keccak_f1600_pallas: the full permutation, 25 lanes in and 25 out, of a
-[25, n] lane-major state. The draft-mode sequential sponge
-(vdaf/keccak.py shake128_squeeze_lanes) calls it once per absorbed or
-squeezed block, over one state per report.
+keccak_pallas.py keccak_f1600_pallas, the full 25-lane permutation,
+serves only the draft-mode sequential sponge; its counterpart runs a
+whole XOF call per launch (ops/sponge_cuda.py, csrc/keccak_sponge.cu).
 
-What bounds both at a width that fills the card is the integer ALU, not
-memory: 24 rounds of about 130 64-bit logic ops per state against at
-most 200 bytes in and 200 out. Each kernel keeps a state in registers for
-all rounds, one thread per state, and reads and writes each lane once in
-a lane-major layout ([21, n] or [25, n]) so that a warp's accesses to one
-lane are contiguous. At the sponge's widths (1,024 to 8,192 states) a
-`keccak_f1600` launch fills a few of the 132 SMs and the launch latency
-bounds it instead.
+What bounds the kernel at a width that fills the card is the integer
+ALU, not memory: 24 rounds of about 130 64-bit logic ops per state
+against at most 168 bytes in and 168 out. It keeps a state in registers
+for all rounds, one thread per state, and reads and writes each lane
+once in a lane-major layout ([21, n]) so that a warp's accesses to one
+lane are contiguous.
 
-Dispatch is by device: on a CUDA tensor each wrapper launches its kernel
+Dispatch is by device: on a CUDA tensor the wrapper launches the kernel
 (and raises if it cannot); on a CPU tensor it runs the same function in
-plain PyTorch (`keccak_f1600_plain`), which is also the kernels'
-yardstick on the card. `rounds` is a runtime argument of all of them, so
-they agree at reduced rounds too.
+plain PyTorch (`keccak_f1600_plain`), which is also the kernel's
+yardstick on the card. `rounds` is a runtime argument of both, so they
+agree at reduced rounds too.
 """
 
 from __future__ import annotations
@@ -102,18 +98,12 @@ def keccak_single_block_plain(lane_cols, out_lanes: int, rounds: int = 24):
     return keccak_f1600_plain(cols + [zero] * 4, rounds)[:out_lanes]
 
 
-_ARGTYPES = {
-    "keccak_single_block_launch": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ],
-    "keccak_f1600_launch": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
-}
-
-
-def _launcher(source: str, symbol: str):
-    fn = getattr(cuda_build.load(source), symbol)
+def _launcher():
+    fn = cuda_build.load("keccak").keccak_single_block_launch
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[symbol]
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
         fn.restype = ctypes.c_int
     return fn
 
@@ -140,41 +130,13 @@ def keccak_single_block(lane_cols, out_lanes: int, rounds: int = 24):
     if n:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            launch = _launcher("keccak", "keccak_single_block_launch")
-            rc = launch(stacked.data_ptr(), out.data_ptr(), n, out_lanes, rounds, stream)
+            rc = _launcher()(stacked.data_ptr(), out.data_ptr(), n, out_lanes, rounds, stream)
         cuda_build.check(rc, "keccak_single_block")
         keccak_single_block.launches += 1
     return tuple(out[lane].view(shape) for lane in range(out_lanes))
 
 
 keccak_single_block.launches = 0
-
-
-def keccak_f1600(state, rounds: int = 24):
-    """Permute n states given as one contiguous int64 tensor [25, n]
-    (lane l of state i at l*n + i); return the permuted [25, n]."""
-    if state.dim() != 2 or state.shape[0] != 25:
-        raise ValueError(f"keccak_f1600: state of shape {tuple(state.shape)}, want [25, n]")
-    device = state.device
-    if device.type == "cpu":
-        return torch.stack(keccak_f1600_plain(state.unbind(0), rounds))
-    if device.type != "cuda":
-        raise ValueError(f"keccak_f1600: unsupported device {device}")
-    if state.dtype != torch.int64 or not state.is_contiguous():
-        raise ValueError("keccak_f1600: state must be a contiguous int64 tensor")
-    n = state.shape[1]
-    out = torch.empty_like(state)
-    if n:
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            launch = _launcher("keccak_f1600", "keccak_f1600_launch")
-            rc = launch(state.data_ptr(), out.data_ptr(), n, rounds, stream)
-        cuda_build.check(rc, "keccak_f1600")
-        keccak_f1600.launches += 1
-    return out
-
-
-keccak_f1600.launches = 0
 
 
 def ctr_block_cols(prefix, out_blocks: int, ctr_offset: int = 0):

@@ -1,5 +1,6 @@
 """Batched XOF on the device: fast mode's counter-mode stream, tree digest
-and sampling; draft mode's sequential sponge (at the end of the module).
+and sampling. (Draft mode's sequential sponge is one kernel launch per
+XOF call, ops/sponge_cuda.py, driven from vdaf/draft.py.)
 
 The counter-mode framing (vdaf/xof.py) makes every 168-byte output block
 an independent single-block SHAKE128 message dst16 || seed || binder' ||
@@ -11,10 +12,8 @@ vdaf/keccak_jax.py.
 
 Every fast-mode permutation here is the single-block kernel
 (ops/keccak_cuda.keccak_single_block) and every Field128 expansion the
-fused kernel (ops/expand_cuda.expand_f128); every sponge permutation is
-the full 25-lane kernel (ops/keccak_cuda.keccak_f1600). Each wrapper
-chooses by the device of its inputs: the kernel on CUDA, its plain
-version on the CPU.
+fused kernel (ops/expand_cuda.expand_f128). Each wrapper chooses by the
+device of its inputs: the kernel on CUDA, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -24,11 +23,11 @@ import torch
 
 from ..fields.tfield import _f64_reduce_wide, _f128_reduce256, i64
 from ..ops.expand_cuda import expand_f128
-from ..ops.keccak_cuda import PAD_END, PAD_START, RATE_LANES, ctr_block_cols, keccak_f1600, keccak_single_block
+from ..ops.keccak_cuda import PAD_END, PAD_START, RATE_LANES, ctr_block_cols, keccak_single_block
 
-# Round count of every permutation in this module: 24 always in
-# production; a test lowers it to hold a reduced-round run against the
-# JAX package at the same count.
+# Round count of every permutation in this module and in draft mode's
+# sponge (vdaf/draft.py): 24 always in production; a test lowers it to
+# hold a reduced-round run against the JAX package at the same count.
 KECCAK_ROUNDS = 24
 
 
@@ -170,33 +169,3 @@ def expand_field_vec(tf, prefix_parts, prefix_len_bytes: int, batch: int, length
         return expand_f128(prefix, blocks, length, block_offset=block_offset, rounds=KECCAK_ROUNDS)
     out = ctr_stream_lanes(prefix_parts, prefix_len_bytes, batch, blocks, device, ctr_offset=block_offset)
     return sample_field_vec(tf, out, length)
-
-
-# ---------------------------------------------------------------------------
-# Sequential SHAKE128 sponge (draft mode, vdaf/draft.py)
-# ---------------------------------------------------------------------------
-
-
-def shake128_squeeze_lanes(msg_lanes, out_blocks: int):
-    """SHAKE128 over pre-padded messages; returns raw squeezed lanes.
-
-    msg_lanes: [batch, n_blocks, 21] int64, the messages already padded
-    to whole rate blocks. Returns [batch, out_blocks, 21] int64 output
-    stream lanes. The chain's state is one [25, batch] tensor: absorbing
-    a block is one XOR into its rate lanes plus one permutation,
-    squeezing a block one copy out of them plus one permutation (the
-    first squeezed block is the state after absorbing, so `out_blocks`
-    blocks take out_blocks - 1 permutations).
-    """
-    batch, n_blocks, _ = msg_lanes.shape
-    device = msg_lanes.device
-    state = torch.zeros((25, batch), dtype=torch.int64, device=device)
-    for blk in range(n_blocks):
-        state[:RATE_LANES] ^= msg_lanes[:, blk].T
-        state = keccak_f1600(state, KECCAK_ROUNDS)
-    out = torch.empty((batch, out_blocks, RATE_LANES), dtype=torch.int64, device=device)
-    for blk in range(out_blocks):
-        if blk:
-            state = keccak_f1600(state, KECCAK_ROUNDS)
-        out[:, blk].copy_(state[:RATE_LANES].T)
-    return out

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
-from ..fields.tfield import fmap, fsum
+from ..fields.tfield import fencode_lanes, fmap, fsum
 from .circuits import AGG1, Circuit
 from .engine import BatchedCircuit, batched_circuit, flp_decide_batched, flp_prove_batched, flp_query_batched
 from .keccak import ctr_stream_lanes, expand_field_vec, tree_digest_lanes
@@ -40,14 +40,6 @@ from .xof import (
 AGG0 = (0).to_bytes(8, "little")
 SEED_LANES = SEED_SIZE // 8  # 2
 DST_LANES = DST_SIZE // 8  # 2
-
-
-def field_value_to_enc_lanes(tf, v):
-    """Field vector [batch, n] -> little-endian encoded lanes [batch, n*LIMBS]
-    (each element's limbs lo..hi in lane order, as Field.encode_vec)."""
-    if tf.LIMBS == 1:
-        return v[0]
-    return torch.stack(v, dim=-1).reshape(v[0].shape[0], -1)
 
 
 class Prio3Batched:
@@ -108,7 +100,7 @@ class Prio3Batched:
         """The share binder of the joint-rand part: the leader binds its
         full encoded measurement share, the helper its 16-byte seed."""
         if agg_id == 0:
-            return field_value_to_enc_lanes(self.tf, meas)
+            return fencode_lanes(meas)
         return helper_seed
 
     def _joint_rand_part(self, agg_id: int, blind_lanes, nonce_lanes, share_binder_lanes):

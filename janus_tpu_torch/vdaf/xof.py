@@ -162,7 +162,7 @@ def draft_dst(algo_id: int, usage: int) -> bytes:
 class XofSponge128:
     """Sequential-sponge SHAKE128 XOF with rejection sampling over
     hashlib: the VDAF-07 XofShake128 construction, and the oracle for
-    the device sponge (vdaf/keccak.py shake128_squeeze_lanes).
+    the device sponge (ops/sponge_cuda.py keccak_sponge).
 
     Framing: absorb ``byte(len(dst)) || dst || seed || binder``, squeeze
     the output stream sequentially. Field elements are rejection-sampled

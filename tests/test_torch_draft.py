@@ -1,8 +1,9 @@
 """janus_tpu_torch's draft mode (VDAF-07) held against janus_tpu and hashlib.
 
 The port's sponge, rejection sampler, plain Keccak-f[1600] and draft
-two-party step run on the CPU (each kernel wrapper takes its plain
-version there) and are held against the JAX package's draft_jax on the
+two-party step run on the CPU (the sponge kernel's wrapper takes its
+plain version there; tests/test_torch_sponge.py holds that wrapper
+itself) and are held against the JAX package's draft_jax on the
 same numpy-made inputs, against hashlib.shake_128, and against the host
 VDAF-07 oracle reference.Prio3(mode="draft"). Every comparison is exact:
 lanes and field elements are integers.
@@ -32,7 +33,7 @@ from janus_tpu.vdaf import registry as j_registry
 from janus_tpu.vdaf import testing as j_testing
 from janus_tpu_torch.convert import from_numpy_u64, step_args_from_jax, step_args_to_numpy, to_numpy_u64
 from janus_tpu_torch.fields.tfield import TF64, TF128
-from janus_tpu_torch.ops import keccak_cuda
+from janus_tpu_torch.ops import keccak_cuda, sponge_cuda
 from janus_tpu_torch.parallel import api as t_api
 from janus_tpu_torch.vdaf import circuits as t_circuits
 from janus_tpu_torch.vdaf import draft as td
@@ -62,12 +63,20 @@ def rounds(request, monkeypatch):
     return request.param
 
 
+def _sponge_stream(segments, msg_len: int, batch: int, out_blocks: int):
+    """The plain sponge's raw stream of a message given as byte-offset
+    segments: [batch, out_blocks * 21] lanes."""
+    head = sponge_cuda.or_segments(segments, -(-msg_len // 8), batch, CPU)
+    msg = sponge_cuda.sponge_message(head, msg_len)
+    return sponge_cuda.sponge_squeeze_plain(msg, out_blocks, tk.KECCAK_ROUNDS).reshape(batch, -1)
+
+
 # --- (a) the sponge against hashlib, 24 rounds -----------------------------
 
 
 def test_static_message_matches_shake():
     msg = b"hello world, odd len!"  # 21 bytes, not lane aligned
-    out = td._sponge_stream([(0, msg)], len(msg), 3, 2, CPU)
+    out = _sponge_stream([(0, msg)], len(msg), 3, 2)
     assert out.shape == (3, 42)
     assert row_bytes(out, 1) == hashlib.shake_128(msg).digest(2 * 168)
 
@@ -76,7 +85,7 @@ def test_static_message_matches_shake():
 def test_dynamic_segment_at_any_byte_offset_matches_shake(offset):
     dyn = rand_u64((2, 4), offset)  # 32 bytes
     head = bytes(range(1, offset + 1))
-    out = td._sponge_stream([(0, head), (offset, from_numpy_u64(dyn, CPU))], offset + 32, 2, 1, CPU)
+    out = _sponge_stream([(0, head), (offset, from_numpy_u64(dyn, CPU))], offset + 32, 2, 1)
     for row in range(2):
         msg = head + dyn[row].astype("<u8").tobytes()
         assert row_bytes(out, row) == hashlib.shake_128(msg).digest(168)
@@ -85,7 +94,7 @@ def test_dynamic_segment_at_any_byte_offset_matches_shake(offset):
 def test_multi_block_absorb_matches_shake():
     dyn = rand_u64((1, 70), 5)  # 560 bytes
     head = b"\x08" + b"d" * 8 + b"s" * 16  # 25-byte draft-style prefix
-    out = td._sponge_stream([(0, head), (25, from_numpy_u64(dyn, CPU))], 25 + 560, 1, 3, CPU)
+    out = _sponge_stream([(0, head), (25, from_numpy_u64(dyn, CPU))], 25 + 560, 1, 3)
     msg = head + dyn[0].astype("<u8").tobytes()
     assert row_bytes(out, 0) == hashlib.shake_128(msg).digest(3 * 168)
 
@@ -104,7 +113,7 @@ def test_sponge_stream_matches_jax_scan_branch(rounds):
     head = b"\x08" + draft_dst(2, 8) + bytes(range(16)) + b"\x01"
     want = jd._sponge_stream([(0, head), (26, jnp.asarray(nonce)), (42, jnp.asarray(dyn))], msg_len, 3, 6)
     segs = [(0, head), (26, from_numpy_u64(nonce, CPU)), (42, from_numpy_u64(dyn, CPU))]
-    got = td._sponge_stream(segs, msg_len, 3, 6, CPU)
+    got = _sponge_stream(segs, msg_len, 3, 6)
     assert (to_numpy_u64(got) == np.asarray(want)).all()
 
 
@@ -113,14 +122,15 @@ def test_sponge_stream_matches_jax_scan_branch(rounds):
 
 def _crafted_stream(jf, length: int):
     """Candidates for 3 reports: none rejected; scattered rejects inside
-    the window; window + 1 rejects (exhaustion)."""
+    the window (Field128's candidate 10 straddles stream lanes 20 and 21);
+    window + 1 rejects (exhaustion)."""
     c_n = jd._candidate_count(jf, length)
     limbs = jf.LIMBS
     rng = np.random.default_rng(9 + limbs)
     p = jf.MODULUS
     vals = [[int(rng.integers(0, 2**62)) for _ in range(c_n)] for _ in range(3)]
     big = (1 << (64 * limbs)) - 1  # >= p: rejected
-    for i in (0, 7, 8, 25):
+    for i in (0, 7, 8, 10, 25):
         vals[1][i] = big
     if limbs == 2:
         vals[1][3] = p  # high limb == p_hi, low limb == p_lo: rejected
@@ -142,7 +152,7 @@ def test_reject_sample_matches_jax_with_crafted_rejects(jf, tf):
     length = 40
     vals, stream = _crafted_stream(jf, length)
     want = jd._reject_sample(jf, jnp.asarray(stream), length)
-    got = td._reject_sample(tf, from_numpy_u64(stream, CPU), length)
+    got = sponge_cuda.reject_sample_scan(from_numpy_u64(stream, CPU), length, tf.LIMBS, tf.MODULUS)
     for g, w in zip(got, want):
         assert (to_numpy_u64(g) == np.asarray(w)).all()
     have = [[int(x) for x in row] for row in tf.to_ints(got)]
@@ -165,9 +175,8 @@ def test_reject_sample_matches_host_next_vec(kind):
     length = max(circ.query_rand_len, 5)
     seeds = rand_u64((4, 2), len(kind))
     d = draft_dst(circ.algo_id, 6)
-    blocks = td._stream_blocks_for(tf, length)
-    stream = td._sponge_stream([(0, bytes([8]) + d), (9, from_numpy_u64(seeds, CPU))], 25, 4, blocks, CPU)
-    got = tf.to_ints(td._reject_sample(tf, stream, length))
+    head = sponge_cuda.or_segments([(0, bytes([8]) + d), (9, from_numpy_u64(seeds, CPU))], 4, 4, CPU)
+    got = tf.to_ints(sponge_cuda.keccak_sponge(head, 25, sample=(length, tf.LIMBS, tf.MODULUS)))
     for i in range(4):
         want = XofSponge128(seeds[i].astype("<u8").tobytes(), d).next_vec(circ.FIELD, length)
         assert [int(x) for x in got[i]] == want
@@ -184,7 +193,7 @@ def test_plain_keccak_f1600_matches_pallas_interpret():
     lanes = [rng.integers(0, 1 << 63, size=shape, dtype=np.uint64) for _ in range(25)]
     want = kp.keccak_f1600_pallas(tuple(jnp.asarray(x) for x in lanes), rounds=2)
     state = from_numpy_u64(np.stack(lanes).reshape(25, -1), CPU)
-    got = keccak_cuda.keccak_f1600(state, rounds=2)
+    got = torch.stack(keccak_cuda.keccak_f1600_plain(state.unbind(0), rounds=2))
     assert got.shape == (25, 516)
     for lane in range(25):
         assert (to_numpy_u64(got[lane]).reshape(shape) == np.asarray(want[lane])).all(), lane
@@ -195,14 +204,9 @@ def test_plain_keccak_f1600_matches_jax_scan_24_rounds():
     lanes = rand_u64((25,) + shape, 77)
     assert not kp.enabled(int(np.prod(shape)))  # the JAX side runs its scan
     want = kj.keccak_f1600(tuple(jnp.asarray(x) for x in lanes), rounds=24)
-    got = keccak_cuda.keccak_f1600(from_numpy_u64(lanes.reshape(25, -1), CPU))
+    got = torch.stack(keccak_cuda.keccak_f1600_plain(from_numpy_u64(lanes.reshape(25, -1), CPU).unbind(0)))
     for lane in range(25):
         assert (to_numpy_u64(got[lane]).reshape(shape) == np.asarray(want[lane])).all(), lane
-
-
-def test_keccak_f1600_refuses_bad_shapes():
-    with pytest.raises(ValueError, match=r"\[25, n\]"):
-        keccak_cuda.keccak_f1600(torch.zeros((21, 4), dtype=torch.int64))
 
 
 # --- (e) the draft two-party step against janus_tpu --------------------------

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from janus_tpu_torch.ops import expand_cuda, keccak_cuda
+from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
 from janus_tpu_torch.parallel import api
 from janus_tpu_torch.vdaf.registry import VdafInstance, prio3_batched
 from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
@@ -53,30 +53,65 @@ def test_expand_kernel_matches_plain(cuda, rounds):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# (head bytes, body elements, body limbs): no body; a body at every byte
+# offset mod 8; messages of 167, 168 and 169 bytes; multi-block bodies
+SPONGE_MESSAGES = [(41, 0, 0), (57, 0, 0), (0, 20, 1), (3, 20, 1), (7, 20, 1), (8, 20, 1), (9, 20, 1),
+                   (42, 40, 2), (26, 333, 2), (60, 33, 1)]
+# (length, limbs, modulus): the two fields, and moduli that reject often
+SPONGE_SAMPLES = [(50, 1, 2**64 - 2**32 + 1), (275, 2, 2**128 - 7 * 2**66 + 1), (40, 1, 2**63), (40, 2, 2**127),
+                  (300, 2, 2**128 - 2**123)]
+
+
+def _sponge_inputs(head_bytes, elems, limbs, batch, seed, device):
+    head = _lanes((batch, -(-head_bytes // 8)), seed, device)
+    if head_bytes % 8:
+        head[:, -1] &= (1 << (8 * (head_bytes % 8))) - 1
+    body = tuple(_lanes((batch, elems), seed + 1 + j, device) for j in range(limbs))
+    return head, head_bytes + 8 * elems * limbs, body
+
+
 @pytest.mark.parametrize("rounds", [24, 3])
-def test_keccak_f1600_kernel_matches_plain(cuda, rounds):
-    state = _lanes((25, 5 * 333), rounds, cuda)
-    before = keccak_cuda.keccak_f1600.launches
-    got = keccak_cuda.keccak_f1600(state, rounds=rounds)
-    want = torch.stack(keccak_cuda.keccak_f1600_plain(state.unbind(0), rounds=rounds))
+@pytest.mark.parametrize("msg", SPONGE_MESSAGES, ids=str)
+def test_sponge_kernel_lanes_match_plain(cuda, rounds, msg):
+    head, msg_len, body = _sponge_inputs(*msg, 37, sum(msg), cuda)
+    before = sponge_cuda.keccak_sponge.launches
+    got = sponge_cuda.keccak_sponge(head, msg_len, body, msg[0], out_lanes=21, rounds=rounds)
+    want = sponge_cuda.keccak_sponge_plain(head, msg_len, body, msg[0], out_lanes=21, rounds=rounds)
     torch.cuda.synchronize()
-    assert keccak_cuda.keccak_f1600.launches == before + 1
+    assert sponge_cuda.keccak_sponge.launches == before + 1
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("sample", SPONGE_SAMPLES, ids=str)
+@pytest.mark.parametrize("msg", [(26, 0, 0), (42, 40, 2)], ids=str)
+def test_sponge_kernel_sample_matches_plain(cuda, msg, sample):
+    head, msg_len, body = _sponge_inputs(*msg, 45, sample[0], cuda)
+    got = sponge_cuda.keccak_sponge(head, msg_len, body, msg[0], sample=sample, rounds=24)
+    want = sponge_cuda.keccak_sponge_plain(head, msg_len, body, msg[0], sample=sample, rounds=24)
+    torch.cuda.synchronize()
+    assert len(got) == sample[1]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_sponge_kernel_raises_on_a_bad_shape(cuda):
+    with pytest.raises(ValueError):
+        sponge_cuda.keccak_sponge(_lanes((4, 22), 1, cuda), 100, out_lanes=2)
+
+
 def test_draft_two_party_step_on_card_matches_cpu(cuda):
-    """Draft mode runs the full-permutation kernel and neither fast-mode kernel."""
+    """Draft mode runs the sponge kernel and neither fast-mode kernel."""
     inst = VdafInstance("sumvec", bits=4, length=10, xof_mode="draft")
     meas = random_measurements(inst, 16, np.random.default_rng(5))
     outs = {}
     for dev in ("cpu", cuda):
-        for fn in (keccak_cuda.keccak_single_block, expand_cuda.expand_f128, keccak_cuda.keccak_f1600):
+        for fn in (keccak_cuda.keccak_single_block, expand_cuda.expand_f128, sponge_cuda.keccak_sponge):
             fn.launches = 0
         args, _ = make_report_batch(inst, meas, seed=6, device=dev)
         agg0, agg1, count = api.two_party_step(inst, bytes(16), device=dev)(*args)
         p3 = prio3_batched(inst, dev)
         outs[str(dev)] = ([int(x) for x in p3.tf.to_ints(p3.merge_agg_shares(agg0, agg1))], int(count))
-        assert (keccak_cuda.keccak_f1600.launches > 0) == (dev != "cpu")
+        assert (sponge_cuda.keccak_sponge.launches > 0) == (dev != "cpu")
         assert keccak_cuda.keccak_single_block.launches == 0 and expand_cuda.expand_f128.launches == 0
     assert outs["cpu"] == outs["cuda"]
     assert outs["cpu"] == ([int(x) for x in np.asarray(meas).sum(axis=0)], 16)
@@ -89,11 +124,13 @@ def test_two_party_step_on_card_matches_cpu(cuda):
     for dev in ("cpu", cuda):
         keccak_cuda.keccak_single_block.launches = 0
         expand_cuda.expand_f128.launches = 0
+        sponge_cuda.keccak_sponge.launches = 0
         args, _ = make_report_batch(inst, meas, seed=4, device=dev)
         agg0, agg1, count = api.two_party_step(inst, bytes(16), device=dev)(*args)
         p3 = prio3_batched(inst, dev)
         outs[str(dev)] = ([int(x) for x in p3.tf.to_ints(p3.merge_agg_shares(agg0, agg1))], int(count))
         launched = keccak_cuda.keccak_single_block.launches > 0 and expand_cuda.expand_f128.launches > 0
         assert launched == (dev != "cpu")
+        assert sponge_cuda.keccak_sponge.launches == 0
     assert outs["cpu"] == outs["cuda"]
     assert outs["cpu"] == ([int(x) for x in np.asarray(meas).sum(axis=0)], 16)

@@ -10,7 +10,7 @@ import torch
 
 import janus_tpu_torch
 from janus_tpu_torch.device import resolve_device
-from janus_tpu_torch.ops import expand_cuda, keccak_cuda
+from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
 from janus_tpu_torch.parallel import api
 from janus_tpu_torch.vdaf.circuits import Count, SumVec
 from janus_tpu_torch.vdaf.prio3 import Prio3Batched
@@ -33,7 +33,7 @@ def _imported_modules(path: Path):
 
 def test_port_files_include_every_module_of_the_package():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
-    for module in ("vdaf/draft.py", "vdaf/feasibility.py", "vdaf/keccak.py", "ops/keccak_cuda.py"):
+    for module in ("vdaf/draft.py", "vdaf/feasibility.py", "vdaf/keccak.py", "ops/keccak_cuda.py", "ops/sponge_cuda.py"):
         assert f"janus_tpu_torch/{module}" in names, module
 
 
@@ -68,7 +68,7 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         expand_cuda.expand_f128(torch.empty((2, 4), dtype=torch.int64, device="meta"), 2, 10)
     with pytest.raises(ValueError):
-        keccak_cuda.keccak_f1600(torch.empty((25, 3), dtype=torch.int64, device="meta"))
+        sponge_cuda.keccak_sponge(torch.empty((3, 4), dtype=torch.int64, device="meta"), 32, out_lanes=2)
 
 
 @pytest.mark.parametrize("kind", ["count", "sumvec", "draft-count", "draft-sumvec"])
@@ -78,7 +78,7 @@ def test_cpu_run_leaves_launch_counters_at_zero(kind):
         inst = VdafInstance("count", xof_mode=mode)
     else:
         inst = VdafInstance("sumvec", bits=2, length=3, xof_mode=mode)
-    counters = (keccak_cuda.keccak_single_block, expand_cuda.expand_f128, keccak_cuda.keccak_f1600)
+    counters = (keccak_cuda.keccak_single_block, expand_cuda.expand_f128, sponge_cuda.keccak_sponge)
     for fn in counters:
         fn.launches = 0
     meas = random_measurements(inst, 3, np.random.default_rng(1))
