@@ -36,12 +36,34 @@ Phases, each of which must pass:
   7. sponge        the draft-sumvec path's two long sponge chains (a
                    joint-rand part's 1,525-block absorb, a measurement
                    share's 1,524-block squeeze with sampling) at batch 1024,
-                   one launch each, timed beside their bound.
+                   one launch each, timed beside their bound;
+  8. serve         the serving seam: a helper Aggregator built from a task
+                   dict over an EphemeralDatastore answers one aggregate-init
+                   request in DAP wire bytes for SumVec(1000, 16) at batch
+                   1024, fast mode and draft mode. The leader's side shards
+                   the reports, seals each helper share with HPKE, runs
+                   EngineCache.leader_init over host columns (timed by the
+                   direct and by the pipelined route) and frames one
+                   AggregationJobInitializeReq with 3 corrupted leader
+                   shares, 1 unknown HPKE config id and 1 report after the
+                   task's expiration. Every other report must answer with
+                   the leader's prep message, each reject with its error,
+                   the leader's masked aggregate plus the helper's stored
+                   share must unshard to the accepted reports' sum, the
+                   path's kernels must launch during the request (counts
+                   at 0 just before, read just after) and the others not,
+                   and the same bytes sent again must get a byte-identical
+                   answer and leave the batch aggregation as it was; the
+                   same reports under a new job id (the whole path again,
+                   warm) must all answer as replays. Last, the engine's
+                   helper_init and the bare helper_init_step are timed in
+                   turns on the request's reports.
 
 Output: JSON lines (build, the profile of one draft sumvec step, the
-sponge chains, the kernels, one line per path, the run's wall time),
-then the card's name and power limit as nvidia-smi gives them, and last
-{"ok": true, "device": {...}}.
+sponge chains, one serve line per XOF mode with the seconds of each
+stage of the request, the kernels, one line per path, the run's wall
+time), then the card's name and power limit as nvidia-smi gives them,
+and last {"ok": true, "device": {...}}.
 Without CUDA, or without the package beside this script, it exits
 non-zero and prints no result.
 """
@@ -459,6 +481,186 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
     }, (step, args)
 
 
+def _bump_host_rows(field_np, rows, modulus: int):
+    """A copy of a host limb tuple with element 0 of each listed report
+    plus 1 (mod p)."""
+    import numpy as np
+
+    out = tuple(x.copy() for x in field_np)
+    for row in rows:
+        v = (sum(int(x[row, 0]) << (64 * i) for i, x in enumerate(out)) + 1) % modulus
+        for i, y in enumerate(out):
+            y[row, 0] = np.uint64((v >> (64 * i)) & (2**64 - 1))
+    return out
+
+
+def phase_serve(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
+    """A helper answers one aggregate-init request for `inst` at `batch`
+    (see the module docstring, phase 8); returns its serve record."""
+    import numpy as np
+
+    from janus_tpu_torch.aggregator.core import Aggregator
+    from janus_tpu_torch.aggregator.engine_cache import engine_cache
+    from janus_tpu_torch.aggregator.testing import leader_init_request, outcomes
+    from janus_tpu_torch.convert import from_numpy_u64, step_args_to_numpy
+    from janus_tpu_torch.core import hpke_backend
+    from janus_tpu_torch.core.time_util import MockClock
+    from janus_tpu_torch.datastore import EphemeralDatastore
+    from janus_tpu_torch.messages import AggregationJobId, PrepareError, Role, Time
+    from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
+    from janus_tpu_torch.parallel import api
+    from janus_tpu_torch.task import QueryTypeConfig, Task, TaskBuilder
+    from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
+
+    now = 1_700_000_000
+    unknown, expired = 11, 12
+    counters = {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
+                "keccak_sponge": sponge_cuda.keccak_sponge}
+    built = TaskBuilder(QueryTypeConfig.time_interval(), inst, Role.HELPER).with_(
+        vdaf_verify_key=VERIFY_KEY, task_expiration=Time(now)
+    ).build()
+    task = Task.from_dict(built.to_dict())  # the helper is provisioned from the task's dict
+    eds = EphemeralDatastore(MockClock(Time(now)))
+    try:
+        eds.datastore.run_tx(lambda tx: tx.put_task(task))
+        helper = Aggregator(eds.datastore, eds.clock, device=dev)
+
+        # the leader's side: shard, corrupt 3 leader shares, build the request
+        engine = engine_cache(inst, VERIFY_KEY, dev)
+        meas = random_measurements(inst, batch, np.random.default_rng(SEED + 3))
+        t0 = time.perf_counter()
+        args, _ = make_report_batch(inst, meas, seed=SEED + 3, shard_chunk=256, device=dev)
+        args = list(step_args_to_numpy(args))
+        shard_s = time.perf_counter() - t0
+        args[2] = _bump_host_rows(args[2], bad_rows, engine.p3.tf.MODULUS)
+        times = [now - 100] * batch
+        times[expired] = now + 50
+        t0 = time.perf_counter()
+        job = leader_init_request(task, engine, args, times, unknown_config=(unknown,))
+        request_build_s = time.perf_counter() - t0
+
+        # leader_init by both routes, from host columns, after the one above
+        routes = {}
+        pipelined_chunk = engine.PIPELINE_CHUNK
+        for route, chunk in (("pipelined", pipelined_chunk), ("direct", batch), ("direct", batch),
+                             ("pipelined", pipelined_chunk)):
+            engine.PIPELINE_CHUNK = chunk
+            t0 = time.perf_counter()
+            out0, _, ver0, part0 = engine.leader_init(*args[:5])
+            torch.cuda.synchronize()
+            routes.setdefault(route, []).append(time.perf_counter() - t0)
+            want_type = "DeviceRowsChunks" if route == "pipelined" else "DeviceRows"
+            if type(out0).__name__ != want_type:
+                raise AssertionError(f"leader_init took another route than {route}: {type(out0).__name__}")
+            del out0
+        del engine.PIPELINE_CHUNK  # back to the class's
+
+        # the helper's request: counts at 0 just before, read just after
+        job_id = AggregationJobId(bytes(range(16)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        resp = helper.handle_aggregate_init(task.task_id, job_id, job.request)
+        request_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        stages = dict(helper.task_aggregator_for(task.task_id).stage_seconds)
+
+        missing = [k for k in kernels if launches[k] == 0]
+        stray = [k for k in counters if k not in kernels and launches[k] != 0]
+        if missing or stray:
+            raise AssertionError(f"serve {name}: kernels not launched {missing}, stray {stray} ({launches})")
+        got = outcomes(resp)
+        want = list(job.prep_msgs)
+        for row in bad_rows:
+            want[row] = PrepareError.VDAF_PREP_ERROR
+        want[unknown] = PrepareError.HPKE_UNKNOWN_CONFIG_ID
+        want[expired] = PrepareError.TASK_EXPIRED
+        if got != want:
+            wrong = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+            raise AssertionError(f"serve {name}: {len(wrong)} reports answered otherwise than expected: {wrong[:10]}")
+
+        def batch_rows():
+            return eds.datastore.run_tx(
+                lambda tx: tx._c.execute(
+                    "SELECT batch_identifier, aggregate_share, report_count, checksum FROM batch_aggregations"
+                ).fetchall()
+            )
+
+        rows = batch_rows()
+        accept = np.array([isinstance(x, bytes) for x in got])
+        field = engine.p3.circ.FIELD
+        if len(rows) != 1 or rows[0][2] != int(accept.sum()):
+            raise AssertionError(f"serve {name}: batch aggregation rows {[(r[0].hex(), r[2]) for r in rows]}")
+        leader_share = engine.aggregate(job.out0, accept)
+        total = [(a + b) % field.MODULUS for a, b in zip(leader_share, field.decode_vec(rows[0][1]))]
+        if total != [int(x) for x in np.asarray(meas)[accept].sum(axis=0).reshape(-1)]:
+            raise AssertionError(f"serve {name}: leader + helper shares != the accepted reports' sum")
+
+        # the same bytes again: a byte-identical answer, no row moves
+        t0 = time.perf_counter()
+        again = helper.handle_aggregate_init(task.task_id, job_id, job.request)
+        replay_s = time.perf_counter() - t0
+        if again.to_bytes() != resp.to_bytes() or batch_rows() != rows:
+            raise AssertionError(f"serve {name}: the replayed request was answered otherwise")
+
+        # the same reports under a new job id: the whole path runs again,
+        # the device step included, and every report that passed the
+        # HPKE stage is now a replay
+        t0 = time.perf_counter()
+        warm = outcomes(helper.handle_aggregate_init(task.task_id, AggregationJobId(bytes(16)), job.request))
+        warm_request_s = time.perf_counter() - t0
+        warm_stages = dict(helper.task_aggregator_for(task.task_id).stage_seconds)
+        want = [PrepareError.REPORT_REPLAYED] * batch
+        want[unknown] = PrepareError.HPKE_UNKNOWN_CONFIG_ID
+        want[expired] = PrepareError.TASK_EXPIRED
+        if warm != want or batch_rows() != rows:
+            raise AssertionError(f"serve {name}: the reports sent again under a new job were not all replays")
+
+        # the seam's cost over the bare device step, in turns: the engine's
+        # helper_init on the request's host columns (padding, copies,
+        # combine, decide, finish, fetch) against helper_init_step on the
+        # same reports already on the card
+        step = api.helper_init_step(inst, VERIFY_KEY, device=dev)
+        on_card = [None if args[i] is None else from_numpy_u64(args[i], dev) for i in (0, 1, 5, 6)]
+        turns = {"engine_helper_init": [], "helper_init_step": []}
+        for _ in range(3):
+            t0 = time.perf_counter()
+            engine.helper_init(args[0], args[1], args[5], args[6], ver0, part0, np.ones(batch, dtype=bool))
+            turns["engine_helper_init"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            step(*on_card)
+            torch.cuda.synchronize()
+            turns["helper_init_step"].append(time.perf_counter() - t0)
+        return {
+            "path": f"serve-{name}",
+            "vdaf": inst.to_dict(),
+            "batch": batch,
+            "accepted": int(accept.sum()),
+            "rejected": {e.name: sum(1 for g in got if g == e) for e in set(x for x in got if not isinstance(x, bytes))},
+            "request_bytes": len(job.request),
+            "hpke_backend": hpke_backend.BACKEND,
+            "stage_s": stages,
+            "request_s": request_s,
+            "reports_per_s": batch / request_s,
+            "replay_s": replay_s,
+            "second_job_request_s": warm_request_s,
+            "second_job_stage_s": warm_stages,
+            "helper_init_turns_s": turns,
+            "leader_init_s": routes,
+            "leader_request_build_s": request_build_s,
+            "shard_s": shard_s,
+            "launches": launches,
+            "peak_device_bytes": peak,
+            "aggregate_ok": True,
+            "replay_identical": True,
+        }
+    finally:
+        eds.cleanup()
+
+
 def profile_step(torch, step, args, step_s: float):
     """Device time by kernel over one step (torch.profiler), the share of
     the unprofiled step time `step_s` that the card was busy, and the
@@ -554,6 +756,16 @@ def main() -> int:
     sponge = phase("sponge", phase_sponge, torch, dev) if not failed else None
     if sponge is not None:
         emit({"sponge": {"batch": 1024, **sponge}})
+    serves = {}
+    for name, inst, kernels_of_path in (
+        ("sumvec", VdafInstance.sum_vec(1000, 16), fast),
+        ("draft-sumvec", VdafInstance("sumvec", bits=16, length=1000, xof_mode="draft"), ("keccak_sponge",)),
+    ):
+        out = phase(f"serve-{name}", phase_serve, torch, dev, name, inst, 1024, (5, 300, 1000),
+                    kernels_of_path) if not failed else None
+        if out is not None:
+            serves[out["path"]] = out
+            emit({"serve": out})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -584,7 +796,7 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": paths[main_path[name]]["launches"][name],
             "launches_path": main_path[name],
-            "launches_by_path": {p: rec["launches"][name] for p, rec in paths.items()},
+            "launches_by_path": {p: rec["launches"][name] for p, rec in {**paths, **serves}.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"],

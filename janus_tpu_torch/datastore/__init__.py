@@ -1,0 +1,20 @@
+"""Durable protocol state store of the port (SQLite).
+
+The port's own copy of janus_tpu/datastore: the row models and the
+typed ops the helper's aggregate-init path needs, with AES-GCM
+encryption at rest for secret columns (`Crypter`). The schema is
+janus_tpu's, so the rows two helpers write on the same request can be
+compared column for column.
+"""
+
+from .models import (
+    AggregationJobModel,
+    AggregationJobState,
+    BatchAggregation,
+    BatchAggregationState,
+    ReportAggregationModel,
+    ReportAggregationState,
+)
+from .store import Crypter, Datastore, EphemeralDatastore, Transaction, TxConflict
+
+__all__ = [n for n in dir() if not n.startswith("_")]

@@ -1,0 +1,121 @@
+"""Datastore row models.
+
+Equivalent of reference aggregator_core/src/datastore/models.rs
+(AggregationJob:220, ReportAggregation:586 + state:714,
+BatchAggregation:843 + state:1042).
+
+The port's own copy of the models of janus_tpu/datastore/models.py that
+the helper's aggregate-init path writes, line for line.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, replace
+
+from ..messages import (
+    AggregationJobId,
+    Interval,
+    PrepareError,
+    ReportId,
+    ReportIdChecksum,
+    TaskId,
+    Time,
+)
+
+
+class AggregationJobState(str, enum.Enum):
+    """reference models.rs:374."""
+
+    IN_PROGRESS = "in_progress"
+    FINISHED = "finished"
+    ABANDONED = "abandoned"
+    DELETED = "deleted"
+
+
+class ReportAggregationState(str, enum.Enum):
+    """reference models.rs:714: Start / WaitingLeader(transition) /
+    WaitingHelper(prep state) / Finished / Failed(error)."""
+
+    START = "start"
+    WAITING_LEADER = "waiting_leader"
+    WAITING_HELPER = "waiting_helper"
+    FINISHED = "finished"
+    FAILED = "failed"
+
+
+class BatchAggregationState(str, enum.Enum):
+    """reference models.rs:1042."""
+
+    AGGREGATING = "aggregating"
+    COLLECTED = "collected"
+
+
+
+
+
+@dataclass(frozen=True)
+class AggregationJobModel:
+    """reference models.rs:220."""
+
+    task_id: TaskId
+    job_id: AggregationJobId
+    aggregation_parameter: bytes
+    partial_batch_identifier: bytes  # encoded PartialBatchSelector body ('' for time-interval)
+    client_timestamp_interval: Interval
+    state: AggregationJobState
+    step: int
+    last_request_hash: bytes | None = None
+    # W3C traceparent persisted by whoever created the job (the leader's
+    # job creator / the helper's init handler); both job drivers adopt it
+    # so a step's spans join the creating trace across processes and
+    # driver restarts (janus_tpu.trace.use_traceparent)
+    trace_context: str | None = None
+
+
+
+
+
+
+@dataclass(frozen=True)
+class ReportAggregationModel:
+    """reference models.rs:586.
+
+    prep_blob holds the serialized per-report prepare payload for the
+    waiting states: the leader's transition (out share + verifier
+    context) or the helper's prepare state; opaque at this layer and
+    encrypted at rest.
+    """
+
+    task_id: TaskId
+    job_id: AggregationJobId
+    report_id: ReportId
+    client_time: Time
+    ord: int
+    state: ReportAggregationState
+    prep_blob: bytes = b""
+    prepare_error: PrepareError | None = None
+
+    def failed(self, err: PrepareError) -> "ReportAggregationModel":
+        return replace(
+            self, state=ReportAggregationState.FAILED, prep_blob=b"", prepare_error=err
+        )
+
+
+@dataclass(frozen=True)
+class BatchAggregation:
+    """One shard of a batch's running aggregate (reference models.rs:843).
+
+    Sharding exists to spread row contention (the reference picks a
+    random shard 0..shard_count at accumulate time, accumulator.rs:92).
+    """
+
+    task_id: TaskId
+    batch_identifier: bytes  # encoded Interval or BatchId
+    aggregation_parameter: bytes
+    ord: int
+    state: BatchAggregationState
+    aggregate_share: bytes | None  # encoded field vector, None for empty shard
+    report_count: int
+    client_timestamp_interval: Interval
+    checksum: ReportIdChecksum

@@ -47,6 +47,23 @@ class VdafInstance:
     def histogram(cls, length: int, chunk_length: int = 0) -> "VdafInstance":
         return cls("histogram", length=length, chunk_length=chunk_length)
 
+    @property
+    def rounds(self) -> int:
+        """DAP prepare rounds: 1 for every Prio3 kind of the port."""
+        return 1
+
+    @property
+    def has_aggregation_parameter(self) -> bool:
+        """Prio3 takes no aggregation parameter (Poplar1 does, and is
+        not ported)."""
+        return False
+
+    def fails_at(self, stage: str) -> bool:
+        """The JAX package's seam for its test-only failing fakes; no
+        port kind fails on purpose."""
+        assert stage in ("init", "step")
+        return False
+
     def to_dict(self) -> dict:
         d = {"kind": self.kind}
         for k in ("bits", "length", "chunk_length"):
@@ -55,6 +72,22 @@ class VdafInstance:
         if self.xof_mode != "fast":
             d["xof_mode"] = self.xof_mode
         return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "VdafInstance":
+        """Read what janus_tpu's VdafInstance.to_dict writes. Kinds and
+        fields the port has no device path for raise ValueError."""
+        if d.get("block_size") or d.get("max_blocks"):
+            raise ValueError(f"VDAF {d} (block-sparse) has no device path in janus_tpu_torch")
+        inst = cls(
+            d["kind"],
+            bits=d.get("bits", 0),
+            length=d.get("length", 0),
+            chunk_length=d.get("chunk_length", 0),
+            xof_mode=d.get("xof_mode", "fast"),
+        )
+        circuit_for(inst)
+        return inst
 
 
 @lru_cache(maxsize=None)

@@ -134,3 +134,35 @@ def test_two_party_step_on_card_matches_cpu(cuda):
         assert sponge_cuda.keccak_sponge.launches == 0
     assert outs["cpu"] == outs["cuda"]
     assert outs["cpu"] == ([int(x) for x in np.asarray(meas).sum(axis=0)], 16)
+
+
+@pytest.mark.parametrize("route", ["direct", "pipelined", "chunked"])
+def test_engine_routes_on_the_card_match_the_cpu(cuda, monkeypatch, route):
+    """EngineCache on the card (pinned side-stream copies on the pipelined
+    route, cap-sized dispatches on the chunked one) gives the CPU
+    engine's values, with the kernels launched."""
+    from janus_tpu_torch.aggregator.engine_cache import EngineCache
+    from janus_tpu_torch.convert import step_args_to_numpy
+
+    monkeypatch.setattr(EngineCache, "PIPELINE_CHUNK", 32)
+    inst = VdafInstance.sum_vec(3, 2)
+    n = 5 if route == "direct" else 70
+    meas = random_measurements(inst, n, np.random.default_rng(n))
+    args = step_args_to_numpy(make_report_batch(inst, meas, seed=n, device="cpu")[0])
+    nonce, parts, lmeas, lproof, b0, seed, b1 = args
+    results = []
+    for dev in (cuda, "cpu"):
+        eng = EngineCache(inst, bytes(16), device=dev, bucket_cap=32 if route == "chunked" else 0)
+        keccak_cuda.keccak_single_block.launches = 0
+        out0, seed0, ver0, part0 = eng.leader_init(nonce, parts, lmeas, lproof, b0)
+        out1, mask, prep = eng.helper_init(nonce, parts, seed, b1, ver0, part0, np.ones(n, dtype=bool))
+        results.append((out0.to_numpy(), seed0, ver0, part0, out1.to_numpy(), mask, prep,
+                        eng.aggregate(out0, mask), eng.aggregate(out1, mask)))
+        assert (keccak_cuda.keccak_single_block.launches > 0) == (dev is cuda)
+    for got, want in zip(*results):
+        if isinstance(got, list):
+            assert got == want
+        else:
+            for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+                assert np.array_equal(g, w)
+    assert results[0][5].all()

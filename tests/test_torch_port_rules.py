@@ -9,9 +9,13 @@ import pytest
 import torch
 
 import janus_tpu_torch
+from janus_tpu_torch.aggregator.core import Config, TaskAggregator
+from janus_tpu_torch.aggregator.engine_cache import EngineCache, engine_cache
 from janus_tpu_torch.device import resolve_device
+from janus_tpu_torch.messages import Role
 from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
 from janus_tpu_torch.parallel import api
+from janus_tpu_torch.task import QueryTypeConfig, TaskBuilder
 from janus_tpu_torch.vdaf.circuits import Count, SumVec
 from janus_tpu_torch.vdaf.prio3 import Prio3Batched
 from janus_tpu_torch.vdaf.registry import VdafInstance, prio3_batched
@@ -33,7 +37,20 @@ def _imported_modules(path: Path):
 
 def test_port_files_include_every_module_of_the_package():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
-    for module in ("vdaf/draft.py", "vdaf/feasibility.py", "vdaf/keccak.py", "ops/keccak_cuda.py", "ops/sponge_cuda.py"):
+    for module in (
+        "vdaf/draft.py",
+        "vdaf/feasibility.py",
+        "vdaf/keccak.py",
+        "ops/keccak_cuda.py",
+        "ops/sponge_cuda.py",
+        "aggregator/engine_cache.py",
+        "aggregator/core.py",
+        "vdaf/wire.py",
+        "messages/core.py",
+        "core/hpke_backend.py",
+        "datastore/store.py",
+        "task.py",
+    ):
         assert f"janus_tpu_torch/{module}" in names, module
 
 
@@ -58,6 +75,12 @@ def test_no_cuda_and_no_cpu_request_raises(monkeypatch):
         make_report_batch(VdafInstance.count(), [0, 1])
     with pytest.raises(RuntimeError, match="CUDA"):
         api.two_party_step(VdafInstance("count", xof_mode="draft"), bytes(16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EngineCache(VdafInstance.count(), bytes(16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine_cache(VdafInstance.count(), bytes(16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TaskAggregator(TaskBuilder(QueryTypeConfig.time_interval(), VdafInstance.count(), Role.HELPER).build(), Config())
     assert Prio3Batched(SumVec(length=2, bits=2), device="cpu").device == torch.device("cpu")
 
 
