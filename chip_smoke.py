@@ -58,10 +58,29 @@ Phases, each of which must pass:
                    warm) must all answer as replays. Last, the engine's
                    helper_init and the bare helper_init_step are timed in
                    turns on the request's reports.
+  9. drive        the leader's side, for SumVec(1000, 16) in fast and in draft
+                   mode: a leader and a helper Aggregator, each over its own
+                   EphemeralDatastore, the helper behind a DapServer on
+                   loopback (port 0). 1,024 reports sharded on the card, 3 of
+                   them with a corrupted leader share, are stored through
+                   put_client_report; AggregationJobCreator.run_once must
+                   make one job of all 1,024, and JobDriver.run_once with one
+                   worker steps it through AggregationJobDriver and the
+                   HttpClient (counts at 0 just before, read just after). The
+                   job must be finished with its lease released, exactly the
+                   3 corrupted reports failed with VDAF_PREP_ERROR, the
+                   leader's and the helper's stored shares must unshard to
+                   the accepted reports' sum, and a second run_once must
+                   acquire nothing. Then EngineCache.leader_init is timed on
+                   the job's own staged columns by the route it takes at
+                   1,024 reports (pipelined) and by the direct route, in
+                   turns, three times each, and the two must agree.
 
 Output: JSON lines (build, the profile of one draft sumvec step, the
 sponge chains, one serve line per XOF mode with the seconds of each
-stage of the request, the kernels, one line per path, the run's wall
+stage of the request, one drive line per XOF mode with the seconds of
+each stage of the leader's step and the helper's request in it, the
+kernels, one line per path, the run's wall
 time), then the card's name and power limit as nvidia-smi gives them,
 and last {"ok": true, "device": {...}}.
 Without CUDA, or without the package beside this script, it exits
@@ -661,6 +680,169 @@ def phase_serve(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
         eds.cleanup()
 
 
+def phase_drive(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
+    """The leader's side end to end (see the module docstring, phase 9):
+    the job creator and the lease-driven job driver step one job of
+    `batch` reports over loopback HTTP against a port helper behind a
+    DapServer; returns the drive record."""
+    import dataclasses
+
+    import numpy as np
+
+    from janus_tpu_torch.aggregator.aggregation_job_creator import AggregationJobCreator
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver
+    from janus_tpu_torch.aggregator.core import Aggregator
+    from janus_tpu_torch.aggregator.http_handlers import DapHttpApp, DapServer
+    from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig
+    from janus_tpu_torch.aggregator.testing import leader_stored_reports
+    from janus_tpu_torch.convert import step_args_to_numpy
+    from janus_tpu_torch.core.auth import AuthenticationToken
+    from janus_tpu_torch.core.circuit_breaker import OutboundCircuitBreakers
+    from janus_tpu_torch.core.hpke import generate_hpke_config_and_private_key
+    from janus_tpu_torch.core.http_client import HttpClient
+    from janus_tpu_torch.core.time_util import MockClock
+    from janus_tpu_torch.datastore import EphemeralDatastore
+    from janus_tpu_torch.messages import PrepareError, Role, Time
+    from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
+    from janus_tpu_torch.task import QueryTypeConfig, Task, TaskBuilder
+    from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
+
+    now = 1_700_000_000
+    counters = {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
+                "keccak_sponge": sponge_cuda.keccak_sponge}
+    built = TaskBuilder(QueryTypeConfig.time_interval(), inst, Role.LEADER).with_(
+        vdaf_verify_key=VERIFY_KEY, aggregator_auth_token=AuthenticationToken.random_bearer()
+    ).build()
+    helper_task = Task.from_dict(dataclasses.replace(
+        built, role=Role.HELPER, hpke_keys=(generate_hpke_config_and_private_key(config_id=1),)
+    ).to_dict())
+    leader_eds = EphemeralDatastore(MockClock(Time(now)))
+    helper_eds = EphemeralDatastore(MockClock(Time(now)))
+    helper = Aggregator(helper_eds.datastore, helper_eds.clock, device=dev)
+    server = DapServer(DapHttpApp(helper)).start()
+    try:
+        task = Task.from_dict(dataclasses.replace(built, helper_aggregator_endpoint=server.url).to_dict())
+        helper_eds.datastore.run_tx(lambda tx: tx.put_task(helper_task))
+        leader_eds.datastore.run_tx(lambda tx: tx.put_task(task))
+        leader = Aggregator(leader_eds.datastore, leader_eds.clock, device=dev)
+        engine = leader.task_aggregator_for(task.task_id).engine
+
+        # uploads: shard on the card, corrupt 3 leader shares, store
+        meas = random_measurements(inst, batch, np.random.default_rng(SEED + 5))
+        t0 = time.perf_counter()
+        args, _ = make_report_batch(inst, meas, seed=SEED + 5, shard_chunk=256, device=dev)
+        args = list(step_args_to_numpy(args))
+        args[2] = _bump_host_rows(args[2], bad_rows, engine.p3.tf.MODULUS)
+        reports = leader_stored_reports(task, helper_task.hpke_keys[0].config, args, [now - 100] * batch)
+        leader_eds.datastore.run_tx(lambda tx: [tx.put_client_report(r) for r in reports])
+        upload_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        created = AggregationJobCreator(leader_eds.datastore).run_once()
+        create_s = time.perf_counter() - t0
+        jobs = leader_eds.datastore.run_tx(lambda tx: tx.get_aggregation_jobs_for_task(task.task_id))
+        sizes = [len(leader_eds.datastore.run_tx(lambda tx: tx.get_report_aggregations_for_job(task.task_id, j.job_id)))
+                 for j in jobs]
+        if created != 1 or sizes != [batch]:
+            raise AssertionError(f"drive {name}: the creator made {created} jobs of {sizes} reports")
+        (job,) = jobs
+
+        driver = AggregationJobDriver(leader_eds.datastore, HttpClient(timeout=600), breakers=OutboundCircuitBreakers(),
+                                      device=dev)
+        job_driver = JobDriver(JobDriverConfig(max_concurrent_job_workers=1), driver.acquirer(), driver.stepper)
+        # the main path: counts at 0 just before, read just after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        stepped = job_driver.run_once()
+        step_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        if stepped != 1 or not driver.step_seconds:
+            raise AssertionError(f"drive {name}: {stepped} jobs stepped, {len(driver.step_seconds)} step records")
+        stages = dict(driver.step_seconds[-1][1])
+        helper_stages = dict(helper.task_aggregator_for(helper_task.task_id).stage_seconds)
+
+        missing = [k for k in kernels if launches[k] == 0]
+        stray = [k for k in counters if k not in kernels and launches[k] != 0]
+        if missing or stray:
+            raise AssertionError(f"drive {name}: kernels not launched {missing}, stray {stray} ({launches})")
+        row = leader_eds.datastore.run_tx(lambda tx: tx._c.execute(
+            "SELECT state, lease_token IS NULL, lease_attempts FROM aggregation_jobs").fetchall())
+        if row != [("finished", 1, 0)]:
+            raise AssertionError(f"drive {name}: job row {row}, not finished with its lease released")
+        ras = leader_eds.datastore.run_tx(lambda tx: tx.get_report_aggregations_for_job(task.task_id, job.job_id))
+        ids = {r.report_id.data: i for i, r in enumerate(reports)}
+        failed = sorted((ids[ra.report_id.data], ra.prepare_error) for ra in ras if ra.state.value == "failed")
+        finished = sum(1 for ra in ras if ra.state.value == "finished")
+        if failed != [(i, PrepareError.VDAF_PREP_ERROR) for i in sorted(bad_rows)] or finished != batch - len(bad_rows):
+            raise AssertionError(f"drive {name}: {finished} finished, failed {failed[:10]}")
+
+        field = engine.p3.circ.FIELD
+        shares = []
+        for eds in (leader_eds, helper_eds):
+            rows = eds.datastore.run_tx(lambda tx: tx._c.execute(
+                "SELECT aggregate_share, report_count FROM batch_aggregations").fetchall())
+            if len(rows) != 1 or rows[0][1] != finished:
+                raise AssertionError(f"drive {name}: batch aggregation rows {[r[1] for r in rows]}")
+            shares.append(field.decode_vec(rows[0][0]))
+        accept = np.ones(batch, dtype=bool)
+        accept[list(bad_rows)] = False
+        total = [(a + b) % field.MODULUS for a, b in zip(*shares)]
+        if total != [int(x) for x in np.asarray(meas)[accept].sum(axis=0).reshape(-1)]:
+            raise AssertionError(f"drive {name}: leader + helper shares != the accepted reports' sum")
+        if job_driver.run_once() != 0:
+            raise AssertionError(f"drive {name}: a second pass acquired a job")
+
+        # the two leader routes in turns on the job's own staged columns
+        reports_by_id = {r.report_id.data: r for r in reports}
+        st = driver.stage_init(None, task, job, ras, reports_by_id)
+        cols = (st.nonce_lanes, st.public_parts, st.meas, st.proof, st.blind_lanes)
+        routes = {"pipelined": [], "direct": []}
+        vers = {}
+        for route in ("pipelined", "direct", "direct", "pipelined", "pipelined", "direct"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if route == "pipelined":
+                out0, _, ver0, _ = engine.leader_init(*cols, ok=st.ok)
+            else:
+                out0, _, ver0, _ = engine._leader_init_inner(*cols, allow_pipeline=False)
+            torch.cuda.synchronize()
+            routes[route].append(time.perf_counter() - t0)
+            want_type = "DeviceRowsChunks" if route == "pipelined" else "DeviceRows"
+            if type(out0).__name__ != want_type:
+                raise AssertionError(f"drive {name}: leader_init took another route than {route}")
+            vers[route] = ver0
+            del out0
+        if any(not np.array_equal(a, b) for a, b in zip(vers["pipelined"], vers["direct"])):
+            raise AssertionError(f"drive {name}: the two leader routes disagree")
+        return {
+            "path": f"drive-{name}",
+            "vdaf": inst.to_dict(),
+            "batch": batch,
+            "jobs_created": created,
+            "finished": finished,
+            "failed": {"VDAF_PREP_ERROR": len(failed)},
+            "upload_s": upload_s,
+            "create_s": create_s,
+            "step_s": step_s,
+            "reports_per_s": batch / step_s,
+            "stage_s": stages,
+            "helper_stage_s": helper_stages,
+            "leader_init_turns_s": routes,
+            "launches": launches,
+            "peak_device_bytes": peak,
+            "aggregate_ok": True,
+            "lease_released": True,
+        }
+    finally:
+        server.stop()
+        leader_eds.cleanup()
+        helper_eds.cleanup()
+
+
 def profile_step(torch, step, args, step_s: float):
     """Device time by kernel over one step (torch.profiler), the share of
     the unprofiled step time `step_s` that the card was busy, and the
@@ -766,6 +948,15 @@ def main() -> int:
         if out is not None:
             serves[out["path"]] = out
             emit({"serve": out})
+    for name, inst, kernels_of_path in (
+        ("sumvec", VdafInstance.sum_vec(1000, 16), fast),
+        ("draft-sumvec", VdafInstance("sumvec", bits=16, length=1000, xof_mode="draft"), ("keccak_sponge",)),
+    ):
+        out = phase(f"drive-{name}", phase_drive, torch, dev, name, inst, 1024, (5, 300, 1000),
+                    kernels_of_path) if not failed else None
+        if out is not None:
+            serves[out["path"]] = out
+            emit({"drive": out})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

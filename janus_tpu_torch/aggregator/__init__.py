@@ -1,1 +1,2 @@
-"""The port's aggregator: the EngineCache seam and the helper's aggregate-init."""
+"""The port's aggregator: the EngineCache seam, the helper's aggregate-init
+and its HTTP server, and the leader's job creator and job driver."""

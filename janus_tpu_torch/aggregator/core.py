@@ -15,12 +15,14 @@ runs the same steps as janus_tpu's, value for value:
    in one transaction;
 6. answer with the AggregationJobResp.
 
-A TaskAggregator runs on CUDA unless it is built with device="cpu".
-Each request leaves the seconds of its stages in `stage_seconds`.
-Not ported yet: Poplar1, multi-round continue, upload, collection,
-taskprov (and with it the global HPKE keys), aggregate-share; and the
-observability calls of janus_tpu's handler (metrics, trace spans,
-failpoints, the conservation ledger, deadlines).
+A TaskAggregator runs on CUDA unless it is built with device="cpu", and
+so does an Aggregator. Each request leaves the seconds of its stages in
+`stage_seconds`; a propagated deadline (core/deadline.py) is checked
+between stages as janus_tpu checks it. Not ported yet: Poplar1,
+multi-round continue, upload, collection, taskprov (and with it the
+global HPKE keys), aggregate-share; and the observability calls of
+janus_tpu's handler (metrics, trace spans, failpoints, the conservation
+ledger).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..core import deadline as deadline_mod
 from ..core.hpke import HpkeApplicationInfo, HpkeError, Label, hpke_open_batch
 from ..core.time_util import Clock, RealClock
 from ..datastore.models import (
@@ -41,6 +44,7 @@ from ..datastore.models import (
     ReportAggregationState,
 )
 from ..datastore.store import Datastore
+from ..device import resolve_device
 from ..messages import (
     AggregationJobId,
     AggregationJobInitializeReq,
@@ -175,6 +179,7 @@ class TaskAggregator:
         plaintexts: list[bytes | None] = [None] * n
         info = HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.HELPER)
         for keypair, idxs_g, encs_g, pays_g, aads_g in hpke_groups.values():
+            deadline_mod.check("helper_decrypt")
             opened = hpke_open_batch(keypair, info, encs_g, pays_g, aads_g)
             for i, pt in zip(idxs_g, opened):
                 if isinstance(pt, HpkeError):
@@ -208,6 +213,7 @@ class TaskAggregator:
 
         # replay check against prior aggregations: one set-valued query
         fresh_ids = [rid for i, rid in enumerate(ids) if prep_err[i] is None]
+        deadline_mod.check("helper_replay_tx")
         replayed_ids = ds.run_tx(
             lambda tx: tx.get_aggregated_report_ids(task.task_id, fresh_ids), "agg_init_replay"
         )
@@ -299,6 +305,7 @@ class TaskAggregator:
                 tx.put_report_aggregation(ra)
             return unmerged
 
+        deadline_mod.check("helper_write_tx")
         unmerged = ds.run_tx(write, "aggregate_init")
         stage["write_tx"] = time.perf_counter() - t4
         if unmerged:
@@ -335,7 +342,8 @@ class Aggregator:
         self.ds = ds
         self.clock = clock or RealClock()
         self.cfg = cfg or Config()
-        self.device = device
+        # CUDA unless the caller asks for the CPU; raises without CUDA
+        self.device = resolve_device(device)
         self._task_aggs: dict[bytes, TaskAggregator] = {}
         self._task_aggs_lock = threading.Lock()
 
@@ -350,6 +358,11 @@ class Aggregator:
             with self._task_aggs_lock:
                 ta = self._task_aggs.setdefault(task_id.data, candidate)
         return ta
+
+    def check_aggregator_auth(self, task: Task, headers) -> None:
+        tok = task.aggregator_auth_token
+        if tok is None or not tok.matches_headers(headers):
+            raise errors.UnauthorizedRequest("bad aggregator auth", task.task_id)
 
     def handle_aggregate_init(self, task_id: TaskId, job_id: AggregationJobId, request_bytes: bytes) -> AggregationJobResp:
         """Decode an AggregationJobInitializeReq from its wire bytes and

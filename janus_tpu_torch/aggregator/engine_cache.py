@@ -18,6 +18,15 @@ serving code reaches the card only through an `EngineCache`:
   from pinned host memory on a side stream, so chunk k's compute
   overlaps the later chunks' copies.
 
+One engine may serve several threads at once: in one process the
+helper's handler threads and the leader's job-driver workers share it
+(the process LRU keys it by VDAF and verify key, which both roles
+hold). Its only mutable state, the OOM ladder's cap and history, changes
+under `_oom_lock`, and each call reads the cap once; the pipelined route
+makes its side stream and events per call and waits on them from the
+calling thread's current stream; the kernels count their launches under
+a lock (ops/cuda_build.py `count_launch`).
+
 The engine runs on CUDA unless it is built with device="cpu", where the
 kernels' plain versions run. Values equal janus_tpu's EngineCache on
 the same inputs. Not ported yet: cross-job coalescing, prestaged leader

@@ -5,7 +5,9 @@ problem_details.rs: typed errors that map to (HTTP status, problem
 type) pairs at the HTTP boundary.
 
 The port's own copy of janus_tpu/aggregator/errors.py, line for line; it holds no JAX
-and the port imports nothing of janus_tpu.
+and the port imports nothing of janus_tpu. It adds `NotPorted`, which a
+port module raises where janus_tpu has a path the port does not have
+yet.
 """
 
 from __future__ import annotations
@@ -108,3 +110,9 @@ class InvalidTask(AggregatorError):
 
     status = 400
     problem = DapProblemType.INVALID_TASK
+
+
+class NotPorted(NotImplementedError):
+    """A path janus_tpu has and janus_tpu_torch does not port yet (a
+    fixed-size task's job creation, a continue step, Poplar1). Raised,
+    never skipped: the caller learns the work was not done."""

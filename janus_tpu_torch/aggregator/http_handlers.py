@@ -1,0 +1,286 @@
+"""DAP HTTP layer: routes, media types, auth, problem details.
+
+Equivalent of reference aggregator/src/aggregator/http_handlers.rs:
+205-268 on the Python stdlib threading HTTP server. The port's own copy
+of janus_tpu/aggregator/http_handlers.py for the routes a helper needs
+to answer a leader's aggregation job:
+
+  GET  /hpke_config?task_id=...
+  PUT  /tasks/:task_id/aggregation_jobs/:aggregation_job_id
+
+with janus_tpu's media-type check, aggregator auth, XOF-mode check and
+RFC 7807 problem documents, byte for byte. A propagated
+`DAP-Janus-Deadline` bounds the handler, and a dead budget answers the
+conclusive 408.
+
+Not ported yet, and answered as janus_tpu answers an unknown route (404):
+upload (PUT /tasks/:id/reports), the continue step (POST
+/tasks/:id/aggregation_jobs/:id), the collection routes (PUT, POST and
+DELETE /tasks/:id/collection_jobs/:id), aggregate-share (POST
+/tasks/:id/aggregate_shares) and the ledger read (GET /tasks/:id/ledger);
+with them the CORS preflights of the upload and collection routes,
+taskprov, and the ingest admission controller (its 429/503 sheds). The
+calls into metrics and trace spans are left out.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import logging
+import re
+import threading
+from http.server import BaseHTTPRequestHandler
+from urllib.parse import parse_qsl, urlsplit
+
+from ..binary_utils import BoundedThreadingHTTPServer
+from ..core import deadline as deadline_mod
+from ..core.deadline import DEADLINE_EXCEEDED_STATUS, DeadlineExceeded
+from ..messages import AggregationJobId, AggregationJobInitializeReq, TaskId
+from ..messages.codec import DecodeError
+from ..messages.problem_type import DapProblemType
+from .core import Aggregator
+from .errors import AggregatorError, InvalidMessage, UnrecognizedTask
+
+# Advertises the sender's XOF framing mode on aggregation-job requests so
+# a leader/helper mode mismatch fails loudly instead of rejecting every
+# report.
+XOF_MODE_HEADER = "janus-xof-mode"
+
+log = logging.getLogger(__name__)
+
+
+def _b64dec(s: str, size: int) -> bytes:
+    raw = base64.urlsafe_b64decode(s + "=" * (-len(s) % 4))
+    if len(raw) != size:
+        raise DecodeError(f"bad id length {len(raw)}")
+    return raw
+
+
+_ROUTES = [
+    ("GET", re.compile(r"^/hpke_config$"), "hpke_config"),
+    ("PUT", re.compile(r"^/tasks/([^/]+)/aggregation_jobs/([^/]+)$"), "aggregate_init"),
+]
+
+# Request body media types per route (reference http_handlers.rs:512-551).
+_REQUEST_MEDIA_TYPES = {"aggregate_init": AggregationJobInitializeReq.MEDIA_TYPE}
+
+# The aggregator-to-aggregator routes, which a propagated deadline bounds.
+_DEADLINE_ROUTES = {"aggregate_init"}
+
+# Browser-reachable routes get CORS preflights (reference
+# http_handlers.rs:236-259); of them the port serves hpke_config.
+_CORS_ROUTES = [(re.compile(r"^/hpke_config$"), "GET")]
+
+
+def _cors_allow(path: str) -> str | None:
+    for rx, allow in _CORS_ROUTES:
+        if rx.match(path):
+            return allow
+    return None
+
+
+def _problem(status: int, doc: dict):
+    return status, "application/problem+json", json.dumps(doc).encode()
+
+
+class DapHttpApp:
+    """Routing + handler glue around an Aggregator."""
+
+    def __init__(self, aggregator: Aggregator):
+        self.agg = aggregator
+
+    def handle(self, method: str, path: str, query: dict, headers, body: bytes):
+        """-> (status, content_type, body_bytes, extra_headers)."""
+        result = self._handle(method, path, query, headers, body)
+        if len(result) == 3:
+            result = result + ({},)
+        return result
+
+    def _handle(self, method: str, path: str, query: dict, headers, body: bytes):
+        try:
+            if method == "OPTIONS":
+                if _cors_allow(path) is not None:
+                    return 204, "text/plain", b""
+                return 404, "text/plain", b"not found"
+            for m, rx, name in _ROUTES:
+                if m != method:
+                    continue
+                match = rx.match(path)
+                if not match:
+                    continue
+                want = _REQUEST_MEDIA_TYPES.get(name)
+                if want is not None:
+                    got = {k.lower(): v for k, v in headers.items()}.get("content-type", "")
+                    # exact match, no parameter stripping (reference
+                    # validate_content_type)
+                    if got != want:
+                        return _problem(
+                            400,
+                            DapProblemType.INVALID_MESSAGE.document(
+                                detail=f"unexpected media type: {got!r} (want {want!r})"
+                            ),
+                        )
+                if name in _DEADLINE_ROUTES:
+                    # the leader's budget, backdated by the accept-queue
+                    # wait, bounds the handler
+                    dl = deadline_mod.parse_header(headers, queue_age_s=deadline_mod.request_queue_age())
+                    with deadline_mod.deadline_scope(dl):
+                        return getattr(self, "h_" + name)(match, query, headers, body)
+                return getattr(self, "h_" + name)(match, query, headers, body)
+            return 404, "text/plain", b"not found"
+        except DeadlineExceeded as e:
+            # the caller's budget died mid-handler: the conclusive status,
+            # not a retryable 5xx
+            return _problem(
+                DEADLINE_EXCEEDED_STATUS,
+                {
+                    "type": "about:blank",
+                    "status": DEADLINE_EXCEEDED_STATUS,
+                    "detail": f"request deadline exceeded: {e}",
+                },
+            )
+        except AggregatorError as e:
+            doc = e.problem_document()
+            if doc is None:
+                log.exception("internal aggregator error")
+                return 500, "text/plain", str(e).encode()
+            return _problem(e.status, doc)
+        except DecodeError as e:
+            return _problem(400, DapProblemType.INVALID_MESSAGE.document(detail=f"undecodable request: {e}"))
+        except Exception:
+            log.exception("unhandled error in DAP handler")
+            return 500, "text/plain", b"internal error"
+
+    # --- handlers ---
+    def h_hpke_config(self, match, query, headers, body):
+        tid = query.get("task_id")
+        if tid is None:
+            raise InvalidMessage("task_id query parameter required")
+        task_id = TaskId(_b64dec(tid, 32))
+        configs = self.agg.task_aggregator_for(task_id).hpke_config_list()
+        if not configs.configs:
+            raise UnrecognizedTask("no per-task keys", task_id)
+        return 200, "application/dap-hpke-config-list", configs.to_bytes()
+
+    def h_aggregate_init(self, match, query, headers, body):
+        task_id = TaskId(_b64dec(match.group(1), 32))
+        job_id = AggregationJobId(_b64dec(match.group(2), 16))
+        ta = self.agg.task_aggregator_for(task_id)
+        self.agg.check_aggregator_auth(ta.task, headers)
+        # XOF framing check: the two framings produce disjoint streams, so
+        # a mismatch would otherwise reject every report. Absence is
+        # tolerated (a non-janus leader).
+        sent_mode = {k.lower(): v for k, v in headers.items()}.get(XOF_MODE_HEADER)
+        task_mode = ta.task.vdaf.xof_mode
+        if sent_mode is not None and sent_mode != task_mode:
+            raise InvalidMessage(
+                f"XOF framing mismatch: peer uses {sent_mode!r}, task is "
+                f"{task_mode!r} — aggregators must deploy the same mode",
+                task_id,
+            )
+        req = AggregationJobInitializeReq.from_bytes(body)
+        resp = ta.handle_aggregate_init(self.agg.ds, self.agg.clock, job_id, req, body)
+        return 200, "application/dap-aggregation-job-resp", resp.to_bytes()
+
+
+class DapServer:
+    """Bounded-concurrency HTTP server hosting a DapHttpApp (+ /healthz):
+    requests are served by a fixed pool of `max_handler_threads`
+    workers."""
+
+    def __init__(self, app: DapHttpApp, host: str = "127.0.0.1", port: int = 0, max_handler_threads: int = 32):
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            # an idle keep-alive connection must not pin a pool worker
+            timeout = 60
+
+            def _dispatch(self, method):
+                parts = urlsplit(self.path)
+                if parts.path == "/healthz":
+                    self._reply(200, "text/plain", b"ok")
+                    return
+                # charge the accept-queue wait against the request's
+                # propagated deadline
+                age = self.server.queue_age_s(self.request)
+                deadline_mod.set_request_queue_age(age or 0.0)
+                query = dict(parse_qsl(parts.query))
+                length = int(self.headers.get("Content-Length") or 0)
+                body = self.rfile.read(length) if length else b""
+                try:
+                    status, ctype, out, extra = outer.app.handle(
+                        method, parts.path, query, dict(self.headers.items()), body
+                    )
+                except Exception:
+                    log.exception("unhandled error serving %s %s", method, parts.path)
+                    status, ctype, out, extra = (
+                        500,
+                        "application/problem+json",
+                        b'{"type":"about:blank","status":500}',
+                        None,
+                    )
+                self._reply(status, ctype, out, method, extra)
+
+            def _reply(self, status, ctype, out, method="GET", extra=None):
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(out)))
+                if self.server.saturated:
+                    # pool full: finish this response, then recycle the
+                    # connection
+                    self.send_header("Connection", "close")
+                    self.close_connection = True
+                for k, v in (extra or {}).items():
+                    self.send_header(k, v)
+                allow = _cors_allow(urlsplit(self.path).path)
+                if allow is not None:
+                    self.send_header("Access-Control-Allow-Origin", "*")
+                    if method == "OPTIONS":
+                        self.send_header("Access-Control-Allow-Methods", allow)
+                        self.send_header(
+                            "Access-Control-Allow-Headers",
+                            "content-type, authorization, dap-auth-token",
+                        )
+                self.end_headers()
+                if out:
+                    self.wfile.write(out)
+
+            def do_GET(self):
+                self._dispatch("GET")
+
+            def do_OPTIONS(self):
+                self._dispatch("OPTIONS")
+
+            def do_PUT(self):
+                self._dispatch("PUT")
+
+            def do_POST(self):
+                self._dispatch("POST")
+
+            def do_DELETE(self):
+                self._dispatch("DELETE")
+
+            def log_message(self, fmt, *args):
+                log.debug("http: " + fmt, *args)
+
+        self.app = app
+        self.server = BoundedThreadingHTTPServer((host, port), Handler, max_handler_threads=max_handler_threads)
+        self._thread: threading.Thread | None = None
+
+    @property
+    def url(self) -> str:
+        host, port = self.server.server_address[:2]
+        return f"http://{host}:{port}/"
+
+    def start(self) -> "DapServer":
+        self._thread = threading.Thread(target=self.server.serve_forever, name="dap-listener", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        if self._thread:
+            self._thread.join(timeout=5)

@@ -5,8 +5,10 @@ vdaf/testing.py `make_report_batch`) into the AggregationJobInitializeReq
 a leader sends: the helper shares and public shares encoded with
 Prio3Wire, each helper share HPKE-sealed under the task's config, the
 leader's prep shares from `EngineCache.leader_init` over host columns,
-framed as ping-pong initialize messages. The leader's job driver, which
-builds the same request from stored reports, comes in a later slice.
+framed as ping-pong initialize messages. `leader_stored_reports` turns
+the same batch into the rows an upload leaves in a leader's datastore
+(the leader share decoded, the helper share sealed), which the job
+creator and the job driver (`aggregation_job_driver.py`) then aggregate.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from ..convert import to_numpy_u64
 from ..core.hpke import HpkeApplicationInfo, Label, hpke_seal
+from ..datastore.models import LeaderStoredReport
 from ..messages import (
     AggregationJobInitializeReq,
     HpkeCiphertext,
@@ -33,7 +36,16 @@ from ..messages import (
     Role,
     Time,
 )
-from ..vdaf.wire import PP_FINISH, Prio3Wire, decode_pingpong, encode_pingpong_share_column, lanes_to_seed_rows
+from ..vdaf.engine import tf_for
+from ..vdaf.registry import circuit_for
+from ..vdaf.wire import (
+    PP_FINISH,
+    Prio3Wire,
+    decode_pingpong,
+    encode_field_rows,
+    encode_pingpong_share_column,
+    lanes_to_seed_rows,
+)
 
 
 def _host(a):
@@ -105,4 +117,35 @@ def outcomes(resp) -> list:
         if tag != PP_FINISH:
             raise ValueError(f"report {r.report_id}: ping-pong tag {tag}, not finish")
         out.append(prep_msg)
+    return out
+
+
+def leader_stored_reports(task, helper_config, step_args, times) -> list[LeaderStoredReport]:
+    """The leader's stored reports of a report batch, as an upload leaves
+    them: the leader share encoded (measurement || proof || blind), the
+    public share encoded, the helper share HPKE-sealed under
+    `helper_config` (the helper task's HpkeConfig). step_args: as
+    `leader_init_request` takes them; the nonces double as report ids.
+    times: the client time (seconds) of each report."""
+    nonce, public, meas, proof, blind0, seeds, blind1 = (_host(a) for a in step_args)
+    circ = circuit_for(task.vdaf)
+    wire = Prio3Wire(circ)
+    tf = tf_for(circ)
+    n = nonce.shape[0]
+    meas_rows = encode_field_rows(tf, meas)
+    proof_rows = encode_field_rows(tf, proof)
+    ids = lanes_to_seed_rows(nonce)
+    seed_rows = lanes_to_seed_rows(seeds)
+    blind0_rows = lanes_to_seed_rows(blind0) if wire.uses_jr else [None] * n
+    blind1_rows = lanes_to_seed_rows(blind1) if wire.uses_jr else [None] * n
+    part_rows = [lanes_to_seed_rows(public[:, 0]), lanes_to_seed_rows(public[:, 1])] if wire.uses_jr else None
+    info = HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.HELPER)
+    out = []
+    for i in range(n):
+        md = ReportMetadata(ReportId(ids[i]), Time(int(times[i])))
+        public_share = wire.encode_public_share([part_rows[0][i], part_rows[1][i]] if wire.uses_jr else [])
+        payload = PlaintextInputShare((), wire.encode_helper_share(seed_rows[i], blind1_rows[i])).to_bytes()
+        ct = hpke_seal(helper_config, info, payload, InputShareAad(task.task_id, md, public_share).to_bytes())
+        leader_share = wire.encode_leader_share_raw(meas_rows[i] + proof_rows[i], blind0_rows[i])
+        out.append(LeaderStoredReport(task.task_id, md.report_id, md.time, public_share, leader_share, ct))
     return out

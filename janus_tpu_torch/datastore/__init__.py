@@ -8,13 +8,17 @@ compared column for column.
 """
 
 from .models import (
+    AcquiredAggregationJob,
     AggregationJobModel,
     AggregationJobState,
     BatchAggregation,
     BatchAggregationState,
+    LeaderStoredReport,
+    Lease,
     ReportAggregationModel,
     ReportAggregationState,
+    ShardSpec,
 )
-from .store import Crypter, Datastore, EphemeralDatastore, Transaction, TxConflict
+from .store import Crypter, Datastore, EphemeralDatastore, LeaseConflict, Transaction, TxConflict
 
 __all__ = [n for n in dir() if not n.startswith("_")]

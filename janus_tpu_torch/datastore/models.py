@@ -5,7 +5,10 @@ Equivalent of reference aggregator_core/src/datastore/models.rs
 BatchAggregation:843 + state:1042).
 
 The port's own copy of the models of janus_tpu/datastore/models.py that
-the helper's aggregate-init path writes, line for line.
+the helper's aggregate-init path and the leader's aggregation job
+creator and driver use, line for line: the job, report and batch
+aggregation rows, the leader's stored report, and the lease types
+(`ShardSpec`, `Lease`, `AcquiredAggregationJob`).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from dataclasses import dataclass, replace
 
 from ..messages import (
     AggregationJobId,
+    HpkeCiphertext,
     Interval,
     PrepareError,
     ReportId,
@@ -51,7 +55,16 @@ class BatchAggregationState(str, enum.Enum):
     COLLECTED = "collected"
 
 
+@dataclass(frozen=True)
+class LeaderStoredReport:
+    """A decrypted report at rest on the leader (reference models.rs:78)."""
 
+    task_id: TaskId
+    report_id: ReportId
+    client_time: Time
+    public_share: bytes
+    leader_input_share: bytes  # decoded leader share, encrypted at rest
+    helper_encrypted_input_share: HpkeCiphertext
 
 
 @dataclass(frozen=True)
@@ -72,9 +85,44 @@ class AggregationJobModel:
     # driver restarts (janus_tpu.trace.use_traceparent)
     trace_context: str | None = None
 
+    def with_state(self, state: AggregationJobState) -> "AggregationJobModel":
+        return replace(self, state=state)
 
 
+@dataclass(frozen=True)
+class ShardSpec:
+    """Fleet shard predicate for the batched lease claims: a replica owns
+    the jobs whose persisted shard_key lands on its (shard_index mod
+    shard_count); jobs outside the shard become claimable only after
+    they have sat eligible for steal_after_s."""
 
+    shard_count: int = 1
+    shard_index: int = 0
+    steal_after_s: int = 30
+
+    @property
+    def active(self) -> bool:
+        return self.shard_count > 1
+
+
+@dataclass(frozen=True)
+class Lease:
+    """An acquired job lease (reference models.rs:434)."""
+
+    token: bytes
+    expiry: Time
+    attempts: int
+
+
+@dataclass(frozen=True)
+class AcquiredAggregationJob:
+    """reference models.rs:494. shard_key is the row's stored shard hash
+    at claim time (< 0: the affinity was released by a hand-back)."""
+
+    task_id: TaskId
+    job_id: AggregationJobId
+    lease: Lease
+    shard_key: int | None = None
 
 
 @dataclass(frozen=True)
@@ -95,6 +143,9 @@ class ReportAggregationModel:
     state: ReportAggregationState
     prep_blob: bytes = b""
     prepare_error: PrepareError | None = None
+
+    def finished(self) -> "ReportAggregationModel":
+        return replace(self, state=ReportAggregationState.FINISHED, prep_blob=b"")
 
     def failed(self, err: PrepareError) -> "ReportAggregationModel":
         return replace(

@@ -1,17 +1,20 @@
 """Datastore: transactional facade + typed ops + Crypter, on SQLite.
 
 The port's own copy of the part of janus_tpu/datastore/store.py that
-the helper's aggregate-init path uses: the same schema (a janus_tpu
-SQLite file and a port one hold the same tables and rows), the same
-`Crypter` (AES-128-GCM at rest, AAD = table||row||column, multi-key
-rotation), and the typed ops on tasks, aggregation jobs, report
-aggregations and batch aggregations, each with janus_tpu's SQL.
-`run_tx` retries on SQLite busy and on TxConflict as janus_tpu's does.
+the helper's aggregate-init path and the leader's job creator and driver
+use: the same schema (a janus_tpu SQLite file and a port one hold the
+same tables and rows), the same `Crypter` (AES-128-GCM at rest, AAD =
+table||row||column, multi-key rotation), and the typed ops on tasks,
+client reports, aggregation jobs and their leases, report aggregations
+and batch aggregations, each with janus_tpu's SQL. The lease ops are
+token-guarded: a release or step-back whose token no longer matches
+raises `LeaseConflict`, which `run_tx` does not retry. `run_tx` retries
+on SQLite busy and on other TxConflicts as janus_tpu's does.
 
-Not ported yet: the Postgres engine, leases and the job-acquire ops,
-client reports, collection and aggregate-share jobs, global HPKE keys,
-the supervisor; and the observability calls (metrics, failpoints) of
-janus_tpu's run_tx, which the port leaves out.
+Not ported yet: the Postgres engine, fixed-size batches and outstanding
+batches, collection and aggregate-share jobs, global HPKE keys, the
+supervisor; and the observability calls (metrics, failpoints, the lease
+conflict counter) of janus_tpu's run_tx, which the port leaves out.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from ..core.hpke_backend import AESGCM
 from ..messages import (
     AggregationJobId,
     Duration,
+    HpkeCiphertext,
     Interval,
     PrepareError,
     ReportId,
@@ -38,12 +42,16 @@ from ..messages import (
 )
 from ..task import Task
 from .models import (
+    AcquiredAggregationJob,
     AggregationJobModel,
     AggregationJobState,
     BatchAggregation,
     BatchAggregationState,
+    LeaderStoredReport,
+    Lease,
     ReportAggregationModel,
     ReportAggregationState,
+    ShardSpec,
 )
 
 SCHEMA_VERSION = 5
@@ -240,6 +248,12 @@ class TxConflict(Exception):
     """A retryable conflict (an insert that hit an existing row)."""
 
 
+class LeaseConflict(TxConflict):
+    """A token-guarded lease write (release / step-back) found the token
+    no longer matching: the lease expired and another worker re-acquired
+    it. Deterministic, so run_tx raises it at once instead of retrying."""
+
+
 # modulo space of the persisted shard hash: far above any plausible
 # shard_count, small enough that `shard_key % count` stays exact in
 # every engine's integer type
@@ -254,6 +268,20 @@ def job_shard_key(task_id: bytes, job_id: bytes) -> int:
     return int.from_bytes(digest[:8], "big") % SHARD_KEY_SPACE
 
 
+# shard_key sentinel for a clean shutdown hand-back: the row's shard
+# affinity is released, so any worker claims it at once
+HANDBACK_SHARD_KEY = -1
+
+
+def make_lease_token(holder: bytes | None = None) -> bytes:
+    """Fresh 16-byte lease token. With a holder tag the first 8 bytes
+    carry the claiming replica's provenance and the last 8 stay random
+    per claim transaction."""
+    if holder:
+        return bytes(holder[:8]).ljust(8, b"\0") + secrets.token_bytes(8)
+    return secrets.token_bytes(16)
+
+
 class Transaction:
     """One open transaction; exposes the typed ops. Obtained from
     Datastore.run_tx."""
@@ -262,6 +290,9 @@ class Transaction:
         self._c = conn
         self._crypter = crypter
         self._clock = clock
+        # UPDATE ... RETURNING needs SQLite >= 3.35; older libraries take
+        # the two-statement form, exact inside the serialized transaction
+        self._returning = sqlite3.sqlite_version_info >= (3, 35)
 
     # ---- tasks (reference datastore.rs:528-1160) ----
     def put_task(self, task: Task) -> None:
@@ -285,6 +316,94 @@ class Transaction:
             return None
         doc = self._crypter.decrypt("tasks", task_id.data, "doc", row[0])
         return Task.from_dict(json.loads(doc))
+
+    def get_tasks(self) -> list[Task]:
+        ids = [TaskId(r[0]) for r in self._c.execute("SELECT task_id FROM tasks ORDER BY task_id")]
+        return [t for t in (self.get_task(tid) for tid in ids) if t]
+
+    # ---- client reports (reference datastore.rs:1162-1723) ----
+    def put_client_report(self, report: LeaderStoredReport) -> bool:
+        """Returns False if the report id already exists (replay)."""
+        row_key = report.task_id.data + report.report_id.data
+        lis = self._crypter.encrypt(
+            "client_reports", row_key, "leader_input_share", report.leader_input_share
+        )
+        cur = self._c.execute(
+            "INSERT INTO client_reports (task_id, report_id, client_time, public_share,"
+            " leader_input_share, helper_encrypted_input_share) VALUES (?,?,?,?,?,?)"
+            " ON CONFLICT DO NOTHING",
+            (
+                report.task_id.data,
+                report.report_id.data,
+                report.client_time.seconds,
+                report.public_share,
+                lis,
+                report.helper_encrypted_input_share.to_bytes(),
+            ),
+        )
+        return cur.rowcount == 1
+
+    def get_client_report(self, task_id: TaskId, report_id: ReportId) -> LeaderStoredReport | None:
+        row = self._c.execute(
+            "SELECT client_time, public_share, leader_input_share, helper_encrypted_input_share"
+            " FROM client_reports WHERE task_id = ? AND report_id = ?",
+            (task_id.data, report_id.data),
+        ).fetchone()
+        if row is None:
+            return None
+        row_key = task_id.data + report_id.data
+        return LeaderStoredReport(
+            task_id,
+            report_id,
+            Time(row[0]),
+            row[1],
+            self._crypter.decrypt("client_reports", row_key, "leader_input_share", row[2]),
+            HpkeCiphertext.from_bytes(row[3]),
+        )
+
+    def check_report_replayed(self, task_id: TaskId, report_id: ReportId) -> bool:
+        return (
+            self._c.execute(
+                "SELECT 1 FROM client_reports WHERE task_id = ? AND report_id = ?",
+                (task_id.data, report_id.data),
+            ).fetchone()
+            is not None
+        )
+
+    def get_unaggregated_client_reports_for_task(
+        self, task_id: TaskId, limit: int
+    ) -> list[tuple[ReportId, Time]]:
+        """Claims up to `limit` unaggregated reports (marks them started),
+        like datastore.rs:1331 get_unaggregated_client_report_ids_for_task."""
+        if self._returning:
+            rows = self._c.execute(
+                "UPDATE client_reports SET aggregation_started = 1"
+                " WHERE (task_id, report_id) IN ("
+                "   SELECT task_id, report_id FROM client_reports"
+                "   WHERE task_id = ? AND aggregation_started = 0"
+                "   ORDER BY client_time LIMIT ?)"
+                " RETURNING report_id, client_time",
+                (task_id.data, limit),
+            ).fetchall()
+        else:
+            rows = self._c.execute(
+                "SELECT report_id, client_time FROM client_reports"
+                " WHERE task_id = ? AND aggregation_started = 0"
+                " ORDER BY client_time LIMIT ?",
+                (task_id.data, limit),
+            ).fetchall()
+            self._c.executemany(
+                "UPDATE client_reports SET aggregation_started = 1"
+                " WHERE task_id = ? AND report_id = ?",
+                [(task_id.data, r[0]) for r in rows],
+            )
+        return [(ReportId(r[0]), Time(r[1])) for r in rows]
+
+    def mark_reports_unaggregated(self, task_id: TaskId, report_ids: list[ReportId]) -> None:
+        self._c.executemany(
+            "UPDATE client_reports SET aggregation_started = 0 WHERE task_id = ? AND report_id = ?",
+            [(task_id.data, r.data) for r in report_ids],
+        )
 
     def put_aggregation_job(self, job: AggregationJobModel) -> None:
         self._c.execute(
@@ -333,6 +452,177 @@ class Transaction:
             row[7],
         )
 
+    def update_aggregation_job(self, job: AggregationJobModel) -> None:
+        self._c.execute(
+            "UPDATE aggregation_jobs SET state = ?, step = ?, last_request_hash = ?"
+            " WHERE task_id = ? AND job_id = ?",
+            (job.state.value, job.step, job.last_request_hash, job.task_id.data, job.job_id.data),
+        )
+
+    def get_aggregation_jobs_for_task(self, task_id: TaskId) -> list[AggregationJobModel]:
+        rows = self._c.execute(
+            "SELECT job_id FROM aggregation_jobs WHERE task_id = ? ORDER BY job_id",
+            (task_id.data,),
+        ).fetchall()
+        return [self.get_aggregation_job(task_id, AggregationJobId(r[0])) for r in rows]
+
+    # ---- leases (reference datastore.rs:1836-1905) ----
+    def _acquire_jobs_batched(
+        self,
+        table: str,
+        id_col: str,
+        state_pred: str,
+        lease_duration: Duration,
+        limit: int,
+        shard: ShardSpec | None,
+        holder: bytes | None,
+    ) -> list[tuple[bytes, bytes, bytes, int, int, int]]:
+        """One claim transaction leasing up to `limit` jobs: a single
+        UPDATE whose candidate subquery carries the eligibility window
+        (lease expired), the shard predicate, and a randomized claim order
+        inside an oldest-first window of max(4*limit, 64) rows. The batch
+        shares one fresh token. In-shard rows are claimable as soon as
+        their lease expires; out-of-shard rows once they have sat eligible
+        for steal_after_s, or at once after a hand-back (shard_key < 0).
+
+        Returns [(task_id, job_id, token, expiry, lease_attempts,
+        shard_key)]."""
+        now = self._clock.now().seconds
+        expiry = now + lease_duration.seconds
+        token = make_lease_token(holder)
+        eligible = f"{state_pred} AND lease_expiry <= ?"
+        params: list = [now]
+        order = "random()"
+        if shard is not None and shard.active:
+            count = int(shard.shard_count)
+            index = int(shard.shard_index) % count
+            eligible = (
+                f"{state_pred} AND lease_expiry <= ?"
+                f" AND (shard_key % {count} = {index} OR shard_key < 0"
+                " OR lease_expiry <= ?)"
+            )
+            params = [now, now - max(0, int(shard.steal_after_s))]
+            order = f"CASE WHEN shard_key % {count} = {index} THEN 0 ELSE 1 END, random()"
+        window = max(4 * int(limit), 64)
+        select_sql = (
+            f"SELECT task_id, {id_col} FROM ("
+            f"SELECT task_id, {id_col}, shard_key FROM {table}"
+            f" WHERE {eligible} ORDER BY lease_expiry LIMIT {window}"
+            f") AS cand ORDER BY {order} LIMIT ?"
+        )
+        set_sql = (
+            f"UPDATE {table} SET lease_expiry = ?, lease_token = ?,"
+            " lease_attempts = lease_attempts + 1"
+        )
+        if self._returning:
+            rows = self._c.execute(
+                set_sql
+                + f" WHERE (task_id, {id_col}) IN ({select_sql})"
+                + f" RETURNING task_id, {id_col}, lease_attempts, shard_key",
+                (expiry, token, *params, limit),
+            ).fetchall()
+        else:
+            cand = self._c.execute(select_sql, (*params, limit)).fetchall()
+            if not cand:
+                return []
+            marks = ",".join(["(?,?)"] * len(cand))
+            flat = [x for row in cand for x in row]
+            self._c.execute(
+                set_sql + f" WHERE (task_id, {id_col}) IN (VALUES {marks}) AND {eligible}",
+                (expiry, token, *flat, *params),
+            )
+            rows = self._c.execute(
+                f"SELECT task_id, {id_col}, lease_attempts, shard_key FROM {table}"
+                " WHERE lease_token = ?",
+                (token,),
+            ).fetchall()
+        return [(t, j, token, expiry, att, sk) for t, j, att, sk in rows]
+
+    def acquire_incomplete_aggregation_jobs(
+        self,
+        lease_duration: Duration,
+        limit: int,
+        shard: ShardSpec | None = None,
+        holder: bytes | None = None,
+    ) -> list[AcquiredAggregationJob]:
+        """Batched lease claim over in-progress aggregation jobs
+        (reference datastore.rs:1836; see _acquire_jobs_batched)."""
+        return [
+            AcquiredAggregationJob(
+                TaskId(t),
+                AggregationJobId(j),
+                Lease(token, Time(expiry), att),
+                shard_key=sk,
+            )
+            for t, j, token, expiry, att, sk in self._acquire_jobs_batched(
+                "aggregation_jobs",
+                "job_id",
+                "state = 'in_progress'",
+                lease_duration,
+                limit,
+                shard,
+                holder,
+            )
+        ]
+
+    def release_aggregation_job(self, acquired: AcquiredAggregationJob) -> None:
+        """reference datastore.rs:1905: the step succeeded. Stamps now as
+        the eligible-since, resets the attempt ledger and re-stamps the
+        shard affinity; raises LeaseConflict if the lease was lost."""
+        cur = self._c.execute(
+            "UPDATE aggregation_jobs SET lease_expiry = ?, lease_token = NULL,"
+            " lease_attempts = 0, shard_key = ?"
+            " WHERE task_id = ? AND job_id = ? AND lease_token = ?",
+            (
+                self._clock.now().seconds,
+                job_shard_key(acquired.task_id.data, acquired.job_id.data),
+                acquired.task_id.data,
+                acquired.job_id.data,
+                acquired.lease.token,
+            ),
+        )
+        if cur.rowcount != 1:
+            raise LeaseConflict("lease token mismatch on release")
+
+    def step_back_aggregation_job(
+        self,
+        acquired: AcquiredAggregationJob,
+        reacquire_delay_s: int = 0,
+        count_attempt: bool = False,
+        handback: bool = False,
+    ) -> None:
+        """Early lease release without resetting the attempt ledger: the
+        job becomes reacquirable after `reacquire_delay_s`.
+        count_attempt=False refunds the acquire's lease_attempts increment
+        (a helper outage must not march jobs to abandonment); handback=True
+        releases the shard affinity (shutdown drain). Raises LeaseConflict
+        if the lease was lost."""
+        now = self._clock.now().seconds
+        attempts_sql = (
+            "lease_attempts"
+            if count_attempt
+            else "CASE WHEN lease_attempts > 0 THEN lease_attempts - 1 ELSE 0 END"
+        )
+        shard_key = (
+            HANDBACK_SHARD_KEY
+            if handback
+            else job_shard_key(acquired.task_id.data, acquired.job_id.data)
+        )
+        cur = self._c.execute(
+            "UPDATE aggregation_jobs SET lease_expiry = ?, lease_token = NULL,"
+            f" lease_attempts = {attempts_sql}, shard_key = ?"
+            " WHERE task_id = ? AND job_id = ? AND lease_token = ?",
+            (
+                now + max(0, int(reacquire_delay_s)),
+                shard_key,
+                acquired.task_id.data,
+                acquired.job_id.data,
+                acquired.lease.token,
+            ),
+        )
+        if cur.rowcount != 1:
+            raise LeaseConflict("lease token mismatch on step-back")
+
     def put_report_aggregation(self, ra: ReportAggregationModel) -> None:
         row_key = ra.task_id.data + ra.job_id.data + ra.ord.to_bytes(8, "big")
         blob = (
@@ -352,6 +642,26 @@ class Transaction:
                 ra.state.value,
                 blob,
                 int(ra.prepare_error) if ra.prepare_error is not None else None,
+            ),
+        )
+
+    def update_report_aggregation(self, ra: ReportAggregationModel) -> None:
+        row_key = ra.task_id.data + ra.job_id.data + ra.ord.to_bytes(8, "big")
+        blob = (
+            self._crypter.encrypt("report_aggregations", row_key, "prep_blob", ra.prep_blob)
+            if ra.prep_blob
+            else b""
+        )
+        self._c.execute(
+            "UPDATE report_aggregations SET state = ?, prep_blob = ?, prepare_error = ?"
+            " WHERE task_id = ? AND job_id = ? AND ord = ?",
+            (
+                ra.state.value,
+                blob,
+                int(ra.prepare_error) if ra.prepare_error is not None else None,
+                ra.task_id.data,
+                ra.job_id.data,
+                ra.ord,
             ),
         )
 
@@ -544,14 +854,30 @@ class Datastore:
         ceiling = min(self.retry_max_interval_s, self.retry_base_interval_s * (1 << min(attempt, 30)))
         return random.uniform(0.0, ceiling)
 
-    @staticmethod
-    def _retryable(e: BaseException) -> bool:
-        """Contention (SQLite busy/locked, an insert conflict) is worth a
-        retry; a schema or SQL error is not."""
+    @property
+    def clock(self):
+        return self._clock
+
+    def classify_error(self, e: BaseException) -> str:
+        """"serialization" (contention: SQLite busy, an insert conflict),
+        "connection" (the database under the connection is gone), "fatal"
+        (schema/SQL error or a lease conflict: no retry can help) or
+        "other"."""
+        if isinstance(e, LeaseConflict):
+            return "fatal"
         if isinstance(e, TxConflict):
-            return True
-        msg = str(e).lower()
-        return "no such" not in msg and "syntax error" not in msg
+            return "serialization"
+        if isinstance(e, sqlite3.OperationalError):
+            msg = str(e).lower()
+            if "locked" in msg or "busy" in msg:
+                return "serialization"
+            if "no such" in msg or "syntax error" in msg:
+                return "fatal"
+            return "connection"
+        return "other"
+
+    def _retryable(self, e: BaseException) -> bool:
+        return self.classify_error(e) != "fatal"
 
     def run_tx(self, fn, name: str = "tx"):
         """Run fn(Transaction) with retry on busy/conflict

@@ -11,6 +11,10 @@ the flags, and is built on first use into janus_tpu_torch/_build/ (listed
 in .gitignore). `build()` starts one nvcc per source, all together. A
 failed build raises with nvcc's output; ptxas's register and spill
 report is kept beside each library (`build_log`).
+
+Every kernel wrapper counts its launches with `count_launch`, under one
+lock: the leader's job driver and the helper's handler may launch from
+two threads of one process.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
@@ -32,6 +37,8 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_launch_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -88,10 +95,19 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel source `name`, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _loaded[name] = lib
+        with _load_lock:  # one build per process, whichever thread asks
+            lib = _loaded.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                _loaded[name] = lib
     return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's `launches` counter (thread-safe)."""
+    with _launch_lock:
+        wrapper.launches += 1
 
 
 def check(rc: int, what: str) -> None:

@@ -89,7 +89,7 @@ def expand_f128(prefix_lanes, out_blocks: int, length: int, block_offset: int = 
                 batch, out_blocks, length, int(block_offset), rounds, stream,
             )
         cuda_build.check(rc, "expand_f128")
-        expand_f128.launches += 1
+        cuda_build.count_launch(expand_f128)
     return lo, hi
 
 

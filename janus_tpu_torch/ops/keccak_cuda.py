@@ -132,7 +132,7 @@ def keccak_single_block(lane_cols, out_lanes: int, rounds: int = 24):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = _launcher()(stacked.data_ptr(), out.data_ptr(), n, out_lanes, rounds, stream)
         cuda_build.check(rc, "keccak_single_block")
-        keccak_single_block.launches += 1
+        cuda_build.count_launch(keccak_single_block)
     return tuple(out[lane].view(shape) for lane in range(out_lanes))
 
 

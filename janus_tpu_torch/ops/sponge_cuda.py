@@ -263,7 +263,7 @@ def keccak_sponge(head, msg_len: int, body=(), body_off: int = 0, out_lanes: int
                 outs[0].data_ptr(), outs[-1].data_ptr(), batch, rounds, stream,
             )
         cuda_build.check(rc, "keccak_sponge")
-        keccak_sponge.launches += 1
+        cuda_build.count_launch(keccak_sponge)
     return outs[0] if sample is None else outs
 
 

@@ -166,3 +166,86 @@ def test_engine_routes_on_the_card_match_the_cpu(cuda, monkeypatch, route):
             for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
                 assert np.array_equal(g, w)
     assert results[0][5].all()
+
+
+@pytest.mark.parametrize("xof_mode,n,workers", [("fast", 40, 1), ("draft", 40, 1), ("fast", 1200, 2)])
+def test_port_driver_pair_on_the_card_matches_the_cpu(cuda, xof_mode, n, workers):
+    """A port leader's job driver steps SumVec jobs against a port helper
+    over loopback HTTP, once on the card and once on the CPU, from the
+    same stored reports: the same report outcomes and the same stored
+    shares on both sides, with the path's kernels launched on the card.
+    The last case makes two 600-report jobs (each on the pipelined leader
+    route) and steps them with two workers, so one job's leader init and
+    side-stream copies run beside the other's helper request on one
+    EngineCache."""
+    import dataclasses
+
+    from janus_tpu_torch.aggregator.aggregation_job_creator import AggregationJobCreator, AggregationJobCreatorConfig
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver, AggregationJobDriverConfig
+    from janus_tpu_torch.aggregator.core import Aggregator
+    from janus_tpu_torch.aggregator.http_handlers import DapHttpApp, DapServer
+    from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig
+    from janus_tpu_torch.aggregator.testing import leader_stored_reports
+    from janus_tpu_torch.core.auth import AuthenticationToken
+    from janus_tpu_torch.core.circuit_breaker import OutboundCircuitBreakers
+    from janus_tpu_torch.core.hpke import generate_hpke_config_and_private_key
+    from janus_tpu_torch.core.http_client import HttpClient
+    from janus_tpu_torch.core.retries import Backoff
+    from janus_tpu_torch.core.time_util import MockClock
+    from janus_tpu_torch.datastore import EphemeralDatastore
+    from janus_tpu_torch.messages import Role, Time
+    from janus_tpu_torch.task import QueryTypeConfig, TaskBuilder
+
+    now = 1_700_000_000
+    inst = VdafInstance("sumvec", bits=2, length=3, xof_mode=xof_mode)
+    leader_task = TaskBuilder(QueryTypeConfig.time_interval(), inst, Role.LEADER).with_(
+        vdaf_verify_key=bytes(16), aggregator_auth_token=AuthenticationToken.random_bearer()
+    ).build()
+    helper_task = dataclasses.replace(
+        leader_task, role=Role.HELPER, hpke_keys=(generate_hpke_config_and_private_key(config_id=1),)
+    )
+    meas = random_measurements(inst, n, np.random.default_rng(3))
+    args, _ = make_report_batch(inst, meas, seed=3, device="cpu")
+    reports = leader_stored_reports(leader_task, helper_task.hpke_keys[0].config, args, [now - 100] * n)
+    reports[7] = dataclasses.replace(reports[7], leader_input_share=bytes(len(reports[7].leader_input_share)))
+    counters = (keccak_cuda.keccak_single_block, expand_cuda.expand_f128, sponge_cuda.keccak_sponge)
+    results = []
+    for dev in (cuda, "cpu"):
+        leader, helper = EphemeralDatastore(MockClock(Time(now))), EphemeralDatastore(MockClock(Time(now)))
+        server = DapServer(DapHttpApp(Aggregator(helper.datastore, helper.clock, device=dev))).start()
+        try:
+            task = dataclasses.replace(leader_task, helper_aggregator_endpoint=server.url)
+            leader.datastore.run_tx(lambda tx: [tx.put_task(task)] + [tx.put_client_report(r) for r in reports])
+            helper.datastore.run_tx(lambda tx: tx.put_task(helper_task))
+            creator_cfg = AggregationJobCreatorConfig(max_aggregation_job_size=n // workers)
+            assert AggregationJobCreator(leader.datastore, creator_cfg).run_once() == workers
+            driver = AggregationJobDriver(
+                leader.datastore, HttpClient(timeout=120), AggregationJobDriverConfig(http_backoff=Backoff.test()),
+                breakers=OutboundCircuitBreakers(), device=dev,
+            )
+            for fn in counters:
+                fn.launches = 0
+            job_driver = JobDriver(JobDriverConfig(max_concurrent_job_workers=workers), driver.acquirer(), driver.stepper)
+            assert job_driver.run_once() == workers
+            assert len(driver.step_seconds) == workers
+            launches = [fn.launches for fn in counters]
+            assert (sum(launches) > 0) == (dev is cuda)
+            if dev is cuda:
+                assert (launches[2] > 0) == (xof_mode == "draft") and (launches[0] > 0) == (xof_mode == "fast")
+
+            def rows(ds):
+                return ds.run_tx(lambda tx: (
+                    tx._c.execute("SELECT report_id, state, prepare_error FROM report_aggregations ORDER BY report_id").fetchall(),
+                    tx._c.execute("SELECT batch_identifier, aggregate_share, report_count, checksum FROM batch_aggregations").fetchall(),
+                    tx._c.execute("SELECT state, lease_token IS NULL FROM aggregation_jobs").fetchall(),
+                ))
+
+            results.append((rows(leader.datastore), rows(helper.datastore)))
+        finally:
+            server.stop()
+            leader.cleanup()
+            helper.cleanup()
+    assert results[0] == results[1]
+    (l_ras, l_bas, l_jobs), (_, h_bas, _) = results[0]
+    assert sum(1 for r in l_ras if r[1] == "failed") == 1 and l_bas[0][2] == h_bas[0][2] == n - 1
+    assert l_jobs == [("finished", 1)] * workers

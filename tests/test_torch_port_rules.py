@@ -1,7 +1,9 @@
 """The rules janus_tpu_torch keeps: no JAX, the device is never chosen
-silently, and the CPU never counts as a kernel launch."""
+silently, the CPU never counts as a kernel launch, and the leader's job
+driver has no way to finish a job other than the device's."""
 
 import ast
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -9,8 +11,16 @@ import pytest
 import torch
 
 import janus_tpu_torch
-from janus_tpu_torch.aggregator.core import Config, TaskAggregator
+from janus_tpu_torch.aggregator.aggregation_job_driver import (
+    AggregationJobDriver,
+    AggregationJobDriverConfig,
+    ResidentConfig,
+)
+from janus_tpu_torch.aggregator.core import Aggregator, Config, TaskAggregator
+from janus_tpu_torch.aggregator.errors import NotPorted
+from janus_tpu_torch.aggregator.http_handlers import DapHttpApp
 from janus_tpu_torch.aggregator.engine_cache import EngineCache, engine_cache
+from janus_tpu_torch.datastore import EphemeralDatastore
 from janus_tpu_torch.device import resolve_device
 from janus_tpu_torch.messages import Role
 from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
@@ -50,6 +60,17 @@ def test_port_files_include_every_module_of_the_package():
         "core/hpke_backend.py",
         "datastore/store.py",
         "task.py",
+        "core/deadline.py",
+        "core/retries.py",
+        "core/circuit_breaker.py",
+        "core/http_client.py",
+        "datastore/models.py",
+        "aggregator/job_driver.py",
+        "aggregator/aggregation_job_creator.py",
+        "aggregator/aggregation_job_driver.py",
+        "aggregator/accumulator.py",
+        "aggregator/http_handlers.py",
+        "binary_utils.py",
     ):
         assert f"janus_tpu_torch/{module}" in names, module
 
@@ -82,6 +103,42 @@ def test_no_cuda_and_no_cpu_request_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         TaskAggregator(TaskBuilder(QueryTypeConfig.time_interval(), VdafInstance.count(), Role.HELPER).build(), Config())
     assert Prio3Batched(SumVec(length=2, bits=2), device="cpu").device == torch.device("cpu")
+
+
+def test_no_cuda_and_no_cpu_request_raises_for_the_shell(monkeypatch):
+    """The leader's job driver and the helper's HTTP app, built without a
+    device: both raise without CUDA; with device="cpu" both build."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    eph = EphemeralDatastore()
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            AggregationJobDriver(eph.datastore, None)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DapHttpApp(Aggregator(eph.datastore))
+        assert AggregationJobDriver(eph.datastore, None, device="cpu").device == torch.device("cpu")
+        assert DapHttpApp(Aggregator(eph.datastore, device="cpu")).agg.device == torch.device("cpu")
+    finally:
+        eph.cleanup()
+
+
+def test_driver_maps_no_device_failure_to_a_fallback():
+    """handle_step_error has no device-hang branch (the port has no host
+    engine to serve a retry), and the resident accumulators are refused,
+    not ignored."""
+    src = inspect.getsource(AggregationJobDriver.handle_step_error)
+    assert "DeviceHang" not in src and "device_hang" not in src
+    eph = EphemeralDatastore()
+    try:
+        with pytest.raises(NotPorted, match="resident"):
+            AggregationJobDriver(
+                eph.datastore, None, AggregationJobDriverConfig(resident=ResidentConfig(enabled=True)), device="cpu"
+            )
+        drv = AggregationJobDriver(eph.datastore, None, device="cpu")
+        # a device failure is not a step-back: it fails the step
+        assert drv.handle_step_error(None, RuntimeError("CUDA error: an illegal memory access")) is False
+        assert drv.handle_step_error(None, torch.cuda.OutOfMemoryError("out of memory")) is False
+    finally:
+        eph.cleanup()
 
 
 def test_wrappers_refuse_other_devices():
