@@ -73,13 +73,35 @@ Phases, each of which must pass:
                    the accepted reports' sum, and a second run_once must
                    acquire nothing. Then EngineCache.leader_init is timed on
                    the job's own staged columns by the route it takes at
-                   1,024 reports (pipelined) and by the direct route, in
-                   turns, three times each, and the two must agree.
+                   1,024 reports (pipelined) and by the direct route, once
+                   each, and the two must agree.
+  10. upload-drive-sumvec  the leader's intake, for SumVec(1000, 16) in
+                   fast mode on a fixed-size task (max_batch_size 1,024): a
+                   port leader and a port helper, each an Aggregator over its
+                   own EphemeralDatastore behind its own DapServer. 8 reports
+                   go through the port's Client (HPKE configs fetched over
+                   HTTP, the host sharder, one upload each); 1,016 come from
+                   make_wire_reports (the device shard, counts at 0 just
+                   before and read just after; 3 of them opened, their
+                   leader measurement share bumped inside the field, and
+                   sealed again) and are PUT from 8 threads through the
+                   HttpClient and retry_http_request. Every upload must end
+                   in 201, a replay must add no row, a leader share with an
+                   element >= p must get 400 reportRejected, and the leader
+                   must hold 1,024 reports. AggregationJobCreator.run_once
+                   must pack them into one job and one filled outstanding
+                   batch; JobDriver.run_once steps the job (counts at 0 just
+                   before, read just after): finished, lease released,
+                   exactly the 3 bumped reports failed with
+                   VDAF_PREP_ERROR, and the leader's and the helper's batch
+                   aggregations, keyed by the job's BatchId, unshard to the
+                   sum of the 1,021 accepted measurements.
 
 Output: JSON lines (build, the profile of one draft sumvec step, the
 sponge chains, one serve line per XOF mode with the seconds of each
 stage of the request, one drive line per XOF mode with the seconds of
 each stage of the leader's step and the helper's request in it, the
+upload-drive line with the upload, ingest, create and step seconds, the
 kernels, one line per path, the run's wall
 time), then the card's name and power limit as nvidia-smi gives them,
 and last {"ok": true, "device": {...}}.
@@ -322,6 +344,39 @@ def check_sponge(torch, head, msg_len: int, body, body_off: int, mode, rounds: i
     b_ms, b_by = bound_ms(perms * rounds * KECCAK_OPS_PER_ROUND, in_bytes + out_words * 8)
     return {"permutations": perms, "max_abs_err": err, "ms": ms, "plain_ms": sum(plain.values()),
             "plain_ms_by_piece": plain, "bound_ms": b_ms, "bound_by": b_by}
+
+
+class MethodSeconds:
+    """While open, sums the host seconds spent in the named methods of
+    `cls` (from any thread) into `seconds`, each under its name."""
+
+    def __init__(self, cls, names):
+        import threading
+
+        self.cls, self.names = cls, names
+        self.seconds = {n: 0.0 for n in names}
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        self._saved = {n: getattr(self.cls, n) for n in self.names}
+        for n, fn in self._saved.items():
+            setattr(self.cls, n, self._timed(n, fn))
+        return self.seconds
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(self.cls, n, fn)
+
+    def _timed(self, name, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with self._lock:
+                    self.seconds[name] += time.perf_counter() - t0
+
+        return timed
 
 
 def time_once(torch, into: dict, key: str, fn):
@@ -802,7 +857,7 @@ def phase_drive(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
         cols = (st.nonce_lanes, st.public_parts, st.meas, st.proof, st.blind_lanes)
         routes = {"pipelined": [], "direct": []}
         vers = {}
-        for route in ("pipelined", "direct", "direct", "pipelined", "pipelined", "direct"):
+        for route in ("pipelined", "direct"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if route == "pipelined":
@@ -839,6 +894,278 @@ def phase_drive(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
         }
     finally:
         server.stop()
+        leader_eds.cleanup()
+        helper_eds.cleanup()
+
+
+def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, kernels, threads: int = 8):
+    """The leader's intake end to end (see the module docstring, phase
+    10): reports uploaded over loopback HTTP to a port leader, admitted,
+    decoded, opened, validated and group-committed by its ingest
+    pipeline, packed into one fixed-size batch by the creator, and
+    stepped by the job driver against a port helper; returns the record."""
+    import dataclasses
+    import json as json_mod
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from janus_tpu_torch.aggregator.aggregation_job_creator import AggregationJobCreator
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver
+    from janus_tpu_torch.aggregator.core import Aggregator
+    from janus_tpu_torch.aggregator.http_handlers import DapHttpApp, DapServer
+    from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig
+    from janus_tpu_torch.client import Client, ClientParameters
+    from janus_tpu_torch.core.auth import AuthenticationToken
+    from janus_tpu_torch.core.circuit_breaker import OutboundCircuitBreakers
+    from janus_tpu_torch.core.hpke import (
+        HpkeApplicationInfo,
+        Label,
+        generate_hpke_config_and_private_key,
+        hpke_open,
+        hpke_seal,
+    )
+    from janus_tpu_torch.core.http_client import HttpClient
+    from janus_tpu_torch.core.retries import Backoff, retry_http_request
+    from janus_tpu_torch.core.time_util import MockClock
+    from janus_tpu_torch.datastore import EphemeralDatastore
+    from janus_tpu_torch.datastore.store import Crypter, Transaction
+    from janus_tpu_torch.messages import (
+        InputShareAad,
+        PartialBatchSelector,
+        PlaintextInputShare,
+        PrepareError,
+        Report,
+        ReportId,
+        ReportMetadata,
+        Role,
+        Time,
+    )
+    from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
+    from janus_tpu_torch.task import QueryTypeConfig, Task, TaskBuilder
+    from janus_tpu_torch.vdaf.registry import circuit_for
+    from janus_tpu_torch.vdaf.testing import make_wire_reports, random_measurements
+
+    now = 1_700_000_000
+    batch = n_client + n_wire
+    counters = {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
+                "keccak_sponge": sponge_cuda.keccak_sponge}
+
+    def check_launches(what, launches):
+        missing = [k for k in kernels if launches[k] == 0]
+        stray = [k for k in counters if k not in kernels and launches[k] != 0]
+        if missing or stray:
+            raise AssertionError(f"upload-drive {what}: kernels not launched {missing}, stray {stray} ({launches})")
+
+    leader_eds = EphemeralDatastore(MockClock(Time(now)))
+    helper_eds = EphemeralDatastore(MockClock(Time(now)))
+    helper = Aggregator(helper_eds.datastore, helper_eds.clock, device=dev)
+    leader = Aggregator(leader_eds.datastore, leader_eds.clock, device=dev)
+    helper_server = DapServer(DapHttpApp(helper)).start()
+    leader_server = DapServer(DapHttpApp(leader)).start()
+    try:
+        built = TaskBuilder(QueryTypeConfig.fixed_size(max_batch_size=batch), inst, Role.LEADER).with_(
+            vdaf_verify_key=VERIFY_KEY, aggregator_auth_token=AuthenticationToken.random_bearer(),
+            leader_aggregator_endpoint=leader_server.url, helper_aggregator_endpoint=helper_server.url,
+        ).build()
+        task = Task.from_dict(built.to_dict())
+        helper_task = Task.from_dict(dataclasses.replace(
+            built, role=Role.HELPER, hpke_keys=(generate_hpke_config_and_private_key(config_id=1),)
+        ).to_dict())
+        leader_eds.datastore.run_tx(lambda tx: tx.put_task(task))
+        helper_eds.datastore.run_tx(lambda tx: tx.put_task(helper_task))
+        http = HttpClient(timeout=600)
+        params = ClientParameters(task.task_id, leader_server.url, helper_server.url, task.time_precision)
+        meas = random_measurements(inst, batch, np.random.default_rng(SEED + 7))
+
+        # 1. the client: both HPKE configs over HTTP, then one host shard
+        # and one upload a report
+        client = Client.with_fetched_configs(params, inst, http, clock=leader_eds.clock)
+        client_upload_s = []
+        for m in meas[:n_client]:
+            t0 = time.perf_counter()
+            client.upload([int(x) for x in m])
+            client_upload_s.append(time.perf_counter() - t0)
+
+        # 2. the batched client: the device shard (counts at 0 just
+        # before, read just after) and the seals; then 3 reports opened,
+        # their leader measurement share bumped, and sealed again
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        reports = make_wire_reports(
+            inst, meas[n_client:], task.task_id, client.leader_hpke_config, client.helper_hpke_config,
+            Time(now - 100).to_batch_interval_start(task.time_precision), seed=SEED + 7, shard_chunk=256,
+            device=dev,
+        )
+        wire_reports_s = time.perf_counter() - t0
+        shard_launches = {k: fn.launches for k, fn in counters.items()}
+        check_launches("device shard", shard_launches)
+        keypair = task.hpke_keys[0]
+        info = HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.LEADER)
+        field = circuit_for(inst).FIELD
+        size = field.ENCODED_SIZE
+
+        def reseal(src, md, mutate):
+            """`src` as `md`, its leader payload changed by mutate(bytearray)
+            and sealed again: the client's seal of another share."""
+            payload = bytearray(PlaintextInputShare.from_bytes(hpke_open(
+                keypair, info, src.leader_encrypted_input_share,
+                InputShareAad(task.task_id, src.metadata, src.public_share).to_bytes(),
+            )).payload)
+            mutate(payload)
+            return Report(md, src.public_share, hpke_seal(
+                client.leader_hpke_config, info, PlaintextInputShare((), bytes(payload)).to_bytes(),
+                InputShareAad(task.task_id, md, src.public_share).to_bytes(),
+            ), src.helper_encrypted_input_share)
+
+        def bump(payload):  # the first measurement element plus 1, inside the field
+            v = (int.from_bytes(payload[:size], "little") + 1) % field.MODULUS
+            payload[:size] = v.to_bytes(size, "little")
+
+        for i in bad_rows:
+            reports[i] = reseal(reports[i], reports[i].metadata, bump)
+
+        # 3. the threaded PUTs, each through the retry loop; 429 sheds
+        # are counted as the loop retries through them
+        sheds = []
+
+        def put(report):
+            def attempt():
+                status, body = http.put(params.upload_uri(), report.to_bytes(), {"Content-Type": Report.MEDIA_TYPE})
+                if status == 429:
+                    sheds.append(1)
+                return status, body, http.last_response_headers
+
+            return retry_http_request(attempt, Backoff())[0]
+
+        # the writer's commit split: the at-rest encrypt of each share, and
+        # put_client_report as a whole (the encrypt and the INSERT)
+        t0 = time.perf_counter()
+        with MethodSeconds(Crypter, ["encrypt"]) as enc_s, MethodSeconds(Transaction, ["put_client_report"]) as put_s:
+            with ThreadPoolExecutor(max_workers=threads) as pool:
+                statuses = list(pool.map(put, reports))
+        upload_s = time.perf_counter() - t0
+        if set(statuses) != {201}:
+            raise AssertionError(f"upload-drive: upload statuses {sorted(set(statuses))}")
+
+        def count_rows():
+            return leader_eds.datastore.run_tx(lambda tx: tx._c.execute("SELECT COUNT(*) FROM client_reports").fetchone()[0])
+
+        if count_rows() != batch:
+            raise AssertionError(f"upload-drive: {count_rows()} stored reports, not {batch}")
+        # a replay: 201, and no row added
+        if put(reports[0]) != 201 or count_rows() != batch:
+            raise AssertionError("upload-drive: the replayed upload was answered otherwise or added a row")
+        # a leader share with an element >= p: janus_tpu's 400 reportRejected
+        bad = reseal(reports[1], ReportMetadata(ReportId(bytes(16)), reports[1].metadata.time),
+                     lambda p: p.__setitem__(slice(0, size), field.MODULUS.to_bytes(size, "little")))
+        status, body = http.put(params.upload_uri(), bad.to_bytes(), {"Content-Type": Report.MEDIA_TYPE})
+        problem = json_mod.loads(body)
+        if status != 400 or problem.get("type") != "urn:ietf:params:ppm:dap:error:reportRejected":
+            raise AssertionError(f"upload-drive: the out-of-range share was answered {status} {body[:200]!r}")
+        if count_rows() != batch:
+            raise AssertionError("upload-drive: the rejected upload added a row")
+        ingest_stages = dict(leader_server.app._ingest.stage_seconds)
+        writer_stages = dict(leader.report_writer.stage_seconds)
+
+        # 4. fixed-size job creation: one filled batch, one job; the
+        # seconds of each transaction method it calls
+        tx_methods = [n for n in vars(Transaction) if not n.startswith("_") and callable(getattr(Transaction, n))]
+        t0 = time.perf_counter()
+        with MethodSeconds(Transaction, tx_methods) as create_tx_s:
+            created = AggregationJobCreator(leader_eds.datastore).run_once()
+        create_s = time.perf_counter() - t0
+        jobs = leader_eds.datastore.run_tx(lambda tx: tx.get_aggregation_jobs_for_task(task.task_id))
+        sizes = [len(leader_eds.datastore.run_tx(lambda tx: tx.get_report_aggregations_for_job(task.task_id, j.job_id)))
+                 for j in jobs]
+        if created != 1 or sizes != [batch]:
+            raise AssertionError(f"upload-drive: the creator made {created} jobs of {sizes} reports")
+        (job,) = jobs
+        batch_id = PartialBatchSelector.from_bytes(job.partial_batch_identifier).batch_id.data
+        outstanding = leader_eds.datastore.run_tx(lambda tx: tx._c.execute(
+            "SELECT batch_id, size, filled FROM outstanding_batches").fetchall())
+        if outstanding != [(batch_id, batch, 1)]:
+            raise AssertionError(f"upload-drive: outstanding batches {[(r[1], r[2]) for r in outstanding]}")
+
+        # 5. the job step (counts at 0 just before, read just after)
+        driver = AggregationJobDriver(leader_eds.datastore, HttpClient(timeout=600),
+                                      breakers=OutboundCircuitBreakers(), device=dev)
+        job_driver = JobDriver(JobDriverConfig(max_concurrent_job_workers=1), driver.acquirer(), driver.stepper)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        stepped = job_driver.run_once()
+        step_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        if stepped != 1 or not driver.step_seconds:
+            raise AssertionError(f"upload-drive: {stepped} jobs stepped")
+        check_launches("job step", launches)
+        row = leader_eds.datastore.run_tx(lambda tx: tx._c.execute(
+            "SELECT state, lease_token IS NULL, lease_attempts FROM aggregation_jobs").fetchall())
+        if row != [("finished", 1, 0)]:
+            raise AssertionError(f"upload-drive: job row {row}, not finished with its lease released")
+        ras = leader_eds.datastore.run_tx(lambda tx: tx.get_report_aggregations_for_job(task.task_id, job.job_id))
+        ids = {r.metadata.report_id.data: n_client + i for i, r in enumerate(reports)}
+        failed = sorted((ids.get(ra.report_id.data, -1), ra.prepare_error) for ra in ras if ra.state.value == "failed")
+        finished = sum(1 for ra in ras if ra.state.value == "finished")
+        want_failed = [(n_client + i, PrepareError.VDAF_PREP_ERROR) for i in sorted(bad_rows)]
+        if failed != want_failed or finished != batch - len(bad_rows):
+            raise AssertionError(f"upload-drive: {finished} finished, failed {failed[:10]}")
+
+        accept = np.ones(batch, dtype=bool)
+        accept[[n_client + i for i in bad_rows]] = False
+        shares = []
+        for eds in (leader_eds, helper_eds):
+            rows = eds.datastore.run_tx(lambda tx: tx._c.execute(
+                "SELECT batch_identifier, aggregate_share, report_count FROM batch_aggregations").fetchall())
+            if len(rows) != 1 or rows[0][0] != batch_id or rows[0][2] != finished:
+                raise AssertionError(f"upload-drive: batch aggregation rows {[(r[0].hex(), r[2]) for r in rows]}")
+            shares.append(field.decode_vec(rows[0][1]))
+        total = [(a + b) % field.MODULUS for a, b in zip(*shares)]
+        if total != [int(x) for x in np.asarray(meas)[accept].sum(axis=0).reshape(-1)]:
+            raise AssertionError("upload-drive: leader + helper shares != the accepted reports' sum")
+        return {
+            "path": "upload-drive-sumvec",
+            "vdaf": inst.to_dict(),
+            "query_type": {"fixed_size": {"max_batch_size": batch}},
+            "batch": batch,
+            "client_uploads": n_client,
+            "client_upload_s": client_upload_s,
+            "wire_reports": n_wire,
+            "wire_reports_s": wire_reports_s,
+            "upload_threads": threads,
+            "upload_s": upload_s,
+            "uploads_per_s": n_wire / upload_s,
+            "upload_bytes": sum(len(r.to_bytes()) for r in reports),
+            "sheds_429": len(sheds),
+            "ingest_stage_s": {**ingest_stages, **writer_stages},
+            "commit_split_s": {"at_rest_encrypt": enc_s["encrypt"], "put_client_report": put_s["put_client_report"]},
+            "jobs_created": created,
+            "create_s": create_s,
+            "create_tx_s": {k: v for k, v in create_tx_s.items() if v > 0},
+            "step_s": step_s,
+            "reports_per_s": batch / step_s,
+            "stage_s": dict(driver.step_seconds[-1][1]),
+            "helper_stage_s": dict(helper.task_aggregator_for(helper_task.task_id).stage_seconds),
+            "finished": finished,
+            "failed": {"VDAF_PREP_ERROR": len(failed)},
+            "shard_launches": shard_launches,
+            "launches": launches,
+            "peak_device_bytes": peak,
+            "aggregate_ok": True,
+            "lease_released": True,
+            "replay_ok": True,
+            "out_of_range_rejected": True,
+        }
+    finally:
+        leader_server.stop()
+        helper_server.stop()
+        leader.close()
         leader_eds.cleanup()
         helper_eds.cleanup()
 
@@ -957,6 +1284,11 @@ def main() -> int:
         if out is not None:
             serves[out["path"]] = out
             emit({"drive": out})
+    out = phase("upload-drive-sumvec", phase_upload_drive, torch, dev, VdafInstance.sum_vec(1000, 16), 8, 1016,
+                (5, 300, 1000), fast) if not failed else None
+    if out is not None:
+        serves[out["path"]] = out
+        emit({"upload_drive": out})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

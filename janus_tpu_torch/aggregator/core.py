@@ -1,10 +1,12 @@
-"""Aggregator protocol handlers: the helper's aggregate-init.
+"""Aggregator protocol handlers: upload and the helper's aggregate-init.
 
 The port's counterpart of janus_tpu/aggregator/core.py, as far as a
-helper needs to answer an aggregate-init request for a one-round Prio3
-task: `TaskAggregator` (keypair lookup, `hpke_config_list`,
-`handle_aggregate_init`, the replay of a stored response) and
-`Aggregator` (task lookup, one TaskAggregator per task). The request
+leader takes uploads and a helper answers an aggregate-init request for
+a one-round Prio3 task: `TaskAggregator` (keypair lookup,
+`hpke_config_list`, the upload checks per report and per column window,
+`handle_upload`, `handle_aggregate_init`, the replay of a stored
+response) and `Aggregator` (task lookup, one TaskAggregator per task,
+the group-commit `report_writer` of uploads). The aggregate-init request
 runs the same steps as janus_tpu's, value for value:
 
 1. HPKE-open the input shares (batched per config id);
@@ -15,19 +17,31 @@ runs the same steps as janus_tpu's, value for value:
    in one transaction;
 6. answer with the AggregationJobResp.
 
+An upload is checked as janus_tpu checks it: clock skew and expiry, the
+public share's form and the HPKE config id first
+(`upload_prepare_columns`), then the HPKE open and the leader share's
+length and field range (`upload_decrypt_validate_batch`), each reject
+with janus_tpu's error type and message. The checks run over a window of
+decoded reports; the serving path runs the two stages in the ingest
+pipeline (`ingest/pipeline.py`), and the per-report forms
+(`upload_prepare`, `upload_decrypt_validate`, `handle_upload`) run them
+on a window of one.
+
 A TaskAggregator runs on CUDA unless it is built with device="cpu", and
-so does an Aggregator. Each request leaves the seconds of its stages in
-`stage_seconds`; a propagated deadline (core/deadline.py) is checked
-between stages as janus_tpu checks it. Not ported yet: Poplar1,
-multi-round continue, upload, collection, taskprov (and with it the
-global HPKE keys), aggregate-share; and the observability calls of
-janus_tpu's handler (metrics, trace spans, failpoints, the conservation
-ledger).
+so does an Aggregator. Each aggregate-init request leaves the seconds of
+its stages in `stage_seconds`; a propagated deadline (core/deadline.py)
+is checked between stages as janus_tpu checks it. Not ported yet:
+Poplar1, multi-round continue, collection, taskprov (and with it the
+global HPKE keys), aggregate-share, the upload journal (a set
+`Config.upload_journal_path` raises NotPorted); and the observability
+calls of janus_tpu's handlers (metrics, trace spans, failpoints, the
+conservation ledger).
 """
 
 from __future__ import annotations
 
 import hashlib
+import struct
 import threading
 import time
 from dataclasses import dataclass
@@ -40,6 +54,7 @@ from ..core.time_util import Clock, RealClock
 from ..datastore.models import (
     AggregationJobModel,
     AggregationJobState,
+    LeaderStoredReport,
     ReportAggregationModel,
     ReportAggregationState,
 )
@@ -50,15 +65,19 @@ from ..messages import (
     AggregationJobInitializeReq,
     AggregationJobResp,
     Duration,
+    HpkeConfigId,
     HpkeConfigList,
     InputShareAad,
     Interval,
     PrepareError,
     PrepareResp,
     PrepareStepResult,
+    Report,
+    ReportId,
     Role,
     TaskId,
     Time,
+    decode_reports_fast,
     plaintext_input_share_payload_fast,
 )
 from ..messages.codec import DecodeError
@@ -70,6 +89,7 @@ from ..vdaf.wire import (
     Prio3Wire,
     decode_pingpong,
     encode_pingpong,
+    lanes_in_range,
     lanes_to_seed_rows,
     seeds_to_lanes,
     split_prep_share_columns,
@@ -77,6 +97,15 @@ from ..vdaf.wire import (
 from . import errors
 from .accumulator import Accumulator, accumulate_batched, fixed_size_batch_id
 from .engine_cache import engine_cache
+from .errors import NotPorted
+from .report_writer import ReportWriteBatcher
+
+
+def _one_lane(out: list):
+    """The one lane of a column stage's answer; its error is raised."""
+    if isinstance(out[0], BaseException):
+        raise out[0]
+    return out[0]
 
 
 def _err_or_default(err) -> PrepareError:
@@ -87,10 +116,46 @@ def _err_or_default(err) -> PrepareError:
 
 @dataclass
 class Config:
-    """reference aggregator.rs:186-218, the part the helper's
-    aggregate-init reads."""
+    """reference aggregator.rs:186-218: the helper's aggregate-init and
+    the leader's upload and ingest fields."""
 
+    max_upload_batch_size: int = 100
+    # 0 = pure group commit (the reference's default write delay,
+    # aggregator.rs:186-218); >0 adds a coalescing window
+    max_upload_batch_write_delay_ms: int = 0
     batch_aggregation_shard_count: int = 1
+    # --- ingest pipeline + admission control ---
+    # HPKE-decrypt pool size; 0 = sized from the crypto backend's batch
+    # GIL-release capability (ingest.pipeline.default_decrypt_workers)
+    ingest_decrypt_workers: int = 0
+    ingest_decode_workers: int = 1
+    # flush-window batching of the decode + decrypt stages: max reports
+    # per window and the linger a decode worker waits for it to fill
+    ingest_batch_window: int = 32
+    ingest_batch_linger_ms: float = 2.0
+    # bound on uploads in flight through the pipeline (admission's
+    # queue-depth signal and the hard queue-full backstop); every
+    # in-flight upload parks one handler thread, so it must stay below
+    # max_handler_threads for queue-pressure shedding to fire
+    ingest_queue_depth: int = 24
+    # token buckets per route class; rate 0 = unlimited
+    upload_bucket_rate: float = 0.0
+    upload_bucket_burst: int = 0
+    aggregate_bucket_rate: float = 0.0
+    aggregate_bucket_burst: int = 0
+    # shed order under queue pressure (first sheds first): client uploads
+    # before the aggregator-to-aggregator steps
+    shed_priority: tuple = ("upload", "aggregate")
+    # pipeline occupancy fraction at which shed_priority[0] sheds
+    queue_high_watermark: float = 0.75
+    # Retry-After for queue-pressure sheds (rate sheds advertise the
+    # bucket's refill time)
+    upload_shed_retry_after_s: float = 1.0
+    # cap on concurrent HTTP handler threads in DapServer
+    max_handler_threads: int = 32
+    # janus_tpu's durable upload spill journal; not ported (it is armed
+    # by the datastore supervisor, which the port's SQLite store lacks)
+    upload_journal_path: str | None = None
 
 
 class TaskAggregator:
@@ -108,6 +173,139 @@ class TaskAggregator:
 
     def hpke_config_list(self) -> HpkeConfigList:
         return HpkeConfigList(tuple(kp.config for kp in self.task.hpke_keys))
+
+    # ------------------------------------------------------------------
+    # upload (reference aggregator.rs:1325)
+    # ------------------------------------------------------------------
+    # The checks run once, over a decoded ReportColumn window: the column
+    # stages below. The per-report forms run them on a one-lane column.
+    def upload_prepare(self, clock: Clock, report: Report):
+        """The cheap checks ahead of the decrypt stage: clock skew and
+        expiry (reference :1344-1385), the public share's form, the HPKE
+        keypair lookup. Returns the keypair for upload_decrypt_validate."""
+        return _one_lane(self.upload_prepare_columns(clock, decode_reports_fast([report.to_bytes()]), [0]))
+
+    def upload_decrypt_validate(self, report: Report, keypair) -> LeaderStoredReport:
+        """Decrypt and decode the leader input share at upload time
+        (reference :1391) and validate its length and field range.
+        Returns the LeaderStoredReport to commit."""
+        return _one_lane(self.upload_decrypt_validate_batch(decode_reports_fast([report.to_bytes()]), [0], keypair))
+
+    def upload_prepare_columns(self, clock: Clock, col, idxs) -> list:
+        """The upload checks ahead of the decrypt stage over lanes `idxs`
+        of a ReportColumn: per lane, the HPKE keypair when admitted, else
+        the error."""
+        task = self.task
+        now = clock.now()
+        max_time = now.add(task.tolerable_clock_skew).seconds
+        expiry = task.task_expiration.seconds if task.task_expiration else None
+        kp_cache: dict[int, object] = {}
+        out: list = []
+        for i in idxs:
+            t = col.times[i]
+            if t > max_time:
+                out.append(errors.ReportTooEarly("report from the future", task.task_id))
+                continue
+            if expiry is not None and t > expiry:
+                out.append(errors.ReportRejected("task expired", task.task_id))
+                continue
+            if task.report_expired(Time(t), now):
+                out.append(errors.ReportRejected("report expired", task.task_id))
+                continue
+            try:
+                self.wire.decode_public_share(col.public_shares[i])
+            except DecodeError as e:
+                out.append(errors.InvalidMessage(f"bad public share: {e}", task.task_id))
+                continue
+            cfg = col.leader_config_ids[i]
+            if cfg not in kp_cache:
+                kp_cache[cfg] = task.hpke_keypair(HpkeConfigId(cfg))
+            keypair = kp_cache[cfg]
+            if keypair is None:
+                out.append(errors.OutdatedHpkeConfig("unknown HPKE config id", task.task_id))
+                continue
+            out.append(keypair)
+        return out
+
+    def upload_decrypt_validate_batch(self, col, idxs, keypair) -> list:
+        """The decrypt stage over lanes `idxs` of a ReportColumn, all
+        carrying `keypair`'s config id: one hpke_open_batch over the
+        window, one numpy range check of the leader shares; per lane the
+        LeaderStoredReport or the error."""
+        task = self.task
+        tid = task.task_id.data
+        n = len(idxs)
+        # InputShareAad.to_bytes, raw: task_id || report_id || time ||
+        # u32-length-prefixed public share
+        aads = [
+            tid + col.report_ids[i] + struct.pack(">QI", col.times[i], len(col.public_shares[i])) + col.public_shares[i]
+            for i in idxs
+        ]
+        opened = hpke_open_batch(
+            keypair,
+            HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.LEADER),
+            [col.leader_encs[i] for i in idxs],
+            [col.leader_payloads[i] for i in idxs],
+            aads,
+        )
+
+        def reject(e) -> errors.ReportRejected:
+            return errors.ReportRejected(f"undecryptable/undecodable share: {e}", task.task_id)
+
+        out: list = [None] * n
+        payloads: list = [None] * n
+        for j in range(n):
+            if isinstance(opened[j], HpkeError):
+                out[j] = reject(opened[j])
+                continue
+            try:
+                payloads[j] = plaintext_input_share_payload_fast(opened[j])
+            except DecodeError as e:
+                out[j] = reject(e)
+
+        # length + field range over the meas||proof prefix, one numpy pass
+        want_len = self.wire.leader_share_len
+        nb = (self.circ.input_len + self.circ.proof_len) * self.wire.enc_size
+        live: list[int] = []
+        rows: list[bytes] = []
+        for j in range(n):
+            if out[j] is not None:
+                continue
+            if len(payloads[j]) != want_len:
+                out[j] = reject(DecodeError("bad leader share length"))
+                continue
+            live.append(j)
+            rows.append(payloads[j][:nb])
+        if live:
+            mat = np.frombuffer(b"".join(rows), dtype="<u8").reshape(len(live), -1)
+            ok = lanes_in_range(mat, self.circ.FIELD.MODULUS, self.wire.enc_size // 8).all(axis=-1)
+            for k, j in enumerate(live):
+                if not ok[k]:
+                    out[j] = reject(DecodeError("leader share element out of field range"))
+
+        for j, i in enumerate(idxs):
+            if out[j] is None:
+                out[j] = LeaderStoredReport(
+                    task.task_id,
+                    ReportId(col.report_ids[i]),
+                    Time(col.times[i]),
+                    col.public_shares[i],
+                    payloads[j],
+                    col.helper_ciphertext(i),
+                )
+        return out
+
+    def handle_upload(self, ds: Datastore, clock: Clock, report: Report, writer=None) -> None:
+        """The single-threaded upload path (tests, tools; the HTTP route
+        runs the same two stages in the ingest pipeline). `writer`: a
+        ReportWriteBatcher; without one, one transaction per report. A
+        replay is silent success, as in DAP."""
+        keypair = self.upload_prepare(clock, report)
+        stored = self.upload_decrypt_validate(report, keypair)
+        if writer is not None:
+            writer.write_report(stored)
+        else:
+            ds.run_tx(lambda tx: tx.put_client_report(stored), "upload")
 
     # ------------------------------------------------------------------
     # helper aggregate init (reference aggregator.rs:1561)
@@ -335,17 +533,27 @@ class TaskAggregator:
 
 
 class Aggregator:
-    """Top-level request router over tasks (reference aggregator.rs:156),
-    as far as the helper's aggregate-init needs it."""
+    """Top-level request router over tasks (reference aggregator.rs:156):
+    the helper's aggregate-init and the leader's uploads."""
 
     def __init__(self, ds: Datastore, clock: Clock | None = None, cfg: Config | None = None, device=None):
         self.ds = ds
         self.clock = clock or RealClock()
         self.cfg = cfg or Config()
+        if self.cfg.upload_journal_path:
+            raise NotPorted("the upload journal (upload_journal_path) is not ported to janus_tpu_torch yet")
         # CUDA unless the caller asks for the CPU; raises without CUDA
         self.device = resolve_device(device)
         self._task_aggs: dict[bytes, TaskAggregator] = {}
         self._task_aggs_lock = threading.Lock()
+        self.report_writer = ReportWriteBatcher(
+            ds, self.cfg.max_upload_batch_size, self.cfg.max_upload_batch_write_delay_ms
+        )
+
+    def close(self) -> None:
+        """Shutdown: flush and stop the report writer, so uploads still
+        buffered in the group commit land before exit."""
+        self.report_writer.close()
 
     def task_aggregator_for(self, task_id: TaskId) -> TaskAggregator:
         ta = self._task_aggs.get(task_id.data)

@@ -1,26 +1,29 @@
-"""DAP HTTP layer: routes, media types, auth, problem details.
+"""DAP HTTP layer: routes, media types, auth, admission, problem details.
 
 Equivalent of reference aggregator/src/aggregator/http_handlers.rs:
 205-268 on the Python stdlib threading HTTP server. The port's own copy
-of janus_tpu/aggregator/http_handlers.py for the routes a helper needs
-to answer a leader's aggregation job:
+of janus_tpu/aggregator/http_handlers.py for the routes a leader needs
+to take uploads and a helper needs to answer a leader's aggregation job:
 
   GET  /hpke_config?task_id=...
+  PUT  /tasks/:task_id/reports
   PUT  /tasks/:task_id/aggregation_jobs/:aggregation_job_id
 
 with janus_tpu's media-type check, aggregator auth, XOF-mode check and
-RFC 7807 problem documents, byte for byte. A propagated
-`DAP-Janus-Deadline` bounds the handler, and a dead budget answers the
-conclusive 408.
+RFC 7807 problem documents, byte for byte. Uploads flow through the
+admission-controlled ingest pipeline (`ingest/`): a shed request answers
+429 (capacity) or 503 (a propagated `DAP-Janus-Deadline` already spent)
+with `Retry-After` before any decode, crypto or datastore work; admitted
+uploads decode, decrypt and commit on the pipeline's workers while the
+handler thread parks on its ticket. A budget that dies inside the
+aggregate-init handler answers the conclusive 408.
 
 Not ported yet, and answered as janus_tpu answers an unknown route (404):
-upload (PUT /tasks/:id/reports), the continue step (POST
-/tasks/:id/aggregation_jobs/:id), the collection routes (PUT, POST and
-DELETE /tasks/:id/collection_jobs/:id), aggregate-share (POST
-/tasks/:id/aggregate_shares) and the ledger read (GET /tasks/:id/ledger);
-with them the CORS preflights of the upload and collection routes,
-taskprov, and the ingest admission controller (its 429/503 sheds). The
-calls into metrics and trace spans are left out.
+the continue step (POST /tasks/:id/aggregation_jobs/:id), the collection
+routes (PUT, POST and DELETE /tasks/:id/collection_jobs/:id),
+aggregate-share (POST /tasks/:id/aggregate_shares) and the ledger read
+(GET /tasks/:id/ledger); with them the CORS preflight of the collection
+routes, taskprov, and the calls into metrics, statusz and trace spans.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 import base64
 import json
 import logging
+import math
 import re
 import threading
 from http.server import BaseHTTPRequestHandler
@@ -36,7 +40,8 @@ from urllib.parse import parse_qsl, urlsplit
 from ..binary_utils import BoundedThreadingHTTPServer
 from ..core import deadline as deadline_mod
 from ..core.deadline import DEADLINE_EXCEEDED_STATUS, DeadlineExceeded
-from ..messages import AggregationJobId, AggregationJobInitializeReq, TaskId
+from ..ingest import AdmissionConfig, AdmissionController, IngestPipeline, ShedError
+from ..messages import AggregationJobId, AggregationJobInitializeReq, Report, TaskId
 from ..messages.codec import DecodeError
 from ..messages.problem_type import DapProblemType
 from .core import Aggregator
@@ -59,18 +64,24 @@ def _b64dec(s: str, size: int) -> bytes:
 
 _ROUTES = [
     ("GET", re.compile(r"^/hpke_config$"), "hpke_config"),
+    ("PUT", re.compile(r"^/tasks/([^/]+)/reports$"), "upload"),
     ("PUT", re.compile(r"^/tasks/([^/]+)/aggregation_jobs/([^/]+)$"), "aggregate_init"),
 ]
 
-# Request body media types per route (reference http_handlers.rs:512-551).
-_REQUEST_MEDIA_TYPES = {"aggregate_init": AggregationJobInitializeReq.MEDIA_TYPE}
+# Admission route classes: client uploads shed first; the
+# aggregator-to-aggregator steps, which finish work the system already
+# paid to admit, shed only near saturation. hpke_config is never shed.
+_ROUTE_CLASS = {"upload": "upload", "aggregate_init": "aggregate"}
 
-# The aggregator-to-aggregator routes, which a propagated deadline bounds.
-_DEADLINE_ROUTES = {"aggregate_init"}
+# Request body media types per route (reference http_handlers.rs:512-551).
+_REQUEST_MEDIA_TYPES = {"upload": Report.MEDIA_TYPE, "aggregate_init": AggregationJobInitializeReq.MEDIA_TYPE}
 
 # Browser-reachable routes get CORS preflights (reference
-# http_handlers.rs:236-259); of them the port serves hpke_config.
-_CORS_ROUTES = [(re.compile(r"^/hpke_config$"), "GET")]
+# http_handlers.rs:236-259); of them the port serves hpke_config and upload.
+_CORS_ROUTES = [
+    (re.compile(r"^/hpke_config$"), "GET"),
+    (re.compile(r"^/tasks/([^/]+)/reports$"), "PUT"),
+]
 
 
 def _cors_allow(path: str) -> str | None:
@@ -85,10 +96,49 @@ def _problem(status: int, doc: dict):
 
 
 class DapHttpApp:
-    """Routing + handler glue around an Aggregator."""
+    """Routing + handler glue around an Aggregator. The ingest pipeline
+    and the admission controller are built from the aggregator's Config
+    on the first request of an admitted route."""
 
     def __init__(self, aggregator: Aggregator):
         self.agg = aggregator
+        self._ingest: IngestPipeline | None = None
+        self._admission: AdmissionController | None = None
+        self._ingest_lock = threading.Lock()
+
+    def _ensure_ingest(self) -> tuple[IngestPipeline, AdmissionController]:
+        with self._ingest_lock:
+            cfg = self.agg.cfg
+            if self._ingest is None:
+                self._ingest = IngestPipeline(
+                    self.agg.report_writer,
+                    decrypt_workers=cfg.ingest_decrypt_workers,
+                    decode_workers=cfg.ingest_decode_workers,
+                    queue_depth=cfg.ingest_queue_depth,
+                    batch_window=cfg.ingest_batch_window,
+                    batch_linger_ms=cfg.ingest_batch_linger_ms,
+                )
+            if self._admission is None:
+                self._admission = AdmissionController(
+                    AdmissionConfig(
+                        upload_bucket_rate=cfg.upload_bucket_rate,
+                        upload_bucket_burst=cfg.upload_bucket_burst,
+                        aggregate_bucket_rate=cfg.aggregate_bucket_rate,
+                        aggregate_bucket_burst=cfg.aggregate_bucket_burst,
+                        shed_priority=tuple(cfg.shed_priority),
+                        queue_high_watermark=cfg.queue_high_watermark,
+                        shed_retry_after_s=cfg.upload_shed_retry_after_s,
+                    ),
+                    depth_fn=self._ingest.depth,
+                )
+            return self._ingest, self._admission
+
+    def close(self) -> None:
+        """Drain the ingest pipeline's worker threads (shutdown)."""
+        with self._ingest_lock:
+            ingest = self._ingest
+        if ingest is not None:
+            ingest.close()
 
     def handle(self, method: str, path: str, query: dict, headers, body: bytes):
         """-> (status, content_type, body_bytes, extra_headers)."""
@@ -121,14 +171,24 @@ class DapHttpApp:
                                 detail=f"unexpected media type: {got!r} (want {want!r})"
                             ),
                         )
-                if name in _DEADLINE_ROUTES:
-                    # the leader's budget, backdated by the accept-queue
-                    # wait, bounds the handler
+                route_class = _ROUTE_CLASS.get(name)
+                if route_class is not None:
+                    # shed before any decode, crypto or datastore work;
+                    # the caller's budget, backdated by the accept-queue
+                    # wait, is an admission signal too (a spent one sheds
+                    # 503) and then bounds the handler
                     dl = deadline_mod.parse_header(headers, queue_age_s=deadline_mod.request_queue_age())
+                    _, admission = self._ensure_ingest()
+                    admission.admit(route_class, deadline=dl)
                     with deadline_mod.deadline_scope(dl):
                         return getattr(self, "h_" + name)(match, query, headers, body)
                 return getattr(self, "h_" + name)(match, query, headers, body)
             return 404, "text/plain", b"not found"
+        except ShedError as e:
+            # 429 for capacity sheds, 503 for availability sheds, both
+            # with Retry-After
+            status, ctype, out = _problem(e.status, {"type": "about:blank", "status": e.status, "detail": str(e)})
+            return status, ctype, out, {"Retry-After": str(max(1, math.ceil(e.retry_after_s)))}
         except DeadlineExceeded as e:
             # the caller's budget died mid-handler: the conclusive status,
             # not a retryable 5xx
@@ -163,6 +223,16 @@ class DapHttpApp:
             raise UnrecognizedTask("no per-task keys", task_id)
         return 200, "application/dap-hpke-config-list", configs.to_bytes()
 
+    def h_upload(self, match, query, headers, body):
+        task_id = TaskId(_b64dec(match.group(1), 32))
+        ta = self.agg.task_aggregator_for(task_id)
+        # staged ingest: this thread parks on the ticket, so the answer
+        # still means "durably written"; a stage error re-raises here and
+        # maps to its problem document. A replay is silent success.
+        ingest, _ = self._ensure_ingest()
+        ingest.submit(ta, self.agg.clock, body).result()
+        return 201, "text/plain", b""
+
     def h_aggregate_init(self, match, query, headers, body):
         task_id = TaskId(_b64dec(match.group(1), 32))
         job_id = AggregationJobId(_b64dec(match.group(2), 16))
@@ -189,8 +259,10 @@ class DapServer:
     requests are served by a fixed pool of `max_handler_threads`
     workers."""
 
-    def __init__(self, app: DapHttpApp, host: str = "127.0.0.1", port: int = 0, max_handler_threads: int = 32):
+    def __init__(self, app: DapHttpApp, host: str = "127.0.0.1", port: int = 0, max_handler_threads: int | None = None):
         outer = self
+        if max_handler_threads is None:
+            max_handler_threads = app.agg.cfg.max_handler_threads
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -284,3 +356,4 @@ class DapServer:
         self.server.server_close()
         if self._thread:
             self._thread.join(timeout=5)
+        self.app.close()

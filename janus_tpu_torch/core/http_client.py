@@ -153,5 +153,11 @@ class HttpClient:
                 raise urllib.error.URLError(read_err) from read_err
             return e.code, err_body
 
+    def get(self, url: str, headers: dict | None = None, timeout: float | None = None):
+        return self.request("GET", url, None, headers, timeout)
+
     def put(self, url: str, body: bytes, headers: dict | None = None, timeout: float | None = None):
         return self.request("PUT", url, body, headers, timeout)
+
+    def post(self, url: str, body: bytes, headers: dict | None = None, timeout: float | None = None):
+        return self.request("POST", url, body, headers, timeout)

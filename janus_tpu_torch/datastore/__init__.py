@@ -11,10 +11,13 @@ from .models import (
     AcquiredAggregationJob,
     AggregationJobModel,
     AggregationJobState,
+    Batch,
     BatchAggregation,
     BatchAggregationState,
+    BatchState,
     LeaderStoredReport,
     Lease,
+    OutstandingBatch,
     ReportAggregationModel,
     ReportAggregationState,
     ShardSpec,

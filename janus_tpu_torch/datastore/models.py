@@ -7,8 +7,9 @@ BatchAggregation:843 + state:1042).
 The port's own copy of the models of janus_tpu/datastore/models.py that
 the helper's aggregate-init path and the leader's aggregation job
 creator and driver use, line for line: the job, report and batch
-aggregation rows, the leader's stored report, and the lease types
-(`ShardSpec`, `Lease`, `AcquiredAggregationJob`).
+aggregation rows, the leader's stored report, the fixed-size batch rows
+(`Batch`, `OutstandingBatch`), and the lease types (`ShardSpec`,
+`Lease`, `AcquiredAggregationJob`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from dataclasses import dataclass, replace
 
 from ..messages import (
     AggregationJobId,
+    BatchId,
     HpkeCiphertext,
     Interval,
     PrepareError,
@@ -53,6 +55,14 @@ class BatchAggregationState(str, enum.Enum):
 
     AGGREGATING = "aggregating"
     COLLECTED = "collected"
+
+
+class BatchState(str, enum.Enum):
+    """reference models.rs:1456."""
+
+    OPEN = "open"
+    CLOSING = "closing"
+    CLOSED = "closed"
 
 
 @dataclass(frozen=True)
@@ -170,3 +180,25 @@ class BatchAggregation:
     report_count: int
     client_timestamp_interval: Interval
     checksum: ReportIdChecksum
+
+
+@dataclass(frozen=True)
+class Batch:
+    """reference models.rs:1473."""
+
+    task_id: TaskId
+    batch_identifier: bytes
+    aggregation_parameter: bytes
+    state: BatchState
+    outstanding_aggregation_jobs: int
+    client_timestamp_interval: Interval
+
+
+@dataclass(frozen=True)
+class OutstandingBatch:
+    """A fixed-size batch being filled (reference models.rs:1412)."""
+
+    task_id: TaskId
+    batch_id: BatchId
+    time_bucket_start: Time | None
+    size: int = 0  # reports assigned so far (incl. in-flight)

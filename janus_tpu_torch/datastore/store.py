@@ -5,15 +5,15 @@ the helper's aggregate-init path and the leader's job creator and driver
 use: the same schema (a janus_tpu SQLite file and a port one hold the
 same tables and rows), the same `Crypter` (AES-128-GCM at rest, AAD =
 table||row||column, multi-key rotation), and the typed ops on tasks,
-client reports, aggregation jobs and their leases, report aggregations
-and batch aggregations, each with janus_tpu's SQL. The lease ops are
+client reports, aggregation jobs and their leases, report aggregations,
+batch aggregations, and fixed-size batches and outstanding batches,
+each with janus_tpu's SQL. The lease ops are
 token-guarded: a release or step-back whose token no longer matches
 raises `LeaseConflict`, which `run_tx` does not retry. `run_tx` retries
 on SQLite busy and on other TxConflicts as janus_tpu's does.
 
-Not ported yet: the Postgres engine, fixed-size batches and outstanding
-batches, collection and aggregate-share jobs, global HPKE keys, the
-supervisor; and the observability calls (metrics, failpoints, the lease
+Not ported yet: the Postgres engine, collection and aggregate-share
+jobs, global HPKE keys, the supervisor; and the observability calls (metrics, failpoints, the lease
 conflict counter) of janus_tpu's run_tx, which the port leaves out.
 """
 
@@ -31,6 +31,7 @@ import time as _time
 from ..core.hpke_backend import AESGCM
 from ..messages import (
     AggregationJobId,
+    BatchId,
     Duration,
     HpkeCiphertext,
     Interval,
@@ -45,10 +46,13 @@ from .models import (
     AcquiredAggregationJob,
     AggregationJobModel,
     AggregationJobState,
+    Batch,
     BatchAggregation,
     BatchAggregationState,
+    BatchState,
     LeaderStoredReport,
     Lease,
+    OutstandingBatch,
     ReportAggregationModel,
     ReportAggregationState,
     ShardSpec,
@@ -293,6 +297,17 @@ class Transaction:
         # UPDATE ... RETURNING needs SQLite >= 3.35; older libraries take
         # the two-statement form, exact inside the serialized transaction
         self._returning = sqlite3.sqlite_version_info >= (3, 35)
+
+    def _update_returning_one(self, update_sql: str, params, returning: str, select_sql: str, select_params):
+        """Single-row guarded `UPDATE ... RETURNING <returning>`, with the
+        pre-3.35 two-statement form: UPDATE, then re-read via select_sql
+        only when a row was changed (exact inside the serialized
+        transaction)."""
+        if self._returning:
+            return self._c.execute(update_sql + " RETURNING " + returning, params).fetchone()
+        if not self._c.execute(update_sql, params).rowcount:
+            return None
+        return self._c.execute(select_sql, select_params).fetchone()
 
     # ---- tasks (reference datastore.rs:528-1160) ----
     def put_task(self, task: Task) -> None:
@@ -790,6 +805,123 @@ class Transaction:
             (task_id.data, batch_identifier, param),
         ).fetchone()
         return row is not None
+
+    # ---- batches (reference datastore.rs:3944-4161) ----
+    def put_batch(self, batch: Batch) -> None:
+        self._c.execute(
+            "INSERT INTO batches (task_id, batch_identifier, aggregation_parameter, state,"
+            " outstanding_aggregation_jobs, client_interval_start, client_interval_duration)"
+            " VALUES (?,?,?,?,?,?,?)",
+            (
+                batch.task_id.data,
+                batch.batch_identifier,
+                batch.aggregation_parameter,
+                batch.state.value,
+                batch.outstanding_aggregation_jobs,
+                batch.client_timestamp_interval.start.seconds,
+                batch.client_timestamp_interval.duration.seconds,
+            ),
+        )
+
+    def get_batch(self, task_id: TaskId, batch_identifier: bytes, agg_param: bytes) -> Batch | None:
+        row = self._c.execute(
+            "SELECT state, outstanding_aggregation_jobs, client_interval_start,"
+            " client_interval_duration FROM batches"
+            " WHERE task_id = ? AND batch_identifier = ? AND aggregation_parameter = ?",
+            (task_id.data, batch_identifier, agg_param),
+        ).fetchone()
+        if row is None:
+            return None
+        return Batch(
+            task_id,
+            batch_identifier,
+            agg_param,
+            BatchState(row[0]),
+            row[1],
+            Interval(Time(row[2]), Duration(row[3])),
+        )
+
+    def update_batch(self, batch: Batch) -> None:
+        self._c.execute(
+            "UPDATE batches SET state = ?, outstanding_aggregation_jobs = ?,"
+            " client_interval_start = ?, client_interval_duration = ?"
+            " WHERE task_id = ? AND batch_identifier = ? AND aggregation_parameter = ?",
+            (
+                batch.state.value,
+                batch.outstanding_aggregation_jobs,
+                batch.client_timestamp_interval.start.seconds,
+                batch.client_timestamp_interval.duration.seconds,
+                batch.task_id.data,
+                batch.batch_identifier,
+                batch.aggregation_parameter,
+            ),
+        )
+
+    # ---- outstanding batches (reference datastore.rs:3707-3943) ----
+    def put_outstanding_batch(self, ob: OutstandingBatch) -> None:
+        self._c.execute(
+            "INSERT INTO outstanding_batches (task_id, batch_id, time_bucket_start, size)"
+            " VALUES (?,?,?,?)",
+            (
+                ob.task_id.data,
+                ob.batch_id.data,
+                ob.time_bucket_start.seconds if ob.time_bucket_start else None,
+                ob.size,
+            ),
+        )
+
+    def get_outstanding_batches(
+        self,
+        task_id: TaskId,
+        time_bucket_start: Time | None = None,
+        include_filled: bool = False,
+    ) -> list[OutstandingBatch]:
+        """Fullest first: the reference's per-bucket priority queue
+        (batch_creator.rs:83) tops up the most-filled batch first."""
+        filled_clause = "" if include_filled else " AND filled = 0"
+        if time_bucket_start is None:
+            rows = self._c.execute(
+                "SELECT batch_id, time_bucket_start, size FROM outstanding_batches"
+                f" WHERE task_id = ?{filled_clause} ORDER BY size DESC",
+                (task_id.data,),
+            ).fetchall()
+        else:
+            rows = self._c.execute(
+                "SELECT batch_id, time_bucket_start, size FROM outstanding_batches"
+                f" WHERE task_id = ?{filled_clause} AND time_bucket_start = ?"
+                " ORDER BY size DESC",
+                (task_id.data, time_bucket_start.seconds),
+            ).fetchall()
+        return [
+            OutstandingBatch(task_id, BatchId(r[0]), Time(r[1]) if r[1] is not None else None, r[2])
+            for r in rows
+        ]
+
+    def add_to_outstanding_batch(self, task_id: TaskId, batch_id: BatchId, n: int) -> int:
+        """Record n more reports assigned to the batch; returns the new size."""
+        row = self._update_returning_one(
+            "UPDATE outstanding_batches SET size = size + ? WHERE task_id = ? AND batch_id = ?",
+            (n, task_id.data, batch_id.data),
+            "size",
+            "SELECT size FROM outstanding_batches WHERE task_id = ? AND batch_id = ?",
+            (task_id.data, batch_id.data),
+        )
+        if row is None:
+            raise TxConflict("outstanding batch vanished")
+        return row[0]
+
+    def mark_outstanding_batch_filled(self, task_id: TaskId, batch_id: BatchId) -> None:
+        self._c.execute(
+            "UPDATE outstanding_batches SET filled = 1 WHERE task_id = ? AND batch_id = ?",
+            (task_id.data, batch_id.data),
+        )
+
+    def delete_outstanding_batch(self, task_id: TaskId, batch_id: BatchId) -> None:
+        """Consume a batch chosen by a current-batch collection."""
+        self._c.execute(
+            "DELETE FROM outstanding_batches WHERE task_id = ? AND batch_id = ?",
+            (task_id.data, batch_id.data),
+        )
 
 
 

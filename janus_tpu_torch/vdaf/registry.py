@@ -4,7 +4,8 @@ A serializable description of one VDAF configuration (the JAX
 package's vdaf/registry.py VdafInstance, for the four Prio3 kinds on the
 device path) that resolves to a circuit and to a Prio3Batched engine on
 a device. Both XOF modes run here: "fast" on Prio3Batched, "draft"
-(VDAF-07) on Prio3BatchedDraft for the circuits it takes.
+(VDAF-07) on Prio3BatchedDraft for the circuits it takes. A client's
+host sharder for one report is `prio3_host` (vdaf/reference.py).
 """
 
 from __future__ import annotations
@@ -122,3 +123,16 @@ def prio3_batched(inst: VdafInstance, device=None) -> Prio3Batched:
     passes "cpu"), cached per (instance, device). A draft instance whose
     streams or memory the draft engine cannot take raises ValueError."""
     return _prio3_batched(inst, resolve_device(device))
+
+
+@lru_cache(maxsize=None)
+def prio3_host(inst: VdafInstance):
+    """The host sharder of `inst` (vdaf/reference.py Prio3), for a
+    client that shards one report at a time."""
+    if inst.kind == "sparse_sumvec":
+        from ..aggregator.errors import NotPorted
+
+        raise NotPorted("sparse SumVec is not ported to janus_tpu_torch yet")
+    from .reference import Prio3
+
+    return Prio3(circuit_for(inst), mode=inst.xof_mode)

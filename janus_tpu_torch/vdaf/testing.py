@@ -2,7 +2,9 @@
 
 The numpy draws are those of the JAX package's vdaf/testing.py, so one
 seed gives the same report batch in both packages; the shard runs on
-the port's device.
+the port's device. `make_wire_reports` is a batched client: the device
+shard, then each report HPKE-sealed and framed as client.Client
+`prepare_report` frames one.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..convert import from_numpy_u64
+from ..convert import from_numpy_u64, step_args_to_numpy
 from .registry import VdafInstance, prio3_batched
 
 
@@ -70,3 +72,50 @@ def make_report_batch(inst: VdafInstance, measurements, seed: int = 0, shard_chu
         sh["blind1"],
     )
     return args, measurements
+
+
+def make_wire_reports(
+    inst: VdafInstance,
+    measurements,
+    task_id,
+    leader_hpke_config,
+    helper_hpke_config,
+    time,
+    seed: int = 0,
+    shard_chunk: int = 0,
+    device=None,
+):
+    """Shard a batch on the device and assemble full DAP Report messages
+    (report ids are the shard's nonces, every report at `time`).
+    shard_chunk is make_report_batch's."""
+    from ..core.hpke import HpkeApplicationInfo, Label, hpke_seal
+    from ..messages import InputShareAad, PlaintextInputShare, Report, ReportId, ReportMetadata, Role
+    from .engine import tf_for
+    from .registry import circuit_for
+    from .wire import Prio3Wire, encode_field_rows, lanes_to_seed_rows
+
+    circ = circuit_for(inst)
+    tf = tf_for(circ)
+    wire = Prio3Wire(circ)
+    args, _ = make_report_batch(inst, measurements, seed=seed, shard_chunk=shard_chunk, device=device)
+    nonce, public, meas, proof, blind0, seeds, blind1 = step_args_to_numpy(args)
+    n = nonce.shape[0]
+    meas_rows = encode_field_rows(tf, meas)
+    proof_rows = encode_field_rows(tf, proof)
+    seed_rows = lanes_to_seed_rows(seeds)
+    blind0_rows = lanes_to_seed_rows(blind0) if wire.uses_jr else [None] * n
+    blind1_rows = lanes_to_seed_rows(blind1) if wire.uses_jr else [None] * n
+    parts = [lanes_to_seed_rows(public[:, 0]), lanes_to_seed_rows(public[:, 1])] if wire.uses_jr else None
+    leader_info = HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.LEADER)
+    helper_info = HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.HELPER)
+    reports = []
+    for i, rid in enumerate(lanes_to_seed_rows(nonce)):
+        metadata = ReportMetadata(ReportId(rid), time)
+        public_share = wire.encode_public_share([parts[0][i], parts[1][i]] if wire.uses_jr else [])
+        leader_payload = wire.encode_leader_share_raw(meas_rows[i] + proof_rows[i], blind0_rows[i])
+        helper_payload = wire.encode_helper_share(seed_rows[i], blind1_rows[i])
+        aad = InputShareAad(task_id, metadata, public_share).to_bytes()
+        leader_ct = hpke_seal(leader_hpke_config, leader_info, PlaintextInputShare((), leader_payload).to_bytes(), aad)
+        helper_ct = hpke_seal(helper_hpke_config, helper_info, PlaintextInputShare((), helper_payload).to_bytes(), aad)
+        reports.append(Report(metadata, public_share, leader_ct, helper_ct))
+    return reports

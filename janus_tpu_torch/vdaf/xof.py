@@ -141,6 +141,10 @@ class XofCtr128:
         p = field.MODULUS
         return [int.from_bytes(self.next(size), "little") % p for _ in range(length)]
 
+    @classmethod
+    def derive_seed(cls, seed: bytes, dst_: bytes, binder: bytes = b"") -> bytes:
+        return cls(seed, dst_, binder).next(SEED_SIZE)
+
 
 # ---------------------------------------------------------------------------
 # Draft framing (`xof_mode: "draft"`): the VDAF-07 sequential sponge

@@ -21,13 +21,16 @@ SumVec (joint randomness), and draft Count.
 `DapHttpApp`'s problem documents are held against janus_tpu's for the
 same requests: a bad media type, a wrong bearer token, an unknown task,
 a mismatched XOF mode, an undecodable body; and its hpke_config and
-unknown-route answers. A spent propagated deadline answers 408.
+unknown-route answers. A spent propagated deadline sheds 503 before the
+handler, as janus_tpu's admission controller sheds it; a budget that
+dies inside the handler answers the conclusive 408.
 
 The port runs with device="cpu". The JAX engines are pinned to one
 device, as in tests/test_torch_aggregate_init.py.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -375,19 +378,45 @@ def test_problem_documents_match_janus_tpu(apps, case):
     assert got[0] == (200 if case == "hpke-config" else 404 if case == "unknown-route" else 400)
 
 
-def test_dead_propagated_budget_answers_the_conclusive_408(apps):
-    """A request whose DAP-Janus-Deadline is spent is dropped between the
-    handler's stages with the conclusive 408, which the leader steps back
-    on (janus_tpu's admission controller sheds it earlier, with a 503 the
-    leader retries until the same budget dies)."""
-    task, token, _, t_app = apps
-    headers = {"Content-Type": jm.AggregationJobInitializeReq.MEDIA_TYPE, "DAP-Janus-Deadline": "0.000",
-               **token.request_headers()}
+def _init_request(task):
     meas = random_measurements(t_registry.VdafInstance.count(), 2, np.random.default_rng(3))
     args, _ = make_report_batch(t_registry.VdafInstance.count(), meas, seed=3, device=CPU)
     t_task = Task.from_dict(task.to_dict())
     job = leader_init_request(t_task, engine_cache(t_task.vdaf, t_task.vdaf_verify_key, CPU), args, [NOW - 100] * 2)
-    path = f"/tasks/{_b64(task.task_id.data)}/aggregation_jobs/{_b64(bytes(16))}"
-    status, ctype, body, _ = t_app.handle("PUT", path, {}, headers, job.request)
+    return f"/tasks/{_b64(task.task_id.data)}/aggregation_jobs/{_b64(bytes(16))}", job.request
+
+
+def test_spent_propagated_budget_sheds_503_as_janus_tpu(apps):
+    """A request whose DAP-Janus-Deadline is already spent is shed by
+    admission before the handler, with janus_tpu's 503, problem document
+    and Retry-After."""
+    task, token, j_app, t_app = apps
+    headers = {"Content-Type": jm.AggregationJobInitializeReq.MEDIA_TYPE, "DAP-Janus-Deadline": "0.000",
+               **token.request_headers()}
+    path, body = _init_request(task)
+    with jax_single_device():
+        want = j_app.handle("PUT", path, {}, dict(headers), body)
+    got = t_app.handle("PUT", path, {}, dict(headers), body)
+    assert got == want
+    assert got[:2] == (503, "application/problem+json") and got[3] == {"Retry-After": "1"}
+    assert b"deadline_expired" in got[2]
+
+
+def test_dead_propagated_budget_answers_the_conclusive_408(apps, monkeypatch):
+    """A budget that dies inside the handler (here: during the HPKE open)
+    drops the request at the next stage boundary with the conclusive 408,
+    which the leader steps back on."""
+    task, token, _, t_app = apps
+    headers = {"Content-Type": jm.AggregationJobInitializeReq.MEDIA_TYPE, "DAP-Janus-Deadline": "0.300",
+               **token.request_headers()}
+    path, body = _init_request(task)
+    open_batch = t_core.hpke_open_batch
+
+    def slow_open(*a, **kw):
+        time.sleep(0.6)
+        return open_batch(*a, **kw)
+
+    monkeypatch.setattr(t_core, "hpke_open_batch", slow_open)
+    status, ctype, out, _ = t_app.handle("PUT", path, {}, headers, body)
     assert (status, ctype) == (408, "application/problem+json")
-    assert b"deadline exceeded during helper_decrypt" in body
+    assert b"deadline exceeded during helper_" in out  # a stage boundary inside the handler

@@ -3,7 +3,7 @@
 - The creator's grouping of stored reports into jobs (sizes, report
   sets, order within a job, the reports left unaggregated) against
   janus_tpu's creator over the same reports; job ids are compared up to
-  renaming. A fixed-size task raises NotPorted.
+  renaming; a fixed-size task's job and outstanding batch likewise.
 - The leases: acquire, expiry, a token-guarded release and step-back,
   hand-back, the step-back of a step whose lease already expired, and
   abandonment after `maximum_attempts_before_failure`, as the same
@@ -50,7 +50,6 @@ from janus_tpu_torch.aggregator import aggregation_job_creator as t_creator
 from janus_tpu_torch.aggregator import aggregation_job_driver as t_driver
 from janus_tpu_torch.aggregator.core import Aggregator
 from janus_tpu_torch.aggregator.engine_cache import engine_cache
-from janus_tpu_torch.aggregator.errors import NotPorted
 from janus_tpu_torch.aggregator.http_handlers import DapHttpApp, DapServer
 from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig, deadline_request_timeout, lease_deadline
 from janus_tpu_torch.aggregator.testing import leader_stored_reports
@@ -210,10 +209,25 @@ def test_creator_groups_reports_as_janus_tpu(sides, min_size, max_size, n):
 
 
 def test_creator_refuses_a_fixed_size_task(sides):
-    _, t = sides(_leader_task(query=j_task.QueryTypeConfig.fixed_size(max_batch_size=10)))
-    t.put_reports([NOW - 10, NOW - 20])
-    with pytest.raises(NotPorted, match="fixed-size"):
-        t_creator.AggregationJobCreator(t.ds).run_once()
+    """The port's creator no longer refuses a fixed-size task: two reports
+    make one job in one open outstanding batch, as janus_tpu's creator
+    makes them (the batch and job ids up to renaming;
+    tests/test_torch_fixed_size.py compares the packing case by case)."""
+    j, t = sides(_leader_task(query=j_task.QueryTypeConfig.fixed_size(max_batch_size=10)))
+    for side, creator in ((j, j_creator), (t, t_creator)):
+        side.put_reports([NOW - 10, NOW - 20])
+        assert creator.AggregationJobCreator(side.ds).run_once() == 1
+
+    def packing(side):
+        (job,) = side.ds.run_tx(lambda tx: tx.get_aggregation_jobs_for_task(side.task.task_id))
+        ras = side.ds.run_tx(lambda tx: tx.get_report_aggregations_for_job(side.task.task_id, job.job_id))
+        batches = side.ds.run_tx(lambda tx: tx.get_outstanding_batches(side.task.task_id))
+        pbs = side.m.PartialBatchSelector.from_bytes(job.partial_batch_identifier)
+        return ([(ra.report_id.data, ra.ord) for ra in ras], [(b.size, b.batch_id.data == pbs.batch_id.data)
+                                                              for b in batches], pbs.query_type)
+
+    assert packing(t) == packing(j) == (packing(j)[0], [(2, True)], tm.FixedSize.CODE)
+    assert t.started() == j.started()
 
 
 # --- leases ---------------------------------------------------------------

@@ -249,3 +249,96 @@ def test_port_driver_pair_on_the_card_matches_the_cpu(cuda, xof_mode, n, workers
     (l_ras, l_bas, l_jobs), (_, h_bas, _) = results[0]
     assert sum(1 for r in l_ras if r[1] == "failed") == 1 and l_bas[0][2] == h_bas[0][2] == n - 1
     assert l_jobs == [("finished", 1)] * workers
+
+
+def test_port_fixed_size_upload_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """Count reports uploaded over loopback to a port leader on a
+    fixed-size task, packed by the creator and stepped against a port
+    helper, once on the card and once on the CPU, from the same report
+    bytes and the same batch and job ids: the same rows on both sides,
+    with the single-block kernel launched on the card."""
+    import dataclasses
+
+    from janus_tpu_torch.aggregator import aggregation_job_creator as creator_mod
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver, AggregationJobDriverConfig
+    from janus_tpu_torch.aggregator.core import Aggregator
+    from janus_tpu_torch.aggregator.http_handlers import DapHttpApp, DapServer
+    from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig
+    from janus_tpu_torch.client import Client, ClientParameters
+    from janus_tpu_torch.core.auth import AuthenticationToken
+    from janus_tpu_torch.core.circuit_breaker import OutboundCircuitBreakers
+    from janus_tpu_torch.core.hpke import generate_hpke_config_and_private_key
+    from janus_tpu_torch.core.http_client import HttpClient
+    from janus_tpu_torch.core.retries import Backoff
+    from janus_tpu_torch.core.time_util import MockClock
+    from janus_tpu_torch.datastore import EphemeralDatastore
+    from janus_tpu_torch.messages import Report, Role, Time
+    from janus_tpu_torch.task import QueryTypeConfig, TaskBuilder
+
+    class Seeded:
+        def __init__(self, seed):
+            self.rng = np.random.default_rng(seed)
+
+        def token_bytes(self, n):
+            return self.rng.bytes(n)
+
+    now, n = 1_700_000_000, 24
+    inst = VdafInstance.count()
+    leader_task = TaskBuilder(QueryTypeConfig.fixed_size(max_batch_size=n), inst, Role.LEADER).with_(
+        vdaf_verify_key=bytes(16), aggregator_auth_token=AuthenticationToken.random_bearer()
+    ).build()
+    helper_task = dataclasses.replace(
+        leader_task, role=Role.HELPER, hpke_keys=(generate_hpke_config_and_private_key(config_id=1),)
+    )
+    params = ClientParameters(leader_task.task_id, "http://unused/", "http://unused/", leader_task.time_precision)
+    client = Client(params, inst, leader_task.hpke_keys[0].config, helper_task.hpke_keys[0].config,
+                    clock=MockClock(Time(now)))
+    meas = np.random.default_rng(5).integers(0, 2, size=n)
+    bodies = [client.prepare_report(int(m)).to_bytes() for m in meas]
+    counters = (keccak_cuda.keccak_single_block, expand_cuda.expand_f128, sponge_cuda.keccak_sponge)
+    results = []
+    for dev in (cuda, "cpu"):
+        monkeypatch.setattr(creator_mod, "secrets", Seeded(2))
+        leader, helper = EphemeralDatastore(MockClock(Time(now))), EphemeralDatastore(MockClock(Time(now)))
+        l_agg = Aggregator(leader.datastore, leader.clock, device=dev)
+        servers = [DapServer(DapHttpApp(Aggregator(helper.datastore, helper.clock, device=dev))).start(),
+                   DapServer(DapHttpApp(l_agg)).start()]
+        try:
+            task = dataclasses.replace(leader_task, helper_aggregator_endpoint=servers[0].url)
+            leader.datastore.run_tx(lambda tx: tx.put_task(task))
+            helper.datastore.run_tx(lambda tx: tx.put_task(helper_task))
+            http = HttpClient(timeout=120)
+            upload_uri = servers[1].url + params.upload_uri()[len("http://unused/"):]
+            assert [http.put(upload_uri, b, {"Content-Type": Report.MEDIA_TYPE})[0] for b in bodies] == [201] * n
+            assert creator_mod.AggregationJobCreator(leader.datastore).run_once() == 1
+            driver = AggregationJobDriver(
+                leader.datastore, http, AggregationJobDriverConfig(http_backoff=Backoff.test()),
+                breakers=OutboundCircuitBreakers(), device=dev,
+            )
+            for fn in counters:
+                fn.launches = 0
+            assert JobDriver(JobDriverConfig(max_concurrent_job_workers=1), driver.acquirer(), driver.stepper).run_once() == 1
+            launches = [fn.launches for fn in counters]
+            assert (launches[0] > 0) == (dev is cuda) and launches[1:] == [0, 0]
+
+            def rows(ds):
+                return ds.run_tx(lambda tx: (
+                    tx._c.execute("SELECT report_id, state, prepare_error FROM report_aggregations ORDER BY report_id").fetchall(),
+                    tx._c.execute("SELECT batch_identifier, aggregate_share, report_count, checksum FROM batch_aggregations").fetchall(),
+                    tx._c.execute("SELECT job_id, partial_batch_identifier, state, lease_token IS NULL FROM aggregation_jobs").fetchall(),
+                ))
+
+            obs = leader.datastore.run_tx(lambda tx: tx._c.execute("SELECT batch_id, size, filled FROM outstanding_batches").fetchall())
+            results.append((rows(leader.datastore), rows(helper.datastore), obs))
+        finally:
+            for s in servers:
+                s.stop()
+            l_agg.close()
+            leader.cleanup()
+            helper.cleanup()
+    assert results[0] == results[1]
+    (l_ras, l_bas, l_jobs), _, obs = results[0]
+    assert [r[1] for r in l_ras] == ["finished"] * n and l_bas[0][2] == n and obs[0][1:] == (n, 1)
+    p = 2**64 - 2**32 + 1
+    shares = [int.from_bytes(rows[1][0][1], "little") for rows in results[0][:2]]
+    assert sum(shares) % p == int(meas.sum())

@@ -22,14 +22,15 @@ from janus_tpu_torch.aggregator.http_handlers import DapHttpApp
 from janus_tpu_torch.aggregator.engine_cache import EngineCache, engine_cache
 from janus_tpu_torch.datastore import EphemeralDatastore
 from janus_tpu_torch.device import resolve_device
-from janus_tpu_torch.messages import Role
+from janus_tpu_torch.messages import Role, TaskId, Time
 from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
 from janus_tpu_torch.parallel import api
 from janus_tpu_torch.task import QueryTypeConfig, TaskBuilder
 from janus_tpu_torch.vdaf.circuits import Count, SumVec
 from janus_tpu_torch.vdaf.prio3 import Prio3Batched
-from janus_tpu_torch.vdaf.registry import VdafInstance, prio3_batched
-from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
+from janus_tpu_torch.vdaf.reference import Prio3
+from janus_tpu_torch.vdaf.registry import VdafInstance, prio3_batched, prio3_host
+from janus_tpu_torch.vdaf.testing import make_report_batch, make_wire_reports, random_measurements
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(Path(janus_tpu_torch.__file__).parent.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -71,6 +72,12 @@ def test_port_files_include_every_module_of_the_package():
         "aggregator/accumulator.py",
         "aggregator/http_handlers.py",
         "binary_utils.py",
+        "client.py",
+        "ingest/__init__.py",
+        "ingest/admission.py",
+        "ingest/pipeline.py",
+        "aggregator/report_writer.py",
+        "vdaf/reference.py",
     ):
         assert f"janus_tpu_torch/{module}" in names, module
 
@@ -102,6 +109,8 @@ def test_no_cuda_and_no_cpu_request_raises(monkeypatch):
         engine_cache(VdafInstance.count(), bytes(16))
     with pytest.raises(RuntimeError, match="CUDA"):
         TaskAggregator(TaskBuilder(QueryTypeConfig.time_interval(), VdafInstance.count(), Role.HELPER).build(), Config())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_wire_reports(VdafInstance.count(), [0, 1], TaskId.random(), None, None, Time(0))
     assert Prio3Batched(SumVec(length=2, bits=2), device="cpu").device == torch.device("cpu")
 
 
@@ -170,3 +179,27 @@ def test_cpu_run_leaves_launch_counters_at_zero(kind):
         np.asarray(meas).sum(axis=0).reshape(-1)
     )
     assert [fn.launches for fn in counters] == [0, 0, 0]
+
+
+def test_host_prio3_shards_and_has_no_prepare():
+    """A client's host sharder, and nothing an aggregator could prepare
+    with: the aggregators' prepare runs only on the device engines."""
+    p3 = prio3_host(VdafInstance.sum_vec(3, 2))
+    assert isinstance(p3, Prio3) and callable(p3.shard)
+    for name in ("prepare_init", "prepare_next", "prepare_shares_to_prep", "aggregate", "unshard"):
+        assert not hasattr(Prio3, name), name
+    with pytest.raises(NotPorted, match="sparse"):
+        prio3_host(VdafInstance("sparse_sumvec", bits=2, length=8))
+
+
+def test_upload_journal_and_poplar1_client_are_not_ported():
+    eph = EphemeralDatastore()
+    try:
+        with pytest.raises(NotPorted, match="journal"):
+            Aggregator(eph.datastore, cfg=Config(upload_journal_path="journal"), device="cpu")
+    finally:
+        eph.cleanup()
+    from janus_tpu_torch.client import Client
+
+    with pytest.raises(NotPorted, match="Poplar1"):
+        Client(None, VdafInstance("poplar1", bits=4), None, None)
