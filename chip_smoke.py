@@ -74,7 +74,24 @@ Phases, each of which must pass:
                    acquire nothing. Then EngineCache.leader_init is timed on
                    the job's own staged columns by the route it takes at
                    1,024 reports (pipelined) and by the direct route, once
-                   each, and the two must agree.
+                   each, and the two must agree. In fast mode the leader,
+                   behind its own DapServer, then collects the batch: a
+                   port Collector PUTs a time-interval collection over the
+                   job's window, CollectionJobDriver steps it through
+                   JobDriver.run_once against the helper's DapServer
+                   (counts at 0 just before, read just after: they must
+                   stay 0, collection runs on the host), and the collector
+                   polls and unshards: report_count 1,021 and the sum of
+                   the accepted measurements, the collection job finished
+                   with its lease released, a second run_once acquiring
+                   nothing, a DELETE answered 204 and a later poll
+                   answered with janus_tpu's unrecognizedCollectionJob
+                   problem document. Then both MockClocks pass the task's
+                   report_expiry_age and GarbageCollector.run_once must
+                   clear the client reports, the aggregation jobs with
+                   their report aggregations and the collection job of
+                   both datastores. The draft drive is not collected: its
+                   shares are Field128 bytes too, and run the same code.
   10. upload-drive-sumvec  the leader's intake, for SumVec(1000, 16) in
                    fast mode on a fixed-size task (max_batch_size 1,024): a
                    port leader and a port helper, each an Aggregator over its
@@ -95,13 +112,20 @@ Phases, each of which must pass:
                    exactly the 3 bumped reports failed with
                    VDAF_PREP_ERROR, and the leader's and the helper's batch
                    aggregations, keyed by the job's BatchId, unshard to the
-                   sum of the 1,021 accepted measurements.
+                   sum of the 1,021 accepted measurements. Then the batch is
+                   collected as in phase 9 by a fixed-size current-batch
+                   query (no GC).
 
 Output: JSON lines (build, the profile of one draft sumvec step, the
 sponge chains, one serve line per XOF mode with the seconds of each
 stage of the request, one drive line per XOF mode with the seconds of
 each stage of the leader's step and the helper's request in it, the
-upload-drive line with the upload, ingest, create and step seconds, the
+upload-drive line with the upload, ingest, create and step seconds, and
+in the drive-sumvec and upload-drive lines a "collect" record (the
+seconds of create, the driver's gather, sum, http_aggregate_share and
+store, the helper's handle_aggregate_share, poll and unshard, and GC,
+with GC's seconds by side and by delete; the device bytes before and the
+peak during the collection step), the
 kernels, one line per path, the run's wall
 time), then the card's name and power limit as nvidia-smi gives them,
 and last {"ok": true, "device": {...}}.
@@ -735,11 +759,104 @@ def phase_serve(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
         eds.cleanup()
 
 
+def collect_batch(torch, counters, task, leader_url: str, leader_eds, collector_kp, query, want_count: int,
+                  want_result: list, batch_id: bytes | None = None):
+    """Collect what a drive phase aggregated (see the module docstring,
+    phases 9 and 10): a port Collector PUTs the collection to the port
+    leader's DapServer, CollectionJobDriver steps it through
+    JobDriver.run_once against the helper's DapServer (launch counts at 0
+    just before, read just after: collection launches no kernel), and the
+    collector polls and unshards; then a DELETE and a poll of the deleted
+    job. Returns the collect record."""
+    import json as json_mod
+
+    from janus_tpu_torch.aggregator.collection_job_driver import CollectionJobDriver
+    from janus_tpu_torch.aggregator.core import TaskAggregator
+    from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig
+    from janus_tpu_torch.collector import CollectionJobNotReady, Collector, CollectorParameters
+    from janus_tpu_torch.core.circuit_breaker import OutboundCircuitBreakers
+    from janus_tpu_torch.core.http_client import HttpClient
+    from janus_tpu_torch.vdaf.reference import Prio3
+
+    params = CollectorParameters(task.task_id, leader_url, task.collector_auth_token, collector_kp)
+    http = HttpClient(timeout=600)
+    collector = Collector(params, task.vdaf, http)
+    t0 = time.perf_counter()
+    job_id = collector.start_collection(query)
+    create_s = time.perf_counter() - t0
+    try:
+        collector.poll_once(job_id, query)
+        raise AssertionError("collect: the job was ready before the driver stepped it")
+    except CollectionJobNotReady as e:
+        retry_after = e.retry_after_s
+
+    driver = CollectionJobDriver(leader_eds.datastore, HttpClient(timeout=600), breakers=OutboundCircuitBreakers())
+    job_driver = JobDriver(JobDriverConfig(max_concurrent_job_workers=1), driver.acquirer(), driver.stepper)
+    torch.cuda.synchronize()
+    device_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with MethodSeconds(TaskAggregator, ["handle_aggregate_share"]) as helper_s:
+        stepped = job_driver.run_once()
+    step_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if stepped != 1 or not driver.step_seconds:
+        raise AssertionError(f"collect: {stepped} collection jobs stepped")
+    if any(launches.values()):
+        raise AssertionError(f"collect: kernels launched during the collection step ({launches})")
+    row = leader_eds.datastore.run_tx(lambda tx: tx._c.execute(
+        "SELECT state, lease_token IS NULL, lease_attempts FROM collection_jobs").fetchall())
+    if row != [("finished", 1, 0)]:
+        raise AssertionError(f"collect: collection job row {row}, not finished with its lease released")
+    if job_driver.run_once() != 0:
+        raise AssertionError("collect: a second pass acquired a collection job")
+
+    t0 = time.perf_counter()
+    with MethodSeconds(Prio3, ["unshard"]) as unshard_s:
+        result = collector.poll_once(job_id, query)
+    poll_s = time.perf_counter() - t0
+    if result.report_count != want_count or result.aggregate_result != want_result:
+        raise AssertionError(f"collect: {result.report_count} reports, the result is not the accepted reports' sum")
+    if batch_id is not None and result.partial_batch_selector.batch_id.data != batch_id:
+        raise AssertionError("collect: the current batch is not the job's batch")
+
+    # DELETE answers 204; a later poll gets janus_tpu's problem document
+    uri = params.collection_job_uri(job_id)
+    status, _ = http.delete(uri, task.collector_auth_token.request_headers())
+    p_status, body = http.post(uri, b"", task.collector_auth_token.request_headers())
+    problem = json_mod.loads(body) if p_status == 400 else {}
+    if status != 204 or problem.get("type") != "urn:ietf:params:ppm:dap:error:unrecognizedCollectionJob":
+        raise AssertionError(f"collect: DELETE answered {status}, the next poll {p_status} {body[:200]!r}")
+    return {
+        "report_count": result.report_count,
+        "retry_after_s": retry_after,
+        "launches": launches,
+        "collect_s": {
+            "create": create_s,
+            "step": step_s,
+            **dict(driver.step_seconds[-1][1]),
+            "helper_handle_aggregate_share": helper_s["handle_aggregate_share"],
+            "poll_and_unshard": poll_s,
+            "unshard": unshard_s["unshard"],
+        },
+        "device_bytes_before": device_bytes,
+        "peak_device_bytes": peak,
+        "result_ok": True,
+        "lease_released": True,
+        "delete_ok": True,
+    }
+
+
 def phase_drive(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
     """The leader's side end to end (see the module docstring, phase 9):
     the job creator and the lease-driven job driver step one job of
     `batch` reports over loopback HTTP against a port helper behind a
-    DapServer; returns the drive record."""
+    DapServer; in fast mode the port leader, behind its own DapServer,
+    then collects the batch and the garbage collector clears both
+    datastores; returns the drive record."""
     import dataclasses
 
     import numpy as np
@@ -747,6 +864,7 @@ def phase_drive(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
     from janus_tpu_torch.aggregator.aggregation_job_creator import AggregationJobCreator
     from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver
     from janus_tpu_torch.aggregator.core import Aggregator
+    from janus_tpu_torch.aggregator.garbage_collector import GarbageCollector
     from janus_tpu_torch.aggregator.http_handlers import DapHttpApp, DapServer
     from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig
     from janus_tpu_torch.aggregator.testing import leader_stored_reports
@@ -757,16 +875,20 @@ def phase_drive(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
     from janus_tpu_torch.core.http_client import HttpClient
     from janus_tpu_torch.core.time_util import MockClock
     from janus_tpu_torch.datastore import EphemeralDatastore
-    from janus_tpu_torch.messages import PrepareError, Role, Time
+    from janus_tpu_torch.datastore.store import Transaction
+    from janus_tpu_torch.messages import Duration, Interval, PrepareError, Query, Role, Time
     from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
     from janus_tpu_torch.task import QueryTypeConfig, Task, TaskBuilder
     from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
 
     now = 1_700_000_000
+    expiry_age = 7 * 24 * 3600
     counters = {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
                 "keccak_sponge": sponge_cuda.keccak_sponge}
+    collector_kp = generate_hpke_config_and_private_key(config_id=7)
     built = TaskBuilder(QueryTypeConfig.time_interval(), inst, Role.LEADER).with_(
-        vdaf_verify_key=VERIFY_KEY, aggregator_auth_token=AuthenticationToken.random_bearer()
+        vdaf_verify_key=VERIFY_KEY, aggregator_auth_token=AuthenticationToken.random_bearer(),
+        collector_hpke_config=collector_kp.config, report_expiry_age=Duration(expiry_age),
     ).build()
     helper_task = Task.from_dict(dataclasses.replace(
         built, role=Role.HELPER, hpke_keys=(generate_hpke_config_and_private_key(config_id=1),)
@@ -774,12 +896,13 @@ def phase_drive(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
     leader_eds = EphemeralDatastore(MockClock(Time(now)))
     helper_eds = EphemeralDatastore(MockClock(Time(now)))
     helper = Aggregator(helper_eds.datastore, helper_eds.clock, device=dev)
+    leader = Aggregator(leader_eds.datastore, leader_eds.clock, device=dev)
     server = DapServer(DapHttpApp(helper)).start()
+    leader_server = DapServer(DapHttpApp(leader)).start()
     try:
         task = Task.from_dict(dataclasses.replace(built, helper_aggregator_endpoint=server.url).to_dict())
         helper_eds.datastore.run_tx(lambda tx: tx.put_task(helper_task))
         leader_eds.datastore.run_tx(lambda tx: tx.put_task(task))
-        leader = Aggregator(leader_eds.datastore, leader_eds.clock, device=dev)
         engine = leader.task_aggregator_for(task.task_id).engine
 
         # uploads: shard on the card, corrupt 3 leader shares, store
@@ -873,6 +996,38 @@ def phase_drive(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
             del out0
         if any(not np.array_equal(a, b) for a, b in zip(vers["pipelined"], vers["direct"])):
             raise AssertionError(f"drive {name}: the two leader routes disagree")
+
+        collect = None
+        if inst.xof_mode == "fast":
+            window = Time(now - 100).to_batch_interval_start(task.time_precision)
+            collect = collect_batch(
+                torch, counters, task, leader_server.url, leader_eds, collector_kp,
+                Query.time_interval(Interval(window, task.time_precision)), finished,
+                [int(x) for x in np.asarray(meas)[accept].sum(axis=0).reshape(-1)],
+            )
+            # past report_expiry_age, GC clears the reports, the jobs and
+            # the collection artifacts of both datastores
+            # the seconds of each side's pass and, summed over both, of each
+            # delete it calls (the rest of a pass is BEGIN and COMMIT)
+            gc, gc_s = {}, {}
+            deletes = ["delete_expired_client_reports", "delete_expired_aggregation_artifacts",
+                       "delete_expired_collection_artifacts"]
+            with MethodSeconds(Transaction, deletes) as delete_s:
+                for side, eds in (("leader", leader_eds), ("helper", helper_eds)):
+                    eds.clock.advance(Duration(expiry_age + 2 * task.time_precision.seconds))
+                    t0 = time.perf_counter()
+                    gc[side] = GarbageCollector(eds.datastore, eds.clock).run_once()
+                    gc_s[side] = time.perf_counter() - t0
+            collect["collect_s"]["gc"] = sum(gc_s.values())
+            collect["gc_s"] = {**gc_s, **delete_s}
+            want_gc = {"leader": {"reports": batch, "aggregation": 1, "collection": 1},
+                       "helper": {"reports": 0, "aggregation": 1, "collection": 0}}
+            left = [eds.datastore.run_tx(lambda tx: [tx._c.execute(f"SELECT COUNT(*) FROM {t}").fetchone()[0] for t in (
+                "client_reports", "aggregation_jobs", "report_aggregations", "collection_jobs")])
+                for eds in (leader_eds, helper_eds)]
+            if gc != want_gc or left != [[0, 0, 0, 0]] * 2:
+                raise AssertionError(f"drive {name}: GC deleted {gc}, rows left {left}")
+            collect["gc"] = gc
         return {
             "path": f"drive-{name}",
             "vdaf": inst.to_dict(),
@@ -891,9 +1046,12 @@ def phase_drive(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
             "peak_device_bytes": peak,
             "aggregate_ok": True,
             "lease_released": True,
+            "collect": collect,
         }
     finally:
+        leader_server.stop()
         server.stop()
+        leader.close()
         leader_eds.cleanup()
         helper_eds.cleanup()
 
@@ -903,7 +1061,8 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
     10): reports uploaded over loopback HTTP to a port leader, admitted,
     decoded, opened, validated and group-committed by its ingest
     pipeline, packed into one fixed-size batch by the creator, and
-    stepped by the job driver against a port helper; returns the record."""
+    stepped by the job driver against a port helper, then collected by a
+    current-batch query; returns the record."""
     import dataclasses
     import json as json_mod
     from concurrent.futures import ThreadPoolExecutor
@@ -931,10 +1090,12 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
     from janus_tpu_torch.datastore import EphemeralDatastore
     from janus_tpu_torch.datastore.store import Crypter, Transaction
     from janus_tpu_torch.messages import (
+        FixedSizeQuery,
         InputShareAad,
         PartialBatchSelector,
         PlaintextInputShare,
         PrepareError,
+        Query,
         Report,
         ReportId,
         ReportMetadata,
@@ -964,9 +1125,11 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
     helper_server = DapServer(DapHttpApp(helper)).start()
     leader_server = DapServer(DapHttpApp(leader)).start()
     try:
+        collector_kp = generate_hpke_config_and_private_key(config_id=7)
         built = TaskBuilder(QueryTypeConfig.fixed_size(max_batch_size=batch), inst, Role.LEADER).with_(
             vdaf_verify_key=VERIFY_KEY, aggregator_auth_token=AuthenticationToken.random_bearer(),
             leader_aggregator_endpoint=leader_server.url, helper_aggregator_endpoint=helper_server.url,
+            collector_hpke_config=collector_kp.config,
         ).build()
         task = Task.from_dict(built.to_dict())
         helper_task = Task.from_dict(dataclasses.replace(
@@ -1127,8 +1290,15 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
                 raise AssertionError(f"upload-drive: batch aggregation rows {[(r[0].hex(), r[2]) for r in rows]}")
             shares.append(field.decode_vec(rows[0][1]))
         total = [(a + b) % field.MODULUS for a, b in zip(*shares)]
-        if total != [int(x) for x in np.asarray(meas)[accept].sum(axis=0).reshape(-1)]:
+        truth = [int(x) for x in np.asarray(meas)[accept].sum(axis=0).reshape(-1)]
+        if total != truth:
             raise AssertionError("upload-drive: leader + helper shares != the accepted reports' sum")
+
+        # 6. collection of the filled batch by a current-batch query
+        collect = collect_batch(
+            torch, counters, task, leader_server.url, leader_eds, collector_kp,
+            Query.fixed_size(FixedSizeQuery(FixedSizeQuery.CURRENT_BATCH)), finished, truth, batch_id=batch_id,
+        )
         return {
             "path": "upload-drive-sumvec",
             "vdaf": inst.to_dict(),
@@ -1161,6 +1331,7 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
             "lease_released": True,
             "replay_ok": True,
             "out_of_range_rejected": True,
+            "collect": collect,
         }
     finally:
         leader_server.stop()

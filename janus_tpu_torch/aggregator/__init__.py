@@ -1,2 +1,3 @@
 """The port's aggregator: the EngineCache seam, the helper's aggregate-init
-and its HTTP server, and the leader's job creator and job driver."""
+and aggregate-share and its HTTP server, the leader's job creator, job
+driver and collection job driver, and the garbage collector."""

@@ -1,12 +1,14 @@
-"""Aggregator protocol handlers: upload and the helper's aggregate-init.
+"""Aggregator protocol handlers: upload, aggregate-init and collection.
 
 The port's counterpart of janus_tpu/aggregator/core.py, as far as a
-leader takes uploads and a helper answers an aggregate-init request for
-a one-round Prio3 task: `TaskAggregator` (keypair lookup,
-`hpke_config_list`, the upload checks per report and per column window,
-`handle_upload`, `handle_aggregate_init`, the replay of a stored
-response) and `Aggregator` (task lookup, one TaskAggregator per task,
-the group-commit `report_writer` of uploads). The aggregate-init request
+leader takes uploads and collections and a helper answers aggregate-init
+and aggregate-share requests for a one-round Prio3 task: `TaskAggregator`
+(keypair lookup, `hpke_config_list`, the upload checks per report and
+per column window, `handle_upload`, `handle_aggregate_init`, the replay
+of a stored response, the leader's collection-job create, poll and
+delete, the helper's `handle_aggregate_share` with its DP noise) and
+`Aggregator` (task lookup, one TaskAggregator per task, the group-commit
+`report_writer` of uploads, the aggregator and collector auth checks). The aggregate-init request
 runs the same steps as janus_tpu's, value for value:
 
 1. HPKE-open the input shares (batched per config id);
@@ -30,16 +32,18 @@ on a window of one.
 A TaskAggregator runs on CUDA unless it is built with device="cpu", and
 so does an Aggregator. Each aggregate-init request leaves the seconds of
 its stages in `stage_seconds`; a propagated deadline (core/deadline.py)
-is checked between stages as janus_tpu checks it. Not ported yet:
-Poplar1, multi-round continue, collection, taskprov (and with it the
-global HPKE keys), aggregate-share, the upload journal (a set
+is checked between stages as janus_tpu checks it. Collection's
+arithmetic (the sum of the shard rows, the DP noise) runs on the host,
+as in janus_tpu. Not ported yet: Poplar1, multi-round continue, taskprov
+(and with it the global HPKE keys), the upload journal (a set
 `Config.upload_journal_path` raises NotPorted); and the observability
 calls of janus_tpu's handlers (metrics, trace spans, failpoints, the
-conservation ledger).
+conservation ledger); a collection job's `trace_context` is None.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import struct
 import threading
@@ -49,34 +53,52 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core import deadline as deadline_mod
-from ..core.hpke import HpkeApplicationInfo, HpkeError, Label, hpke_open_batch
+from ..core.hpke import HpkeApplicationInfo, HpkeError, Label, hpke_open_batch, hpke_seal
 from ..core.time_util import Clock, RealClock
 from ..datastore.models import (
+    AggregateShareJob,
     AggregationJobModel,
     AggregationJobState,
+    CollectionJobModel,
+    CollectionJobState,
     LeaderStoredReport,
     ReportAggregationModel,
     ReportAggregationState,
 )
 from ..datastore.store import Datastore
 from ..device import resolve_device
+from ..dp import add_noise_to_agg_share
 from ..messages import (
+    AggregateShare,
+    AggregateShareAad,
+    AggregateShareReq,
     AggregationJobId,
     AggregationJobInitializeReq,
     AggregationJobResp,
+    BatchId,
+    BatchSelector,
+    Collection,
+    CollectionJobId,
+    CollectionReq,
     Duration,
+    FixedSizeQuery,
+    HpkeCiphertext,
     HpkeConfigId,
     HpkeConfigList,
     InputShareAad,
     Interval,
+    PartialBatchSelector,
     PrepareError,
     PrepareResp,
     PrepareStepResult,
+    Query,
     Report,
     ReportId,
+    ReportIdChecksum,
     Role,
     TaskId,
     Time,
+    TimeInterval,
     decode_reports_fast,
     plaintext_input_share_payload_fast,
 )
@@ -95,7 +117,7 @@ from ..vdaf.wire import (
     split_prep_share_columns,
 )
 from . import errors
-from .accumulator import Accumulator, accumulate_batched, fixed_size_batch_id
+from .accumulator import Accumulator, accumulate_batched, add_encoded_aggregate_shares, fixed_size_batch_id
 from .engine_cache import engine_cache
 from .errors import NotPorted
 from .report_writer import ReportWriteBatcher
@@ -124,6 +146,9 @@ class Config:
     # aggregator.rs:186-218); >0 adds a coalescing window
     max_upload_batch_write_delay_ms: int = 0
     batch_aggregation_shard_count: int = 1
+    # Retry-After (seconds) on 202 collection-job polls; the collector
+    # honors it (reference collector/src/lib.rs:466)
+    collection_retry_after_s: int = 1
     # --- ingest pipeline + admission control ---
     # HPKE-decrypt pool size; 0 = sized from the crypto backend's batch
     # GIL-release capability (ingest.pipeline.default_decrypt_workers)
@@ -532,9 +557,222 @@ class TaskAggregator:
         return AggregationJobResp(tuple(resps))
 
 
+    # ------------------------------------------------------------------
+    # collection jobs (leader; reference aggregator.rs:2185-2746)
+    # ------------------------------------------------------------------
+    def handle_create_collection_job(
+        self, ds: Datastore, collection_job_id: CollectionJobId, req: CollectionReq
+    ) -> None:
+        task = self.task
+        if req.query.query_type != task.query_type.code:
+            raise errors.InvalidMessage("query type mismatch", task.task_id)
+        if req.aggregation_parameter != b"":
+            raise errors.InvalidMessage(
+                "nonempty aggregation parameter for a parameterless VDAF",
+                task.task_id,
+            )
+        current_batch = False
+        if req.query.query_type == TimeInterval.CODE:
+            interval = req.query.batch_interval
+            if not interval.aligned_to(task.time_precision):
+                raise errors.BatchInvalid("unaligned batch interval", task.task_id)
+            if interval.duration.seconds < task.time_precision.seconds:
+                raise errors.BatchInvalid("batch interval too small", task.task_id)
+            batch_identifier = interval.to_bytes()
+        elif req.query.fixed_size_query.kind == FixedSizeQuery.BY_BATCH_ID:
+            batch_identifier = req.query.fixed_size_query.batch_id.data
+        else:
+            current_batch = True  # batch resolved inside the tx
+            batch_identifier = None
+
+        def create(tx):
+            # current-batch queries are byte-identical across requests, so
+            # their idempotency key is the collection job id, not the query
+            if current_batch:
+                existing = tx.get_collection_job(task.task_id, collection_job_id)
+                if existing is not None:
+                    if existing.query != req.query.to_bytes():
+                        raise errors.InvalidMessage("collection job id reuse", task.task_id)
+                    return  # idempotent retry of the same request
+                chosen = None
+                for ob in tx.get_outstanding_batches(task.task_id, include_filled=True):
+                    # gate on reports actually aggregated, not assigned: an
+                    # assigned report can fail prepare, and a consumed batch
+                    # that never reaches min_batch_size is stranded
+                    aggregated = tx.sum_batch_aggregation_report_count(
+                        task.task_id, ob.batch_id.data, req.aggregation_parameter
+                    )
+                    if aggregated >= task.min_batch_size:
+                        chosen = ob
+                        break
+                if chosen is None:
+                    raise errors.BatchInvalid("no batch ready for collection", task.task_id)
+                tx.delete_outstanding_batch(task.task_id, chosen.batch_id)
+                bid = chosen.batch_id.data
+            else:
+                existing = tx.find_collection_job_by_query(
+                    task.task_id, req.query.to_bytes(), req.aggregation_parameter
+                )
+                if existing is not None:
+                    if existing.collection_job_id != collection_job_id:
+                        raise errors.BatchOverlap("query already collected under another job", task.task_id)
+                    return
+                if tx.get_collection_job(task.task_id, collection_job_id) is not None:
+                    raise errors.InvalidMessage("collection job id reuse", task.task_id)
+                bid = batch_identifier
+
+            # the leader's collect validation (reference query_type.rs:204
+            # and aggregator.rs:2185-2485): overlap with distinct earlier
+            # batches, then the query budget; deleted jobs still count
+            if req.query.query_type == TimeInterval.CODE:
+                for other_bid, _query, _state in tx.get_collection_job_batches_for_task(task.task_id):
+                    if other_bid == bid:
+                        continue
+                    other = Interval.from_bytes(other_bid)
+                    if (
+                        interval.start.seconds < other.end.seconds
+                        and other.start.seconds < interval.end.seconds
+                    ):
+                        raise errors.BatchOverlap(
+                            "batch interval overlaps a previously collected interval",
+                            task.task_id,
+                        )
+            queried = tx.count_collection_jobs_for_batch(task.task_id, bid)
+            if queried >= task.max_batch_query_count:
+                raise errors.BatchQueryCountExceeded(
+                    "batch has reached max_batch_query_count", task.task_id
+                )
+            tx.put_collection_job(
+                CollectionJobModel(
+                    task.task_id,
+                    collection_job_id,
+                    req.query.to_bytes(),
+                    req.aggregation_parameter,
+                    bid,
+                    CollectionJobState.START,
+                )
+            )
+
+        ds.run_tx(create, "create_collection_job")
+
+    def handle_get_collection_job(self, ds: Datastore, collection_job_id: CollectionJobId):
+        """-> (ready: bool, Collection | None)."""
+        task = self.task
+        job = ds.run_tx(
+            lambda tx: tx.get_collection_job(task.task_id, collection_job_id),
+            "get_collection_job",
+        )
+        if job is None or job.state == CollectionJobState.DELETED:
+            raise errors.UnrecognizedCollectionJob("no such collection job", task.task_id)
+        if job.state in (CollectionJobState.START, CollectionJobState.COLLECTABLE):
+            return False, None
+        if job.state == CollectionJobState.ABANDONED:
+            raise errors.AggregatorError("collection job abandoned", task.task_id)
+        # finished: the leader's share is sealed to the collector here
+        query = Query.from_bytes(job.query)
+        if query.query_type == TimeInterval.CODE:
+            pbs = PartialBatchSelector.time_interval()
+            batch_selector = BatchSelector.time_interval(Interval.from_bytes(job.batch_identifier))
+        else:
+            pbs = PartialBatchSelector.fixed_size(BatchId(job.batch_identifier))
+            batch_selector = BatchSelector.fixed_size(BatchId(job.batch_identifier))
+        aad = AggregateShareAad(task.task_id, job.aggregation_parameter, batch_selector).to_bytes()
+        leader_enc = hpke_seal(
+            task.collector_hpke_config,
+            HpkeApplicationInfo(Label.AGGREGATE_SHARE, Role.LEADER, Role.COLLECTOR),
+            job.leader_aggregate_share,
+            aad,
+        )
+        helper_enc = HpkeCiphertext.from_bytes(job.helper_encrypted_aggregate_share)
+        return True, Collection(pbs, job.report_count, job.client_timestamp_interval, leader_enc, helper_enc)
+
+    def handle_delete_collection_job(self, ds: Datastore, collection_job_id: CollectionJobId) -> None:
+        task = self.task
+
+        def delete(tx):
+            job = tx.get_collection_job(task.task_id, collection_job_id)
+            if job is None:
+                raise errors.UnrecognizedCollectionJob("no such collection job", task.task_id)
+            tx.update_collection_job(dataclasses.replace(job, state=CollectionJobState.DELETED))
+
+        ds.run_tx(delete, "delete_collection_job")
+
+    # ------------------------------------------------------------------
+    # aggregate share (helper; reference aggregator.rs:2747-2980)
+    # ------------------------------------------------------------------
+    def handle_aggregate_share(self, ds: Datastore, req: AggregateShareReq) -> AggregateShare:
+        task = self.task
+        deadline_mod.check("helper_aggregate_share")
+        if req.batch_selector.query_type != task.query_type.code:
+            raise errors.InvalidMessage("query type mismatch", task.task_id)
+        if req.batch_selector.query_type == TimeInterval.CODE:
+            interval = req.batch_selector.batch_interval
+            if not interval.aligned_to(task.time_precision):
+                raise errors.BatchInvalid("unaligned batch interval", task.task_id)
+            batch_identifier = interval.to_bytes()
+        else:
+            batch_identifier = req.batch_selector.batch_id.data
+        share_field = self.circ.FIELD
+
+        def compute(tx):
+            existing = tx.get_aggregate_share_job(task.task_id, batch_identifier, req.aggregation_parameter)
+            if existing is not None:
+                return existing
+            # enforce the query count (reference max_batch_query_count)
+            count = tx.count_aggregate_share_jobs_for_batch(task.task_id, batch_identifier)
+            if count >= task.max_batch_query_count:
+                raise errors.BatchQueryCountExceeded("batch queried too many times", task.task_id)
+            # gather the helper's own shard rows
+            if req.batch_selector.query_type == TimeInterval.CODE:
+                rows = tx.get_batch_aggregations_intersecting_interval(
+                    task.task_id,
+                    Interval.from_bytes(batch_identifier),
+                    aggregation_parameter=req.aggregation_parameter,
+                )
+            else:
+                rows = tx.get_batch_aggregations_for_batch(task.task_id, batch_identifier, req.aggregation_parameter)
+            share = None
+            total = 0
+            checksum = ReportIdChecksum()
+            for row in rows:
+                share = add_encoded_aggregate_shares(share_field, share, row.aggregate_share)
+                total += row.report_count
+                checksum = checksum.combined_with(row.checksum)
+                tx.mark_batch_aggregations_collected(task.task_id, row.batch_identifier, row.aggregation_parameter)
+            if share is None:
+                raise errors.BatchInvalid("no aggregated reports in batch", task.task_id)
+            # leader/helper consistency (reference checksum/count match)
+            if total != req.report_count or checksum != req.checksum:
+                raise errors.BatchMismatch(
+                    f"count/checksum mismatch: ours {total}, leader {req.report_count}",
+                    task.task_id,
+                )
+            if total < task.min_batch_size:
+                raise errors.InvalidBatchSize(f"batch too small: {total}", task.task_id)
+            # DP: noise the helper's share once, before it is persisted or
+            # released (count and checksum stay exact)
+            share = add_noise_to_agg_share(task.dp_strategy, share_field, share)
+            job = AggregateShareJob(
+                task.task_id, batch_identifier, req.aggregation_parameter, share, total, checksum
+            )
+            tx.put_aggregate_share_job(job)
+            return job
+
+        job = ds.run_tx(compute, "aggregate_share")
+        aad = AggregateShareAad(task.task_id, req.aggregation_parameter, req.batch_selector).to_bytes()
+        encrypted = hpke_seal(
+            task.collector_hpke_config,
+            HpkeApplicationInfo(Label.AGGREGATE_SHARE, Role.HELPER, Role.COLLECTOR),
+            job.helper_aggregate_share,
+            aad,
+        )
+        return AggregateShare(encrypted)
+
+
 class Aggregator:
     """Top-level request router over tasks (reference aggregator.rs:156):
-    the helper's aggregate-init and the leader's uploads."""
+    the helper's aggregate-init and aggregate-share, the leader's uploads
+    and collection jobs."""
 
     def __init__(self, ds: Datastore, clock: Clock | None = None, cfg: Config | None = None, device=None):
         self.ds = ds
@@ -571,6 +809,11 @@ class Aggregator:
         tok = task.aggregator_auth_token
         if tok is None or not tok.matches_headers(headers):
             raise errors.UnauthorizedRequest("bad aggregator auth", task.task_id)
+
+    def check_collector_auth(self, task: Task, headers) -> None:
+        tok = task.collector_auth_token
+        if tok is None or not tok.matches_headers(headers):
+            raise errors.UnauthorizedRequest("bad collector auth", task.task_id)
 
     def handle_aggregate_init(self, task_id: TaskId, job_id: AggregationJobId, request_bytes: bytes) -> AggregationJobResp:
         """Decode an AggregationJobInitializeReq from its wire bytes and

@@ -3,14 +3,20 @@
 Equivalent of reference aggregator/src/aggregator/http_handlers.rs:
 205-268 on the Python stdlib threading HTTP server. The port's own copy
 of janus_tpu/aggregator/http_handlers.py for the routes a leader needs
-to take uploads and a helper needs to answer a leader's aggregation job:
+to take uploads and collections and a helper needs to answer a leader's
+aggregation and aggregate-share requests:
 
-  GET  /hpke_config?task_id=...
-  PUT  /tasks/:task_id/reports
-  PUT  /tasks/:task_id/aggregation_jobs/:aggregation_job_id
+  GET    /hpke_config?task_id=...
+  PUT    /tasks/:task_id/reports
+  PUT    /tasks/:task_id/aggregation_jobs/:aggregation_job_id
+  PUT    /tasks/:task_id/collection_jobs/:collection_job_id
+  POST   /tasks/:task_id/collection_jobs/:collection_job_id   (poll)
+  DELETE /tasks/:task_id/collection_jobs/:collection_job_id
+  POST   /tasks/:task_id/aggregate_shares
 
-with janus_tpu's media-type check, aggregator auth, XOF-mode check and
-RFC 7807 problem documents, byte for byte. Uploads flow through the
+with janus_tpu's media-type check, aggregator and collector auth,
+XOF-mode check, the poll's 202 with Retry-After and RFC 7807 problem
+documents, byte for byte. Uploads flow through the
 admission-controlled ingest pipeline (`ingest/`): a shed request answers
 429 (capacity) or 503 (a propagated `DAP-Janus-Deadline` already spent)
 with `Retry-After` before any decode, crypto or datastore work; admitted
@@ -19,11 +25,9 @@ handler thread parks on its ticket. A budget that dies inside the
 aggregate-init handler answers the conclusive 408.
 
 Not ported yet, and answered as janus_tpu answers an unknown route (404):
-the continue step (POST /tasks/:id/aggregation_jobs/:id), the collection
-routes (PUT, POST and DELETE /tasks/:id/collection_jobs/:id),
-aggregate-share (POST /tasks/:id/aggregate_shares) and the ledger read
-(GET /tasks/:id/ledger); with them the CORS preflight of the collection
-routes, taskprov, and the calls into metrics, statusz and trace spans.
+the continue step (POST /tasks/:id/aggregation_jobs/:id) and the ledger
+read (GET /tasks/:id/ledger); with them taskprov, and the calls into
+metrics, statusz and trace spans.
 """
 
 from __future__ import annotations
@@ -41,7 +45,15 @@ from ..binary_utils import BoundedThreadingHTTPServer
 from ..core import deadline as deadline_mod
 from ..core.deadline import DEADLINE_EXCEEDED_STATUS, DeadlineExceeded
 from ..ingest import AdmissionConfig, AdmissionController, IngestPipeline, ShedError
-from ..messages import AggregationJobId, AggregationJobInitializeReq, Report, TaskId
+from ..messages import (
+    AggregateShareReq,
+    AggregationJobId,
+    AggregationJobInitializeReq,
+    CollectionJobId,
+    CollectionReq,
+    Report,
+    TaskId,
+)
 from ..messages.codec import DecodeError
 from ..messages.problem_type import DapProblemType
 from .core import Aggregator
@@ -66,21 +78,33 @@ _ROUTES = [
     ("GET", re.compile(r"^/hpke_config$"), "hpke_config"),
     ("PUT", re.compile(r"^/tasks/([^/]+)/reports$"), "upload"),
     ("PUT", re.compile(r"^/tasks/([^/]+)/aggregation_jobs/([^/]+)$"), "aggregate_init"),
+    ("PUT", re.compile(r"^/tasks/([^/]+)/collection_jobs/([^/]+)$"), "collection_create"),
+    ("POST", re.compile(r"^/tasks/([^/]+)/collection_jobs/([^/]+)$"), "collection_poll"),
+    ("DELETE", re.compile(r"^/tasks/([^/]+)/collection_jobs/([^/]+)$"), "collection_delete"),
+    ("POST", re.compile(r"^/tasks/([^/]+)/aggregate_shares$"), "aggregate_share"),
 ]
 
 # Admission route classes: client uploads shed first; the
 # aggregator-to-aggregator steps, which finish work the system already
-# paid to admit, shed only near saturation. hpke_config is never shed.
-_ROUTE_CLASS = {"upload": "upload", "aggregate_init": "aggregate"}
+# paid to admit, shed only near saturation. hpke_config and the
+# collector's collection_jobs routes (which have their own 202
+# Retry-After flow) are never shed.
+_ROUTE_CLASS = {"upload": "upload", "aggregate_init": "aggregate", "aggregate_share": "aggregate"}
 
 # Request body media types per route (reference http_handlers.rs:512-551).
-_REQUEST_MEDIA_TYPES = {"upload": Report.MEDIA_TYPE, "aggregate_init": AggregationJobInitializeReq.MEDIA_TYPE}
+_REQUEST_MEDIA_TYPES = {
+    "upload": Report.MEDIA_TYPE,
+    "aggregate_init": AggregationJobInitializeReq.MEDIA_TYPE,
+    "collection_create": CollectionReq.MEDIA_TYPE,
+    "aggregate_share": AggregateShareReq.MEDIA_TYPE,
+}
 
 # Browser-reachable routes get CORS preflights (reference
-# http_handlers.rs:236-259); of them the port serves hpke_config and upload.
+# http_handlers.rs:236-259).
 _CORS_ROUTES = [
     (re.compile(r"^/hpke_config$"), "GET"),
     (re.compile(r"^/tasks/([^/]+)/reports$"), "PUT"),
+    (re.compile(r"^/tasks/([^/]+)/collection_jobs/([^/]+)$"), "PUT, POST, DELETE"),
 ]
 
 
@@ -252,6 +276,43 @@ class DapHttpApp:
         req = AggregationJobInitializeReq.from_bytes(body)
         resp = ta.handle_aggregate_init(self.agg.ds, self.agg.clock, job_id, req, body)
         return 200, "application/dap-aggregation-job-resp", resp.to_bytes()
+
+    def h_collection_create(self, match, query, headers, body):
+        task_id = TaskId(_b64dec(match.group(1), 32))
+        cj_id = CollectionJobId(_b64dec(match.group(2), 16))
+        ta = self.agg.task_aggregator_for(task_id)
+        self.agg.check_collector_auth(ta.task, headers)
+        req = CollectionReq.from_bytes(body)
+        ta.handle_create_collection_job(self.agg.ds, cj_id, req)
+        return 201, "text/plain", b""
+
+    def h_collection_poll(self, match, query, headers, body):
+        task_id = TaskId(_b64dec(match.group(1), 32))
+        cj_id = CollectionJobId(_b64dec(match.group(2), 16))
+        ta = self.agg.task_aggregator_for(task_id)
+        self.agg.check_collector_auth(ta.task, headers)
+        ready, collection = ta.handle_get_collection_job(self.agg.ds, cj_id)
+        if not ready:
+            # the poll cadence the collector honors (reference
+            # collector/src/lib.rs:466)
+            return 202, "text/plain", b"", {"Retry-After": str(self.agg.cfg.collection_retry_after_s)}
+        return 200, "application/dap-collection", collection.to_bytes()
+
+    def h_collection_delete(self, match, query, headers, body):
+        task_id = TaskId(_b64dec(match.group(1), 32))
+        cj_id = CollectionJobId(_b64dec(match.group(2), 16))
+        ta = self.agg.task_aggregator_for(task_id)
+        self.agg.check_collector_auth(ta.task, headers)
+        ta.handle_delete_collection_job(self.agg.ds, cj_id)
+        return 204, "text/plain", b""
+
+    def h_aggregate_share(self, match, query, headers, body):
+        task_id = TaskId(_b64dec(match.group(1), 32))
+        ta = self.agg.task_aggregator_for(task_id)
+        self.agg.check_aggregator_auth(ta.task, headers)
+        req = AggregateShareReq.from_bytes(body)
+        resp = ta.handle_aggregate_share(self.agg.ds, req)
+        return 200, "application/dap-aggregate-share", resp.to_bytes()
 
 
 class DapServer:

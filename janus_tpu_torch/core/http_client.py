@@ -161,3 +161,6 @@ class HttpClient:
 
     def post(self, url: str, body: bytes, headers: dict | None = None, timeout: float | None = None):
         return self.request("POST", url, body, headers, timeout)
+
+    def delete(self, url: str, headers: dict | None = None, timeout: float | None = None):
+        return self.request("DELETE", url, None, headers, timeout)

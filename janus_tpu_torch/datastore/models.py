@@ -2,14 +2,17 @@
 
 Equivalent of reference aggregator_core/src/datastore/models.rs
 (AggregationJob:220, ReportAggregation:586 + state:714,
-BatchAggregation:843 + state:1042).
+BatchAggregation:843 + state:1042, CollectionJob:1055 + state:1182,
+AggregateShareJob:1287).
 
 The port's own copy of the models of janus_tpu/datastore/models.py that
-the helper's aggregate-init path and the leader's aggregation job
-creator and driver use, line for line: the job, report and batch
-aggregation rows, the leader's stored report, the fixed-size batch rows
-(`Batch`, `OutstandingBatch`), and the lease types (`ShardSpec`,
-`Lease`, `AcquiredAggregationJob`).
+the helper's aggregate-init and aggregate-share paths, the leader's
+aggregation job creator and driver and its collection path use, line for
+line: the job, report and batch aggregation rows, the collection job and
+the aggregate-share job, the leader's stored report, the fixed-size
+batch rows (`Batch`, `OutstandingBatch`), and the lease types
+(`ShardSpec`, `Lease`, `AcquiredAggregationJob`,
+`AcquiredCollectionJob`).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from dataclasses import dataclass, replace
 from ..messages import (
     AggregationJobId,
     BatchId,
+    CollectionJobId,
     HpkeCiphertext,
     Interval,
     PrepareError,
@@ -55,6 +59,16 @@ class BatchAggregationState(str, enum.Enum):
 
     AGGREGATING = "aggregating"
     COLLECTED = "collected"
+
+
+class CollectionJobState(str, enum.Enum):
+    """reference models.rs:1182."""
+
+    START = "start"
+    COLLECTABLE = "collectable"
+    FINISHED = "finished"
+    DELETED = "deleted"
+    ABANDONED = "abandoned"
 
 
 class BatchState(str, enum.Enum):
@@ -136,6 +150,16 @@ class AcquiredAggregationJob:
 
 
 @dataclass(frozen=True)
+class AcquiredCollectionJob:
+    """reference models.rs:540 (shard_key: see AcquiredAggregationJob)."""
+
+    task_id: TaskId
+    collection_job_id: CollectionJobId
+    lease: Lease
+    shard_key: int | None = None
+
+
+@dataclass(frozen=True)
 class ReportAggregationModel:
     """reference models.rs:586.
 
@@ -179,6 +203,37 @@ class BatchAggregation:
     aggregate_share: bytes | None  # encoded field vector, None for empty shard
     report_count: int
     client_timestamp_interval: Interval
+    checksum: ReportIdChecksum
+
+
+@dataclass(frozen=True)
+class CollectionJobModel:
+    """reference models.rs:1055."""
+
+    task_id: TaskId
+    collection_job_id: CollectionJobId
+    query: bytes  # encoded Query
+    aggregation_parameter: bytes
+    batch_identifier: bytes
+    state: CollectionJobState
+    report_count: int | None = None
+    client_timestamp_interval: Interval | None = None
+    leader_aggregate_share: bytes | None = None  # encrypted at rest
+    helper_encrypted_aggregate_share: bytes | None = None
+    # W3C traceparent of the creating span in janus_tpu; the port, with
+    # no spans, stores None
+    trace_context: str | None = None
+
+
+@dataclass(frozen=True)
+class AggregateShareJob:
+    """Helper-side record of a served aggregate share (reference models.rs:1287)."""
+
+    task_id: TaskId
+    batch_identifier: bytes
+    aggregation_parameter: bytes
+    helper_aggregate_share: bytes  # encoded field vector, encrypted at rest
+    report_count: int
     checksum: ReportIdChecksum
 
 

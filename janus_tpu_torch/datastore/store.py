@@ -1,20 +1,25 @@
 """Datastore: transactional facade + typed ops + Crypter, on SQLite.
 
 The port's own copy of the part of janus_tpu/datastore/store.py that
-the helper's aggregate-init path and the leader's job creator and driver
-use: the same schema (a janus_tpu SQLite file and a port one hold the
-same tables and rows), the same `Crypter` (AES-128-GCM at rest, AAD =
+the helper's aggregate-init and aggregate-share paths, the leader's job
+creator, job drivers and collection, and the garbage collector use: the
+same schema (a janus_tpu SQLite file and a port one hold the same tables
+and rows), the same `Crypter` (AES-128-GCM at rest, AAD =
 table||row||column, multi-key rotation), and the typed ops on tasks,
 client reports, aggregation jobs and their leases, report aggregations,
-batch aggregations, and fixed-size batches and outstanding batches,
-each with janus_tpu's SQL. The lease ops are
-token-guarded: a release or step-back whose token no longer matches
-raises `LeaseConflict`, which `run_tx` does not retry. `run_tx` retries
-on SQLite busy and on other TxConflicts as janus_tpu's does.
+batch aggregations, collection jobs and their leases, aggregate-share
+jobs, fixed-size batches and outstanding batches, and the expiry
+deletes, each with janus_tpu's SQL. The lease ops are token-guarded: a
+release or step-back whose token no longer matches raises
+`LeaseConflict`, which `run_tx` does not retry. `run_tx` retries on
+SQLite busy and on other TxConflicts as janus_tpu's does.
 
-Not ported yet: the Postgres engine, collection and aggregate-share
-jobs, global HPKE keys, the supervisor; and the observability calls (metrics, failpoints, the lease
-conflict counter) of janus_tpu's run_tx, which the port leaves out.
+Not ported yet: the Postgres engine, global HPKE keys, the supervisor,
+the conservation ledger's ops (`increment_task_counters`, `ledger_*`,
+and the lost-row counts janus_tpu's expiry deletes return for it), the
+trace links of collection (`get_aggregation_job_trace_contexts`); and
+the observability calls (metrics, failpoints, the lease conflict
+counter) of janus_tpu's run_tx, which the port leaves out.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from ..core.hpke_backend import AESGCM
 from ..messages import (
     AggregationJobId,
     BatchId,
+    CollectionJobId,
     Duration,
     HpkeCiphertext,
     Interval,
@@ -44,12 +50,16 @@ from ..messages import (
 from ..task import Task
 from .models import (
     AcquiredAggregationJob,
+    AcquiredCollectionJob,
+    AggregateShareJob,
     AggregationJobModel,
     AggregationJobState,
     Batch,
     BatchAggregation,
     BatchAggregationState,
     BatchState,
+    CollectionJobModel,
+    CollectionJobState,
     LeaderStoredReport,
     Lease,
     OutstandingBatch,
@@ -419,6 +429,20 @@ class Transaction:
             "UPDATE client_reports SET aggregation_started = 0 WHERE task_id = ? AND report_id = ?",
             [(task_id.data, r.data) for r in report_ids],
         )
+
+    def delete_expired_client_reports(self, task_id: TaskId, cutoff: Time, limit: int) -> int:
+        """Expired rows deleted, never-claimed ones first (janus_tpu's
+        order, which it splits for its ledger), at most `limit`."""
+        deleted = 0
+        for started in (0, 1):
+            cur = self._c.execute(
+                "DELETE FROM client_reports WHERE (task_id, report_id) IN ("
+                " SELECT task_id, report_id FROM client_reports"
+                " WHERE task_id = ? AND client_time < ? AND aggregation_started = ? LIMIT ?)",
+                (task_id.data, cutoff.seconds, started, max(0, limit - deleted)),
+            )
+            deleted += cur.rowcount
+        return deleted
 
     def put_aggregation_job(self, job: AggregationJobModel) -> None:
         self._c.execute(
@@ -795,6 +819,17 @@ class Transaction:
             ReportIdChecksum(row[5]),
         )
 
+    def sum_batch_aggregation_report_count(
+        self, task_id: TaskId, batch_identifier: bytes, param: bytes
+    ) -> int:
+        """Aggregated report total for a batch, one SELECT across shards."""
+        row = self._c.execute(
+            "SELECT COALESCE(SUM(report_count), 0) FROM batch_aggregations"
+            " WHERE task_id = ? AND batch_identifier = ? AND aggregation_parameter = ?",
+            (task_id.data, batch_identifier, param),
+        ).fetchone()
+        return int(row[0])
+
     def batch_has_collected_shard(
         self, task_id: TaskId, batch_identifier: bytes, param: bytes
     ) -> bool:
@@ -805,6 +840,288 @@ class Transaction:
             (task_id.data, batch_identifier, param),
         ).fetchone()
         return row is not None
+
+    def get_batch_aggregations_for_batch(
+        self, task_id: TaskId, batch_identifier: bytes, agg_param: bytes
+    ) -> list[BatchAggregation]:
+        rows = self._c.execute(
+            "SELECT ord FROM batch_aggregations WHERE task_id = ? AND batch_identifier = ?"
+            " AND aggregation_parameter = ? ORDER BY ord",
+            (task_id.data, batch_identifier, agg_param),
+        ).fetchall()
+        return [
+            self.get_batch_aggregation(task_id, batch_identifier, agg_param, r[0]) for r in rows
+        ]
+
+    def get_batch_aggregations_intersecting_interval(
+        self, task_id: TaskId, interval: Interval, aggregation_parameter: bytes | None = None
+    ) -> list[BatchAggregation]:
+        """Time-interval collection: the shard rows whose batch interval
+        falls inside the collection interval (reference query_type.rs:204
+        CollectableQueryType). aggregation_parameter restricts to rows
+        accumulated under it; None matches every parameter."""
+        rows = self._c.execute(
+            "SELECT DISTINCT batch_identifier, aggregation_parameter FROM batch_aggregations"
+            " WHERE task_id = ?",
+            (task_id.data,),
+        ).fetchall()
+        out = []
+        for bid, param in rows:
+            if aggregation_parameter is not None and param != aggregation_parameter:
+                continue
+            biv = Interval.from_bytes(bid)
+            if biv.start >= interval.start and biv.end <= interval.end:
+                out.extend(self.get_batch_aggregations_for_batch(task_id, bid, param))
+        return out
+
+    def mark_batch_aggregations_collected(
+        self, task_id: TaskId, batch_identifier: bytes, agg_param: bytes
+    ) -> None:
+        self._c.execute(
+            "UPDATE batch_aggregations SET state = 'collected'"
+            " WHERE task_id = ? AND batch_identifier = ? AND aggregation_parameter = ?",
+            (task_id.data, batch_identifier, agg_param),
+        )
+
+    def delete_expired_batch_aggregations(self, task_id: TaskId, cutoff: Time, limit: int) -> int:
+        cur = self._c.execute(
+            "DELETE FROM batch_aggregations WHERE (task_id, batch_identifier, aggregation_parameter, ord) IN ("
+            " SELECT task_id, batch_identifier, aggregation_parameter, ord FROM batch_aggregations"
+            " WHERE task_id = ? AND client_interval_start + client_interval_duration < ? LIMIT ?)",
+            (task_id.data, cutoff.seconds, limit),
+        )
+        return cur.rowcount
+
+    # ---- collection jobs (reference datastore.rs:2456-3019) ----
+    def put_collection_job(self, job: CollectionJobModel) -> None:
+        self._c.execute(
+            "INSERT INTO collection_jobs (task_id, collection_job_id, query, aggregation_parameter,"
+            " batch_identifier, state, trace_context, shard_key, lease_expiry)"
+            " VALUES (?,?,?,?,?,?,?,?,?)",
+            (
+                job.task_id.data,
+                job.collection_job_id.data,
+                job.query,
+                job.aggregation_parameter,
+                job.batch_identifier,
+                job.state.value,
+                job.trace_context,
+                job_shard_key(job.task_id.data, job.collection_job_id.data),
+                self._clock.now().seconds,  # eligible-since (see agg jobs)
+            ),
+        )
+
+    def get_collection_job(
+        self, task_id: TaskId, collection_job_id: CollectionJobId
+    ) -> CollectionJobModel | None:
+        row = self._c.execute(
+            "SELECT query, aggregation_parameter, batch_identifier, state, report_count,"
+            " client_interval_start, client_interval_duration, leader_aggregate_share,"
+            " helper_encrypted_aggregate_share, trace_context FROM collection_jobs"
+            " WHERE task_id = ? AND collection_job_id = ?",
+            (task_id.data, collection_job_id.data),
+        ).fetchone()
+        if row is None:
+            return None
+        row_key = task_id.data + collection_job_id.data
+        las = (
+            self._crypter.decrypt("collection_jobs", row_key, "leader_aggregate_share", row[7])
+            if row[7]
+            else None
+        )
+        return CollectionJobModel(
+            task_id,
+            collection_job_id,
+            row[0],
+            row[1],
+            row[2],
+            CollectionJobState(row[3]),
+            row[4],
+            Interval(Time(row[5]), Duration(row[6])) if row[5] is not None else None,
+            las,
+            row[8],
+            row[9],
+        )
+
+    def get_collection_job_batches_for_task(self, task_id: TaskId) -> list[tuple[bytes, bytes, str]]:
+        """[(batch_identifier, query, state)] over every collection job
+        of the task: the leader's time-interval overlap scan (reference
+        query_type.rs:204)."""
+        rows = self._c.execute(
+            "SELECT batch_identifier, query, state FROM collection_jobs WHERE task_id = ?",
+            (task_id.data,),
+        ).fetchall()
+        return [(r[0], r[1], r[2]) for r in rows]
+
+    def count_collection_jobs_for_batch(self, task_id: TaskId, batch_identifier: bytes) -> int:
+        """Queries consumed against a batch (the leader's
+        max_batch_query_count; deleted jobs still count: the budget is
+        spent)."""
+        return self._c.execute(
+            "SELECT COUNT(*) FROM collection_jobs WHERE task_id = ? AND batch_identifier = ?",
+            (task_id.data, batch_identifier),
+        ).fetchone()[0]
+
+    def find_collection_job_by_query(
+        self, task_id: TaskId, query: bytes, aggregation_parameter: bytes = b""
+    ) -> CollectionJobModel | None:
+        """Idempotent collection-job creation (reference
+        aggregator.rs:2233). A collection is identified by (query,
+        aggregation parameter)."""
+        row = self._c.execute(
+            "SELECT collection_job_id FROM collection_jobs"
+            " WHERE task_id = ? AND query = ? AND aggregation_parameter = ?",
+            (task_id.data, query, aggregation_parameter),
+        ).fetchone()
+        return self.get_collection_job(task_id, CollectionJobId(row[0])) if row else None
+
+    def update_collection_job(self, job: CollectionJobModel) -> None:
+        row_key = job.task_id.data + job.collection_job_id.data
+        las = (
+            self._crypter.encrypt(
+                "collection_jobs", row_key, "leader_aggregate_share", job.leader_aggregate_share
+            )
+            if job.leader_aggregate_share
+            else None
+        )
+        self._c.execute(
+            "UPDATE collection_jobs SET state = ?, report_count = ?, client_interval_start = ?,"
+            " client_interval_duration = ?, leader_aggregate_share = ?, helper_encrypted_aggregate_share = ?"
+            " WHERE task_id = ? AND collection_job_id = ?",
+            (
+                job.state.value,
+                job.report_count,
+                job.client_timestamp_interval.start.seconds if job.client_timestamp_interval else None,
+                job.client_timestamp_interval.duration.seconds if job.client_timestamp_interval else None,
+                las,
+                job.helper_encrypted_aggregate_share,
+                job.task_id.data,
+                job.collection_job_id.data,
+            ),
+        )
+
+    def acquire_incomplete_collection_jobs(
+        self,
+        lease_duration: Duration,
+        limit: int,
+        shard: ShardSpec | None = None,
+        holder: bytes | None = None,
+    ) -> list[AcquiredCollectionJob]:
+        """Batched lease claim over collectable collection jobs
+        (reference datastore.rs:2853; see _acquire_jobs_batched)."""
+        return [
+            AcquiredCollectionJob(
+                TaskId(t),
+                CollectionJobId(j),
+                Lease(token, Time(expiry), att),
+                shard_key=sk,
+            )
+            for t, j, token, expiry, att, sk in self._acquire_jobs_batched(
+                "collection_jobs",
+                "collection_job_id",
+                "state IN ('start', 'collectable')",
+                lease_duration,
+                limit,
+                shard,
+                holder,
+            )
+        ]
+
+    def release_collection_job(self, acquired: AcquiredCollectionJob) -> None:
+        """See release_aggregation_job."""
+        cur = self._c.execute(
+            "UPDATE collection_jobs SET lease_expiry = ?, lease_token = NULL,"
+            " lease_attempts = 0, shard_key = ?"
+            " WHERE task_id = ? AND collection_job_id = ? AND lease_token = ?",
+            (
+                self._clock.now().seconds,
+                job_shard_key(acquired.task_id.data, acquired.collection_job_id.data),
+                acquired.task_id.data,
+                acquired.collection_job_id.data,
+                acquired.lease.token,
+            ),
+        )
+        if cur.rowcount != 1:
+            raise LeaseConflict("lease token mismatch on release")
+
+    def step_back_collection_job(
+        self,
+        acquired: AcquiredCollectionJob,
+        reacquire_delay_s: int = 0,
+        count_attempt: bool = False,
+        handback: bool = False,
+    ) -> None:
+        """See step_back_aggregation_job."""
+        now = self._clock.now().seconds
+        attempts_sql = (
+            "lease_attempts"
+            if count_attempt
+            else "CASE WHEN lease_attempts > 0 THEN lease_attempts - 1 ELSE 0 END"
+        )
+        shard_key = (
+            HANDBACK_SHARD_KEY
+            if handback
+            else job_shard_key(acquired.task_id.data, acquired.collection_job_id.data)
+        )
+        cur = self._c.execute(
+            "UPDATE collection_jobs SET lease_expiry = ?, lease_token = NULL,"
+            f" lease_attempts = {attempts_sql}, shard_key = ?"
+            " WHERE task_id = ? AND collection_job_id = ? AND lease_token = ?",
+            (
+                now + max(0, int(reacquire_delay_s)),
+                shard_key,
+                acquired.task_id.data,
+                acquired.collection_job_id.data,
+                acquired.lease.token,
+            ),
+        )
+        if cur.rowcount != 1:
+            raise LeaseConflict("lease token mismatch on step-back")
+
+    # ---- aggregate share jobs (reference datastore.rs:3369-3706) ----
+    def put_aggregate_share_job(self, job: AggregateShareJob) -> None:
+        row_key = job.task_id.data + job.batch_identifier
+        share = self._crypter.encrypt(
+            "aggregate_share_jobs", row_key, "helper_aggregate_share", job.helper_aggregate_share
+        )
+        self._c.execute(
+            "INSERT INTO aggregate_share_jobs (task_id, batch_identifier, aggregation_parameter,"
+            " helper_aggregate_share, report_count, checksum) VALUES (?,?,?,?,?,?)",
+            (
+                job.task_id.data,
+                job.batch_identifier,
+                job.aggregation_parameter,
+                share,
+                job.report_count,
+                job.checksum.data,
+            ),
+        )
+
+    def get_aggregate_share_job(
+        self, task_id: TaskId, batch_identifier: bytes, agg_param: bytes
+    ) -> AggregateShareJob | None:
+        row = self._c.execute(
+            "SELECT helper_aggregate_share, report_count, checksum FROM aggregate_share_jobs"
+            " WHERE task_id = ? AND batch_identifier = ? AND aggregation_parameter = ?",
+            (task_id.data, batch_identifier, agg_param),
+        ).fetchone()
+        if row is None:
+            return None
+        row_key = task_id.data + batch_identifier
+        return AggregateShareJob(
+            task_id,
+            batch_identifier,
+            agg_param,
+            self._crypter.decrypt("aggregate_share_jobs", row_key, "helper_aggregate_share", row[0]),
+            row[1],
+            ReportIdChecksum(row[2]),
+        )
+
+    def count_aggregate_share_jobs_for_batch(self, task_id: TaskId, batch_identifier: bytes) -> int:
+        return self._c.execute(
+            "SELECT COUNT(*) FROM aggregate_share_jobs WHERE task_id = ? AND batch_identifier = ?",
+            (task_id.data, batch_identifier),
+        ).fetchone()[0]
 
     # ---- batches (reference datastore.rs:3944-4161) ----
     def put_batch(self, batch: Batch) -> None:
@@ -922,6 +1239,39 @@ class Transaction:
             "DELETE FROM outstanding_batches WHERE task_id = ? AND batch_id = ?",
             (task_id.data, batch_id.data),
         )
+
+    # ---- GC (reference datastore.rs:4162-4315) ----
+    def delete_expired_aggregation_artifacts(self, task_id: TaskId, cutoff: Time, limit: int) -> int:
+        """Jobs whose client interval ended before `cutoff` (at most
+        `limit`), with their report aggregations; returns the jobs
+        deleted."""
+        rows = self._c.execute(
+            "SELECT job_id FROM aggregation_jobs WHERE task_id = ?"
+            " AND client_interval_start + client_interval_duration < ? LIMIT ?",
+            (task_id.data, cutoff.seconds, limit),
+        ).fetchall()
+        n = 0
+        for (job_id,) in rows:
+            self._c.execute(
+                "DELETE FROM report_aggregations WHERE task_id = ? AND job_id = ?",
+                (task_id.data, job_id),
+            )
+            n += self._c.execute(
+                "DELETE FROM aggregation_jobs WHERE task_id = ? AND job_id = ?",
+                (task_id.data, job_id),
+            ).rowcount
+        return n
+
+    def delete_expired_collection_artifacts(self, task_id: TaskId, cutoff: Time, limit: int) -> int:
+        # aggregate_share_jobs carry no client-time column in this schema;
+        # they are removed with the task, as in janus_tpu
+        return self._c.execute(
+            "DELETE FROM collection_jobs WHERE (task_id, collection_job_id) IN ("
+            " SELECT task_id, collection_job_id FROM collection_jobs"
+            " WHERE task_id = ? AND client_interval_start IS NOT NULL"
+            " AND client_interval_start + client_interval_duration < ? LIMIT ?)",
+            (task_id.data, cutoff.seconds, limit),
+        ).rowcount
 
 
 

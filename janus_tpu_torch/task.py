@@ -9,9 +9,8 @@ The port's own copy of janus_tpu/task.py. A task is the state the port
 carries across from a janus_tpu deployment (verify key, HPKE keypairs,
 query type, VDAF): `Task.from_dict` reads what janus_tpu's
 `Task.to_dict` writes, so a port helper provisioned from a janus_tpu
-task answers as the janus_tpu helper does. The DP strategy applies at
-aggregate-share time, which the port has not reached: it is carried as
-janus_tpu serialized it (a dict, or None for no noise).
+task answers as the janus_tpu helper does. The DP strategy (`dp.py`) is
+written and read as janus_tpu writes and reads it.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import secrets
 from dataclasses import dataclass, replace
 
 from .core.auth import AuthenticationToken
+from .dp import DpStrategy
 from .core.hpke import HpkeKeypair, generate_hpke_config_and_private_key
 from .messages import Duration, HpkeConfig, Role, TaskId, Time, TimeInterval, FixedSize, QUERY_TYPES
 from .vdaf.registry import VdafInstance
@@ -86,14 +86,16 @@ class Task:
     aggregator_auth_token: AuthenticationToken | None
     collector_auth_token: AuthenticationToken | None
     hpke_keys: tuple[HpkeKeypair, ...] = ()
-    # DP noise each aggregator adds to its own aggregate share at release,
-    # as janus_tpu's DpStrategy.to_dict wrote it (None: no noise)
-    dp_strategy: dict | None = None
+    # DP noise each aggregator adds to its own aggregate share at release
+    # (beyond the reference, whose DpMechanism is only Reserved|None)
+    dp_strategy: DpStrategy = None  # type: ignore[assignment]
 
     def __post_init__(self):
         assert self.role in (Role.LEADER, Role.HELPER)
         assert len(self.vdaf_verify_key) == VERIFY_KEY_LENGTH
         assert self.time_precision.seconds > 0
+        if self.dp_strategy is None:
+            object.__setattr__(self, "dp_strategy", DpStrategy())
 
     def peer_endpoint(self) -> str:
         return (
@@ -148,7 +150,7 @@ class Task:
                 }
                 for kp in self.hpke_keys
             ],
-            "dp_strategy": self.dp_strategy,
+            "dp_strategy": self.dp_strategy.to_dict() if self.dp_strategy.enabled else None,
         }
 
     @classmethod
@@ -192,7 +194,7 @@ class Task:
                 )
                 for k in d.get("hpke_keys", ())
             ),
-            dp_strategy=d.get("dp_strategy"),
+            dp_strategy=DpStrategy.from_dict(d.get("dp_strategy")),
         )
 
 

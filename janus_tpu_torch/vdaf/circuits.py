@@ -5,7 +5,9 @@ its field, input/output/joint-rand lengths, chunk length and the one
 gadget use (gadget arity and degree, number of calls), from which the
 FLP lengths follow. Count checks x*x - x with one Mul; Sum checks each
 bit through PolyEval(x^2 - x); SumVec and Histogram check bits
-chunk-wise through ParallelSum(Mul, chunk_length).
+chunk-wise through ParallelSum(Mul, chunk_length). The collector turns
+an unsharded aggregate into its result with each circuit's `decode`
+(janus_tpu/vdaf/reference.py Circuit.decode).
 """
 
 from __future__ import annotations
@@ -80,6 +82,10 @@ class Circuit:
     def verifier_len(self) -> int:
         return 1 + sum(g.gadget.arity + 1 for g in self.gadget_uses)
 
+    def decode(self, output: list[int], num_measurements: int):
+        """The aggregate result of an unsharded aggregate `output`."""
+        raise NotImplementedError
+
 
 class Count(Circuit):
     """measurement in {0,1}; check x*x - x == 0. Field64, one Mul call."""
@@ -92,6 +98,9 @@ class Count(Circuit):
 
     def __init__(self):
         self.gadget_uses = [GadgetUse(MUL, 1)]
+
+    def decode(self, output, num_measurements):
+        return output[0]
 
 
 class Sum(Circuit):
@@ -106,6 +115,9 @@ class Sum(Circuit):
         self.bits = bits
         self.input_len = bits
         self.gadget_uses = [GadgetUse(POLY_EVAL_BIT, bits)]
+
+    def decode(self, output, num_measurements):
+        return output[0]
 
 
 class SumVec(Circuit):
@@ -125,6 +137,9 @@ class SumVec(Circuit):
         calls = -(-self.input_len // self.chunk_length)
         self.gadget_uses = [GadgetUse(parallel_sum(MUL, self.chunk_length), calls)]
 
+    def decode(self, output, num_measurements):
+        return list(output)
+
 
 class Histogram(Circuit):
     """One-hot vector of `length` buckets: every entry is a bit (chunked
@@ -142,3 +157,6 @@ class Histogram(Circuit):
         self.chunk_length = chunk_length or optimal_chunk_length(length)
         calls = -(-length // self.chunk_length)
         self.gadget_uses = [GadgetUse(parallel_sum(MUL, self.chunk_length), calls)]
+
+    def decode(self, output, num_measurements):
+        return list(output)

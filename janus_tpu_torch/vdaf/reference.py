@@ -15,7 +15,9 @@ bit.
 A client shards one report at a time on the host; it is not an
 aggregator. The aggregators' prepare runs only on the device engines
 (vdaf/prio3.py, vdaf/draft.py), so this module holds no prepare, query
-or decide: there is no host path for an aggregator to take.
+or decide: there is no host path for an aggregator to take. The
+collector's `unshard` (the sum of the two aggregate shares, decoded)
+runs on the host here, as janus_tpu's does.
 """
 
 from __future__ import annotations
@@ -279,6 +281,15 @@ class Prio3:
             HelperShare(helper_seed, blinds[1]),
         ]
         return parts, shares
+
+    def unshard(self, agg_shares: list[list[int]], num_measurements: int):
+        """The collector's step: sum the aggregators' aggregate shares
+        and decode the sum into the circuit's result."""
+        F = self.circuit.FIELD
+        agg = [0] * self.circuit.output_len
+        for s in agg_shares:
+            agg = [F.add(a, b) for a, b in zip(agg, s)]
+        return self.circuit.decode(agg, num_measurements)
 
     def _next_vec(self, seed: bytes, usage: int, binder: bytes, length: int) -> list[int]:
         return self.xof(seed, self._dst(usage), binder).next_vec(self.circuit.FIELD, length)

@@ -55,9 +55,9 @@ class VdafInstance:
 
     @property
     def has_aggregation_parameter(self) -> bool:
-        """Prio3 takes no aggregation parameter (Poplar1 does, and is
-        not ported)."""
-        return False
+        """Prio3 takes no aggregation parameter; Poplar1 does (its
+        collection raises NotPorted)."""
+        return self.kind == "poplar1"
 
     def fails_at(self, stage: str) -> bool:
         """The JAX package's seam for its test-only failing fakes; no

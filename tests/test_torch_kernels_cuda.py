@@ -342,3 +342,80 @@ def test_port_fixed_size_upload_on_the_card_matches_the_cpu(cuda, monkeypatch):
     p = 2**64 - 2**32 + 1
     shares = [int.from_bytes(rows[1][0][1], "little") for rows in results[0][:2]]
     assert sum(shares) % p == int(meas.sum())
+
+
+def test_port_pair_collects_a_sumvec_job_on_the_card(cuda):
+    """A narrow SumVec job aggregated by a port pair on the card (helper
+    behind a DapServer, 1 corrupted report), then collected: a port
+    Collector's time-interval query, the CollectionJobDriver's step (no
+    kernel launched) and the poll reach the sum of the accepted
+    measurements."""
+    import dataclasses
+
+    from janus_tpu_torch.aggregator.aggregation_job_creator import AggregationJobCreator
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver, AggregationJobDriverConfig
+    from janus_tpu_torch.aggregator.collection_job_driver import CollectionJobDriver, CollectionJobDriverConfig
+    from janus_tpu_torch.aggregator.core import Aggregator
+    from janus_tpu_torch.aggregator.http_handlers import DapHttpApp, DapServer
+    from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig
+    from janus_tpu_torch.aggregator.testing import leader_stored_reports
+    from janus_tpu_torch.collector import Collector, CollectorParameters
+    from janus_tpu_torch.core.auth import AuthenticationToken
+    from janus_tpu_torch.core.hpke import generate_hpke_config_and_private_key
+    from janus_tpu_torch.core.http_client import HttpClient
+    from janus_tpu_torch.core.retries import Backoff
+    from janus_tpu_torch.core.time_util import MockClock
+    from janus_tpu_torch.datastore import EphemeralDatastore
+    from janus_tpu_torch.messages import Interval, Query, Role, Time
+    from janus_tpu_torch.task import QueryTypeConfig, TaskBuilder
+
+    now, n, bad = 1_700_000_000, 64, 9
+    inst = VdafInstance.sum_vec(3, 2)
+    collector_kp = generate_hpke_config_and_private_key(config_id=7)
+    leader_task = TaskBuilder(QueryTypeConfig.time_interval(), inst, Role.LEADER).with_(
+        vdaf_verify_key=bytes(16), aggregator_auth_token=AuthenticationToken.random_bearer(),
+        collector_hpke_config=collector_kp.config, min_batch_size=n // 2,
+    ).build()
+    helper_task = dataclasses.replace(
+        leader_task, role=Role.HELPER, hpke_keys=(generate_hpke_config_and_private_key(config_id=1),)
+    )
+    meas = np.asarray(random_measurements(inst, n, np.random.default_rng(4)))
+    args, _ = make_report_batch(inst, meas, seed=4, device="cpu")
+    reports = leader_stored_reports(leader_task, helper_task.hpke_keys[0].config, args, [now - 100] * n)
+    reports[bad] = dataclasses.replace(reports[bad], leader_input_share=bytes(len(reports[bad].leader_input_share)))
+    counters = (keccak_cuda.keccak_single_block, expand_cuda.expand_f128, sponge_cuda.keccak_sponge)
+    leader, helper = EphemeralDatastore(MockClock(Time(now))), EphemeralDatastore(MockClock(Time(now)))
+    l_agg = Aggregator(leader.datastore, leader.clock, device=cuda)
+    servers = [DapServer(DapHttpApp(Aggregator(helper.datastore, helper.clock, device=cuda))).start(),
+               DapServer(DapHttpApp(l_agg)).start()]
+    try:
+        task = dataclasses.replace(leader_task, helper_aggregator_endpoint=servers[0].url)
+        leader.datastore.run_tx(lambda tx: [tx.put_task(task)] + [tx.put_client_report(r) for r in reports])
+        helper.datastore.run_tx(lambda tx: tx.put_task(helper_task))
+        assert AggregationJobCreator(leader.datastore).run_once() == 1
+        http = HttpClient(timeout=120)
+        cfg = JobDriverConfig(max_concurrent_job_workers=1)
+        driver = AggregationJobDriver(leader.datastore, http, AggregationJobDriverConfig(http_backoff=Backoff.test()),
+                                      device=cuda)
+        assert JobDriver(cfg, driver.acquirer(), driver.stepper).run_once() == 1
+
+        collector = Collector(CollectorParameters(task.task_id, servers[1].url, task.collector_auth_token,
+                                                  collector_kp), inst, http)
+        query = Query.time_interval(Interval(Time(now - 100).to_batch_interval_start(task.time_precision),
+                                             task.time_precision))
+        job_id = collector.start_collection(query)
+        coll_driver = CollectionJobDriver(leader.datastore, http, CollectionJobDriverConfig(http_backoff=Backoff.test()))
+        for fn in counters:
+            fn.launches = 0
+        assert JobDriver(cfg, coll_driver.acquirer(), coll_driver.stepper).run_once() == 1
+        assert [fn.launches for fn in counters] == [0, 0, 0]
+        result = collector.poll_once(job_id, query)
+        accept = np.arange(n) != bad
+        assert result.report_count == n - 1
+        assert result.aggregate_result == [int(x) for x in meas[accept].sum(axis=0)]
+    finally:
+        for s in servers:
+            s.stop()
+        l_agg.close()
+        leader.cleanup()
+        helper.cleanup()

@@ -78,6 +78,10 @@ def test_port_files_include_every_module_of_the_package():
         "ingest/pipeline.py",
         "aggregator/report_writer.py",
         "vdaf/reference.py",
+        "dp.py",
+        "collector.py",
+        "aggregator/collection_job_driver.py",
+        "aggregator/garbage_collector.py",
     ):
         assert f"janus_tpu_torch/{module}" in names, module
 
@@ -182,11 +186,12 @@ def test_cpu_run_leaves_launch_counters_at_zero(kind):
 
 
 def test_host_prio3_shards_and_has_no_prepare():
-    """A client's host sharder, and nothing an aggregator could prepare
-    with: the aggregators' prepare runs only on the device engines."""
+    """A client's host sharder and the collector's unshard, and nothing an
+    aggregator could prepare or aggregate with: the aggregators' prepare
+    runs only on the device engines."""
     p3 = prio3_host(VdafInstance.sum_vec(3, 2))
-    assert isinstance(p3, Prio3) and callable(p3.shard)
-    for name in ("prepare_init", "prepare_next", "prepare_shares_to_prep", "aggregate", "unshard"):
+    assert isinstance(p3, Prio3) and callable(p3.shard) and callable(p3.unshard)
+    for name in ("prepare_init", "prepare_next", "prepare_shares_to_prep", "aggregate"):
         assert not hasattr(Prio3, name), name
     with pytest.raises(NotPorted, match="sparse"):
         prio3_host(VdafInstance("sparse_sumvec", bits=2, length=8))
@@ -203,3 +208,18 @@ def test_upload_journal_and_poplar1_client_are_not_ported():
 
     with pytest.raises(NotPorted, match="Poplar1"):
         Client(None, VdafInstance("poplar1", bits=4), None, None)
+
+
+def test_poplar1_collector_and_parameterized_collection_are_not_ported():
+    """The collector and the collection job driver raise for a VDAF with
+    an aggregation parameter (Poplar1), before any request or datastore
+    work."""
+    from janus_tpu_torch.aggregator.collection_job_driver import CollectionJobDriver
+    from janus_tpu_torch.collector import Collector
+
+    poplar = VdafInstance("poplar1", bits=4)
+    with pytest.raises(NotPorted, match="Poplar1"):
+        Collector(None, poplar, None)
+    task = TaskBuilder(QueryTypeConfig.time_interval(), poplar, Role.LEADER).build()
+    with pytest.raises(NotPorted, match="aggregation parameter"):
+        CollectionJobDriver(None, None)._step_leased_job(None, task, None)
