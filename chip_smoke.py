@@ -115,6 +115,47 @@ Phases, each of which must pass:
                    sum of the 1,021 accepted measurements. Then the batch is
                    collected as in phase 9 by a fixed-size current-batch
                    query (no GC).
+  11. poplar1      Poplar1<XofShake128, 16>'s prepare at full width
+                   (bench.py's configuration): the leaf level 15, 256
+                   prefixes, 512 reports (alphas, prefixes and nonces from
+                   numpy's generator at seed 0xB0B), 3 of them with a
+                   mismatched helper key. prepare_init_batched runs for
+                   both parties on the card (one warm-up, then the timed
+                   two-party step, counts at 0 just before and read just
+                   after): kernel 1 must launch 66 times (33 a party) and
+                   kernels 2 and 3 not at all, the sketch (sigma0 + sigma1
+                   == 0) must pass for exactly the 509 honest reports, and
+                   y, A, B, a and c of 8 reports (a corrupted one among
+                   them), both parties, must equal the host walk's. The
+                   line gives the step's seconds and reports/s, the host
+                   part of each call (keys to lanes, verify_rand, the
+                   helper's corr_from_seed, the int conversions) beside
+                   the device part (to torch.cuda.synchronize()), and the
+                   peak device bytes;
+  12. drive-poplar1  heavy hitters through DAP: a port leader and a port
+                   helper, each behind its own DapServer, on a
+                   time-interval Poplar1(16) task (max_batch_query_count
+                   17). 1,024 reports uploaded by 8 threads through the
+                   port's Client (host shard): 8 heavy values sent 48-96
+                   times each, the rest uniform over [0, 2^16) (numpy's
+                   generator), 3 of them corrupted as in phase 11. A port
+                   Collector walks the 16 levels with threshold 32: at each
+                   level one collection with Poplar1AggParam(level,
+                   candidates), and JobDriver.run_once of the collection
+                   and the aggregation drivers until it is done (two
+                   512-report jobs a level, each an init and a continue
+                   step). At every level report_count must be 1,021, each
+                   prefix's count the numpy count over the honest
+                   measurements, the survivors those of the ground truth;
+                   kernel 1 must launch 2(L+1)+1 times per job on each side
+                   in every init step (the helper's counted inside its
+                   handler) and never in a continue or a collection step;
+                   kernels 2 and 3 never. The final heavy set must be the
+                   values sent at least 32 times. The line gives the upload
+                   seconds and, per level, the create, init steps',
+                   continue steps', collection steps' and poll seconds, the
+                   helper's init and continue handler seconds and the
+                   launches, then the total and the peak device bytes.
 
 Output: JSON lines (build, the profile of one draft sumvec step, the
 sponge chains, one serve line per XOF mode with the seconds of each
@@ -125,10 +166,10 @@ in the drive-sumvec and upload-drive lines a "collect" record (the
 seconds of create, the driver's gather, sum, http_aggregate_share and
 store, the helper's handle_aggregate_share, poll and unshard, and GC,
 with GC's seconds by side and by delete; the device bytes before and the
-peak during the collection step), the
-kernels, one line per path, the run's wall
-time), then the card's name and power limit as nvidia-smi gives them,
-and last {"ok": true, "device": {...}}.
+peak during the collection step), the poplar1 and drive_poplar1 lines,
+the kernels, one line per path, the run's wall time), then the card's
+name and power limit as nvidia-smi gives them, and last
+{"ok": true, "device": {...}}.
 Without CUDA, or without the package beside this script, it exits
 non-zero and prints no result.
 """
@@ -144,6 +185,11 @@ from pathlib import Path
 
 SEED = 20261016
 VERIFY_KEY = bytes(range(32, 48))
+# Poplar1<XofShake128, 16> at its leaf level, bench.py's configuration
+POPLAR1_BITS = 16
+POPLAR1_PREFIXES = 256
+POPLAR1_BATCH = 512
+POPLAR1_SEED = 0xB0B
 
 # Least-time model of the card (H100 SXM): HBM3 at 3.35 TB/s, and the
 # 32-bit integer pipe at 64 ops/clock/SM (the CUDA programming guide's
@@ -254,8 +300,21 @@ def phase_kernels(torch, dev):
         cases.append({"states": n, "out_lanes": out_lanes, "rounds": rounds, "max_abs_err": err,
                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
         del got, want
-    results["keccak_single_block"] = cases
     del cols
+    # the Poplar1 leaf walk's shape: 512 reports x 256 prefixes, 21 lanes out
+    n = POPLAR1_BATCH * POPLAR1_PREFIXES
+    cols = list(lanes((21, n)))
+    got = keccak_cuda.keccak_single_block(cols, 21)
+    want = keccak_cuda.keccak_single_block_plain(cols, 21)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    ms = time_cuda(torch, lambda: keccak_cuda.keccak_single_block(cols, 21), reps=20)
+    plain_ms = time_cuda(torch, lambda: keccak_cuda.keccak_single_block_plain(cols, 21), reps=2)
+    b_ms, b_by = bound_ms(n * 24 * KECCAK_OPS_PER_ROUND, n * 8 * (21 + 21))
+    cases.append({"case": "poplar1 leaf walk", "states": n, "out_lanes": 21, "rounds": 24, "max_abs_err": err,
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
+    del got, want, cols
+    results["keccak_single_block"] = cases
 
     # kernel 2: the helper measurement share, 1024 reports x 2286 blocks
     cases = []
@@ -1341,6 +1400,403 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
         helper_eds.cleanup()
 
 
+def corrupt_poplar1_keys(poplar):
+    """tests/test_poplar1_dap.py's corrupt report: the leader's key of one
+    sharding (of 0b1100...) with the helper's key of another (of
+    0b0011...), both read against the first's public share; returns
+    (public share correction words, leader key, helper key)."""
+    from janus_tpu_torch.vdaf.poplar1 import IdpfKey
+
+    cws_a, (k0_a, _) = poplar.shard(0b1100 << (poplar.bits - 4))
+    _, (_, k1_b) = poplar.shard(0b0011 << (poplar.bits - 4))
+    return cws_a, k0_a, IdpfKey(k1_b.root_seed, cws_a, corr=k1_b.corr)
+
+
+def poplar1_counters():
+    from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
+
+    return {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
+            "keccak_sponge": sponge_cuda.keccak_sponge}
+
+
+def phase_poplar1(torch, dev):
+    """Poplar1's full-width prepare (see the module docstring, phase 11):
+    both parties' batched IDPF walk and sketch at the leaf level of
+    Poplar1(16), 256 prefixes, 512 reports, 3 of them with a mismatched
+    helper key; returns the record."""
+    import numpy as np
+
+    from janus_tpu_torch.vdaf.poplar1 import Poplar1, Poplar1AggParam
+    from janus_tpu_torch.vdaf.poplar1_device import prepare_init_batched
+
+    bits, level, batch = POPLAR1_BITS, POPLAR1_BITS - 1, POPLAR1_BATCH
+    bad = (11, 200, 497)
+    counters = poplar1_counters()
+    rng = np.random.default_rng(POPLAR1_SEED)
+    poplar = Poplar1(bits)
+    t0 = time.perf_counter()
+    alphas = [int(rng.integers(0, 1 << bits)) for _ in range(batch)]
+    keys0, keys1 = [], []
+    for a in alphas:
+        _, (k0, k1) = poplar.shard(a)
+        keys0.append(k0)
+        keys1.append(k1)
+    for i in bad:
+        _, keys0[i], keys1[i] = corrupt_poplar1_keys(poplar)
+    prefixes = tuple(sorted(rng.choice(1 << bits, size=POPLAR1_PREFIXES, replace=False).tolist()))
+    nonces = [rng.bytes(16) for _ in alphas]
+    param = Poplar1AggParam(level, prefixes)
+    shard_s = time.perf_counter() - t0
+    F = poplar.idpf.field_at(level)
+
+    def both_parties(seconds):
+        outs = []
+        for party, keys in ((0, keys0), (1, keys1)):
+            split = {}
+            outs.append(prepare_init_batched(bits, party, keys, param, VERIFY_KEY, nonces, dev, seconds=split))
+            seconds.append(split)
+        return outs
+
+    def sketch_ok(outs):
+        (y0, A0, B0, a0, c0), (y1, A1, B1, a1, c1) = outs
+        ok = []
+        for i in range(batch):
+            A, B = F.add(A0[i], A1[i]), F.add(B0[i], B1[i])
+            s0 = F.add(F.neg(F.sub(F.mul(2, F.mul(A, a0[i])), c0[i])), F.sub(F.mul(A, A), B))
+            s1 = F.neg(F.sub(F.mul(2, F.mul(A, a1[i])), c1[i]))
+            ok.append(F.add(s0, s1) == 0)
+        return ok
+
+    both_parties([])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    split = []
+    t0 = time.perf_counter()
+    outs = both_parties(split)
+    step_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want_launches = {"keccak_single_block": 2 * (2 * (level + 1) + 1), "expand_f128": 0, "keccak_sponge": 0}
+    if launches != want_launches:
+        raise AssertionError(f"poplar1: launches {launches}, not {want_launches}")
+    ok = sketch_ok(outs)
+    if [i for i in range(batch) if not ok[i]] != list(bad):
+        raise AssertionError(f"poplar1: the sketch failed for {[i for i in range(batch) if not ok[i]][:10]}")
+    # 8 reports, a corrupted one among them, against the host walk
+    t0 = time.perf_counter()
+    for i in (0, 1, bad[0], 100, 255, 256, 400, batch - 1):
+        for party, keys in ((0, keys0), (1, keys1)):
+            state, msg1 = poplar.prepare_init(party, keys[i], param, VERIFY_KEY, nonces[i])
+            y, A, B, a, c = outs[party]
+            if (y[i], A[i], B[i], a[i], c[i]) != (state.y_shares, msg1[0], msg1[1], state.a_share, state.c_share):
+                raise AssertionError(f"poplar1: report {i}, party {party} disagrees with the host walk")
+    host_check_s = time.perf_counter() - t0
+    host_s = [{k: v for k, v in sp.items() if k != "device"} for sp in split]
+    return {
+        "path": "poplar1",
+        "vdaf": {"kind": "poplar1", "bits": bits},
+        "level": level,
+        "prefixes": len(prefixes),
+        "batch": batch,
+        "shard_s": shard_s,
+        "two_party_step_s": step_s,
+        "reports_per_s": batch / step_s,
+        "host_s_by_party": host_s,
+        "host_s": sum(sum(h.values()) for h in host_s),
+        "device_s": sum(sp["device"] for sp in split),
+        "verified": sum(ok),
+        "host_walk_check_s": host_check_s,
+        "launches": launches,
+        "peak_device_bytes": peak,
+    }
+
+
+class LaunchesIn:
+    """While open, adds the kernel launches made inside the named methods
+    of `cls` to `launches[name]` (one thread at a time)."""
+
+    def __init__(self, cls, names, counters):
+        self.cls, self.names, self.counters = cls, names, counters
+        self.launches = {n: {k: 0 for k in counters} for n in names}
+
+    def __enter__(self):
+        self._saved = {n: getattr(self.cls, n) for n in self.names}
+        for n, fn in self._saved.items():
+            setattr(self.cls, n, self._counted(n, fn))
+        return self.launches
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(self.cls, n, fn)
+
+    def _counted(self, name, fn):
+        def counted(*a, **kw):
+            before = {k: c.launches for k, c in self.counters.items()}
+            try:
+                return fn(*a, **kw)
+            finally:
+                for k, c in self.counters.items():
+                    self.launches[name][k] += c.launches - before[k]
+
+        return counted
+
+
+def phase_drive_poplar1(torch, dev, n_reports: int = 1024, threshold: int = 32, threads: int = 8):
+    """Heavy hitters through DAP (see the module docstring, phase 12): a
+    port leader and a port helper behind their DapServers, 1,024 uploads
+    through the port's Client (3 corrupted), and a port Collector walking
+    the 16 levels of Poplar1(16), each level's collection driven by
+    JobDriver.run_once of the collection and aggregation drivers; returns
+    the record."""
+    import dataclasses
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver
+    from janus_tpu_torch.aggregator.collection_job_driver import CollectionJobDriver
+    from janus_tpu_torch.aggregator.core import Aggregator, TaskAggregator
+    from janus_tpu_torch.aggregator.http_handlers import DapHttpApp, DapServer
+    from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig
+    from janus_tpu_torch.client import Client, ClientParameters
+    from janus_tpu_torch.collector import Collector, CollectorParameters
+    from janus_tpu_torch.core.auth import AuthenticationToken
+    from janus_tpu_torch.core.circuit_breaker import OutboundCircuitBreakers
+    from janus_tpu_torch.core.hpke import HpkeApplicationInfo, Label, generate_hpke_config_and_private_key, hpke_seal
+    from janus_tpu_torch.core.http_client import HttpClient
+    from janus_tpu_torch.core.retries import Backoff, retry_http_request
+    from janus_tpu_torch.core.time_util import MockClock
+    from janus_tpu_torch.datastore import EphemeralDatastore
+    from janus_tpu_torch.messages import (
+        Duration,
+        InputShareAad,
+        Interval,
+        PlaintextInputShare,
+        Query,
+        Report,
+        Role,
+        Time,
+    )
+    from janus_tpu_torch.task import QueryTypeConfig, TaskBuilder
+    from janus_tpu_torch.vdaf.poplar1 import Poplar1AggParam, encode_input_share, encode_public_share
+    from janus_tpu_torch.vdaf.registry import VdafInstance
+
+    bits = POPLAR1_BITS
+    now = 1_700_000_000
+    counters = poplar1_counters()
+    rng = np.random.default_rng(POPLAR1_SEED + 1)
+    heavy_values = sorted(int(x) for x in rng.choice(1 << bits, size=8, replace=False))
+    meas = []
+    for v in heavy_values:
+        meas += [v] * int(rng.integers(48, 97))
+    meas += [int(x) for x in rng.integers(0, 1 << bits, size=n_reports - len(meas))]
+    meas = [meas[i] for i in rng.permutation(n_reports)]
+    bad = {5, 500, 1000}
+    honest = np.array([m for i, m in enumerate(meas) if i not in bad])
+    values, counts = np.unique(honest, return_counts=True)
+    want_heavy = sorted(int(v) for v, c in zip(values, counts) if c >= threshold)
+
+    # the interpreter's garbage-collection pauses, by level (any thread)
+    gc_pause = {"s": 0.0, "gen2": 0, "t0": 0.0}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_pause["t0"] = time.perf_counter()
+        else:
+            gc_pause["s"] += time.perf_counter() - gc_pause["t0"]
+            gc_pause["gen2"] += info["generation"] == 2
+
+    collector_kp = generate_hpke_config_and_private_key(config_id=7)
+    leader_eds = EphemeralDatastore(MockClock(Time(now)))
+    helper_eds = EphemeralDatastore(MockClock(Time(now)))
+    helper = Aggregator(helper_eds.datastore, helper_eds.clock, device=dev)
+    leader = Aggregator(leader_eds.datastore, leader_eds.clock, device=dev)
+    helper_server = DapServer(DapHttpApp(helper)).start()
+    leader_server = DapServer(DapHttpApp(leader)).start()
+    try:
+        inst = VdafInstance.poplar1(bits)
+        task = TaskBuilder(QueryTypeConfig.time_interval(), inst, Role.LEADER).with_(
+            vdaf_verify_key=VERIFY_KEY, aggregator_auth_token=AuthenticationToken.random_bearer(),
+            collector_hpke_config=collector_kp.config, min_batch_size=1, max_batch_query_count=bits + 1,
+            leader_aggregator_endpoint=leader_server.url, helper_aggregator_endpoint=helper_server.url,
+        ).build()
+        helper_task = dataclasses.replace(
+            task, role=Role.HELPER, hpke_keys=(generate_hpke_config_and_private_key(config_id=1),)
+        )
+        leader_eds.datastore.run_tx(lambda tx: tx.put_task(task))
+        helper_eds.datastore.run_tx(lambda tx: tx.put_task(helper_task))
+        http = HttpClient(timeout=600)
+        params = ClientParameters(task.task_id, leader_server.url, helper_server.url, task.time_precision)
+        client = Client.with_fetched_configs(params, inst, http, clock=leader_eds.clock)
+
+        def prepare(i):
+            report = client.prepare_report(meas[i])
+            if i not in bad:
+                return report
+            cws, k0, k1 = corrupt_poplar1_keys(client.poplar)
+            public = encode_public_share(bits, cws)
+            aad = InputShareAad(task.task_id, report.metadata, public).to_bytes()
+            seal = [hpke_seal(cfg, HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, role),
+                              PlaintextInputShare((), encode_input_share(key, party, bits)).to_bytes(), aad)
+                    for cfg, role, key, party in ((client.leader_hpke_config, Role.LEADER, k0, 0),
+                                                  (client.helper_hpke_config, Role.HELPER, k1, 1))]
+            return dataclasses.replace(report, public_share=public, leader_encrypted_input_share=seal[0],
+                                       helper_encrypted_input_share=seal[1])
+
+        def upload(i):
+            report = prepare(i)
+
+            def attempt():
+                status, body = http.put(params.upload_uri(), report.to_bytes(), {"Content-Type": Report.MEDIA_TYPE})
+                return status, body, http.last_response_headers
+
+            return retry_http_request(attempt, Backoff())[0]
+
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=threads) as pool:
+            statuses = list(pool.map(upload, range(n_reports)))
+        upload_s = time.perf_counter() - t0
+        if set(statuses) != {201} or any(fn.launches for fn in counters.values()):
+            raise AssertionError(f"drive-poplar1: upload statuses {sorted(set(statuses))}")
+
+        cfg = JobDriverConfig(max_concurrent_job_workers=1)
+        adriver = AggregationJobDriver(leader_eds.datastore, HttpClient(timeout=600),
+                                       breakers=OutboundCircuitBreakers(), device=dev)
+        cdriver = CollectionJobDriver(leader_eds.datastore, HttpClient(timeout=600),
+                                      breakers=OutboundCircuitBreakers())
+        ajobs = JobDriver(cfg, adriver.acquirer(), adriver.stepper)
+        cjobs = JobDriver(cfg, cdriver.acquirer(), cdriver.stepper)
+        collector = Collector(CollectorParameters(task.task_id, leader_server.url, task.collector_auth_token,
+                                                  collector_kp), inst, HttpClient(timeout=600))
+        query = Query.time_interval(Interval(Time(now).to_batch_interval_start(task.time_precision),
+                                             Duration(task.time_precision.seconds)))
+
+        def counted(fn):
+            before = {k: c.launches for k, c in counters.items()}
+            t0 = time.perf_counter()
+            out = fn()
+            return out, time.perf_counter() - t0, {k: c.launches - before[k] for k, c in counters.items()}
+
+        def add(into: dict, secs: dict) -> None:
+            for k, v in secs.items():
+                into[k] = into.get(k, 0.0) + v
+
+        helper_ta = helper.task_aggregator_for(helper_task.task_id)
+        gc.callbacks.append(on_gc)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        levels = []
+        candidates = [0, 1]
+        t_walk = time.perf_counter()
+        for level in range(bits):
+            rec = {"level": level, "prefixes": len(candidates), "init_s": 0.0, "continue_s": 0.0,
+                   "collection_s": 0.0, "init_steps": 0, "continue_steps": 0, "collection_steps": 0,
+                   "launches": {k: 0 for k in counters}, "init_stage_s": {}, "helper_init_stage_s": {}}
+            gc_pause.update(s=0.0, gen2=0)
+            agg_param = Poplar1AggParam(level, tuple(candidates)).encode()
+            t0 = time.perf_counter()
+            job_id = collector.start_collection(query, agg_param=agg_param)
+            rec["create_s"] = time.perf_counter() - t0
+            per_side = 2 * (level + 1) + 1
+            with MethodSeconds(TaskAggregator, ["handle_aggregate_init", "handle_aggregate_continue"]) as helper_s, \
+                    LaunchesIn(TaskAggregator, ["handle_aggregate_init"], counters) as helper_launches:
+                for _ in range(16):
+                    stepped, secs, launched = counted(cjobs.run_once)
+                    if stepped:
+                        rec["collection_steps"] += 1
+                        rec["collection_s"] += secs
+                        if any(launched.values()):
+                            raise AssertionError(f"drive-poplar1 level {level}: a collection step launched {launched}")
+                    ran_agg = 0
+                    while True:
+                        n_before = len(adriver.step_seconds)
+                        stepped_a, secs, launched = counted(ajobs.run_once)
+                        if not stepped_a:
+                            break
+                        ran_agg += 1
+                        for k, v in launched.items():
+                            rec["launches"][k] += v
+                        stage = adriver.step_seconds[-1][1] if len(adriver.step_seconds) > n_before else {}
+                        if "http_continue" in stage:
+                            rec["continue_steps"] += 1
+                            rec["continue_s"] += secs
+                            if any(launched.values()):
+                                raise AssertionError(f"drive-poplar1 level {level}: a continue step launched {launched}")
+                        else:
+                            rec["init_steps"] += 1
+                            rec["init_s"] += secs
+                            add(rec["init_stage_s"], stage)
+                            add(rec["helper_init_stage_s"], helper_ta.stage_seconds)
+                            want = {"keccak_single_block": 2 * per_side, "expand_f128": 0, "keccak_sponge": 0}
+                            if launched != want:
+                                raise AssertionError(f"drive-poplar1 level {level}: an init step launched {launched}")
+                    if not stepped and not ran_agg:
+                        break
+            helper_init = helper_launches["handle_aggregate_init"]
+            if helper_init["keccak_single_block"] != per_side * rec["init_steps"]:
+                raise AssertionError(f"drive-poplar1 level {level}: the helper's inits launched {helper_init}")
+            rec["helper_init_s"] = helper_s["handle_aggregate_init"]
+            rec["helper_continue_s"] = helper_s["handle_aggregate_continue"]
+            rec["gc_pause_s"], rec["gc_gen2"] = gc_pause["s"], gc_pause["gen2"]
+            t0 = time.perf_counter()
+            result = collector.poll_once(job_id, query, agg_param=agg_param)
+            rec["poll_s"] = time.perf_counter() - t0
+            truth = [int(np.sum((honest >> (bits - 1 - level)) == p)) for p in candidates]
+            if result.report_count != n_reports - len(bad) or result.aggregate_result != truth:
+                raise AssertionError(f"drive-poplar1 level {level}: {result.report_count} reports, counts off")
+            jobs_per = -(-n_reports // 512)
+            if (rec["init_steps"], rec["continue_steps"]) != (jobs_per, jobs_per):
+                raise AssertionError(f"drive-poplar1 level {level}: steps {rec}")
+            survivors = [p for p, c in zip(candidates, result.aggregate_result) if c >= threshold]
+            want_survivors = [p for p, c in zip(candidates, truth) if c >= threshold]
+            if survivors != want_survivors:
+                raise AssertionError(f"drive-poplar1 level {level}: survivors differ from the ground truth's")
+            rec["survivors"] = len(survivors)
+            levels.append(rec)
+            candidates = sorted([p << 1 for p in survivors] + [(p << 1) | 1 for p in survivors])
+        walk_s = time.perf_counter() - t_walk
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        if survivors != want_heavy:
+            raise AssertionError(f"drive-poplar1: heavy set {survivors}, not {want_heavy}")
+        if launches["expand_f128"] or launches["keccak_sponge"]:
+            raise AssertionError(f"drive-poplar1: stray launches {launches}")
+        return {
+            "path": "drive-poplar1",
+            "vdaf": inst.to_dict(),
+            "reports": n_reports,
+            "corrupted": len(bad),
+            "threshold": threshold,
+            "heavy": len(want_heavy),
+            "heavy_ok": True,
+            "upload_threads": threads,
+            "upload_s": upload_s,
+            "walk_s": walk_s,
+            "total_s": upload_s + walk_s,
+            "levels": levels,
+            "launches": launches,
+            "peak_device_bytes": peak,
+        }
+    finally:
+        if on_gc in gc.callbacks:
+            gc.callbacks.remove(on_gc)
+        leader_server.stop()
+        helper_server.stop()
+        leader.close()
+        helper.close()
+        leader_eds.cleanup()
+        helper_eds.cleanup()
+
+
 def profile_step(torch, step, args, step_s: float):
     """Device time by kernel over one step (torch.profiler), the share of
     the unprofiled step time `step_s` that the card was busy, and the
@@ -1460,6 +1916,14 @@ def main() -> int:
     if out is not None:
         serves[out["path"]] = out
         emit({"upload_drive": out})
+    out = phase("poplar1", phase_poplar1, torch, dev) if not failed else None
+    if out is not None:
+        serves[out["path"]] = out
+        emit({"poplar1": out})
+    out = phase("drive-poplar1", phase_drive_poplar1, torch, dev) if not failed else None
+    if out is not None:
+        serves[out["path"]] = out
+        emit({"drive_poplar1": out})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -11,9 +11,12 @@ The per-batch share arrives as one already-reduced device vector per
 (job, batch bucket): the device sums the reports (one masked aggregate
 per bucket), so the host merges a handful of vectors per job.
 
-The port's own copy of the Prio3 part of
-janus_tpu/aggregator/accumulator.py; the per-task counters and the e2e
-histogram it feeds there are left out with the rest of the metrics.
+The port's own copy of janus_tpu/aggregator/accumulator.py: Prio3's
+batched path, and the per-report `update_single` of the continue step,
+where a parameterized VDAF (Poplar1) accumulates in its level's field
+and keys its batch rows by the aggregation parameter. The per-task
+counters and the e2e histogram it feeds there are left out with the
+rest of the metrics.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import secrets
 import numpy as np
 
 from ..datastore.models import BatchAggregation, BatchAggregationState
-from ..messages import FixedSize, Interval, ReportIdChecksum
+from ..messages import FixedSize, Interval, ReportIdChecksum, Time
 from ..task import Task
 from ..vdaf.registry import circuit_for
 
@@ -108,13 +111,15 @@ def accumulate_batched(
 
 
 class Accumulator:
-    """reference accumulator.rs:32. Prio3 rows carry the empty
-    aggregation parameter."""
+    """reference accumulator.rs:32."""
 
-    def __init__(self, task: Task, shard_count: int = 1):
+    def __init__(self, task: Task, shard_count: int = 1, field=None, aggregation_parameter: bytes = b""):
+        """field/aggregation_parameter: a parameterized VDAF (Poplar1)
+        accumulates in its parameter's field and keys its batch rows by
+        the parameter; Prio3 uses the circuit's field and b""."""
         self.task = task
-        self.field = circuit_for(task.vdaf).FIELD
-        self.agg_param = b""
+        self.field = field if field is not None else circuit_for(task.vdaf).FIELD
+        self.agg_param = aggregation_parameter
         self.shard_count = shard_count
         # batch_identifier bytes -> [share bytes | None, count, checksum, interval | None, report ids]
         self._state: dict[bytes, list] = {}
@@ -140,6 +145,17 @@ class Accumulator:
         ent[2] = ent[2].combined_with(checksum)
         ent[3] = Interval.merged(ent[3], client_interval)
         ent[4].extend(report_ids or ())
+
+    def update_single(self, batch_identifier: bytes, out_share: list[int], report_id, client_time: Time) -> None:
+        """Merge one report's output share (the continue step's finish)."""
+        self.update(
+            batch_identifier,
+            self.field.encode_vec(out_share),
+            1,
+            ReportIdChecksum.for_report_id(report_id),
+            Interval(client_time.to_batch_interval_start(self.task.time_precision), self.task.time_precision),
+            [report_id],
+        )
 
     def flush_to_datastore(self, tx) -> set:
         """Merge into a random shard row per batch (reference :133-215).

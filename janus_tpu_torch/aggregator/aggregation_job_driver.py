@@ -13,29 +13,37 @@ accumulate. A crash anywhere before the final write leaves the job in
 step 0 with its reports in START; the re-acquired lease replays the init
 (the helper deduplicates by request hash).
 
+A two-round VDAF takes two steps. The init step parks the accepted
+reports in WAITING_LEADER with the leader's next message and its output
+share (`commit_park`); the next step POSTs the ord-matched continue
+request, accumulates what the helper finished and finishes the job
+(`_continue_step`). Poplar1's init (`_step_poplar1_init`) runs round 1 of
+the whole job as one batched IDPF walk on the card (kernel 1) and checks
+the helper's sketch on the host before it parks.
+
 The port's own copy of janus_tpu/aggregator/aggregation_job_driver.py:
-the one-round Prio3 init step through the serial stepper, its stages
+the Prio3 init step through the serial stepper, its stages
 (`stage_init`, `device_init`, `http_init`, `device_accumulate`,
-`commit_finish`), the send path with its retries, circuit breaker and
+`commit_finish` or `commit_park`), the Poplar1 init, the continue step,
+the PUT and POST send path with its retries, circuit breaker and
 lease-bounded deadline, the step-back and the abandonment. The driver
 runs on CUDA unless it is built with device="cpu". There is no host
 engine, so a device failure fails the step (the lease expires and the
 job is retried, counting an attempt); `handle_step_error` has no
 device-hang branch.
 
-Not ported yet: the continue step of multi-round VDAFs and the Poplar1
-init (`plan_step` raises `NotPorted` for both), the resident
-accumulators and `ResidentFlusher` (`ResidentConfig(enabled=True)` is
-refused), the stage pipeline (`step_pipeline.py`, which needs the
-engine's prestaged leader columns), the sparse SumVec path, the peer
-outage tracker; and the calls into metrics, trace spans, failpoints and
-the conservation ledger. Each step's stage seconds are kept in
-`step_seconds`.
+Not ported yet: the resident accumulators and `ResidentFlusher`
+(`ResidentConfig(enabled=True)` is refused), the stage pipeline
+(`step_pipeline.py`, which needs the engine's prestaged leader columns),
+the sparse SumVec path, the peer outage tracker; and the calls into
+metrics, trace spans, failpoints and the conservation ledger. Each
+step's stage seconds are kept in `step_seconds`.
 """
 
 from __future__ import annotations
 
 import base64
+import dataclasses
 import logging
 import time
 from collections import deque
@@ -65,13 +73,19 @@ from ..datastore.models import (
 from ..datastore.store import Datastore, LeaseConflict
 from ..device import resolve_device
 from ..messages import (
+    AggregationJobContinueReq,
     AggregationJobInitializeReq,
+    AggregationJobResp,
+    AggregationJobStep,
     Duration,
+    Interval,
     PartialBatchSelector,
     PreEncoded,
     PrepareError,
+    PrepareInit,
     PrepareStepResult,
     ReportMetadata,
+    ReportShare,
     decode_prepare_resps_fast,
     encode_report_share_raw,
 )
@@ -79,8 +93,14 @@ from ..messages.codec import DecodeError
 from ..task import Task
 from ..vdaf.registry import circuit_for
 from ..vdaf.wire import (
+    PP_CONTINUE,
+    PP_FINISH,
+    PP_INITIALIZE,
     Prio3Wire,
     decode_field_rows,
+    decode_pingpong,
+    encode_field_rows,
+    encode_pingpong,
     encode_pingpong_share_column,
     pingpong_finish_frame_matches,
     seeds_to_lanes,
@@ -95,6 +115,7 @@ from .job_driver import (
     lease_deadline,
     make_claim_acquirer,
 )
+from .poplar1_ops import Poplar1Ops
 
 log = logging.getLogger(__name__)
 
@@ -141,6 +162,7 @@ class InitStepState:
     reports: dict
     wire: Prio3Wire
     engine: object
+    multi_round: bool = False
     # columnar staging (host)
     meas: object = None
     proof: object = None
@@ -156,6 +178,7 @@ class InitStepState:
     part0: object = None
     # HTTP leg output
     accept: object = None
+    continue_msgs: list = field(default_factory=list)  # multi-round: the next message
     # accumulate output
     accumulator: Accumulator | None = None
 
@@ -298,6 +321,12 @@ class AggregationJobDriver:
                 except DecodeError:
                     failed[i] = PrepareError.INVALID_MESSAGE
 
+        # the test fakes' failure at the leader's prepare init
+        if task.vdaf.fails_at("init"):
+            for i in range(n):
+                if failed[i] is None:
+                    failed[i] = PrepareError.VDAF_PREP_ERROR
+
         tf = engine.p3.tf
         meas, ok_m = decode_field_rows(tf, meas_rows, circ.input_len)
         proof, ok_p = decode_field_rows(tf, proof_rows, circ.proof_len)
@@ -349,40 +378,50 @@ class AggregationJobDriver:
             self._step_leased_job(acquired, task, job, ras, reports, seconds={"read_tx": read_s})
 
     def plan_step(self, acquired, task, job, ras):
-        """Classify the leased step -> (kind, rows): 'empty', or 'init'
-        (the Prio3 hot path) with the rows it works on. The 'continue'
-        (WaitingLeader rows, a multi-round VDAF) and 'poplar1' kinds of
-        janus_tpu raise NotPorted."""
+        """Classify the leased step -> (kind, rows): 'continue'
+        (WaitingLeader rows), 'poplar1', 'empty', or 'init' (the Prio3
+        hot path) with the rows the step works on."""
         waiting = [ra for ra in ras if ra.state == ReportAggregationState.WAITING_LEADER]
-        if waiting or task.vdaf.rounds > 1:
-            raise NotPorted("the continue step of multi-round VDAFs is not ported to janus_tpu_torch yet")
+        if waiting:
+            return "continue", waiting
         pending = [ra for ra in ras if ra.state == ReportAggregationState.START]
         if task.vdaf.kind == "poplar1":
-            raise NotPorted("the Poplar1 init step is not ported to janus_tpu_torch yet")
+            return "poplar1", pending
         if not pending:
             return "empty", pending
         return "init", pending
 
     def _step_leased_job(self, acquired, task, job, ras, reports, seconds: dict | None = None) -> None:
         kind, rows = self.plan_step(acquired, task, job, ras)
-        if kind == "empty":
+        seconds = dict(seconds or {})
+        if kind == "continue":
+            # a two-round job's reports parked in WaitingLeader at init;
+            # this step sends the continue request (reference :439-514)
+            self._continue_step(acquired, task, job, rows, seconds)
+        elif kind == "poplar1":
+            self._step_poplar1_init(acquired, task, job, rows, reports, seconds)
+        elif kind == "empty":
             self.finish_empty(acquired, job)
             return
-        seconds = dict(seconds or {})
-        t = time.perf_counter()
-        st = self.stage_init(acquired, task, job, rows, reports)
-        for name, stage in (
-            ("stage_init", None),
-            ("device_init", self.device_init),
-            ("http_init", self.http_init),
-            ("device_accumulate", self.device_accumulate),
-            ("commit_finish", self.commit_finish),
-        ):
-            if stage is not None:
-                stage(st)
-            now = time.perf_counter()
-            seconds[name] = now - t
-            t = now
+        else:
+            t = time.perf_counter()
+            st = self.stage_init(acquired, task, job, rows, reports)
+            finish = (
+                (("commit_park", self.commit_park),)
+                if st.multi_round
+                else (("device_accumulate", self.device_accumulate), ("commit_finish", self.commit_finish))
+            )
+            for name, stage in (
+                ("stage_init", None),
+                ("device_init", self.device_init),
+                ("http_init", self.http_init),
+                *finish,
+            ):
+                if stage is not None:
+                    stage(st)
+                now = time.perf_counter()
+                seconds[name] = now - t
+                t = now
         self.step_seconds.append((acquired.job_id.data, seconds))
 
     def finish_empty(self, acquired, job) -> None:
@@ -408,6 +447,7 @@ class AggregationJobDriver:
             reports=reports,
             wire=wire,
             engine=engine,
+            multi_round=task.vdaf.rounds > 1,
             meas=meas,
             proof=proof,
             nonce_lanes=nonce_lanes,
@@ -456,7 +496,9 @@ class AggregationJobDriver:
             )
             send_idx.append(i)
 
+        multi_round = st.multi_round
         accept = np.zeros(n, dtype=bool)
+        continue_msgs: list[bytes | None] = [None] * n
         if prep_inits:
             req = AggregationJobInitializeReq(
                 job.aggregation_parameter,
@@ -468,7 +510,7 @@ class AggregationJobDriver:
             mapping = self._match_resps([pending[i].report_id.data for i in send_idx], col)
             seed_rows = (
                 np.ascontiguousarray(np.asarray(st.seed0, dtype="<u8")).view(np.uint8)
-                if wire.uses_jr
+                if wire.uses_jr and not multi_round
                 else None
             )
             for k, i in enumerate(send_idx):
@@ -480,6 +522,23 @@ class AggregationJobDriver:
                     failed[i] = _err_or_default(col.errors[j])
                     continue
                 msg = col.messages[j]
+                if multi_round:
+                    # the helper answered ping-pong CONTINUE; the leader's
+                    # next message, sent on the next step, finishes with
+                    # the combined prep message (the fake: an echo)
+                    try:
+                        if msg is None:
+                            raise DecodeError("no message")
+                        tag, prep_msg, _share = decode_pingpong(msg)
+                    except DecodeError:
+                        failed[i] = PrepareError.INVALID_MESSAGE
+                        continue
+                    if tag != PP_CONTINUE:
+                        failed[i] = PrepareError.INVALID_MESSAGE
+                        continue
+                    continue_msgs[i] = encode_pingpong(PP_FINISH, prep_msg or b"", None)
+                    accept[i] = True
+                    continue
                 if wire.uses_jr:
                     # the helper's answer must be finish(our jr seed)
                     verdict = (
@@ -494,7 +553,16 @@ class AggregationJobDriver:
                         failed[i] = PrepareError.VDAF_PREP_ERROR
                         continue
                 accept[i] = True
+
+        # the test fakes' failure at the leader's continue/evaluate stage
+        if task.vdaf.fails_at("step"):
+            for i in range(n):
+                if accept[i]:
+                    accept[i] = False
+                    failed[i] = PrepareError.VDAF_PREP_ERROR
+
         st.accept = accept
+        st.continue_msgs = continue_msgs
 
     def _match_resps(self, sent_ids: list[bytes], col) -> list[int | None] | None:
         """Order-aligned prepare-resp matching: DAP requires the helper to
@@ -547,10 +615,201 @@ class AggregationJobDriver:
 
         self.ds.run_tx(write, "step_agg_job_write")
 
-    def _send_agg_job_request_raw(self, task: Task, acquired, req, extra_headers: dict | None = None) -> bytes:
-        """PUT to the helper's aggregation_jobs endpoint: URL, auth,
-        deadline-capped timeouts, circuit breaker, retries; returns the
-        raw response body."""
+    def commit_park(self, st: InitStepState) -> None:
+        """Commit stage of a two-round init: park accepted reports as
+        WaitingLeader(len(msg) || msg || out_share); the job stays in
+        progress for the continue step (reference models.rs:714)."""
+        out0_rows = encode_field_rows(st.engine.p3.tf, st.out0)
+        new_ras = []
+        for i, ra in enumerate(st.pending):
+            if st.accept[i]:
+                msg = st.continue_msgs[i]
+                blob = len(msg).to_bytes(4, "big") + msg + out0_rows[i]
+                new_ras.append(dataclasses.replace(ra, state=ReportAggregationState.WAITING_LEADER, prep_blob=blob))
+            else:
+                new_ras.append(ra.failed(_err_or_default(st.failed[i])))
+        self._write_parked(st.acquired, new_ras, "step_agg_job_park")
+
+    def _write_parked(self, acquired, new_ras, name: str) -> None:
+        def write(tx):
+            for ra in new_ras:
+                tx.update_report_aggregation(ra)
+            tx.release_aggregation_job(acquired)
+
+        self.ds.run_tx(write, name)
+
+    def _step_poplar1_init(self, acquired, task: Task, job, pending, reports, seconds: dict) -> None:
+        """Poplar1's leader init (the ping-pong mapping is in
+        poplar1_ops.py): round 1 of the whole job as one batched IDPF walk
+        and sketch on the card, the sketch shares to the helper, the
+        helper's combined sketch checked on the host, then park
+        WaitingLeader for the continue step."""
+        if not pending:
+            self.finish_empty(acquired, job)
+            return
+        t = time.perf_counter()
+
+        def lap(name: str) -> None:
+            nonlocal t
+            now = time.perf_counter()
+            seconds[name] = now - t
+            t = now
+
+        pop = Poplar1Ops(task.vdaf.bits, task.vdaf_verify_key, self.device)
+        param = pop.decode_param(job.aggregation_parameter)
+        F = pop.field_for(param)
+        n = len(pending)
+        failed: list = [None] * n
+        evals: dict[int, tuple] = {}  # i -> (prep state, y0, [A0, B0])
+        items = []
+        item_idx = []
+        for i, ra in enumerate(pending):
+            rep = reports.get(ra.report_id.data)
+            if rep is None:
+                failed[i] = PrepareError.REPORT_DROPPED
+                continue
+            items.append((rep.public_share, rep.leader_input_share, ra.report_id.data))
+            item_idx.append(i)
+        # one batched device walk for the whole job
+        for i, res in zip(item_idx, pop.round1_batch(0, items, param)):
+            if isinstance(res, ValueError):
+                failed[i] = PrepareError.INVALID_MESSAGE
+            else:
+                evals[i] = res
+        lap("round1")
+
+        prep_inits = []
+        send_idx = []
+        for i, ra in enumerate(pending):
+            if failed[i] is not None:
+                continue
+            rep = reports[ra.report_id.data]
+            _, _, msg1_0 = evals[i]
+            prep_inits.append(
+                PrepareInit(
+                    ReportShare(
+                        ReportMetadata(ra.report_id, ra.client_time), rep.public_share, rep.helper_encrypted_input_share
+                    ),
+                    encode_pingpong(PP_INITIALIZE, None, pop.encode_vec(param, msg1_0)),
+                )
+            )
+            send_idx.append(i)
+        lap("encode_init")
+
+        parked: dict[int, bytes] = {}  # i -> WaitingLeader blob
+        if prep_inits:
+            req = AggregationJobInitializeReq(
+                job.aggregation_parameter,
+                PartialBatchSelector.from_bytes(job.partial_batch_identifier),
+                tuple(prep_inits),
+            )
+            resp = AggregationJobResp.from_bytes(self._send_init_request_raw(task, acquired, req))
+            lap("http_init")
+            by_id = {pr.report_id: pr for pr in resp.prepare_resps}
+            es = pop.enc_size(param)
+            for i in send_idx:
+                ra = pending[i]
+                pr = by_id.get(ra.report_id)
+                if pr is None or pr.result.kind == PrepareStepResult.REJECT:
+                    failed[i] = _err_or_default(pr.result.prepare_error if pr is not None else None)
+                    continue
+                try:
+                    tag, prep_msg, helper_share = decode_pingpong(pr.result.message)
+                    if tag != PP_CONTINUE or helper_share is None:
+                        raise DecodeError("expected ping-pong continue")
+                    # helper share = enc(A1)||enc(B1)||enc(sigma1)
+                    msg1_1 = pop.decode_fixed_vec(param, helper_share[: 2 * es], 2)
+                    sigma1 = pop.decode_elem(param, helper_share[2 * es :])
+                except (DecodeError, ValueError):
+                    failed[i] = PrepareError.INVALID_MESSAGE
+                    continue
+                st0, y0, msg1_0 = evals[i]
+                sigma0, combined = pop.round2(st0, msg1_0, msg1_1)
+                # the helper's round-1 prep message must equal our own
+                # combination, and the sketch must verify (sigma0 + sigma1
+                # == 0 iff y is one-hot or all zero)
+                if prep_msg != pop.encode_vec(param, combined) or F.add(sigma0, sigma1) != 0:
+                    failed[i] = PrepareError.VDAF_PREP_ERROR
+                    continue
+                msg = encode_pingpong(PP_FINISH, pop.encode_elem(param, sigma0), None)
+                parked[i] = len(msg).to_bytes(4, "big") + msg + pop.encode_vec(param, y0)
+            lap("round2")
+
+        new_ras = []
+        for i, ra in enumerate(pending):
+            if i in parked:
+                new_ras.append(dataclasses.replace(ra, state=ReportAggregationState.WAITING_LEADER, prep_blob=parked[i]))
+            else:
+                new_ras.append(ra.failed(_err_or_default(failed[i])))
+        self._write_parked(acquired, new_ras, "step_p1_job_park")
+        lap("commit_park")
+
+    def _continue_step(self, acquired, task: Task, job, waiting, seconds: dict) -> None:
+        """Send the ord-matched continue request for the WaitingLeader
+        rows and finish the job (reference :439-514 and :530-726)."""
+        t = time.perf_counter()
+        if task.vdaf.kind == "poplar1":
+            pop = Poplar1Ops(task.vdaf.bits)
+            field = pop.field_for(pop.decode_param(job.aggregation_parameter))
+        else:
+            field = circuit_for(task.vdaf).FIELD
+        msgs = []
+        outs = []
+        for ra in waiting:
+            mlen = int.from_bytes(ra.prep_blob[:4], "big")
+            msgs.append(ra.prep_blob[4 : 4 + mlen])
+            outs.append(ra.prep_blob[4 + mlen :])
+        # the stored messages are framed ping-pong messages already:
+        # splice them raw (PrepareContinue = report_id || message)
+        req = AggregationJobContinueReq(
+            AggregationJobStep(job.step + 1),
+            tuple(PreEncoded(ra.report_id.data + msg) for ra, msg in zip(waiting, msgs)),
+        )
+        body = self._send_agg_job_request_raw(task, acquired, req, method="POST")
+        now = time.perf_counter()
+        seconds["http_continue"] = now - t
+        t = now
+        col = decode_prepare_resps_fast(body)
+        mapping = self._match_resps([ra.report_id.data for ra in waiting], col)
+
+        accumulator = Accumulator(
+            task, self.cfg.batch_aggregation_shard_count, field=field, aggregation_parameter=job.aggregation_parameter
+        )
+        fixed_bid = fixed_size_batch_id(PartialBatchSelector.from_bytes(job.partial_batch_identifier))
+        new_ras = []
+        for k, (ra, out_enc) in enumerate(zip(waiting, outs)):
+            j = k if mapping is None else mapping[k]
+            if j is not None and col.kinds[j] == PrepareStepResult.FINISHED:
+                bid = fixed_bid or Interval(
+                    ra.client_time.to_batch_interval_start(task.time_precision), task.time_precision
+                ).to_bytes()
+                accumulator.update_single(bid, field.decode_vec(out_enc), ra.report_id, ra.client_time)
+                new_ras.append(dataclasses.replace(ra, state=ReportAggregationState.FINISHED, prep_blob=b""))
+            else:
+                err = _err_or_default(
+                    col.errors[j] if j is not None and col.kinds[j] == PrepareStepResult.REJECT else None
+                )
+                new_ras.append(ra.failed(err))
+        new_job = dataclasses.replace(job, state=AggregationJobState.FINISHED, step=job.step + 1)
+
+        def write(tx):
+            unmerged = accumulator.flush_to_datastore(tx)
+            for ra in new_ras:
+                if ra.report_id.data in unmerged:
+                    ra = ra.failed(PrepareError.BATCH_COLLECTED)
+                tx.update_report_aggregation(ra)
+            tx.update_aggregation_job(new_job)
+            tx.release_aggregation_job(acquired)
+
+        self.ds.run_tx(write, "step_agg_job_continue_write")
+        seconds["commit_continue"] = time.perf_counter() - t
+
+    def _send_agg_job_request_raw(
+        self, task: Task, acquired, req, extra_headers: dict | None = None, method: str = "PUT"
+    ) -> bytes:
+        """PUT (init) or POST (continue) to the helper's aggregation_jobs
+        endpoint: URL, auth, deadline-capped timeouts, circuit breaker,
+        retries; returns the raw response body."""
         # recompute the lease budget at call time (staging and the device
         # took wall time since the step captured it), clamped to the
         # ambient step scope
@@ -575,8 +834,10 @@ class AggregationJobDriver:
             # step aborts this retry loop too (CircuitOpenError is not a
             # transport error, so retry_http_request lets it propagate)
             self.breakers.check(peer)
+            # through put/post, so test doubles that wrap a verb see it
+            send = self.http.put if method == "PUT" else self.http.post
             try:
-                status, body = self.http.put(url, payload, headers, timeout=deadline_request_timeout(deadline))
+                status, body = send(url, payload, headers, timeout=deadline_request_timeout(deadline))
             except BaseException:
                 # the breaker learns of a transport failure and frees a
                 # half-open probe
@@ -600,7 +861,7 @@ class AggregationJobDriver:
             # the helper's conclusive "your budget is dead": step back
             raise DeadlineExceeded("helper reported deadline exceeded", last_status=status)
         if status not in (200, 201):
-            raise RuntimeError(f"helper PUT aggregation job failed: HTTP {status}: {body[:300]!r}")
+            raise RuntimeError(f"helper {method} aggregation job failed: HTTP {status}: {body[:300]!r}")
         return body
 
     def _send_init_request_raw(self, task: Task, acquired, req: AggregationJobInitializeReq) -> bytes:

@@ -16,9 +16,14 @@ retries and lease-bounded deadline, and the abandonment. The sum runs on
 the host, as in janus_tpu: collection launches no kernel. Each step's
 stage seconds are kept in `step_seconds`.
 
-Not ported: the collection of a VDAF with an aggregation parameter
-(Poplar1 creates its aggregation jobs here; `_step_leased_job` raises
-`NotPorted`), the peer-outage parking, the cross-aggregator ledger
+A VDAF with an aggregation parameter (Poplar1) aggregates per
+collection: the first step of its collection job creates param-scoped
+aggregation jobs of at most 512 reports over the batch interval
+(`_ensure_param_aggregation`) and releases the job; later steps release
+it again until no job for the parameter is in progress, then compute the
+aggregate share as for Prio3.
+
+Not ported: the peer-outage parking, the cross-aggregator ledger
 reconciliation, and the trace spans, links and metrics.
 """
 
@@ -27,6 +32,7 @@ from __future__ import annotations
 import base64
 import dataclasses
 import logging
+import secrets
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -40,24 +46,34 @@ from ..core.circuit_breaker import (
 )
 from ..core.deadline import DEADLINE_EXCEEDED_STATUS, DeadlineExceeded, deadline_scope
 from ..core.retries import Backoff, RequestAborted, retry_http_request
-from ..datastore.models import AcquiredCollectionJob, AggregateShareJob, CollectionJobState
+from ..datastore.models import (
+    AcquiredCollectionJob,
+    AggregateShareJob,
+    AggregationJobModel,
+    AggregationJobState,
+    CollectionJobState,
+    ReportAggregationModel,
+    ReportAggregationState,
+)
 from ..datastore.store import Datastore, LeaseConflict
 from ..dp import add_noise_to_agg_share
 from ..messages import (
     AggregateShare,
     AggregateShareReq,
+    AggregationJobId,
     BatchId,
     BatchSelector,
     Duration,
     Interval,
+    PartialBatchSelector,
     Query,
     ReportIdChecksum,
+    Time,
     TimeInterval,
 )
 from ..task import Task
 from ..vdaf.registry import circuit_for
 from .accumulator import add_encoded_aggregate_shares
-from .errors import NotPorted
 from .job_driver import (
     DATASTORE_DOWN_STEP_BACK_S,
     deadline_request_timeout,
@@ -65,6 +81,7 @@ from .job_driver import (
     lease_deadline,
     make_claim_acquirer,
 )
+from .poplar1_ops import Poplar1Ops
 
 log = logging.getLogger(__name__)
 
@@ -174,12 +191,6 @@ class CollectionJobDriver:
             self._step_leased_job(acquired, task, job)
 
     def _step_leased_job(self, acquired: AcquiredCollectionJob, task: Task, job) -> None:
-        if task.vdaf.has_aggregation_parameter:
-            raise NotPorted(
-                "the collection of a VDAF with an aggregation parameter (Poplar1) is not ported to janus_tpu_torch yet"
-            )
-        field = circuit_for(task.vdaf).FIELD
-        query = Query.from_bytes(job.query)
         seconds = {}
         t = time.perf_counter()
 
@@ -188,6 +199,22 @@ class CollectionJobDriver:
             now = time.perf_counter()
             seconds[name] = now - t
             t = now
+
+        if task.vdaf.has_aggregation_parameter:
+            # aggregation happens per collection parameter: create its
+            # aggregation jobs on the first step, and wait for them to
+            # finish before computing the aggregate share
+            pop = Poplar1Ops(task.vdaf.bits)
+            field = pop.field_for(pop.decode_param(job.aggregation_parameter))
+            ready = self._ensure_param_aggregation(task, job)
+            lap("ensure_param_aggregation")
+            if not ready:
+                self.ds.run_tx(lambda tx: tx.release_collection_job(acquired), "release")
+                self.step_seconds.append((acquired.collection_job_id.data, seconds))
+                return
+        else:
+            field = circuit_for(task.vdaf).FIELD
+        query = Query.from_bytes(job.query)
 
         # tx1: gather the shard rows (reference :160-199)
         def gather(tx):
@@ -266,6 +293,47 @@ class CollectionJobDriver:
         self.ds.run_tx(mark_and_store, "step_collection_store")
         lap("store")
         self.step_seconds.append((acquired.collection_job_id.data, seconds))
+
+    def _ensure_param_aggregation(self, task: Task, job) -> bool:
+        """Create aggregation jobs for the collection's parameter over the
+        reports in the batch interval that have none under it; True when
+        aggregation under the parameter is complete and the aggregate
+        share can be computed. At most 512 reports a job."""
+        interval = Interval.from_bytes(job.batch_identifier)
+        param = job.aggregation_parameter
+
+        def create(tx):
+            in_interval = tx.get_client_report_ids_in_interval(task.task_id, interval)
+            done = tx.get_aggregated_report_ids_for_param(task.task_id, [rid for rid, _ in in_interval], param)
+            todo = [(rid, t) for rid, t in in_interval if rid.data not in done]
+            for lo in range(0, len(todo), 512):
+                chunk = todo[lo : lo + 512]
+                job_id = AggregationJobId(secrets.token_bytes(16))
+                times = [t.seconds for _, t in chunk]
+                tx.put_aggregation_job(
+                    AggregationJobModel(
+                        task.task_id,
+                        job_id,
+                        param,
+                        PartialBatchSelector.time_interval().to_bytes(),
+                        Interval(Time(min(times)), Duration(max(times) - min(times) + 1)),
+                        AggregationJobState.IN_PROGRESS,
+                        0,
+                        None,
+                    )
+                )
+                for ord_, (rid, t) in enumerate(chunk):
+                    tx.put_report_aggregation(
+                        ReportAggregationModel(
+                            task.task_id, job_id, rid, t, ord_, ReportAggregationState.START, b"", None
+                        )
+                    )
+            if todo:
+                return False  # fresh jobs: not ready this pass
+            # ready once no job for this parameter is still in progress
+            return tx.count_active_aggregation_jobs_for_param(task.task_id, param) == 0
+
+        return self.ds.run_tx(create, "ensure_param_aggregation")
 
     def _lease_deadline(self, acquired) -> float:
         return lease_deadline(self.ds.clock, acquired.lease, self.cfg.worker_lease_clock_skew_s)

@@ -1,15 +1,17 @@
 """Aggregator protocol handlers: upload, aggregate-init and collection.
 
 The port's counterpart of janus_tpu/aggregator/core.py, as far as a
-leader takes uploads and collections and a helper answers aggregate-init
-and aggregate-share requests for a one-round Prio3 task: `TaskAggregator`
+leader takes uploads and collections and a helper answers aggregate-init,
+aggregate-continue and aggregate-share requests: `TaskAggregator`
 (keypair lookup, `hpke_config_list`, the upload checks per report and
-per column window, `handle_upload`, `handle_aggregate_init`, the replay
-of a stored response, the leader's collection-job create, poll and
+per column window, `handle_upload`, `handle_aggregate_init` with its
+Poplar1 and two-round branches, the replay of a stored response,
+`handle_aggregate_continue`, the leader's collection-job create, poll and
 delete, the helper's `handle_aggregate_share` with its DP noise) and
 `Aggregator` (task lookup, one TaskAggregator per task, the group-commit
-`report_writer` of uploads, the aggregator and collector auth checks). The aggregate-init request
-runs the same steps as janus_tpu's, value for value:
+`report_writer` of uploads, the aggregator and collector auth checks).
+A Prio3 aggregate-init request runs the same steps as janus_tpu's, value
+for value:
 
 1. HPKE-open the input shares (batched per config id);
 2. decode them into columns (`vdaf/wire.py`);
@@ -18,6 +20,12 @@ runs the same steps as janus_tpu's, value for value:
 5. write the job, its report aggregations and its batch aggregations
    in one transaction;
 6. answer with the AggregationJobResp.
+
+A two-round VDAF (the `fake_two_round` test fake, Poplar1) parks its
+accepted reports in WAITING_HELPER and answers ping-pong CONTINUE; the
+leader's continue request finishes them and accumulates their output
+shares. A Poplar1 init runs round 1 as one batched IDPF walk on the
+card (`poplar1_ops.py`, kernel 1) and round 2 on the host.
 
 An upload is checked as janus_tpu checks it: clock skew and expiry, the
 public share's form and the HPKE config id first
@@ -34,7 +42,7 @@ so does an Aggregator. Each aggregate-init request leaves the seconds of
 its stages in `stage_seconds`; a propagated deadline (core/deadline.py)
 is checked between stages as janus_tpu checks it. Collection's
 arithmetic (the sum of the shard rows, the DP noise) runs on the host,
-as in janus_tpu. Not ported yet: Poplar1, multi-round continue, taskprov
+as in janus_tpu. Not ported yet: taskprov
 (and with it the global HPKE keys), the upload journal (a set
 `Config.upload_journal_path` raises NotPorted); and the observability
 calls of janus_tpu's handlers (metrics, trace spans, failpoints, the
@@ -72,6 +80,7 @@ from ..messages import (
     AggregateShare,
     AggregateShareAad,
     AggregateShareReq,
+    AggregationJobContinueReq,
     AggregationJobId,
     AggregationJobInitializeReq,
     AggregationJobResp,
@@ -88,6 +97,7 @@ from ..messages import (
     InputShareAad,
     Interval,
     PartialBatchSelector,
+    PlaintextInputShare,
     PrepareError,
     PrepareResp,
     PrepareStepResult,
@@ -106,10 +116,12 @@ from ..messages.codec import DecodeError
 from ..task import Task
 from ..vdaf.registry import circuit_for
 from ..vdaf.wire import (
+    PP_CONTINUE,
     PP_FINISH,
     PP_INITIALIZE,
     Prio3Wire,
     decode_pingpong,
+    encode_field_rows,
     encode_pingpong,
     lanes_in_range,
     lanes_to_seed_rows,
@@ -120,7 +132,13 @@ from . import errors
 from .accumulator import Accumulator, accumulate_batched, add_encoded_aggregate_shares, fixed_size_batch_id
 from .engine_cache import engine_cache
 from .errors import NotPorted
+from .poplar1_ops import Poplar1Ops
 from .report_writer import ReportWriteBatcher
+
+# Round-1 helper prep share carried in the two-round fake VDAF's
+# ping-pong CONTINUE (opaque bytes, janus_tpu's; the fake's round-2 check
+# is a prep-message echo: the machinery is what multi-round exercises).
+FAKE_ROUND1_PREP_SHARE = b"fake-round1-ps!!"
 
 
 def _one_lane(out: list):
@@ -187,13 +205,19 @@ class TaskAggregator:
     """Per-task protocol ops (reference aggregator.rs:797)."""
 
     def __init__(self, task: Task, cfg: Config, device=None):
-        if task.vdaf.rounds != 1:
-            raise ValueError(f"{task.vdaf.kind}: only one-round Prio3 is ported")
         self.task = task
         self.cfg = cfg
-        self.circ = circuit_for(task.vdaf)
-        self.wire = Prio3Wire(self.circ)
-        self.engine = engine_cache(task.vdaf, task.vdaf_verify_key, device)
+        if task.vdaf.kind == "poplar1":
+            self.circ = None
+            self.wire = None
+            self.engine = None
+            # CUDA unless the caller asks for the CPU; raises without CUDA
+            self.poplar = Poplar1Ops(task.vdaf.bits, task.vdaf_verify_key, resolve_device(device))
+        else:
+            self.circ = circuit_for(task.vdaf)
+            self.wire = Prio3Wire(self.circ)
+            self.engine = engine_cache(task.vdaf, task.vdaf_verify_key, device)
+            self.poplar = None
         self.stage_seconds: dict[str, float] = {}
 
     def hpke_config_list(self) -> HpkeConfigList:
@@ -237,11 +261,14 @@ class TaskAggregator:
             if task.report_expired(Time(t), now):
                 out.append(errors.ReportRejected("report expired", task.task_id))
                 continue
-            try:
-                self.wire.decode_public_share(col.public_shares[i])
-            except DecodeError as e:
-                out.append(errors.InvalidMessage(f"bad public share: {e}", task.task_id))
-                continue
+            # a Poplar1 public share is decoded with the input share, in
+            # the decrypt stage (validate_shares decodes it once)
+            if self.poplar is None:
+                try:
+                    self.wire.decode_public_share(col.public_shares[i])
+                except DecodeError as e:
+                    out.append(errors.InvalidMessage(f"bad public share: {e}", task.task_id))
+                    continue
             cfg = col.leader_config_ids[i]
             if cfg not in kp_cache:
                 kp_cache[cfg] = task.hpke_keypair(HpkeConfigId(cfg))
@@ -288,19 +315,29 @@ class TaskAggregator:
             except DecodeError as e:
                 out[j] = reject(e)
 
-        # length + field range over the meas||proof prefix, one numpy pass
-        want_len = self.wire.leader_share_len
-        nb = (self.circ.input_len + self.circ.proof_len) * self.wire.enc_size
-        live: list[int] = []
-        rows: list[bytes] = []
-        for j in range(n):
-            if out[j] is not None:
-                continue
-            if len(payloads[j]) != want_len:
-                out[j] = reject(DecodeError("bad leader share length"))
-                continue
-            live.append(j)
-            rows.append(payloads[j][:nb])
+        if self.poplar is not None:
+            for j, i in enumerate(idxs):
+                if out[j] is not None:
+                    continue
+                try:
+                    self.poplar.validate_shares(col.public_shares[i], payloads[j], party=0)
+                except (DecodeError, ValueError) as e:
+                    out[j] = reject(e)
+            live: list[int] = []
+        else:
+            # length + field range over the meas||proof prefix, one numpy pass
+            want_len = self.wire.leader_share_len
+            nb = (self.circ.input_len + self.circ.proof_len) * self.wire.enc_size
+            live = []
+            rows: list[bytes] = []
+            for j in range(n):
+                if out[j] is not None:
+                    continue
+                if len(payloads[j]) != want_len:
+                    out[j] = reject(DecodeError("bad leader share length"))
+                    continue
+                live.append(j)
+                rows.append(payloads[j][:nb])
         if live:
             mat = np.frombuffer(b"".join(rows), dtype="<u8").reshape(len(live), -1)
             ok = lanes_in_range(mat, self.circ.FIELD.MODULUS, self.wire.enc_size // 8).all(axis=-1)
@@ -352,11 +389,14 @@ class TaskAggregator:
         existing = ds.run_tx(lambda tx: tx.get_aggregation_job(task.task_id, job_id), "agg_init_check")
         if existing is not None:
             if existing.last_request_hash == request_hash:
-                return self._replay_aggregate_init_response(ds, job_id)
+                return self._replay_aggregate_init_response(ds, job_id, existing)
             raise errors.InvalidMessage("aggregation job id reuse", task.task_id)
 
         if req.partial_batch_selector.query_type != task.query_type.code:
             raise errors.InvalidMessage("partial batch selector query type mismatch", task.task_id)
+
+        if self.poplar is not None:
+            return self._handle_aggregate_init_poplar1(ds, clock, job_id, req, request_hash)
 
         inits = list(req.prepare_inits)
         n = len(inits)
@@ -444,6 +484,12 @@ class TaskAggregator:
             if prep_err[i] is None and rid.data in replayed_ids:
                 prep_err[i] = PrepareError.REPORT_REPLAYED
 
+        # the test fakes' failure at prepare init (janus_tpu's seam)
+        if task.vdaf.fails_at("init"):
+            for i in range(n):
+                if prep_err[i] is None:
+                    prep_err[i] = PrepareError.VDAF_PREP_ERROR
+
         # columnar staging
         nonce_lanes, ok_nonce = seeds_to_lanes([rid.data for rid in ids])
         seed_lanes, ok_seed = seeds_to_lanes(helper_seed_rows)
@@ -469,15 +515,29 @@ class TaskAggregator:
         t3 = time.perf_counter()
         stage["helper_init"] = t3 - t2
 
+        # the test fakes' failure at the step/finish stage
+        if task.vdaf.fails_at("step"):
+            accept = np.zeros_like(accept)
+
         for i in range(n):
             if prep_err[i] is None and not accept[i]:
                 prep_err[i] = PrepareError.VDAF_PREP_ERROR
 
+        # a two-round VDAF parks accepted reports in WaitingHelper with
+        # (prep_msg || out_share) and answers ping-pong CONTINUE; the
+        # continue request finishes them
+        multi_round = task.vdaf.rounds > 1
+        out1_rows = encode_field_rows(self.engine.p3.tf, out1) if multi_round else None
         resps = []
         report_aggs = []
         for i, pi in enumerate(inits):
             md = pi.report_share.metadata
-            if prep_err[i] is None:
+            if prep_err[i] is None and multi_round:
+                result = PrepareStepResult.cont(encode_pingpong(PP_CONTINUE, prep_msg_rows[i], FAKE_ROUND1_PREP_SHARE))
+                state = ReportAggregationState.WAITING_HELPER
+                blob = prep_msg_rows[i] + out1_rows[i]
+                err = None
+            elif prep_err[i] is None:
                 result = PrepareStepResult.cont(encode_pingpong(PP_FINISH, prep_msg_rows[i], None))
                 state = ReportAggregationState.FINISHED
                 blob = prep_msg_rows[i]
@@ -491,17 +551,18 @@ class TaskAggregator:
             report_aggs.append(ReportAggregationModel(task.task_id, job_id, md.report_id, md.time, i, state, blob, err))
 
         # accumulate accepted out shares per batch bucket (reference
-        # :1811-1826)
+        # :1811-1826); a two-round job accumulates at continue-finish
         accumulator = Accumulator(task, self.cfg.batch_aggregation_shard_count)
-        accumulate_batched(
-            task,
-            self.engine,
-            accumulator,
-            out1,
-            accept,
-            [pi.report_share.metadata for pi in inits],
-            batch_identifier=fixed_size_batch_id(req.partial_batch_selector),
-        )
+        if not multi_round:
+            accumulate_batched(
+                task,
+                self.engine,
+                accumulator,
+                out1,
+                accept,
+                [pi.report_share.metadata for pi in inits],
+                batch_identifier=fixed_size_batch_id(req.partial_batch_selector),
+            )
         t4 = time.perf_counter()
         stage["accumulate"] = t4 - t3
 
@@ -512,7 +573,7 @@ class TaskAggregator:
             req.aggregation_parameter,
             req.partial_batch_selector.to_bytes(),
             Interval(Time(min(times)), Duration(max(times) - min(times) + 1)) if times else Interval(Time(0), Duration(1)),
-            AggregationJobState.FINISHED,
+            AggregationJobState.IN_PROGRESS if multi_round else AggregationJobState.FINISHED,
             0,
             request_hash,
         )
@@ -540,22 +601,340 @@ class TaskAggregator:
             ]
         return AggregationJobResp(tuple(resps))
 
-    def _replay_aggregate_init_response(self, ds: Datastore, job_id) -> AggregationJobResp:
+    def _handle_aggregate_init_poplar1(self, ds: Datastore, clock: Clock, job_id, req, request_hash) -> AggregationJobResp:
+        """The helper's Poplar1 init (the ping-pong mapping is in
+        poplar1_ops.py): the per-report checks, one batched HPKE open per
+        config id, round 1 as one batched IDPF walk on the card, round 2
+        on the host; accepted reports park in WAITING_HELPER and resolve
+        at continue time, where the leader's sigma0 arrives."""
+        task = self.task
+        pop = self.poplar
+        stage = self.stage_seconds = {}
+        t0 = time.perf_counter()
+        try:
+            param = pop.decode_param(req.aggregation_parameter)
+        except ValueError as e:
+            raise errors.InvalidMessage(f"bad aggregation parameter: {e}", task.task_id)
+
+        inits = list(req.prepare_inits)
+        n = len(inits)
+        ids = [pi.report_share.metadata.report_id for pi in inits]
+        if len(set(ids)) != n:
+            raise errors.InvalidMessage("duplicate report id in init request", task.task_id)
+
+        now = clock.now()
+        # param-scoped replay check: a report aggregates once per parameter
+        replayed_ids = ds.run_tx(
+            lambda tx: tx.get_aggregated_report_ids_for_param(task.task_id, ids, req.aggregation_parameter),
+            "agg_init_replay_p1",
+        )
+
+        # pass 1: per-report checks; HPKE lanes collect per config id
+        errs: list = [None] * n
+        kp_cache: dict = {}
+        hpke_groups: dict = {}  # config id -> (keypair, [i], encs, pays, aads)
+        for i, pi in enumerate(inits):
+            rs = pi.report_share
+            md = rs.metadata
+            if task.task_expiration and md.time > task.task_expiration:
+                errs[i] = PrepareError.TASK_EXPIRED
+            elif task.report_expired(md.time, now):
+                errs[i] = PrepareError.REPORT_DROPPED
+            elif md.report_id.data in replayed_ids:
+                errs[i] = PrepareError.REPORT_REPLAYED
+            else:
+                cfg_id = rs.encrypted_input_share.config_id
+                if cfg_id not in kp_cache:
+                    kp_cache[cfg_id] = task.hpke_keypair(cfg_id)
+                keypair = kp_cache[cfg_id]
+                if keypair is None:
+                    errs[i] = PrepareError.HPKE_UNKNOWN_CONFIG_ID
+                    continue
+                group = hpke_groups.setdefault(cfg_id, (keypair, [], [], [], []))
+                group[1].append(i)
+                group[2].append(rs.encrypted_input_share.encapsulated_key)
+                group[3].append(rs.encrypted_input_share.payload)
+                group[4].append(InputShareAad(task.task_id, md, rs.public_share).to_bytes())
+
+        # pass 2: one batched open per config-id group, then the payload
+        # and the leader's round-1 share of each opened report
+        plaintexts: list[bytes | None] = [None] * n
+        info = HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.HELPER)
+        for keypair, idxs_g, encs_g, pays_g, aads_g in hpke_groups.values():
+            deadline_mod.check("helper_decrypt")
+            for i, pt in zip(idxs_g, hpke_open_batch(keypair, info, encs_g, pays_g, aads_g)):
+                if isinstance(pt, HpkeError):
+                    errs[i] = PrepareError.HPKE_DECRYPT_ERROR
+                else:
+                    plaintexts[i] = pt
+        msg1_0s: list = [None] * n
+        items = []
+        item_idx = []
+        for i, pi in enumerate(inits):
+            if plaintexts[i] is None:
+                continue
+            rs = pi.report_share
+            try:
+                payload = PlaintextInputShare.from_bytes(plaintexts[i]).payload
+                tag, _, leader_ps = decode_pingpong(pi.message)
+                if tag != PP_INITIALIZE or leader_ps is None:
+                    raise ValueError("expected ping-pong initialize")
+                msg1_0s[i] = pop.decode_fixed_vec(param, leader_ps, 2)
+                items.append((rs.public_share, payload, rs.metadata.report_id.data))
+                item_idx.append(i)
+            except (DecodeError, ValueError):
+                errs[i] = PrepareError.INVALID_MESSAGE
+        t1 = time.perf_counter()
+        stage["hpke_open_decode"] = t1 - t0
+
+        # round 1: one batched device walk over the eligible reports
+        round1 = {}
+        for i, res in zip(item_idx, pop.round1_batch(1, items, param)):
+            if isinstance(res, ValueError):
+                errs[i] = PrepareError.INVALID_MESSAGE
+            else:
+                round1[i] = res
+        t2 = time.perf_counter()
+        stage["round1"] = t2 - t1
+
+        # round 2 on the host: combine, then park
+        resps = []
+        report_aggs = []
+        for i, pi in enumerate(inits):
+            md = pi.report_share.metadata
+            err = errs[i]
+            blob = b""
+            state = ReportAggregationState.FAILED
+            if err is None and i in round1:
+                st1, y1, msg1_1 = round1[i]
+                sigma1, combined = pop.round2(st1, msg1_0s[i], msg1_1)
+                # the sketch's verdict needs the leader's sigma0, which the
+                # continue request carries
+                msg = pop.encode_vec(param, combined)
+                share = pop.encode_vec(param, msg1_1) + pop.encode_elem(param, sigma1)
+                blob = msg + share + pop.encode_vec(param, y1)
+                state = ReportAggregationState.WAITING_HELPER
+                result = PrepareStepResult.cont(encode_pingpong(PP_CONTINUE, msg, share))
+            else:
+                if err is None:
+                    err = PrepareError.INVALID_MESSAGE
+                result = PrepareStepResult.reject(err)
+            resps.append(PrepareResp(md.report_id, result))
+            report_aggs.append(ReportAggregationModel(task.task_id, job_id, md.report_id, md.time, i, state, blob, err))
+        t3 = time.perf_counter()
+        stage["round2"] = t3 - t2
+
+        times = [pi.report_share.metadata.time.seconds for pi in inits]
+        job = AggregationJobModel(
+            task.task_id,
+            job_id,
+            req.aggregation_parameter,
+            req.partial_batch_selector.to_bytes(),
+            Interval(Time(min(times)), Duration(max(times) - min(times) + 1)) if times else Interval(Time(0), Duration(1)),
+            AggregationJobState.IN_PROGRESS,
+            0,
+            request_hash,
+        )
+
+        def write(tx):
+            tx.put_aggregation_job(job)
+            for ra in report_aggs:
+                tx.put_report_aggregation(ra)
+
+        deadline_mod.check("helper_write_tx")
+        ds.run_tx(write, "aggregate_init_p1")
+        stage["write_tx"] = time.perf_counter() - t3
+        return AggregationJobResp(tuple(resps))
+
+    def _replay_aggregate_init_response(self, ds: Datastore, job_id, job) -> AggregationJobResp:
         """Rebuild the response from the stored rows (reference
-        check_aggregation_job_idempotence, aggregator.rs:1526): FINISHED
-        rows hold their prep message in prep_blob."""
+        check_aggregation_job_idempotence, aggregator.rs:1526).
+
+        Reached only while the job's last_request_hash is still the init
+        request's, before any continue (a continue bumps the hash).
+        WAITING_HELPER rows answer the same ping-pong CONTINUE the init
+        answered; FINISHED rows hold their prep message in prep_blob."""
         ras = ds.run_tx(
             lambda tx: tx.get_report_aggregations_for_job(self.task.task_id, job_id), "agg_init_replay_resp"
         )
+        if self.poplar is not None:
+            # blob = enc(A)||enc(B) || enc(A1)||enc(B1)||enc(sigma1) || y1
+            es = self.poplar.enc_size(self.poplar.decode_param(job.aggregation_parameter))
+            msg_len = 2 * es
+
+            def round1_share(blob):
+                return blob[2 * es : 5 * es]
+        else:
+            msg_len = 16 if self.wire.uses_jr else 0
+
+            def round1_share(blob):
+                return FAKE_ROUND1_PREP_SHARE
+
         resps = []
         for ra in ras:
             if ra.state == ReportAggregationState.FINISHED:
                 result = PrepareStepResult.cont(encode_pingpong(PP_FINISH, ra.prep_blob, None))
+            elif ra.state == ReportAggregationState.WAITING_HELPER:
+                result = PrepareStepResult.cont(
+                    encode_pingpong(PP_CONTINUE, ra.prep_blob[:msg_len], round1_share(ra.prep_blob))
+                )
             else:
                 result = PrepareStepResult.reject(_err_or_default(ra.prepare_error))
             resps.append(PrepareResp(ra.report_id, result))
         return AggregationJobResp(tuple(resps))
 
+    # ------------------------------------------------------------------
+    # helper aggregate continue (reference aggregation_job_continue.rs:30-300)
+    # ------------------------------------------------------------------
+    def handle_aggregate_continue(
+        self,
+        ds: Datastore,
+        clock: Clock,
+        job_id: AggregationJobId,
+        req: AggregationJobContinueReq,
+        request_bytes: bytes,
+    ) -> AggregationJobResp:
+        """Step a two-round job: ord-matched prepare continues against the
+        stored WaitingHelper rows, step and replay validation, accumulate
+        on finish."""
+        task = self.task
+        deadline_mod.check("helper_continue")
+        if task.vdaf.rounds == 1:
+            # a continue request is always a step mismatch for a one-round
+            # VDAF (reference parity gate)
+            raise errors.StepMismatch("no multi-round VDAFs configured", task.task_id)
+        request_hash = hashlib.sha256(request_bytes).digest()
+        step = req.step.step
+        if step == 0:
+            raise errors.InvalidMessage("aggregation job cannot continue to step 0", task.task_id)
+
+        # validation, row reads, accumulate and writes in ONE transaction:
+        # concurrent identical continues (a leader's timeout and re-POST)
+        # serialize, so exactly one processes and the other replays
+        def process(tx):
+            job = tx.get_aggregation_job(task.task_id, job_id)
+            if job is None:
+                raise errors.UnrecognizedAggregationJob("no such aggregation job", task.task_id)
+            if step == job.step:
+                # idempotent replay: same request, same response, scoped to
+                # the reports the continue addressed
+                if job.last_request_hash == request_hash:
+                    return self._rebuild_continue_resps(tx, job_id, req)
+                raise errors.StepMismatch("continue step replay with different request", task.task_id)
+            if job.state != AggregationJobState.IN_PROGRESS:
+                raise errors.StepMismatch("aggregation job is not continuable", task.task_id)
+            if step != job.step + 1:
+                raise errors.StepMismatch(f"continue to step {step}, job is at step {job.step}", task.task_id)
+
+            ras = tx.get_report_aggregations_for_job(task.task_id, job_id)
+            all_waiting = [ra for ra in ras if ra.state == ReportAggregationState.WAITING_HELPER]
+            # ord-matched subsequence (reference :58-84): a waiting report
+            # the leader omitted is dropped; an unexpected, duplicate or
+            # out-of-order step rejects the request
+            waiting = []
+            dropped = []
+            it = iter(all_waiting)
+            for pc in req.prepare_continues:
+                for ra in it:
+                    if ra.report_id == pc.report_id:
+                        waiting.append(ra)
+                        break
+                    dropped.append(ra)
+                else:
+                    raise errors.InvalidMessage(
+                        "leader sent unexpected, duplicate, or out-of-order prepare steps", task.task_id
+                    )
+            dropped.extend(it)  # trailing omissions
+
+            pop_sigma1_at = None
+            if self.poplar is not None:
+                # blob = enc(A)||enc(B) || enc(A1)||enc(B1)||enc(sigma1) || y1
+                param = self.poplar.decode_param(job.aggregation_parameter)
+                es = self.poplar.enc_size(param)
+                msg_len, skip_len = es, 5 * es  # FINISH msg = enc(sigma0)
+
+                def pop_sigma1_at(blob):
+                    return blob[4 * es : 5 * es]
+
+                field = self.poplar.field_for(param)
+            else:
+                msg_len = 16 if self.wire.uses_jr else 0
+                skip_len = msg_len
+                field = None
+            accumulator = Accumulator(
+                task, self.cfg.batch_aggregation_shard_count, field=field, aggregation_parameter=job.aggregation_parameter
+            )
+            fixed_bid = fixed_size_batch_id(PartialBatchSelector.from_bytes(job.partial_batch_identifier))
+            updated = []
+            resps = []
+            for ra, pc in zip(waiting, req.prepare_continues):
+                ok = False
+                try:
+                    tag, prep_msg, _share = decode_pingpong(pc.message)
+                    if tag != PP_FINISH:
+                        ok = False
+                    elif pop_sigma1_at is not None:
+                        # FINISH carries the leader's sigma0; accept iff
+                        # sigma0 + sigma1 == 0
+                        sigma0 = self.poplar.decode_elem(param, prep_msg or b"")
+                        sigma1 = self.poplar.decode_elem(param, pop_sigma1_at(ra.prep_blob))
+                        ok = field.add(sigma0, sigma1) == 0
+                    else:
+                        ok = (prep_msg or b"") == ra.prep_blob[:msg_len]
+                except (DecodeError, ValueError):
+                    ok = False
+                if ok:
+                    out_share = accumulator.field.decode_vec(ra.prep_blob[skip_len:])
+                    bid = fixed_bid or Interval(
+                        ra.client_time.to_batch_interval_start(task.time_precision), task.time_precision
+                    ).to_bytes()
+                    accumulator.update_single(bid, out_share, ra.report_id, ra.client_time)
+                    updated.append(dataclasses.replace(ra, state=ReportAggregationState.FINISHED, prep_blob=b""))
+                    resps.append(PrepareResp(ra.report_id, PrepareStepResult.finished()))
+                else:
+                    updated.append(ra.failed(PrepareError.VDAF_PREP_ERROR))
+                    resps.append(PrepareResp(ra.report_id, PrepareStepResult.reject(PrepareError.VDAF_PREP_ERROR)))
+
+            unmerged = accumulator.flush_to_datastore(tx)
+            tx.update_aggregation_job(
+                dataclasses.replace(
+                    job, state=AggregationJobState.FINISHED, step=step, last_request_hash=request_hash
+                )
+            )
+            for ra in dropped:
+                # waiting rows the leader omitted (failed on its side):
+                # reference marks them ReportDropped (:72-81)
+                tx.update_report_aggregation(ra.failed(PrepareError.REPORT_DROPPED))
+            for ra in updated:
+                tx.update_report_aggregation(
+                    ra.failed(PrepareError.BATCH_COLLECTED) if ra.report_id.data in unmerged else ra
+                )
+            if unmerged:
+                resps = [
+                    PrepareResp(r.report_id, PrepareStepResult.reject(PrepareError.BATCH_COLLECTED))
+                    if r.report_id.data in unmerged
+                    else r
+                    for r in resps
+                ]
+            return AggregationJobResp(tuple(resps))
+
+        return ds.run_tx(process, "aggregate_continue")
+
+    def _rebuild_continue_resps(self, tx, job_id, req) -> AggregationJobResp:
+        """The replay's response, scoped to exactly the reports the
+        continue request addressed, in request order (init-time failures
+        are not part of a continue response)."""
+        ras = {ra.report_id: ra for ra in tx.get_report_aggregations_for_job(self.task.task_id, job_id)}
+        resps = []
+        for pc in req.prepare_continues:
+            ra = ras.get(pc.report_id)
+            if ra is None:
+                continue
+            if ra.state == ReportAggregationState.FINISHED:
+                resps.append(PrepareResp(ra.report_id, PrepareStepResult.finished()))
+            else:
+                resps.append(PrepareResp(ra.report_id, PrepareStepResult.reject(_err_or_default(ra.prepare_error))))
+        return AggregationJobResp(tuple(resps))
 
     # ------------------------------------------------------------------
     # collection jobs (leader; reference aggregator.rs:2185-2746)
@@ -566,7 +945,16 @@ class TaskAggregator:
         task = self.task
         if req.query.query_type != task.query_type.code:
             raise errors.InvalidMessage("query type mismatch", task.task_id)
-        if req.aggregation_parameter != b"":
+        if self.poplar is not None:
+            # a malformed parameter is refused at creation, not left for
+            # the driver to abandon after its lease attempts
+            try:
+                self.poplar.decode_param(req.aggregation_parameter)
+            except ValueError as e:
+                raise errors.InvalidMessage(f"bad aggregation parameter: {e}", task.task_id)
+        elif req.aggregation_parameter != b"" and not task.vdaf.kind.startswith("fake"):
+            # the fakes, like the reference's dummy VDAF, take any
+            # parameter; a Prio3 parameter is empty
             raise errors.InvalidMessage(
                 "nonempty aggregation parameter for a parameterless VDAF",
                 task.task_id,
@@ -712,7 +1100,13 @@ class TaskAggregator:
             batch_identifier = interval.to_bytes()
         else:
             batch_identifier = req.batch_selector.batch_id.data
-        share_field = self.circ.FIELD
+        if self.poplar is not None:
+            try:
+                share_field = self.poplar.field_for(self.poplar.decode_param(req.aggregation_parameter))
+            except ValueError as e:
+                raise errors.InvalidMessage(f"bad aggregation parameter: {e}", task.task_id)
+        else:
+            share_field = self.circ.FIELD
 
         def compute(tx):
             existing = tx.get_aggregate_share_job(task.task_id, batch_identifier, req.aggregation_parameter)
@@ -824,3 +1218,15 @@ class Aggregator:
         except DecodeError as e:
             raise errors.InvalidMessage(f"undecodable aggregate-init request: {e}", task_id)
         return ta.handle_aggregate_init(self.ds, self.clock, job_id, req, request_bytes)
+
+    def handle_aggregate_continue(
+        self, task_id: TaskId, job_id: AggregationJobId, request_bytes: bytes
+    ) -> AggregationJobResp:
+        """Decode an AggregationJobContinueReq from its wire bytes and
+        answer it for the task."""
+        ta = self.task_aggregator_for(task_id)
+        try:
+            req = AggregationJobContinueReq.from_bytes(request_bytes)
+        except DecodeError as e:
+            raise errors.InvalidMessage(f"undecodable aggregate-continue request: {e}", task_id)
+        return ta.handle_aggregate_continue(self.ds, self.clock, job_id, req, request_bytes)

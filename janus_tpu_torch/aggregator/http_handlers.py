@@ -9,6 +9,7 @@ aggregation and aggregate-share requests:
   GET    /hpke_config?task_id=...
   PUT    /tasks/:task_id/reports
   PUT    /tasks/:task_id/aggregation_jobs/:aggregation_job_id
+  POST   /tasks/:task_id/aggregation_jobs/:aggregation_job_id  (continue)
   PUT    /tasks/:task_id/collection_jobs/:collection_job_id
   POST   /tasks/:task_id/collection_jobs/:collection_job_id   (poll)
   DELETE /tasks/:task_id/collection_jobs/:collection_job_id
@@ -25,9 +26,8 @@ handler thread parks on its ticket. A budget that dies inside the
 aggregate-init handler answers the conclusive 408.
 
 Not ported yet, and answered as janus_tpu answers an unknown route (404):
-the continue step (POST /tasks/:id/aggregation_jobs/:id) and the ledger
-read (GET /tasks/:id/ledger); with them taskprov, and the calls into
-metrics, statusz and trace spans.
+the ledger read (GET /tasks/:id/ledger); with it taskprov, and the calls
+into metrics, statusz and trace spans.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ from ..core.deadline import DEADLINE_EXCEEDED_STATUS, DeadlineExceeded
 from ..ingest import AdmissionConfig, AdmissionController, IngestPipeline, ShedError
 from ..messages import (
     AggregateShareReq,
+    AggregationJobContinueReq,
     AggregationJobId,
     AggregationJobInitializeReq,
     CollectionJobId,
@@ -78,6 +79,7 @@ _ROUTES = [
     ("GET", re.compile(r"^/hpke_config$"), "hpke_config"),
     ("PUT", re.compile(r"^/tasks/([^/]+)/reports$"), "upload"),
     ("PUT", re.compile(r"^/tasks/([^/]+)/aggregation_jobs/([^/]+)$"), "aggregate_init"),
+    ("POST", re.compile(r"^/tasks/([^/]+)/aggregation_jobs/([^/]+)$"), "aggregate_continue"),
     ("PUT", re.compile(r"^/tasks/([^/]+)/collection_jobs/([^/]+)$"), "collection_create"),
     ("POST", re.compile(r"^/tasks/([^/]+)/collection_jobs/([^/]+)$"), "collection_poll"),
     ("DELETE", re.compile(r"^/tasks/([^/]+)/collection_jobs/([^/]+)$"), "collection_delete"),
@@ -89,12 +91,18 @@ _ROUTES = [
 # paid to admit, shed only near saturation. hpke_config and the
 # collector's collection_jobs routes (which have their own 202
 # Retry-After flow) are never shed.
-_ROUTE_CLASS = {"upload": "upload", "aggregate_init": "aggregate", "aggregate_share": "aggregate"}
+_ROUTE_CLASS = {
+    "upload": "upload",
+    "aggregate_init": "aggregate",
+    "aggregate_continue": "aggregate",
+    "aggregate_share": "aggregate",
+}
 
 # Request body media types per route (reference http_handlers.rs:512-551).
 _REQUEST_MEDIA_TYPES = {
     "upload": Report.MEDIA_TYPE,
     "aggregate_init": AggregationJobInitializeReq.MEDIA_TYPE,
+    "aggregate_continue": AggregationJobContinueReq.MEDIA_TYPE,
     "collection_create": CollectionReq.MEDIA_TYPE,
     "aggregate_share": AggregateShareReq.MEDIA_TYPE,
 }
@@ -275,6 +283,15 @@ class DapHttpApp:
             )
         req = AggregationJobInitializeReq.from_bytes(body)
         resp = ta.handle_aggregate_init(self.agg.ds, self.agg.clock, job_id, req, body)
+        return 200, "application/dap-aggregation-job-resp", resp.to_bytes()
+
+    def h_aggregate_continue(self, match, query, headers, body):
+        task_id = TaskId(_b64dec(match.group(1), 32))
+        job_id = AggregationJobId(_b64dec(match.group(2), 16))
+        ta = self.agg.task_aggregator_for(task_id)
+        self.agg.check_aggregator_auth(ta.task, headers)
+        req = AggregationJobContinueReq.from_bytes(body)
+        resp = ta.handle_aggregate_continue(self.agg.ds, self.agg.clock, job_id, req, body)
         return 200, "application/dap-aggregation-job-resp", resp.to_bytes()
 
     def h_collection_create(self, match, query, headers, body):

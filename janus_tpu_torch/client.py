@@ -3,9 +3,11 @@
 Equivalent of reference client/src/lib.rs:58-300 (`ClientParameters`,
 HPKE-config fetch, `prepare_report`, `upload`); the port's own copy of
 janus_tpu/client.py. Sharding uses the host Prio3 of
-vdaf/reference.py, one report at a time (a client is not an
-aggregator); batched load generation uses the device shard in
-vdaf/testing.py `make_wire_reports` instead. Poplar1 raises NotPorted.
+vdaf/reference.py, or the host Poplar1 of vdaf/poplar1.py (IDPF keys
+and correlated randomness, with its public- and input-share codecs), one
+report at a time (a client is not an aggregator); batched Prio3 load
+generation uses the device shard in vdaf/testing.py `make_wire_reports`
+instead.
 """
 
 from __future__ import annotations
@@ -14,7 +16,6 @@ import base64
 import secrets
 from dataclasses import dataclass
 
-from .aggregator.errors import NotPorted
 from .core.hpke import HpkeApplicationInfo, Label, hpke_seal
 from .core.retries import Backoff, retry_http_request
 from .core.time_util import Clock, RealClock
@@ -30,6 +31,7 @@ from .messages import (
     Role,
     TaskId,
 )
+from .vdaf.poplar1 import Poplar1, encode_input_share, encode_public_share
 from .vdaf.registry import VdafInstance, circuit_for, prio3_host
 from .vdaf.wire import Prio3Wire
 
@@ -67,12 +69,16 @@ class Client:
         clock: Clock | None = None,
         http=None,
     ):
-        if vdaf.kind == "poplar1":
-            raise NotPorted("the Poplar1 client is not ported to janus_tpu_torch yet")
         self.params = parameters
         self.vdaf = vdaf
-        self.prio3 = prio3_host(vdaf)
-        self.wire = Prio3Wire(circuit_for(vdaf))
+        if vdaf.kind == "poplar1":
+            self.prio3 = None
+            self.wire = None
+            self.poplar = Poplar1(vdaf.bits)
+        else:
+            self.prio3 = prio3_host(vdaf)
+            self.wire = Prio3Wire(circuit_for(vdaf))
+            self.poplar = None
         self.leader_hpke_config = leader_hpke_config
         self.helper_hpke_config = helper_hpke_config
         self.clock = clock or RealClock()
@@ -99,12 +105,18 @@ class Client:
         report_id = ReportId(secrets.token_bytes(16))
         time = (when or self.clock.now()).to_batch_interval_start(self.params.time_precision)
         metadata = ReportMetadata(report_id, time)
-        public_share_parts, (leader_share, helper_share) = self.prio3.shard(measurement, report_id.data)
-        public_share = self.wire.encode_public_share(public_share_parts)
-        leader_raw = self.wire.encode_leader_share(
-            leader_share.measurement_share, leader_share.proof_share, leader_share.joint_rand_blind
-        )
-        helper_raw = self.wire.encode_helper_share(helper_share.seed, helper_share.joint_rand_blind)
+        if self.poplar is not None:
+            cws, (k0, k1) = self.poplar.shard(measurement)
+            public_share = encode_public_share(self.poplar.bits, cws)
+            leader_raw = encode_input_share(k0, 0, self.poplar.bits)
+            helper_raw = encode_input_share(k1, 1, self.poplar.bits)
+        else:
+            public_share_parts, (leader_share, helper_share) = self.prio3.shard(measurement, report_id.data)
+            public_share = self.wire.encode_public_share(public_share_parts)
+            leader_raw = self.wire.encode_leader_share(
+                leader_share.measurement_share, leader_share.proof_share, leader_share.joint_rand_blind
+            )
+            helper_raw = self.wire.encode_helper_share(helper_share.seed, helper_share.joint_rand_blind)
         aad = InputShareAad(self.params.task_id, metadata, public_share).to_bytes()
         leader_ct = hpke_seal(
             self.leader_hpke_config,

@@ -6,8 +6,10 @@ poll_once/poll_until_complete, HPKE-open of both aggregate shares,
 vdaf.unshard).
 
 The port's own copy of janus_tpu/collector.py. The unshard is the host
-`Prio3.unshard` (vdaf/reference.py), as in janus_tpu; a Poplar1 collector
-raises NotPorted.
+`Prio3.unshard` (vdaf/reference.py), or for Poplar1 `Poplar1.unshard`
+(vdaf/poplar1.py) in the field of the aggregation parameter's level, as
+in janus_tpu. A heavy-hitters collector walks the levels itself: one
+collection per `Poplar1AggParam(level, prefixes)`, passed as `agg_param`.
 """
 
 from __future__ import annotations
@@ -16,7 +18,6 @@ import secrets
 import time as _time
 from dataclasses import dataclass
 
-from .aggregator.errors import NotPorted
 from .client import b64url
 from .core.auth import AuthenticationToken
 from .core.hpke import HpkeApplicationInfo, HpkeKeypair, Label, hpke_open
@@ -33,6 +34,7 @@ from .messages import (
     TaskId,
     TimeInterval,
 )
+from .vdaf.poplar1 import Poplar1, Poplar1AggParam
 from .vdaf.registry import VdafInstance, circuit_for, prio3_host
 
 
@@ -75,11 +77,9 @@ class Collector:
     """reference collector/src/lib.rs:359."""
 
     def __init__(self, params: CollectorParameters, vdaf: VdafInstance, http):
-        if vdaf.kind == "poplar1":
-            raise NotPorted("the Poplar1 collector is not ported to janus_tpu_torch yet")
         self.params = params
         self.vdaf = vdaf
-        self.prio3 = prio3_host(vdaf)
+        self.prio3 = prio3_host(vdaf) if vdaf.kind != "poplar1" else None
         self.http = http
 
     def start_collection(self, query: Query, agg_param: bytes = b"") -> CollectionJobId:
@@ -151,7 +151,12 @@ class Collector:
         else:
             batch_selector = BatchSelector.fixed_size(collection.partial_batch_selector.batch_id)
         aad = AggregateShareAad(self.params.task_id, agg_param, batch_selector).to_bytes()
-        field = circuit_for(self.vdaf).FIELD
+        if self.vdaf.kind == "poplar1":
+            poplar = Poplar1(self.vdaf.bits)
+            p1_param = Poplar1AggParam.decode(agg_param)
+            field = poplar.idpf.field_at(p1_param.level)
+        else:
+            field = circuit_for(self.vdaf).FIELD
         shares = []
         for role, ct in (
             (Role.LEADER, collection.leader_encrypted_agg_share),
@@ -164,6 +169,9 @@ class Collector:
                 aad,
             )
             shares.append(field.decode_vec(pt))
-        result = self.prio3.unshard(shares, collection.report_count)
+        if self.vdaf.kind == "poplar1":
+            result = poplar.unshard(p1_param, shares)
+        else:
+            result = self.prio3.unshard(shares, collection.report_count)
         pbs = collection.partial_batch_selector if query.query_type != TimeInterval.CODE else None
         return CollectionResult(collection.report_count, collection.interval, result, pbs)

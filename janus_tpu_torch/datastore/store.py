@@ -753,6 +753,47 @@ class Transaction:
             out.update(r[0] for r in rows)
         return out
 
+    def get_aggregated_report_ids_for_param(
+        self, task_id: TaskId, report_ids: list[ReportId], aggregation_parameter: bytes
+    ) -> set[bytes]:
+        """Param-scoped replay check (a VDAF with an aggregation
+        parameter, Poplar1): which of `report_ids` already have a report
+        aggregation under a job with THIS parameter. A report aggregates
+        once per parameter."""
+        out: set[bytes] = set()
+        ids = [r.data for r in report_ids]
+        for lo in range(0, len(ids), 500):
+            chunk = ids[lo : lo + 500]
+            marks = ",".join("?" * len(chunk))
+            rows = self._c.execute(
+                "SELECT DISTINCT ra.report_id FROM report_aggregations ra"
+                " JOIN aggregation_jobs aj ON aj.task_id = ra.task_id"
+                "  AND aj.job_id = ra.job_id"
+                " WHERE ra.task_id = ? AND aj.aggregation_parameter = ?"
+                f" AND ra.report_id IN ({marks})",
+                (task_id.data, aggregation_parameter, *chunk),
+            ).fetchall()
+            out.update(r[0] for r in rows)
+        return out
+
+    def get_client_report_ids_in_interval(self, task_id: TaskId, interval: Interval) -> list[tuple[ReportId, Time]]:
+        """Every stored client report whose time falls in the interval
+        (the collection-driven aggregation of a parameterized VDAF)."""
+        rows = self._c.execute(
+            "SELECT report_id, client_time FROM client_reports"
+            " WHERE task_id = ? AND client_time >= ? AND client_time < ?"
+            " ORDER BY client_time, report_id",
+            (task_id.data, interval.start.seconds, interval.end.seconds),
+        ).fetchall()
+        return [(ReportId(r[0]), Time(r[1])) for r in rows]
+
+    def count_active_aggregation_jobs_for_param(self, task_id: TaskId, aggregation_parameter: bytes) -> int:
+        return self._c.execute(
+            "SELECT COUNT(*) FROM aggregation_jobs"
+            " WHERE task_id = ? AND aggregation_parameter = ? AND state = 'in_progress'",
+            (task_id.data, aggregation_parameter),
+        ).fetchone()[0]
+
     # ---- batch aggregations (reference datastore.rs:3020-3368) ----
     def put_batch_aggregation(self, ba: BatchAggregation) -> None:
         try:

@@ -37,6 +37,10 @@ class Field(metaclass=_FieldMeta):
         return (a * b) % cls.MODULUS
 
     @classmethod
+    def neg(cls, a: int) -> int:
+        return (-a) % cls.MODULUS
+
+    @classmethod
     def pow(cls, a: int, e: int) -> int:
         return pow(a, e, cls.MODULUS)
 

@@ -194,6 +194,10 @@ def flp_prove(circ: Circuit, inp: list[int], prove_rand: list[int], joint_rand: 
 # ---------------------------------------------------------------------------
 
 
+class VdafError(Exception):
+    """A report the VDAF rejects (Poplar1's failed sketch, vdaf/poplar1.py)."""
+
+
 @dataclass
 class LeaderShare:
     measurement_share: list[int]

@@ -2,10 +2,12 @@
 
 A serializable description of one VDAF configuration (the JAX
 package's vdaf/registry.py VdafInstance, for the four Prio3 kinds on the
-device path) that resolves to a circuit and to a Prio3Batched engine on
-a device. Both XOF modes run here: "fast" on Prio3Batched, "draft"
-(VDAF-07) on Prio3BatchedDraft for the circuits it takes. A client's
-host sharder for one report is `prio3_host` (vdaf/reference.py).
+device path, Poplar1 and the four test fakes) that resolves to a circuit
+and to a Prio3Batched engine on a device. Both XOF modes run here:
+"fast" on Prio3Batched, "draft" (VDAF-07) on Prio3BatchedDraft for the
+circuits it takes. A client's host sharder for one report is
+`prio3_host` (vdaf/reference.py). Poplar1 has no circuit: the
+aggregators run it through aggregator/poplar1_ops.py.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from .prio3 import Prio3Batched
 class VdafInstance:
     """One VDAF configuration; hashable so dispatch results are cached."""
 
-    kind: str  # "count" | "sum" | "sumvec" | "histogram"
+    kind: str  # "count" | "sum" | "sumvec" | "histogram" | "poplar1" | the fakes
     bits: int = 0
     length: int = 0
     chunk_length: int = 0  # 0 -> sqrt heuristic
@@ -48,22 +50,54 @@ class VdafInstance:
     def histogram(cls, length: int, chunk_length: int = 0) -> "VdafInstance":
         return cls("histogram", length=length, chunk_length=chunk_length)
 
+    @classmethod
+    def poplar1(cls, bits: int) -> "VdafInstance":
+        """Heavy hitters over an IDPF with aggregation parameters (level,
+        prefixes): the collection flow makes param-scoped aggregation
+        jobs and the two-round sketch exchange runs on the continue
+        step (aggregator/poplar1_ops.py)."""
+        return cls("poplar1", bits=bits)
+
+    # --- test-only fakes (janus_tpu's, after the reference's
+    # VdafInstance::Fake* variants). They run the Count circuit and force
+    # per-report prepare failures at the aggregators' dispatch sites, or
+    # take two rounds, to exercise error paths and the continue step.
+    @classmethod
+    def fake(cls) -> "VdafInstance":
+        return cls("fake")
+
+    @classmethod
+    def fake_fails_prep_init(cls) -> "VdafInstance":
+        return cls("fake_fails_prep_init")
+
+    @classmethod
+    def fake_fails_prep_step(cls) -> "VdafInstance":
+        return cls("fake_fails_prep_step")
+
+    @classmethod
+    def fake_two_round(cls) -> "VdafInstance":
+        """Two-round fake: the helper parks in WaitingHelper and the
+        continue request finishes it; round 2 is a prep-message echo."""
+        return cls("fake_two_round")
+
     @property
     def rounds(self) -> int:
-        """DAP prepare rounds: 1 for every Prio3 kind of the port."""
-        return 1
+        """DAP prepare rounds: 1 for Prio3; 2 for Poplar1 (sketch
+        exchange, then verify) and the two-round fake."""
+        return 2 if self.kind in ("fake_two_round", "poplar1") else 1
 
     @property
     def has_aggregation_parameter(self) -> bool:
-        """Prio3 takes no aggregation parameter; Poplar1 does (its
-        collection raises NotPorted)."""
+        """Poplar1 takes an aggregation parameter (level, prefixes):
+        reports aggregate once per parameter, in jobs the collection
+        flow creates."""
         return self.kind == "poplar1"
 
     def fails_at(self, stage: str) -> bool:
-        """The JAX package's seam for its test-only failing fakes; no
-        port kind fails on purpose."""
+        """The seam of the fakes' failure dispatch sites: stage "init"
+        (prepare initialization) or "step" (continue/finish)."""
         assert stage in ("init", "step")
-        return False
+        return self.kind == f"fake_fails_prep_{stage}"
 
     def to_dict(self) -> dict:
         d = {"kind": self.kind}
@@ -87,8 +121,15 @@ class VdafInstance:
             chunk_length=d.get("chunk_length", 0),
             xof_mode=d.get("xof_mode", "fast"),
         )
-        circuit_for(inst)
+        if inst.kind == "poplar1":
+            if not 1 <= inst.bits <= 64:
+                raise ValueError(f"Poplar1 with {inst.bits} bits has no device path in janus_tpu_torch")
+        else:
+            circuit_for(inst)
         return inst
+
+
+FAKE_KINDS = ("fake", "fake_fails_prep_init", "fake_fails_prep_step", "fake_two_round")
 
 
 @lru_cache(maxsize=None)
@@ -104,6 +145,13 @@ def circuit_for(inst: VdafInstance) -> Circuit:
         return SumVec(length=inst.length, bits=inst.bits, chunk_length=ch)
     if inst.kind == "histogram":
         return Histogram(length=inst.length, chunk_length=ch)
+    if inst.kind in FAKE_KINDS:
+        return Count()
+    if inst.kind == "poplar1":
+        raise ValueError(
+            "Poplar1 has no FLP circuit: the aggregators run it through "
+            "aggregator/poplar1_ops.py, not the Prio3 engine"
+        )
     raise ValueError(f"VDAF kind {inst.kind!r} has no device path in janus_tpu_torch")
 
 

@@ -146,6 +146,17 @@ class XofCtr128:
         return cls(seed, dst_, binder).next(SEED_SIZE)
 
 
+# The class named for what the stream is derived from; Poplar1
+# (vdaf/poplar1.py) names its XOF so, as the reference does.
+XofShake128 = XofCtr128
+
+
+def prng_expand(field, seed: bytes, dst_: bytes, binder: bytes, length: int) -> list[int]:
+    """Expand a seed into `length` field elements of the counter-mode
+    stream (host path, hashlib)."""
+    return XofCtr128(seed, dst_, binder).next_vec(field, length)
+
+
 # ---------------------------------------------------------------------------
 # Draft framing (`xof_mode: "draft"`): the VDAF-07 sequential sponge
 # ---------------------------------------------------------------------------

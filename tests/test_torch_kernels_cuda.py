@@ -419,3 +419,115 @@ def test_port_pair_collects_a_sumvec_job_on_the_card(cuda):
         l_agg.close()
         leader.cleanup()
         helper.cleanup()
+
+
+@pytest.mark.parametrize("bits,level", [(8, 4), (8, 7)])
+def test_poplar1_prepare_on_the_card_matches_cpu_and_the_host_walk(cuda, bits, level):
+    """The batched IDPF walk and sketch on the card (kernel 1, 2(L+1)+1
+    launches a party at level L) against its CPU run and the host walk,
+    both parties, an inner (Field64) and the leaf (Field128) level."""
+    from janus_tpu_torch.vdaf.poplar1 import Poplar1, Poplar1AggParam
+    from janus_tpu_torch.vdaf.poplar1_device import prepare_init_batched
+
+    poplar = Poplar1(bits)
+    rng = np.random.default_rng(level)
+    alphas = [int(x) for x in rng.integers(0, 1 << bits, size=6)]
+    keys = [poplar.shard(a)[1] for a in alphas]
+    prefixes = tuple(sorted({a >> (bits - 1 - level) for a in alphas} | {0, (1 << (level + 1)) - 1}))
+    param = Poplar1AggParam(level, prefixes)
+    nonces = [rng.bytes(16) for _ in alphas]
+    vk = bytes(range(16))
+    for party in (0, 1):
+        party_keys = [k[party] for k in keys]
+        keccak_cuda.keccak_single_block.launches = 0
+        got = prepare_init_batched(bits, party, party_keys, param, vk, nonces, device=cuda)
+        assert keccak_cuda.keccak_single_block.launches == 2 * (level + 1) + 1
+        assert got == prepare_init_batched(bits, party, party_keys, param, vk, nonces, device="cpu")
+        for i, key in enumerate(party_keys):
+            state, msg1 = poplar.prepare_init(party, key, param, vk, nonces[i])
+            assert (got[0][i], got[1][i], got[2][i], got[3][i], got[4][i]) == (
+                state.y_shares, msg1[0], msg1[1], state.a_share, state.c_share)
+
+
+def test_port_pair_poplar1_heavy_hitters_on_the_card(cuda):
+    """A Poplar1(4) heavy-hitters collection by a port pair on the card:
+    uploads through the port's Client, one collection a level driven by
+    the collection and aggregation drivers (init on the card, continue on
+    the host), the per-prefix counts of each level and the heavy set."""
+    import dataclasses
+
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver, AggregationJobDriverConfig
+    from janus_tpu_torch.aggregator.collection_job_driver import CollectionJobDriver, CollectionJobDriverConfig
+    from janus_tpu_torch.aggregator.core import Aggregator
+    from janus_tpu_torch.aggregator.http_handlers import DapHttpApp, DapServer
+    from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig
+    from janus_tpu_torch.client import Client, ClientParameters
+    from janus_tpu_torch.collector import Collector, CollectorParameters
+    from janus_tpu_torch.core.auth import AuthenticationToken
+    from janus_tpu_torch.core.hpke import generate_hpke_config_and_private_key
+    from janus_tpu_torch.core.http_client import HttpClient
+    from janus_tpu_torch.core.retries import Backoff
+    from janus_tpu_torch.core.time_util import MockClock
+    from janus_tpu_torch.datastore import EphemeralDatastore
+    from janus_tpu_torch.messages import Duration, Interval, Query, Role, Time
+    from janus_tpu_torch.task import QueryTypeConfig, TaskBuilder
+    from janus_tpu_torch.vdaf.poplar1 import Poplar1AggParam
+
+    now, bits, threshold = 1_700_000_000, 4, 2
+    meas = [0b1010, 0b1010, 0b1010, 0b0110, 0b0110, 0b0001]
+    inst = VdafInstance.poplar1(bits)
+    collector_kp = generate_hpke_config_and_private_key(config_id=7)
+    leader, helper = EphemeralDatastore(MockClock(Time(now))), EphemeralDatastore(MockClock(Time(now)))
+    l_agg = Aggregator(leader.datastore, leader.clock, device=cuda)
+    h_agg = Aggregator(helper.datastore, helper.clock, device=cuda)
+    servers = [DapServer(DapHttpApp(h_agg)).start(), DapServer(DapHttpApp(l_agg)).start()]
+    try:
+        task = TaskBuilder(QueryTypeConfig.time_interval(), inst, Role.LEADER).with_(
+            vdaf_verify_key=bytes(16), aggregator_auth_token=AuthenticationToken.random_bearer(),
+            collector_hpke_config=collector_kp.config, min_batch_size=1, max_batch_query_count=bits + 1,
+            leader_aggregator_endpoint=servers[1].url, helper_aggregator_endpoint=servers[0].url,
+        ).build()
+        helper_task = dataclasses.replace(
+            task, role=Role.HELPER, hpke_keys=(generate_hpke_config_and_private_key(config_id=1),)
+        )
+        leader.datastore.run_tx(lambda tx: tx.put_task(task))
+        helper.datastore.run_tx(lambda tx: tx.put_task(helper_task))
+        http = HttpClient(timeout=120)
+        params = ClientParameters(task.task_id, servers[1].url, servers[0].url, task.time_precision)
+        client = Client.with_fetched_configs(params, inst, http, clock=leader.clock)
+        for m in meas:
+            client.upload(m)
+
+        cfg = JobDriverConfig(max_concurrent_job_workers=1)
+        adriver = AggregationJobDriver(leader.datastore, http, AggregationJobDriverConfig(http_backoff=Backoff.test()),
+                                       device=cuda)
+        cdriver = CollectionJobDriver(leader.datastore, http, CollectionJobDriverConfig(http_backoff=Backoff.test()))
+        ajobs = JobDriver(cfg, adriver.acquirer(), adriver.stepper)
+        cjobs = JobDriver(cfg, cdriver.acquirer(), cdriver.stepper)
+        collector = Collector(CollectorParameters(task.task_id, servers[1].url, task.collector_auth_token,
+                                                  collector_kp), inst, http)
+        window = Time(now).to_batch_interval_start(task.time_precision)
+        query = Query.time_interval(Interval(window, Duration(task.time_precision.seconds)))
+        prefixes = [0, 1]
+        keccak_cuda.keccak_single_block.launches = 0
+        for level in range(bits):
+            agg_param = Poplar1AggParam(level, tuple(sorted(prefixes))).encode()
+            job_id = collector.start_collection(query, agg_param=agg_param)
+            for _ in range(8):
+                if not cjobs.run_once() + ajobs.run_once():
+                    break
+            result = collector.poll_once(job_id, query, agg_param=agg_param)
+            want = [sum(1 for m in meas if m >> (bits - 1 - level) == p) for p in sorted(prefixes)]
+            assert result.report_count == len(meas) and result.aggregate_result == want
+            survivors = [p for p, c in zip(sorted(prefixes), want) if c >= threshold]
+            prefixes = [p << 1 for p in survivors] + [(p << 1) | 1 for p in survivors]
+        assert survivors == [0b0110, 0b1010]
+        # both sides' init steps walked on the card: 2 * sum(2(L+1)+1)
+        assert keccak_cuda.keccak_single_block.launches == 2 * sum(2 * (lv + 1) + 1 for lv in range(bits))
+    finally:
+        for s in servers:
+            s.stop()
+        l_agg.close()
+        h_agg.close()
+        leader.cleanup()
+        helper.cleanup()

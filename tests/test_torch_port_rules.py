@@ -198,28 +198,66 @@ def test_host_prio3_shards_and_has_no_prepare():
 
 
 def test_upload_journal_and_poplar1_client_are_not_ported():
+    """The upload journal is not ported yet; the Poplar1 client is: it
+    shards with the host Poplar1 and its wire codecs."""
     eph = EphemeralDatastore()
     try:
         with pytest.raises(NotPorted, match="journal"):
             Aggregator(eph.datastore, cfg=Config(upload_journal_path="journal"), device="cpu")
     finally:
         eph.cleanup()
-    from janus_tpu_torch.client import Client
+    from janus_tpu_torch.client import Client, ClientParameters
+    from janus_tpu_torch.core.hpke import generate_hpke_config_and_private_key
+    from janus_tpu_torch.messages import Duration
+    from janus_tpu_torch.vdaf import poplar1
 
-    with pytest.raises(NotPorted, match="Poplar1"):
-        Client(None, VdafInstance("poplar1", bits=4), None, None)
+    kp = generate_hpke_config_and_private_key(config_id=1)
+    params = ClientParameters(TaskId(bytes(32)), "http://leader/", "http://helper/", Duration(3600))
+    client = Client(params, VdafInstance.poplar1(4), kp.config, kp.config)
+    assert client.prio3 is None and isinstance(client.poplar, poplar1.Poplar1)
+    report = client.prepare_report(0b1010)
+    assert len(poplar1.decode_public_share(4, report.public_share)) == 4
 
 
 def test_poplar1_collector_and_parameterized_collection_are_not_ported():
-    """The collector and the collection job driver raise for a VDAF with
-    an aggregation parameter (Poplar1), before any request or datastore
-    work."""
+    """Both are ported: the collector unshards in the
+    parameter's field, and the collection job driver creates param-scoped
+    aggregation jobs of at most 512 reports over the batch interval, then
+    waits until none of them is in progress."""
     from janus_tpu_torch.aggregator.collection_job_driver import CollectionJobDriver
     from janus_tpu_torch.collector import Collector
+    from janus_tpu_torch.datastore.models import (
+        AggregationJobState,
+        CollectionJobModel,
+        CollectionJobState,
+        LeaderStoredReport,
+    )
+    from janus_tpu_torch.messages import CollectionJobId, HpkeCiphertext, HpkeConfigId, Interval, ReportId
+    from janus_tpu_torch.vdaf.poplar1 import Poplar1AggParam
 
     poplar = VdafInstance("poplar1", bits=4)
-    with pytest.raises(NotPorted, match="Poplar1"):
-        Collector(None, poplar, None)
+    assert Collector(None, poplar, None).prio3 is None
     task = TaskBuilder(QueryTypeConfig.time_interval(), poplar, Role.LEADER).build()
-    with pytest.raises(NotPorted, match="aggregation parameter"):
-        CollectionJobDriver(None, None)._step_leased_job(None, task, None)
+    eph = EphemeralDatastore()
+    try:
+        ds = eph.datastore
+        start = Time(1_700_000_000).to_batch_interval_start(task.time_precision)
+        ct = HpkeCiphertext(HpkeConfigId(1), b"k", b"p")
+        ds.run_tx(lambda tx: [tx.put_task(task)] + [
+            tx.put_client_report(LeaderStoredReport(task.task_id, ReportId(i.to_bytes(16, "big")), start, b"", b"x", ct))
+            for i in range(513)
+        ])
+        param = Poplar1AggParam(0, (0, 1)).encode()
+        job = CollectionJobModel(task.task_id, CollectionJobId(bytes(16)), b"", param,
+                                 Interval(start, task.time_precision).to_bytes(), CollectionJobState.START)
+        driver = CollectionJobDriver(ds, None)
+        assert driver._ensure_param_aggregation(task, job) is False  # jobs made: not ready
+        jobs = ds.run_tx(lambda tx: tx.get_aggregation_jobs_for_task(task.task_id))
+        sizes = sorted(len(ds.run_tx(lambda tx: tx.get_report_aggregations_for_job(task.task_id, j.job_id))) for j in jobs)
+        assert sizes == [1, 512] and {j.aggregation_parameter for j in jobs} == {param}
+        assert driver._ensure_param_aggregation(task, job) is False  # still in progress
+        ds.run_tx(lambda tx: [tx.update_aggregation_job(j.with_state(AggregationJobState.FINISHED)) for j in jobs])
+        assert driver._ensure_param_aggregation(task, job) is True
+        assert len(ds.run_tx(lambda tx: tx.get_aggregation_jobs_for_task(task.task_id))) == 2  # none added
+    finally:
+        eph.cleanup()

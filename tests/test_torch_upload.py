@@ -31,6 +31,9 @@
   them (the writer's coalescing window on) stores janus_tpu's rows.
 - `ReportWriteBatcher`: group commit, a replay returns False, and close
   flushes what is buffered.
+- A Poplar1 leader validates the public share with the leader's input
+  share in the decrypt stage, as janus_tpu's does: the column stages and
+  the upload route answer malformed Poplar1 uploads as janus_tpu's.
 
 The port runs with device="cpu"; tolerance: exact equality.
 """
@@ -368,6 +371,65 @@ def test_upload_route_answers_match_janus_tpu(upload_apps, case):
     assert got[0] == {"accepted": 201, "replayed": 201, "shed": 429}.get(case, 400)
     if case == "shed":
         assert got[3] == {"Retry-After": str(int(got[3]["Retry-After"]))} and int(got[3]["Retry-After"]) >= 1
+
+
+def test_poplar1_upload_validation_matches_janus_tpu():
+    """A Poplar1(4) leader validates the public share with the leader's
+    input share in the decrypt stage, as janus_tpu's does: the column
+    stages and the route answer a window of a valid report, a truncated
+    and a malformed public share, a leader share with an out-of-range
+    correlated-randomness element and one of the wrong length, lane by
+    lane, as janus_tpu's."""
+    from janus_tpu.vdaf import poplar1 as jp
+
+    vdaf = j_registry.VdafInstance.poplar1(4)
+    task = (j_task.TaskBuilder(j_task.QueryTypeConfig.time_interval(), vdaf, jm.Role.LEADER)
+            .with_(vdaf_verify_key=bytes(range(16))).build())
+    helper_kp = j_hpke.generate_hpke_config_and_private_key(config_id=1)
+    client = j_client(task, helper_kp)
+    reports = [client.prepare_report(m) for m in (0b1010, 0b0110, 0b0001, 0b1111, 0b0011)]
+    reports[1] = dataclasses.replace(reports[1], public_share=reports[1].public_share[:-1])
+    bad_ctrl = bytearray(reports[2].public_share)
+    bad_ctrl[16] = 7  # the first level's control byte
+    reports[2] = dataclasses.replace(reports[2], public_share=bytes(bad_ctrl))
+    reports[3] = reseal_leader(task, reports[3], lambda p: p.__setitem__(
+        slice(16, 24), jp.Idpf(4).field_at(0).MODULUS.to_bytes(8, "little")))
+    reports[4] = reseal_leader(task, reports[4], lambda p: p.extend(b"\x00"))
+    bodies = [r.to_bytes() for r in reports]
+
+    j_ta = j_core.TaskAggregator(task, j_core.Config())
+    t_ta = t_core.TaskAggregator(Task.from_dict(task.to_dict()), t_core.Config(), device="cpu")
+
+    def columns(ta, clock, col):
+        got = ta.upload_prepare_columns(clock, col, list(range(len(bodies))))
+        live = [i for i, r in enumerate(got) if not isinstance(r, BaseException)]
+        for i, r in zip(live, ta.upload_decrypt_validate_batch(col, live, got[live[0]])):
+            got[i] = r
+        return [outcome(r) for r in got]
+
+    want = columns(j_ta, j_time.MockClock(jm.Time(NOW)), jm.decode_reports_fast(bodies))
+    assert columns(t_ta, MockClock(tm.Time(NOW)), tm.decode_reports_fast(bodies)) == want
+    assert [w[0] if isinstance(w[0], str) else "stored" for w in want] == ["stored"] + ["ReportRejected"] * 4
+
+    # the route: janus_tpu's status and problem document for each
+    j_eph = j_store.EphemeralDatastore(j_time.MockClock(jm.Time(NOW)))
+    t_eph = EphemeralDatastore(MockClock(tm.Time(NOW)))
+    j_eph.datastore.run_tx(lambda tx: tx.put_task(task))
+    t_eph.datastore.run_tx(lambda tx: tx.put_task(Task.from_dict(task.to_dict())))
+    apps = [j_http.DapHttpApp(j_core.Aggregator(j_eph.datastore, j_eph.clock, j_core.Config())),
+            t_http.DapHttpApp(t_core.Aggregator(t_eph.datastore, t_eph.clock, t_core.Config(), device="cpu"))]
+    try:
+        path = f"/tasks/{t_client_mod.b64url(task.task_id.data)}/reports"
+        headers = {"Content-Type": jm.Report.MEDIA_TYPE}
+        answers = [[app.handle("PUT", path, {}, dict(headers), b) for b in bodies] for app in apps]
+        assert answers[1] == answers[0]
+        assert [a[0] for a in answers[0]] == [201, 400, 400, 400, 400]
+        assert all(b"reportRejected" in a[2] for a in answers[0][1:])
+    finally:
+        for app, eph in zip(apps, (j_eph, t_eph)):
+            app.close()
+            app.agg.close()
+            eph.cleanup()
 
 
 # --- admission and the pipeline -----------------------------------------
