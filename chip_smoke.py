@@ -12,7 +12,12 @@ Phases, each of which must pass:
                    card, bit for bit, at the shapes of the paths that run it
                    (24 rounds, plus a reduced-round case), with its time, the
                    plain version's time and the least time the card could
-                   take (bound);
+                   take (bound); among them kernel 2 at the streamed query's
+                   tile (128 reports, 8,848 blocks at block offset 25 x
+                   8,848) and kernel 3 at draft SumVec(100000, 16)'s
+                   152,382-block absorb (64 reports, 24 rounds), held against
+                   hashlib.shake_128 on 4 reports, since its plain per-block
+                   loop would take hours (its plain_ms is null);
   3. sumvec        the fast-mode main path: Prio3SumVec(length=1000, bits=16)
                    at batch 1024 through make_report_batch and two_party_step,
                    with a few reports corrupted; the count must exclude
@@ -33,6 +38,28 @@ Phases, each of which must pass:
                    host (the kernel phase holds the kernel at 24 rounds);
   6. draft-count   Prio3Count in draft mode at batch 8192 (Field64
                    rejection sampling), the same checks;
+  6a. sumvec100k   the north star Prio3SumVec(100000, 16) (1.6M Field128
+                   inputs a report) at batch 64, fast mode, 3 corrupted,
+                   the same checks (the small CPU batch is one report at 3
+                   rounds, sharded on the card); its engine's stream plan
+                   must be (tile 61,936, 49 calls, 26 steps): kernel 2
+                   expands the helper's share a tile a step and the
+                   leader's staged share is read a tile at a time. On 4 reports the streamed and the whole-share
+                   route (stream_plan's threshold set past input_len) must
+                   agree element for element, and every route's peak device
+                   bytes must lie within vdaf/feasibility.py's model, which
+                   the line prints beside them (the step's own peak: what
+                   it adds to the card plus its reports' staged shares);
+  6b. draft-sumvec100k  the same circuit in draft mode at batch 32, 24
+                   rounds: kernel 3 alone launches, the helper's share is
+                   expanded whole by the sponge and read a tile at a time;
+                   no small CPU batch (the plain sponge cannot walk a
+                   152,382-block chain in a run's time): the routes agree on
+                   2 reports instead;
+  6c. fixedpoint   Prio3FixedPointBoundedL2VecSum at FixedPointVec(1000,
+                   16) (BASELINE.json configs[4]), batch 1024, fast mode, 3
+                   corrupted, the same checks; the aggregate is the valid
+                   reports' offset-binary sum and decodes to their float sum;
   7. sponge        the draft-sumvec path's two long sponge chains (a
                    joint-rand part's 1,525-block absorb, a measurement
                    share's 1,524-block squeeze with sampling) at batch 1024,
@@ -57,7 +84,9 @@ Phases, each of which must pass:
                    same reports under a new job id (the whole path again,
                    warm) must all answer as replays. Last, the engine's
                    helper_init and the bare helper_init_step are timed in
-                   turns on the request's reports.
+                   turns on the request's reports. A third request serves
+                   32 SumVec(100000, 16) reports (5 rejects injected) on the
+                   fully streamed route, with the same checks.
   9. drive        the leader's side, for SumVec(1000, 16) in fast and in draft
                    mode: a leader and a helper Aggregator, each over its own
                    EphemeralDatastore, the helper behind a DapServer on
@@ -335,6 +364,23 @@ def phase_kernels(torch, dev):
                       "rounds": rounds, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": b_by})
         del got, want
+    # the streamed helper's tile at SumVec(100000, 16): 128 reports, one
+    # step's 8,848 blocks (61,936 elements) at the last step's block offset
+    tb, tblocks, tlen, toff = 128, 8848, 61936, 25 * 8848
+    tprefix = lanes((tb, 5))
+    got = expand_cuda.expand_f128(tprefix, tblocks, tlen, block_offset=toff)
+    want = expand_cuda.expand_f128_plain(tprefix, tblocks, tlen, block_offset=toff)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    del got, want
+    ms = time_cuda(torch, lambda: expand_cuda.expand_f128(tprefix, tblocks, tlen, block_offset=toff), reps=10)
+    plain_ms = time_cuda(torch, lambda: expand_cuda.expand_f128_plain(tprefix, tblocks, tlen, block_offset=toff), reps=2)
+    b_ms, b_by = bound_ms(tb * tblocks * 24 * KECCAK_OPS_PER_ROUND + tb * tlen * F128_REDUCE_OPS,
+                          tprefix.numel() * 8 + 2 * tb * tlen * 8)
+    cases.append({"case": "stream tile", "reports": tb, "blocks": tblocks, "length": tlen, "block_offset": toff,
+                  "rounds": 24, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                  "bound_by": b_by})
+    del tprefix
     results["expand_f128"] = cases
     del prefix
 
@@ -357,6 +403,7 @@ def phase_kernels(torch, dev):
                       "mode": mode if isinstance(mode, int) else list(mode[:2]),
                       **check_sponge(torch, head, msg_len, body, head_bytes, mode, rounds)})
         del head, body
+    cases.append(check_long_absorb(torch, dev))
     results["keccak_sponge"] = cases
     bad = [c for cs in results.values() for c in cs if c["max_abs_err"] != 0]
     if bad:
@@ -427,6 +474,48 @@ def check_sponge(torch, head, msg_len: int, body, body_off: int, mode, rounds: i
     b_ms, b_by = bound_ms(perms * rounds * KECCAK_OPS_PER_ROUND, in_bytes + out_words * 8)
     return {"permutations": perms, "max_abs_err": err, "ms": ms, "plain_ms": sum(plain.values()),
             "plain_ms_by_piece": plain, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_long_absorb(torch, dev, n: int = 64, elems: int = 1_600_000, head_bytes: int = 42, held: int = 4):
+    """Kernel 3 at draft SumVec(100000, 16)'s joint-rand part: a
+    25,600,042-byte message a report (152,382 absorbed blocks), 64
+    reports, 24 rounds, a 16-byte seed out. Its plain version is a
+    per-block loop of eager ops, hours at this length: the case is held
+    instead against hashlib.shake_128 of the same message on `held`
+    reports (at 24 rounds the draft sponge is SHAKE128), and its
+    plain_ms is null."""
+    import hashlib
+
+    import numpy as np
+
+    from janus_tpu_torch.ops import sponge_cuda as sc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def device_lanes(shape):  # 1.6 GB of body: drawn on the card, 63 random bits a lane
+        return torch.empty(shape, dtype=torch.int64, device=dev).random_(generator=gen)
+
+    head, msg_len, body = sponge_inputs(device_lanes, n, head_bytes, elems, 2)
+    got = sc.keccak_sponge(head, msg_len, body, head_bytes, out_lanes=2)
+    torch.cuda.synchronize()
+    host_head = head[:held].cpu().numpy()
+    host_body = [p[:held].cpu().numpy() for p in body]
+    worst = 0
+    for i in range(held):
+        msg = host_head[i].astype("<u8").tobytes()[:head_bytes]
+        msg += np.stack([host_body[0][i], host_body[1][i]], axis=-1).astype("<u8").tobytes()
+        assert len(msg) == msg_len
+        want = np.frombuffer(hashlib.shake_128(msg).digest(16), dtype="<u8")
+        row = got[i].cpu().numpy().view(np.uint64)
+        worst = max(worst, max(abs(int(a) - int(b)) for a, b in zip(row, want)))
+    del host_head, host_body
+    ms = time_cuda(torch, lambda: sc.keccak_sponge(head, msg_len, body, head_bytes, out_lanes=2), reps=1, warmup=0)
+    perms = n * (msg_len // 168 + 1)
+    b_ms, b_by = bound_ms(perms * 24 * KECCAK_OPS_PER_ROUND, head.numel() * 8 + n * elems * 16 + n * 16)
+    del head, body, got
+    return {"case": "joint-rand part, SumVec(100000, 16)", "states": n, "msg_bytes": msg_len, "rounds": 24,
+            "mode": 2, "permutations": perms, "held_against": f"hashlib.shake_128 on {held} reports",
+            "max_abs_err": worst, "ms": ms, "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
 class MethodSeconds:
@@ -530,22 +619,43 @@ def _bump_rows(torch, p3, field, rows):
 
 
 def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: int, shard_chunk: int,
-             small_batch: int, small_rounds: int = 24):
+             small_batch: int, small_rounds: int = 24, plan=None, identity_batch: int = 0,
+             small_shard_on_card: bool = False):
     """Drive one path through the entry points; returns (its JSON record,
     (the step function, its arguments)). `kernels` must launch during the
     step, every other kernel must not. The small batch held against the
-    CPU runs at `small_rounds` Keccak rounds on both sides."""
+    CPU runs at `small_rounds` Keccak rounds on both sides (none when
+    small_batch is 0); with `small_shard_on_card` it is sharded once, on
+    the card, and both devices prepare those reports (the CPU prover of a
+    long vector takes minutes). `plan`: the engine's stream plan must be this
+    (tile, gcalls, n_steps), and then `identity_batch` reports are
+    prepared on the card by the streamed and by the whole-share route,
+    which must agree element for element, and each route's peak device
+    bytes must lie within the memory model's (vdaf/feasibility.py)."""
     import numpy as np
 
     from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
     from janus_tpu_torch.parallel import api
     from janus_tpu_torch.vdaf import keccak
+    from janus_tpu_torch.vdaf.feasibility import prepare_row_bytes
     from janus_tpu_torch.vdaf.registry import prio3_batched
     from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
 
     counters = {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
                 "keccak_sponge": sponge_cuda.keccak_sponge}
     p3 = prio3_batched(inst, dev)
+    circ = p3.circ
+    draft = inst.xof_mode != "fast"
+    got_plan = None if p3.plan is None else (p3.plan.group, p3.plan.gcalls, p3.plan.n_steps)
+    if got_plan != plan:
+        raise AssertionError(f"{name}: stream plan {got_plan}, want {plan}")
+    # the aggregate of valid measurements: their sum (FixedPointVec's is
+    # offset binary, each entry plus 2^(bits-1))
+    offset = getattr(circ, "offset", 0)
+
+    def truth(m):
+        return [int(x) for x in (np.asarray(m, dtype=np.int64) + offset).sum(axis=0).reshape(-1)]
+
     meas = random_measurements(inst, batch, np.random.default_rng(SEED))
     t0 = time.perf_counter()
     args, _ = make_report_batch(inst, meas, seed=SEED, shard_chunk=shard_chunk, device=dev)
@@ -566,12 +676,17 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
 
     valid = np.ones(batch, dtype=bool)
     valid[list(bad_rows)] = False
-    want = np.asarray(meas)[valid].sum(axis=0).reshape(-1)
     total = [int(x) for x in p3.tf.to_ints(p3.merge_agg_shares(agg0, agg1))]
     if int(count) != batch - len(bad_rows):
         raise AssertionError(f"count {int(count)} != {batch - len(bad_rows)}")
-    if total != [int(x) for x in want]:
+    if total != truth(np.asarray(meas)[valid]):
         raise AssertionError("aggregate != numpy sum of the valid measurements")
+    decoded_ok = None
+    if offset:
+        want = [float(x) / offset for x in np.asarray(meas)[valid].sum(axis=0)]
+        decoded_ok = circ.decode(total, int(count)) == want
+        if not decoded_ok:
+            raise AssertionError("the aggregate does not decode to the float sum")
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {name} path: {missing} ({launches})")
@@ -580,30 +695,40 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
         raise AssertionError(f"kernels of another path launched on the {name} path: {stray} ({launches})")
 
     # a small batch agrees with the plain path on the CPU
-    small = meas[:small_batch]
-    outs = []
-    full_rounds = keccak.KECCAK_ROUNDS
-    keccak.KECCAK_ROUNDS = small_rounds
-    try:
-        for d in (dev, "cpu"):
-            sargs, _ = make_report_batch(inst, small, seed=SEED + 1, device=d)
-            s0, s1, sc = api.two_party_step(inst, VERIFY_KEY, device=d)(*sargs)
-            sp3 = prio3_batched(inst, d)
-            outs.append(([int(x) for x in sp3.tf.to_ints(sp3.merge_agg_shares(s0, s1))], int(sc)))
-    finally:
-        keccak.KECCAK_ROUNDS = full_rounds
-    if outs[0] != outs[1]:
-        raise AssertionError("small batch: card and CPU plain path disagree")
-    if outs[0] != ([int(x) for x in np.asarray(small).sum(axis=0).reshape(-1)], small_batch):
-        raise AssertionError("small batch: aggregate != numpy sum")
+    if small_batch:
+        small = meas[:small_batch]
+        outs = []
+        full_rounds = keccak.KECCAK_ROUNDS
+        keccak.KECCAK_ROUNDS = small_rounds
+        try:
+            if small_shard_on_card:
+                card_args, _ = make_report_batch(inst, small, seed=SEED + 1, device=dev)
+            for d in (dev, "cpu"):
+                if small_shard_on_card:
+                    sargs = [None if a is None else (tuple(x.to(d) for x in a) if isinstance(a, tuple) else a.to(d))
+                             for a in card_args]
+                else:
+                    sargs, _ = make_report_batch(inst, small, seed=SEED + 1, device=d)
+                s0, s1, sc = api.two_party_step(inst, VERIFY_KEY, device=d)(*sargs)
+                sp3 = prio3_batched(inst, d)
+                outs.append(([int(x) for x in sp3.tf.to_ints(sp3.merge_agg_shares(s0, s1))], int(sc)))
+        finally:
+            keccak.KECCAK_ROUNDS = full_rounds
+        if outs[0] != outs[1]:
+            raise AssertionError("small batch: card and CPU plain path disagree")
+        if outs[0] != (truth(small), small_batch):
+            raise AssertionError("small batch: aggregate != numpy sum")
 
-    # timing after a warm-up
+    identity = None
+    if identity_batch:
+        identity = check_routes_agree(torch, p3, args, identity_batch, draft)
+
+    # timing: the main-path step above warmed both steps' shapes; the
+    # peak is read over the last two-party run
     helper = api.helper_init_step(inst, VERIFY_KEY, device=dev)
     hargs = (args[0], args[1], args[5], args[6])
 
     def timed(fn, fargs):
-        fn(*fargs)
-        torch.cuda.synchronize()
         times = []
         for _ in range(reps):
             t = time.perf_counter()
@@ -612,21 +737,28 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
             times.append(time.perf_counter() - t)
         return times
 
-    two_s = timed(step, args)
     helper_s = timed(helper, hargs)
-    torch.cuda.reset_peak_memory_stats()
-    step(*args)
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    two_s = timed(step, args)
     peak = torch.cuda.max_memory_allocated()
-    return {
+    # the step's own peak: what it adds to the card, plus the staged
+    # leader shares and proofs of its reports (the model counts them;
+    # whatever else was allocated before is not the step's)
+    step_peak = peak - before + batch * (circ.input_len + circ.proof_len) * circ.FIELD.ENCODED_SIZE
+    model = batch * prepare_row_bytes(circ, tile_elems=p3.plan.group if p3.plan else None, draft=draft)
+    if plan is not None and step_peak > model:
+        raise AssertionError(f"{name}: the step's peak {step_peak} bytes past the memory model's {model}")
+    rec = {
         "path": name,
         "vdaf": inst.to_dict(),
         "batch": batch,
         "corrupted": len(bad_rows),
         "count": int(count),
         "aggregate_ok": True,
-        "small_batch_matches_cpu": True,
-        "small_batch_rounds": small_rounds,
+        "small_batch_matches_cpu": bool(small_batch),
+        "small_batch_rounds": small_rounds if small_batch else None,
         "launches": launches,
         "shard_s": shard_s,
         "first_step_s": first_step_s,
@@ -634,8 +766,65 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
         "two_party_reports_per_s": batch / (sum(two_s) / len(two_s)),
         "helper_init_step_s": helper_s,
         "helper_init_reports_per_s": batch / (sum(helper_s) / len(helper_s)),
+        "allocated_before_step_bytes": before,
         "peak_device_bytes": peak,
-    }, (step, args)
+        "step_peak_bytes": step_peak,
+        "model_peak_bytes": model,
+    }
+    if decoded_ok is not None:
+        rec["decodes_to_float_sum"] = decoded_ok
+    if plan is not None:
+        rec["stream_plan"] = {"tile_elems": plan[0], "gcalls": plan[1], "n_steps": plan[2]}
+        rec["routes_agree"] = identity
+    return rec, (step, args)
+
+
+def check_routes_agree(torch, p3, args, k: int, draft: bool):
+    """The first k reports of `args` prepared on the card by `p3`'s
+    streamed route and by a twin engine whose stream_plan is None (its
+    threshold set past input_len): every output of both sides must be
+    equal. Returns each route's seconds and its peak device bytes beside
+    the model's, which they must not pass. The k rows are views of the
+    batch on the card, so the peak is taken over what the step adds, and
+    the k rows' staged leader share and proof are added back."""
+    from janus_tpu_torch.vdaf.engine import stream_plan
+    from janus_tpu_torch.vdaf.feasibility import prepare_row_bytes
+
+    circ = p3.circ
+    whole = type(p3)(circ, device=p3.device)
+    whole.plan = stream_plan(whole.bc, min_input_len=circ.input_len + 1)
+    assert whole.plan is None and p3.plan is not None
+    nonce, parts, meas, proof, blind0, seed, blind1 = (
+        None if a is None else (tuple(x[:k] for x in a) if isinstance(a, tuple) else a[:k]) for a in args
+    )
+    held = k * (circ.input_len + circ.proof_len) * circ.FIELD.ENCODED_SIZE
+    out, rec = {}, {}
+    for route, eng in (("streamed", p3), ("whole_share", whole)):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        helper = eng.prepare_init_helper(VERIFY_KEY, nonce, parts, seed, blind1)
+        leader = eng.prepare_init_leader(VERIFY_KEY, nonce, parts, meas, proof, blind0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before + held
+        model = k * prepare_row_bytes(circ, tile_elems=eng.plan.group if eng.plan else None, draft=draft)
+        if peak > model:
+            raise AssertionError(f"{route} route at {k} reports: peak {peak} bytes past the model's {model}")
+        out[route] = (helper, leader)
+        rec[route] = {"s": secs, "peak_bytes": peak, "model_peak_bytes": model}
+    for side, (a, b) in enumerate(zip(out["streamed"], out["whole_share"])):
+        for name, x, y in zip(("out share", "corrected seed", "verifier", "joint-rand part"), a, b):
+            xs = x if isinstance(x, tuple) else (x,)
+            ys = y if isinstance(y, tuple) else (y,)
+            if x is None or y is None:
+                same = x is None and y is None
+            else:
+                same = len(xs) == len(ys) and all(torch.equal(u, v) for u, v in zip(xs, ys))
+            if not same:
+                raise AssertionError(f"{('helper', 'leader')[side]} {name}: streamed != whole share")
+    return {"reports": k, **rec}
 
 
 def _bump_host_rows(field_np, rows, modulus: int):
@@ -651,9 +840,13 @@ def _bump_host_rows(field_np, rows, modulus: int):
     return out
 
 
-def phase_serve(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
+def phase_serve(torch, dev, name: str, inst, batch: int, bad_rows, kernels, shard_chunk: int = 256,
+                streamed: bool = False, reps: int = 2):
     """A helper answers one aggregate-init request for `inst` at `batch`
-    (see the module docstring, phase 8); returns its serve record."""
+    (see the module docstring, phase 8); returns its serve record.
+    `streamed`: the helper's engine must run the streamed query. `reps`:
+    the leader_init routes and the helper_init seams are each timed this
+    many times, in turns."""
     import numpy as np
 
     from janus_tpu_torch.aggregator.core import Aggregator
@@ -684,9 +877,11 @@ def phase_serve(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
 
         # the leader's side: shard, corrupt 3 leader shares, build the request
         engine = engine_cache(inst, VERIFY_KEY, dev)
+        if (engine.p3.plan is not None) != streamed:
+            raise AssertionError(f"serve {name}: stream plan {engine.p3.plan}")
         meas = random_measurements(inst, batch, np.random.default_rng(SEED + 3))
         t0 = time.perf_counter()
-        args, _ = make_report_batch(inst, meas, seed=SEED + 3, shard_chunk=256, device=dev)
+        args, _ = make_report_batch(inst, meas, seed=SEED + 3, shard_chunk=shard_chunk, device=dev)
         args = list(step_args_to_numpy(args))
         shard_s = time.perf_counter() - t0
         args[2] = _bump_host_rows(args[2], bad_rows, engine.p3.tf.MODULUS)
@@ -698,9 +893,9 @@ def phase_serve(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
 
         # leader_init by both routes, from host columns, after the one above
         routes = {}
-        pipelined_chunk = engine.PIPELINE_CHUNK
-        for route, chunk in (("pipelined", pipelined_chunk), ("direct", batch), ("direct", batch),
-                             ("pipelined", pipelined_chunk)):
+        pipelined_chunk = min(engine.PIPELINE_CHUNK, batch // 2)
+        order = (("pipelined", pipelined_chunk), ("direct", batch), ("direct", batch), ("pipelined", pipelined_chunk))
+        for route, chunk in order[: 2 * reps]:
             engine.PIPELINE_CHUNK = chunk
             t0 = time.perf_counter()
             out0, _, ver0, part0 = engine.leader_init(*args[:5])
@@ -783,7 +978,7 @@ def phase_serve(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
         step = api.helper_init_step(inst, VERIFY_KEY, device=dev)
         on_card = [None if args[i] is None else from_numpy_u64(args[i], dev) for i in (0, 1, 5, 6)]
         turns = {"engine_helper_init": [], "helper_init_step": []}
-        for _ in range(3):
+        for _ in range(reps):
             t0 = time.perf_counter()
             engine.helper_init(args[0], args[1], args[5], args[6], ver0, part0, np.ones(batch, dtype=bool))
             turns["engine_helper_init"].append(time.perf_counter() - t0)
@@ -811,6 +1006,8 @@ def phase_serve(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
             "shard_s": shard_s,
             "launches": launches,
             "peak_device_bytes": peak,
+            "stream_plan": None if engine.p3.plan is None else [engine.p3.plan.group, engine.p3.plan.gcalls,
+                                                                 engine.p3.plan.n_steps],
             "aggregate_ok": True,
             "replay_identical": True,
         }
@@ -1871,6 +2068,7 @@ def main() -> int:
     ) if not failed else None
     if sumvec is not None:
         paths["sumvec"] = sumvec[0]
+        sumvec = None  # its arguments leave the card
     runs = (
         ("count", VdafInstance.count(), 8192, (7, 4000, 8000), ("keccak_single_block",), 5, 0, 8, 24),
         ("draft-sumvec", VdafInstance("sumvec", bits=16, length=1000, xof_mode="draft"), 1024, (5, 300, 1000),
@@ -1889,16 +2087,39 @@ def main() -> int:
                 prof = phase("draft-profile", profile_step, torch, *out[1], sum(step_s) / len(step_s))
                 if prof is not None:
                     emit({"profile": {"path": name, "batch": batch, **prof}})
+    # long vectors and the last circuits: the north star SumVec(100000, 16)
+    # on the streamed query in both XOF modes, and FixedPointVec(1000, 16)
+    big = VdafInstance.sum_vec(100_000, 16)
+    big_plan = (61_936, 49, 26)
+    # (batches halved from 128, 64 and 64: each phase ran past 60 s at those)
+    runs = (
+        ("sumvec100k", big, 64, (5, 30, 50), fast, 1, 16, 1, 3, big_plan, 4, True),
+        ("draft-sumvec100k", VdafInstance("sumvec", bits=16, length=100_000, xof_mode="draft"), 32, (5, 17, 25),
+         ("keccak_sponge",), 1, 16, 0, 24, big_plan, 2, False),
+        ("fixedpoint", VdafInstance.fixed_point_vec(1000, 16), 1024, (5, 300, 1000), fast, 3, 256, 4, 24, None, 0,
+         False),
+    )
+    out = None  # the last phase's arguments leave the card before the next
+    for name, inst, batch, bad, kernels_of_path, reps, chunk, small, small_rounds, plan, ident, on_card in runs:
+        out = phase(
+            name, run_path, torch, dev, name, inst, batch, bad, kernels_of_path, reps, chunk, small, small_rounds,
+            plan, ident, on_card,
+        ) if not failed else None
+        if out is not None:
+            paths[name] = out[0]
+        out = None
     sponge = phase("sponge", phase_sponge, torch, dev) if not failed else None
     if sponge is not None:
         emit({"sponge": {"batch": 1024, **sponge}})
     serves = {}
-    for name, inst, kernels_of_path in (
-        ("sumvec", VdafInstance.sum_vec(1000, 16), fast),
-        ("draft-sumvec", VdafInstance("sumvec", bits=16, length=1000, xof_mode="draft"), ("keccak_sponge",)),
+    for name, inst, kernels_of_path, batch, bad, chunk, streamed in (
+        ("sumvec", VdafInstance.sum_vec(1000, 16), fast, 1024, (5, 300, 1000), 256, False),
+        ("draft-sumvec", VdafInstance("sumvec", bits=16, length=1000, xof_mode="draft"), ("keccak_sponge",), 1024,
+         (5, 300, 1000), 256, False),
+        ("sumvec100k", big, fast, 32, (5, 17, 25), 16, True),  # halved from 64: it ran past 60 s
     ):
-        out = phase(f"serve-{name}", phase_serve, torch, dev, name, inst, 1024, (5, 300, 1000),
-                    kernels_of_path) if not failed else None
+        out = phase(f"serve-{name}", phase_serve, torch, dev, name, inst, batch, bad, kernels_of_path, chunk,
+                    streamed, 1 if streamed else 2) if not failed else None
         if out is not None:
             serves[out["path"]] = out
             emit({"serve": out})

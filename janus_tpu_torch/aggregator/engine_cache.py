@@ -6,8 +6,9 @@ serving code reaches the card only through an `EngineCache`:
 - Batches pad to power-of-two buckets (`bucket_size`, floored at
   MIN_BUCKET); padding lanes carry mask False and are sliced off.
 - The bucket is capped by the memory model (`vdaf/feasibility.py`
-  `feasible_bucket` over the card's memory); a batch past the cap runs
-  as serial cap-sized dispatches.
+  `feasible_bucket` over the card's memory, tiled where the engine's
+  query streams); a batch past the cap runs as serial cap-sized
+  dispatches.
 - Out shares stay on the device between init and aggregate
   (`DeviceRows`); only masks, seeds and verifier shares come back.
 - On `torch.cuda.OutOfMemoryError` the engine frees the allocator's
@@ -202,8 +203,14 @@ class EngineCache:
         if bucket_cap is not None:
             self.bucket_cap = (1 << (bucket_cap.bit_length() - 1)) if bucket_cap > 0 else None
         else:
+            # the tiled model where the query streams (the tile, not
+            # input_len, sizes its working set)
+            plan = self.p3.plan
             self.bucket_cap = feasible_bucket(
-                self.p3.circ, device_memory_budget(self.device), draft=inst.xof_mode != "fast"
+                self.p3.circ,
+                device_memory_budget(self.device),
+                tile_elems=plan.group if plan is not None else None,
+                draft=inst.xof_mode != "fast",
             )
         self._oom_lock = threading.Lock()
         self.oom_history: deque = deque(maxlen=16)

@@ -395,6 +395,46 @@ def fzeros(tf, shape, device):
     return tuple(torch.zeros(shape, dtype=I64, device=device) for _ in range(tf.LIMBS))
 
 
+# --- tile-shaped structural ops: the streamed query's vocabulary (the JAX
+# package's jfield.py fslice_dyn, ftile, fput_tile, fpad_axis). The JAX
+# versions are dynamic slices inside a scan; here the step is a Python
+# int, so a tile is a narrow view and writing one is an in-place copy.
+
+
+def fslice_dyn(v, start: int, size: int, axis: int = 1):
+    """Elements [start, start + size) of a field value along `axis` (views)."""
+    return tuple(x.narrow(axis, start, size) for x in v)
+
+
+def ftile(v, step: int, tile: int, axis: int = 1):
+    """Tile `step` (0-based) of width `tile` along `axis` (views)."""
+    return fslice_dyn(v, step * tile, tile, axis=axis)
+
+
+def fput_tile(dst, src, step: int, axis: int = 1):
+    """Write `src` as tile `step` of `dst` along `axis`, in place (the
+    inverse of ftile; the tile width is src's extent along `axis`).
+    Returns dst."""
+    width = src[0].shape[axis]
+    for x, u in zip(dst, src):
+        x.narrow(axis, step * width, width).copy_(u)
+    return dst
+
+
+def fpad_axis(v, pad: int, axis: int = 1):
+    """Zero-pad a field value at the end of `axis` (no copy for pad=0)."""
+    if pad == 0:
+        return v
+    axis = axis % v[0].ndim
+    widths = [0, 0] * (v[0].ndim - 1 - axis) + [0, pad]
+    return tuple(torch.nn.functional.pad(x, widths) for x in v)
+
+
+def freshape(v, shape):
+    """Reshape every limb to `shape` (-1 for the inferred axis)."""
+    return tuple(x.reshape(shape) for x in v)
+
+
 def fencode_lanes(v):
     """Field value [batch, n] -> its little-endian encoding as lanes
     [batch, n * limbs] (each element's limbs lo..hi in lane order, as

@@ -36,20 +36,30 @@ from ..fields.tfield import _f64_reduce_wide, _f128_fold, _f128_reduce256, add_l
 _NLIMB = {1: 10, 2: 19}  # 7-bit limbs per element, by 64-bit limb count
 
 
-def decompose7(tf, v):
-    """Field value (limb tuple, any shape S) -> float64 tensor
-    [*S, nlimbs] of 7-bit limbs, little-endian."""
-    pieces = []
-    for j in range(_NLIMB[tf.LIMBS]):
+def decompose7(tf, v, dim: int):
+    """Field value (limb tuple, any shape S) -> float64 tensor of its
+    7-bit limbs, little-endian, on a new axis of nlimbs at `dim`.
+
+    Each limb is written straight into the one float64 result, so a
+    call holds that result and one int64 limb at a time: 19 x 8 bytes a
+    Field128 element (10 x 8 a Field64 one), plus a few int64 element
+    temporaries (vdaf/feasibility.py counts both)."""
+    nl = _NLIMB[tf.LIMBS]
+    shape = list(v[0].shape)
+    dim = dim % (len(shape) + 1)
+    shape.insert(dim, nl)
+    out = torch.empty(shape, dtype=torch.float64, device=v[0].device)
+    for j in range(nl):
+        dst = out.select(dim, j)
         word, off = divmod(7 * j, 64)
         if word >= tf.LIMBS:
-            pieces.append(torch.zeros_like(v[0]))
+            dst.zero_()
             continue
         piece = lsr(v[word], off)
         if off > 57 and word + 1 < tf.LIMBS:
             piece = piece | (v[word + 1] << (64 - off))
-        pieces.append(piece & 0x7F)
-    return torch.stack(pieces, dim=-1).to(torch.float64)
+        dst.copy_(piece & 0x7F)
+    return out
 
 
 def _reduce_limbs(tf, limbs):
@@ -76,8 +86,9 @@ def fold_contract(tf, w, X):
     C = X[0].shape[2]
     # the sum of all terms stays below 2^(64 * limbs) with room to spare
     assert calls < 1 << 30
-    dl = decompose7(tf, w).permute(0, 1, 3, 2).reshape(b, W * nl, calls)
-    dr = decompose7(tf, X).permute(0, 1, 3, 2).reshape(b, calls, nl * C)
+    # limbs laid out as the product wants them: rows (w, l1), columns (l2, c)
+    dl = decompose7(tf, w, dim=2).reshape(b, W * nl, calls)
+    dr = decompose7(tf, X, dim=2).reshape(b, calls, nl * C)
     acc = torch.bmm(dl, dr).to(torch.int64).reshape(b, W, nl * nl, C)
 
     # diagonal groups: value = sum_s 2^(7s) colsum[s], s = l1 + l2

@@ -5,7 +5,9 @@ its field, input/output/joint-rand lengths, chunk length and the one
 gadget use (gadget arity and degree, number of calls), from which the
 FLP lengths follow. Count checks x*x - x with one Mul; Sum checks each
 bit through PolyEval(x^2 - x); SumVec and Histogram check bits
-chunk-wise through ParallelSum(Mul, chunk_length). The collector turns
+chunk-wise through ParallelSum(Mul, chunk_length); CountVec is SumVec
+with one bit an entry; FixedPointVec checks its bits and its L2 norm
+through one ParallelSum(Mul, chunk_length) use. The collector turns
 an unsharded aggregate into its result with each circuit's `decode`
 (janus_tpu/vdaf/reference.py Circuit.decode).
 """
@@ -160,3 +162,59 @@ class Histogram(Circuit):
 
     def decode(self, output, num_measurements):
         return list(output)
+
+
+class FixedPointVec(Circuit):
+    """Fixed-point vector with bounded L2 norm (janus_tpu/vdaf/reference.py
+    FixedPointVec, the reference's Prio3FixedPoint{16,32,64}BitBoundedL2VecSum).
+
+    Each of `length` entries is a signed fixed-point value v in
+    [-2^(bits-1), 2^(bits-1)), standing for v / 2^(bits-1) in [-1, 1).
+    The input is, per entry, the `bits` bits of the offset-binary value
+    u = v + 2^(bits-1), then `norm_bits = 2*bits - 2` bits claiming the
+    norm N = sum v_i^2. One ParallelSum(Mul, chunk) gadget use carries
+    both checks: `calls_bits` calls of joint-rand-weighted bit checks
+    over every input position, then `calls_sq` calls of (y_e, y_e)
+    squares of the entry values. The output is u per entry; `decode`
+    removes count * offset.
+
+    The integer norm must not wrap mod p: length * 4^(bits-1) < p, so at
+    64 bits the length is at most 3.
+    """
+
+    FIELD = Field128
+    joint_rand_len = 2
+    algo_id = 0x00FF0001  # private codepoint; not in the VDAF registry
+
+    def __init__(self, length: int, bits: int, chunk_length: int | None = None):
+        if bits not in (16, 32, 64):
+            raise ValueError("fixed-point bits must be 16, 32 or 64")
+        if length < 1:
+            raise ValueError("length must be >= 1")
+        if length * (1 << (2 * bits - 2)) >= self.FIELD.MODULUS:
+            raise ValueError(
+                f"length {length} too large for {bits}-bit entries: integer norm would overflow Field128"
+            )
+        self.length = length
+        self.bits = bits
+        self.norm_bits = 2 * bits - 2
+        self.n_bits = length * bits + self.norm_bits  # bit-checked positions
+        self.input_len = self.n_bits
+        self.output_len = length
+        self.offset = 1 << (bits - 1)
+        self.chunk_length = chunk_length or optimal_chunk_length(self.n_bits)
+        ch = self.chunk_length
+        self.calls_bits = -(-self.n_bits // ch)
+        self.calls_sq = -(-length // ch)
+        self.gadget_uses = [GadgetUse(parallel_sum(MUL, ch), self.calls_bits + self.calls_sq)]
+
+    def decode(self, output, num_measurements):
+        F = self.FIELD
+        half = F.MODULUS // 2
+        res = []
+        for u in output:
+            t = F.sub(u, F.mul(self.offset, num_measurements))
+            signed = t - F.MODULUS if t > half else t
+            res.append(signed / self.offset)
+        return res
+

@@ -24,6 +24,11 @@ rejection sampling) is one launch of the whole-sponge kernel
   element while at most REJECT_WINDOW were rejected before it. An
   exhausted window leaves a zero tail, which the FLP check then
   rejects; it never yields a wrong accepted value.
+
+At long inputs (vdaf/engine.py stream_plan) the query streams as in fast
+mode, but the sponge has no random access: the helper's share is
+expanded whole once (its joint-rand binder hashes it whole anyway) and
+the query reads it a tile at a time.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import math
 
 from ..ops.sponge_cuda import REJECT_WINDOW, keccak_sponge, or_segments
 from . import keccak
+from .engine import batched_circuit, stream_plan
 from .feasibility import feasible_rows
 from .prio3 import Prio3Batched
 from .xof import (
@@ -47,11 +53,6 @@ RATE = 8 * keccak.RATE_LANES  # 168
 DRAFT_DST_SIZE = 8
 PREFIX_BYTES = 1 + DRAFT_DST_SIZE + SEED_SIZE  # byte(len dst) || dst || seed
 
-# Inputs from which the JAX package runs the FLP query streamed over
-# tiles (its vdaf/engine.py STREAM_MIN_INPUT_LEN). The streamed query is
-# not ported yet, so the port's draft engine stops below it.
-STREAM_MIN_INPUT_LEN = 1 << 17
-
 
 class Prio3BatchedDraft(Prio3Batched):
     """Device Prio3 with the VDAF-07 draft XOF framing.
@@ -60,8 +61,14 @@ class Prio3BatchedDraft(Prio3Batched):
     the XOF plumbing (framing, sampling, binder choices) differs.
     """
 
+    # The query streams; the helper's share is expanded whole (no block
+    # offsets in a sponge), then read a tile at a time.
+    _can_stream = True
+    _stream_expand_offsets = False
+
     # Most sponge blocks per expansion (absorb or squeeze side), as in
-    # the JAX package. Below STREAM_MIN_INPUT_LEN no circuit comes near.
+    # the JAX package: SumVec(100000, 16)'s joint-rand part absorbs
+    # 152,382 blocks (25.6 MB of encoded share a report).
     MAX_STREAM_BLOCKS = 160_000
 
     # Fewest report rows the device memory budget must hold for the
@@ -71,12 +78,8 @@ class Prio3BatchedDraft(Prio3Batched):
     @classmethod
     def refusal(cls, circ, budget_bytes=None) -> str | None:
         """Why this engine does not take `circ` under `budget_bytes`
-        (None: unknown, no memory bound), or None when it does."""
-        if circ.input_len >= STREAM_MIN_INPUT_LEN:
-            return (
-                f"draft mode at input_len {circ.input_len} (>= 2^17) needs the streamed query, "
-                "which janus_tpu_torch has not ported yet"
-            )
+        (None: unknown, no memory bound), or None when it does. The
+        memory model is the tiled one where the query streams."""
         limbs = circ.FIELD.ENCODED_SIZE // 8
         longest = max(
             circ.input_len, circ.proof_len, circ.prove_rand_len, circ.query_rand_len, circ.joint_rand_len
@@ -86,7 +89,8 @@ class Prio3BatchedDraft(Prio3Batched):
         absorb_blocks = (PREFIX_BYTES + 1 + SEED_SIZE + circ.input_len * circ.FIELD.ENCODED_SIZE) // RATE + 1
         if max(blocks, absorb_blocks) > cls.MAX_STREAM_BLOCKS:
             return f"draft-mode streams of {max(blocks, absorb_blocks)} blocks exceed {cls.MAX_STREAM_BLOCKS}"
-        rows = feasible_rows(circ, budget_bytes, draft=True)
+        plan = stream_plan(batched_circuit(circ))
+        rows = feasible_rows(circ, budget_bytes, tile_elems=plan.group if plan else None, draft=True)
         if rows is not None and rows < cls.MIN_DEVICE_ROWS:
             return f"only {rows} rows fit the device memory budget of {budget_bytes} bytes (vdaf/feasibility.py)"
         return None

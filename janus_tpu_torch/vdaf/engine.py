@@ -6,14 +6,22 @@ interpolation is the batched NTT of ops/ntt.py, and gadget evaluation
 is elementwise. Field elements are identical to the JAX package's
 vdaf/engine.py on the same inputs (held against it by the tests).
 
-All four Prio3 circuits here (Count/Sum/SumVec/Histogram) have exactly
-one gadget use of degree 2; the adapters below encode each circuit's
-gadget-call schedule as reshapes over the batch. Per-report validity
-never branches: an invalid report yields a False lane in the decision
-mask and is dropped at aggregation.
+Every Prio3 circuit here (Count, Sum, SumVec and CountVec, Histogram,
+FixedPointVec) has exactly one gadget use of degree 2; the adapters
+below encode each circuit's gadget-call schedule as reshapes over the
+batch. Per-report validity never branches: an invalid report yields a
+False lane in the decision mask and is dropped at aggregation.
+
+Long inputs (input_len >= STREAM_MIN_INPUT_LEN) run the streamed query
+(`stream_plan`, `flp_query_streamed`): the wire fold and truncate walk
+the measurement share a fixed tile at a time, so the working set grows
+with the tile, not with input_len.
 """
 
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -24,14 +32,20 @@ from ..fields.tfield import (
     fconst,
     fmap,
     fmul_pow2,
+    fpad_axis,
     fpow_const,
+    fput_tile,
+    freshape,
+    fslice_dyn,
     fsum,
+    ftile,
     fwhere,
+    fzeros,
     is_zero,
 )
 from ..ops.limbmm import fold_contract
 from ..ops.ntt import intt_batched, lagrange_eval_weights, ntt_batched, poly_eval_powers, powers
-from .circuits import EVAL_POINT_CANDIDATES, Circuit, Count, Histogram, Sum, SumVec, next_pow2
+from .circuits import EVAL_POINT_CANDIDATES, Circuit, Count, FixedPointVec, Histogram, Sum, SumVec, next_pow2
 
 
 def tf_for(circuit: Circuit):
@@ -195,7 +209,83 @@ class BHistogram(_BChunked):
         return inp
 
 
-_ADAPTERS = {Count: BCount, Sum: BSum, SumVec: BSumVec, Histogram: BHistogram}
+class BFixedPointVec(_BChunked):
+    """Batched FixedPointVec: bit-check calls followed by squared-entry
+    norm calls through the same ParallelSum(Mul) gadget. Its query runs
+    the generic route (calls_inputs), not the contraction."""
+
+    def encode_batch(self, measurements):
+        # on the host in numpy: at 64 bits the offset-binary value and the
+        # norm (up to 2^126) do not fit int64, so the norm is an exact int
+        circ = self.circ
+        a = np.asarray(measurements, dtype=np.int64)  # [batch, length] signed
+        assert a.ndim == 2 and a.shape[1] == circ.length
+        assert ((-circ.offset <= a) & (a < circ.offset)).all()
+        u = a.astype(np.uint64) + np.uint64(circ.offset)  # offset binary, mod 2^64
+        bits = np.arange(circ.bits, dtype=np.uint64)
+        entry_bits = ((u[:, :, None] >> bits[None, None, :]) & np.uint64(1)).reshape(a.shape[0], -1)
+        norms = (a.astype(object) ** 2).sum(axis=1)
+        assert all(int(n) < (1 << circ.norm_bits) for n in norms), "L2 norm must be < 1"
+        norm_bits = np.array([[(int(n) >> j) & 1 for j in range(circ.norm_bits)] for n in norms], dtype=np.uint64)
+        return np.concatenate([entry_bits, norm_bits], axis=1)
+
+    def _interleaved_pairs(self, a, b, n_calls: int):
+        """(a_i, b_i) pairs zero-padded and reshaped to [batch, n_calls, 2*chunk]."""
+        ch = self.circ.chunk_length
+        pairs = fmap(lambda x, y: torch.stack([x, y], dim=-1).reshape(x.shape[0], -1), a, b)
+        pad = n_calls * ch * 2 - pairs[0].shape[-1]
+        if pad:
+            pairs = fmap(lambda x: torch.nn.functional.pad(x, (0, pad)), pairs)
+        return fmap(lambda x: x.reshape(x.shape[0], n_calls, 2 * ch), pairs)
+
+    def _entry_bits(self, inp):
+        """The entries' bits, bits-major: [batch, bits, length]."""
+        circ = self.circ
+        return fmap(
+            lambda x: x[:, : circ.length * circ.bits].reshape(x.shape[0], circ.length, circ.bits).transpose(1, 2),
+            inp,
+        )
+
+    def _entry_values(self, inp, shares_inv: int):
+        """[batch, length] shares of v_e (the offset split across the shares)."""
+        tf = self.tf
+        u = _pow2_weighted_sum(tf, self._entry_bits(inp), self.circ.bits)
+        return tf.sub(u, fconst(tf, self.circ.offset * shares_inv, (), inp[0].device))
+
+    def calls_inputs(self, inp, joint_rand, shares_inv):
+        tf = self.tf
+        circ = self.circ
+        r = fmap(lambda x: x[:, 0], joint_rand)
+        rp = fmap(lambda x: x[..., 1:], powers(tf, r, circ.n_bits + 1))
+        a = tf.mul(rp, inp)
+        b = tf.sub(inp, self._sic(shares_inv, inp[0].device))
+        bit_calls = self._interleaved_pairs(a, b, circ.calls_bits)
+        y = self._entry_values(inp, shares_inv)
+        sq_calls = self._interleaved_pairs(y, y, circ.calls_sq)
+        return fmap(lambda p, q: torch.cat([p, q], dim=1), bit_calls, sq_calls)
+
+    def finish(self, inp, joint_rand, gadget_outs, shares_inv):
+        tf = self.tf
+        circ = self.circ
+        bit_check = fsum(tf, fmap(lambda x: x[:, : circ.calls_bits], gadget_outs), axis=-1)
+        norm = fsum(tf, fmap(lambda x: x[:, circ.calls_bits :], gadget_outs), axis=-1)
+        nb = fmap(lambda x: x[:, circ.length * circ.bits :], inp)
+        # norm bits reach 2^125: a generic multiply by the constants, not shifts
+        claimed = fsum(tf, tf.mul(nb, _two_power_consts(tf, circ.norm_bits, inp[0].device)), axis=-1)
+        r1 = fmap(lambda x: x[:, 1], joint_rand)
+        return tf.add(bit_check, tf.mul(r1, tf.sub(norm, claimed)))
+
+    def truncate(self, inp):
+        return _pow2_weighted_sum(self.tf, self._entry_bits(inp), self.circ.bits)
+
+
+_ADAPTERS = {Count: BCount, Sum: BSum, SumVec: BSumVec, Histogram: BHistogram, FixedPointVec: BFixedPointVec}
+
+
+def _two_power_consts(tf, bits: int, device):
+    """[2^0, ..., 2^(bits-1)] mod p as a field value of shape [bits]."""
+    tp = [pow(2, j, tf.MODULUS) for j in range(bits)]
+    return tf.from_ints(np.array(tp, dtype=object), device)
 
 
 def _pow2_weighted_sum(tf, v, bits: int, axis: int = 1):
@@ -325,8 +415,9 @@ def _verifier(v, wire_t, proof_t):
 def flp_query_batched(bc: BatchedCircuit, inp_share, proof_share, query_rand, joint_rand, num_shares: int):
     """verifier share [batch, verifier_len].
 
-    The chunked circuits (SumVec, Histogram) take the contraction path
-    (_flp_query_batched_mm); Count and Sum take the elementwise fold."""
+    The chunked circuits (SumVec and CountVec, Histogram) take the
+    contraction path (_flp_query_batched_mm); Count, Sum and
+    FixedPointVec take the elementwise fold over calls_inputs."""
     if type(bc.circ) in (SumVec, Histogram):
         return _flp_query_batched_mm(bc, inp_share, proof_share, query_rand, joint_rand, num_shares)
     tf = bc.tf
@@ -359,6 +450,162 @@ def _flp_query_batched_mm(bc: BatchedCircuit, inp_share, proof_share, query_rand
     proof_t = poly_eval_powers(tf, gcoeffs, pw)
     v = bc.finish(inp_share, joint_rand, outs, shares_inv)
     return _verifier(v, wire_t, proof_t)
+
+
+# ---------------------------------------------------------------------------
+# Streamed FLP query + truncate (long inputs)
+# ---------------------------------------------------------------------------
+
+# Inputs from which the query streams: below this the whole-share query's
+# working set is small and one fold is fewer launches.
+STREAM_MIN_INPUT_LEN = 1 << 17
+# At most this many steps for inputs short enough that the tile cap below
+# does not bind.
+_STREAM_TARGET_STEPS = 8
+# Cap on a step's tile in input-share elements: at long inputs the tile is
+# fixed, so a step's working set grows with batch x tile, not input_len,
+# and extra length only adds steps. (The JAX package reads an override
+# from its environment; here the tile is stream_plan's argument.)
+STREAM_TILE_ELEMS = 1 << 16
+
+
+@dataclass(frozen=True)
+class StreamPlan:
+    """The streamed query's geometry: `n_steps` steps of `gcalls` gadget
+    calls, `group` input elements each. `group` is a multiple of 7 (a
+    counter block holds 7 Field128 elements, so a step's tile is whole
+    blocks of the XOF stream) and of `bits` (a SumVec entry's bits never
+    straddle two tiles)."""
+
+    gcalls: int
+    n_steps: int
+    group: int
+    bits: int
+
+
+def stream_plan(bc: BatchedCircuit, min_input_len: int | None = None, tile_elems: int | None = None):
+    """The StreamPlan of a circuit worth streaming, else None.
+
+    SumVec (CountVec too) and Histogram only: their query folds the share
+    call by call, so it streams; FixedPointVec, Count and Sum do not.
+    Streams from `min_input_len` input elements (STREAM_MIN_INPUT_LEN if
+    None), with tiles of about `tile_elems` (STREAM_TILE_ELEMS if None):
+    min(input_len / 8, tile_elems) elements, rounded to the alignment
+    quantum lcm(7, bits) x chunk_length and never below it. Equal, field
+    for field, to the JAX package's plan for the same arguments.
+    """
+    circ = bc.circ
+    if type(circ) not in (SumVec, Histogram) or bc.tf.LIMBS != 2:
+        return None
+    if circ.input_len < (STREAM_MIN_INPUT_LEN if min_input_len is None else min_input_len):
+        return None
+    ch = circ.chunk_length
+    bits = getattr(circ, "bits", 1)
+    align = math.lcm(7, bits)
+    a = align // math.gcd(align, ch)  # fewest calls whose elements align
+    tile = STREAM_TILE_ELEMS if tile_elems is None else tile_elems
+    desired_calls = min(bc.calls / _STREAM_TARGET_STEPS, max(1.0, tile / ch))
+    gcalls = a * max(1, round(desired_calls / a))
+    return StreamPlan(gcalls, -(-bc.calls // gcalls), gcalls * ch, bits)
+
+
+def describe_engine_geometry(bc: BatchedCircuit) -> dict:
+    """A circuit's shapes and stream plan as one JSON-shaped dict (the JAX
+    package's, key for key)."""
+    circ = bc.circ
+    plan = stream_plan(bc)
+    return {
+        "circuit": type(circ).__name__,
+        "input_len": getattr(circ, "input_len", None),
+        "output_len": getattr(circ, "output_len", None),
+        "verifier_len": getattr(circ, "verifier_len", None),
+        "gadget_calls": getattr(bc, "calls", None),
+        "field_limbs": bc.tf.LIMBS,
+        "stream_plan": (
+            {"tile_elems": plan.group, "gcalls": plan.gcalls, "n_steps": plan.n_steps} if plan is not None else None
+        ),
+    }
+
+
+def sliced_meas_source(bc: BatchedCircuit, plan: StreamPlan, meas):
+    """The streamed query's source over a share that exists whole
+    ([batch, input_len]: the leader's staged share, the draft helper's
+    expanded one): step k is a view of its tile, the last one cut at
+    input_len (the query pads it)."""
+    n = bc.circ.input_len
+
+    def src(step: int):
+        start = step * plan.group
+        return fslice_dyn(meas, start, min(plan.group, n - start), axis=1)
+
+    return src
+
+
+def flp_query_streamed(bc: BatchedCircuit, plan: StreamPlan, meas_source, proof_share, query_rand, joint_rand,
+                       num_shares: int):
+    """The contraction query of _flp_query_batched_mm fused with truncate,
+    a tile at a time. Returns (verifier, out_share), field-element equal
+    to (flp_query_batched(...), bc.truncate(meas)): the fold's order of
+    summation differs, and addition mod p is exact.
+
+    meas_source(step) gives the input share's elements [step * group,
+    step * group + w) as [batch, w], w >= the elements left before
+    input_len; elements at and past input_len are dropped here. Each
+    step folds its gcalls through one fold_contract, adds its elements to
+    S (Histogram's sum check) and writes its truncate tile; the r-powers
+    and the shares-inverse correction are applied once after the loop.
+    """
+    tf = bc.tf
+    circ = bc.circ
+    shares_inv = circ.FIELD.inv(num_shares)
+    n = circ.input_len
+    G = plan.group
+    ch = circ.chunk_length
+    batch = query_rand[0].shape[0]
+    device = query_rand[0].device
+    is_sumvec = isinstance(circ, SumVec)
+    assert G % 7 == 0 and G % plan.bits == 0 and G == plan.gcalls * ch
+
+    seeds, gcoeffs, t, outs, pw, L0, Lc = _query_proof_side(bc, proof_share, query_rand)
+    # call weights zero-padded, so the last step's calls past `calls` add 0
+    Lc = fpad_axis(Lc, plan.n_steps * plan.gcalls - bc.calls)
+    r = fmap(lambda x: x[:, 0], joint_rand)
+    w_full, rc1 = _chunked_wire_weights(bc, Lc, r)
+
+    gp = G // plan.bits if is_sumvec else G  # truncate outputs of one tile
+    F0 = fzeros(tf, (batch, ch), device)
+    F1 = fzeros(tf, (batch, ch), device)
+    S = fzeros(tf, (batch,), device)
+    parts = fzeros(tf, (batch, plan.n_steps * gp), device)
+    for step in range(plan.n_steps):
+        x = meas_source(step)
+        valid = min(G, n - step * G)
+        if valid < G:  # the last tile: drop what lies past input_len
+            x = fpad_axis(fslice_dyn(x, 0, valid, axis=1), G - valid)
+        Fg = fold_contract(tf, ftile(w_full, step, plan.gcalls, axis=2), freshape(x, (batch, plan.gcalls, ch)))
+        F0 = tf.add(F0, fmap(lambda v: v[:, 0], Fg))
+        F1 = tf.add(F1, fmap(lambda v: v[:, 1], Fg))
+        if is_sumvec:  # bits-major fold: out[e] = sum_b 2^b x[e * bits + b]
+            v = fmap(lambda w: w.reshape(batch, gp, plan.bits).transpose(1, 2), x)
+            fput_tile(parts, _pow2_weighted_sum(tf, v, plan.bits), step)
+        else:  # Histogram's truncate is the identity
+            S = tf.add(S, fsum(tf, x, axis=-1))
+            fput_tile(parts, x, step)
+    out_share = fmap(lambda v: v[:, : circ.output_len], parts)
+
+    W0 = tf.mul(F0, rc1)
+    W1 = tf.sub(F1, _chunked_b_correction(bc, Lc, shares_inv))
+    wire_t = fmap(lambda p, q: torch.stack([p, q], dim=-1).reshape(batch, -1), W0, W1)
+    wire_t = tf.add(wire_t, tf.mul(seeds, fmap(lambda x: x[:, None], L0)))
+    proof_t = poly_eval_powers(tf, gcoeffs, pw)
+    # the circuit's output (bc.finish) without the whole input
+    if is_sumvec:
+        v = fsum(tf, outs, axis=-1)
+    else:
+        s_const = fconst(tf, shares_inv, (), device)
+        jr1 = fmap(lambda x: x[:, 1], joint_rand)
+        v = tf.add(fsum(tf, outs, axis=-1), tf.mul(jr1, tf.sub(S, s_const)))
+    return _verifier(v, wire_t, proof_t), out_share
 
 
 def flp_decide_batched(bc: BatchedCircuit, verifier):

@@ -11,6 +11,13 @@ Every step is a PyTorch computation over [batch]-leading tensors:
 so the values equal the JAX package's vdaf/prio3_jax.py on the same
 inputs. Validity is a boolean lane mask throughout; an invalid report
 never breaks the batch.
+
+An engine whose `plan` is a StreamPlan (vdaf/engine.py stream_plan: the
+long SumVec, CountVec and Histogram inputs) runs the streamed query. The
+fast helper's measurement share is then expanded a tile at a time by
+kernel 2 at a block offset and never exists whole; the leader's staged
+share, which its joint-rand binder hashes whole, is read a tile at a time
+(`sliced_meas_source`).
 """
 
 from __future__ import annotations
@@ -20,8 +27,18 @@ import torch
 from ..device import resolve_device
 from ..fields.tfield import fencode_lanes, fmap, fsum
 from .circuits import AGG1, Circuit
-from .engine import BatchedCircuit, batched_circuit, flp_decide_batched, flp_prove_batched, flp_query_batched
-from .keccak import ctr_stream_lanes, expand_field_vec, tree_digest_lanes
+from .engine import (
+    BatchedCircuit,
+    StreamPlan,
+    batched_circuit,
+    flp_decide_batched,
+    flp_prove_batched,
+    flp_query_batched,
+    flp_query_streamed,
+    sliced_meas_source,
+    stream_plan,
+)
+from .keccak import _assemble_segments, ctr_stream_lanes, expand_field_vec, tree_digest_lanes
 from .xof import (
     DST_SIZE,
     INLINE_BINDER_MAX,
@@ -50,12 +67,21 @@ class Prio3Batched:
     """
 
     NUM_SHARES = 2
+    # The streamed query's two flags, the JAX package's: _can_stream, the
+    # query streams at long inputs (its math does not depend on the XOF
+    # framing); _stream_expand_offsets, the helper's share can be expanded
+    # at a block offset, so it never exists whole (counter mode only).
+    _can_stream = True
+    _stream_expand_offsets = True
 
     def __init__(self, circuit: Circuit, device=None):
         self.circ = circuit
         self.device = resolve_device(device)
         self.bc: BatchedCircuit = batched_circuit(circuit)
         self.tf = self.bc.tf
+        # the streamed query's geometry, or None for the whole-share query;
+        # tests and chip_smoke.py set another stream_plan(...) here
+        self.plan: StreamPlan | None = stream_plan(self.bc) if self._can_stream else None
 
     # --- XOF plumbing (device) ---
     def _dst(self, usage: int) -> bytes:
@@ -95,6 +121,24 @@ class Prio3Batched:
     def _expand_share(self, seed_lanes, usage: int, length: int):
         """Expand a helper measurement/proof share: binder = AGG1."""
         return self._expand_vec(usage, seed_lanes, [(0, AGG1)], 8, length)
+
+    def _expand_share_source(self, seed_lanes, usage: int, plan: StreamPlan):
+        """The streamed query's source for the helper's share: step k is
+        kernel 2's expansion of blocks [k * group / 7, (k + 1) * group / 7)
+        of the share's stream, i.e. its elements [k * group, (k + 1) * group)."""
+        batch = seed_lanes.shape[0]
+        parts, prefix_len = self._prefix_parts(usage, seed_lanes, [(0, AGG1)], 8, batch)
+        # the prefix is the same at every step: assembled once
+        prefix = [(0, _assemble_segments(parts, prefix_len // 8, batch, self.device))]
+        assert plan.group % 7 == 0, "a tile must be whole counter blocks"
+        blocks = plan.group // 7
+
+        def src(step: int):
+            return expand_field_vec(
+                self.tf, prefix, prefix_len, batch, plan.group, self.device, block_offset=step * blocks
+            )
+
+        return src
 
     def _part_binder(self, agg_id: int, meas, helper_seed):
         """The share binder of the joint-rand part: the leader binds its
@@ -194,26 +238,42 @@ class Prio3Batched:
 
         Returns (out_share, corrected_seed_lanes|None, verifier, own_part|None).
         """
-        return self._prepare_init(verify_key, 0, nonce_lanes, public_parts, meas, proof, blind0, None)
+        src = sliced_meas_source(self.bc, self.plan, meas) if self.plan is not None else None
+        return self._prepare_init(verify_key, 0, nonce_lanes, public_parts, meas, proof, blind0, None, src)
 
     def prepare_init_helper(self, verify_key: bytes, nonce_lanes, public_parts, helper_seed, blind1):
         circ = self.circ
-        meas = self._expand_share(helper_seed, USAGE_MEASUREMENT_SHARE, circ.input_len)
         proof = self._expand_share(helper_seed, USAGE_PROOF_SHARE, circ.proof_len)
-        return self._prepare_init(verify_key, 1, nonce_lanes, public_parts, meas, proof, blind1, helper_seed)
+        if self.plan is not None and self._stream_expand_offsets:
+            # the fast helper's binder is its seed: nothing needs its whole
+            # share, which kernel 2 expands a tile at a time
+            src = self._expand_share_source(helper_seed, USAGE_MEASUREMENT_SHARE, self.plan)
+            return self._prepare_init(verify_key, 1, nonce_lanes, public_parts, None, proof, blind1, helper_seed, src)
+        meas = self._expand_share(helper_seed, USAGE_MEASUREMENT_SHARE, circ.input_len)
+        src = sliced_meas_source(self.bc, self.plan, meas) if self.plan is not None else None
+        return self._prepare_init(verify_key, 1, nonce_lanes, public_parts, meas, proof, blind1, helper_seed, src)
 
-    def _prepare_init(self, verify_key, agg_id, nonce_lanes, public_parts, meas, proof, blind, helper_seed):
+    def _prepare_init(self, verify_key, agg_id, nonce_lanes, public_parts, meas, proof, blind, helper_seed, src):
+        """The shared prepare-init; `src` is the streamed query's source,
+        None for the whole-share query over `meas`."""
         corrected_seed = None
         own_part = None
         joint_rand = ()
         if self.uses_joint_rand:
-            binder = self._part_binder(agg_id, meas, helper_seed)
-            own_part = self._joint_rand_part(agg_id, blind, nonce_lanes, binder)
+            # the binder (the leader's encoded share) is dropped right after
+            own_part = self._joint_rand_part(
+                agg_id, blind, nonce_lanes, self._part_binder(agg_id, meas, helper_seed)
+            )
             other = public_parts[:, 1 - agg_id]
             parts = (own_part, other) if agg_id == 0 else (other, own_part)
             corrected_seed = self._joint_rand_seed(*parts)
             joint_rand = self._joint_rand(corrected_seed)
         query_rand = self._query_rand(verify_key, nonce_lanes)
+        if src is not None:
+            verifier, out_share = flp_query_streamed(
+                self.bc, self.plan, src, proof, query_rand, joint_rand, self.NUM_SHARES
+            )
+            return out_share, corrected_seed, verifier, own_part
         verifier = flp_query_batched(self.bc, meas, proof, query_rand, joint_rand, self.NUM_SHARES)
         return self.bc.truncate(meas), corrected_seed, verifier, own_part
 

@@ -2,8 +2,9 @@
 
 The port's own copy of the sharding half of janus_tpu/vdaf/reference.py:
 the host NTT, the prover's side of the four circuits of the port's
-registry (Count, Sum, SumVec, Histogram: the scalar encoding, the inputs
-of each gadget call and the gadget's value), the FLP prover, and
+registry (Count, Sum, SumVec and CountVec, Histogram, FixedPointVec: the
+scalar encoding, the inputs of each gadget call and the gadget's value,
+and `fp_encode_floats` for a fixed-point client), the FLP prover, and
 `Prio3.shard` with the XOF helpers it calls, in both XOF modes ("fast":
 counter-mode SHAKE128 with the tree-digested binder and the helper's seed
 as its binder; "draft": the VDAF-07 sponge with rejection sampling). The
@@ -26,7 +27,7 @@ import secrets
 from dataclasses import dataclass
 
 from ..fields.field import Field
-from .circuits import Circuit, Count, Histogram, Sum, SumVec, next_pow2
+from .circuits import Circuit, Count, FixedPointVec, Histogram, Sum, SumVec, next_pow2
 from .xof import (
     SEED_SIZE,
     USAGE_JOINT_RAND_PART,
@@ -102,7 +103,8 @@ def _ntt_inplace(field: type[Field], a: list[int], root: int) -> None:
 # SumVec and Histogram check bits chunk-wise through ParallelSum(Mul,
 # chunk_length), each bit weighted by a power of jr[0] (Histogram's
 # sum-to-one check, weighted by jr[1], is the verifier's, not the
-# prover's).
+# prover's). FixedPointVec adds, after its bit-check calls, calls of
+# (y_e, y_e) squares of the offset-corrected entry values.
 
 
 def encode(circ: Circuit, measurement) -> list[int]:
@@ -122,6 +124,19 @@ def encode(circ: Circuit, measurement) -> list[int]:
     if isinstance(circ, Histogram):
         assert 0 <= measurement < circ.length
         return [1 if i == measurement else 0 for i in range(circ.length)]
+    if isinstance(circ, FixedPointVec):
+        assert len(measurement) == circ.length
+        out = []
+        norm = 0
+        for v in measurement:
+            v = int(v)
+            assert -circ.offset <= v < circ.offset, "entry out of [-1, 1)"
+            u = v + circ.offset
+            out.extend((u >> j) & 1 for j in range(circ.bits))
+            norm += v * v
+        assert norm < (1 << circ.norm_bits), "L2 norm must be < 1"
+        out.extend((norm >> j) & 1 for j in range(circ.norm_bits))
+        return out
     raise ValueError(f"{type(circ).__name__} has no host sharder in janus_tpu_torch")
 
 
@@ -134,9 +149,10 @@ def gadget_inputs(circ: Circuit, inp: list[int], joint_rand: list[int], shares_i
         return [[x] for x in inp]
     # (r^{i+1} x_i, x_i - 1) pairs, ParallelSum(Mul, chunk_length) per call
     F, ch, n, r = circ.FIELD, circ.chunk_length, circ.input_len, joint_rand[0]
+    fixed = isinstance(circ, FixedPointVec)
     rp = r
     out = []
-    for k in range(circ.gadget_uses[0].calls):
+    for k in range(circ.calls_bits if fixed else circ.gadget_uses[0].calls):
         call_inputs = []
         for c in range(ch):
             i = k * ch + c
@@ -146,7 +162,28 @@ def gadget_inputs(circ: Circuit, inp: list[int], joint_rand: list[int], shares_i
             else:
                 call_inputs += [0, 0]
         out.append(call_inputs)
+    if fixed:
+        for k in range(circ.calls_sq):
+            call_inputs = []
+            for c in range(ch):
+                e = k * ch + c
+                if e < circ.length:
+                    y = _entry_value(circ, inp, e, shares_inv)
+                    call_inputs += [y, y]
+                else:
+                    call_inputs += [0, 0]
+            out.append(call_inputs)
     return out
+
+
+def _entry_value(circ: FixedPointVec, inp: list[int], e: int, shares_inv: int) -> int:
+    """A share of entry e's value v_e = sum_j 2^j u_bits - offset (the
+    offset split across the shares)."""
+    F = circ.FIELD
+    acc = 0
+    for j in range(circ.bits):
+        acc = F.add(acc, F.mul(pow(2, j, F.MODULUS), inp[e * circ.bits + j]))
+    return F.sub(acc, F.mul(circ.offset, shares_inv))
 
 
 def gadget_eval(circ: Circuit, inputs: list[int]) -> int:
@@ -158,6 +195,16 @@ def gadget_eval(circ: Circuit, inputs: list[int]) -> int:
     for c in range(0, len(inputs), 2):
         acc = F.add(acc, F.mul(inputs[c], inputs[c + 1]))
     return acc
+
+
+def fp_encode_floats(values, bits: int) -> list[int]:
+    """Floats in [-1, 1) -> raw fixed-point ints (scale 2^(bits-1)), clamped."""
+    scale = 1 << (bits - 1)
+    out = []
+    for x in values:
+        v = int(round(float(x) * scale))
+        out.append(max(-scale, min(scale - 1, v)))
+    return out
 
 
 # ---------------------------------------------------------------------------

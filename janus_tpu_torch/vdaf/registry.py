@@ -1,7 +1,7 @@
 """VDAF instances of the port's slice and their batched Prio3 engines.
 
 A serializable description of one VDAF configuration (the JAX
-package's vdaf/registry.py VdafInstance, for the four Prio3 kinds on the
+package's vdaf/registry.py VdafInstance, for the six Prio3 kinds on the
 device path, Poplar1 and the four test fakes) that resolves to a circuit
 and to a Prio3Batched engine on a device. Both XOF modes run here:
 "fast" on Prio3Batched, "draft" (VDAF-07) on Prio3BatchedDraft for the
@@ -18,7 +18,7 @@ from functools import lru_cache
 import torch
 
 from ..device import resolve_device
-from .circuits import Circuit, Count, Histogram, Sum, SumVec
+from .circuits import Circuit, Count, FixedPointVec, Histogram, Sum, SumVec
 from .draft import Prio3BatchedDraft
 from .feasibility import device_memory_budget
 from .prio3 import Prio3Batched
@@ -28,7 +28,7 @@ from .prio3 import Prio3Batched
 class VdafInstance:
     """One VDAF configuration; hashable so dispatch results are cached."""
 
-    kind: str  # "count" | "sum" | "sumvec" | "histogram" | "poplar1" | the fakes
+    kind: str  # "count" | "sum" | "sumvec" | "histogram" | "countvec" | "fixedpoint" | "poplar1" | the fakes
     bits: int = 0
     length: int = 0
     chunk_length: int = 0  # 0 -> sqrt heuristic
@@ -49,6 +49,17 @@ class VdafInstance:
     @classmethod
     def histogram(cls, length: int, chunk_length: int = 0) -> "VdafInstance":
         return cls("histogram", length=length, chunk_length=chunk_length)
+
+    @classmethod
+    def count_vec(cls, length: int, chunk_length: int = 0) -> "VdafInstance":
+        """A vector of counts (Prio3CountVec): SumVec with one bit an entry."""
+        return cls("countvec", bits=1, length=length, chunk_length=chunk_length)
+
+    @classmethod
+    def fixed_point_vec(cls, length: int, bits: int = 16, chunk_length: int = 0) -> "VdafInstance":
+        """A fixed-point vector sum with bounded L2 norm (Prio3FixedPoint{16,
+        32,64}BitBoundedL2VecSum): `bits` is 16, 32 or 64."""
+        return cls("fixedpoint", bits=bits, length=length, chunk_length=chunk_length)
 
     @classmethod
     def poplar1(cls, bits: int) -> "VdafInstance":
@@ -145,6 +156,10 @@ def circuit_for(inst: VdafInstance) -> Circuit:
         return SumVec(length=inst.length, bits=inst.bits, chunk_length=ch)
     if inst.kind == "histogram":
         return Histogram(length=inst.length, chunk_length=ch)
+    if inst.kind == "countvec":
+        return SumVec(length=inst.length, bits=1, chunk_length=ch)
+    if inst.kind == "fixedpoint":
+        return FixedPointVec(length=inst.length, bits=inst.bits, chunk_length=ch)
     if inst.kind in FAKE_KINDS:
         return Count()
     if inst.kind == "poplar1":

@@ -25,6 +25,13 @@ def random_measurements(inst: VdafInstance, batch: int, rng: np.random.Generator
         return rng.integers(0, 1 << min(inst.bits, 62), size=(batch, inst.length))
     if inst.kind == "histogram":
         return rng.integers(0, inst.length, size=batch)
+    if inst.kind == "countvec":
+        return rng.integers(0, 2, size=(batch, inst.length))
+    if inst.kind == "fixedpoint":
+        # signed raw values small enough that any vector's L2 norm is < 1
+        offset = 1 << (inst.bits - 1)
+        hi = max(1, int(offset / (inst.length**0.5)) // 2)
+        return rng.integers(-hi, hi, size=(batch, inst.length))
     raise ValueError(inst.kind)
 
 

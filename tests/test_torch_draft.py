@@ -37,6 +37,7 @@ from janus_tpu_torch.ops import keccak_cuda, sponge_cuda
 from janus_tpu_torch.parallel import api as t_api
 from janus_tpu_torch.vdaf import circuits as t_circuits
 from janus_tpu_torch.vdaf import draft as td
+from janus_tpu_torch.vdaf import engine as t_engine
 from janus_tpu_torch.vdaf import feasibility as t_feas
 from janus_tpu_torch.vdaf import keccak as tk
 from janus_tpu_torch.vdaf import registry as t_registry
@@ -359,35 +360,50 @@ BUDGETS = [None, 10**6, 10**8, 2 * 10**9, 80 * 10**9]
 
 @pytest.mark.parametrize("kind,kw", BELOW_2_17, ids=lambda x: str(x))
 def test_supports_circuit_and_feasibility_agree_with_jax(kind, kw):
+    """The draft gate's verdicts are janus_tpu's. The memory model counts
+    the port's own bytes (vdaf/feasibility.py): at least what both
+    packages keep resident, and for the contraction query the float64
+    limbs of the whole share; rows and buckets follow from it as in
+    janus_tpu."""
     inst = t_registry.VdafInstance(kind, xof_mode="draft", **kw)
     t_circ = t_registry.circuit_for(inst)
     j_circ = j_registry.circuit_for(j_registry.VdafInstance(kind, xof_mode="draft", **kw))
-    assert t_circ.input_len < td.STREAM_MIN_INPUT_LEN
+    assert t_circ.input_len < 1 << 17
     for budget in BUDGETS[1:]:
         assert td.Prio3BatchedDraft.supports_circuit(t_circ, budget) == jd.Prio3BatchedDraft.supports_circuit(
             j_circ, budget
         ), budget
-    for budget in BUDGETS:
-        for draft in (False, True):
-            assert t_feas.prepare_row_bytes(t_circ, draft=draft) == j_feas.prepare_row_bytes(j_circ, draft=draft)
-            assert t_feas.feasible_rows(t_circ, budget, draft=draft) == j_feas.feasible_rows(
-                j_circ, budget, draft=draft
-            )
-            assert t_feas.feasible_bucket(t_circ, budget, draft=draft) == j_feas.feasible_bucket(
-                j_circ, budget, draft=draft
-            )
+    e = t_circ.FIELD.ENCODED_SIZE
+    resident = (t_circ.input_len + 2 * (t_circ.proof_len + t_circ.verifier_len + t_circ.output_len)) * e
+    for draft in (False, True):
+        row = t_feas.prepare_row_bytes(t_circ, draft=draft)
+        assert row >= resident + (t_circ.input_len * e if draft else 0)
+        if kind in ("sumvec", "histogram"):
+            assert row >= resident + t_circ.input_len * 19 * 8  # the limb operand
+        for budget in BUDGETS:
+            rows = t_feas.feasible_rows(t_circ, budget, draft=draft)
+            bucket = t_feas.feasible_bucket(t_circ, budget, draft=draft)
+            if budget is None:
+                assert rows is None and bucket is None
+                continue
+            assert rows == max(1, int(budget * t_feas.HEADROOM) // row)
+            assert bucket & (bucket - 1) == 0 and bucket <= rows < 2 * bucket
     assert td.Prio3BatchedDraft.supports_circuit(t_circ)  # unknown budget: no memory bound
     assert isinstance(t_registry.prio3_batched(inst, CPU), td.Prio3BatchedDraft)
 
 
 @pytest.mark.parametrize("length", [8192, 10_000])  # input_len 131,072 = 2^17, and 160,000
 def test_draft_at_and_above_2_17_inputs_names_the_streamed_query(length):
+    """Draft mode takes these inputs now: its engine's plan is the
+    streamed query's, over the helper's whole expanded share."""
     inst = t_registry.VdafInstance("sumvec", bits=16, length=length, xof_mode="draft")
     circ = t_registry.circuit_for(inst)
     assert circ.input_len >= 1 << 17
-    assert not td.Prio3BatchedDraft.supports_circuit(circ)
-    with pytest.raises(ValueError, match="streamed query"):
-        t_registry.prio3_batched(inst, CPU)
+    assert td.Prio3BatchedDraft.supports_circuit(circ)
+    p3 = t_registry.prio3_batched(inst, CPU)
+    assert isinstance(p3, td.Prio3BatchedDraft)
+    assert p3.plan is not None and p3.plan == t_engine.stream_plan(p3.bc)
+    assert p3._can_stream and not p3._stream_expand_offsets
 
 
 def test_device_memory_budget_is_none_on_the_cpu():

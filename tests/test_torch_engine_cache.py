@@ -302,6 +302,7 @@ def test_engine_cache_is_keyed_by_device_and_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         EngineCache(inst, VK)
     # a draft circuit the port's draft engine refuses raises, no host engine
-    huge = t_registry.VdafInstance("sumvec", bits=1, length=1 << 17, xof_mode="draft")
-    with pytest.raises(ValueError, match="streamed query"):
+    # (a 167,620-block absorb, past the draft engine's 160,000)
+    huge = t_registry.VdafInstance("sumvec", bits=16, length=110_000, xof_mode="draft")
+    with pytest.raises(ValueError, match="exceed 160000"):
         engine_cache(huge, VK, "cpu")

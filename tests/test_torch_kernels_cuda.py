@@ -136,6 +136,66 @@ def test_two_party_step_on_card_matches_cpu(cuda):
     assert outs["cpu"] == ([int(x) for x in np.asarray(meas).sum(axis=0)], 16)
 
 
+def test_streamed_step_on_the_card_equals_the_whole_share_step(cuda):
+    """SumVec(100000, 16) at 4 reports: the streamed prepare (kernel 2 a
+    tile a step for the helper's share) and the whole-share prepare (its
+    stream_plan threshold past input_len) give the same field elements on
+    both sides, and the two-party step accepts and sums every report."""
+    from janus_tpu_torch.vdaf.engine import stream_plan
+    from janus_tpu_torch.vdaf.prio3 import Prio3Batched
+
+    inst = VdafInstance.sum_vec(100_000, 16)
+    p3 = prio3_batched(inst, cuda)
+    assert (p3.plan.group, p3.plan.gcalls, p3.plan.n_steps) == (61_936, 49, 26)
+    whole = Prio3Batched(p3.circ, device=cuda)
+    whole.plan = stream_plan(whole.bc, min_input_len=p3.circ.input_len + 1)
+    assert whole.plan is None
+    meas = random_measurements(inst, 4, np.random.default_rng(8))
+    args, _ = make_report_batch(inst, meas, seed=9, shard_chunk=4, device=cuda)
+    nonce, parts, lmeas, lproof, blind0, seed, blind1 = args
+    outs = []
+    for eng in (p3, whole):
+        expand_cuda.expand_f128.launches = 0
+        helper = eng.prepare_init_helper(bytes(16), nonce, parts, seed, blind1)
+        launches = expand_cuda.expand_f128.launches
+        leader = eng.prepare_init_leader(bytes(16), nonce, parts, lmeas, lproof, blind0)
+        outs.append((helper, leader, launches))
+    torch.cuda.synchronize()
+    # the helper's share: one launch a step streamed, one in all whole
+    assert outs[0][2] - outs[1][2] == p3.plan.n_steps - 1
+    for a, b in zip(outs[0][:2], outs[1][:2]):
+        for x, y in zip(a, b):
+            xs, ys = (x, y) if isinstance(x, tuple) else ((x,), (y,))
+            assert all(torch.equal(u, v) for u, v in zip(xs, ys))
+    agg0, agg1, count = api.two_party_step(inst, bytes(16), device=cuda)(*args)
+    assert int(count) == 4
+    total = [int(x) for x in p3.tf.to_ints(p3.merge_agg_shares(agg0, agg1))]
+    assert total == [int(x) for x in np.asarray(meas).sum(axis=0)]
+
+
+def test_fixed_point_on_the_card_matches_cpu(cuda):
+    """FixedPointVec(1000, 16) at batch 8 (one report's leader proof share
+    corrupted): the card and the CPU plain path give the same aggregate
+    and count, the valid reports' offset-binary sum."""
+    inst = VdafInstance.fixed_point_vec(1000, 16)
+    meas = random_measurements(inst, 8, np.random.default_rng(12))
+    outs = {}
+    for dev in ("cpu", cuda):
+        p3 = prio3_batched(inst, dev)
+        args, _ = make_report_batch(inst, meas, seed=13, device=dev)
+        args = list(args)
+        proof = tuple(x.clone() for x in args[3])
+        proof[0][3, 0] += 1  # lo limb of a Field128 element below 2^64 - 1: stays below p
+        args[3] = proof
+        expand_cuda.expand_f128.launches = 0
+        agg0, agg1, count = api.two_party_step(inst, bytes(16), device=dev)(*args)
+        assert (expand_cuda.expand_f128.launches > 0) == (dev != "cpu")
+        outs[str(dev)] = ([int(x) for x in p3.tf.to_ints(p3.merge_agg_shares(agg0, agg1))], int(count))
+    assert outs["cpu"] == outs["cuda"]
+    valid = np.arange(8) != 3
+    assert outs["cpu"] == ([int(x) for x in (np.asarray(meas)[valid] + (1 << 15)).sum(axis=0)], 7)
+
+
 @pytest.mark.parametrize("route", ["direct", "pipelined", "chunked"])
 def test_engine_routes_on_the_card_match_the_cpu(cuda, monkeypatch, route):
     """EngineCache on the card (pinned side-stream copies on the pipelined
