@@ -185,6 +185,52 @@ Phases, each of which must pass:
                    continue steps', collection steps' and poll seconds, the
                    helper's init and continue handler seconds and the
                    launches, then the total and the peak device bytes.
+  13. taskprov-histogram  the rest of the protocol at full width: a port
+                   leader on the Postgres engine (PostgresDatastore over the
+                   port's pg_fake driver, the upload journal armed) and a
+                   port helper on SQLite with taskprov enabled, holding one
+                   active global HPKE keypair and the leader as its taskprov
+                   peer. The task is a TaskConfig of Prio3Histogram with
+                   9,999 boundaries (Prio3Histogram(10000), BASELINE.json
+                   configs[3]), fast mode, time interval; the leader
+                   provisions its side with the peer's derived verify key.
+                   8 reports go through the port Client, whose helper config
+                   must be the helper's global one; 1,016 come from
+                   make_wire_reports (3 with a bumped leader share), PUT by
+                   8 threads. The creator makes one job; JobDriver.run_once
+                   steps it over an HTTP client that attaches the
+                   dap-taskprov header (counts at 0 just before, read just
+                   after: kernels 1 and 2 must launch, kernel 3 not), and the
+                   helper must opt in on that first aggregate-init (no task
+                   before, the derived key and no HPKE keys after). Exactly
+                   the 3 bumped reports fail; the step's own peak device
+                   bytes must stay under vdaf/feasibility.py's model; the
+                   batch is collected as in phase 9 and must equal the
+                   bucket counts of the 1,021 valid measurements; the armed
+                   journal must not have synced;
+  14. outage-drill the same task, a fresh batch of 1,024 reports: both
+                   datastores' supervisors start (probe 0.2 s, down after 3
+                   failures, up after 2 successes). Midway through the
+                   uploads the failpoint datastore.connect.leader=error
+                   takes the leader's database away: the supervisor must go
+                   down, the writer spills, and every upload must still get
+                   201 on the journal's fsync; the failpoint is cleared, the
+                   supervisor must pass through recovering to up and the
+                   replayer drain the journal exactly once (replayed fresh =
+                   spilled, no duplicate, 1,024 stored). Then, inside the
+                   job's first step (after the leader's device init), the
+                   helper's database goes away the same way: its aggregate
+                   route must shed 503 with Retry-After, the leader's
+                   breaker open and its driver step back; after the helper
+                   is up again the next step must complete on the card
+                   (kernels 1 and 2 launched), and the collection must equal
+                   the ground truth of the acknowledged valid reports. The
+                   line gives the spilled and replayed counts, the journal's
+                   fsyncs and peak bytes, each supervisor's transitions with
+                   their times, the sheds and step-backs, the upload ack
+                   latency p50/p99 during the outage and outside it, and the
+                   times from each clear to up and to an empty journal.
+                   Every failpoint is cleared in a finally.
 
 Output: JSON lines (build, the profile of one draft sumvec step, the
 sponge chains, one serve line per XOF mode with the seconds of each
@@ -196,6 +242,7 @@ seconds of create, the driver's gather, sum, http_aggregate_share and
 store, the helper's handle_aggregate_share, poll and unshard, and GC,
 with GC's seconds by side and by delete; the device bytes before and the
 peak during the collection step), the poplar1 and drive_poplar1 lines,
+the taskprov_histogram and outage_drill lines,
 the kernels, one line per path, the run's wall time), then the card's
 name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.
@@ -219,6 +266,11 @@ POPLAR1_BITS = 16
 POPLAR1_PREFIXES = 256
 POPLAR1_BATCH = 512
 POPLAR1_SEED = 0xB0B
+# the taskprov path's circuit, BASELINE.json configs[3]: Prio3Histogram(10000);
+# its tree leaf level and the helper's measurement share are ceil(10000 / 7)
+# = 1,429 Keccak blocks a report
+HIST_LENGTH = 10_000
+HIST_BLOCKS = -(-HIST_LENGTH // 7)
 
 # Least-time model of the card (H100 SXM): HBM3 at 3.35 TB/s, and the
 # 32-bit integer pipe at 64 ops/clock/SM (the CUDA programming guide's
@@ -343,6 +395,20 @@ def phase_kernels(torch, dev):
     cases.append({"case": "poplar1 leaf walk", "states": n, "out_lanes": 21, "rounds": 24, "max_abs_err": err,
                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
     del got, want, cols
+    # the taskprov path's Prio3Histogram(10000): the leader binder's tree
+    # leaf level, 1024 reports x ceil(10000 / 7) = 1,429 states, 2 lanes out
+    n = batch * HIST_BLOCKS
+    cols = list(lanes((21, batch, HIST_BLOCKS)))
+    got = keccak_cuda.keccak_single_block(cols, 2)
+    want = keccak_cuda.keccak_single_block_plain(cols, 2)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    ms = time_cuda(torch, lambda: keccak_cuda.keccak_single_block(cols, 2), reps=10)
+    plain_ms = time_cuda(torch, lambda: keccak_cuda.keccak_single_block_plain(cols, 2), reps=2)
+    b_ms, b_by = bound_ms(n * 24 * KECCAK_OPS_PER_ROUND, n * 8 * (21 + 2))
+    cases.append({"case": "histogram10000 tree leaves", "states": n, "out_lanes": 2, "rounds": 24,
+                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
+    del got, want, cols
     results["keccak_single_block"] = cases
 
     # kernel 2: the helper measurement share, 1024 reports x 2286 blocks
@@ -381,6 +447,21 @@ def phase_kernels(torch, dev):
                   "rounds": 24, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                   "bound_by": b_by})
     del tprefix
+    # the taskprov path's Prio3Histogram(10000): the helper's measurement
+    # share, 1024 reports x 1,429 blocks, 10,000 elements
+    hlen = HIST_LENGTH
+    got = expand_cuda.expand_f128(prefix, HIST_BLOCKS, hlen)
+    want = expand_cuda.expand_f128_plain(prefix, HIST_BLOCKS, hlen)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    del got, want
+    ms = time_cuda(torch, lambda: expand_cuda.expand_f128(prefix, HIST_BLOCKS, hlen), reps=10)
+    plain_ms = time_cuda(torch, lambda: expand_cuda.expand_f128_plain(prefix, HIST_BLOCKS, hlen), reps=2)
+    b_ms, b_by = bound_ms(batch * HIST_BLOCKS * 24 * KECCAK_OPS_PER_ROUND + batch * hlen * F128_REDUCE_OPS,
+                          prefix.numel() * 8 + 2 * batch * hlen * 8)
+    cases.append({"case": "histogram10000 helper share", "reports": batch, "blocks": HIST_BLOCKS, "length": hlen,
+                  "block_offset": 0, "rounds": 24, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": b_ms, "bound_by": b_by})
     results["expand_f128"] = cases
     del prefix
 
@@ -1016,14 +1097,16 @@ def phase_serve(torch, dev, name: str, inst, batch: int, bad_rows, kernels, shar
 
 
 def collect_batch(torch, counters, task, leader_url: str, leader_eds, collector_kp, query, want_count: int,
-                  want_result: list, batch_id: bytes | None = None):
+                  want_result: list, batch_id: bytes | None = None, helper_http=None, dev=None):
     """Collect what a drive phase aggregated (see the module docstring,
     phases 9 and 10): a port Collector PUTs the collection to the port
     leader's DapServer, CollectionJobDriver steps it through
     JobDriver.run_once against the helper's DapServer (launch counts at 0
     just before, read just after: collection launches no kernel), and the
     collector polls and unshards; then a DELETE and a poll of the deleted
-    job. Returns the collect record."""
+    job. helper_http: the driver's client to the helper (a taskprov task's
+    sends the dap-taskprov header); dev: "cpu" for a rehearsal off the
+    card. Returns the collect record."""
     import json as json_mod
 
     from janus_tpu_torch.aggregator.collection_job_driver import CollectionJobDriver
@@ -1046,11 +1129,15 @@ def collect_batch(torch, counters, task, leader_url: str, leader_eds, collector_
     except CollectionJobNotReady as e:
         retry_after = e.retry_after_s
 
-    driver = CollectionJobDriver(leader_eds.datastore, HttpClient(timeout=600), breakers=OutboundCircuitBreakers())
+    driver = CollectionJobDriver(leader_eds.datastore, helper_http or HttpClient(timeout=600),
+                                 breakers=OutboundCircuitBreakers())
     job_driver = JobDriver(JobDriverConfig(max_concurrent_job_workers=1), driver.acquirer(), driver.stepper)
-    torch.cuda.synchronize()
-    device_bytes = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
+    on_card = dev is None or torch.device(dev).type == "cuda"
+    device_bytes = peak = 0
+    if on_card:
+        torch.cuda.synchronize()
+        device_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1058,13 +1145,15 @@ def collect_batch(torch, counters, task, leader_url: str, leader_eds, collector_
         stepped = job_driver.run_once()
     step_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
+    if on_card:
+        peak = torch.cuda.max_memory_allocated()
     if stepped != 1 or not driver.step_seconds:
         raise AssertionError(f"collect: {stepped} collection jobs stepped")
     if any(launches.values()):
         raise AssertionError(f"collect: kernels launched during the collection step ({launches})")
     row = leader_eds.datastore.run_tx(lambda tx: tx._c.execute(
-        "SELECT state, lease_token IS NULL, lease_attempts FROM collection_jobs").fetchall())
+        "SELECT state, lease_token IS NULL, lease_attempts FROM collection_jobs WHERE collection_job_id = ?",
+        (job_id.data,)).fetchall())
     if row != [("finished", 1, 0)]:
         raise AssertionError(f"collect: collection job row {row}, not finished with its lease released")
     if job_driver.run_once() != 0:
@@ -1994,6 +2083,582 @@ def phase_drive_poplar1(torch, dev, n_reports: int = 1024, threshold: int = 32, 
         helper_eds.cleanup()
 
 
+def _on_card(torch, dev) -> bool:
+    return torch.device(dev).type == "cuda"
+
+
+def _percentile(xs, q: float):
+    """The q-quantile (nearest rank) of xs, or None for none."""
+    if not xs:
+        return None
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, int(round(q * (len(xs) - 1)))))]
+
+
+class TaskprovPair:
+    """The taskprov deployment of phases 13 and 14: a port leader on the
+    Postgres engine (PostgresDatastore over the port's pg_fake driver)
+    with the upload journal armed, and a port helper on SQLite with
+    taskprov enabled, each an Aggregator behind its own DapServer. The
+    helper holds one active global HPKE keypair and the leader as its
+    taskprov PeerAggregator; the task is a TaskConfig of Prio3Histogram
+    (boundaries 1 .. length - 1), fast mode, time interval, and the leader
+    provisions its side out of band with the peer's derived verify key.
+    Neither supervisor runs until the drill starts it. dev "cpu" and a
+    short length rehearse both phases off the card."""
+
+    def __init__(self, torch, dev, length: int = HIST_LENGTH, min_batch_size: int = 100):
+        import tempfile
+
+        import numpy as np
+
+        from janus_tpu_torch.aggregator.core import Aggregator, Config
+        from janus_tpu_torch.aggregator.http_handlers import DapHttpApp, DapServer
+        from janus_tpu_torch.aggregator.testing import TaskprovHeaderHttp
+        from janus_tpu_torch.core.auth import AuthenticationToken
+        from janus_tpu_torch.core.hpke import generate_hpke_config_and_private_key
+        from janus_tpu_torch.core.time_util import MockClock
+        from janus_tpu_torch.datastore import EphemeralDatastore
+        from janus_tpu_torch.messages import Duration, Role, Time
+        from janus_tpu_torch.messages import taskprov as tp
+        from janus_tpu_torch.task import QueryTypeConfig, TaskBuilder
+        from janus_tpu_torch.taskprov import VERIFY_KEY_INIT_LENGTH, PeerAggregator
+
+        self.torch, self.dev = torch, dev
+        self.now = 1_700_000_000
+        self.tp = 3600
+        rng = np.random.default_rng(SEED + 10)
+        self.journal_dir = tempfile.TemporaryDirectory(prefix="janus-torch-journal-")
+        self.leader_eds = EphemeralDatastore(MockClock(Time(self.now)), engine="pgfake")
+        self.helper_eds = EphemeralDatastore(MockClock(Time(self.now)))
+        self.leader_eds.datastore.failpoint_scope = "leader"
+        self.helper_eds.datastore.failpoint_scope = "helper"
+        self.servers, self.aggs = [], []
+        try:
+            self.leader = Aggregator(self.leader_eds.datastore, self.leader_eds.clock, Config(
+                upload_journal_path=self.journal_dir.name, upload_journal_replay_interval_s=0.2), device=dev)
+            self.aggs.append(self.leader)
+            self.leader_server = DapServer(DapHttpApp(self.leader)).start()
+            self.servers.append(self.leader_server)
+            self.global_kp = generate_hpke_config_and_private_key(config_id=7)
+            self.collector_kp = generate_hpke_config_and_private_key(config_id=200)
+            self.peer = PeerAggregator(
+                endpoint=self.leader_server.url,
+                role=Role.LEADER,
+                verify_key_init=rng.integers(0, 256, VERIFY_KEY_INIT_LENGTH, dtype=np.uint8).tobytes(),
+                collector_hpke_config=self.collector_kp.config,
+                report_expiry_age=None,
+                tolerable_clock_skew=Duration(60),
+                aggregator_auth_tokens=(AuthenticationToken.random_bearer(),),
+                collector_auth_tokens=(AuthenticationToken.random_bearer(),),
+            )
+            # the helper's caches load its global keys and peers when it is built
+            self.helper_eds.datastore.run_tx(lambda tx: tx.put_global_hpke_keypair(self.global_kp, state="active"))
+            self.helper_eds.datastore.run_tx(lambda tx: tx.put_taskprov_peer_aggregator(self.peer))
+            self.helper = Aggregator(self.helper_eds.datastore, self.helper_eds.clock,
+                                     Config(taskprov_enabled=True), device=dev)
+            self.aggs.append(self.helper)
+            self.helper_server = DapServer(DapHttpApp(self.helper)).start()
+            self.servers.append(self.helper_server)
+            self.task_config = tp.TaskConfig(
+                task_info=b"chip smoke taskprov Prio3Histogram",
+                aggregator_endpoints=(self.leader_server.url, self.helper_server.url),
+                query_config=tp.QueryConfig(Duration(self.tp), 1, min_batch_size, tp.TaskprovQueryType.TIME_INTERVAL),
+                task_expiration=Time(self.now + 365 * 86400),
+                vdaf_config=tp.VdafConfig(tp.DpConfig(), tp.VdafType.prio3_histogram(range(1, length))),
+            )
+            self.inst = self.task_config.vdaf_config.vdaf_type.to_vdaf_instance()
+            self.task_id = self.task_config.computed_task_id()
+            self.task = TaskBuilder(QueryTypeConfig.time_interval(), self.inst, Role.LEADER).with_(
+                task_id=self.task_id,
+                leader_aggregator_endpoint=self.leader_server.url,
+                helper_aggregator_endpoint=self.helper_server.url,
+                vdaf_verify_key=self.peer.derive_vdaf_verify_key(self.task_id),
+                collector_hpke_config=self.collector_kp.config,
+                aggregator_auth_token=self.peer.primary_aggregator_auth_token(),
+                collector_auth_token=self.peer.primary_collector_auth_token(),
+                task_expiration=self.task_config.task_expiration,
+                min_batch_size=min_batch_size,
+                time_precision=Duration(self.tp),
+            ).build()
+            self.leader_eds.datastore.run_tx(lambda tx: tx.put_task(self.task))
+            self.header_http = TaskprovHeaderHttp(self.task_config, timeout=600)
+        except BaseException:
+            self.close()
+            raise
+
+    def advance(self, seconds: int) -> None:
+        from janus_tpu_torch.messages import Duration
+
+        for eds in (self.leader_eds, self.helper_eds):
+            eds.clock.advance(Duration(seconds))
+        self.now += seconds
+
+    def window(self):
+        """The start of the current batch interval (one time precision)."""
+        from janus_tpu_torch.messages import Duration, Time
+
+        return Time(self.now - 100).to_batch_interval_start(Duration(self.tp))
+
+    def reports(self, n_client: int, n_wire: int, bad_rows, seed: int):
+        """n_client measurements to upload through the port Client, and
+        n_wire reports made by make_wire_reports (the device shard) sealed
+        to the leader's and the helper's global config, `bad_rows` of them
+        with their leader measurement share bumped inside the field.
+        Returns (client, measurements, wire reports, shard seconds,
+        launches of the shard)."""
+        import numpy as np
+
+        from janus_tpu_torch.client import Client, ClientParameters
+        from janus_tpu_torch.core.hpke import HpkeApplicationInfo, Label, hpke_open, hpke_seal
+        from janus_tpu_torch.core.http_client import HttpClient
+        from janus_tpu_torch.messages import Duration, InputShareAad, PlaintextInputShare, Report, Role
+        from janus_tpu_torch.vdaf.registry import circuit_for
+        from janus_tpu_torch.vdaf.testing import make_wire_reports, random_measurements
+
+        meas = random_measurements(self.inst, n_client + n_wire, np.random.default_rng(seed))
+        params = ClientParameters(self.task_id, self.leader_server.url, self.helper_server.url, Duration(self.tp))
+        client = Client.with_fetched_configs(params, self.inst, HttpClient(timeout=600), clock=self.leader_eds.clock)
+        if client.helper_hpke_config != self.global_kp.config:
+            raise AssertionError("taskprov: the helper did not advertise its global HPKE config")
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        wire = make_wire_reports(self.inst, meas[n_client:], self.task_id, client.leader_hpke_config,
+                                 client.helper_hpke_config, self.window(), seed=seed, shard_chunk=256,
+                                 device=self.dev)
+        shard_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        keypair = self.task.hpke_keys[0]
+        info = HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.LEADER)
+        field = circuit_for(self.inst).FIELD
+        size = field.ENCODED_SIZE
+        for i in bad_rows:
+            src = wire[i]
+            aad = InputShareAad(self.task_id, src.metadata, src.public_share).to_bytes()
+            payload = bytearray(PlaintextInputShare.from_bytes(
+                hpke_open(keypair, info, src.leader_encrypted_input_share, aad)).payload)
+            payload[:size] = ((int.from_bytes(payload[:size], "little") + 1) % field.MODULUS).to_bytes(size, "little")
+            wire[i] = Report(src.metadata, src.public_share, hpke_seal(
+                client.leader_hpke_config, info, PlaintextInputShare((), bytes(payload)).to_bytes(), aad,
+            ), src.helper_encrypted_input_share)
+        return client, meas, wire, shard_s, launches
+
+    def upload(self, reports, threads: int = 8, on_ack=None):
+        """PUT each report from `threads` threads through the retry loop;
+        returns [(status, start, seconds)] in report order."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from janus_tpu_torch.core.http_client import HttpClient
+        from janus_tpu_torch.core.retries import Backoff, retry_http_request
+        from janus_tpu_torch.messages import Report
+
+        http = HttpClient(timeout=600)
+        uri = self.leader_server.url + "tasks/" + _b64url(self.task_id.data) + "/reports"
+
+        def put(report):
+            t0 = time.monotonic()
+            status = retry_http_request(lambda: http.put(uri, report.to_bytes(), {"Content-Type": Report.MEDIA_TYPE})
+                                        + (http.last_response_headers,), Backoff())[0]
+            out = (status, t0, time.monotonic() - t0)
+            if on_ack is not None:
+                on_ack(out)
+            return out
+
+        with ThreadPoolExecutor(max_workers=threads) as pool:
+            return list(pool.map(put, reports))
+
+    def client_reports(self, window) -> int:
+        return self.leader_eds.datastore.run_tx(lambda tx: tx._c.execute(
+            "SELECT COUNT(*) FROM client_reports WHERE client_time >= ? AND client_time < ?",
+            (window.seconds, window.seconds + self.tp)).fetchone()[0])
+
+    def driver(self, breakers=None, backoff=None):
+        from janus_tpu_torch.aggregator.aggregation_job_driver import (
+            AggregationJobDriver,
+            AggregationJobDriverConfig,
+        )
+        from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig
+        from janus_tpu_torch.core.circuit_breaker import OutboundCircuitBreakers
+
+        cfg = AggregationJobDriverConfig(**({"http_backoff": backoff} if backoff is not None else {}))
+        driver = AggregationJobDriver(self.leader_eds.datastore, self.header_http, cfg,
+                                      breakers=breakers or OutboundCircuitBreakers(), device=self.dev)
+        return driver, JobDriver(JobDriverConfig(max_concurrent_job_workers=1), driver.acquirer(), driver.stepper)
+
+    def check_job(self, job, bad_ids):
+        """The job finished with its lease released, exactly the bumped
+        reports failed with VDAF_PREP_ERROR; returns the finished count."""
+        from janus_tpu_torch.messages import PrepareError
+
+        ds = self.leader_eds.datastore
+        row = ds.run_tx(lambda tx: tx._c.execute(
+            "SELECT state, lease_token IS NULL, lease_attempts FROM aggregation_jobs WHERE job_id = ?",
+            (job.job_id.data,)).fetchall())
+        if row != [("finished", 1, 0)]:
+            raise AssertionError(f"taskprov: job row {row}, not finished with its lease released")
+        ras = ds.run_tx(lambda tx: tx.get_report_aggregations_for_job(self.task_id, job.job_id))
+        failed = sorted((ra.report_id.data, ra.prepare_error) for ra in ras if ra.state.value == "failed")
+        want = sorted((rid, PrepareError.VDAF_PREP_ERROR) for rid in bad_ids)
+        if failed != want:
+            raise AssertionError(f"taskprov: failed reports {len(failed)} {[f[1] for f in failed][:5]}")
+        return sum(1 for ra in ras if ra.state.value == "finished")
+
+    def collect(self, window, want_count: int, truth):
+        from janus_tpu_torch.messages import Duration, Interval, Query
+
+        query = Query.time_interval(Interval(window, Duration(self.tp)))
+        return collect_batch(self.torch, _counters(), self.task, self.leader_server.url, self.leader_eds,
+                             self.collector_kp, query, want_count, truth, helper_http=self.header_http, dev=self.dev)
+
+    def close(self) -> None:
+        from janus_tpu_torch import failpoints
+
+        failpoints.clear()
+        for srv in self.servers:
+            srv.stop()
+        for agg in self.aggs:
+            agg.close()
+        self.leader_eds.cleanup()
+        self.helper_eds.cleanup()
+        self.journal_dir.cleanup()
+
+
+def _counters():
+    from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
+
+    return {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
+            "keccak_sponge": sponge_cuda.keccak_sponge}
+
+
+def _b64url(b: bytes) -> str:
+    import base64
+
+    return base64.urlsafe_b64encode(b).decode().rstrip("=")
+
+
+def _truth(pair, meas, accept):
+    import numpy as np
+
+    return [int(x) for x in np.bincount(np.asarray(meas)[accept], minlength=pair.inst.length)]
+
+
+def _check_launches(torch, dev, what: str, launches, kernels=("keccak_single_block", "expand_f128")):
+    """On the card the path's kernels must have launched and the others not;
+    off the card no counter moves."""
+    if not _on_card(torch, dev):
+        if any(launches.values()):
+            raise AssertionError(f"{what}: a CPU run counted kernel launches ({launches})")
+        return
+    missing = [k for k in kernels if launches[k] == 0]
+    stray = [k for k, n in launches.items() if k not in kernels and n != 0]
+    if missing or stray:
+        raise AssertionError(f"{what}: kernels not launched {missing}, stray {stray} ({launches})")
+
+
+def phase_taskprov_histogram(pair: TaskprovPair, n_client: int = 8, n_wire: int = 1016, bad_rows=(5, 300, 1000)):
+    """The slice's full-width path (see the module docstring, phase 13):
+    uploads through the port Client (the helper's global config) and the
+    device shard, the leader's creator on the Postgres engine, one job step
+    over the header-attaching HTTP client in which the helper opts in, and
+    the collection. Returns the record."""
+    import numpy as np
+
+    from janus_tpu_torch.aggregator.aggregation_job_creator import AggregationJobCreator
+    from janus_tpu_torch.aggregator.core import Aggregator, TaskAggregator
+    from janus_tpu_torch.vdaf.feasibility import prepare_row_bytes
+    from janus_tpu_torch.vdaf.registry import circuit_for
+
+    torch, dev = pair.torch, pair.dev
+    batch = n_client + n_wire
+    window = pair.window()
+    client, meas, wire, shard_s, shard_launches = pair.reports(n_client, n_wire, bad_rows, SEED + 11)
+    _check_launches(torch, dev, "taskprov device shard", shard_launches)
+    client_upload_s = []
+    for m in meas[:n_client]:
+        t0 = time.perf_counter()
+        client.upload(int(m))
+        client_upload_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    acks = pair.upload(wire)
+    upload_s = time.perf_counter() - t0
+    if {a[0] for a in acks} != {201} or pair.client_reports(window) != batch:
+        raise AssertionError(f"taskprov: uploads {sorted({a[0] for a in acks})}, {pair.client_reports(window)} stored")
+    if pair.helper_eds.datastore.run_tx(lambda tx: tx.get_task(pair.task_id)) is not None:
+        raise AssertionError("taskprov: the helper held the task before the first aggregate-init")
+    pg_statements = len(pair.leader_eds.pg_driver.statements())
+    pair.leader_eds.pg_driver.clear_log()
+
+    t0 = time.perf_counter()
+    created = AggregationJobCreator(pair.leader_eds.datastore).run_once()
+    create_s = time.perf_counter() - t0
+    jobs = pair.leader_eds.datastore.run_tx(lambda tx: tx.get_aggregation_jobs_for_task(pair.task_id))
+    if created != 1 or len(jobs) != 1:
+        raise AssertionError(f"taskprov: the creator made {created} jobs")
+    (job,) = jobs
+
+    driver, job_driver = pair.driver()
+    counters = _counters()
+    on_card = _on_card(torch, dev)
+    before = 0
+    if on_card:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with MethodSeconds(Aggregator, ["taskprov_opt_in"]) as opt_in_s:
+        stepped = job_driver.run_once()
+    step_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    step_peak = torch.cuda.max_memory_allocated() - before if on_card else 0
+    if stepped != 1 or not driver.step_seconds:
+        raise AssertionError(f"taskprov: {stepped} jobs stepped")
+    _check_launches(torch, dev, "taskprov job step", launches)
+    helper_task = pair.helper_eds.datastore.run_tx(lambda tx: tx.get_task(pair.task_id))
+    if helper_task is None or helper_task.hpke_keys or helper_task.vdaf != pair.inst \
+            or helper_task.vdaf_verify_key != pair.task.vdaf_verify_key or opt_in_s["taskprov_opt_in"] <= 0:
+        raise AssertionError("taskprov: the helper did not opt in to the task it was sent")
+    ids = [r.metadata.report_id.data for r in wire]
+    finished = pair.check_job(job, [ids[i] for i in bad_rows])
+    if finished != batch - len(bad_rows):
+        raise AssertionError(f"taskprov: {finished} reports finished")
+    circ = circuit_for(pair.inst)
+    model = batch * prepare_row_bytes(circ)
+    if on_card and step_peak > model:
+        raise AssertionError(f"taskprov: the step's peak {step_peak} bytes past the model's {model}")
+    accept = np.ones(batch, dtype=bool)
+    accept[[n_client + i for i in bad_rows]] = False
+    collect = pair.collect(window, int(accept.sum()), _truth(pair, meas, accept))
+    if pair.leader.upload_journal.fsyncs != 0:
+        raise AssertionError("taskprov: the armed journal synced while the datastore was up")
+    return {
+        "path": "taskprov-histogram",
+        "vdaf": pair.inst.to_dict(),
+        "taskprov_vdaf_type": {"prio3_histogram_boundaries": len(pair.task_config.vdaf_config.vdaf_type.buckets)},
+        "engines": {"leader": "postgres (pg_fake)", "helper": "sqlite"},
+        "batch": batch,
+        "client_upload_s": client_upload_s,
+        "wire_reports_s": shard_s,
+        "shard_launches": shard_launches,
+        "upload_s": upload_s,
+        "uploads_per_s": n_wire / upload_s,
+        "leader_pg_statements_in_upload": pg_statements,
+        "create_s": create_s,
+        "step_s": step_s,
+        "reports_per_s": batch / step_s,
+        "stage_s": dict(driver.step_seconds[-1][1]),
+        "helper_opt_in_s": opt_in_s["taskprov_opt_in"],
+        "helper_stage_s": dict(pair.helper.task_aggregator_for(pair.task_id).stage_seconds),
+        "launches": launches,
+        "step_peak_bytes": step_peak,
+        "model_peak_bytes": model,
+        "finished": finished,
+        "collect": collect,
+        "journal_fsyncs": 0,
+    }
+
+
+def phase_outage_drill(pair: TaskprovPair, n_client: int = 8, n_wire: int = 1016, bad_rows=(7, 400, 900)):
+    """A leader outage during uploads and a helper outage during the job's
+    first step, on the same task with a fresh batch (see the module
+    docstring, phase 14). Returns the record."""
+    import logging
+
+    # every injected failure and every spill logs a warning: hundreds in
+    # an outage
+    quiet = [logging.getLogger(f"janus_tpu_torch.{m}") for m in ("failpoints", "aggregator.report_writer")]
+    levels = [q.level for q in quiet]
+    for q in quiet:
+        q.setLevel(logging.ERROR)
+    try:
+        return _outage_drill(pair, n_client, n_wire, bad_rows)
+    finally:
+        for q, level in zip(quiet, levels):
+            q.setLevel(level)
+
+
+def _outage_drill(pair: TaskprovPair, n_client: int, n_wire: int, bad_rows):
+    import numpy as np
+
+    from janus_tpu_torch import failpoints
+    from janus_tpu_torch.aggregator.aggregation_job_creator import AggregationJobCreator
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver
+    from janus_tpu_torch.core.circuit_breaker import CircuitBreakerConfig, OutboundCircuitBreakers
+    from janus_tpu_torch.core.retries import Backoff
+
+    torch, dev = pair.torch, pair.dev
+    batch = n_client + n_wire
+    pair.advance(2 * pair.tp)
+    window = pair.window()
+    sup_kw = dict(probe_interval_s=0.2, down_threshold=3, recover_threshold=2, reconnect_max_interval_s=2.0)
+    leader_sup = pair.leader_eds.datastore.start_supervision(**sup_kw)
+    helper_sup = pair.helper_eds.datastore.start_supervision(**sup_kw)
+    journal, replayer = pair.leader.upload_journal, pair.leader.journal_replayer
+    client, meas, wire, shard_s, _ = pair.reports(n_client, n_wire, bad_rows, SEED + 12)
+    for m in meas[:n_client]:
+        client.upload(int(m))
+    t_start = time.monotonic()
+
+    def wait_for(what, cond, timeout_s: float = 30.0):
+        deadline = time.monotonic() + timeout_s
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"outage-drill: timed out waiting for {what}")
+            time.sleep(0.005)
+        return time.monotonic()
+
+    # 1. the leader's outage, midway through the uploads
+    half = n_wire // 2
+    fsyncs0, appended0 = journal.fsyncs, journal.appended_total
+    journal_bytes = [0]
+
+    def on_ack(_ack):
+        journal_bytes[0] = max(journal_bytes[0], journal.depth()[1])
+
+    acks = pair.upload(wire[:half])
+    failpoints.configure("datastore.connect.leader=error")
+    t_fail = time.monotonic()
+    try:
+        acks += pair.upload(wire[half:], on_ack=on_ack)
+        wait_for("the leader's supervisor down", lambda: leader_sup.state == "down")
+    finally:
+        failpoints.clear()
+    t_clear = time.monotonic()
+    wait_for("the leader's supervisor up", lambda: leader_sup.state == "up")
+    t_empty = wait_for("the journal drained", lambda: journal.depth()[0] == 0)
+    if {a[0] for a in acks} != {201}:
+        raise AssertionError(f"outage-drill: upload statuses {sorted({a[0] for a in acks})}")
+    spilled = journal.appended_total - appended0
+    stored = pair.client_reports(window)
+    if not spilled or replayer.replayed_fresh != spilled or replayer.replayed_dupes or stored != batch:
+        raise AssertionError(f"outage-drill: {spilled} spilled, {replayer.replayed_fresh} replayed fresh,"
+                             f" {replayer.replayed_dupes} dupes, {stored} stored of {batch} acked")
+    during = [a[2] for a in acks if t_fail <= a[1] < t_clear]
+    outside = [a[2] for a in acks if not t_fail <= a[1] < t_clear]
+    pair.leader_eds.pg_driver.clear_log()
+
+    # 2. the helper's outage during the job's first step: the helper goes
+    # down after the leader's device init, before its aggregate-init
+    created = AggregationJobCreator(pair.leader_eds.datastore).run_once()
+    jobs = [j for j in pair.leader_eds.datastore.run_tx(lambda tx: tx.get_aggregation_jobs_for_task(pair.task_id))
+            if j.state.value == "in_progress"]
+    if created != 1 or len(jobs) != 1:
+        raise AssertionError(f"outage-drill: the creator made {created} jobs")
+    (job,) = jobs
+    breakers = OutboundCircuitBreakers(CircuitBreakerConfig(failure_threshold=3, open_cooldown_s=1.0))
+    driver, job_driver = pair.driver(breakers, Backoff(initial=0.05, max_interval=0.5, max_elapsed=20.0))
+    sheds, step_backs, helper_times = [], [], {}
+    app = pair.helper_server.app
+    handle = app.handle
+
+    def counting_handle(*a, **kw):
+        out = handle(*a, **kw)
+        if out[0] == 503:
+            sheds.append(out[3].get("Retry-After"))
+        return out
+
+    send = AggregationJobDriver._send_init_request_raw
+    step_back = AggregationJobDriver.step_back
+
+    def send_during_outage(self, *a, **kw):
+        if not helper_times:
+            failpoints.configure("datastore.connect.helper=error")
+            helper_times["fail"] = time.monotonic()
+            wait_for("the helper's supervisor down", lambda: helper_sup.state == "down")
+        return send(self, *a, **kw)
+
+    def counting_step_back(self, acquired, reason, delay_s):
+        step_backs.append((reason, delay_s))
+        return step_back(self, acquired, reason, delay_s)
+
+    app.handle = counting_handle
+    AggregationJobDriver._send_init_request_raw = send_during_outage
+    AggregationJobDriver.step_back = counting_step_back
+    try:
+        if job_driver.run_once() != 1:
+            raise AssertionError("outage-drill: the first step did not run")
+    finally:
+        AggregationJobDriver._send_init_request_raw = send
+        AggregationJobDriver.step_back = step_back
+        failpoints.clear()
+    helper_times["clear"] = time.monotonic()
+    row = pair.leader_eds.datastore.run_tx(lambda tx: tx._c.execute(
+        "SELECT state, lease_token IS NULL, lease_attempts, lease_expiry FROM aggregation_jobs WHERE job_id = ?",
+        (job.job_id.data,)).fetchone())
+    if not sheds or [r for r, _ in step_backs] != ["circuit_open"] or row[:3] != ("in_progress", 1, 0):
+        raise AssertionError(f"outage-drill: {len(sheds)} sheds, step-backs {step_backs}, job row {row}")
+    wait_for("the helper's supervisor up", lambda: helper_sup.state == "up")
+    # past the step-back's reacquire delay (the leases' clock) and the
+    # breaker's cooldown (the host's)
+    pair.advance(max(60, row[3] - pair.now + 1))
+    time.sleep(max(0.0, 1.05 - (time.monotonic() - helper_times["clear"])))
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stepped = job_driver.run_once()
+    step_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    app.handle = handle
+    if stepped != 1:
+        raise AssertionError(f"outage-drill: {stepped} jobs stepped after recovery")
+    _check_launches(torch, dev, "outage-drill completing step", launches)
+    ids = [r.metadata.report_id.data for r in wire]
+    finished = pair.check_job(job, [ids[i] for i in bad_rows])
+    accept = np.ones(batch, dtype=bool)
+    accept[[n_client + i for i in bad_rows]] = False
+    if finished != int(accept.sum()):
+        raise AssertionError(f"outage-drill: {finished} reports finished")
+    collect = pair.collect(window, int(accept.sum()), _truth(pair, meas, accept))
+
+    def first(sup, state, after):
+        """When the supervisor first entered `state` after `after` (its log)."""
+        return next(t for t, s in sup.transition_log if s == state and t >= after)
+
+    def transitions(sup):
+        return [[state, t - t_start] for t, state in sup.transition_log]
+
+    return {
+        "path": "outage-drill",
+        "vdaf": pair.inst.to_dict(),
+        "batch": batch,
+        "acked_201": len(acks) + n_client,
+        "leader_outage": {
+            "spilled": spilled,
+            "replayed_fresh": replayer.replayed_fresh,
+            "replayed_dupes": replayer.replayed_dupes,
+            "journal_fsyncs": journal.fsyncs - fsyncs0,
+            "journal_bytes_peak": journal_bytes[0],
+            "spill_s": pair.leader.report_writer.stage_seconds["spill"],
+            "fail_s": t_fail - t_start,
+            "clear_s": t_clear - t_start,
+            "fail_to_down_s": first(leader_sup, "down", t_fail) - t_fail,
+            "clear_to_up_s": first(leader_sup, "up", t_clear) - t_clear,
+            "clear_to_journal_empty_s": t_empty - t_clear,
+            "ack_s_during": {"n": len(during), "p50": _percentile(during, 0.5), "p99": _percentile(during, 0.99)},
+            "ack_s_outside": {"n": len(outside), "p50": _percentile(outside, 0.5), "p99": _percentile(outside, 0.99)},
+        },
+        "helper_outage": {
+            "sheds_503": len(sheds),
+            "retry_after": sorted(set(sheds)),
+            "step_backs": [[r, d] for r, d in step_backs],
+            "fail_s": helper_times["fail"] - t_start,
+            "clear_s": helper_times["clear"] - t_start,
+            "fail_to_down_s": first(helper_sup, "down", helper_times["fail"]) - helper_times["fail"],
+            "clear_to_up_s": first(helper_sup, "up", helper_times["clear"]) - helper_times["clear"],
+            "completing_step_s": step_s,
+            "stage_s": dict(driver.step_seconds[-1][1]),
+        },
+        "transitions_s": {"leader": transitions(leader_sup), "helper": transitions(helper_sup)},
+        "launches": launches,
+        "finished": finished,
+        "collect": collect,
+    }
+
+
 def profile_step(torch, step, args, step_s: float):
     """Device time by kernel over one step (torch.profiler), the share of
     the unprofiled step time `step_s` that the card was busy, and the
@@ -2145,6 +2810,22 @@ def main() -> int:
     if out is not None:
         serves[out["path"]] = out
         emit({"drive_poplar1": out})
+    # the rest of the protocol: a taskprov Prio3Histogram(10000) task on
+    # the leader's Postgres engine, then the same task through a database
+    # outage on each side
+    pair = phase("taskprov-setup", TaskprovPair, torch, dev) if not failed else None
+    if pair is not None:
+        try:
+            out = phase("taskprov-histogram", phase_taskprov_histogram, pair) if not failed else None
+            if out is not None:
+                serves[out["path"]] = out
+                emit({"taskprov_histogram": out})
+            out = phase("outage-drill", phase_outage_drill, pair) if not failed else None
+            if out is not None:
+                serves[out["path"]] = out
+                emit({"outage_drill": out})
+        finally:
+            pair.close()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -109,7 +109,7 @@ from .accumulator import Accumulator, accumulate_batched, fixed_size_batch_id
 from .engine_cache import engine_cache
 from .errors import NotPorted
 from .job_driver import (
-    DATASTORE_DOWN_STEP_BACK_S,
+    datastore_reconnect_delay_s,
     deadline_request_timeout,
     is_datastore_connection_error,
     lease_deadline,
@@ -263,7 +263,7 @@ class AggregationJobDriver:
             self.step_back(acquired, "deadline_expired", 0.0)
             return True
         if is_datastore_connection_error(self.ds, e):
-            self.step_back(acquired, "datastore_down", DATASTORE_DOWN_STEP_BACK_S)
+            self.step_back(acquired, "datastore_down", datastore_reconnect_delay_s(self.ds))
             return True
         return False
 

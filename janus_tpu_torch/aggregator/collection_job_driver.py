@@ -75,7 +75,7 @@ from ..task import Task
 from ..vdaf.registry import circuit_for
 from .accumulator import add_encoded_aggregate_shares
 from .job_driver import (
-    DATASTORE_DOWN_STEP_BACK_S,
+    datastore_reconnect_delay_s,
     deadline_request_timeout,
     is_datastore_connection_error,
     lease_deadline,
@@ -142,7 +142,7 @@ class CollectionJobDriver:
             self.step_back(acquired, "deadline_expired", 0.0)
         except Exception as e:
             if is_datastore_connection_error(self.ds, e):
-                self.step_back(acquired, "datastore_down", DATASTORE_DOWN_STEP_BACK_S)
+                self.step_back(acquired, "datastore_down", datastore_reconnect_delay_s(self.ds))
                 return
             raise
 

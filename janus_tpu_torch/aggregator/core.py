@@ -42,11 +42,29 @@ so does an Aggregator. Each aggregate-init request leaves the seconds of
 its stages in `stage_seconds`; a propagated deadline (core/deadline.py)
 is checked between stages as janus_tpu checks it. Collection's
 arithmetic (the sum of the shard rows, the DP noise) runs on the host,
-as in janus_tpu. Not ported yet: taskprov
-(and with it the global HPKE keys), the upload journal (a set
-`Config.upload_journal_path` raises NotPorted); and the observability
-calls of janus_tpu's handlers (metrics, trace spans, failpoints, the
-conservation ledger); a collection job's `trace_context` is None.
+as in janus_tpu.
+
+Taskprov (draft-wang-ppm-dap-taskprov-04), as in janus_tpu: a helper
+with `Config.taskprov_enabled` provisions a task it does not know from
+the `dap-taskprov` header of its first aggregate-init or aggregate-share
+request (`task_aggregator_for` -> `taskprov_opt_in`): the peer is
+authorized against its pre-shared `PeerAggregator` (cache.py), the VDAF
+is gated before anything is stored, and the task takes the verify key
+derived from the peer's `verify_key_init` and no HPKE keys of its own.
+Every TaskAggregator falls back on the global HPKE keypairs
+(`GlobalHpkeKeypairCache`) for a config id its task does not hold.
+
+With `Config.upload_journal_path` set, the report writer spills to the
+durable upload journal (`ingest/journal.py`) while the datastore is
+unreachable, and a `JournalReplayer` thread drains it back once the
+supervisor reports the database reachable; `close()` stops both. The
+journal's and the supervisor's `status()` and `readiness()` are methods
+nothing registers (janus_tpu's statusz and readiness registries are not
+ported).
+
+Not ported: the observability calls of janus_tpu's handlers (metrics,
+trace spans, failpoints, the conservation ledger); a collection job's
+`trace_context` is None.
 """
 
 from __future__ import annotations
@@ -113,7 +131,9 @@ from ..messages import (
     plaintext_input_share_payload_fast,
 )
 from ..messages.codec import DecodeError
-from ..task import Task
+from ..ingest.journal import JournalReplayer, UploadJournal
+from ..messages.taskprov import TaskprovQueryType
+from ..task import QueryTypeConfig, Task
 from ..vdaf.registry import circuit_for
 from ..vdaf.wire import (
     PP_CONTINUE,
@@ -131,7 +151,7 @@ from ..vdaf.wire import (
 from . import errors
 from .accumulator import Accumulator, accumulate_batched, add_encoded_aggregate_shares, fixed_size_batch_id
 from .engine_cache import engine_cache
-from .errors import NotPorted
+from .cache import GlobalHpkeKeypairCache, PeerAggregatorCache
 from .poplar1_ops import Poplar1Ops
 from .report_writer import ReportWriteBatcher
 
@@ -164,6 +184,7 @@ class Config:
     # aggregator.rs:186-218); >0 adds a coalescing window
     max_upload_batch_write_delay_ms: int = 0
     batch_aggregation_shard_count: int = 1
+    taskprov_enabled: bool = False
     # Retry-After (seconds) on 202 collection-job polls; the collector
     # honors it (reference collector/src/lib.rs:466)
     collection_retry_after_s: int = 1
@@ -196,17 +217,25 @@ class Config:
     upload_shed_retry_after_s: float = 1.0
     # cap on concurrent HTTP handler threads in DapServer
     max_handler_threads: int = 32
-    # janus_tpu's durable upload spill journal; not ported (it is armed
-    # by the datastore supervisor, which the port's SQLite store lacks)
+    # --- durable upload spill journal: the directory of the CRC-framed,
+    # fsync-on-ack journal the report writer spills to while the
+    # datastore is unreachable. None (default) disarms it. ---
     upload_journal_path: str | None = None
+    upload_journal_max_segment_bytes: int = 8 << 20
+    upload_journal_max_total_bytes: int = 256 << 20
+    upload_journal_max_segments: int = 1024
+    upload_journal_spill_latency_s: float = 0.0
+    upload_journal_replay_interval_s: float = 1.0
+    upload_journal_full_retry_after_s: float = 30.0
 
 
 class TaskAggregator:
     """Per-task protocol ops (reference aggregator.rs:797)."""
 
-    def __init__(self, task: Task, cfg: Config, device=None):
+    def __init__(self, task: Task, cfg: Config, device=None, global_hpke_keypairs=None):
         self.task = task
         self.cfg = cfg
+        self.global_hpke_keypairs = global_hpke_keypairs
         if task.vdaf.kind == "poplar1":
             self.circ = None
             self.wire = None
@@ -219,6 +248,14 @@ class TaskAggregator:
             self.engine = engine_cache(task.vdaf, task.vdaf_verify_key, device)
             self.poplar = None
         self.stage_seconds: dict[str, float] = {}
+
+    def _hpke_keypair(self, config_id):
+        """Task keypair, falling back to the global keys (reference
+        aggregator.rs:1676; taskprov tasks carry no per-task keys)."""
+        kp = self.task.hpke_keypair(config_id)
+        if kp is None and self.global_hpke_keypairs is not None:
+            kp = self.global_hpke_keypairs.keypair(config_id)
+        return kp
 
     def hpke_config_list(self) -> HpkeConfigList:
         return HpkeConfigList(tuple(kp.config for kp in self.task.hpke_keys))
@@ -271,7 +308,7 @@ class TaskAggregator:
                     continue
             cfg = col.leader_config_ids[i]
             if cfg not in kp_cache:
-                kp_cache[cfg] = task.hpke_keypair(HpkeConfigId(cfg))
+                kp_cache[cfg] = self._hpke_keypair(HpkeConfigId(cfg))
             keypair = kp_cache[cfg]
             if keypair is None:
                 out.append(errors.OutdatedHpkeConfig("unknown HPKE config id", task.task_id))
@@ -427,7 +464,7 @@ class TaskAggregator:
                 continue
             cfg_id = rs.encrypted_input_share.config_id
             if cfg_id not in kp_cache:
-                kp_cache[cfg_id] = task.hpke_keypair(cfg_id)
+                kp_cache[cfg_id] = self._hpke_keypair(cfg_id)
             keypair = kp_cache[cfg_id]
             if keypair is None:
                 prep_err[i] = PrepareError.HPKE_UNKNOWN_CONFIG_ID
@@ -645,7 +682,7 @@ class TaskAggregator:
             else:
                 cfg_id = rs.encrypted_input_share.config_id
                 if cfg_id not in kp_cache:
-                    kp_cache[cfg_id] = task.hpke_keypair(cfg_id)
+                    kp_cache[cfg_id] = self._hpke_keypair(cfg_id)
                 keypair = kp_cache[cfg_id]
                 if keypair is None:
                     errs[i] = PrepareError.HPKE_UNKNOWN_CONFIG_ID
@@ -1172,32 +1209,143 @@ class Aggregator:
         self.ds = ds
         self.clock = clock or RealClock()
         self.cfg = cfg or Config()
-        if self.cfg.upload_journal_path:
-            raise NotPorted("the upload journal (upload_journal_path) is not ported to janus_tpu_torch yet")
         # CUDA unless the caller asks for the CPU; raises without CUDA
         self.device = resolve_device(device)
         self._task_aggs: dict[bytes, TaskAggregator] = {}
         self._task_aggs_lock = threading.Lock()
+        self.global_hpke_keypairs = GlobalHpkeKeypairCache(ds)
+        self.peer_aggregators = PeerAggregatorCache(ds) if self.cfg.taskprov_enabled else None
+        # datastore-outage survival: with a journal path the report
+        # writer spills to the durable journal while the datastore is
+        # unreachable, and a replayer drains it back on recovery
+        self.upload_journal = None
+        self.journal_replayer = None
+        if self.cfg.upload_journal_path:
+            self.upload_journal = UploadJournal(
+                self.cfg.upload_journal_path,
+                ds.crypter,
+                max_segment_bytes=self.cfg.upload_journal_max_segment_bytes,
+                max_total_bytes=self.cfg.upload_journal_max_total_bytes,
+                max_segments=self.cfg.upload_journal_max_segments,
+                full_retry_after_s=self.cfg.upload_journal_full_retry_after_s,
+            )
         self.report_writer = ReportWriteBatcher(
-            ds, self.cfg.max_upload_batch_size, self.cfg.max_upload_batch_write_delay_ms
+            ds,
+            self.cfg.max_upload_batch_size,
+            self.cfg.max_upload_batch_write_delay_ms,
+            journal=self.upload_journal,
+            spill_latency_s=self.cfg.upload_journal_spill_latency_s,
         )
+        if self.upload_journal is not None:
+            self.journal_replayer = JournalReplayer(
+                self.upload_journal,
+                self.report_writer,
+                supervisor_fn=lambda: getattr(self.ds, "supervisor", None),
+                interval_s=self.cfg.upload_journal_replay_interval_s,
+            ).start()
 
     def close(self) -> None:
-        """Shutdown: flush and stop the report writer, so uploads still
-        buffered in the group commit land before exit."""
+        """Shutdown: stop the journal replayer, then flush and stop the
+        report writer, so uploads still buffered in the group commit land
+        before exit (journaled ones stay on disk and replay on the next
+        boot)."""
+        if self.journal_replayer is not None:
+            self.journal_replayer.stop()
         self.report_writer.close()
+        if self.upload_journal is not None:
+            self.upload_journal.close()
 
-    def task_aggregator_for(self, task_id: TaskId) -> TaskAggregator:
+    def task_aggregator_for(
+        self, task_id: TaskId, taskprov_task_config=None, headers=None, peer_role: Role = Role.LEADER
+    ) -> TaskAggregator:
+        """peer_role: the role of the peer provisioning the task through
+        taskprov (the helper's endpoints are called by the leader)."""
         ta = self._task_aggs.get(task_id.data)
         if ta is None:
             task = self.ds.run_tx(lambda tx: tx.get_task(task_id), "get_task")
             if task is None:
-                raise errors.UnrecognizedTask("unknown task", task_id)
+                if self.cfg.taskprov_enabled and taskprov_task_config is not None:
+                    # opt in, then read again (reference aggregator.rs:368-381)
+                    self.taskprov_opt_in(peer_role, task_id, taskprov_task_config, headers or {})
+                    task = self.ds.run_tx(lambda tx: tx.get_task(task_id), "get_task")
+                if task is None:
+                    raise errors.UnrecognizedTask("unknown task", task_id)
             # first insert wins: every caller gets the same object
-            candidate = TaskAggregator(task, self.cfg, device=self.device)
+            candidate = TaskAggregator(task, self.cfg, device=self.device, global_hpke_keypairs=self.global_hpke_keypairs)
             with self._task_aggs_lock:
                 ta = self._task_aggs.setdefault(task_id.data, candidate)
         return ta
+
+    # ------------------------------------------------------------------
+    # taskprov (reference aggregator.rs:639-776)
+    # ------------------------------------------------------------------
+    def taskprov_authorize_request(self, peer_role: Role, task_id: TaskId, task_config, headers):
+        """Validate and authenticate a taskprov request against the
+        pre-shared peer; returns the PeerAggregator (reference
+        taskprov_authorize_request, aggregator.rs:724)."""
+        urls = task_config.aggregator_endpoints
+        if len(urls) != 2:
+            raise errors.InvalidMessage("taskprov configuration is missing one or both aggregators", task_id)
+        peer_url = urls[0] if peer_role == Role.LEADER else urls[1]
+        peer = self.peer_aggregators.get(peer_url, peer_role) if self.peer_aggregators else None
+        if peer is None:
+            raise errors.InvalidTask(f"no such peer aggregator {peer_url}", task_id)
+        if not peer.check_aggregator_auth(headers or {}):
+            raise errors.UnauthorizedRequest("bad taskprov aggregator auth", task_id)
+        if self.clock.now() > task_config.task_expiration:
+            raise errors.InvalidTask("task expired", task_id)
+        return peer
+
+    def taskprov_opt_in(self, peer_role: Role, task_id: TaskId, task_config, headers) -> None:
+        """Provision a task from an in-band TaskConfig (reference
+        taskprov_opt_in, aggregator.rs:641-719)."""
+        peer = self.taskprov_authorize_request(peer_role, task_id, task_config, headers)
+        try:
+            vdaf_instance = task_config.vdaf_config.vdaf_type.to_vdaf_instance()
+            # gate before persisting: a task whose circuit can never be
+            # built must be a clean InvalidTask, not a stored task that
+            # answers 500 forever
+            circuit_for(vdaf_instance)
+        except ValueError as e:
+            raise errors.InvalidTask(str(e), task_id)
+        our_role = Role.HELPER if peer_role == Role.LEADER else Role.LEADER
+        verify_key = peer.derive_vdaf_verify_key(task_id)
+
+        qc = task_config.query_config
+        if qc.query_type == TaskprovQueryType.TIME_INTERVAL:
+            query_type = QueryTypeConfig.time_interval()
+        elif qc.query_type == TaskprovQueryType.FIXED_SIZE:
+            query_type = QueryTypeConfig.fixed_size(max_batch_size=qc.max_batch_size)
+        else:
+            raise errors.InvalidTask(f"unsupported query type {qc.query_type}", task_id)
+
+        task = Task(
+            task_id=task_id,
+            leader_aggregator_endpoint=task_config.leader_url(),
+            helper_aggregator_endpoint=task_config.helper_url(),
+            query_type=query_type,
+            vdaf=vdaf_instance,
+            role=our_role,
+            vdaf_verify_key=verify_key,
+            max_batch_query_count=qc.max_batch_query_count,
+            task_expiration=task_config.task_expiration,
+            report_expiry_age=peer.report_expiry_age,
+            min_batch_size=qc.min_batch_size,
+            time_precision=qc.time_precision,
+            tolerable_clock_skew=peer.tolerable_clock_skew,
+            collector_hpke_config=peer.collector_hpke_config,
+            aggregator_auth_token=None,  # peer tokens authenticate taskprov
+            collector_auth_token=None,
+            hpke_keys=(),  # taskprov tasks use the global HPKE keys
+        )
+
+        def put(tx):
+            # a concurrent opt-in by another replica is benign (reference
+            # aggregator.rs:699-707): the same config makes the same task
+            if tx.get_task(task_id) is None:
+                tx.put_task(task)
+
+        self.ds.run_tx(put, "taskprov_put_task")
 
     def check_aggregator_auth(self, task: Task, headers) -> None:
         tok = task.aggregator_auth_token

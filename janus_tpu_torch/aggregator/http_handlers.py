@@ -22,17 +22,32 @@ admission-controlled ingest pipeline (`ingest/`): a shed request answers
 429 (capacity) or 503 (a propagated `DAP-Janus-Deadline` already spent)
 with `Retry-After` before any decode, crypto or datastore work; admitted
 uploads decode, decrypt and commit on the pipeline's workers while the
-handler thread parks on its ticket. A budget that dies inside the
-aggregate-init handler answers the conclusive 408.
+handler thread parks on its ticket. While the datastore supervisor
+reports the database not up, the aggregate routes shed 503 with
+`Retry-After` (uploads keep flowing into the spill journal). A budget
+that dies inside the aggregate-init handler answers the conclusive 408.
 
-Not ported yet, and answered as janus_tpu answers an unknown route (404):
-the ledger read (GET /tasks/:id/ledger); with it taskprov, and the calls
-into metrics, statusz and trace spans.
+Taskprov: with `Config.taskprov_enabled`, the helper's routes read the
+`dap-taskprov` header (its SHA-256 must be the task ID), authorize the
+leader as the task's taskprov peer instead of by a per-task token, and
+provision the task on aggregate-init and aggregate-share; `hpke_config`
+answers with the global HPKE configs for a task that is not provisioned
+(yet). janus_tpu's leader driver sends no header of its own: a leader of
+a taskprov task sends it through an HTTP client that attaches it
+(`aggregator/testing.py` `TaskprovHeaderHttp`). `DapServer` reads header
+lines up to 1 MiB (`binary_utils.LongHeaderLines`): the header of a
+Prio3Histogram(10000) TaskConfig is ~106,700 characters, which
+janus_tpu's server, on http.server's 64 KiB line limit, refuses.
+
+Not ported, and answered as janus_tpu answers an unknown route (404):
+the ledger read (GET /tasks/:id/ledger); and the calls into metrics,
+statusz and trace spans.
 """
 
 from __future__ import annotations
 
 import base64
+import hashlib
 import json
 import logging
 import math
@@ -41,7 +56,7 @@ import threading
 from http.server import BaseHTTPRequestHandler
 from urllib.parse import parse_qsl, urlsplit
 
-from ..binary_utils import BoundedThreadingHTTPServer
+from ..binary_utils import BoundedThreadingHTTPServer, LongHeaderLines
 from ..core import deadline as deadline_mod
 from ..core.deadline import DEADLINE_EXCEEDED_STATUS, DeadlineExceeded
 from ..ingest import AdmissionConfig, AdmissionController, IngestPipeline, ShedError
@@ -52,11 +67,14 @@ from ..messages import (
     AggregationJobInitializeReq,
     CollectionJobId,
     CollectionReq,
+    HpkeConfigList,
     Report,
+    Role,
     TaskId,
 )
 from ..messages.codec import DecodeError
 from ..messages.problem_type import DapProblemType
+from ..messages.taskprov import TASKPROV_HEADER, TaskConfig
 from .core import Aggregator
 from .errors import AggregatorError, InvalidMessage, UnrecognizedTask
 
@@ -162,6 +180,9 @@ class DapHttpApp:
                         shed_retry_after_s=cfg.upload_shed_retry_after_s,
                     ),
                     depth_fn=self._ingest.depth,
+                    # the aggregate routes shed 503 while the datastore
+                    # supervisor is not up
+                    supervisor_fn=lambda: getattr(self.agg.ds, "supervisor", None),
                 )
             return self._ingest, self._admission
 
@@ -171,6 +192,33 @@ class DapHttpApp:
             ingest = self._ingest
         if ingest is not None:
             ingest.close()
+
+    def _taskprov_config(self, task_id: TaskId, headers):
+        """Decode and verify the dap-taskprov header (reference
+        http_handlers.rs:575-607 parse_taskprov_header): the task ID must
+        equal SHA-256 of the encoded TaskConfig."""
+        if not self.agg.cfg.taskprov_enabled:
+            return None
+        lowered = {k.lower(): v for k, v in headers.items()}
+        raw = lowered.get(TASKPROV_HEADER)
+        if raw is None:
+            return None
+        try:
+            encoded = base64.urlsafe_b64decode(raw + "=" * (-len(raw) % 4))
+        except Exception:
+            raise InvalidMessage("taskprov header could not be decoded", task_id)
+        if hashlib.sha256(encoded).digest() != task_id.data:
+            raise InvalidMessage("derived taskprov task ID does not match task config", task_id)
+        return TaskConfig.from_bytes(encoded)
+
+    def _check_helper_auth(self, ta, task_id, headers, taskprov_config):
+        """Aggregator (leader->helper) auth: the taskprov peer's tokens
+        when the header is present, the task's token otherwise (reference
+        aggregator.rs:420-432)."""
+        if taskprov_config is not None:
+            self.agg.taskprov_authorize_request(Role.LEADER, task_id, taskprov_config, headers)
+        else:
+            self.agg.check_aggregator_auth(ta.task, headers)
 
     def handle(self, method: str, path: str, query: dict, headers, body: bytes):
         """-> (status, content_type, body_bytes, extra_headers)."""
@@ -250,9 +298,18 @@ class DapHttpApp:
         if tid is None:
             raise InvalidMessage("task_id query parameter required")
         task_id = TaskId(_b64dec(tid, 32))
-        configs = self.agg.task_aggregator_for(task_id).hpke_config_list()
-        if not configs.configs:
-            raise UnrecognizedTask("no per-task keys", task_id)
+        try:
+            configs = self.agg.task_aggregator_for(task_id).hpke_config_list()
+            if not configs.configs:
+                raise UnrecognizedTask("no per-task keys", task_id)
+        except UnrecognizedTask:
+            # a taskprov task is not provisioned here at upload time and
+            # carries no keys of its own: advertise the global keys
+            # (reference aggregator.rs:276-280)
+            globals_ = self.agg.global_hpke_keypairs.configs()
+            if not (self.agg.cfg.taskprov_enabled and globals_):
+                raise
+            configs = HpkeConfigList(tuple(globals_))
         return 200, "application/dap-hpke-config-list", configs.to_bytes()
 
     def h_upload(self, match, query, headers, body):
@@ -268,8 +325,10 @@ class DapHttpApp:
     def h_aggregate_init(self, match, query, headers, body):
         task_id = TaskId(_b64dec(match.group(1), 32))
         job_id = AggregationJobId(_b64dec(match.group(2), 16))
-        ta = self.agg.task_aggregator_for(task_id)
-        self.agg.check_aggregator_auth(ta.task, headers)
+        taskprov_config = self._taskprov_config(task_id, headers)
+        # the helper's endpoint: the provisioning peer is the leader
+        ta = self.agg.task_aggregator_for(task_id, taskprov_config, headers, peer_role=Role.LEADER)
+        self._check_helper_auth(ta, task_id, headers, taskprov_config)
         # XOF framing check: the two framings produce disjoint streams, so
         # a mismatch would otherwise reject every report. Absence is
         # tolerated (a non-janus leader).
@@ -288,8 +347,9 @@ class DapHttpApp:
     def h_aggregate_continue(self, match, query, headers, body):
         task_id = TaskId(_b64dec(match.group(1), 32))
         job_id = AggregationJobId(_b64dec(match.group(2), 16))
+        taskprov_config = self._taskprov_config(task_id, headers)
         ta = self.agg.task_aggregator_for(task_id)
-        self.agg.check_aggregator_auth(ta.task, headers)
+        self._check_helper_auth(ta, task_id, headers, taskprov_config)
         req = AggregationJobContinueReq.from_bytes(body)
         resp = ta.handle_aggregate_continue(self.agg.ds, self.agg.clock, job_id, req, body)
         return 200, "application/dap-aggregation-job-resp", resp.to_bytes()
@@ -325,8 +385,11 @@ class DapHttpApp:
 
     def h_aggregate_share(self, match, query, headers, body):
         task_id = TaskId(_b64dec(match.group(1), 32))
-        ta = self.agg.task_aggregator_for(task_id)
-        self.agg.check_aggregator_auth(ta.task, headers)
+        taskprov_config = self._taskprov_config(task_id, headers)
+        # the helper's endpoint: taskprov provisioning here too (reference
+        # aggregator.rs:641)
+        ta = self.agg.task_aggregator_for(task_id, taskprov_config, headers, peer_role=Role.LEADER)
+        self._check_helper_auth(ta, task_id, headers, taskprov_config)
         req = AggregateShareReq.from_bytes(body)
         resp = ta.handle_aggregate_share(self.agg.ds, req)
         return 200, "application/dap-aggregate-share", resp.to_bytes()
@@ -342,7 +405,7 @@ class DapServer:
         if max_handler_threads is None:
             max_handler_threads = app.agg.cfg.max_handler_threads
 
-        class Handler(BaseHTTPRequestHandler):
+        class Handler(LongHeaderLines, BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
             # an idle keep-alive connection must not pin a pool worker
             timeout = 60

@@ -4,12 +4,14 @@ Equivalent of reference aggregator/src/binary_utils/job_driver.rs:25-260:
 acquire a batch of leases, step each job on a bounded worker pool,
 rediscover with an adaptive delay, drain cleanly on shutdown.
 
-The port's own copy of janus_tpu/aggregator/job_driver.py. It leaves out
-the fleet claim metrics (`record_acquire`) and the peer-outage park of
-`make_claim_acquirer`, the `job.step` trace span, the datastore
-supervisor (its park and reconnect delay: a datastore-down step steps
-back by DATASTORE_DOWN_STEP_BACK_S), the drain releaser, and the stage
-pipeline (`step_pipeline.py`, not ported).
+The port's own copy of janus_tpu/aggregator/job_driver.py, with the
+datastore outage handling: the acquirers park while the datastore
+supervisor reports down and absorb connection-class failures, and a
+step that loses the datastore steps back by the supervisor's reconnect
+delay. It leaves out the fleet claim metrics (`record_acquire`) and the
+peer-outage park of `make_claim_acquirer` (`aggregator/peer_health.py`
+is not ported), the `job.step` trace span, the drain releaser, and the
+stage pipeline (`step_pipeline.py`, not ported).
 """
 
 from __future__ import annotations
@@ -70,6 +72,14 @@ def deadline_request_timeout(
     return cap
 
 
+def datastore_down(ds) -> bool:
+    """True while the datastore supervisor reports a hard outage: both
+    drivers' acquirers park instead of burning an acquire (and a lease
+    attempt on every job the claim would take) into a dead database."""
+    supervisor = getattr(ds, "supervisor", None)
+    return supervisor is not None and supervisor.state == "down"
+
+
 def make_claim_acquirer(ds, claim_fn):
     """Shared acquirer body: run `claim_fn(limit)` (the datastore claim
     run_tx) through the outage-tolerant wrapper."""
@@ -77,10 +87,12 @@ def make_claim_acquirer(ds, claim_fn):
 
 
 def acquire_tolerating_outage(ds, acquire_tx):
-    """Absorb a connection-class acquire failure as 'no jobs this pass'
-    (the discovery loop is the recovery mechanism) and re-raise
-    everything else: a fatal error retried forever would be a silent
-    stall."""
+    """Park (return []) while the supervisor reports down, absorb a
+    connection-class acquire failure as 'no jobs this pass' (the
+    discovery loop is the recovery mechanism), and re-raise everything
+    else: a fatal error retried forever would be a silent stall."""
+    if datastore_down(ds):
+        return []
     try:
         return acquire_tx()
     except Exception as e:
@@ -93,8 +105,11 @@ def acquire_tolerating_outage(ds, acquire_tx):
         raise
 
 
-# step-back delay of a step that lost its datastore connection
-DATASTORE_DOWN_STEP_BACK_S = 5.0
+def datastore_reconnect_delay_s(ds, default: float = 5.0) -> float:
+    """Step-back delay of a step that lost its datastore: the
+    supervisor's reconnect cooldown when supervised, `default` otherwise."""
+    supervisor = getattr(ds, "supervisor", None)
+    return supervisor.reconnect_delay_s() if supervisor is not None else default
 
 
 def is_datastore_connection_error(ds, e: BaseException) -> bool:

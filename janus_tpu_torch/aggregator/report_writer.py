@@ -11,11 +11,21 @@ whatever accumulated while the previous transaction ran, so a lone
 client sees about one transaction's latency and concurrent bursts batch
 naturally. `max_write_delay_ms > 0` adds a coalescing wait, capped by
 `max_batch_size`. `stage_seconds["commit"]` sums the seconds of the
-flush transactions.
+flush transactions, `stage_seconds["spill"]` those of journal spills.
 
-Not ported: the upload journal (janus_tpu's `journal=` spill path, armed
-by a datastore supervisor the port's SQLite store does not have), the
-conservation ledger's admission count, and the flush failpoint.
+Datastore-outage survival, as in janus_tpu: with a journal attached, a
+flush that hits a connection-class datastore error, or that runs while
+the datastore supervisor reports the database not up, or after a commit
+exceeded `spill_latency_s`, spills the batch to the durable on-disk
+journal instead, and every waiter resolves fresh=True (201 on the
+strength of the journal's fsync). The journal's replayer drains back
+through `flush_direct`, which never spills; report-id dedup makes that
+exactly-once. With no journal (the default) the flush path is the
+pre-journal one. The `report_writer.flush` failpoint fails a whole
+batch, as in janus_tpu.
+
+Not ported: the conservation ledger's admission count (and its
+`ledger.drop_report` failpoint) and the flush's trace spans.
 """
 
 from __future__ import annotations
@@ -47,11 +57,24 @@ class ReportWriteBatcher:
     """Blocking writes with group-commit flushes. Request threads call
     `write_report` and park until their batch's transaction commits."""
 
-    def __init__(self, ds: Datastore, max_batch_size: int = 100, max_write_delay_ms: int = 0):
+    def __init__(
+        self,
+        ds: Datastore,
+        max_batch_size: int = 100,
+        max_write_delay_ms: int = 0,
+        journal=None,
+        spill_latency_s: float = 0.0,
+    ):
         self.ds = ds
         self.max_batch_size = max_batch_size
         self.max_write_delay_s = max_write_delay_ms / 1000.0
-        self.stage_seconds: dict[str, float] = {"commit": 0.0}
+        # optional durable spill journal (ingest.journal.UploadJournal):
+        # None = the pre-journal flush path
+        self.journal = journal
+        # commit latency past this spills the next flushes (0 = only
+        # connection-class errors and a supervisor not up spill)
+        self.spill_latency_s = float(spill_latency_s)
+        self.stage_seconds: dict[str, float] = {"commit": 0.0, "spill": 0.0}
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._buffer: list[_Pending] = []
@@ -121,13 +144,73 @@ class ReportWriteBatcher:
             if batch:  # a concurrent flush_now may have drained it
                 self._flush(batch)
 
+    def flush_direct(self, reports: list[LeaderStoredReport]) -> list[bool]:
+        """One transaction for `reports`, never spilling to the journal
+        (the journal replayer's path: spilling a replay back into the
+        journal would loop). Returns fresh-vs-replayed per report; raises
+        on failure."""
+        return self.ds.run_tx(lambda tx: [tx.put_client_report(r) for r in reports], "upload_journal_replay")
+
+    def _should_spill_without_trying(self) -> bool:
+        """Skip the doomed datastore attempt while the supervisor says the
+        database is not up: every flush would otherwise spend run_tx's
+        whole retry budget before spilling."""
+        if self.journal is None:
+            return False
+        supervisor = getattr(self.ds, "supervisor", None)
+        return supervisor is not None and supervisor.state != "up"
+
+    def _spill(self, batch: list[_Pending]) -> None:
+        """Journal the batch (fsync on ack) and resolve every waiter as
+        fresh: durability now rests on the journal, and replay dedups any
+        true duplicate. Raises (JournalFull included) on failure."""
+        t0 = time.perf_counter()
+        self.journal.append_batch([p.report for p in batch])
+        with self._lock:
+            self.stage_seconds["spill"] += time.perf_counter() - t0
+        for p in batch:
+            p.fresh = True
+
     def _flush(self, batch: list[_Pending]) -> None:
         """One transaction for the whole batch (reference :96-165)."""
+        from .. import failpoints
+
         try:
+            # the whole batch's waiters see an injected flush failure, and
+            # the upload handlers map it to a 500, never a silent 201
+            failpoints.hit(
+                "report_writer.flush",
+                error_factory=lambda: RuntimeError("injected flush failure (failpoint report_writer.flush)"),
+            )
+            if self._should_spill_without_trying():
+                self._spill(batch)
+                log.warning("datastore not up: spilled %d upload(s) to the journal", len(batch))
+                return
             t0 = time.perf_counter()
-            results = self.ds.run_tx(lambda tx: [tx.put_client_report(p.report) for p in batch], "upload_batch")
+            try:
+                results = self.ds.run_tx(lambda tx: [tx.put_client_report(p.report) for p in batch], "upload_batch")
+            except BaseException as e:
+                # a connection-class failure with a journal: the ack rests
+                # on local disk. Anything else (integrity, injected flush
+                # faults, retries exhausted on contention) fails loudly.
+                if (
+                    self.journal is not None
+                    and getattr(self.ds, "classify_error", None) is not None
+                    and self.ds.classify_error(e) == "connection"
+                ):
+                    self._spill(batch)
+                    log.warning("datastore connection lost (%s); spilled %d upload(s) to the journal", e, len(batch))
+                    return
+                raise
+            elapsed = time.perf_counter() - t0
             with self._lock:
-                self.stage_seconds["commit"] += time.perf_counter() - t0
+                self.stage_seconds["commit"] += elapsed
+            if self.journal is not None and 0 < self.spill_latency_s < elapsed:
+                # the commit landed but took too long: the supervisor
+                # degrades, so the next flushes spill
+                supervisor = getattr(self.ds, "supervisor", None)
+                if supervisor is not None:
+                    supervisor.record_slow_commit(elapsed)
             for p, fresh in zip(batch, results):
                 p.fresh = fresh
         except BaseException as e:  # fan the failure out to every waiter

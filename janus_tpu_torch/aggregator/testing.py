@@ -9,10 +9,13 @@ framed as ping-pong initialize messages. `leader_stored_reports` turns
 the same batch into the rows an upload leaves in a leader's datastore
 (the leader share decoded, the helper share sealed), which the job
 creator and the job driver (`aggregation_job_driver.py`) then aggregate.
+`TaskprovHeaderHttp` is the leader's HTTP client of a taskprov task: the
+job drivers send the `dap-taskprov` header through it.
 """
 
 from __future__ import annotations
 
+import base64
 from dataclasses import dataclass
 
 import numpy as np
@@ -20,6 +23,7 @@ import torch
 
 from ..convert import to_numpy_u64
 from ..core.hpke import HpkeApplicationInfo, Label, hpke_seal
+from ..core.http_client import HttpClient
 from ..datastore.models import LeaderStoredReport
 from ..messages import (
     AggregationJobInitializeReq,
@@ -36,6 +40,7 @@ from ..messages import (
     Role,
     Time,
 )
+from ..messages.taskprov import TASKPROV_HEADER, TaskConfig
 from ..vdaf.engine import tf_for
 from ..vdaf.registry import circuit_for
 from ..vdaf.wire import (
@@ -149,3 +154,26 @@ def leader_stored_reports(task, helper_config, step_args, times) -> list[LeaderS
         leader_share = wire.encode_leader_share_raw(meas_rows[i] + proof_rows[i], blind0_rows[i])
         out.append(LeaderStoredReport(task.task_id, md.report_id, md.time, public_share, leader_share, ct))
     return out
+
+
+class TaskprovHeaderHttp(HttpClient):
+    """Leader-side HTTP client that attaches the dap-taskprov header to
+    the helper-bound aggregation and aggregate-share requests of one
+    taskprov task (what a taskprov-aware leader sends; the job drivers
+    take it as their `http`)."""
+
+    def __init__(self, task_config: TaskConfig, **kwargs):
+        super().__init__(**kwargs)
+        self.header = base64.urlsafe_b64encode(task_config.to_bytes()).decode().rstrip("=")
+
+    def _with_header(self, url, headers):
+        if "aggregation_jobs" in url or "aggregate_shares" in url:
+            headers = dict(headers or {})
+            headers[TASKPROV_HEADER] = self.header
+        return headers
+
+    def put(self, url, body, headers=None, timeout=None):
+        return super().put(url, body, self._with_header(url, headers), timeout=timeout)
+
+    def post(self, url, body, headers=None, timeout=None):
+        return super().post(url, body, self._with_header(url, headers), timeout=timeout)

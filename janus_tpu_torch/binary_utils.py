@@ -1,17 +1,75 @@
 """Serving utilities shared by the port's HTTP listeners.
 
 The port's own copy of `BoundedThreadingHTTPServer` from
-janus_tpu/binary_utils.py. The rest of that module (the binaries'
-config loading, health listener, profiler capture) is not ported.
+janus_tpu/binary_utils.py, and `LongHeaderLines`, the handler mixin that
+lets a request carry a header line longer than http.server's 64 KiB. The
+rest of janus_tpu's module (the binaries' config loading, health
+listener, readiness registry, profiler capture) is not ported.
 """
 
 from __future__ import annotations
 
+import http.client
+import io
 import threading
 import time
 import weakref
 from concurrent.futures import ThreadPoolExecutor
+from http import HTTPStatus
 from http.server import ThreadingHTTPServer
+
+# A dap-taskprov header carries a whole base64url TaskConfig: a
+# Prio3Histogram of 10,000 buckets lists 9,999 u64 boundaries, about
+# 106,700 characters, past http.server's 65,536-byte header line limit
+# (janus_tpu's server refuses it). The port's server reads lines up to this.
+MAX_HEADER_LINE = 1 << 20
+MAX_HEADERS = 100
+
+
+class LongHeaderLines:
+    """BaseHTTPRequestHandler mixin: reads the header block with lines up
+    to MAX_HEADER_LINE bytes. A line over http.client's limit reaches the
+    stdlib parser as a placeholder and its value is put back after it, so
+    everything else (the Connection and Expect handling, the message
+    class) is the stdlib's."""
+
+    def parse_request(self):
+        rfile = self.rfile
+        lines, long_values = [], {}
+        while True:
+            line = rfile.readline(MAX_HEADER_LINE + 1)
+            if len(line) > MAX_HEADER_LINE:
+                return self._refuse("Line too long")
+            if len(line) > http.client._MAXLINE:
+                name, _, value = line.partition(b":")
+                token = b"long-header-line-%d" % len(long_values)
+                long_values[token.decode()] = (name.decode("latin-1").strip(), value.decode("latin-1").strip())
+                line = name + b": " + token + b"\r\n"
+            lines.append(line)
+            if len(lines) > MAX_HEADERS:
+                return self._refuse("Too many headers")
+            if line in (b"\r\n", b"\n", b""):
+                break
+        self.rfile = io.BytesIO(b"".join(lines))
+        try:
+            ok = super().parse_request()
+        finally:
+            self.rfile = rfile
+        if ok:
+            for token, (name, value) in long_values.items():
+                if self.headers.get(name) == token:
+                    self.headers.replace_header(name, value)
+        return ok
+
+    def _refuse(self, message: str) -> bool:
+        # the fields the stdlib's parse_request sets before it reads headers
+        self.requestline = str(self.raw_requestline, "iso-8859-1").rstrip("\r\n")
+        words = self.requestline.split()
+        self.command = words[0] if words else None
+        self.request_version = words[-1] if len(words) == 3 else self.default_request_version
+        self.close_connection = True
+        self.send_error(HTTPStatus.REQUEST_HEADER_FIELDS_TOO_LARGE, message)
+        return False
 
 
 class BoundedThreadingHTTPServer(ThreadingHTTPServer):

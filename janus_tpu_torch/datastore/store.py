@@ -1,4 +1,4 @@
-"""Datastore: transactional facade + typed ops + Crypter, on SQLite.
+"""Datastore: transactional facade + typed ops + Crypter, on SQLite or Postgres.
 
 The port's own copy of the part of janus_tpu/datastore/store.py that
 the helper's aggregate-init and aggregate-share paths, the leader's job
@@ -9,29 +9,64 @@ table||row||column, multi-key rotation), and the typed ops on tasks,
 client reports, aggregation jobs and their leases, report aggregations,
 batch aggregations, collection jobs and their leases, aggregate-share
 jobs, fixed-size batches and outstanding batches, and the expiry
-deletes, each with janus_tpu's SQL. The lease ops are token-guarded: a
-release or step-back whose token no longer matches raises
-`LeaseConflict`, which `run_tx` does not retry. `run_tx` retries on
-SQLite busy and on other TxConflicts as janus_tpu's does.
+deletes, the taskprov peer aggregators and the global HPKE keys, each
+with janus_tpu's SQL. The lease ops are token-guarded: a release or
+step-back whose token no longer matches raises `LeaseConflict`, which
+`run_tx` does not retry.
 
-Not ported yet: the Postgres engine, global HPKE keys, the supervisor,
-the conservation ledger's ops (`increment_task_counters`, `ledger_*`,
-and the lost-row counts janus_tpu's expiry deletes return for it), the
-trace links of collection (`get_aggregation_job_trace_contexts`); and
-the observability calls (metrics, failpoints, the lease conflict
-counter) of janus_tpu's run_tx, which the port leaves out.
+Two engines behind the one typed-op surface, as in janus_tpu:
+
+  - SQLite (`Datastore`): BEGIN IMMEDIATE and a bounded retry on busy;
+    a lease claim is one guarded UPDATE ... RETURNING, atomic under
+    SQLite's writer lock.
+  - Postgres (`PostgresDatastore`, psycopg, optional): REPEATABLE READ
+    with retry on serialization failure, real `FOR UPDATE SKIP LOCKED`
+    lease claims, the same schema translated BLOB->BYTEA and
+    INTEGER->BIGINT (`_pg_schema`). `open_datastore` picks it for a
+    postgres:// URL. Without psycopg it runs over `pg_fake.py`'s
+    recorded-conversation driver (`EphemeralDatastore(engine="pgfake")`),
+    whose statement stream equals janus_tpu's.
+
+`run_tx` classifies every failure (`classify_error`: serialization,
+connection, fatal, other), discards a dead connection, and reports at
+most one connection-class failure per call to the attached
+`DatastoreSupervisor` (up / degraded / down / recovering, fed by a
+probe thread and by real transactions), which the report writer's
+journal spill, the admission controller and the job drivers read. The
+`datastore.connect.<scope>` failpoint fires on every connection
+checkout; `datastore.tx_begin`, `.commit` and `.post_commit` (scoped by
+the transaction's name) fire inside run_tx, as in janus_tpu.
+
+Not ported: the conservation ledger's ops (`increment_task_counters`,
+`ledger_*`, and the lost-row counts janus_tpu's expiry deletes return
+for it), the health sampler's reads, the trace links of collection
+(`get_aggregation_job_trace_contexts`); and the observability calls of
+janus_tpu's run_tx and supervisor (the transaction duration and retry
+metrics, the slow-transaction warning, the lease conflict counter, the
+datastore up and failure gauges). The supervisor keeps `status()` and
+`readiness()` as methods; nothing registers them (janus_tpu's statusz
+and readiness registries are not ported).
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import logging
 import os
+import re
 import secrets
 import sqlite3
 import tempfile
 import threading
 import time as _time
+
+_log = logging.getLogger(__name__)
+
+try:  # the Postgres engine is optional (psycopg is not in every image)
+    import psycopg as _psycopg
+except ImportError:  # pragma: no cover - exercised where psycopg exists
+    _psycopg = None
 
 from ..core.hpke_backend import AESGCM
 from ..messages import (
@@ -296,17 +331,40 @@ def make_lease_token(holder: bytes | None = None) -> bytes:
     return secrets.token_bytes(16)
 
 
+class _PgConnAdapter:
+    """Gives a psycopg connection the sqlite3 execute surface the typed
+    ops are written against: qmark placeholders, execute returning a
+    cursor with fetchone/fetchall/rowcount."""
+
+    def __init__(self, conn):
+        self._conn = conn
+
+    def execute(self, sql: str, params=()):
+        return self._conn.execute(sql.replace("?", "%s"), params)
+
+    def executemany(self, sql: str, seq):
+        cur = self._conn.cursor()
+        cur.executemany(sql.replace("?", "%s"), list(seq))
+        return cur
+
+
 class Transaction:
     """One open transaction; exposes the typed ops. Obtained from
-    Datastore.run_tx."""
+    Datastore.run_tx / Datastore.tx(). The `dialect` selects the
+    lease-select locking suffix (Postgres gets a real FOR UPDATE SKIP
+    LOCKED, datastore.rs:1853-1860) and the RETURNING form."""
 
-    def __init__(self, conn, crypter: Crypter, clock):
+    def __init__(self, conn, crypter: Crypter, clock, dialect: str = "sqlite"):
         self._c = conn
         self._crypter = crypter
         self._clock = clock
+        self._lease_suffix = " FOR UPDATE SKIP LOCKED" if dialect == "postgres" else ""
         # UPDATE ... RETURNING needs SQLite >= 3.35; older libraries take
-        # the two-statement form, exact inside the serialized transaction
-        self._returning = sqlite3.sqlite_version_info >= (3, 35)
+        # the two-statement form, exact inside the serialized transaction.
+        # Postgres always keeps the RETURNING wire form (pg_fake emulates
+        # it on an old SQLite, so the recorded stream is what a server
+        # receives).
+        self._returning = dialect == "postgres" or sqlite3.sqlite_version_info >= (3, 35)
 
     def _update_returning_one(self, update_sql: str, params, returning: str, select_sql: str, select_params):
         """Single-row guarded `UPDATE ... RETURNING <returning>`, with the
@@ -342,9 +400,54 @@ class Transaction:
         doc = self._crypter.decrypt("tasks", task_id.data, "doc", row[0])
         return Task.from_dict(json.loads(doc))
 
+    def get_task_ids(self) -> list[TaskId]:
+        return [
+            TaskId(r[0]) for r in self._c.execute("SELECT task_id FROM tasks ORDER BY task_id")
+        ]
+
     def get_tasks(self) -> list[Task]:
-        ids = [TaskId(r[0]) for r in self._c.execute("SELECT task_id FROM tasks ORDER BY task_id")]
-        return [t for t in (self.get_task(tid) for tid in ids) if t]
+        return [t for t in (self.get_task(tid) for tid in self.get_task_ids()) if t]
+
+    # ---- taskprov peer aggregators (reference datastore.rs:4436-4748) ----
+    def put_taskprov_peer_aggregator(self, peer) -> None:
+        row_key = peer.endpoint.encode() + bytes([int(peer.role)])
+        doc = json.dumps(peer.to_dict()).encode()
+        enc = self._crypter.encrypt("taskprov_peer_aggregators", row_key, "doc", doc)
+        # upsert portable to both engines (sqlite >= 3.24 and Postgres)
+        self._c.execute(
+            "INSERT INTO taskprov_peer_aggregators (endpoint, role, doc)"
+            " VALUES (?,?,?)"
+            " ON CONFLICT (endpoint, role) DO UPDATE SET doc = excluded.doc",
+            (peer.endpoint, int(peer.role), enc),
+        )
+
+    def _decode_peer_aggregator(self, endpoint: str, role: int, doc_enc: bytes):
+        from ..taskprov import PeerAggregator
+
+        row_key = endpoint.encode() + bytes([int(role)])
+        doc = self._crypter.decrypt("taskprov_peer_aggregators", row_key, "doc", doc_enc)
+        return PeerAggregator.from_dict(json.loads(doc))
+
+    def get_taskprov_peer_aggregator(self, endpoint: str, role):
+        row = self._c.execute(
+            "SELECT doc FROM taskprov_peer_aggregators WHERE endpoint = ? AND role = ?",
+            (endpoint, int(role)),
+        ).fetchone()
+        if row is None:
+            return None
+        return self._decode_peer_aggregator(endpoint, int(role), row[0])
+
+    def get_taskprov_peer_aggregators(self) -> list:
+        rows = self._c.execute(
+            "SELECT endpoint, role, doc FROM taskprov_peer_aggregators ORDER BY endpoint, role"
+        ).fetchall()
+        return [self._decode_peer_aggregator(e, r, d) for e, r, d in rows]
+
+    def delete_taskprov_peer_aggregator(self, endpoint: str, role) -> None:
+        self._c.execute(
+            "DELETE FROM taskprov_peer_aggregators WHERE endpoint = ? AND role = ?",
+            (endpoint, int(role)),
+        )
 
     # ---- client reports (reference datastore.rs:1162-1723) ----
     def put_client_report(self, report: LeaderStoredReport) -> bool:
@@ -547,6 +650,7 @@ class Transaction:
             f"SELECT task_id, {id_col} FROM ("
             f"SELECT task_id, {id_col}, shard_key FROM {table}"
             f" WHERE {eligible} ORDER BY lease_expiry LIMIT {window}"
+            f"{self._lease_suffix}"
             f") AS cand ORDER BY {order} LIMIT ?"
         )
         set_sql = (
@@ -1281,6 +1385,46 @@ class Transaction:
             (task_id.data, batch_id.data),
         )
 
+    # ---- global HPKE keys (reference datastore.rs:4316-4435) ----
+    def put_global_hpke_keypair(self, keypair, state: str = "pending") -> None:
+        row_key = bytes([keypair.config.id.id])
+        enc = self._crypter.encrypt("global_hpke_keys", row_key, "private_key", keypair.private_key)
+        self._c.execute(
+            "INSERT INTO global_hpke_keys (config_id, config, private_key, state, updated_at)"
+            " VALUES (?,?,?,?,?)",
+            (keypair.config.id.id, keypair.config.to_bytes(), enc, state, self._clock.now().seconds),
+        )
+
+    def get_global_hpke_keypairs(self) -> list[tuple]:
+        """[(HpkeKeypair, state)]."""
+        from ..core.hpke import HpkeKeypair
+        from ..messages import HpkeConfig
+
+        out = []
+        for cid, cfg, sk, state in self._c.execute(
+            "SELECT config_id, config, private_key, state FROM global_hpke_keys"
+        ):
+            row_key = bytes([cid])
+            out.append(
+                (
+                    HpkeKeypair(
+                        HpkeConfig.from_bytes(cfg),
+                        self._crypter.decrypt("global_hpke_keys", row_key, "private_key", sk),
+                    ),
+                    state,
+                )
+            )
+        return out
+
+    def set_global_hpke_keypair_state(self, config_id: int, state: str) -> None:
+        self._c.execute(
+            "UPDATE global_hpke_keys SET state = ?, updated_at = ? WHERE config_id = ?",
+            (state, self._clock.now().seconds, config_id),
+        )
+
+    def delete_global_hpke_keypair(self, config_id: int) -> None:
+        self._c.execute("DELETE FROM global_hpke_keys WHERE config_id = ?", (config_id,))
+
     # ---- GC (reference datastore.rs:4162-4315) ----
     def delete_expired_aggregation_artifacts(self, task_id: TaskId, cutoff: Time, limit: int) -> int:
         """Jobs whose client interval ended before `cutoff` (at most
@@ -1316,12 +1460,20 @@ class Transaction:
 
 
 
+
+
 class Datastore:
     """Connection manager + transaction runner (reference datastore.rs:107),
     SQLite engine: one connection per thread, BEGIN IMMEDIATE, bounded
-    retry with full-jitter backoff on busy/conflict."""
+    retry with full-jitter backoff on busy/conflict. Engine-specific
+    seams (overridden by PostgresDatastore): `DIALECT`, `_connect`,
+    `_begin`, `_retryable_errors`, `_adapt`, `_connection_lost_error`,
+    `_discard_if_broken`, `classify_error`."""
 
     MAX_RETRIES = 16
+    DIALECT = "sqlite"
+    # cap on one retry sleep; the sleep is full-jitter uniform in
+    # [0, min(cap, base * 2^attempt)]
     retry_max_interval_s = 0.128
     retry_base_interval_s = 0.002
 
@@ -1330,8 +1482,16 @@ class Datastore:
         self._crypter = crypter
         self._clock = clock
         self._local = threading.local()
+        # every live per-thread connection, so close() reaches them all
         self._conn_registry: set = set()
         self._conn_registry_lock = threading.Lock()
+        # scope suffix of the datastore.connect failpoint (hit as
+        # `datastore.connect` and `datastore.connect.<scope>`), so a
+        # schedule can take down one datastore of several in a process
+        self.failpoint_scope = os.path.basename(str(path)) or str(path)
+        # attached by start_supervision(); run_tx feeds it successes and
+        # connection failures even before its probe thread runs
+        self.supervisor: DatastoreSupervisor | None = None
         self._bootstrap_schema()
 
     def _bootstrap_schema(self) -> None:
@@ -1344,7 +1504,43 @@ class Datastore:
             elif row[0] != SCHEMA_VERSION:
                 raise RuntimeError(f"unsupported schema version {row[0]}")
 
+    @property
+    def clock(self):
+        return self._clock
+
+    @property
+    def crypter(self) -> Crypter:
+        """The at-rest crypter (shared with the upload spill journal, so
+        journaled shares stay encrypted on disk under the same keys)."""
+        return self._crypter
+
+    def _hit_connect_failpoint(self) -> None:
+        """`datastore.connect` failpoint: fires on every connection
+        checkout, cached or fresh, so an armed outage models "the database
+        is unreachable". Its error and timeout actions raise this engine's
+        connection-lost error, which classify_error calls "connection"."""
+        from .. import failpoints
+
+        failpoints.hit_scoped(
+            "datastore.connect",
+            self.failpoint_scope,
+            error_factory=lambda: self._connection_lost_error(
+                "injected connect failure (failpoint datastore.connect)"
+            ),
+            timeout_factory=lambda: self._connection_lost_error(
+                "injected connect timeout (failpoint datastore.connect)"
+            ),
+        )
+
+    def _connection_lost_error(self, msg: str) -> Exception:
+        return sqlite3.OperationalError(msg)
+
+    def _register_conn(self, conn) -> None:
+        with self._conn_registry_lock:
+            self._conn_registry.add(conn)
+
     def _connect(self) -> sqlite3.Connection:
+        self._hit_connect_failpoint()
         conn = getattr(self._local, "conn", None)
         if conn is None:
             conn = sqlite3.connect(
@@ -1357,11 +1553,19 @@ class Datastore:
             conn.execute("PRAGMA synchronous=NORMAL")
             conn.execute("PRAGMA foreign_keys=ON")
             self._local.conn = conn
-            with self._conn_registry_lock:
-                self._conn_registry.add(conn)
+            self._register_conn(conn)
+        return conn
+
+    def _begin(self, conn) -> None:
+        conn.execute("BEGIN IMMEDIATE")
+
+    def _adapt(self, conn):
+        """Wrap the raw connection for Transaction's execute surface."""
         return conn
 
     def _discard(self, conn) -> None:
+        """Drop a dead cached connection: close, unregister, and clear the
+        thread-local so the next _connect dials fresh."""
         try:
             conn.close()
         except Exception:
@@ -1371,21 +1575,16 @@ class Datastore:
         if getattr(self._local, "conn", None) is conn:
             self._local.conn = None
 
-    def _retry_sleep_s(self, attempt: int) -> float:
-        import random
-
-        ceiling = min(self.retry_max_interval_s, self.retry_base_interval_s * (1 << min(attempt, 30)))
-        return random.uniform(0.0, ceiling)
-
-    @property
-    def clock(self):
-        return self._clock
+    def _discard_if_broken(self, conn) -> None:
+        """Drop the cached connection if the engine marks it broken
+        (SQLite connections carry no broken flag)."""
 
     def classify_error(self, e: BaseException) -> str:
-        """"serialization" (contention: SQLite busy, an insert conflict),
-        "connection" (the database under the connection is gone), "fatal"
-        (schema/SQL error or a lease conflict: no retry can help) or
-        "other"."""
+        """"serialization" (contention: SQLite busy, an injected or insert
+        conflict; retry on the same connection), "connection" (the
+        connection or the database under it is gone: discard, redial,
+        tell the supervisor), "fatal" (schema/SQL error or a lease
+        conflict: no retry can help) or "other"."""
         if isinstance(e, LeaseConflict):
             return "fatal"
         if isinstance(e, TxConflict):
@@ -1396,31 +1595,120 @@ class Datastore:
                 return "serialization"
             if "no such" in msg or "syntax error" in msg:
                 return "fatal"
+            # "unable to open database file", "disk I/O error", injected
+            # connect failures, ...
             return "connection"
         return "other"
 
-    def _retryable(self, e: BaseException) -> bool:
-        return self.classify_error(e) != "fatal"
+    @property
+    def _retryable_errors(self) -> tuple:
+        return (sqlite3.OperationalError, TxConflict)
+
+    def _tx_obj(self, conn) -> Transaction:
+        return Transaction(self._adapt(conn), self._crypter, self._clock, dialect=self.DIALECT)
+
+    def tx(self):
+        """Single-attempt transaction as a context manager (no retry):
+        commits on a clean exit, rolls back on an exception."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def cm():
+            conn = self._connect()
+            self._begin(conn)
+            try:
+                yield self._tx_obj(conn)
+                conn.commit()
+            except BaseException:
+                conn.rollback()
+                raise
+
+        return cm()
+
+    def _retry_sleep_s(self, attempt: int) -> float:
+        import random
+
+        ceiling = min(
+            max(0.0, float(self.retry_max_interval_s)),
+            self.retry_base_interval_s * (1 << min(attempt, 30)),
+        )
+        return random.uniform(0.0, ceiling)
+
+    def probe(self) -> None:
+        """One cheap connectivity check on this thread's connection (the
+        supervisor's probe). Raises the engine's error on failure, after
+        discarding the dead connection."""
+        conn = None
+        try:
+            conn = self._connect()
+            conn.execute("SELECT 1").fetchone()
+            # leave no transaction open behind the probe (psycopg's
+            # implicit BEGIN opens one at the first statement)
+            conn.rollback()
+        except BaseException:
+            if conn is not None:
+                self._discard(conn)
+            raise
+
+    def start_supervision(self, **kwargs) -> "DatastoreSupervisor":
+        """Create, attach and start the background supervisor
+        (idempotent); kwargs go to DatastoreSupervisor."""
+        if self.supervisor is None:
+            self.supervisor = DatastoreSupervisor(self, **kwargs)
+            self.supervisor.start()
+        return self.supervisor
 
     def run_tx(self, fn, name: str = "tx"):
         """Run fn(Transaction) with retry on busy/conflict
-        (reference run_tx_with_name, datastore.rs:216-242). `name`
-        labels the transaction in errors."""
+        (reference run_tx_with_name, datastore.rs:216-242). The
+        `datastore.tx_begin`, `datastore.commit` and
+        `datastore.post_commit` failpoints (scoped by `name`) raise a
+        retryable TxConflict; a connection-class failure discards the
+        connection and counts once per call toward the supervisor."""
+        from .. import failpoints
+
+        def _inj() -> TxConflict:
+            return TxConflict(f"injected conflict (failpoint, tx={name})")
+
+        # one supervisor observation per call, not per attempt: one doomed
+        # transaction retrying three times in ~10 ms is one outage sighting
+        supervisor_notified = False
         for attempt in range(self.MAX_RETRIES):
             conn = None
             try:
+                # inside the try: a failed (re)connect is a retryable
+                # connection-class failure
                 conn = self._connect()
-                conn.execute("BEGIN IMMEDIATE")
-                result = fn(Transaction(conn, self._crypter, self._clock))
+                self._begin(conn)
+                failpoints.hit_scoped("datastore.tx_begin", name, error_factory=_inj)
+                result = fn(self._tx_obj(conn))
+                failpoints.hit_scoped("datastore.commit", name, error_factory=_inj)
                 conn.commit()
+                failpoints.hit_scoped("datastore.post_commit", name, error_factory=_inj)
+                if self.supervisor is not None:
+                    self.supervisor.record_success()
                 return result
-            except (sqlite3.OperationalError, TxConflict) as e:
+            except self._retryable_errors as e:
+                kind = self.classify_error(e)
                 if conn is not None:
-                    try:
-                        conn.rollback()
-                    except Exception:
+                    if kind == "connection":
+                        # never retry into a dead cached connection
+                        try:
+                            conn.rollback()
+                        except Exception:
+                            pass
                         self._discard(conn)
-                if not self._retryable(e) or attempt == self.MAX_RETRIES - 1:
+                    else:
+                        try:
+                            conn.rollback()
+                        except Exception:
+                            self._discard(conn)
+                        else:
+                            self._discard_if_broken(conn)
+                if kind == "connection" and self.supervisor is not None and not supervisor_notified:
+                    supervisor_notified = True
+                    self.supervisor.record_failure(e)
+                if kind == "fatal" or attempt == self.MAX_RETRIES - 1:
                     raise
                 _time.sleep(self._retry_sleep_s(attempt))
             except BaseException:
@@ -1433,7 +1721,10 @@ class Datastore:
         raise AssertionError(f"run_tx {name}: unreachable")
 
     def close(self) -> None:
-        """Close every per-thread connection."""
+        """Stop the supervisor and close every per-thread connection."""
+        if self.supervisor is not None:
+            self.supervisor.stop()
+            self.supervisor = None
         with self._conn_registry_lock:
             conns, self._conn_registry = list(self._conn_registry), set()
         for conn in conns:
@@ -1444,19 +1735,357 @@ class Datastore:
         self._local.conn = None
 
 
-class EphemeralDatastore:
-    """A datastore in a temporary directory, removed by cleanup()
-    (the analog of the reference's ephemeral test database,
-    datastore/test_util.rs:26-120)."""
+class DatastoreSupervisor:
+    """Per-process datastore connection supervisor: a background probe
+    drives a four-state machine
 
-    def __init__(self, clock=None, crypter: Crypter | None = None):
+        up ──(connection failures / slow commits)──▶ degraded
+        degraded ──(failures ≥ down_threshold)─────▶ down
+        down ──(probe succeeds)────────────────────▶ recovering
+        recovering ──(recover_threshold successes)─▶ up
+                   └─(any failure)─────────────────▶ down
+
+    fed by both the probe and real transactions (run_tx reports every
+    connection-class failure and every commit). Consumers: the report
+    writer spills uploads to the journal while it is not up; the
+    admission controller sheds the aggregate routes 503 while it is not
+    up; both job drivers stop acquiring while it is down and step back
+    by `reconnect_delay_s()`. While down, the probe retries on a
+    full-jitter backoff from probe_interval_s toward
+    reconnect_max_interval_s. `transition_log` keeps each change as
+    (time.monotonic(), new state)."""
+
+    STATES = ("up", "degraded", "down", "recovering")
+
+    def __init__(
+        self,
+        ds: Datastore,
+        probe_interval_s: float = 5.0,
+        down_threshold: int = 3,
+        recover_threshold: int = 2,
+        reconnect_max_interval_s: float = 30.0,
+        degraded_hold_s: float = 10.0,
+    ):
+        self._ds = ds
+        self.probe_interval_s = max(0.05, float(probe_interval_s))
+        self.down_threshold = max(1, int(down_threshold))
+        self.recover_threshold = max(1, int(recover_threshold))
+        self.reconnect_max_interval_s = max(self.probe_interval_s, float(reconnect_max_interval_s))
+        self.degraded_hold_s = max(0.0, float(degraded_hold_s))
+        self._lock = threading.Lock()
+        self._state = "up"
+        self._consecutive_failures = 0
+        self._recover_successes = 0
+        self._down_since: float | None = None
+        self._degraded_until = 0.0
+        self._last_error: str | None = None
+        self._transitions: dict[str, int] = {}
+        self.transition_log: list[tuple[float, str]] = []
+        self._stop = threading.Event()
+        # set on every state change so the probe loop re-probes now
+        # instead of sleeping out a reconnect backoff
+        self._kick = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def _set_state_locked(self, new: str) -> None:
+        if new == self._state:
+            return
+        _log.warning("datastore supervisor: %s -> %s", self._state, new)
+        self._state = new
+        self._transitions[new] = self._transitions.get(new, 0) + 1
+        self.transition_log.append((_time.monotonic(), new))
+        self._down_since = _time.monotonic() if new == "down" else None
+        self._kick.set()
+
+    def record_failure(self, error: BaseException | None = None) -> None:
+        """One connection-class failure (probe or real transaction)."""
+        with self._lock:
+            self._consecutive_failures += 1
+            self._recover_successes = 0
+            if error is not None:
+                self._last_error = f"{type(error).__name__}: {error}"
+            if self._consecutive_failures >= self.down_threshold:
+                self._set_state_locked("down")
+            elif self._state == "up":
+                self._set_state_locked("degraded")
+            elif self._state == "recovering":
+                self._set_state_locked("down")
+
+    def record_success(self) -> None:
+        """One successful commit or probe."""
+        with self._lock:
+            self._consecutive_failures = 0
+            if self._state == "down":
+                self._recover_successes = 1
+                self._set_state_locked("recovering")
+            elif self._state == "recovering":
+                self._recover_successes += 1
+                if self._recover_successes >= self.recover_threshold:
+                    self._set_state_locked("up")
+            elif self._state == "degraded" and _time.monotonic() >= self._degraded_until:
+                self._set_state_locked("up")
+
+    def record_slow_commit(self, elapsed_s: float) -> None:
+        """A commit past the writer's spill latency threshold: the
+        database is up but drowning, so degrade (uploads spill to the
+        journal) for at least degraded_hold_s."""
+        with self._lock:
+            self._degraded_until = _time.monotonic() + self.degraded_hold_s
+            if self._state == "up":
+                self._set_state_locked("degraded")
+            self._last_error = f"slow commit: {elapsed_s:.3f}s"
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+    def reconnect_delay_s(self) -> float:
+        """How long a consumer (a job driver's step-back, Retry-After)
+        should wait before trying the datastore again."""
+        with self._lock:
+            if self._state != "down" or self._down_since is None:
+                return self.probe_interval_s
+            downtime = _time.monotonic() - self._down_since
+            return min(max(self.probe_interval_s, downtime / 2), self.reconnect_max_interval_s)
+
+    def readiness(self) -> str | None:
+        """None when ready; a reason when not (only a hard down fails
+        readiness: degraded still serves)."""
+        with self._lock:
+            if self._state == "down":
+                return (
+                    f"datastore down ({self._consecutive_failures} consecutive"
+                    f" failures; last: {self._last_error})"
+                )
+            return None
+
+    def status(self) -> dict:
+        with self._lock:
+            return {
+                "state": self._state,
+                "consecutive_failures": self._consecutive_failures,
+                "down_for_s": (
+                    round(_time.monotonic() - self._down_since, 1) if self._down_since is not None else None
+                ),
+                "last_error": self._last_error,
+                "transitions": dict(self._transitions),
+                "probe_interval_s": self.probe_interval_s,
+            }
+
+    def _probe_once(self) -> None:
+        try:
+            self._ds.probe()
+        except Exception as e:
+            kind = self._ds.classify_error(e)
+            # serialization-class probe failures are contention, not an
+            # outage: real traffic is getting through
+            if kind in ("connection", "other", "fatal"):
+                self.record_failure(e)
+        else:
+            self.record_success()
+
+    def _probe_delay_s(self) -> float:
+        import random
+
+        if self.state != "down":
+            return self.probe_interval_s
+        # jittered reconnect backoff while down, growing toward the cap
+        with self._lock:
+            downtime = _time.monotonic() - self._down_since if self._down_since else 0.0
+        ceiling = min(
+            self.reconnect_max_interval_s,
+            self.probe_interval_s * (1 + downtime / (4 * self.probe_interval_s)),
+        )
+        return random.uniform(self.probe_interval_s * 0.5, ceiling)
+
+    def _run(self) -> None:
+        # first probe at once: a process booted mid-outage must not
+        # advertise up for a whole interval
+        while not self._stop.is_set():
+            self._probe_once()
+            self._kick.clear()
+            # stop() sets _stop before its kick: a kick cleared just above
+            # shows here, so the loop never sleeps through its stop
+            if self._stop.is_set():
+                return
+            self._kick.wait(self._probe_delay_s())
+
+    def start(self) -> "DatastoreSupervisor":
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._run, name="datastore-supervisor", daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._kick.set()
+        thread = self._thread
+        if thread is not None:
+            thread.join(timeout=5)
+            self._thread = None
+
+
+def _pg_schema() -> str:
+    """The canonical DDL translated for Postgres: BLOB->BYTEA,
+    INTEGER->BIGINT (SQLite's INTEGER is 64-bit; Postgres's is 32)."""
+    ddl = re.sub(r"\bBLOB\b", "BYTEA", _SCHEMA)
+    ddl = re.sub(r"\bINTEGER\b", "BIGINT", ddl)
+    return ddl
+
+
+class PostgresDatastore(Datastore):
+    """Postgres engine: the reference's horizontal-scaling deployment
+    (datastore.rs:203-305): REPEATABLE READ with retry on serialization
+    failure, `FOR UPDATE SKIP LOCKED` lease claims (datastore.rs:
+    1836-1905), many worker hosts against one database.
+
+    `dsn` is a postgres:// or postgresql:// URL. An optional `schema`
+    confines the tables to a named schema. `driver` injects a
+    psycopg-shaped module (connect, IsolationLevel, errors,
+    OperationalError): the real psycopg by default, pg_fake's
+    FakePostgresDriver where no server exists."""
+
+    DIALECT = "postgres"
+    # arbitrary fixed key serializing concurrent schema bootstrap
+    _BOOTSTRAP_LOCK_KEY = 0x6A616E7573  # "janus"
+
+    def __init__(self, dsn: str, crypter: Crypter, clock, schema: str | None = None, driver=None):
+        self._driver = driver if driver is not None else _psycopg
+        if self._driver is None:
+            raise RuntimeError("database.url is postgres:// but psycopg is not installed")
+        self._dsn = dsn
+        self._schema = schema
+        super().__init__(dsn, crypter, clock)
+
+    def _bootstrap_schema(self) -> None:
+        conn = self._connect()
+        try:
+            # advisory lock: worker hosts booting against an empty database
+            # would otherwise race the CREATEs and the version insert
+            conn.execute("SELECT pg_advisory_xact_lock(%s)", (self._BOOTSTRAP_LOCK_KEY,))
+            if self._schema is not None:
+                conn.execute(f'CREATE SCHEMA IF NOT EXISTS "{self._schema}"')
+            for stmt in _pg_schema().split(";"):
+                if stmt.strip():
+                    conn.execute(stmt)
+            row = conn.execute("SELECT version FROM schema_version").fetchone()
+            if row is None:
+                conn.execute("INSERT INTO schema_version (version) VALUES (%s)", (SCHEMA_VERSION,))
+            elif row[0] != SCHEMA_VERSION:
+                raise RuntimeError(f"unsupported schema version {row[0]}")
+            conn.commit()
+        except BaseException:
+            conn.rollback()
+            raise
+
+    def _connect(self):
+        self._hit_connect_failpoint()
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            kwargs = {}
+            if self._schema is not None:
+                kwargs["options"] = f"-c search_path={self._schema}"
+            conn = self._driver.connect(self._dsn, autocommit=False, **kwargs)
+            conn.isolation_level = self._driver.IsolationLevel.REPEATABLE_READ
+            self._local.conn = conn
+            self._register_conn(conn)
+        return conn
+
+    def _begin(self, conn) -> None:
+        # psycopg opens the transaction at the first statement
+        # (autocommit=False), at the connection's isolation level
+        pass
+
+    def _adapt(self, conn):
+        return _PgConnAdapter(conn)
+
+    def _connection_lost_error(self, msg: str) -> Exception:
+        return self._driver.OperationalError(msg)
+
+    def _discard_if_broken(self, conn) -> None:
+        if getattr(conn, "closed", False) or getattr(conn, "broken", False):
+            self._discard(conn)
+
+    def classify_error(self, e: BaseException) -> str:
+        errs = self._driver.errors
+        if isinstance(e, LeaseConflict):
+            return "fatal"
+        if isinstance(e, (errs.SerializationFailure, errs.DeadlockDetected, TxConflict)):
+            return "serialization"
+        if isinstance(e, self._driver.OperationalError):
+            # lost or refused connections and server shutdown
+            return "connection"
+        if isinstance(e, getattr(self._driver, "ProgrammingError", ())):
+            return "fatal"
+        return "other"
+
+    @property
+    def _retryable_errors(self) -> tuple:
+        return (
+            self._driver.errors.SerializationFailure,
+            self._driver.errors.DeadlockDetected,
+            self._driver.OperationalError,
+            TxConflict,
+        )
+
+    def drop_schema(self) -> None:
+        """Test teardown: drop the confined schema and everything in it."""
+        assert self._schema is not None
+        conn = self._connect()
+        conn.execute(f'DROP SCHEMA IF EXISTS "{self._schema}" CASCADE')
+        conn.commit()
+
+
+def open_datastore(url: str, crypter: Crypter, clock):
+    """database.url dispatch: postgres:// -> PostgresDatastore, anything
+    else is a SQLite path (reference DbConfig, config.rs:61)."""
+    if url.startswith(("postgres://", "postgresql://")):
+        return PostgresDatastore(url, crypter, clock)
+    return Datastore(url, crypter, clock)
+
+
+class EphemeralDatastore:
+    """A datastore removed by cleanup() (the analog of the reference's
+    ephemeral test database, datastore/test_util.rs:26-120).
+
+    engine="sqlite" (default) uses a temporary file; engine="pgfake" runs
+    PostgresDatastore over pg_fake's recorded-conversation driver (the
+    Postgres engine's code paths, SQLite rows; `pg_driver` holds its
+    log); engine="postgres" uses the server at $JANUS_TEST_DATABASE_URL
+    in a random schema dropped on cleanup."""
+
+    def __init__(self, clock=None, crypter: Crypter | None = None, engine: str = "sqlite"):
         from ..core.time_util import MockClock
 
         self.clock = clock if clock is not None else MockClock()
         self.crypter = crypter or Crypter()
-        self._dir = tempfile.TemporaryDirectory(prefix="janus-tpu-torch-ds-")
-        self.datastore = Datastore(os.path.join(self._dir.name, "ds.sqlite"), self.crypter, self.clock)
+        self._dir = None
+        self.pg_driver = None
+        if engine == "postgres":
+            url = os.environ.get("JANUS_TEST_DATABASE_URL")
+            if not url:
+                raise RuntimeError("JANUS_TEST_DATABASE_URL not set")
+            schema = "janus_test_" + secrets.token_hex(8)
+            self.datastore = PostgresDatastore(url, self.crypter, self.clock, schema=schema)
+        elif engine == "pgfake":
+            from .pg_fake import FakePostgresDriver
+
+            self.pg_driver = FakePostgresDriver()
+            self.datastore = PostgresDatastore(
+                "postgresql://pgfake/janus", self.crypter, self.clock, schema="janus_pgfake", driver=self.pg_driver
+            )
+        elif engine == "sqlite":
+            self._dir = tempfile.TemporaryDirectory(prefix="janus-tpu-torch-ds-")
+            self.datastore = Datastore(os.path.join(self._dir.name, "ds.sqlite"), self.crypter, self.clock)
+        else:
+            raise ValueError(f"unknown datastore engine {engine!r}")
 
     def cleanup(self) -> None:
+        if isinstance(self.datastore, PostgresDatastore):
+            self.datastore.drop_schema()
         self.datastore.close()
-        self._dir.cleanup()
+        if self.pg_driver is not None:
+            self.pg_driver.cleanup()
+        if self._dir is not None:
+            self._dir.cleanup()

@@ -13,12 +13,12 @@ work:
   (the aggregator-to-aggregator steps that finish work already
   admitted) only as the queue approaches full.
 
-A propagated deadline that is already spent sheds too. Shedding raises
-`ShedError`, which the HTTP layer maps to a 429 (capacity) or 503
-(availability) problem document with a `Retry-After` header. Not
-ported: the 503 shed of the aggregate routes while a datastore
-supervisor reports the database down (the port's SQLite store has no
-supervisor).
+A propagated deadline that is already spent sheds too, and so do the
+aggregate routes while a datastore supervisor reports the database not
+up (uploads keep flowing: they land in the spill journal). Shedding
+raises `ShedError`, which the HTTP layer maps to a 429 (capacity) or 503
+(availability) problem document with a `Retry-After` header. Not ported:
+the shed counter.
 """
 
 from __future__ import annotations
@@ -31,8 +31,9 @@ from dataclasses import dataclass
 class ShedError(Exception):
     """Request refused by admission control. `status` is the HTTP
     answer: 429 for capacity sheds (try again soon), 503 for
-    availability sheds (a spent deadline: the server cannot do the work
-    in time); both carry Retry-After."""
+    availability sheds (a spent deadline, the datastore down, the journal
+    full: the server, not the client, is the problem); both carry
+    Retry-After."""
 
     def __init__(
         self,
@@ -102,9 +103,13 @@ class AdmissionController:
     occupancy; the controller derives per-class watermarks from the
     configured shed priority."""
 
-    def __init__(self, cfg: AdmissionConfig, depth_fn=None):
+    def __init__(self, cfg: AdmissionConfig, depth_fn=None, supervisor_fn=None):
         self.cfg = cfg
         self._depth_fn = depth_fn
+        # optional datastore supervisor accessor: while the datastore is
+        # not up, the aggregate-step routes, whose handlers go straight
+        # into datastore transactions, shed 503 up front
+        self._supervisor_fn = supervisor_fn or (lambda: None)
         self._buckets: dict[str, TokenBucket] = {}
         if cfg.upload_bucket_rate > 0:
             self._buckets["upload"] = TokenBucket(
@@ -142,6 +147,15 @@ class AdmissionController:
                 self.cfg.shed_retry_after_s,
                 status=503,
             )
+        if route_class == "aggregate":
+            supervisor = self._supervisor_fn()
+            if supervisor is not None and supervisor.state != "up":
+                raise ShedError(
+                    route_class,
+                    f"datastore_{supervisor.state}",
+                    supervisor.reconnect_delay_s(),
+                    status=503,
+                )
         wm = self._watermarks.get(route_class)
         if wm is not None and self._depth_fn is not None:
             depth, bound = self._depth_fn()

@@ -163,9 +163,11 @@ def circuit_for(inst: VdafInstance) -> Circuit:
     if inst.kind in FAKE_KINDS:
         return Count()
     if inst.kind == "poplar1":
+        # janus_tpu's words: a taskprov opt-in's problem document carries them
         raise ValueError(
-            "Poplar1 has no FLP circuit: the aggregators run it through "
-            "aggregator/poplar1_ops.py, not the Prio3 engine"
+            "Poplar1 has no FLP circuit: the aggregator dispatches it to "
+            "aggregator.poplar1_ops (IDPF + sketch over per-parameter "
+            "prefixes), not the Prio3 engine"
         )
     raise ValueError(f"VDAF kind {inst.kind!r} has no device path in janus_tpu_torch")
 

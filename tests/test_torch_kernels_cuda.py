@@ -53,6 +53,33 @@ def test_expand_kernel_matches_plain(cuda, rounds):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# Prio3Histogram(10000), the taskprov path's circuit: 10,000 Field128
+# inputs a report, so the leader binder's tree leaf level and the helper's
+# measurement share are both ceil(10000 / 7) = 1,429 blocks a report
+HIST_BLOCKS, HIST_LENGTH = 1429, 10000
+
+
+def test_single_block_kernel_matches_plain_at_histogram_10000(cuda):
+    cols = list(_lanes((21, 1024, HIST_BLOCKS), 21, cuda))
+    for out_lanes in (2, 21):
+        got = keccak_cuda.keccak_single_block(cols, out_lanes)
+        want = keccak_cuda.keccak_single_block_plain(cols, out_lanes)
+        torch.cuda.synchronize()
+        assert len(got) == out_lanes and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+def test_expand_kernel_matches_plain_at_histogram_10000(cuda, offset):
+    prefix = _lanes((1024, 5), 23, cuda)
+    before = expand_cuda.expand_f128.launches
+    got = expand_cuda.expand_f128(prefix, HIST_BLOCKS, HIST_LENGTH, block_offset=offset)
+    want = expand_cuda.expand_f128_plain(prefix, HIST_BLOCKS, HIST_LENGTH, block_offset=offset)
+    torch.cuda.synchronize()
+    assert expand_cuda.expand_f128.launches == before + 1
+    assert got[0].shape == (1024, HIST_LENGTH)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 # (head bytes, body elements, body limbs): no body; a body at every byte
 # offset mod 8; messages of 167, 168 and 169 bytes; multi-block bodies
 SPONGE_MESSAGES = [(41, 0, 0), (57, 0, 0), (0, 20, 1), (3, 20, 1), (7, 20, 1), (8, 20, 1), (9, 20, 1),

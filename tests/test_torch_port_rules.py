@@ -82,6 +82,12 @@ def test_port_files_include_every_module_of_the_package():
         "collector.py",
         "aggregator/collection_job_driver.py",
         "aggregator/garbage_collector.py",
+        "messages/taskprov.py",
+        "taskprov.py",
+        "aggregator/cache.py",
+        "failpoints.py",
+        "datastore/pg_fake.py",
+        "ingest/journal.py",
     ):
         assert f"janus_tpu_torch/{module}" in names, module
 
@@ -197,13 +203,23 @@ def test_host_prio3_shards_and_has_no_prepare():
         prio3_host(VdafInstance("sparse_sumvec", bits=2, length=8))
 
 
-def test_upload_journal_and_poplar1_client_are_not_ported():
-    """The upload journal is not ported yet; the Poplar1 client is: it
-    shards with the host Poplar1 and its wire codecs."""
+def test_upload_journal_is_armed_and_poplar1_client_is_ported(tmp_path):
+    """A set upload_journal_path arms the journal (the report writer spills
+    to it, its replayer thread runs) and no path leaves it off; the
+    Poplar1 client shards with the host Poplar1 and its wire codecs."""
+    from janus_tpu_torch.ingest.journal import JournalReplayer, UploadJournal
+
     eph = EphemeralDatastore()
     try:
-        with pytest.raises(NotPorted, match="journal"):
-            Aggregator(eph.datastore, cfg=Config(upload_journal_path="journal"), device="cpu")
+        agg = Aggregator(eph.datastore, cfg=Config(upload_journal_path=str(tmp_path / "journal")), device="cpu")
+        try:
+            assert isinstance(agg.upload_journal, UploadJournal) and agg.report_writer.journal is agg.upload_journal
+            assert isinstance(agg.journal_replayer, JournalReplayer) and agg.journal_replayer._thread is not None
+        finally:
+            agg.close()
+        plain = Aggregator(eph.datastore, device="cpu")
+        assert plain.upload_journal is None and plain.journal_replayer is None and plain.report_writer.journal is None
+        plain.close()
     finally:
         eph.cleanup()
     from janus_tpu_torch.client import Client, ClientParameters
