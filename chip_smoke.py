@@ -5,9 +5,10 @@
 
 Phases, each of which must pass:
 
-  1. build         the three CUDA kernels from csrc/ (one nvcc per source,
+  1. build         the four CUDA kernels from csrc/ (one nvcc per source,
                    all started together): the single-block Keccak, the fused
-                   Field128 expansion and the whole draft sponge;
+                   Field128 expansion, the whole draft sponge and the sparse
+                   scatter-merge;
   2. kernels       each kernel against its plain PyTorch version on the
                    card, bit for bit, at the shapes of the paths that run it
                    (24 rounds, plus a reduced-round case), with its time, the
@@ -17,7 +18,12 @@ Phases, each of which must pass:
                    8,848) and kernel 3 at draft SumVec(100000, 16)'s
                    152,382-block absorb (64 reports, 24 rounds), held against
                    hashlib.shake_128 on 4 reports, since its plain per-block
-                   loop would take hours (its plain_ms is null);
+                   loop would take hours (its plain_ms is null); kernel 4
+                   (the Field128 scatter-add of block-sparse SumVec) at the
+                   sparse north star (1,024 reports x 1,024 compact lanes
+                   into 1,000,000 positions, block 0 in every report) and
+                   on a 64-row bucket with 3 rejected and 24 padding rows
+                   (all sentinel);
   3. sumvec        the fast-mode main path: Prio3SumVec(length=1000, bits=16)
                    at batch 1024 through make_report_batch and two_party_step,
                    with a few reports corrupted; the count must exclude
@@ -39,7 +45,7 @@ Phases, each of which must pass:
   6. draft-count   Prio3Count in draft mode at batch 8192 (Field64
                    rejection sampling), the same checks;
   6a. sumvec100k   the north star Prio3SumVec(100000, 16) (1.6M Field128
-                   inputs a report) at batch 64, fast mode, 3 corrupted,
+                   inputs a report) at batch 32, fast mode, 3 corrupted,
                    the same checks (the small CPU batch is one report at 3
                    rounds, sharded on the card); its engine's stream plan
                    must be (tile 61,936, 49 calls, 26 steps): kernel 2
@@ -50,7 +56,7 @@ Phases, each of which must pass:
                    bytes must lie within vdaf/feasibility.py's model, which
                    the line prints beside them (the step's own peak: what
                    it adds to the card plus its reports' staged shares);
-  6b. draft-sumvec100k  the same circuit in draft mode at batch 32, 24
+  6b. draft-sumvec100k  the same circuit in draft mode at batch 16, 24
                    rounds: kernel 3 alone launches, the helper's share is
                    expanded whole by the sponge and read a tile at a time;
                    no small CPU batch (the plain sponge cannot walk a
@@ -60,6 +66,25 @@ Phases, each of which must pass:
                    16) (BASELINE.json configs[4]), batch 1024, fast mode, 3
                    corrupted, the same checks; the aggregate is the valid
                    reports' offset-binary sum and decodes to their float sum;
+  6d. sparse      block-sparse SumVec at bench.py's sparse north star,
+                   sparse_sumvec(16, 1000000, 64, 16), batch 1024, fast
+                   mode: 1-16 blocks a report, uniform over the 15,625
+                   logical blocks, block 0 in every report; 3 reports
+                   corrupted and 1 with descending block indices on the
+                   wire, which the index predicate (decode_index_columns)
+                   must refuse alone. two_party_step over the compact
+                   encoding (its count must exclude the 3, its aggregate
+                   the compact sum), then EngineCache's leader and helper
+                   init and both parties' aggregate_sparse (counts at 0
+                   before the two-party step, read after the second
+                   aggregate): kernels 1, 2 and 4 must launch, kernel 4
+                   once a dispatch (the pipelined leader's 4 chunks of 256
+                   rows, the helper's one bucket), kernel 3 never; the two logical shares
+                   must sum to numpy's scatter-sum of the 1,020 valid
+                   reports, and 4 reports must give the same shares on the
+                   card and on the CPU. The line gives the steps' seconds,
+                   each aggregate_sparse's, and the engine step's own peak
+                   beside vdaf/feasibility.py's model;
   7. sponge        the draft-sumvec path's two long sponge chains (a
                    joint-rand part's 1,525-block absorb, a measurement
                    share's 1,524-block squeeze with sampling) at batch 1024,
@@ -85,7 +110,7 @@ Phases, each of which must pass:
                    warm) must all answer as replays. Last, the engine's
                    helper_init and the bare helper_init_step are timed in
                    turns on the request's reports. A third request serves
-                   32 SumVec(100000, 16) reports (5 rejects injected) on the
+                   16 SumVec(100000, 16) reports (5 rejects injected) on the
                    fully streamed route, with the same checks.
   9. drive        the leader's side, for SumVec(1000, 16) in fast and in draft
                    mode: a leader and a helper Aggregator, each over its own
@@ -144,6 +169,15 @@ Phases, each of which must pass:
                    sum of the 1,021 accepted measurements. Then the batch is
                    collected as in phase 9 by a fixed-size current-batch
                    query (no GC).
+  10a. upload-drive-sparse  the same for sparse_sumvec(16, 1000000, 64, 16)
+                   (measurements as in phase 6d): besides, an upload whose
+                   public share has descending block indices must get 400
+                   invalidMessage and add no row; the stored batch
+                   aggregations and the collection are 1,000,000 long and
+                   must equal numpy's scatter-sum of the accepted reports.
+                   The line also gives the host seconds at that length:
+                   aggregate_sparse and encode_vec in the job step,
+                   decode_vec in the collection.
   11. poplar1      Poplar1<XofShake128, 16>'s prepare at full width
                    (bench.py's configuration): the leaf level 15, 256
                    prefixes, 512 reports (alphas, prefixes and nonces from
@@ -236,7 +270,7 @@ Output: JSON lines (build, the profile of one draft sumvec step, the
 sponge chains, one serve line per XOF mode with the seconds of each
 stage of the request, one drive line per XOF mode with the seconds of
 each stage of the leader's step and the helper's request in it, the
-upload-drive line with the upload, ingest, create and step seconds, and
+upload-drive lines with the upload, ingest, create and step seconds, and
 in the drive-sumvec and upload-drive lines a "collect" record (the
 seconds of create, the driver's gather, sum, http_aggregate_share and
 store, the helper's handle_aggregate_share, poll and unshard, and GC,
@@ -290,6 +324,14 @@ F128_REDUCE_OPS = 40
 # The two fields' moduli (the sponge kernel takes its modulus as an argument).
 F64 = 2**64 - 2**32 + 1
 F128 = 2**128 - 7 * 2**66 + 1
+
+
+def kernel_counters():
+    """Each kernel's wrapper, whose `launches` counts its launches."""
+    from janus_tpu_torch.ops import expand_cuda, keccak_cuda, scatter_cuda, sponge_cuda
+
+    return {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
+            "keccak_sponge": sponge_cuda.keccak_sponge, "scatter_rows": scatter_cuda.scatter_rows}
 
 
 def log(msg: str) -> None:
@@ -486,6 +528,7 @@ def phase_kernels(torch, dev):
         del head, body
     cases.append(check_long_absorb(torch, dev))
     results["keccak_sponge"] = cases
+    results["scatter_rows"] = check_scatter(torch, dev, rng)
     bad = [c for cs in results.values() for c in cs if c["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
@@ -611,14 +654,19 @@ class MethodSeconds:
         self._lock = threading.Lock()
 
     def __enter__(self):
-        self._saved = {n: getattr(self.cls, n) for n in self.names}
-        for n, fn in self._saved.items():
-            setattr(self.cls, n, self._timed(n, fn))
+        # the class's own entries (a classmethod's descriptor, not the
+        # bound method), put back as they were; None for an inherited one
+        self._saved = {n: self.cls.__dict__.get(n) for n in self.names}
+        for n in self.names:
+            setattr(self.cls, n, self._timed(n, getattr(self.cls, n)))
         return self.seconds
 
     def __exit__(self, *exc):
-        for n, fn in self._saved.items():
-            setattr(self.cls, n, fn)
+        for n, raw in self._saved.items():
+            if raw is None:
+                delattr(self.cls, n)
+            else:
+                setattr(self.cls, n, raw)
 
     def _timed(self, name, fn):
         def timed(*a, **kw):
@@ -698,6 +746,236 @@ def _bump_rows(torch, p3, field, rows):
         x[idx, :1] = v
     return out
 
+def sparse_measurements(inst, batch: int, seed: int):
+    """`batch` measurements of a sparse_sumvec `inst`: 1..max_blocks blocks
+    a report, uniform over the logical blocks, block 0 (the hot block) in
+    every one, values uniform over [0, 2^bits). Returns (the measurements
+    as (block, values) pairs, [batch, max_blocks] int32 block indices with
+    -1 padding, [batch, compact_len] int64 compact values), from numpy's
+    generator at `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mb, bs = inst.max_blocks, inst.block_size
+    n_blocks = inst.length // bs
+    meas = []
+    block_idx = np.full((batch, mb), -1, dtype=np.int32)
+    compact = np.zeros((batch, mb * bs), dtype=np.int64)
+    for i in range(batch):
+        nb = int(rng.integers(1, mb + 1))
+        blocks = [0] + sorted((1 + rng.choice(n_blocks - 1, size=nb - 1, replace=False)).tolist())
+        vals = rng.integers(0, 1 << inst.bits, size=(nb, bs))
+        meas.append([(b, v.tolist()) for b, v in zip(blocks, vals)])
+        block_idx[i, :nb] = blocks
+        compact[i, : nb * bs] = vals.reshape(-1)
+    return meas, block_idx, compact
+
+
+def sparse_truth(length: int, flat, compact, rows) -> list:
+    """The logical sum of the listed reports' compact values at their flat
+    positions (numpy's scatter-add; the sentinel `length` drops a lane)."""
+    import numpy as np
+
+    f, v = flat[rows].reshape(-1), compact[rows].reshape(-1)
+    live = f < length
+    out = np.zeros(length, dtype=np.int64)
+    np.add.at(out, f[live], v[live])
+    return [int(x) for x in out]
+
+
+def check_scatter(torch, dev, rng):
+    """Kernel 4 against its plain version on the card: the north star (1,024
+    reports x 1,024 compact lanes into 1,000,000 positions, blocks uniform
+    over 15,625 with block 0 in every report), then a 64-row bucket with 3
+    rejected rows and 24 padding rows (all sentinel)."""
+    import numpy as np
+
+    from janus_tpu_torch.ops import scatter_cuda
+    from janus_tpu_torch.vdaf.registry import VdafInstance, circuit_for
+    from janus_tpu_torch.vdaf.wire import flat_scatter_indices
+
+    inst = VdafInstance.sparse_sumvec(16, 1_000_000, 64, 16)
+    circ = circuit_for(inst)
+    L = circ.logical_length
+    cases = []
+    for name, b, dead in (("north star, hot block 0", 1024, ()), ("rejected and padding rows", 64, (3, 17, 30, *range(40, 64)))):
+        _, bi, _ = sparse_measurements(inst, b, int(rng.integers(0, 2**31)))
+        bi[list(dead)] = -1
+        flat = flat_scatter_indices(bi, circ)
+        idx = torch.from_numpy(flat).to(dev)
+        lo = rng.integers(0, 2**64 - 1, size=flat.shape, dtype=np.uint64, endpoint=True)
+        hi = rng.integers(0, (F128 >> 64) - 1, size=flat.shape, dtype=np.uint64)  # reduced: below p's high word
+        vals = tuple(torch.from_numpy(a.view(np.int64)).to(dev) for a in (lo, hi))
+        acc = tuple(torch.from_numpy(rng.integers(0, (F128 >> 64) - 1, size=L, dtype=np.uint64).view(np.int64)).to(dev)
+                    for _ in range(2))
+        got = scatter_cuda.scatter_rows(acc, vals, idx)
+        want = scatter_cuda.scatter_rows_plain(acc, vals, idx)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        ms = time_cuda(torch, lambda: scatter_cuda.scatter_rows(acc, vals, idx), reps=20)
+        plain_ms = time_cuda(torch, lambda: scatter_cuda.scatter_rows_plain(acc, vals, idx), reps=1, warmup=0)
+        live = int((flat < L).sum())
+        # bytes: live values and every index read once, acc read once and
+        # written once; operations: one Field128 add (8 32-bit ops) a live lane
+        b_ms, b_by = bound_ms(8 * live, live * 16 + flat.size * 4 + 2 * L * 16)
+        cases.append({"case": name, "reports": b, "compact_lanes": flat.shape[1], "logical_length": L,
+                      "live_lanes": live, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by})
+        del got, want, vals, acc, idx
+    return cases
+
+
+def phase_sparse(torch, dev, inst, batch: int, bad_rows, reps: int = 2, small_batch: int = 4):
+    """Block-sparse SumVec at full width (see the module docstring, phase
+    6d): the two-party step over the compact encoding, then each party's
+    prepare on the engine and aggregate_sparse into the logical vector;
+    returns the record."""
+    import numpy as np
+
+    from janus_tpu_torch.aggregator.engine_cache import DeviceRowsChunks, EngineCache
+    from janus_tpu_torch.parallel import api
+    from janus_tpu_torch.vdaf.feasibility import prepare_row_bytes, sparse_aggregate_bytes
+    from janus_tpu_torch.vdaf.registry import prio3_batched
+    from janus_tpu_torch.vdaf.testing import make_report_batch
+    from janus_tpu_torch.vdaf.wire import decode_index_columns, encode_block_indices, flat_scatter_indices
+
+    counters = kernel_counters()
+    p3 = prio3_batched(inst, dev)
+    circ = p3.circ
+    L = circ.logical_length
+    t0 = time.perf_counter()
+    meas, block_idx, compact = sparse_measurements(inst, batch, SEED + 21)
+    gen_s = time.perf_counter() - t0
+    # one report's indices made descending on the wire: the predicate must
+    # refuse that row alone (its proof is valid)
+    bad_index = next(i for i in range(batch // 2, batch) if block_idx[i, 1] >= 0 and i not in bad_rows)
+    blobs = [encode_block_indices(row) for row in block_idx]
+    blob = bytearray(blobs[bad_index])
+    blob[0:4], blob[4:8] = blob[4:8], blob[0:4]
+    blobs[bad_index] = bytes(blob)
+    t0 = time.perf_counter()
+    dec_idx, idx_ok = decode_index_columns(blobs, circ)
+    flat = flat_scatter_indices(dec_idx, circ)
+    index_s = time.perf_counter() - t0
+    if np.flatnonzero(~idx_ok).tolist() != [bad_index]:
+        raise AssertionError(f"sparse: the index predicate refused {np.flatnonzero(~idx_ok).tolist()}")
+
+    t0 = time.perf_counter()
+    args, _ = make_report_batch(inst, meas, seed=SEED + 21, shard_chunk=256, device=dev)
+    _sync(torch, dev)
+    shard_s = time.perf_counter() - t0
+    args = list(args)
+    args[3] = _bump_rows(torch, p3, args[3], bad_rows)  # corrupt leader proof shares
+    step = api.two_party_step(inst, VERIFY_KEY, device=dev)
+    eng = EngineCache(inst, VERIFY_KEY, device=dev)
+
+    def engine_step():
+        out0, _, ver0, part0 = eng.leader_init(*args[:5])
+        out1, accept, _ = eng.helper_init(args[0], args[1], args[5], args[6], ver0, part0, idx_ok)
+        # one scatter a dispatch: a chunk of a pipelined leader's rows, or
+        # a whole bucket
+        dispatches = sum(len(o.chunks) if isinstance(o, DeviceRowsChunks) else 1 for o in (out0, out1))
+        return accept, [eng.aggregate_sparse(out, accept, flat) for out in (out0, out1)], dispatches
+
+    # the main path: counts at 0 just before, read just after
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    agg0, agg1, count = step(*args)
+    _sync(torch, dev)
+    first_step_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    accept, shares, dispatches = engine_step()
+    first_sparse_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    flp_valid = np.ones(batch, dtype=bool)
+    flp_valid[list(bad_rows)] = False
+    if int(count) != batch - len(bad_rows):
+        raise AssertionError(f"sparse: count {int(count)} != {batch - len(bad_rows)}")
+    compact_total = [int(x) for x in p3.tf.to_ints(p3.merge_agg_shares(agg0, agg1))]
+    if compact_total != [int(x) for x in compact[flp_valid].sum(axis=0)]:
+        raise AssertionError("sparse: the compact aggregate != numpy sum of the valid compact rows")
+    valid = flp_valid & idx_ok
+    if not np.array_equal(accept, valid):
+        raise AssertionError(f"sparse: accepted {int(accept.sum())}, not the {int(valid.sum())} valid reports")
+    total = [(a + b) % F128 for a, b in zip(*shares)]
+    truth = sparse_truth(L, flat, compact, np.flatnonzero(valid))
+    if len(total) != L or total != truth:
+        raise AssertionError("sparse: leader + helper logical shares != numpy scatter-sum of the valid reports")
+    _check_launches(torch, dev, "sparse", launches, kernels=("keccak_single_block", "expand_f128", "scatter_rows"))
+    if _on_card(torch, dev) and launches["scatter_rows"] != dispatches:
+        raise AssertionError(f"sparse: the scatter launched {launches['scatter_rows']} times, not {dispatches}")
+
+    # a small batch agrees with the plain path on the CPU
+    small = []
+    for d in (dev, "cpu"):
+        sargs, _ = make_report_batch(inst, meas[:small_batch], seed=SEED + 22, device=d)
+        se = EngineCache(inst, VERIFY_KEY, device=d)
+        o0, _, v0, q0 = se.leader_init(*sargs[:5])
+        o1, acc_small, _ = se.helper_init(sargs[0], sargs[1], sargs[5], sargs[6], v0, q0, np.ones(small_batch, bool))
+        small.append([se.aggregate_sparse(o, acc_small, flat[:small_batch]) for o in (o0, o1)])
+    if small[0] != small[1]:
+        raise AssertionError("sparse small batch: card and CPU plain path disagree")
+    if [(a + b) % F128 for a, b in zip(*small[0])] != sparse_truth(L, flat, compact, np.arange(small_batch)):
+        raise AssertionError("sparse small batch: aggregate != numpy scatter-sum")
+
+    # timing, and the engine step's own peak beside the model
+    two_s, sparse_s, agg_s = [], [], []
+    for _ in range(reps):
+        t = time.perf_counter()
+        step(*args)
+        _sync(torch, dev)
+        two_s.append(time.perf_counter() - t)
+    before = _peak_reset(torch, dev)
+    for _ in range(reps):
+        t = time.perf_counter()
+        engine_step()
+        _sync(torch, dev)
+        sparse_s.append(time.perf_counter() - t)
+    peak = _peak(torch, dev)
+    # one party's aggregate_sparse alone (host clock: the scatters, the
+    # fetch of the logical vector and its int conversion)
+    out0 = eng.leader_init(*args[:5])[0]
+    for _ in range(reps):
+        t = time.perf_counter()
+        eng.aggregate_sparse(out0, valid, flat)
+        agg_s.append(time.perf_counter() - t)
+    del out0
+    step_peak = peak - before + batch * (circ.input_len + circ.proof_len) * circ.FIELD.ENCODED_SIZE
+    model = max(batch * prepare_row_bytes(circ), sparse_aggregate_bytes(circ, batch))
+    return {
+        "path": "sparse",
+        "vdaf": inst.to_dict(),
+        "batch": batch,
+        "corrupted": len(bad_rows),
+        "bad_index_row": bad_index,
+        "count": int(count),
+        "accepted": int(accept.sum()),
+        "aggregate_ok": True,
+        "logical_length": L,
+        "compact_lanes": circ.output_len,
+        "live_lanes": int((flat[valid] < L).sum()),
+        "block0_reports": int((block_idx[:, 0] == 0).sum()),
+        "small_batch_matches_cpu": small_batch,
+        "launches": launches,
+        "scatter_dispatches": dispatches,
+        "measurements_s": gen_s,
+        "index_predicate_s": index_s,
+        "shard_s": shard_s,
+        "first_step_s": first_step_s,
+        "first_sparse_step_s": first_sparse_s,
+        "two_party_step_s": two_s,
+        "sparse_step_s": sparse_s,
+        "sparse_reports_per_s": batch / (sum(sparse_s) / len(sparse_s)),
+        "aggregate_sparse_s": agg_s,
+        "allocated_before_step_bytes": before,
+        "peak_device_bytes": peak,
+        "step_peak_bytes": step_peak,
+        "model_peak_bytes": model,
+        "within_model": step_peak <= model,
+    }
+
 
 def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: int, shard_chunk: int,
              small_batch: int, small_rounds: int = 24, plan=None, identity_batch: int = 0,
@@ -715,15 +993,13 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
     bytes must lie within the memory model's (vdaf/feasibility.py)."""
     import numpy as np
 
-    from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
     from janus_tpu_torch.parallel import api
     from janus_tpu_torch.vdaf import keccak
     from janus_tpu_torch.vdaf.feasibility import prepare_row_bytes
     from janus_tpu_torch.vdaf.registry import prio3_batched
     from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
 
-    counters = {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
-                "keccak_sponge": sponge_cuda.keccak_sponge}
+    counters = kernel_counters()
     p3 = prio3_batched(inst, dev)
     circ = p3.circ
     draft = inst.xof_mode != "fast"
@@ -938,15 +1214,13 @@ def phase_serve(torch, dev, name: str, inst, batch: int, bad_rows, kernels, shar
     from janus_tpu_torch.core.time_util import MockClock
     from janus_tpu_torch.datastore import EphemeralDatastore
     from janus_tpu_torch.messages import AggregationJobId, PrepareError, Role, Time
-    from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
     from janus_tpu_torch.parallel import api
     from janus_tpu_torch.task import QueryTypeConfig, Task, TaskBuilder
     from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
 
     now = 1_700_000_000
     unknown, expired = 11, 12
-    counters = {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
-                "keccak_sponge": sponge_cuda.keccak_sponge}
+    counters = kernel_counters()
     built = TaskBuilder(QueryTypeConfig.time_interval(), inst, Role.HELPER).with_(
         vdaf_verify_key=VERIFY_KEY, task_expiration=Time(now)
     ).build()
@@ -1222,14 +1496,12 @@ def phase_drive(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
     from janus_tpu_torch.datastore import EphemeralDatastore
     from janus_tpu_torch.datastore.store import Transaction
     from janus_tpu_torch.messages import Duration, Interval, PrepareError, Query, Role, Time
-    from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
     from janus_tpu_torch.task import QueryTypeConfig, Task, TaskBuilder
     from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
 
     now = 1_700_000_000
     expiry_age = 7 * 24 * 3600
-    counters = {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
-                "keccak_sponge": sponge_cuda.keccak_sponge}
+    counters = kernel_counters()
     collector_kp = generate_hpke_config_and_private_key(config_id=7)
     built = TaskBuilder(QueryTypeConfig.time_interval(), inst, Role.LEADER).with_(
         vdaf_verify_key=VERIFY_KEY, aggregator_auth_token=AuthenticationToken.random_bearer(),
@@ -1417,6 +1689,7 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
     from janus_tpu_torch.aggregator.aggregation_job_creator import AggregationJobCreator
     from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver
     from janus_tpu_torch.aggregator.core import Aggregator
+    from janus_tpu_torch.aggregator.engine_cache import EngineCache
     from janus_tpu_torch.aggregator.http_handlers import DapHttpApp, DapServer
     from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig
     from janus_tpu_torch.client import Client, ClientParameters
@@ -1447,21 +1720,19 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
         Role,
         Time,
     )
-    from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
     from janus_tpu_torch.task import QueryTypeConfig, Task, TaskBuilder
+    from janus_tpu_torch.fields.field import Field128
     from janus_tpu_torch.vdaf.registry import circuit_for
     from janus_tpu_torch.vdaf.testing import make_wire_reports, random_measurements
+    from janus_tpu_torch.vdaf.wire import flat_scatter_indices
 
     now = 1_700_000_000
     batch = n_client + n_wire
-    counters = {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
-                "keccak_sponge": sponge_cuda.keccak_sponge}
+    sparse = inst.kind == "sparse_sumvec"
+    counters = kernel_counters()
 
-    def check_launches(what, launches):
-        missing = [k for k in kernels if launches[k] == 0]
-        stray = [k for k in counters if k not in kernels and launches[k] != 0]
-        if missing or stray:
-            raise AssertionError(f"upload-drive {what}: kernels not launched {missing}, stray {stray} ({launches})")
+    def check_launches(what, launches, want=kernels):
+        _check_launches(torch, dev, f"upload-drive {what}", launches, tuple(want))
 
     leader_eds = EphemeralDatastore(MockClock(Time(now)))
     helper_eds = EphemeralDatastore(MockClock(Time(now)))
@@ -1484,7 +1755,10 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
         helper_eds.datastore.run_tx(lambda tx: tx.put_task(helper_task))
         http = HttpClient(timeout=600)
         params = ClientParameters(task.task_id, leader_server.url, helper_server.url, task.time_precision)
-        meas = random_measurements(inst, batch, np.random.default_rng(SEED + 7))
+        if sparse:
+            meas, block_idx, compact = sparse_measurements(inst, batch, SEED + 7)
+        else:
+            meas = random_measurements(inst, batch, np.random.default_rng(SEED + 7))
 
         # 1. the client: both HPKE configs over HTTP, then one host shard
         # and one upload a report
@@ -1492,13 +1766,13 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
         client_upload_s = []
         for m in meas[:n_client]:
             t0 = time.perf_counter()
-            client.upload([int(x) for x in m])
+            client.upload(m if sparse else [int(x) for x in m])
             client_upload_s.append(time.perf_counter() - t0)
 
         # 2. the batched client: the device shard (counts at 0 just
         # before, read just after) and the seals; then 3 reports opened,
         # their leader measurement share bumped, and sealed again
-        torch.cuda.synchronize()
+        _sync(torch, dev)
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -1575,6 +1849,20 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
             raise AssertionError(f"upload-drive: the out-of-range share was answered {status} {body[:200]!r}")
         if count_rows() != batch:
             raise AssertionError("upload-drive: the rejected upload added a row")
+        if sparse:
+            # descending block indices in the public share: janus_tpu's 400
+            # invalidMessage, from the index predicate, before any decrypt
+            k = next(i for i in range(n_wire) if block_idx[n_client + i, 1] >= 0)
+            blob = bytearray(reports[k].public_share)
+            blob[0:4], blob[4:8] = blob[4:8], blob[0:4]
+            bad = Report(ReportMetadata(ReportId(bytes([1]) * 16), reports[k].metadata.time), bytes(blob),
+                         reports[k].leader_encrypted_input_share, reports[k].helper_encrypted_input_share)
+            status, body = http.put(params.upload_uri(), bad.to_bytes(), {"Content-Type": Report.MEDIA_TYPE})
+            problem = json_mod.loads(body)
+            if status != 400 or problem.get("type") != "urn:ietf:params:ppm:dap:error:invalidMessage":
+                raise AssertionError(f"upload-drive: the bad block indices were answered {status} {body[:200]!r}")
+            if count_rows() != batch:
+                raise AssertionError("upload-drive: the upload with bad block indices added a row")
         ingest_stages = dict(leader_server.app._ingest.stage_seconds)
         writer_stages = dict(leader.report_writer.stage_seconds)
 
@@ -1601,18 +1889,20 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
         driver = AggregationJobDriver(leader_eds.datastore, HttpClient(timeout=600),
                                       breakers=OutboundCircuitBreakers(), device=dev)
         job_driver = JobDriver(JobDriverConfig(max_concurrent_job_workers=1), driver.acquirer(), driver.stepper)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        _peak_reset(torch, dev)
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        stepped = job_driver.run_once()
+        with MethodSeconds(EngineCache, ["aggregate_sparse"]) as agg_sparse_s, \
+                MethodSeconds(Field128, ["encode_vec"]) as encode_s:
+            stepped = job_driver.run_once()
         step_s = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated()
+        peak = _peak(torch, dev)
         if stepped != 1 or not driver.step_seconds:
             raise AssertionError(f"upload-drive: {stepped} jobs stepped")
-        check_launches("job step", launches)
+        # a sparse job's accumulate scatters on kernel 4
+        check_launches("job step", launches, tuple(kernels) + (("scatter_rows",) if sparse else ()))
         row = leader_eds.datastore.run_tx(lambda tx: tx._c.execute(
             "SELECT state, lease_token IS NULL, lease_attempts FROM aggregation_jobs").fetchall())
         if row != [("finished", 1, 0)]:
@@ -1635,17 +1925,24 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
                 raise AssertionError(f"upload-drive: batch aggregation rows {[(r[0].hex(), r[2]) for r in rows]}")
             shares.append(field.decode_vec(rows[0][1]))
         total = [(a + b) % field.MODULUS for a, b in zip(*shares)]
-        truth = [int(x) for x in np.asarray(meas)[accept].sum(axis=0).reshape(-1)]
+        if sparse:
+            L = circuit_for(inst).agg_output_len
+            flat = flat_scatter_indices(block_idx, circuit_for(inst))
+            truth = sparse_truth(L, flat, compact, np.flatnonzero(accept))
+        else:
+            truth = [int(x) for x in np.asarray(meas)[accept].sum(axis=0).reshape(-1)]
         if total != truth:
             raise AssertionError("upload-drive: leader + helper shares != the accepted reports' sum")
 
         # 6. collection of the filled batch by a current-batch query
-        collect = collect_batch(
-            torch, counters, task, leader_server.url, leader_eds, collector_kp,
-            Query.fixed_size(FixedSizeQuery(FixedSizeQuery.CURRENT_BATCH)), finished, truth, batch_id=batch_id,
-        )
+        with MethodSeconds(Field128, ["decode_vec"]) as decode_s:
+            collect = collect_batch(
+                torch, counters, task, leader_server.url, leader_eds, collector_kp,
+                Query.fixed_size(FixedSizeQuery(FixedSizeQuery.CURRENT_BATCH)), finished, truth, batch_id=batch_id,
+                dev=dev,
+            )
         return {
-            "path": "upload-drive-sumvec",
+            "path": "upload-drive-sparse" if sparse else "upload-drive-sumvec",
             "vdaf": inst.to_dict(),
             "query_type": {"fixed_size": {"max_batch_size": batch}},
             "batch": batch,
@@ -1676,6 +1973,16 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
             "lease_released": True,
             "replay_ok": True,
             "out_of_range_rejected": True,
+            "bad_indices_rejected": sparse,
+            # host work at the aggregate's length (the logical length when
+            # sparse): the job step's aggregate_sparse (both parties: the
+            # scatters, the fetch, the int conversion) and encode_vec, and
+            # the collection's decode_vec (the collector's two shares)
+            "host_aggregate_len_s": {
+                "aggregate_sparse": agg_sparse_s["aggregate_sparse"],
+                "encode_vec": encode_s["encode_vec"],
+                "collect_decode_vec": decode_s["decode_vec"],
+            },
             "collect": collect,
         }
     finally:
@@ -1698,13 +2005,6 @@ def corrupt_poplar1_keys(poplar):
     return cws_a, k0_a, IdpfKey(k1_b.root_seed, cws_a, corr=k1_b.corr)
 
 
-def poplar1_counters():
-    from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
-
-    return {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
-            "keccak_sponge": sponge_cuda.keccak_sponge}
-
-
 def phase_poplar1(torch, dev):
     """Poplar1's full-width prepare (see the module docstring, phase 11):
     both parties' batched IDPF walk and sketch at the leaf level of
@@ -1717,7 +2017,7 @@ def phase_poplar1(torch, dev):
 
     bits, level, batch = POPLAR1_BITS, POPLAR1_BITS - 1, POPLAR1_BATCH
     bad = (11, 200, 497)
-    counters = poplar1_counters()
+    counters = kernel_counters()
     rng = np.random.default_rng(POPLAR1_SEED)
     poplar = Poplar1(bits)
     t0 = time.perf_counter()
@@ -1764,7 +2064,8 @@ def phase_poplar1(torch, dev):
     step_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    want_launches = {"keccak_single_block": 2 * (2 * (level + 1) + 1), "expand_f128": 0, "keccak_sponge": 0}
+    want_launches = {"keccak_single_block": 2 * (2 * (level + 1) + 1), "expand_f128": 0, "keccak_sponge": 0,
+                     "scatter_rows": 0}
     if launches != want_launches:
         raise AssertionError(f"poplar1: launches {launches}, not {want_launches}")
     ok = sketch_ok(outs)
@@ -1872,7 +2173,7 @@ def phase_drive_poplar1(torch, dev, n_reports: int = 1024, threshold: int = 32, 
 
     bits = POPLAR1_BITS
     now = 1_700_000_000
-    counters = poplar1_counters()
+    counters = kernel_counters()
     rng = np.random.default_rng(POPLAR1_SEED + 1)
     heavy_values = sorted(int(x) for x in rng.choice(1 << bits, size=8, replace=False))
     meas = []
@@ -2022,7 +2323,8 @@ def phase_drive_poplar1(torch, dev, n_reports: int = 1024, threshold: int = 32, 
                             rec["init_s"] += secs
                             add(rec["init_stage_s"], stage)
                             add(rec["helper_init_stage_s"], helper_ta.stage_seconds)
-                            want = {"keccak_single_block": 2 * per_side, "expand_f128": 0, "keccak_sponge": 0}
+                            want = {"keccak_single_block": 2 * per_side, "expand_f128": 0, "keccak_sponge": 0,
+                                    "scatter_rows": 0}
                             if launched != want:
                                 raise AssertionError(f"drive-poplar1 level {level}: an init step launched {launched}")
                     if not stepped and not ran_agg:
@@ -2085,6 +2387,26 @@ def phase_drive_poplar1(torch, dev, n_reports: int = 1024, threshold: int = 32, 
 
 def _on_card(torch, dev) -> bool:
     return torch.device(dev).type == "cuda"
+
+
+def _sync(torch, dev) -> None:
+    """Wait for the card (a rehearsal on the CPU has nothing to wait for)."""
+    if _on_card(torch, dev):
+        torch.cuda.synchronize()
+
+
+def _peak_reset(torch, dev) -> int:
+    """Synchronize and start a peak window; the bytes allocated now (0 off the card)."""
+    if not _on_card(torch, dev):
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak(torch, dev) -> int:
+    """The window's peak device bytes (0 off the card)."""
+    return torch.cuda.max_memory_allocated() if _on_card(torch, dev) else 0
 
 
 def _percentile(xs, q: float):
@@ -2221,7 +2543,7 @@ class TaskprovPair:
         client = Client.with_fetched_configs(params, self.inst, HttpClient(timeout=600), clock=self.leader_eds.clock)
         if client.helper_hpke_config != self.global_kp.config:
             raise AssertionError("taskprov: the helper did not advertise its global HPKE config")
-        counters = _counters()
+        counters = kernel_counters()
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -2309,7 +2631,7 @@ class TaskprovPair:
         from janus_tpu_torch.messages import Duration, Interval, Query
 
         query = Query.time_interval(Interval(window, Duration(self.tp)))
-        return collect_batch(self.torch, _counters(), self.task, self.leader_server.url, self.leader_eds,
+        return collect_batch(self.torch, kernel_counters(), self.task, self.leader_server.url, self.leader_eds,
                              self.collector_kp, query, want_count, truth, helper_http=self.header_http, dev=self.dev)
 
     def close(self) -> None:
@@ -2323,13 +2645,6 @@ class TaskprovPair:
         self.leader_eds.cleanup()
         self.helper_eds.cleanup()
         self.journal_dir.cleanup()
-
-
-def _counters():
-    from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
-
-    return {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
-            "keccak_sponge": sponge_cuda.keccak_sponge}
 
 
 def _b64url(b: bytes) -> str:
@@ -2399,7 +2714,7 @@ def phase_taskprov_histogram(pair: TaskprovPair, n_client: int = 8, n_wire: int 
     (job,) = jobs
 
     driver, job_driver = pair.driver()
-    counters = _counters()
+    counters = kernel_counters()
     on_card = _on_card(torch, dev)
     before = 0
     if on_card:
@@ -2595,7 +2910,7 @@ def _outage_drill(pair: TaskprovPair, n_client: int, n_wire: int, bad_rows):
     # breaker's cooldown (the host's)
     pair.advance(max(60, row[3] - pair.now + 1))
     time.sleep(max(0.0, 1.05 - (time.monotonic() - helper_times["clear"])))
-    counters = _counters()
+    counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2756,10 +3071,12 @@ def main() -> int:
     # on the streamed query in both XOF modes, and FixedPointVec(1000, 16)
     big = VdafInstance.sum_vec(100_000, 16)
     big_plan = (61_936, 49, 26)
-    # (batches halved from 128, 64 and 64: each phase ran past 60 s at those)
+    # (batches halved from 128, 64 and 64: each phase ran past 60 s at those;
+    # halved again from 64 and 32 when the sparse phases took the whole
+    # script past 480 s: the device shard is most of these phases)
     runs = (
-        ("sumvec100k", big, 64, (5, 30, 50), fast, 1, 16, 1, 3, big_plan, 4, True),
-        ("draft-sumvec100k", VdafInstance("sumvec", bits=16, length=100_000, xof_mode="draft"), 32, (5, 17, 25),
+        ("sumvec100k", big, 32, (5, 17, 25), fast, 1, 16, 1, 3, big_plan, 4, True),
+        ("draft-sumvec100k", VdafInstance("sumvec", bits=16, length=100_000, xof_mode="draft"), 16, (3, 9, 13),
          ("keccak_sponge",), 1, 16, 0, 24, big_plan, 2, False),
         ("fixedpoint", VdafInstance.fixed_point_vec(1000, 16), 1024, (5, 300, 1000), fast, 3, 256, 4, 24, None, 0,
          False),
@@ -2773,6 +3090,11 @@ def main() -> int:
         if out is not None:
             paths[name] = out[0]
         out = None
+    # block-sparse SumVec at the repo's sparse north star (bench.py's config)
+    sparse_inst = VdafInstance.sparse_sumvec(16, 1_000_000, 64, 16)
+    out = phase("sparse", phase_sparse, torch, dev, sparse_inst, 1024, (5, 300, 1000)) if not failed else None
+    if out is not None:
+        paths["sparse"] = out
     sponge = phase("sponge", phase_sponge, torch, dev) if not failed else None
     if sponge is not None:
         emit({"sponge": {"batch": 1024, **sponge}})
@@ -2781,7 +3103,7 @@ def main() -> int:
         ("sumvec", VdafInstance.sum_vec(1000, 16), fast, 1024, (5, 300, 1000), 256, False),
         ("draft-sumvec", VdafInstance("sumvec", bits=16, length=1000, xof_mode="draft"), ("keccak_sponge",), 1024,
          (5, 300, 1000), 256, False),
-        ("sumvec100k", big, fast, 32, (5, 17, 25), 16, True),  # halved from 64: it ran past 60 s
+        ("sumvec100k", big, fast, 16, (3, 7, 14), 16, True),  # halved from 64 (past 60 s), then from 32 (the script past 480 s)
     ):
         out = phase(f"serve-{name}", phase_serve, torch, dev, name, inst, batch, bad, kernels_of_path, chunk,
                     streamed, 1 if streamed else 2) if not failed else None
@@ -2799,6 +3121,11 @@ def main() -> int:
             emit({"drive": out})
     out = phase("upload-drive-sumvec", phase_upload_drive, torch, dev, VdafInstance.sum_vec(1000, 16), 8, 1016,
                 (5, 300, 1000), fast) if not failed else None
+    if out is not None:
+        serves[out["path"]] = out
+        emit({"upload_drive": out})
+    out = phase("upload-drive-sparse", phase_upload_drive, torch, dev, sparse_inst, 8, 1016, (5, 300, 1000),
+                fast) if not failed else None
     if out is not None:
         serves[out["path"]] = out
         emit({"upload_drive": out})
@@ -2839,13 +3166,17 @@ def main() -> int:
         return 1
 
     # each kernel's launches are read from the path that runs it
-    main_path = {"keccak_single_block": "sumvec", "expand_f128": "sumvec", "keccak_sponge": "draft-sumvec"}
+    main_path = {"keccak_single_block": "sumvec", "expand_f128": "sumvec", "keccak_sponge": "draft-sumvec",
+                 "scatter_rows": "sparse"}
     source = {"keccak_single_block": "janus_tpu_torch/csrc/keccak.cu",
               "expand_f128": "janus_tpu_torch/csrc/expand_f128.cu",
-              "keccak_sponge": "janus_tpu_torch/csrc/keccak_sponge.cu"}
+              "keccak_sponge": "janus_tpu_torch/csrc/keccak_sponge.cu",
+              "scatter_rows": "janus_tpu_torch/csrc/scatter_rows.cu"}
+    # kernel 4 replaces an XLA-compiled lax.scan, not a Pallas kernel
     replaces = {"keccak_single_block": "janus_tpu/ops/keccak_pallas.py:236",
                 "expand_f128": "janus_tpu/ops/expand_pallas.py:249",
-                "keccak_sponge": "janus_tpu/ops/keccak_pallas.py:169"}
+                "keccak_sponge": "janus_tpu/ops/keccak_pallas.py:169",
+                "scatter_rows": "janus_tpu/vdaf/prio3_jax.py:458"}
     kernels = []
     for name, cases in checks.items():
         main_case = cases[0]

@@ -78,7 +78,14 @@ def bucket_metadata(task, metadatas, lanes):
 
 
 def accumulate_batched(
-    task, engine, accumulator: "Accumulator", out_shares, accept, metadatas, batch_identifier: bytes | None = None
+    task,
+    engine,
+    accumulator: "Accumulator",
+    out_shares,
+    accept,
+    metadatas,
+    batch_identifier: bytes | None = None,
+    flat_idx=None,
 ) -> None:
     """Group accepted lanes by batch bucket; one masked device reduce per
     bucket (replaces the reference's per-report Accumulator::update loop,
@@ -88,6 +95,11 @@ def accumulate_batched(
     `batch_identifier`: for fixed-size tasks, the job's BatchId bytes —
     every accepted lane lands in that one batch. None (time-interval
     tasks) buckets lanes by their time_precision window.
+
+    `flat_idx` ([n, compact_len] int32 scatter targets) marks a
+    block-sparse task: each bucket's reduce is a scatter into a logical
+    accumulator (engine.aggregate_sparse), so the stored share has the
+    logical length.
     """
     n = len(metadatas)
     if n == 0:
@@ -97,7 +109,10 @@ def accumulate_batched(
     bucket_mask = np.zeros(n, dtype=bool)
     for bid, lanes in buckets.items():
         bucket_mask[lanes] = True
-        share_ints = engine.aggregate(out_shares, bucket_mask)
+        if flat_idx is not None:
+            share_ints = engine.aggregate_sparse(out_shares, bucket_mask, flat_idx)
+        else:
+            share_ints = engine.aggregate(out_shares, bucket_mask)
         bucket_mask[lanes] = False
         checksum, interval = bucket_metadata(task, metadatas, lanes)
         accumulator.update(

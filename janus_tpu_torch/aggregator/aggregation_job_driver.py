@@ -35,9 +35,9 @@ device-hang branch.
 Not ported yet: the resident accumulators and `ResidentFlusher`
 (`ResidentConfig(enabled=True)` is refused), the stage pipeline
 (`step_pipeline.py`, which needs the engine's prestaged leader columns),
-the sparse SumVec path, the peer outage tracker; and the calls into
-metrics, trace spans, failpoints and the conservation ledger. Each
-step's stage seconds are kept in `step_seconds`.
+the sparse pending deltas of the resident route, the peer outage tracker;
+and the calls into metrics, trace spans, failpoints and the conservation
+ledger. Each step's stage seconds are kept in `step_seconds`.
 """
 
 from __future__ import annotations
@@ -97,11 +97,13 @@ from ..vdaf.wire import (
     PP_FINISH,
     PP_INITIALIZE,
     Prio3Wire,
+    block_index_rows,
     decode_field_rows,
     decode_pingpong,
     encode_field_rows,
     encode_pingpong,
     encode_pingpong_share_column,
+    flat_scatter_indices,
     pingpong_finish_frame_matches,
     seeds_to_lanes,
 )
@@ -181,6 +183,10 @@ class InitStepState:
     continue_msgs: list = field(default_factory=list)  # multi-round: the next message
     # accumulate output
     accumulator: Accumulator | None = None
+    # block-sparse tasks: the public block indices of each lane from the
+    # decoded public shares ([n, max_blocks] int32, -1 for padding and
+    # failed lanes); the accumulate stage expands them to flat targets
+    block_idx: object = None
 
 
 class AggregationJobDriver:
@@ -301,6 +307,7 @@ class AggregationJobDriver:
         part_rows1: list[bytes | None] = [None] * n
         failed = [None] * n  # PrepareError or None
         circ = wire.circ
+        idx_rows: list | None = [None] * n if wire.sparse else None
         mlen = circ.input_len * wire.enc_size
         plen = circ.proof_len * wire.enc_size
         for i, ra in enumerate(pending):
@@ -317,7 +324,10 @@ class AggregationJobDriver:
             if wire.uses_jr:
                 blind_rows[i] = payload[mlen + plen :]
                 try:
-                    part_rows0[i], part_rows1[i] = wire.decode_public_share(rep.public_share)
+                    parts = wire.decode_public_share(rep.public_share)
+                    part_rows0[i], part_rows1[i] = parts
+                    if idx_rows is not None:
+                        idx_rows[i] = parts.indices  # validated by the decode
                 except DecodeError:
                     failed[i] = PrepareError.INVALID_MESSAGE
 
@@ -341,7 +351,8 @@ class AggregationJobDriver:
         else:
             blind_lanes = None
             public_parts = None
-        return meas, proof, nonce_lanes, blind_lanes, public_parts, ok, failed
+        block_idx = block_index_rows(idx_rows, circ) if idx_rows is not None else None
+        return meas, proof, nonce_lanes, blind_lanes, public_parts, ok, failed, block_idx
 
     # --- the step (reference :102-726), as the stage methods in order ---
     def read_job(self, acquired: AcquiredAggregationJob):
@@ -436,7 +447,7 @@ class AggregationJobDriver:
         device-ready arrays."""
         wire = Prio3Wire(circuit_for(task.vdaf))
         engine = engine_cache(task.vdaf, task.vdaf_verify_key, self.device)
-        meas, proof, nonce_lanes, blind_lanes, public_parts, ok, failed = self._stage_pending(
+        meas, proof, nonce_lanes, blind_lanes, public_parts, ok, failed, block_idx = self._stage_pending(
             task, wire, engine, pending, reports
         )
         return InitStepState(
@@ -455,6 +466,7 @@ class AggregationJobDriver:
             public_parts=public_parts,
             ok=ok,
             failed=failed,
+            block_idx=block_idx,
         )
 
     def device_init(self, st: InitStepState) -> None:
@@ -588,7 +600,16 @@ class AggregationJobDriver:
             st.accept,
             metadatas,
             batch_identifier=fixed_size_batch_id(pbs),
+            flat_idx=self._flat_idx(st),
         )
+
+    @staticmethod
+    def _flat_idx(st: InitStepState):
+        """[n, compact_len] int32 scatter targets of a sparse job's staged
+        block indices; None for a dense task."""
+        if st.block_idx is None:
+            return None
+        return flat_scatter_indices(st.block_idx, st.wire.circ)
 
     def commit_finish(self, st: InitStepState) -> None:
         """Commit stage: tx2 writes the results and releases the lease

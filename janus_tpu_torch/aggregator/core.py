@@ -140,9 +140,12 @@ from ..vdaf.wire import (
     PP_FINISH,
     PP_INITIALIZE,
     Prio3Wire,
+    block_index_rows,
+    decode_index_columns,
     decode_pingpong,
     encode_field_rows,
     encode_pingpong,
+    flat_scatter_indices,
     lanes_in_range,
     lanes_to_seed_rows,
     seeds_to_lanes,
@@ -286,8 +289,18 @@ class TaskAggregator:
         max_time = now.add(task.tolerable_clock_skew).seconds
         expiry = task.task_expiration.seconds if task.task_expiration else None
         kp_cache: dict[int, object] = {}
+        # a sparse task's index predicate runs over the whole window at
+        # once; a lane of the wrong total length gets None, so it fails
+        # as the per-report decoder's length check would
+        sparse_ok = None
+        if self.poplar is None and self.wire.sparse:
+            rows = [
+                col.public_shares[i] if len(col.public_shares[i]) == self.wire.public_share_len else None
+                for i in idxs
+            ]
+            _, sparse_ok = decode_index_columns(rows, self.wire.circ)
         out: list = []
-        for i in idxs:
+        for k, i in enumerate(idxs):
             t = col.times[i]
             if t > max_time:
                 out.append(errors.ReportTooEarly("report from the future", task.task_id))
@@ -300,7 +313,11 @@ class TaskAggregator:
                 continue
             # a Poplar1 public share is decoded with the input share, in
             # the decrypt stage (validate_shares decodes it once)
-            if self.poplar is None:
+            if sparse_ok is not None:
+                if not sparse_ok[k]:
+                    out.append(errors.InvalidMessage("bad public share: invalid sparse block indices", task.task_id))
+                    continue
+            elif self.poplar is None:
                 try:
                     self.wire.decode_public_share(col.public_shares[i])
                 except DecodeError as e:
@@ -448,6 +465,8 @@ class TaskAggregator:
         part_rows0: list[bytes | None] = [None] * n
         part_rows1: list[bytes | None] = [None] * n
         leader_prep_rows: list[bytes | None] = [None] * n
+        # block-sparse tasks: the validated public block indices per lane
+        idx_rows: list | None = [None] * n if self.wire.sparse else None
 
         # pass 1: cheap per-report checks + keypair lookup; HPKE lanes
         # collect per config id for the batched opens
@@ -509,6 +528,8 @@ class TaskAggregator:
             if self.wire.uses_jr:
                 part_rows0[i] = parts[0]
                 part_rows1[i] = parts[1]
+            if idx_rows is not None:
+                idx_rows[i] = parts.indices
             leader_prep_rows[i] = prep_share
 
         # replay check against prior aggregations: one set-valued query
@@ -591,6 +612,9 @@ class TaskAggregator:
         # :1811-1826); a two-round job accumulates at continue-finish
         accumulator = Accumulator(task, self.cfg.batch_aggregation_shard_count)
         if not multi_round:
+            flat_idx = None
+            if idx_rows is not None:
+                flat_idx = flat_scatter_indices(block_index_rows(idx_rows, self.wire.circ), self.wire.circ)
             accumulate_batched(
                 task,
                 self.engine,
@@ -599,6 +623,7 @@ class TaskAggregator:
                 accept,
                 [pi.report_share.metadata for pi in inits],
                 batch_identifier=fixed_size_batch_id(req.partial_batch_selector),
+                flat_idx=flat_idx,
             )
         t4 = time.perf_counter()
         stage["accumulate"] = t4 - t3

@@ -18,6 +18,10 @@ serving code reaches the card only through an `EngineCache`:
 - A leader batch of at least 2 x PIPELINE_CHUNK rows stages its chunks
   from pinned host memory on a side stream, so chunk k's compute
   overlaps the later chunks' copies.
+- A block-sparse SumVec engine (`sparse`) aggregates by scattering the
+  accepted reports' compact out shares into a logical accumulator by
+  their public block indices (`aggregate_sparse`, on the scatter kernel
+  of ops/scatter_cuda.py).
 
 One engine may serve several threads at once: in one process the
 helper's handler threads and the leader's job-driver workers share it
@@ -31,9 +35,9 @@ a lock (ops/cuda_build.py `count_launch`).
 The engine runs on CUDA unless it is built with device="cpu", where the
 kernels' plain versions run. Values equal janus_tpu's EngineCache on
 the same inputs. Not ported yet: cross-job coalescing, prestaged leader
-columns, resident accumulators, the sparse aggregate, the mesh, the
-dispatch watchdog with its quarantine and canary, and the compile
-caches (the port runs eagerly and compiles nothing).
+columns, resident accumulators (with them the sparse pending deltas),
+the mesh, the dispatch watchdog with its quarantine and canary, and the
+compile caches (the port runs eagerly and compiles nothing).
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ import torch
 
 from ..convert import from_numpy_u64, to_numpy_u64
 from ..device import resolve_device
+from ..fields.tfield import fzeros
+from ..vdaf.circuits import SparseSumVec
 from ..vdaf.feasibility import device_memory_budget, feasible_bucket
 from ..vdaf.registry import VdafInstance, prio3_batched
 
@@ -214,6 +220,8 @@ class EngineCache:
             )
         self._oom_lock = threading.Lock()
         self.oom_history: deque = deque(maxlen=16)
+        # block-sparse SumVec: aggregates scatter to the logical length
+        self.sparse = isinstance(self.p3.circ, SparseSumVec)
 
     def _dispatch(self, name: str, fn, *args):
         """Run one step on staged device tensors: the one place a device
@@ -476,6 +484,75 @@ class EngineCache:
         except Exception as e:
             _annotate_dispatch_bucket(e, dispatch_b, fixed=fixed)
             raise
+
+    # --- block-sparse aggregate: scatter-merge into a logical accumulator ---
+    def aggregate_sparse(self, out_shares, mask, flat_idx):
+        """Masked sparse aggregate as a list of Python ints of the logical
+        length: every accepted report's compact out share scattered into
+        one logical accumulator at its flat positions. flat_idx: [n,
+        compact_len] int32 (wire.flat_scatter_indices), the sentinel L on
+        padding lanes; a rejected report's row becomes all sentinel here.
+        out_shares as for `aggregate`. On memory exhaustion the ladder
+        halves the rows a dispatch takes and starts the accumulator
+        again; at the floor it raises (there is no host scatter)."""
+        L = self.p3.circ.agg_output_len
+        accept = np.asarray(mask, dtype=bool)
+        idx = np.where(accept[:, None], np.asarray(flat_idx, dtype=np.int32), np.int32(L)).astype(np.int32)
+        while True:
+            try:
+                acc = self._scatter_dispatch(self._zeros_row(L), out_shares, idx)
+                return [int(x) for x in self.p3.tf.to_ints(acc)]
+            except Exception as e:  # noqa: BLE001 - memory filter inside
+                self._handle_engine_error(e, idx.shape[0])
+
+    def _zeros_row(self, length: int):
+        """A fresh logical accumulator: a zero field row on the device."""
+        return fzeros(self.p3.tf, (length,), self.device)
+
+    def _scatter_rows(self, acc, values, idx, s: int, e: int):
+        """Scatter rows [s, e) of a staged value into acc, at most the cap
+        (read once) rows a dispatch. values: limb tensors on the device;
+        idx: [rows, cm] host int32."""
+        cap = self.bucket_cap
+        step = e - s if cap is None else min(cap, e - s)
+        for lo in range(s, e, step):
+            hi = min(lo + step, e)
+            try:
+                rows = tuple(x[lo:hi] for x in values)
+                idx_t = torch.from_numpy(np.ascontiguousarray(idx[lo - s : hi - s])).to(self.device)
+                acc = self._dispatch("scatter_rows", self.p3.scatter_rows, acc, rows, idx_t)
+            except Exception as exc:
+                _annotate_dispatch_bucket(exc, hi - lo)
+                raise
+        return acc
+
+    def _scatter_dispatch(self, acc, out_shares, idx):
+        """Scatter every row of `out_shares` whose idx row is live into
+        acc (idx: [n, compact_len] host int32, the sentinel L drops a
+        lane). DeviceRowsChunks go chunk by chunk; a DeviceRows scatters
+        its whole bucket, the padding rows with all-sentinel idx rows, so
+        their garbage never lands; host rows pad to their bucket the same
+        way."""
+        L = acc[0].shape[0]
+        if isinstance(out_shares, DeviceRowsChunks):
+            off = 0
+            for chunk in out_shares.chunks:
+                acc = self._scatter_dispatch(acc, chunk, idx[off : off + chunk.n])
+                off += chunk.n
+            return acc
+        if isinstance(out_shares, DeviceRows):
+            b = out_shares.value[0].shape[0]
+            s = out_shares.offset
+            full = np.full((b, idx.shape[1]), np.int32(L), np.int32)
+            full[s : s + out_shares.n] = idx
+            return self._scatter_rows(acc, out_shares.value, full, 0, b)
+        # host limb rows
+        n = idx.shape[0]
+        b = bucket_size(n)
+        (padded,) = put_args(pad_args(b, out_shares), self.device)
+        full = np.full((b, idx.shape[1]), np.int32(L), np.int32)
+        full[:n] = idx
+        return self._scatter_rows(acc, padded, full, 0, b)
 
 
 # LRU over live engines, keyed by (instance, verify key, device).

@@ -7,7 +7,9 @@ FLP lengths follow. Count checks x*x - x with one Mul; Sum checks each
 bit through PolyEval(x^2 - x); SumVec and Histogram check bits
 chunk-wise through ParallelSum(Mul, chunk_length); CountVec is SumVec
 with one bit an entry; FixedPointVec checks its bits and its L2 norm
-through one ParallelSum(Mul, chunk_length) use. The collector turns
+through one ParallelSum(Mul, chunk_length) use. SparseSumVec is SumVec
+at a compact width whose aggregate is scattered to a longer logical
+vector by public block indices (`agg_output_len`). The collector turns
 an unsharded aggregate into its result with each circuit's `decode`
 (janus_tpu/vdaf/reference.py Circuit.decode).
 """
@@ -84,6 +86,12 @@ class Circuit:
     def verifier_len(self) -> int:
         return 1 + sum(g.gadget.arity + 1 for g in self.gadget_uses)
 
+    @property
+    def agg_output_len(self) -> int:
+        """Length of an aggregate share: output_len, except for a sparse
+        circuit, whose aggregate has the logical length."""
+        return self.output_len
+
     def decode(self, output: list[int], num_measurements: int):
         """The aggregate result of an unsharded aggregate `output`."""
         raise NotImplementedError
@@ -141,6 +149,98 @@ class SumVec(Circuit):
 
     def decode(self, output, num_measurements):
         return list(output)
+
+
+def validate_block_indices(indices, n_logical_blocks: int, max_blocks: int) -> str | None:
+    """The sparse block-index predicate (janus_tpu/vdaf/reference.py
+    validate_block_indices). The indices are public: both aggregators
+    check the same predicate on the same bytes. Valid when there are
+    exactly `max_blocks` entries, each -1 (a padding lane) or in
+    [0, n_logical_blocks), the non-padding prefix strictly increasing,
+    and no index after a padding lane. Returns None when valid, else
+    the reason."""
+    indices = list(indices)
+    if len(indices) != max_blocks:
+        return f"expected {max_blocks} block indices, got {len(indices)}"
+    prev = -1
+    padding = False
+    for t, ix in enumerate(indices):
+        if ix == -1:
+            padding = True
+            continue
+        if padding:
+            return f"block index at lane {t} follows a padding lane"
+        if not 0 <= ix < n_logical_blocks:
+            return f"block index {ix} at lane {t} out of range [0, {n_logical_blocks})"
+        if ix <= prev:
+            return f"block index {ix} at lane {t} not strictly increasing (previous {prev})"
+        prev = ix
+    return None
+
+
+class SparseSumVec(SumVec):
+    """Block-sparse vector sum (janus_tpu/vdaf/reference.py SparseSumVec):
+    a logical `length`-dim vector carried as up to `max_blocks`
+    (block_index, `block_size` values) pairs. The FLP is SumVec at the
+    compact length `max_blocks * block_size` (front-packed blocks, zero
+    padding); the block indices are public and ride the public share.
+    An aggregate share has the logical length: each report's compact out
+    share is scattered into it by its indices (Prio3Batched.scatter_rows
+    on the device)."""
+
+    algo_id = 0x000000F2  # janus_tpu's extension codepoint
+
+    def __init__(self, length: int, block_size: int, max_blocks: int, bits: int, chunk_length: int | None = None):
+        if length <= 0 or block_size <= 0 or max_blocks <= 0:
+            raise ValueError("sparse_sumvec geometry must be positive")
+        if length % block_size:
+            raise ValueError(f"logical length {length} must be a multiple of block_size {block_size}")
+        self.logical_length = length
+        self.block_size = block_size
+        self.max_blocks = max_blocks
+        self.n_logical_blocks = length // block_size
+        if max_blocks > self.n_logical_blocks:
+            raise ValueError(f"max_blocks {max_blocks} exceeds the {self.n_logical_blocks} logical blocks")
+        super().__init__(length=max_blocks * block_size, bits=bits, chunk_length=chunk_length)
+
+    @property
+    def agg_output_len(self) -> int:
+        return self.logical_length
+
+    def compact_values(self, measurement):
+        """(compact value row of max_blocks * block_size ints, front-packed
+        indices of max_blocks ints with -1 padding) of a measurement, an
+        iterable of (block_index, block_values) pairs."""
+        pairs = sorted((int(ix), list(vals)) for ix, vals in measurement)
+        if len(pairs) > self.max_blocks:
+            raise ValueError(f"more than {self.max_blocks} blocks")
+        indices = [ix for ix, _ in pairs] + [-1] * (self.max_blocks - len(pairs))
+        reason = validate_block_indices(indices, self.n_logical_blocks, self.max_blocks)
+        if reason is not None:
+            raise ValueError(reason)
+        values = []
+        for ix, vals in pairs:
+            if len(vals) != self.block_size:
+                raise ValueError(f"block {ix} has {len(vals)} values, expected {self.block_size}")
+            values.extend(int(v) for v in vals)
+        values.extend([0] * (self.block_size * (self.max_blocks - len(pairs))))
+        return values, indices
+
+    def encode_indices(self, measurement):
+        """Front-packed public block indices (-1 padding) for the wire."""
+        return self.compact_values(measurement)[1]
+
+    def expand(self, indices, compact_row):
+        """One compact row scattered to the logical vector by its indices."""
+        out = [0] * self.logical_length
+        F = self.FIELD
+        bs = self.block_size
+        for t, ix in enumerate(indices):
+            if ix == -1:
+                continue
+            for o, v in enumerate(compact_row[t * bs : (t + 1) * bs]):
+                out[ix * bs + o] = F.add(out[ix * bs + o], v)
+        return out
 
 
 class Histogram(Circuit):

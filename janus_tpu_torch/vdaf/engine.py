@@ -7,7 +7,8 @@ is elementwise. Field elements are identical to the JAX package's
 vdaf/engine.py on the same inputs (held against it by the tests).
 
 Every Prio3 circuit here (Count, Sum, SumVec and CountVec, Histogram,
-FixedPointVec) has exactly one gadget use of degree 2; the adapters
+FixedPointVec, and SparseSumVec, which is SumVec at its compact width)
+has exactly one gadget use of degree 2; the adapters
 below encode each circuit's gadget-call schedule as reshapes over the
 batch. Per-report validity never branches: an invalid report yields a
 False lane in the decision mask and is dropped at aggregation.
@@ -45,7 +46,17 @@ from ..fields.tfield import (
 )
 from ..ops.limbmm import fold_contract
 from ..ops.ntt import intt_batched, lagrange_eval_weights, ntt_batched, poly_eval_powers, powers
-from .circuits import EVAL_POINT_CANDIDATES, Circuit, Count, FixedPointVec, Histogram, Sum, SumVec, next_pow2
+from .circuits import (
+    EVAL_POINT_CANDIDATES,
+    Circuit,
+    Count,
+    FixedPointVec,
+    Histogram,
+    SparseSumVec,
+    Sum,
+    SumVec,
+    next_pow2,
+)
 
 
 def tf_for(circuit: Circuit):
@@ -279,7 +290,15 @@ class BFixedPointVec(_BChunked):
         return _pow2_weighted_sum(self.tf, self._entry_bits(inp), self.circ.bits)
 
 
-_ADAPTERS = {Count: BCount, Sum: BSum, SumVec: BSumVec, Histogram: BHistogram, FixedPointVec: BFixedPointVec}
+# the sparse FLP is SumVec over the compact encoding: BSumVec as it is
+_ADAPTERS = {
+    Count: BCount,
+    Sum: BSum,
+    SumVec: BSumVec,
+    SparseSumVec: BSumVec,
+    Histogram: BHistogram,
+    FixedPointVec: BFixedPointVec,
+}
 
 
 def _two_power_consts(tf, bits: int, device):
@@ -418,7 +437,7 @@ def flp_query_batched(bc: BatchedCircuit, inp_share, proof_share, query_rand, jo
     The chunked circuits (SumVec and CountVec, Histogram) take the
     contraction path (_flp_query_batched_mm); Count, Sum and
     FixedPointVec take the elementwise fold over calls_inputs."""
-    if type(bc.circ) in (SumVec, Histogram):
+    if type(bc.circ) in (SumVec, SparseSumVec, Histogram):
         return _flp_query_batched_mm(bc, inp_share, proof_share, query_rand, joint_rand, num_shares)
     tf = bc.tf
     shares_inv = bc.circ.FIELD.inv(num_shares)
@@ -495,7 +514,7 @@ def stream_plan(bc: BatchedCircuit, min_input_len: int | None = None, tile_elems
     for field, to the JAX package's plan for the same arguments.
     """
     circ = bc.circ
-    if type(circ) not in (SumVec, Histogram) or bc.tf.LIMBS != 2:
+    if type(circ) not in (SumVec, SparseSumVec, Histogram) or bc.tf.LIMBS != 2:
         return None
     if circ.input_len < (STREAM_MIN_INPUT_LEN if min_input_len is None else min_input_len):
         return None

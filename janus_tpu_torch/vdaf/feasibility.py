@@ -52,6 +52,14 @@ Transient phases (the largest counts)
     at FixedPointVec(1000, 16): chip_smoke.py's fixedpoint line), and the
     whole share for the fast helper.
 
+A block-sparse SumVec prepares at its compact width (the rows above),
+then aggregates each party's out shares by the scatter kernel
+(`sparse_aggregate_bytes`): both parties' compact out shares stay
+resident (2 output_len e a row), and a dispatch adds the logical
+accumulator it reads and the one it writes (2 L e, L = the logical
+length), the kernel's 192-bit scratch (24 L) and the rows' flat indices
+(4 output_len a row).
+
 A first-order count, checked against `max_memory_allocated` on the card
 (chip_smoke.py prints both); the engine's OOM ladder is the backstop.
 """
@@ -62,7 +70,7 @@ import math
 
 import torch
 
-from .circuits import Histogram, SumVec
+from .circuits import Histogram, SparseSumVec, SumVec
 
 # Fraction of the budget the model plans into: slack for temporaries
 # and the allocator's fragmentation.
@@ -95,7 +103,7 @@ def _elem_bytes(circ) -> int:
 
 def _contracts(circ) -> bool:
     """The query folds by limb contraction (engine._flp_query_batched_mm)."""
-    return type(circ) in (SumVec, Histogram)
+    return type(circ) in (SumVec, SparseSumVec, Histogram)
 
 
 def prepare_row_bytes(circ, tile_elems: int | None = None, draft: bool = False) -> int:
@@ -137,6 +145,15 @@ def prepare_row_bytes(circ, tile_elems: int | None = None, draft: bool = False) 
     else:
         phases.append(GENERIC_WORKING_COPIES * use.calls * use.gadget.arity * e + helper_share)
     return resident + max(phases)
+
+
+def sparse_aggregate_bytes(circ, rows: int) -> int:
+    """Modeled peak bytes of a block-sparse aggregate over `rows` reports
+    (above): the resident out shares of both parties, and one scatter
+    dispatch's accumulators, scratch and indices."""
+    e = _elem_bytes(circ)
+    L = circ.agg_output_len
+    return rows * circ.output_len * (2 * e + 4) + 2 * L * e + 24 * L
 
 
 def feasible_rows(circ, budget_bytes: int | None, tile_elems: int | None = None, draft: bool = False) -> int | None:

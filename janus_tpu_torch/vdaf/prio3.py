@@ -26,6 +26,7 @@ import torch
 
 from ..device import resolve_device
 from ..fields.tfield import fencode_lanes, fmap, fsum
+from ..ops import scatter_cuda
 from .circuits import AGG1, Circuit
 from .engine import (
     BatchedCircuit,
@@ -301,3 +302,16 @@ class Prio3Batched:
 
     def merge_agg_shares(self, a, b):
         return self.tf.add(a, b)
+
+    def scatter_rows(self, acc, values, flat_idx):
+        """Scatter-add each report's compact lanes into a logical
+        accumulator (block-sparse SumVec's aggregation): acc [L] Field128
+        limbs, values [b, cm] compact out shares, flat_idx [b, cm] int32
+        flat logical positions, with the sentinel L on every dropped lane
+        (padding blocks, rejected reports, other buckets, padding rows).
+        Returns the new accumulator; ops/scatter_cuda.py's kernel on the
+        card, its plain version on the CPU. Equal to janus_tpu's
+        Prio3Batched.scatter_rows and to Prio3Sparse.aggregate_sparse."""
+        if self.tf.LIMBS != 2:
+            raise ValueError("scatter_rows: Field128 circuits only")
+        return scatter_cuda.scatter_rows(acc, values, flat_idx)

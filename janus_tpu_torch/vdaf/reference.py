@@ -5,7 +5,9 @@ the host NTT, the prover's side of the four circuits of the port's
 registry (Count, Sum, SumVec and CountVec, Histogram, FixedPointVec: the
 scalar encoding, the inputs of each gadget call and the gadget's value,
 and `fp_encode_floats` for a fixed-point client), the FLP prover, and
-`Prio3.shard` with the XOF helpers it calls, in both XOF modes ("fast":
+`Prio3.shard` with the XOF helpers it calls, and `Prio3Sparse.shard`
+(block-sparse SumVec: the public share carries the block indices), in
+both XOF modes ("fast":
 counter-mode SHAKE128 with the tree-digested binder and the helper's seed
 as its binder; "draft": the VDAF-07 sponge with rejection sampling). The
 circuits' field, lengths and gadget schedule are vdaf/circuits.py's, the
@@ -18,7 +20,8 @@ aggregator. The aggregators' prepare runs only on the device engines
 (vdaf/prio3.py, vdaf/draft.py), so this module holds no prepare, query
 or decide: there is no host path for an aggregator to take. The
 collector's `unshard` (the sum of the two aggregate shares, decoded)
-runs on the host here, as janus_tpu's does.
+runs on the host here, as janus_tpu's does, at the circuit's aggregate
+length (a sparse circuit's logical length).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import secrets
 from dataclasses import dataclass
 
 from ..fields.field import Field
-from .circuits import Circuit, Count, FixedPointVec, Histogram, Sum, SumVec, next_pow2
+from .circuits import Circuit, Count, FixedPointVec, Histogram, SparseSumVec, Sum, SumVec, next_pow2
 from .xof import (
     SEED_SIZE,
     USAGE_JOINT_RAND_PART,
@@ -114,6 +117,9 @@ def encode(circ: Circuit, measurement) -> list[int]:
     if isinstance(circ, Sum):
         assert 0 <= measurement < (1 << circ.bits)
         return [(measurement >> j) & 1 for j in range(circ.bits)]
+    if isinstance(circ, SparseSumVec):
+        # the compact encoding: front-packed blocks, zero padding
+        measurement = circ.compact_values(measurement)[0]
     if isinstance(circ, SumVec):
         assert len(measurement) == circ.length
         out = []
@@ -337,7 +343,7 @@ class Prio3:
         """The collector's step: sum the aggregators' aggregate shares
         and decode the sum into the circuit's result."""
         F = self.circuit.FIELD
-        agg = [0] * self.circuit.output_len
+        agg = [0] * self.circuit.agg_output_len
         for s in agg_shares:
             agg = [F.add(a, b) for a, b in zip(agg, s)]
         return self.circuit.decode(agg, num_measurements)
@@ -352,3 +358,26 @@ class Prio3:
 
     def _joint_rand_seed(self, parts: list[bytes]) -> bytes:
         return self.xof.derive_seed(b"\x00" * SEED_SIZE, self._dst(USAGE_JOINT_RAND_SEED), b"".join(parts))
+
+
+class SparsePublicShare(list):
+    """Public share of a sparse report: the joint-randomness parts (the
+    list itself) and the public block indices (janus_tpu's)."""
+
+    __slots__ = ("indices",)
+
+    def __init__(self, parts, indices):
+        super().__init__(parts)
+        self.indices = tuple(int(i) for i in indices)
+
+
+class Prio3Sparse(Prio3):
+    """Host Prio3 over a SparseSumVec: the compact-length Prio3 shard,
+    with the block indices in the public share. Like Prio3 it has no
+    prepare and no aggregate: the aggregators scatter on the device
+    (EngineCache.aggregate_sparse)."""
+
+    def shard(self, measurement, nonce: bytes, rand: bytes | None = None):
+        indices = self.circuit.encode_indices(measurement)
+        parts, shares = super().shard(measurement, nonce, rand)
+        return SparsePublicShare(parts, indices), shares

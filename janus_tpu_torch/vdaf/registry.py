@@ -1,12 +1,14 @@
 """VDAF instances of the port's slice and their batched Prio3 engines.
 
 A serializable description of one VDAF configuration (the JAX
-package's vdaf/registry.py VdafInstance, for the six Prio3 kinds on the
+package's vdaf/registry.py VdafInstance, for the seven Prio3 kinds on the
 device path, Poplar1 and the four test fakes) that resolves to a circuit
 and to a Prio3Batched engine on a device. Both XOF modes run here:
 "fast" on Prio3Batched, "draft" (VDAF-07) on Prio3BatchedDraft for the
 circuits it takes. A client's host sharder for one report is
-`prio3_host` (vdaf/reference.py). Poplar1 has no circuit: the
+`prio3_host` (vdaf/reference.py). Block-sparse SumVec runs its FLP on
+the compact SumVec engine and scatters its aggregate by the public
+block indices (Prio3Batched.scatter_rows). Poplar1 has no circuit: the
 aggregators run it through aggregator/poplar1_ops.py.
 """
 
@@ -18,7 +20,7 @@ from functools import lru_cache
 import torch
 
 from ..device import resolve_device
-from .circuits import Circuit, Count, FixedPointVec, Histogram, Sum, SumVec
+from .circuits import Circuit, Count, FixedPointVec, Histogram, SparseSumVec, Sum, SumVec
 from .draft import Prio3BatchedDraft
 from .feasibility import device_memory_budget
 from .prio3 import Prio3Batched
@@ -28,10 +30,16 @@ from .prio3 import Prio3Batched
 class VdafInstance:
     """One VDAF configuration; hashable so dispatch results are cached."""
 
-    kind: str  # "count" | "sum" | "sumvec" | "histogram" | "countvec" | "fixedpoint" | "poplar1" | the fakes
+    # "count" | "sum" | "sumvec" | "sparse_sumvec" | "histogram" | "countvec"
+    # | "fixedpoint" | "poplar1" | the fakes
+    kind: str
     bits: int = 0
     length: int = 0
     chunk_length: int = 0  # 0 -> sqrt heuristic
+    # block-sparse geometry (sparse_sumvec only): up to `max_blocks`
+    # blocks of `block_size` values of a `length`-dim logical vector
+    block_size: int = 0
+    max_blocks: int = 0
     xof_mode: str = "fast"
 
     @classmethod
@@ -45,6 +53,18 @@ class VdafInstance:
     @classmethod
     def sum_vec(cls, length: int, bits: int, chunk_length: int = 0) -> "VdafInstance":
         return cls("sumvec", bits=bits, length=length, chunk_length=chunk_length)
+
+    @classmethod
+    def sparse_sumvec(
+        cls, bits: int, length: int, block_size: int, max_blocks: int, chunk_length: int = 0
+    ) -> "VdafInstance":
+        """Block-sparse vector sum: a logical `length`-dim vector carried
+        as up to `max_blocks` (block_index, `block_size` values) pairs;
+        the FLP runs at the compact length max_blocks * block_size."""
+        return cls(
+            "sparse_sumvec", bits=bits, length=length, chunk_length=chunk_length,
+            block_size=block_size, max_blocks=max_blocks,
+        )
 
     @classmethod
     def histogram(cls, length: int, chunk_length: int = 0) -> "VdafInstance":
@@ -112,7 +132,7 @@ class VdafInstance:
 
     def to_dict(self) -> dict:
         d = {"kind": self.kind}
-        for k in ("bits", "length", "chunk_length"):
+        for k in ("bits", "length", "chunk_length", "block_size", "max_blocks"):
             if getattr(self, k):
                 d[k] = getattr(self, k)
         if self.xof_mode != "fast":
@@ -123,14 +143,14 @@ class VdafInstance:
     def from_dict(cls, d: dict) -> "VdafInstance":
         """Read what janus_tpu's VdafInstance.to_dict writes. Kinds and
         fields the port has no device path for raise ValueError."""
-        if d.get("block_size") or d.get("max_blocks"):
-            raise ValueError(f"VDAF {d} (block-sparse) has no device path in janus_tpu_torch")
         inst = cls(
             d["kind"],
             bits=d.get("bits", 0),
             length=d.get("length", 0),
             chunk_length=d.get("chunk_length", 0),
             xof_mode=d.get("xof_mode", "fast"),
+            block_size=d.get("block_size", 0),
+            max_blocks=d.get("max_blocks", 0),
         )
         if inst.kind == "poplar1":
             if not 1 <= inst.bits <= 64:
@@ -154,6 +174,10 @@ def circuit_for(inst: VdafInstance) -> Circuit:
         return Sum(bits=inst.bits)
     if inst.kind == "sumvec":
         return SumVec(length=inst.length, bits=inst.bits, chunk_length=ch)
+    if inst.kind == "sparse_sumvec":
+        return SparseSumVec(
+            length=inst.length, block_size=inst.block_size, max_blocks=inst.max_blocks, bits=inst.bits, chunk_length=ch
+        )
     if inst.kind == "histogram":
         return Histogram(length=inst.length, chunk_length=ch)
     if inst.kind == "countvec":
@@ -192,12 +216,10 @@ def prio3_batched(inst: VdafInstance, device=None) -> Prio3Batched:
 
 @lru_cache(maxsize=None)
 def prio3_host(inst: VdafInstance):
-    """The host sharder of `inst` (vdaf/reference.py Prio3), for a
-    client that shards one report at a time."""
-    if inst.kind == "sparse_sumvec":
-        from ..aggregator.errors import NotPorted
+    """The host sharder of `inst` (vdaf/reference.py Prio3, or
+    Prio3Sparse for block-sparse SumVec), for a client that shards one
+    report at a time."""
+    from .reference import Prio3, Prio3Sparse
 
-        raise NotPorted("sparse SumVec is not ported to janus_tpu_torch yet")
-    from .reference import Prio3
-
-    return Prio3(circuit_for(inst), mode=inst.xof_mode)
+    cls = Prio3Sparse if inst.kind == "sparse_sumvec" else Prio3
+    return cls(circuit_for(inst), mode=inst.xof_mode)

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..convert import from_numpy_u64, step_args_to_numpy
-from .registry import VdafInstance, prio3_batched
+from .registry import VdafInstance, circuit_for, prio3_batched
 
 
 def random_measurements(inst: VdafInstance, batch: int, rng: np.random.Generator):
@@ -23,6 +23,17 @@ def random_measurements(inst: VdafInstance, batch: int, rng: np.random.Generator
         return rng.integers(0, 1 << min(inst.bits, 62), size=batch)
     if inst.kind == "sumvec":
         return rng.integers(0, 1 << min(inst.bits, 62), size=(batch, inst.length))
+    if inst.kind == "sparse_sumvec":
+        # per report a list of (block_index, block values) pairs, sorted
+        # by index: 1..max_blocks distinct blocks
+        hi = min(inst.bits, 62)
+        n_blocks = inst.length // inst.block_size
+        out = []
+        for _ in range(batch):
+            nb = int(rng.integers(1, inst.max_blocks + 1))
+            idxs = sorted(rng.choice(n_blocks, size=nb, replace=False).tolist())
+            out.append([(int(b), [int(v) for v in rng.integers(0, 1 << hi, size=inst.block_size)]) for b in idxs])
+        return out
     if inst.kind == "histogram":
         return rng.integers(0, inst.length, size=batch)
     if inst.kind == "countvec":
@@ -33,6 +44,21 @@ def random_measurements(inst: VdafInstance, batch: int, rng: np.random.Generator
         hi = max(1, int(offset / (inst.length**0.5)) // 2)
         return rng.integers(-hi, hi, size=(batch, inst.length))
     raise ValueError(inst.kind)
+
+
+def sparse_compact_batch(inst: VdafInstance, measurements):
+    """Sparse pair measurements -> ([batch, compact_len] uint64 compact
+    value rows, [batch, max_blocks] int32 block indices, -1 padding). The
+    value rows shard as SumVec rows do; the indices ride the public share."""
+    circ = circuit_for(inst)
+    vals, idxs = [], []
+    for m in measurements:
+        v, ix = circ.compact_values(m)
+        vals.append(v)
+        idxs.append(ix)
+    return np.asarray(vals, dtype=np.uint64).reshape(-1, circ.output_len), np.asarray(idxs, dtype=np.int32).reshape(
+        -1, circ.max_blocks
+    )
 
 
 def make_report_batch(inst: VdafInstance, measurements, seed: int = 0, shard_chunk: int = 0, device=None):
@@ -56,7 +82,12 @@ def make_report_batch(inst: VdafInstance, measurements, seed: int = 0, shard_chu
     rand_lanes = from_numpy_u64(rand_np, p3.device)
 
     def shard_slice(lo: int, hi: int):
-        inp = p3.tf.from_ints(p3.bc.encode_batch(measurements[lo:hi]), p3.device)
+        rows = measurements[lo:hi]
+        if inst.kind == "sparse_sumvec":
+            # the engine runs the compact encoding; the indices ride the
+            # public share
+            rows = sparse_compact_batch(inst, rows)[0]
+        inp = p3.tf.from_ints(p3.bc.encode_batch(rows), p3.device)
         return p3.shard(inp, nonce_lanes[lo:hi], rand_lanes[lo:hi])
 
     step = shard_chunk if 0 < shard_chunk < batch else batch
@@ -98,7 +129,7 @@ def make_wire_reports(
     from ..core.hpke import HpkeApplicationInfo, Label, hpke_seal
     from ..messages import InputShareAad, PlaintextInputShare, Report, ReportId, ReportMetadata, Role
     from .engine import tf_for
-    from .registry import circuit_for
+    from .reference import SparsePublicShare
     from .wire import Prio3Wire, encode_field_rows, lanes_to_seed_rows
 
     circ = circuit_for(inst)
@@ -113,12 +144,16 @@ def make_wire_reports(
     blind0_rows = lanes_to_seed_rows(blind0) if wire.uses_jr else [None] * n
     blind1_rows = lanes_to_seed_rows(blind1) if wire.uses_jr else [None] * n
     parts = [lanes_to_seed_rows(public[:, 0]), lanes_to_seed_rows(public[:, 1])] if wire.uses_jr else None
+    block_idx = sparse_compact_batch(inst, measurements)[1] if wire.sparse else None
     leader_info = HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.LEADER)
     helper_info = HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.HELPER)
     reports = []
     for i, rid in enumerate(lanes_to_seed_rows(nonce)):
         metadata = ReportMetadata(ReportId(rid), time)
-        public_share = wire.encode_public_share([parts[0][i], parts[1][i]] if wire.uses_jr else [])
+        public_parts = [parts[0][i], parts[1][i]] if wire.uses_jr else []
+        if wire.sparse:
+            public_parts = SparsePublicShare(public_parts, block_idx[i])
+        public_share = wire.encode_public_share(public_parts)
         leader_payload = wire.encode_leader_share_raw(meas_rows[i] + proof_rows[i], blind0_rows[i])
         helper_payload = wire.encode_helper_share(seed_rows[i], blind1_rows[i])
         aad = InputShareAad(task_id, metadata, public_share).to_bytes()

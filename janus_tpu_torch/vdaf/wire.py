@@ -2,13 +2,15 @@
 and columnar (de)serialization between wire bytes and device tensors.
 
 The port's own copy of the Prio3 part of janus_tpu/vdaf/wire.py, with
-the same byte layouts (the sparse-index codecs come with the sparse
-circuits):
+the same byte layouts:
 
 Share payloads (inside HPKE plaintext / PlaintextInputShare.payload):
   leader: meas_share_vec || proof_share_vec || [blind 16B]
   helper: seed 16B || [blind 16B]
-Public share: joint-rand parts part0 || part1 (or empty).
+Public share: [sparse block indices] || joint-rand parts part0 || part1
+(or empty). A block-sparse SumVec's public share starts with its
+max_blocks block indices, one big-endian u32 each, 0xFFFFFFFF for a
+padding lane (-1).
 
 Ping-pong messages (PrepareInit.message / PrepareResp continue payload):
   initialize(0): u8 tag || opaque u32 prep_share
@@ -37,9 +39,15 @@ from ..messages.codec import (
     Decoder,
     Encoder,
 )
-from .circuits import Circuit
+from .circuits import Circuit, SparseSumVec, validate_block_indices
+from .reference import SparsePublicShare
 
 SEED_SIZE = 16
+
+# sparse block indices on the wire: one big-endian u32 per lane,
+# 0xFFFFFFFF encoding the padding index -1
+IDX_ENC_SIZE = 4
+IDX_PADDING = 0xFFFFFFFF
 
 
 def _u64(x) -> np.ndarray:
@@ -47,6 +55,82 @@ def _u64(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return to_numpy_u64(x)
     return np.asarray(x, dtype=np.uint64)
+
+
+# ---------------------------------------------------------------------------
+# sparse block-index codecs
+# ---------------------------------------------------------------------------
+
+
+def encode_block_indices(indices) -> bytes:
+    """Front-packed block indices (-1 padding) -> the public-share prefix."""
+    return b"".join((IDX_PADDING if int(ix) == -1 else int(ix)).to_bytes(4, "big") for ix in indices)
+
+
+def decode_block_indices(blob: bytes, circ: SparseSumVec) -> tuple[int, ...]:
+    """Per-report decoder of the index blob: parse, then the whole
+    validate_block_indices predicate. Raises DecodeError, which every
+    decode_public_share call site turns into that report's rejection."""
+    if len(blob) != circ.max_blocks * IDX_ENC_SIZE:
+        raise DecodeError("bad sparse index blob length")
+    raw = np.frombuffer(blob, dtype=">u4")
+    indices = [-1 if int(v) == IDX_PADDING else int(v) for v in raw]
+    reason = validate_block_indices(indices, circ.n_logical_blocks, circ.max_blocks)
+    if reason is not None:
+        raise DecodeError(f"invalid sparse block indices: {reason}")
+    return tuple(indices)
+
+
+def decode_index_columns(rows: list[bytes | None], circ: SparseSumVec):
+    """The predicate of decode_block_indices over a batch of raw public
+    share rows at once: -> ([n, max_blocks] int32 block indices, -1
+    padding; ok mask). A row that fails gets False and all-padding
+    indices, so its rejection lands on its lane only. A row shorter than
+    the blob, or None, fails."""
+    n = len(rows)
+    mb = circ.max_blocks
+    blob_len = mb * IDX_ENC_SIZE
+    lanes = np.zeros((n, mb), dtype=np.int64)
+    ok = np.zeros(n, dtype=bool)
+    for i, row in enumerate(rows):
+        if row is None or len(row) < blob_len:
+            continue
+        lanes[i] = np.frombuffer(row[:blob_len], dtype=">u4").astype(np.int64)
+        ok[i] = True
+    pad = lanes == IDX_PADDING
+    lanes = np.where(pad, np.int64(-1), lanes)
+    ok &= (pad | ((lanes >= 0) & (lanes < circ.n_logical_blocks))).all(axis=1)
+    if mb > 1:
+        # strictly increasing over the non-padding prefix, and padding
+        # only ever followed by padding
+        both = ~pad[:, 1:] & ~pad[:, :-1]
+        ok &= (~both | (lanes[:, 1:] > lanes[:, :-1])).all(axis=1)
+        ok &= (~pad[:, :-1] | pad[:, 1:]).all(axis=1)
+    lanes[~ok] = -1
+    return lanes.astype(np.int32), ok
+
+
+def block_index_rows(rows: list, circ: SparseSumVec) -> np.ndarray:
+    """Per-lane decoded block indices (a tuple, or None for a failed lane)
+    -> [n, max_blocks] int32, a failed lane all padding (-1)."""
+    block_idx = np.full((len(rows), circ.max_blocks), -1, dtype=np.int32)
+    for i, row in enumerate(rows):
+        if row is not None:
+            block_idx[i] = row
+    return block_idx
+
+
+def flat_scatter_indices(block_idx: np.ndarray, circ: SparseSumVec) -> np.ndarray:
+    """[n, max_blocks] block indices -> [n, compact_len] int32 flat
+    logical positions for Prio3Batched.scatter_rows. A padding or
+    rejected lane maps to the sentinel `logical_length`, which the
+    scatter drops; it is positive on purpose, since -1 would wrap to the
+    last position under PyTorch's (and jnp's) indexing."""
+    bs = circ.block_size
+    bi = np.asarray(block_idx, dtype=np.int64)
+    flat = bi[:, :, None] * bs + np.arange(bs, dtype=np.int64)[None, None, :]
+    flat = np.where(bi[:, :, None] < 0, np.int64(circ.logical_length), flat)
+    return flat.reshape(bi.shape[0], -1).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +333,9 @@ class Prio3Wire:
         self.circ = circ
         self.enc_size = circ.FIELD.ENCODED_SIZE
         self.uses_jr = circ.joint_rand_len > 0
+        # a sparse circuit's public share starts with its block indices
+        self.sparse = isinstance(circ, SparseSumVec)
+        self.idx_len = circ.max_blocks * IDX_ENC_SIZE if self.sparse else 0
 
     # sizes
     @property
@@ -262,7 +349,7 @@ class Prio3Wire:
 
     @property
     def public_share_len(self) -> int:
-        return 2 * SEED_SIZE if self.uses_jr else 0
+        return self.idx_len + (2 * SEED_SIZE if self.uses_jr else 0)
 
     @property
     def prep_share_len(self) -> int:
@@ -320,11 +407,25 @@ class Prio3Wire:
         return raw[:SEED_SIZE], (raw[SEED_SIZE:] if self.uses_jr else None)
 
     def encode_public_share(self, parts: list[bytes]) -> bytes:
+        if self.sparse:
+            indices = getattr(parts, "indices", None)
+            if indices is None:
+                raise ValueError(
+                    "sparse public share needs block indices: pass the SparsePublicShare from Prio3Sparse.shard"
+                )
+            return encode_block_indices(indices) + (b"".join(parts) if self.uses_jr else b"")
         return b"".join(parts) if self.uses_jr else b""
 
     def decode_public_share(self, raw: bytes) -> list[bytes]:
+        """-> the joint-rand parts ([] without joint randomness); for a
+        sparse circuit a SparsePublicShare carrying the validated block
+        indices. Raises DecodeError."""
         if len(raw) != self.public_share_len:
             raise DecodeError("bad public share length")
+        if self.sparse:
+            indices = decode_block_indices(raw[: self.idx_len], self.circ)
+            rest = raw[self.idx_len :]
+            return SparsePublicShare([rest[:SEED_SIZE], rest[SEED_SIZE:]] if self.uses_jr else [], indices)
         if not self.uses_jr:
             return []
         return [raw[:SEED_SIZE], raw[SEED_SIZE:]]

@@ -290,14 +290,18 @@ def test_task_dict_is_read_as_janus_tpu_wrote_it():
     assert t.hpke_keys[0].private_key == j.hpke_keys[0].private_key
     assert t.hpke_keys[0].config.to_bytes() == j.hpke_keys[0].config.to_bytes()
     # a Poplar1 task reads as janus_tpu wrote it (its prepare runs through
-    # aggregator/poplar1_ops.py); only sparse SumVec has no device path yet
+    # aggregator/poplar1_ops.py), and so does a block-sparse SumVec task
+    # (its compact prepare on the SumVec engine, its aggregate by scatter)
     p = j_task.TaskBuilder(j_task.QueryTypeConfig.time_interval(), j_registry.VdafInstance.poplar1(4),
                            jm.Role.HELPER).build()
     tp_task = Task.from_dict(p.to_dict())
     assert tp_task.to_dict() == p.to_dict()
     assert tp_task.vdaf == t_registry.VdafInstance.poplar1(4) and tp_task.vdaf.rounds == 2
-    with pytest.raises(ValueError):
-        t_registry.VdafInstance.from_dict(j_registry.VdafInstance.sparse_sumvec(2, 64, 8, 2).to_dict())
+    sp = j_task.TaskBuilder(j_task.QueryTypeConfig.time_interval(), j_registry.VdafInstance.sparse_sumvec(2, 64, 8, 2),
+                            jm.Role.HELPER).build()
+    sp_task = Task.from_dict(sp.to_dict())
+    assert sp_task.to_dict() == sp.to_dict()
+    assert sp_task.vdaf == t_registry.VdafInstance.sparse_sumvec(2, 64, 8, 2) and sp_task.vdaf.rounds == 1
 
 
 def test_request_level_rejections():

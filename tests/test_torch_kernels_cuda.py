@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
+from janus_tpu_torch.ops import expand_cuda, keccak_cuda, scatter_cuda, sponge_cuda
 from janus_tpu_torch.parallel import api
 from janus_tpu_torch.vdaf.registry import VdafInstance, prio3_batched
 from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
@@ -618,3 +618,89 @@ def test_port_pair_poplar1_heavy_hitters_on_the_card(cuda):
         h_agg.close()
         leader.cleanup()
         helper.cleanup()
+
+
+# --- the block-sparse scatter (csrc/scatter_rows.cu) --------------------------------------
+
+P128 = 2**128 - 7 * 2**66 + 1
+
+
+def _field_rows(shape, seed, device):
+    """Random reduced Field128 limbs (lo, hi) of `shape`."""
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(0, 2**64 - 1, size=shape, dtype=np.uint64, endpoint=True)
+    hi = rng.integers(0, (P128 >> 64) - 1, size=shape, dtype=np.uint64)  # < p's high word: reduced
+    return tuple(torch.from_numpy(a.view(np.int64)).to(device) for a in (lo, hi))
+
+
+def _scatter_idx(b, max_blocks, block_size, n_blocks, seed, hot=False, dead_rows=()):
+    """flat indices of b reports of 1..max_blocks distinct blocks each (block
+    0 in every one when hot), the dead rows all sentinel."""
+    from janus_tpu_torch.vdaf.circuits import SparseSumVec
+    from janus_tpu_torch.vdaf.wire import flat_scatter_indices
+
+    rng = np.random.default_rng(seed)
+    circ = SparseSumVec(n_blocks * block_size, block_size, max_blocks, 16)
+    bi = np.full((b, max_blocks), -1, dtype=np.int32)
+    for i in range(b):
+        nb = int(rng.integers(1, max_blocks + 1))
+        if hot:
+            rest = (1 + rng.choice(n_blocks - 1, size=nb - 1, replace=False)).tolist()
+            idxs = [0] + sorted(rest)
+        else:
+            idxs = sorted(rng.choice(n_blocks, size=nb, replace=False).tolist())
+        bi[i, :nb] = idxs
+    bi[list(dead_rows)] = -1
+    return flat_scatter_indices(bi, circ), circ.logical_length
+
+
+@pytest.mark.parametrize(
+    "case,b,mb,bs,nblocks",
+    [("hot", 64, 4, 8, 40), ("padding", 32, 3, 4, 12), ("all-sentinel", 16, 3, 4, 12),
+     ("north-star", 1024, 16, 64, 15625)],
+)
+def test_scatter_kernel_matches_plain(cuda, case, b, mb, bs, nblocks):
+    dead = {"padding": range(20, 32), "all-sentinel": range(16)}.get(case, ())
+    flat, L = _scatter_idx(b, mb, bs, nblocks, seed=b + mb, hot=case in ("hot", "north-star"), dead_rows=dead)
+    idx = torch.from_numpy(flat).to(cuda)
+    vals = _field_rows(flat.shape, 5, cuda)
+    acc = _field_rows((L,), 6, cuda)
+    before = scatter_cuda.scatter_rows.launches
+    got = scatter_cuda.scatter_rows(acc, vals, idx)
+    want = scatter_cuda.scatter_rows_plain(acc, vals, idx)
+    torch.cuda.synchronize()
+    assert scatter_cuda.scatter_rows.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case == "all-sentinel":
+        assert torch.equal(got[0], acc[0]) and torch.equal(got[1], acc[1])
+
+
+def test_sparse_engine_on_the_card_matches_the_cpu(cuda):
+    """A small sparse batch with a hot block: the engine's prepare and
+    aggregate_sparse on the card equal the CPU's, and kernel 4 launched
+    once per party."""
+    from janus_tpu_torch.aggregator.engine_cache import EngineCache
+    from janus_tpu_torch.vdaf.testing import sparse_compact_batch
+    from janus_tpu_torch.vdaf.wire import flat_scatter_indices
+
+    inst = VdafInstance.sparse_sumvec(4, 96, 4, 3)
+    rng = np.random.default_rng(3)
+    meas = []
+    for _ in range(40):  # block 0 in every report, then up to 2 of blocks 1..23
+        rest = sorted((1 + rng.choice(23, size=int(rng.integers(0, 3)), replace=False)).tolist())
+        meas.append([(b, [int(v) for v in rng.integers(0, 16, size=4)]) for b in [0] + rest])
+    mask = np.ones(40, dtype=bool)
+    mask[[3, 17]] = False
+    shares = {}
+    for dev in ("cpu", cuda):
+        args, _ = make_report_batch(inst, meas, seed=4, device=dev)
+        eng = EngineCache(inst, bytes(16), device=dev)
+        out0, _, ver0, part0 = eng.leader_init(*args[:5])
+        out1, accept, _ = eng.helper_init(args[0], args[1], args[5], args[6], ver0, part0, np.ones(40, dtype=bool))
+        assert accept.all()
+        flat = flat_scatter_indices(sparse_compact_batch(inst, meas)[1], eng.p3.circ)
+        before = scatter_cuda.scatter_rows.launches
+        shares[str(dev)] = [eng.aggregate_sparse(out, mask & accept, flat) for out in (out0, out1)]
+        if dev != "cpu":
+            assert scatter_cuda.scatter_rows.launches == before + 2
+    assert shares["cpu"] == shares[str(cuda)]

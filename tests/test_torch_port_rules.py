@@ -23,14 +23,15 @@ from janus_tpu_torch.aggregator.engine_cache import EngineCache, engine_cache
 from janus_tpu_torch.datastore import EphemeralDatastore
 from janus_tpu_torch.device import resolve_device
 from janus_tpu_torch.messages import Role, TaskId, Time
-from janus_tpu_torch.ops import expand_cuda, keccak_cuda, sponge_cuda
+from janus_tpu_torch.ops import expand_cuda, keccak_cuda, scatter_cuda, sponge_cuda
 from janus_tpu_torch.parallel import api
 from janus_tpu_torch.task import QueryTypeConfig, TaskBuilder
 from janus_tpu_torch.vdaf.circuits import Count, SumVec
 from janus_tpu_torch.vdaf.prio3 import Prio3Batched
-from janus_tpu_torch.vdaf.reference import Prio3
+from janus_tpu_torch.vdaf.reference import Prio3, Prio3Sparse
 from janus_tpu_torch.vdaf.registry import VdafInstance, prio3_batched, prio3_host
-from janus_tpu_torch.vdaf.testing import make_report_batch, make_wire_reports, random_measurements
+from janus_tpu_torch.vdaf.testing import make_report_batch, make_wire_reports, random_measurements, sparse_compact_batch
+from janus_tpu_torch.vdaf.wire import flat_scatter_indices
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(Path(janus_tpu_torch.__file__).parent.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -88,6 +89,8 @@ def test_port_files_include_every_module_of_the_package():
         "failpoints.py",
         "datastore/pg_fake.py",
         "ingest/journal.py",
+        "ops/scatter_cuda.py",
+        "vdaf/circuits.py",
     ):
         assert f"janus_tpu_torch/{module}" in names, module
 
@@ -168,39 +171,65 @@ def test_wrappers_refuse_other_devices():
         expand_cuda.expand_f128(torch.empty((2, 4), dtype=torch.int64, device="meta"), 2, 10)
     with pytest.raises(ValueError):
         sponge_cuda.keccak_sponge(torch.empty((3, 4), dtype=torch.int64, device="meta"), 32, out_lanes=2)
+    acc = (torch.empty(8, dtype=torch.int64, device="meta"),) * 2
+    rows = (torch.empty((2, 4), dtype=torch.int64, device="meta"),) * 2
+    with pytest.raises(ValueError):
+        scatter_cuda.scatter_rows(acc, rows, torch.empty((2, 4), dtype=torch.int32, device="meta"))
 
 
-@pytest.mark.parametrize("kind", ["count", "sumvec", "draft-count", "draft-sumvec"])
+@pytest.mark.parametrize("kind", ["count", "sumvec", "draft-count", "draft-sumvec", "sparse"])
 def test_cpu_run_leaves_launch_counters_at_zero(kind):
     mode = "draft" if kind.startswith("draft") else "fast"
     if kind.endswith("count"):
         inst = VdafInstance("count", xof_mode=mode)
+    elif kind == "sparse":
+        inst = VdafInstance.sparse_sumvec(2, 12, 2, 2)
     else:
         inst = VdafInstance("sumvec", bits=2, length=3, xof_mode=mode)
-    counters = (keccak_cuda.keccak_single_block, expand_cuda.expand_f128, sponge_cuda.keccak_sponge)
+    counters = (keccak_cuda.keccak_single_block, expand_cuda.expand_f128, sponge_cuda.keccak_sponge,
+                scatter_cuda.scatter_rows)
     for fn in counters:
         fn.launches = 0
     meas = random_measurements(inst, 3, np.random.default_rng(1))
     args, _ = make_report_batch(inst, meas, seed=2, device="cpu")
-    agg0, agg1, count = api.two_party_step(inst, bytes(16), device="cpu")(*args)
-    assert int(count) == 3
     p3 = prio3_batched(inst, "cpu")
-    assert [int(x) for x in p3.tf.to_ints(p3.merge_agg_shares(agg0, agg1))] == list(
-        np.asarray(meas).sum(axis=0).reshape(-1)
-    )
-    assert [fn.launches for fn in counters] == [0, 0, 0]
+    if kind == "sparse":
+        # the compact prepare, then each party's scatter into the logical vector
+        eng = EngineCache(inst, bytes(16), device="cpu")
+        nonce, parts, lmeas, lproof, b0, seeds, b1 = args
+        out0, _, ver0, part0 = eng.leader_init(nonce, parts, lmeas, lproof, b0)
+        out1, accept, _ = eng.helper_init(nonce, parts, seeds, b1, ver0, part0, np.ones(3, dtype=bool))
+        assert accept.all()
+        flat = flat_scatter_indices(sparse_compact_batch(inst, meas)[1], p3.circ)
+        shares = [eng.aggregate_sparse(out, accept, flat) for out in (out0, out1)]
+        want = [0] * 12
+        for m in meas:
+            for b, vals in m:
+                for o, v in enumerate(vals):
+                    want[2 * b + o] += v
+        assert [(a + b) % p3.tf.MODULUS for a, b in zip(*shares)] == want
+    else:
+        agg0, agg1, count = api.two_party_step(inst, bytes(16), device="cpu")(*args)
+        assert int(count) == 3
+        assert [int(x) for x in p3.tf.to_ints(p3.merge_agg_shares(agg0, agg1))] == list(
+            np.asarray(meas).sum(axis=0).reshape(-1)
+        )
+    assert [fn.launches for fn in counters] == [0, 0, 0, 0]
 
 
 def test_host_prio3_shards_and_has_no_prepare():
     """A client's host sharder and the collector's unshard, and nothing an
     aggregator could prepare or aggregate with: the aggregators' prepare
-    runs only on the device engines."""
+    runs only on the device engines, and a sparse aggregate only on the
+    scatter kernel."""
     p3 = prio3_host(VdafInstance.sum_vec(3, 2))
     assert isinstance(p3, Prio3) and callable(p3.shard) and callable(p3.unshard)
     for name in ("prepare_init", "prepare_next", "prepare_shares_to_prep", "aggregate"):
         assert not hasattr(Prio3, name), name
-    with pytest.raises(NotPorted, match="sparse"):
-        prio3_host(VdafInstance("sparse_sumvec", bits=2, length=8))
+    sparse = prio3_host(VdafInstance.sparse_sumvec(2, 8, 2, 2))
+    assert isinstance(sparse, Prio3Sparse) and callable(sparse.shard) and callable(sparse.unshard)
+    for name in ("prepare_init", "aggregate", "aggregate_sparse"):
+        assert not hasattr(sparse, name), name
 
 
 def test_upload_journal_is_armed_and_poplar1_client_is_ported(tmp_path):
