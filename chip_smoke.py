@@ -6,14 +6,22 @@
 Phases, each of which must pass:
 
   1. build         the four CUDA kernels from csrc/ (one nvcc per source,
-                   all started together): the single-block Keccak, the fused
-                   Field128 expansion, the whole draft sponge and the sparse
+                   all started together): the single-block Keccak (its
+                   counter-mode and tree-level launches), the fused Field128
+                   expansion, the whole draft sponge and the sparse
                    scatter-merge;
   2. kernels       each kernel against its plain PyTorch version on the
                    card, bit for bit, at the shapes of the paths that run it
                    (24 rounds, plus a reduced-round case), with its time, the
                    plain version's time and the least time the card could
-                   take (bound); among them kernel 2 at the streamed query's
+                   take (bound); every `ms` is timed call by call, as a
+                   caller on the host sees it, and kernels 1 and 4 also
+                   with their launches queued ahead (`device_ms`, the
+                   device's time alone). Kernel 1 at
+                   the leader binder's tree leaves (1,024 x 2,286 nodes, and
+                   Histogram(10000)'s 1,024 x 1,429), a level above them, and
+                   Poplar1's walk (131,072 states: 5 lanes out, and 2);
+                   kernel 2 at the streamed query's
                    tile (128 reports, 8,848 blocks at block offset 25 x
                    8,848) and kernel 3 at draft SumVec(100000, 16)'s
                    152,382-block absorb (64 reports, 24 rounds), held against
@@ -21,9 +29,10 @@ Phases, each of which must pass:
                    loop would take hours (its plain_ms is null); kernel 4
                    (the Field128 scatter-add of block-sparse SumVec) at the
                    sparse north star (1,024 reports x 1,024 compact lanes
-                   into 1,000,000 positions, block 0 in every report) and
-                   on a 64-row bucket with 3 rejected and 24 padding rows
-                   (all sentinel);
+                   into 1,000,000 positions, block 0 in every report, with
+                   its three device kernels' times), the pipelined leader's 256-row
+                   chunk and a 64-row bucket with 3 rejected and 24 padding
+                   rows (all sentinel);
   3. sumvec        the fast-mode main path: Prio3SumVec(length=1000, bits=16)
                    at batch 1024 through make_report_batch and two_party_step,
                    with a few reports corrupted; the count must exclude
@@ -45,7 +54,7 @@ Phases, each of which must pass:
   6. draft-count   Prio3Count in draft mode at batch 8192 (Field64
                    rejection sampling), the same checks;
   6a. sumvec100k   the north star Prio3SumVec(100000, 16) (1.6M Field128
-                   inputs a report) at batch 32, fast mode, 3 corrupted,
+                   inputs a report) at batch 16, fast mode, 3 corrupted,
                    the same checks (the small CPU batch is one report at 3
                    rounds, sharded on the card); its engine's stream plan
                    must be (tile 61,936, 49 calls, 26 steps): kernel 2
@@ -193,8 +202,9 @@ Phases, each of which must pass:
                    line gives the step's seconds and reports/s, the host
                    part of each call (keys to lanes, verify_rand, the
                    helper's corr_from_seed, the int conversions) beside
-                   the device part (to torch.cuda.synchronize()), and the
-                   peak device bytes;
+                   the device part (to torch.cuda.synchronize()), the
+                   peak device bytes, and one more step under
+                   torch.profiler (its device kernels and busy share);
   12. drive-poplar1  heavy hitters through DAP: a port leader and a port
                    helper, each behind its own DapServer, on a
                    time-interval Poplar1(16) task (max_batch_query_count
@@ -357,6 +367,61 @@ def time_cuda(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_queued(torch, fn, reps: int) -> float:
+    """Mean milliseconds of fn() on the card with the launches queued
+    ahead: the stream first sleeps long enough for the host to enqueue
+    all reps, so the time is the device's alone, not the host's pace."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000 * reps)  # ~0.1 ms a rep at the H100's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms_by_kernel(torch, fn, reps: int) -> dict:
+    """Mean device milliseconds a call of fn() spends in each kernel, by
+    the profiler (a wrapper's launch may run several kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "cuda_time_total", 0)
+        if dev_us > 0 and not e.key.startswith(("aten::", "cuda")):
+            out[e.key.split("(")[0].replace("void ", "")] = dev_us / 1e3 / reps
+    return out
+
+
+def kernel_case(torch, run, plain, reps: int, n_ops: float, nbytes: float, info: dict) -> dict:
+    """A kernel against its plain version on the same inputs: max_abs_err,
+    its time call by call as a caller sees it (`ms`, the yardstick of
+    every kernel's rows), its device time with the launches queued ahead
+    (`device_ms`), the plain version's time (a second, warm call), the
+    bound, and the seconds the case took (`case_s`)."""
+    t0 = time.perf_counter()
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,))
+    del got, want
+    ms = time_cuda(torch, run, reps)
+    device_ms = time_queued(torch, run, reps)
+    plain_ms = time_cuda(torch, plain, reps=1, warmup=0)
+    b_ms, b_by = bound_ms(n_ops, nbytes)
+    return {**info, "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "share_of_bound": b_ms / ms if ms else None, "case_s": time.perf_counter() - t0}
+
+
 def max_abs_err(torch, got, want) -> int:
     """Largest |got - want| over unsigned 64-bit words (0 when identical)."""
     worst = 0
@@ -396,7 +461,8 @@ def phase_kernels(torch, dev):
     """Each kernel against its plain version at main-path shapes."""
     import numpy as np
 
-    from janus_tpu_torch.ops import expand_cuda, keccak_cuda
+    from janus_tpu_torch.ops import expand_cuda
+    from janus_tpu_torch.vdaf.registry import VdafInstance
 
     rng = np.random.default_rng(SEED)
 
@@ -407,51 +473,8 @@ def phase_kernels(torch, dev):
     batch, blocks, length = 1024, 2286, 16000  # SumVec(1000, 16): 16000 F128 elements a report
     results = {"keccak_sponge": []}  # the path's kernel first
 
-    # kernel 1: the leader binder's tree-digest leaf level is 1024 x 2286
-    # states (out_lanes 2); counter-mode streams take out_lanes 21
-    cases = []
-    cols = list(lanes((21, batch, blocks)))
-    n = batch * blocks
-    for out_lanes, rounds in ((2, 24), (21, 24), (21, 3)):
-        got = keccak_cuda.keccak_single_block(cols, out_lanes, rounds=rounds)
-        want = keccak_cuda.keccak_single_block_plain(cols, out_lanes, rounds=rounds)
-        torch.cuda.synchronize()
-        err = max_abs_err(torch, got, want)
-        ms = time_cuda(torch, lambda: keccak_cuda.keccak_single_block(cols, out_lanes, rounds=rounds), reps=10)
-        plain_ms = time_cuda(torch, lambda: keccak_cuda.keccak_single_block_plain(cols, out_lanes, rounds=rounds), reps=2)
-        b_ms, b_by = bound_ms(n * rounds * KECCAK_OPS_PER_ROUND, n * 8 * (21 + out_lanes))
-        cases.append({"states": n, "out_lanes": out_lanes, "rounds": rounds, "max_abs_err": err,
-                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
-        del got, want
-    del cols
-    # the Poplar1 leaf walk's shape: 512 reports x 256 prefixes, 21 lanes out
-    n = POPLAR1_BATCH * POPLAR1_PREFIXES
-    cols = list(lanes((21, n)))
-    got = keccak_cuda.keccak_single_block(cols, 21)
-    want = keccak_cuda.keccak_single_block_plain(cols, 21)
-    torch.cuda.synchronize()
-    err = max_abs_err(torch, got, want)
-    ms = time_cuda(torch, lambda: keccak_cuda.keccak_single_block(cols, 21), reps=20)
-    plain_ms = time_cuda(torch, lambda: keccak_cuda.keccak_single_block_plain(cols, 21), reps=2)
-    b_ms, b_by = bound_ms(n * 24 * KECCAK_OPS_PER_ROUND, n * 8 * (21 + 21))
-    cases.append({"case": "poplar1 leaf walk", "states": n, "out_lanes": 21, "rounds": 24, "max_abs_err": err,
-                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
-    del got, want, cols
-    # the taskprov path's Prio3Histogram(10000): the leader binder's tree
-    # leaf level, 1024 reports x ceil(10000 / 7) = 1,429 states, 2 lanes out
-    n = batch * HIST_BLOCKS
-    cols = list(lanes((21, batch, HIST_BLOCKS)))
-    got = keccak_cuda.keccak_single_block(cols, 2)
-    want = keccak_cuda.keccak_single_block_plain(cols, 2)
-    torch.cuda.synchronize()
-    err = max_abs_err(torch, got, want)
-    ms = time_cuda(torch, lambda: keccak_cuda.keccak_single_block(cols, 2), reps=10)
-    plain_ms = time_cuda(torch, lambda: keccak_cuda.keccak_single_block_plain(cols, 2), reps=2)
-    b_ms, b_by = bound_ms(n * 24 * KECCAK_OPS_PER_ROUND, n * 8 * (21 + 2))
-    cases.append({"case": "histogram10000 tree leaves", "states": n, "out_lanes": 2, "rounds": 24,
-                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
-    del got, want, cols
-    results["keccak_single_block"] = cases
+    results["keccak_single_block"] = kernel1_cases(torch, dev, lanes, batch, length, HIST_LENGTH,
+                                                   POPLAR1_BATCH * POPLAR1_PREFIXES)
 
     # kernel 2: the helper measurement share, 1024 reports x 2286 blocks
     cases = []
@@ -528,11 +551,61 @@ def phase_kernels(torch, dev):
         del head, body
     cases.append(check_long_absorb(torch, dev))
     results["keccak_sponge"] = cases
-    results["scatter_rows"] = check_scatter(torch, dev, rng)
+    results["scatter_rows"] = check_scatter(torch, dev, rng, VdafInstance.sparse_sumvec(16, 1_000_000, 64, 16))
     bad = [c for cs in results.values() for c in cs if c["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
     return results
+
+
+def kernel1_cases(torch, dev, lanes, batch: int, length: int, hist_length: int, walk_states: int):
+    """Kernel 1 against its plain version, one launch a batch of states in
+    either entry: the leader binder's tree leaf level at SumVec(1000, 16)
+    (over an id, a nonce and 2 x length share lanes: batch x 2,286 nodes
+    at length 16,000, the path's largest launch), a level above it,
+    Poplar1's counter-mode
+    walk (walk_states states: 5 lanes out for extend, 2 for convert),
+    Histogram(10000)'s tree leaves (batch x 1,429) and a reduced-round
+    stream at an offset. lanes(shape): random int64 lanes on dev."""
+    from janus_tpu_torch.ops import keccak_cuda
+    from janus_tpu_torch.vdaf.poplar1_device import _DST_CONVERT, _DST_EXTEND
+
+    def tree_case(name, parts, lanes_n, level, rounds, reps):
+        n = keccak_cuda.tree_nodes(lanes_n)
+        run = lambda: keccak_cuda.keccak_tree_level(parts, lanes_n, batch, level, 8 * lanes_n, dev, rounds=rounds)  # noqa: E731
+        plain = lambda: keccak_cuda.keccak_tree_level_plain(parts, lanes_n, batch, level, 8 * lanes_n, dev, rounds=rounds)  # noqa: E731
+        return kernel_case(torch, run, plain, reps, n_ops=batch * n * rounds * KECCAK_OPS_PER_ROUND,
+                           nbytes=batch * lanes_n * 8 + batch * n * 16,
+                           info={"case": name, "reports": batch, "nodes": n, "lanes": lanes_n, "level": level,
+                                 "rounds": rounds})
+
+    def ctr_case(name, parts, p, rows, nblocks, out_lanes, rounds, reps, offset=0):
+        run = lambda: keccak_cuda.keccak_ctr_blocks(parts, p, rows, nblocks, out_lanes, dev, ctr_offset=offset, rounds=rounds)  # noqa: E731
+        plain = lambda: keccak_cuda.keccak_ctr_blocks_plain(parts, p, rows, nblocks, out_lanes, dev, ctr_offset=offset, rounds=rounds)  # noqa: E731
+        varying = sum(c.shape[1] for _, c in parts if not isinstance(c, bytes))
+        return kernel_case(torch, run, plain, reps, n_ops=rows * nblocks * rounds * KECCAK_OPS_PER_ROUND,
+                           nbytes=rows * varying * 8 + rows * nblocks * out_lanes * 8,
+                           info={"case": name, "states": rows * nblocks, "out_lanes": out_lanes, "rounds": rounds,
+                                 "ctr_offset": offset})
+
+    cases = []
+    binder = [(0, bytes(8)), (1, lanes((batch, 2))), (3, lanes((batch, 2 * length)))]
+    cases.append(tree_case("sumvec tree leaves", binder, 3 + 2 * length, 0, 24, 10))
+    cases.append(tree_case("sumvec tree leaves, 3 rounds", binder, 3 + 2 * length, 0, 3, 10))
+    digs = keccak_cuda.keccak_tree_level(binder, 3 + 2 * length, batch, 0, 8 * (3 + 2 * length), dev)
+    cases.append(tree_case("sumvec tree level 1", [(0, digs.reshape(batch, -1))], 2 * digs.shape[1], 1, 24, 20))
+    del binder, digs
+    n = walk_states
+    seeds = lanes((n, 2))
+    cases.append(ctr_case("poplar1 leaf walk, extend", [(0, _DST_EXTEND), (2, seeds)], 4, n, 1, 5, 24, 50))
+    cases.append(ctr_case("poplar1 leaf walk, convert", [(0, _DST_CONVERT), (2, seeds)], 4, n, 1, 2, 24, 50))
+    del seeds
+    hist = [(0, bytes(8)), (1, lanes((batch, 2))), (3, lanes((batch, 2 * hist_length)))]
+    cases.append(tree_case("histogram10000 tree leaves", hist, 3 + 2 * hist_length, 0, 24, 10))
+    del hist
+    prefix_parts = [(0, bytes(16)), (2, lanes((batch, 2))), (4, lanes((1, 1))), (5, lanes((batch, 2)))]
+    cases.append(ctr_case("stream at an offset, 3 rounds", prefix_parts, 7, batch, 64, 21, 3, 20, offset=5))
+    return cases
 
 
 def sponge_inputs(lanes, n: int, head_bytes: int, elems: int, limbs: int):
@@ -783,22 +856,24 @@ def sparse_truth(length: int, flat, compact, rows) -> list:
     return [int(x) for x in out]
 
 
-def check_scatter(torch, dev, rng):
+def check_scatter(torch, dev, rng, inst, rows=(1024, 256, 64)):
     """Kernel 4 against its plain version on the card: the north star (1,024
     reports x 1,024 compact lanes into 1,000,000 positions, blocks uniform
-    over 15,625 with block 0 in every report), then a 64-row bucket with 3
-    rejected rows and 24 padding rows (all sentinel)."""
+    over 15,625 with block 0 in every report), with its three device
+    kernels' times; the pipelined leader's chunk (256 reports); then a
+    64-row bucket with 3 rejected rows and 24 padding rows (all
+    sentinel)."""
     import numpy as np
 
     from janus_tpu_torch.ops import scatter_cuda
-    from janus_tpu_torch.vdaf.registry import VdafInstance, circuit_for
+    from janus_tpu_torch.vdaf.registry import circuit_for
     from janus_tpu_torch.vdaf.wire import flat_scatter_indices
 
-    inst = VdafInstance.sparse_sumvec(16, 1_000_000, 64, 16)
     circ = circuit_for(inst)
     L = circ.logical_length
     cases = []
-    for name, b, dead in (("north star, hot block 0", 1024, ()), ("rejected and padding rows", 64, (3, 17, 30, *range(40, 64)))):
+    for name, b, dead in (("north star, hot block 0", rows[0], ()), ("pipelined leader's chunk", rows[1], ()),
+                          ("rejected and padding rows", rows[2], (3, 17, 30, *range(40, 64)))):
         _, bi, _ = sparse_measurements(inst, b, int(rng.integers(0, 2**31)))
         bi[list(dead)] = -1
         flat = flat_scatter_indices(bi, circ)
@@ -808,24 +883,23 @@ def check_scatter(torch, dev, rng):
         vals = tuple(torch.from_numpy(a.view(np.int64)).to(dev) for a in (lo, hi))
         acc = tuple(torch.from_numpy(rng.integers(0, (F128 >> 64) - 1, size=L, dtype=np.uint64).view(np.int64)).to(dev)
                     for _ in range(2))
-        got = scatter_cuda.scatter_rows(acc, vals, idx)
-        want = scatter_cuda.scatter_rows_plain(acc, vals, idx)
-        torch.cuda.synchronize()
-        err = max_abs_err(torch, got, want)
-        ms = time_cuda(torch, lambda: scatter_cuda.scatter_rows(acc, vals, idx), reps=20)
-        plain_ms = time_cuda(torch, lambda: scatter_cuda.scatter_rows_plain(acc, vals, idx), reps=1, warmup=0)
         live = int((flat < L).sum())
         # bytes: live values and every index read once, acc read once and
         # written once; operations: one Field128 add (8 32-bit ops) a live lane
-        b_ms, b_by = bound_ms(8 * live, live * 16 + flat.size * 4 + 2 * L * 16)
-        cases.append({"case": name, "reports": b, "compact_lanes": flat.shape[1], "logical_length": L,
-                      "live_lanes": live, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                      "bound_by": b_by})
-        del got, want, vals, acc, idx
+        case = kernel_case(
+            torch, lambda: scatter_cuda.scatter_rows(acc, vals, idx), lambda: scatter_cuda.scatter_rows_plain(acc, vals, idx),
+            20, n_ops=8 * live, nbytes=live * 16 + flat.size * 4 + 2 * L * 16,
+            info={"case": name, "reports": b, "compact_lanes": flat.shape[1], "logical_length": L, "live_lanes": live},
+        )
+        if name.startswith("north star"):  # the launch's three kernels (copy, accumulate, finalize)
+            case["device_ms_by_kernel"] = device_ms_by_kernel(torch, lambda: scatter_cuda.scatter_rows(acc, vals, idx),
+                                                              20)
+        cases.append(case)
+        del vals, acc, idx
     return cases
 
 
-def phase_sparse(torch, dev, inst, batch: int, bad_rows, reps: int = 2, small_batch: int = 4):
+def phase_sparse(torch, dev, inst, batch: int, bad_rows, reps: int = 1, small_batch: int = 4):
     """Block-sparse SumVec at full width (see the module docstring, phase
     6d): the two-party step over the compact encoding, then each party's
     prepare on the engine and aggregate_sparse into the logical vector;
@@ -2081,6 +2155,11 @@ def phase_poplar1(torch, dev):
                 raise AssertionError(f"poplar1: report {i}, party {party} disagrees with the host walk")
     host_check_s = time.perf_counter() - t0
     host_s = [{k: v for k, v in sp.items() if k != "device"} for sp in split]
+    # the step's device kernels by the profiler: kernel 1 once a
+    # permutation batch, nothing else per lane
+    t0 = time.perf_counter()
+    profile = profile_step(torch, lambda: both_parties([]), (), step_s)
+    profile["profile_s"] = time.perf_counter() - t0
     return {
         "path": "poplar1",
         "vdaf": {"kind": "poplar1", "bits": bits},
@@ -2097,6 +2176,7 @@ def phase_poplar1(torch, dev):
         "host_walk_check_s": host_check_s,
         "launches": launches,
         "peak_device_bytes": peak,
+        "profile": profile,
     }
 
 
@@ -3073,9 +3153,12 @@ def main() -> int:
     big_plan = (61_936, 49, 26)
     # (batches halved from 128, 64 and 64: each phase ran past 60 s at those;
     # halved again from 64 and 32 when the sparse phases took the whole
-    # script past 480 s: the device shard is most of these phases)
+    # script past 480 s, and sumvec100k again from 32 when it stayed past:
+    # the device shard is most of it. The draft step's time does not
+    # follow its batch (its sponge chains run one after another), so its
+    # batch stays)
     runs = (
-        ("sumvec100k", big, 32, (5, 17, 25), fast, 1, 16, 1, 3, big_plan, 4, True),
+        ("sumvec100k", big, 16, (5, 9, 13), fast, 1, 16, 1, 3, big_plan, 4, True),
         ("draft-sumvec100k", VdafInstance("sumvec", bits=16, length=100_000, xof_mode="draft"), 16, (3, 9, 13),
          ("keccak_sponge",), 1, 16, 0, 24, big_plan, 2, False),
         ("fixedpoint", VdafInstance.fixed_point_vec(1000, 16), 1024, (5, 300, 1000), fast, 3, 256, 4, 24, None, 0,
@@ -3190,6 +3273,7 @@ def main() -> int:
             "launches_by_path": {p: rec["launches"][name] for p, rec in {**paths, **serves}.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main_case["ms"],
+            "device_ms": main_case.get("device_ms"),
             "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],

@@ -11,23 +11,46 @@
 // callers' sentinel is L, for padding blocks, rejected reports and the
 // padding rows of a bucket.
 //
-// Field addition is exact, so the order of the adds does not change the
-// result and the kernel sums by position, not report by report. Atomics
-// have no modular 128-bit add, so each position gets a plain 192-bit
-// integer sum in three u64 words of scratch: a lane adds its value's low
-// word with atomicAdd, carries out of that add into the middle word with
-// its high word, and a carry out of the middle word into the top word. The
-// carry of each add comes from the value atomicAdd returns, so the words
-// hold the exact integer sum under any interleaving (at most 2^64 lanes of
-// values below 2^128). A last pass reduces each position's sum mod p, adds
-// acc[p] and writes out[p] once. Reports that share a block (every report
-// carrying block 0) meet only on the atomics of those positions.
+// Bound on the H100: bytes. The function reads the live lanes' values
+// (16 B), every index (4 B) and acc (16 B a position) once and writes out
+// once; its arithmetic is a handful of adds a lane. Field addition is
+// exact, so the order of the adds does not change the result: the kernel
+// sums by position, not report by report, straight into the output, in
+// three launches whose cost beyond acc and out follows the live lanes.
 //
-// Bound on the H100: bytes. The function reads values (16 B a lane), the
-// indices (4 B a lane) and acc (16 B a position) once and writes out once;
-// its arithmetic is a handful of adds a lane. The design adds the scratch
-// (zeroed, then read once: 48 B a position) and the atomics' traffic to
-// that minimum.
+//   copy        out = acc, 16-byte accesses; a block also zeroes the marks
+//               of its 32 groups.
+//   accumulate  a thread takes compact column c over a run of 2 rows (a
+//               warp reads 32 neighbouring columns of one row; a dead
+//               lane's value is not read) and adds equal consecutive
+//               positions in registers with the exact Field128 add; the 8
+//               warps of a block, each on its own run of rows of the same
+//               32 columns, then merge their last runs of equal position
+//               (block 0, in every report, becomes one sum a position a
+//               block). Each run
+//               goes into out with atomics, in rounds of independent ones
+//               (every run's low word, then every high word with its carry,
+//               then the rare folds), so a thread waits on two atomic round
+//               trips, not two a run, and marks its 64-position group (one
+//               byte a group). Programmatic dependent launch lets the loads
+//               and the adds in registers run while the copy still runs.
+//   finalize    a block owns 32 groups (2,048 positions): it takes p off
+//               each position of a marked group that holds p or more.
+//               Launched early too, it waits on the accumulate launch
+//               before it reads a mark.
+//
+// Atomics have no modular 128-bit add, so a position's two words hold a
+// 128-bit integer congruent to the sum mod p: an add puts its low word with
+// atomicAdd, carries out of that add into the high word with its high word,
+// and a carry out of the high word (the integer passed 2^128) is folded back
+// in as 2^128 mod p = 7 * 2^66 - 1 by the thread whose add made it, the same
+// way. Each carry comes from the old value its atomic returns, so the words
+// stay congruent to the exact sum under any interleaving.
+//
+// The marks (a byte a 64-position group, 16 KB at L = 1,000,000) are the
+// only scratch: the wrapper allocates them per launch, uninitialized, on
+// the launch's stream, and the copy zeroes them before the accumulate,
+// which waits for the copy before it writes one.
 //
 // Plain C interface, loaded with ctypes: the launch returns the CUDA error
 // code of its first failed launch (0 on success).
@@ -41,83 +64,197 @@ typedef unsigned long long ull;
 // p = 2^128 - 7*2^66 + 1 = (2^64 - 28) * 2^64 + 1
 #define P128 (((u128)0xFFFFFFFFFFFFFFE4ULL << 64) | (u128)1ULL)
 // 2^128 - p = 7*2^66 - 1 = 27 * 2^64 + (2^64 - 1)
-#define C128 (((u128)27ULL << 64) | (u128)0xFFFFFFFFFFFFFFFFULL)
+#define C128_LO 0xFFFFFFFFFFFFFFFFULL
+#define C128_HI 27ULL
 
-// X = w0 + w1*2^64 + w2*2^128 < 2^192  ->  X mod p, canonical
-// (csrc/expand_f128.cu's reduction, the same steps).
-__device__ __forceinline__ u128 f128_reduce192(uint64_t w0, uint64_t w1, uint64_t w2) {
-    const u128 L = ((u128)w1 << 64) | (u128)w0;
-    const u128 t = (u128)w2 * 28u;
-    const u128 s = L + ((u128)(uint64_t)t << 64);
-    uint64_t top = (uint64_t)(t >> 64) + (s < L ? 1u : 0u);
-    const u128 s1 = s - (u128)w2;
-    top -= (s < (u128)w2) ? 1u : 0u;
-    const u128 u = s1 + ((u128)(28u * top) << 64);
-    const bool carry = u < s1;
-    u128 v = u - (u128)top;
-    const bool borrow = u < (u128)top;
-    if (carry && !borrow) v += C128;
-    if (v >= P128) v -= P128;
-    return v;
-}
+#define GROUP_SHIFT 6     // 64 positions a group
+#define BLOCK_POS 2048    // positions a copy or finalize block: 32 groups
+#define FIN_GROUPS 32
+#define PASS_THREADS 256  // copy and finalize: 4 position pairs a thread
+#define ACC_WARPS 8       // accumulate: 8 warps' row runs over 32 columns
+#define ROWS 2            // rows a thread walks down its column (chosen on the card: PERF.md, kernel 4)
 
-__global__ void scatter_zero_kernel(ull* __restrict__ words, long long n) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) words[i] = 0;
-}
-
-// One thread per lane (report i, compact column c), row-major.
-__global__ void scatter_accumulate_kernel(const uint64_t* __restrict__ val_lo, const uint64_t* __restrict__ val_hi,
-                                          const int32_t* __restrict__ idx, long long lanes, long long L,
-                                          ull* __restrict__ words) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= lanes) return;
-    const long long p = idx[i];
-    if (p < 0 || p >= L) return;  // the sentinel (L) and anything else out of range
-    ull* cell = words + 3 * p;
-    const ull lo = val_lo[i];
-    const ull old0 = atomicAdd(cell, lo);
-    // hi < 2^64 - 27 for an element < p, so hi + 1 does not wrap
-    const ull mid = val_hi[i] + (old0 + lo < old0 ? 1ULL : 0ULL);
-    const ull old1 = atomicAdd(cell + 1, mid);
-    if (old1 + mid < old1) atomicAdd(cell + 2, 1ULL);
-}
-
-// One thread per logical position: out = acc + (its sum mod p), mod p.
-__global__ void scatter_finalize_kernel(const uint64_t* __restrict__ acc_lo, const uint64_t* __restrict__ acc_hi,
-                                        const ull* __restrict__ words, uint64_t* __restrict__ out_lo,
-                                        uint64_t* __restrict__ out_hi, long long L) {
-    const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= L) return;
-    const u128 s = f128_reduce192(words[3 * p], words[3 * p + 1], words[3 * p + 2]);
-    const u128 a = ((u128)acc_hi[p] << 64) | (u128)acc_lo[p];
-    u128 t = a + s;
-    // a, s < p: a true sum past 2^128 or at least p loses p (mod 2^128
-    // the subtraction is right in both cases, the result being below p)
+// a + b mod p for reduced a, b: a true sum past 2^128 or at least p loses p
+// (mod 2^128 the subtraction is right in both cases, the result being below p)
+__device__ __forceinline__ u128 f128_add(u128 a, u128 b) {
+    u128 t = a + b;
     if (t < a || t >= P128) t -= P128;
-    out_lo[p] = (uint64_t)t;
-    out_hi[p] = (uint64_t)(t >> 64);
+    return t;
 }
 
-// acc_lo, acc_hi: [L]; val_lo, val_hi: [lanes] (a [b, cm] row-major batch);
-// idx: [lanes] int32; words: [3 L] scratch; out_lo, out_hi: [L].
+__device__ __forceinline__ u128 load_value(const ull* lo, const ull* hi, long long i) {
+    return ((u128)__ldg(hi + i) << 64) | (u128)__ldg(lo + i);
+}
+
+// out = acc over 2,048 positions a block, and their 32 marks zero; the
+// accumulate launch may start at once (it waits for the copy before its
+// first atomic or mark).
+__global__ void __launch_bounds__(PASS_THREADS)
+scatter_copy_kernel(const ull* __restrict__ acc_lo, const ull* __restrict__ acc_hi, ull* __restrict__ out_lo,
+                    ull* __restrict__ out_hi, unsigned char* __restrict__ marks, long long L) {
+    cudaTriggerProgrammaticLaunchCompletion();
+    if (threadIdx.x < FIN_GROUPS) marks[(long long)blockIdx.x * FIN_GROUPS + threadIdx.x] = 0;
+    const long long base = (long long)blockIdx.x * BLOCK_POS;
+#pragma unroll
+    for (int k = 0; k < BLOCK_POS / (2 * PASS_THREADS); ++k) {
+        const long long p = base + k * 2 * PASS_THREADS + 2 * threadIdx.x;
+        if (p + 1 < L) {
+            *(ulonglong2*)(out_lo + p) = __ldg((const ulonglong2*)(acc_lo + p));
+            *(ulonglong2*)(out_hi + p) = __ldg((const ulonglong2*)(acc_hi + p));
+        } else if (p < L) {
+            out_lo[p] = acc_lo[p];
+            out_hi[p] = acc_hi[p];
+        }
+    }
+}
+
+// Block (row super-run, 32 columns): warp w walks rows [r0 + w ROWS, r0 + (w+1) ROWS)
+// of column c; every thread of a warp walks the same rows.
+__global__ void __launch_bounds__(ACC_WARPS * 32)
+scatter_accumulate_kernel(const ull* __restrict__ val_lo, const ull* __restrict__ val_hi,
+                          const int32_t* __restrict__ idx, long long rows, long long cols, long long L,
+                          ull* __restrict__ out_lo, ull* __restrict__ out_hi, unsigned char* __restrict__ marks) {
+    __shared__ long long last_pos[ACC_WARPS][32];
+    __shared__ ull last_lo[ACC_WARPS][32], last_hi[ACC_WARPS][32];
+    cudaTriggerProgrammaticLaunchCompletion();  // the finalize launch may get ready
+    const unsigned lane = threadIdx.x & 31;
+    const unsigned w = threadIdx.x >> 5;
+    const long long c = (long long)blockIdx.y * 32 + lane;
+    const bool col_ok = c < cols;
+    const long long r0 = ((long long)blockIdx.x * ACC_WARPS + w) * ROWS;
+    // slot k > 0: the run that ended just before row k; slot 0: the last run
+    long long pos[ROWS];
+    u128 sum[ROWS];
+    long long cur = -1;  // the open run's position, -1 before the first live lane
+    u128 run = 0;
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+        const long long i = r0 + k;
+        const long long p = (col_ok && i < rows) ? (long long)__ldg(idx + i * cols + c) : -1;
+        const bool live = p >= 0 && p < L;
+        const u128 v = live ? load_value(val_lo, val_hi, i * cols + c) : (u128)0;
+        pos[k] = -1;
+        if (live && p != cur) {
+            pos[k] = cur;
+            sum[k] = run;
+            cur = p;
+            run = v;
+        } else if (live) {
+            run = f128_add(run, v);
+        }
+    }
+    // the block's warps merge their last runs of one position into warp 0's
+    last_pos[w][lane] = cur;
+    last_lo[w][lane] = (ull)run;
+    last_hi[w][lane] = (ull)(run >> 64);
+    __syncthreads();
+    if (w == 0 && cur >= 0) {
+#pragma unroll
+        for (int o = 1; o < ACC_WARPS; ++o) {
+            if (last_pos[o][lane] == cur) {
+                run = f128_add(run, ((u128)last_hi[o][lane] << 64) | (u128)last_lo[o][lane]);
+                last_pos[o][lane] = -1;
+            }
+        }
+    }
+    __syncthreads();
+    pos[0] = w == 0 ? cur : last_pos[w][lane];
+    sum[0] = run;
+    cudaGridDependencySynchronize();  // the copy has run: out holds acc, the marks are zero
+    ull old[ROWS], add[ROWS];
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+        if (pos[k] >= 0) {
+            old[k] = atomicAdd(out_lo + pos[k], (ull)sum[k]);
+            marks[pos[k] >> GROUP_SHIFT] = 1;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+        if (pos[k] >= 0) {
+            // hi < 2^64 - 27 for an element < p, so hi + 1 does not wrap
+            add[k] = (ull)(sum[k] >> 64) + (old[k] + (ull)sum[k] < old[k] ? 1ULL : 0ULL);
+            old[k] = atomicAdd(out_hi + pos[k], add[k]);
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+        // the integer passed 2^128: add 2^128 mod p, until no add wraps
+        bool wrapped = pos[k] >= 0 && old[k] + add[k] < old[k];
+        while (wrapped) {
+            const ull o = atomicAdd(out_lo + pos[k], C128_LO);
+            const ull a = C128_HI + (o + C128_LO < o ? 1ULL : 0ULL);
+            const ull h = atomicAdd(out_hi + pos[k], a);
+            wrapped = h + a < h;
+        }
+    }
+}
+
+// Block k: groups [32 k, 32 (k + 1)); a warp's 64 neighbouring positions
+// (a pair a thread) lie in one group.
+__global__ void __launch_bounds__(PASS_THREADS)
+scatter_finalize_kernel(const unsigned char* __restrict__ marks, ull* __restrict__ out_lo, ull* __restrict__ out_hi,
+                        long long L) {
+    __shared__ unsigned char marked[FIN_GROUPS];
+    cudaGridDependencySynchronize();  // the accumulate launch has run
+    if (threadIdx.x < FIN_GROUPS) marked[threadIdx.x] = marks[(long long)blockIdx.x * FIN_GROUPS + threadIdx.x];
+    __syncthreads();
+    const long long base = (long long)blockIdx.x * BLOCK_POS;
+#pragma unroll
+    for (int k = 0; k < BLOCK_POS / (2 * PASS_THREADS); ++k) {
+        const int off = k * 2 * PASS_THREADS + 2 * threadIdx.x;
+        if (!marked[off >> GROUP_SHIFT]) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const long long p = base + off + e;
+            if (p >= L) continue;
+            const u128 v = ((u128)out_hi[p] << 64) | (u128)out_lo[p];
+            if (v >= P128) {
+                const u128 t = v - P128;
+                out_lo[p] = (ull)t;
+                out_hi[p] = (ull)(t >> 64);
+            }
+        }
+    }
+}
+
+// A launch that may start before the one before it on the stream ends
+// (programmatic dependent launch): the kernel waits for it with
+// cudaGridDependencySynchronize where it needs its results.
+template <typename... Params, typename... Args>
+static cudaError_t launch_early(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t s, Args... args) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = block;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// acc_lo, acc_hi, out_lo, out_hi: [L], 16-byte aligned; val_lo, val_hi:
+// [rows, cols] row-major; idx: [rows, cols] int32; marks: [32 ceil(L /
+// 2048)] bytes of scratch, any contents (the copy zeroes them).
 extern "C" int scatter_rows_launch(const void* acc_lo, const void* acc_hi, const void* val_lo, const void* val_hi,
-                                   const void* idx, long long lanes, long long L, void* words, void* out_lo,
-                                   void* out_hi, void* stream) {
+                                   const void* idx, long long rows, long long cols, long long L, void* marks,
+                                   void* out_lo, void* out_hi, void* stream) {
     if (L <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
-    const int threads = 256;
-    const long long nw = 3 * L;
-    scatter_zero_kernel<<<(unsigned int)((nw + threads - 1) / threads), threads, 0, s>>>((ull*)words, nw);
+    const unsigned int nblk = (unsigned int)((L + BLOCK_POS - 1) / BLOCK_POS);
+    ull* ol = (ull*)out_lo;
+    ull* oh = (ull*)out_hi;
+    unsigned char* mk = (unsigned char*)marks;
+    scatter_copy_kernel<<<nblk, PASS_THREADS, 0, s>>>((const ull*)acc_lo, (const ull*)acc_hi, ol, oh, mk, L);
     cudaError_t rc = cudaGetLastError();
+    if (rc != cudaSuccess || rows <= 0 || cols <= 0) return (int)rc;
+    // x: row super-runs (up to 2^31 - 1), y: 32-column blocks (cols up to 2^21)
+    const dim3 grid((unsigned int)((rows + ACC_WARPS * ROWS - 1) / (ACC_WARPS * ROWS)), (unsigned int)((cols + 31) / 32));
+    rc = launch_early(scatter_accumulate_kernel, grid, dim3(ACC_WARPS * 32), s, (const ull*)val_lo,
+                      (const ull*)val_hi, (const int32_t*)idx, rows, cols, L, ol, oh, mk);
     if (rc != cudaSuccess) return (int)rc;
-    if (lanes > 0) {
-        scatter_accumulate_kernel<<<(unsigned int)((lanes + threads - 1) / threads), threads, 0, s>>>(
-            (const uint64_t*)val_lo, (const uint64_t*)val_hi, (const int32_t*)idx, lanes, L, (ull*)words);
-        rc = cudaGetLastError();
-        if (rc != cudaSuccess) return (int)rc;
-    }
-    scatter_finalize_kernel<<<(unsigned int)((L + threads - 1) / threads), threads, 0, s>>>(
-        (const uint64_t*)acc_lo, (const uint64_t*)acc_hi, (const ull*)words, (uint64_t*)out_lo, (uint64_t*)out_hi, L);
-    return (int)cudaGetLastError();
+    return (int)launch_early(scatter_finalize_kernel, dim3(nblk), dim3(PASS_THREADS), s, (const unsigned char*)mk,
+                             ol, oh, L);
 }

@@ -14,12 +14,18 @@ reports: b = 1,024, cm = 1,024, L = 1,000,000, once per party.
 What bounds it on the H100 is memory: values, indices and acc read once
 and the result written once, at most about 56 MB at that shape (only live
 lanes' values need reading), against a few integer adds a lane. The
-kernel does not walk the reports in order.
-Field addition is exact, so it sums by position: each lane adds its
-value into a 192-bit integer per position with three atomicAdds (the
-carries taken from the old values the atomics return), and one thread a
-position reduces that sum mod p and adds acc once. Its scratch is 24 B a
-position, zeroed by the kernel itself.
+kernel does not walk the reports in order. Field addition is exact, so
+it sums by position, straight into the output, in three launches: out =
+acc; then a thread walks one compact column down 2 rows, adds equal
+consecutive positions in registers, the 8 warps of a block merge their
+last runs of one position (block 0, in every report, becomes one sum a
+position a block), and every run goes into out with atomicAdds (the
+carries taken from the old values the atomics return, a carry past
+2^128 folded back in as 2^128 mod p), marking its 64-position group;
+last, the marked groups' positions that hold p or more lose p. There is
+no scratch but the marks (`scratch_bytes`, 16 KB at L = 1,000,000),
+which the wrapper allocates per launch on the launch's stream and the
+copy launch zeroes, so threads and streams share nothing.
 
 Dispatch is by device: on a CUDA tensor `scatter_rows` launches the
 kernel (and raises if it cannot); on a CPU tensor it runs
@@ -54,15 +60,19 @@ def scatter_rows_plain(acc, values, flat_idx):
     return lo, hi
 
 
+def scratch_bytes(L: int) -> int:
+    """Device bytes of a launch's scratch for an accumulator of L
+    positions: a mark byte a 64-position group, in whole 2,048-position
+    blocks."""
+    return 32 * -(-L // 2048)
+
+
 def _lib():
     lib = cuda_build.load("scatter_rows")
     fn = lib.scatter_rows_launch
     if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, ll, ll, ll, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -89,16 +99,19 @@ def scatter_rows(acc, values, flat_idx):
         raise ValueError("scatter_rows: limbs must be int64 and flat_idx int32")
     L = acc[0].shape[0]
     acc_lo, acc_hi, val_lo, val_hi = (t.contiguous() for t in tensors)
+    # the copy reads acc 16 bytes at a time
+    acc_lo, acc_hi = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (acc_lo, acc_hi))
     idx = flat_idx.contiguous()
     out_lo = torch.empty(L, dtype=torch.int64, device=device)
     out_hi = torch.empty(L, dtype=torch.int64, device=device)
     if L:
-        words = torch.empty(3 * L, dtype=torch.int64, device=device)
+        b, cm = idx.shape
         with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
+            marks = torch.empty(scratch_bytes(L), dtype=torch.uint8, device=device)
             rc = _lib()(
                 acc_lo.data_ptr(), acc_hi.data_ptr(), val_lo.data_ptr(), val_hi.data_ptr(), idx.data_ptr(),
-                idx.numel(), L, words.data_ptr(), out_lo.data_ptr(), out_hi.data_ptr(), stream,
+                b, cm, L, marks.data_ptr(), out_lo.data_ptr(), out_hi.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream,
             )
         cuda_build.check(rc, "scatter_rows")
         cuda_build.count_launch(scatter_rows)

@@ -33,9 +33,9 @@ Resident through the step
 
 Transient phases (the largest counts)
   - the fast leader's joint-rand binder (circuits with joint
-    randomness): its encoded share (n e), the digest's assembled message
-    (n e) and kernel 1's stacked leaf input, 21 lanes for every 14 lanes
-    of message (1.5 n e), and the leaf digests (n e / 7): 3.65 n e;
+    randomness): its encoded share (n e) and the leaf digests (n e / 7):
+    kernel 1's tree-level launch reads the binder's parts in place, so
+    no assembled, padded or stacked copy of the message exists: 1.15 n e;
   - the contraction query (SumVec, CountVec, Histogram), whole share or
     one tile: the fast helper's share when it is whole (n e; a tile of
     kernel 2's output, K e, when streamed), the zero-padded share or
@@ -57,8 +57,9 @@ then aggregates each party's out shares by the scatter kernel
 (`sparse_aggregate_bytes`): both parties' compact out shares stay
 resident (2 output_len e a row), and a dispatch adds the logical
 accumulator it reads and the one it writes (2 L e, L = the logical
-length), the kernel's 192-bit scratch (24 L) and the rows' flat indices
-(4 output_len a row).
+length) and the rows' flat indices (4 output_len a row); the kernel
+adds into its output in place, and its only scratch is a mark byte a
+64-position group (ops/scatter_cuda.py `scratch_bytes`), made per launch.
 
 A first-order count, checked against `max_memory_allocated` on the card
 (chip_smoke.py prints both); the engine's OOM ladder is the backstop.
@@ -70,6 +71,7 @@ import math
 
 import torch
 
+from ..ops.scatter_cuda import scratch_bytes
 from .circuits import Histogram, SparseSumVec, SumVec
 
 # Fraction of the budget the model plans into: slack for temporaries
@@ -77,7 +79,7 @@ from .circuits import Histogram, SparseSumVec, SumVec
 HEADROOM = 0.85
 
 # The fast leader's binder phase, in copies of its encoded share (above).
-BINDER_COPIES = 3.65
+BINDER_COPIES = 1.15
 
 # Copies of the calls-inputs tensor the generic query holds at once.
 GENERIC_WORKING_COPIES = 26
@@ -149,11 +151,11 @@ def prepare_row_bytes(circ, tile_elems: int | None = None, draft: bool = False) 
 
 def sparse_aggregate_bytes(circ, rows: int) -> int:
     """Modeled peak bytes of a block-sparse aggregate over `rows` reports
-    (above): the resident out shares of both parties, and one scatter
-    dispatch's accumulators, scratch and indices."""
+    (above): the resident out shares of both parties, one scatter
+    dispatch's accumulators and indices, and the kernel's marks."""
     e = _elem_bytes(circ)
     L = circ.agg_output_len
-    return rows * circ.output_len * (2 * e + 4) + 2 * L * e + 24 * L
+    return rows * circ.output_len * (2 * e + 4) + 2 * L * e + scratch_bytes(L)
 
 
 def feasible_rows(circ, budget_bytes: int | None, tile_elems: int | None = None, draft: bool = False) -> int | None:

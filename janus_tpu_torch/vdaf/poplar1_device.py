@@ -9,7 +9,9 @@ message. So this module flattens [reports x prefixes] into one batch
 axis of N = n * P columns and runs the level loop as batched
 permutations through vdaf/keccak.py `ctr_stream_lanes`: on a CUDA
 tensor each is one launch of kernel 1 (ops/keccak_cuda.py
-`keccak_single_block`), on a CPU tensor its plain version. A walk to
+`keccak_ctr_blocks`, which reads the seeds in place and writes only the
+lanes read: 5 for `extend`, 2 for `convert`, LIMBS + 1 for the value),
+on a CPU tensor its plain version. A walk to
 level L launches it 2(L+1)+1 times: `extend` and `convert` per level,
 and the value sample at the last one. The per-prefix left/right choice
 is an elementwise `where` on the prefix bit, the correction words
@@ -55,15 +57,18 @@ def _tf_at(bits: int, level: int):
     return TF128 if level == bits - 1 else TF64
 
 
-def _stream(dst_: bytes, seed_lanes):
-    """One counter-mode block of dst || seed per row: [N, 21] lanes."""
+def _stream(dst_: bytes, seed_lanes, out_lanes: int):
+    """The first out_lanes lanes of one counter-mode block of dst || seed
+    per row: [N, out_lanes]."""
     n = seed_lanes.shape[0]
-    return ctr_stream_lanes([(0, dst_), (2, seed_lanes)], _PREFIX_LEN, n, 1, seed_lanes.device)[:, 0, :]
+    return ctr_stream_lanes(
+        [(0, dst_), (2, seed_lanes)], _PREFIX_LEN, n, 1, seed_lanes.device, out_lanes=out_lanes
+    )[:, 0, :]
 
 
 def _extend_lanes(seed_lanes):
     """Batched Idpf `_extend`: [N, 2] seeds -> (sl [N, 2], tl [N], sr, tr)."""
-    stream = _stream(_DST_EXTEND, seed_lanes)
+    stream = _stream(_DST_EXTEND, seed_lanes, 5)
     sl = stream[:, 0:2]
     sr = stream[:, 2:4]
     tl = stream[:, 4] & 1
@@ -74,14 +79,12 @@ def _extend_lanes(seed_lanes):
 def _convert_lanes(tf, seed_lanes, sample: bool):
     """Batched Idpf `_convert`: -> (next seed [N, 2], the value's first
     element [N] or None)."""
-    nxt = _stream(_DST_CONVERT, seed_lanes)[:, 0:2]
+    nxt = _stream(_DST_CONVERT, seed_lanes, 2)
     y = None
     if sample:
-        n = seed_lanes.shape[0]
-        stream = ctr_stream_lanes(
-            [(0, _DST_CONVERT_VALUE), (2, seed_lanes)], _PREFIX_LEN, n, 1, seed_lanes.device
-        )
-        y = fmap(lambda v: v[:, 0], sample_field_vec(tf, stream, 1))
+        # the first element takes LIMBS + 1 lanes of its block
+        stream = _stream(_DST_CONVERT_VALUE, seed_lanes, tf.LIMBS + 1)
+        y = fmap(lambda v: v[:, 0], sample_field_vec(tf, stream[:, None, :], 1))
     return nxt, y
 
 

@@ -39,7 +39,8 @@ from .engine import (
     sliced_meas_source,
     stream_plan,
 )
-from .keccak import _assemble_segments, ctr_stream_lanes, expand_field_vec, tree_digest_lanes
+from ..ops.keccak_cuda import assemble_lanes
+from .keccak import ctr_stream_lanes, expand_field_vec, tree_digest_lanes
 from .xof import (
     DST_SIZE,
     INLINE_BINDER_MAX,
@@ -117,7 +118,7 @@ class Prio3Batched:
     def _derive_seed(self, usage: int, seed_lanes, binder_parts, binder_len: int, batch: int):
         """[batch, 2] output seed lanes."""
         parts, prefix_len = self._prefix_parts(usage, seed_lanes, binder_parts, binder_len, batch)
-        return ctr_stream_lanes(parts, prefix_len, batch, 1, self.device)[:, 0, :SEED_LANES]
+        return ctr_stream_lanes(parts, prefix_len, batch, 1, self.device, out_lanes=SEED_LANES)[:, 0, :]
 
     def _expand_share(self, seed_lanes, usage: int, length: int):
         """Expand a helper measurement/proof share: binder = AGG1."""
@@ -130,7 +131,7 @@ class Prio3Batched:
         batch = seed_lanes.shape[0]
         parts, prefix_len = self._prefix_parts(usage, seed_lanes, [(0, AGG1)], 8, batch)
         # the prefix is the same at every step: assembled once
-        prefix = [(0, _assemble_segments(parts, prefix_len // 8, batch, self.device))]
+        prefix = [(0, assemble_lanes(parts, prefix_len // 8, batch, self.device))]
         assert plan.group % 7 == 0, "a tile must be whole counter blocks"
         blocks = plan.group // 7
 

@@ -30,17 +30,45 @@ def _lanes(shape, seed, device):
     return torch.from_numpy(a.view(np.int64)).to(device)
 
 
+def _prefix_parts(batch, seed, device):
+    """A 10-lane prefix: a dst (bytes), a strided [batch, 2] view, a
+    [batch, 3] tensor and a [1, 2] row broadcast across the batch."""
+    t = _lanes((batch, 7), seed, device)
+    return [(0, bytes(range(16))), (2, t[:, 0:4:2]), (4, t[:, 2:5]), (8, _lanes((1, 2), seed + 1, device))]
+
+
 @pytest.mark.parametrize("rounds", [24, 3])
-@pytest.mark.parametrize("out_lanes", [21, 2])
+@pytest.mark.parametrize("out_lanes", [21, 5, 2])
 def test_single_block_kernel_matches_plain(cuda, rounds, out_lanes):
-    cols = list(_lanes((21, 5, 333), out_lanes, cuda))
+    """Kernel 1's counter-mode entry (its stores staged through shared
+    memory past 2 lanes) against its plain version; one launch."""
+    parts = _prefix_parts(5, out_lanes, cuda)
+    want = keccak_cuda.keccak_ctr_blocks_plain(parts, 10, 5, 333, out_lanes, cuda, ctr_offset=7, rounds=rounds)
     before = keccak_cuda.keccak_single_block.launches
-    got = keccak_cuda.keccak_single_block(cols, out_lanes, rounds=rounds)
-    want = keccak_cuda.keccak_single_block_plain(cols, out_lanes, rounds=rounds)
+    got = keccak_cuda.keccak_ctr_blocks(parts, 10, 5, 333, out_lanes, cuda, ctr_offset=7, rounds=rounds)
     torch.cuda.synchronize()
     assert keccak_cuda.keccak_single_block.launches == before + 1
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    assert got.shape == (5, 333, out_lanes) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rounds", [24, 3])
+@pytest.mark.parametrize("level", [0, 3])
+def test_tree_level_kernel_matches_plain(cuda, rounds, level):
+    """Kernel 1's tree-level entry: the leaf level over a binder's parts
+    (an aggregator id, a nonce, a share of 4,000 lanes: 4,003, not a
+    multiple of 14), an upper level over [batch, 286, 2] digests."""
+    if level == 0:
+        parts = [(0, bytes(8)), (1, _lanes((6, 2), 3, cuda)), (3, _lanes((6, 4000), 4, cuda))]
+        lanes_n = 4003
+    else:
+        parts = [(0, _lanes((6, 286, 2), 5, cuda).reshape(6, -1))]
+        lanes_n = 572
+    want = keccak_cuda.keccak_tree_level_plain(parts, lanes_n, 6, level, 32024, cuda, rounds=rounds)
+    before = keccak_cuda.keccak_single_block.launches
+    got = keccak_cuda.keccak_tree_level(parts, lanes_n, 6, level, 32024, cuda, rounds=rounds)
+    torch.cuda.synchronize()
+    assert keccak_cuda.keccak_single_block.launches == before + 1
+    assert got.shape == (6, keccak_cuda.tree_nodes(lanes_n), 2) and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("rounds", [24, 3])
@@ -60,12 +88,20 @@ HIST_BLOCKS, HIST_LENGTH = 1429, 10000
 
 
 def test_single_block_kernel_matches_plain_at_histogram_10000(cuda):
-    cols = list(_lanes((21, 1024, HIST_BLOCKS), 21, cuda))
-    for out_lanes in (2, 21):
-        got = keccak_cuda.keccak_single_block(cols, out_lanes)
-        want = keccak_cuda.keccak_single_block_plain(cols, out_lanes)
-        torch.cuda.synchronize()
-        assert len(got) == out_lanes and all(torch.equal(g, w) for g, w in zip(got, want))
+    """The leader binder's leaf level at Prio3Histogram(10000): 1,024
+    reports x 1,429 nodes over an id, a nonce and 20,000 share lanes;
+    then the counter-mode entry over as many blocks, 21 lanes out."""
+    parts = [(0, bytes(8)), (1, _lanes((1024, 2), 21, cuda)), (3, _lanes((1024, 2 * HIST_LENGTH), 22, cuda))]
+    got = keccak_cuda.keccak_tree_level(parts, 3 + 2 * HIST_LENGTH, 1024, 0, 8 * (3 + 2 * HIST_LENGTH), cuda)
+    want = keccak_cuda.keccak_tree_level_plain(parts, 3 + 2 * HIST_LENGTH, 1024, 0, 8 * (3 + 2 * HIST_LENGTH), cuda)
+    torch.cuda.synchronize()
+    assert got.shape == (1024, HIST_BLOCKS, 2) and torch.equal(got, want)
+    del got, want
+    parts = _prefix_parts(1024, 23, cuda)
+    got = keccak_cuda.keccak_ctr_blocks(parts, 10, 1024, HIST_BLOCKS, 21, cuda)
+    want = keccak_cuda.keccak_ctr_blocks_plain(parts, 10, 1024, HIST_BLOCKS, 21, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("offset", [0, 3])
@@ -654,25 +690,87 @@ def _scatter_idx(b, max_blocks, block_size, n_blocks, seed, hot=False, dead_rows
     return flat_scatter_indices(bi, circ), circ.logical_length
 
 
+def _runs_idx(case, b, seed):
+    """flat indices [b, 3 x 4] of run-shaped cases over 12 blocks of 4:
+    every row on one block, runs of two rows alternating between two
+    blocks, blocks descending row by row, one block's runs broken by dead
+    rows."""
+    from janus_tpu_torch.vdaf.circuits import SparseSumVec
+    from janus_tpu_torch.vdaf.wire import flat_scatter_indices
+
+    circ = SparseSumVec(48, 4, 3, 16)
+    bi = np.full((b, 3), -1, dtype=np.int32)
+    for i in range(b):
+        idxs = {"one-block": [5], "sentinel-runs": [5], "alternating": [2, 7] if (i // 2) % 2 == 0 else [7],
+                "descending": sorted({11 - i % 12, (11 - 2 * i) % 12})}[case]
+        bi[i, : len(idxs)] = idxs
+    if case == "sentinel-runs":
+        bi[np.random.default_rng(seed).choice(b, size=b // 3, replace=False)] = -1
+    return flat_scatter_indices(bi, circ), circ.logical_length
+
+
 @pytest.mark.parametrize(
     "case,b,mb,bs,nblocks",
     [("hot", 64, 4, 8, 40), ("padding", 32, 3, 4, 12), ("all-sentinel", 16, 3, 4, 12),
-     ("north-star", 1024, 16, 64, 15625)],
+     ("north-star", 1024, 16, 64, 15625), ("one-block", 50, 3, 4, 12), ("alternating", 50, 3, 4, 12),
+     ("descending", 50, 3, 4, 12), ("sentinel-runs", 50, 3, 4, 12)],
 )
 def test_scatter_kernel_matches_plain(cuda, case, b, mb, bs, nblocks):
+    """Kernel 4 against its plain version, twice, its scratch handed back
+    dirty by the allocator before each launch (the copy zeroes it)."""
     dead = {"padding": range(20, 32), "all-sentinel": range(16)}.get(case, ())
-    flat, L = _scatter_idx(b, mb, bs, nblocks, seed=b + mb, hot=case in ("hot", "north-star"), dead_rows=dead)
+    if case in ("one-block", "alternating", "descending", "sentinel-runs"):
+        flat, L = _runs_idx(case, b, seed=b)
+    else:
+        flat, L = _scatter_idx(b, mb, bs, nblocks, seed=b + mb, hot=case in ("hot", "north-star"), dead_rows=dead)
     idx = torch.from_numpy(flat).to(cuda)
     vals = _field_rows(flat.shape, 5, cuda)
     acc = _field_rows((L,), 6, cuda)
-    before = scatter_cuda.scatter_rows.launches
-    got = scatter_cuda.scatter_rows(acc, vals, idx)
     want = scatter_cuda.scatter_rows_plain(acc, vals, idx)
-    torch.cuda.synchronize()
-    assert scatter_cuda.scatter_rows.launches == before + 1
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for _ in range(2):
+        dirty = torch.full((scatter_cuda.scratch_bytes(L),), 1, dtype=torch.uint8, device=cuda)
+        del dirty
+        before = scatter_cuda.scatter_rows.launches
+        got = scatter_cuda.scatter_rows(acc, vals, idx)
+        torch.cuda.synchronize()
+        assert scatter_cuda.scatter_rows.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     if case == "all-sentinel":
         assert torch.equal(got[0], acc[0]) and torch.equal(got[1], acc[1])
+
+
+def test_scatter_kernel_from_threads_and_streams(cuda):
+    """Eight threads scatter at once into one L, half of them on side
+    streams, so that launches of one stream interleave: each has its own
+    marks, and every result equals its plain version."""
+    import threading
+
+    flat, L = _scatter_idx(256, 16, 64, 15625, seed=3, hot=True)
+    idx = torch.from_numpy(flat).to(cuda)
+    acc = _field_rows((L,), 6, cuda)
+    inputs = [_field_rows(flat.shape, 10 + k, cuda) for k in range(8)]
+    wants = [scatter_cuda.scatter_rows_plain(acc, v, idx) for v in inputs]
+    results = [None] * 8
+    streams = [torch.cuda.Stream(device=cuda) for _ in range(4)]
+    torch.cuda.synchronize()
+
+    def run(k):
+        if k % 2:
+            with torch.cuda.stream(streams[k // 2]):
+                out = [scatter_cuda.scatter_rows(acc, inputs[k], idx) for _ in range(5)][-1]
+                torch.cuda.current_stream().synchronize()
+        else:
+            out = [scatter_cuda.scatter_rows(acc, inputs[k], idx) for _ in range(5)][-1]
+        results[k] = out
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for got, want in zip(results, wants):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_sparse_engine_on_the_card_matches_the_cpu(cuda):

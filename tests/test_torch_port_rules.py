@@ -164,9 +164,13 @@ def test_driver_maps_no_device_failure_to_a_fallback():
 
 
 def test_wrappers_refuse_other_devices():
-    meta = [torch.empty((2, 3), dtype=torch.int64, device="meta")] * 21
+    meta = torch.empty((2, 3), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
-        keccak_cuda.keccak_single_block(meta, 2)
+        keccak_cuda.keccak_ctr_blocks([(0, meta)], 3, 2, 1, 2, meta.device)
+    with pytest.raises(ValueError):
+        keccak_cuda.keccak_tree_level([(0, meta)], 3, 2, 0, 24, meta.device)
+    with pytest.raises(ValueError):  # a part on another device than the launch's
+        keccak_cuda.keccak_ctr_blocks([(0, meta)], 3, 2, 1, 2, "cpu")
     with pytest.raises(ValueError):
         expand_cuda.expand_f128(torch.empty((2, 4), dtype=torch.int64, device="meta"), 2, 10)
     with pytest.raises(ValueError):

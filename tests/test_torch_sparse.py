@@ -232,35 +232,56 @@ def test_host_shard_is_janus_tpus(mode):
 
 def _scatter_case(case: str, rng):
     """(block indices [b, mb] with -1 padding and -1 rows for rejected
-    reports or bucket padding, whether each row is live)."""
+    reports or bucket padding, whether each row is live).
+
+    Beside rejected rows, bucket padding and a hot block, the cases shape
+    the runs of equal positions down a column that the card's kernel
+    adds in registers: every row on one block, runs of two rows that
+    alternate between two blocks, blocks that descend row by row, runs
+    broken by dead rows, and a hot bucket with dead and padding rows."""
     j, _ = _insts()
     circ = j_registry.circuit_for(j)
-    b, mb = 9, circ.max_blocks
+    mb, pool = circ.max_blocks, circ.n_logical_blocks
+    b = 9 if case in ("rejected", "padding", "hot") else 16
     bi = np.full((b, mb), -1, dtype=np.int32)
+    live = np.ones(b, dtype=bool)
     for i in range(b):
         nb = int(rng.integers(1, mb + 1))
-        pool = circ.n_logical_blocks
-        if case == "hot":
+        if case in ("hot", "dead-and-padding"):
             idxs = [0] + sorted((1 + rng.choice(pool - 1, size=nb - 1, replace=False)).tolist())
+        elif case in ("one-block", "sentinel-runs"):
+            idxs = [5]
+        elif case == "alternating":
+            idxs = [2, 7] if (i // 2) % 2 == 0 else [7]
+        elif case == "descending":
+            idxs = sorted({pool - 1 - (i % pool), (pool - 1 - 2 * i) % pool})
         else:
             idxs = sorted(rng.choice(pool, size=nb, replace=False).tolist())
-        bi[i, :nb] = idxs
-    live = np.ones(b, dtype=bool)
+        bi[i, : len(idxs)] = idxs
     if case == "rejected":
         live[[1, 4, 5]] = False
     elif case == "padding":
         live[6:] = False  # the padding rows of a bucket
+    elif case == "sentinel-runs":
+        live[[2, 3, 7, 12]] = False
+    elif case == "dead-and-padding":
+        live[[1, 5, 6]] = False
+        live[11:] = False
     bi[~live] = -1
     return bi, live
 
 
-@pytest.mark.parametrize("case", ["rejected", "padding", "hot"])
+SCATTER_CASES = ["rejected", "padding", "hot", "one-block", "alternating", "descending", "sentinel-runs",
+                 "dead-and-padding"]
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES)
 def test_plain_scatter_rows_equals_janus_tpu(case):
     import jax.numpy as jnp
 
     j, t = _insts()
     jc = j_registry.circuit_for(j)
-    rng = np.random.default_rng({"rejected": 1, "padding": 2, "hot": 3}[case])
+    rng = np.random.default_rng(1 + SCATTER_CASES.index(case))
     bi, live = _scatter_case(case, rng)
     flat = t_wire.flat_scatter_indices(bi, jc)
     b, cm = flat.shape
@@ -299,6 +320,21 @@ def test_scatter_wrapper_dispatches_by_device_and_drops_out_of_range_lanes():
         scatter_cuda.scatter_rows(acc, vals, idx[:, :2])
     with pytest.raises(ValueError):
         scatter_cuda.scatter_rows(acc[:1], vals, idx)
+
+
+def test_scatter_scratch_is_counted_by_the_model():
+    """The kernel's only scratch is a mark byte a 64-position group, in
+    whole 2,048-position blocks, made per launch; its bytes are the
+    model's (vdaf/feasibility.py)."""
+    from janus_tpu_torch.vdaf import feasibility
+
+    assert [scatter_cuda.scratch_bytes(L) for L in (1, 2048, 2049, 5000, 1_000_000)] == [32, 32, 64, 96, 15648]
+    _, t = _insts()
+    circ = t_registry.circuit_for(t)
+    L, e = circ.agg_output_len, circ.FIELD.ENCODED_SIZE
+    assert feasibility.sparse_aggregate_bytes(circ, 10) == (
+        10 * circ.output_len * (2 * e + 4) + 2 * L * e + scatter_cuda.scratch_bytes(L)
+    )
 
 
 # --- the engine ---------------------------------------------------------------------------------
@@ -655,3 +691,17 @@ def test_chip_smoke_sparse_phases_rehearse_on_the_cpu():
     up = chip_smoke.phase_upload_drive(torch, CPU, inst, 2, 30, (3, 20), ("keccak_single_block", "expand_f128"))
     assert up["path"] == "upload-drive-sparse" and up["bad_indices_rejected"] and up["aggregate_ok"]
     assert up["finished"] == 30 and up["collect"]["report_count"] == 30 and up["collect"]["result_ok"]
+
+
+def test_chip_smoke_scatter_cases_rehearse_on_the_cpu():
+    """chip_smoke.py's kernel-4 cases (north star, the leader's chunk,
+    the bucket with dead rows) at a small
+    geometry with device="cpu", the card's timing calls as no-ops."""
+    import chip_smoke
+    from test_torch_keccak import _CardTimingOff
+
+    inst = t_registry.VdafInstance.sparse_sumvec(4, 96, 4, 3)
+    cases = chip_smoke.check_scatter(_CardTimingOff(), CPU, np.random.default_rng(8), inst, rows=(12, 6, 64))
+    assert [c["reports"] for c in cases] == [12, 6, 64]
+    assert all(c["max_abs_err"] == 0 and c["logical_length"] == 96 for c in cases)
+    assert cases[2]["live_lanes"] < cases[2]["reports"] * cases[2]["compact_lanes"]

@@ -295,3 +295,39 @@ def test_draft_takes_sumvec_100k_and_refuses_what_janus_tpu_refuses():
     assert "exceed 160000" in Prio3BatchedDraft.refusal(tc.SumVec(110_000, 16))
     with pytest.raises(ValueError, match="exceed"):
         t_registry.prio3_batched(t_registry.VdafInstance("sumvec", bits=16, length=110_000, xof_mode="draft"), CPU)
+
+
+# --- (f) the memory model's binder phase ---------------------------------------------
+
+
+def test_leader_binder_reaches_kernel_1_in_place(monkeypatch):
+    """The leader's joint-rand binder (agg id, nonce, encoded share) goes
+    to kernel 1's leaf level as its parts, the share tensor itself, and
+    each level above reads the digests below as they lie: no assembled,
+    padded or stacked copy of the message, which is why the model's
+    binder phase is the encoded share and its leaf digests alone."""
+    from janus_tpu_torch.fields.tfield import fencode_lanes
+    from janus_tpu_torch.vdaf import feasibility
+
+    p3 = Prio3Batched(tc.SumVec(20, 4), device=CPU)
+    rng = np.random.default_rng(9)
+    meas = p3.tf.from_ints(rng.integers(0, 2, size=(BATCH, p3.circ.input_len)).astype(object), CPU)
+    binder = fencode_lanes(meas)
+    seen = []
+    real = tk.keccak_tree_level
+    monkeypatch.setattr(tk, "keccak_tree_level", lambda parts, *a, **k: seen.append((parts, a)) or real(parts, *a, **k))
+    got = p3._joint_rand_part(0, from_numpy_u64(lanes(rng, 2), CPU), from_numpy_u64(lanes(rng, 2), CPU), binder)
+    assert got.shape == (BATCH, 2)
+    (leaf_parts, leaf_args), *upper = seen
+    assert leaf_args[:2] == (3 + binder.shape[1], BATCH) and leaf_args[2] == 0  # lanes, batch, level 0
+    assert any(content is binder for _, content in leaf_parts)
+    for level, (parts, args) in enumerate(upper, start=1):
+        ((off, digs),) = parts
+        assert off == 0 and args[2] == level and digs.shape == (BATCH, args[0])
+    big = tc.SumVec(100_000, 16)
+    plan = t_engine.stream_plan(t_engine.batched_circuit(big))
+    assert feasibility.BINDER_COPIES >= 1 + 1 / 7
+    with_binder = feasibility.prepare_row_bytes(big, tile_elems=plan.group)
+    monkeypatch.setattr(feasibility, "BINDER_COPIES", 0)
+    # at the north star's tile the binder is the step's largest phase
+    assert with_binder - feasibility.prepare_row_bytes(big, tile_elems=plan.group) > 0
