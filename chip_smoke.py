@@ -46,8 +46,9 @@ Phases, each of which must pass:
                    path, through the single-block kernel);
   5. draft-sumvec  the same SumVec in draft mode (VDAF-07 sponge: one
                    whole-sponge kernel launch per XOF call, none of the
-                   fast-mode kernels) at batch 1024, the same checks, and one
-                   step profiled; its small CPU batch runs at 3 Keccak rounds
+                   fast-mode kernels) at batch 1024, the same checks (no
+                   step is profiled any more, to keep the script's time);
+                   its small CPU batch runs at 3 Keccak rounds
                    on both sides, since the plain permutation's ~9,000
                    sequential calls at 24 rounds would take minutes on the
                    host (the kernel phase holds the kernel at 24 rounds);
@@ -72,7 +73,7 @@ Phases, each of which must pass:
                    152,382-block chain in a run's time): the routes agree on
                    2 reports instead;
   6c. fixedpoint   Prio3FixedPointBoundedL2VecSum at FixedPointVec(1000,
-                   16) (BASELINE.json configs[4]), batch 1024, fast mode, 3
+                   16) (BASELINE.json configs[4]), batch 256, fast mode, 3
                    corrupted, the same checks; the aggregate is the valid
                    reports' offset-binary sum and decodes to their float sum;
   6d. sparse      block-sparse SumVec at bench.py's sparse north star,
@@ -275,8 +276,58 @@ Phases, each of which must pass:
                    latency p50/p99 during the outage and outside it, and the
                    times from each clear to up and to an empty journal.
                    Every failpoint is cleared in a finally.
+  15. pipeline-resident-sumvec  the leader as a janus_tpu operator runs
+                   it: a port leader and a port helper over loopback HTTP
+                   (as phase 9), two SumVec(1000, 16) tasks with different
+                   verify keys, 512 reports each stored at one client time
+                   (3 leader shares bumped), 8 jobs of 128. First the
+                   merged two-task round (chip_smoke.check_merged_round):
+                   128 reports a task through two solo leader rounds and
+                   one merged round (per-lane verify keys), then the same
+                   for the helper; every out share, seed, verifier share,
+                   joint-rand part, mask and prep message must be equal bit
+                   for bit (max_abs_err 0), and a merged round must launch
+                   kernels 1 and 2 as often as a solo one. Then two
+                   JobDriver passes with a StepPipeline, the driver in
+                   resident mode (ResidentConfig(enabled=True)): run A, 4
+                   jobs, one device-lane worker and double buffering (every
+                   job's prestage issued and used); run B, 4 jobs, four
+                   workers and four read workers (every prestage declined:
+                   those jobs coalesce). Run B's first leader round is held
+                   (at most 30 s) until the other three inits have queued
+                   behind it, as on a leader whose jobs arrive together, so
+                   at least one merged leader round runs through the whole
+                   route (the entries, the coalescer, offset DeviceRows
+                   views, aggregate_pending, the resident merge, the
+                   collection); a run with more than two workers must see
+                   one. Counts at 0 just before a run, read just
+                   after: kernels 1 and 2 must have launched exactly as
+                   often as the rounds seen (leader rounds x a solo leader
+                   round's + helper rounds x a helper round's, counted per
+                   round, not per job). Each run: one resident merge a job,
+                   no classic fallback, the run's peak device bytes under
+                   the model (rows in flight x vdaf/feasibility.py's row
+                   bytes, plus the pending deltas and the resident slots).
+                   Every job finished with its lease released, exactly the
+                   bumped reports failed; flush_resident_state("drain")
+                   must flush the two slots; each task is collected as in
+                   phase 9 and must equal its accepted reports' sum. The
+                   line gives per run the job seconds (p50, p95), each
+                   stage's seconds, the round sizes on both sides, the
+                   prestage outcomes, the merges and each merge's seconds,
+                   the launches and the peak beside the model.
+  16. pipeline-resident-sparse  the same path for sparse_sumvec(16,
+                   1000000, 64, 16) (bench.py:587), one task, 512 reports
+                   of 1-16 blocks over 15,625, block 0 in every one, sent as
+                   a client would (make_wire_reports) and stored through the
+                   leader's upload stages, 4 jobs of 128, one lane. Each
+                   job's SparsePendingDeltas merges into the dense
+                   1,000,000-element slot through kernel 4: kernel 4 must
+                   launch twice a job (the leader's merge, the helper's
+                   aggregate); the drained slot is collected at the logical
+                   length and must equal numpy's scatter-sum.
 
-Output: JSON lines (build, the profile of one draft sumvec step, the
+Output: JSON lines (build, the
 sponge chains, one serve line per XOF mode with the seconds of each
 stage of the request, one drive line per XOF mode with the seconds of
 each stage of the leader's step and the helper's request in it, the
@@ -286,8 +337,8 @@ seconds of create, the driver's gather, sum, http_aggregate_share and
 store, the helper's handle_aggregate_share, poll and unshard, and GC,
 with GC's seconds by side and by delete; the device bytes before and the
 peak during the collection step), the poplar1 and drive_poplar1 lines,
-the taskprov_histogram and outage_drill lines,
-the kernels, one line per path, the run's wall time), then the card's
+the taskprov_histogram and outage_drill lines, the two pipeline_resident
+lines, the kernels, one line per path, the run's wall time), then the card's
 name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.
 Without CUDA, or without the package beside this script, it exits
@@ -305,6 +356,7 @@ from pathlib import Path
 
 SEED = 20261016
 VERIFY_KEY = bytes(range(32, 48))
+VERIFY_KEY_B = bytes(range(48, 64))  # the second task of the cross-task path
 # Poplar1<XofShake128, 16> at its leaf level, bench.py's configuration
 POPLAR1_BITS = 16
 POPLAR1_PREFIXES = 256
@@ -3054,6 +3106,438 @@ def _outage_drill(pair: TaskprovPair, n_client: int, n_wire: int, bad_rows):
     }
 
 
+def check_merged_round(torch, dev, inst, keys, n: int, seed: int):
+    """The per-lane verify keys through kernels 1 and 2 (see the module
+    docstring, phase 15): two tasks' n-report batches (one engine a key)
+    as two solo rounds and as one merged round, leader then helper, by
+    the engine's round functions; every out share, seed, verifier share,
+    joint-rand part, mask and prep message must be equal bit for bit.
+    Returns the record, with kernels 1 and 2's launches a solo round and
+    a merged round (counts at 0 just before each, read just after)."""
+    import numpy as np
+
+    from janus_tpu_torch.aggregator import engine_cache as ec
+    from janus_tpu_torch.convert import step_args_to_numpy
+    from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
+
+    counters = kernel_counters()
+    engines = [ec.engine_cache(inst, key, dev) for key in keys]
+    batches = []
+    for j in range(len(keys)):
+        meas = random_measurements(inst, n, np.random.default_rng(seed + j))
+        args, _ = make_report_batch(inst, meas, seed=seed + j, shard_chunk=256, device=dev)
+        batches.append(step_args_to_numpy(args))
+    ok = np.ones(n, dtype=bool)
+
+    def counted(fn):
+        _sync(torch, dev)
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        _sync(torch, dev)
+        return out, {k: c.launches for k, c in counters.items()}
+
+    def leader_entries(idx):
+        return [(engines[j], None, *batches[j][:5]) for j in idx]
+
+    def helper_entries(idx, lead):
+        return [(engines[j], batches[j][0], batches[j][1], batches[j][5], batches[j][6], lead[k][2], lead[k][3], ok)
+                for k, j in enumerate(idx)]
+
+    solo_lead, solo_help, launches = [], [], {}
+    for j in range(len(keys)):
+        (lead,), launches["leader_solo"] = counted(lambda: ec._run_leader_round(leader_entries([j]), [n]))
+        (helped,), launches["helper_solo"] = counted(lambda: ec._run_helper_round(helper_entries([j], [lead]), [n]))
+        solo_lead.append(lead)
+        solo_help.append(helped)
+    idx = list(range(len(keys)))
+    merged_lead, launches["leader_merged"] = counted(lambda: ec._run_leader_round(leader_entries(idx), [n] * len(idx)))
+    merged_help, launches["helper_merged"] = counted(
+        lambda: ec._run_helper_round(helper_entries(idx, merged_lead), [n] * len(idx)))
+
+    def err(a, b) -> int:
+        if a is None or b is None:
+            if a is not b:
+                raise AssertionError("merged round: a value is None on one side only")
+            return 0
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        worst = 0
+        for x, y in zip(a, b):
+            x, y = np.asarray(x), np.asarray(y)
+            if x.shape != y.shape:
+                raise AssertionError(f"merged round: shapes {x.shape} and {y.shape}")
+            if not np.array_equal(x, y):
+                d = np.flatnonzero(x.reshape(-1) != y.reshape(-1))
+                worst = max(worst, max(abs(int(x.reshape(-1)[i]) - int(y.reshape(-1)[i])) for i in d))
+        return worst
+
+    errs = {}
+    for j in idx:
+        (o0, s0, v0, p0), (mo0, ms0, mv0, mp0) = solo_lead[j], merged_lead[j]
+        (o1, m1, q1), (mo1, mm1, mq1) = solo_help[j], merged_help[j]
+        if not isinstance(mo0, ec.DeviceRows) or mo0.offset != j * n:
+            raise AssertionError("merged round: the leader's out shares are not views into one buffer")
+        for what, a, b in (("out0", o0.to_numpy(), mo0.to_numpy()), ("seed0", s0, ms0), ("ver0", v0, mv0),
+                           ("part0", p0, mp0), ("out1", o1.to_numpy(), mo1.to_numpy()), ("mask", m1, mm1),
+                           ("prep", q1, mq1)):
+            errs[what] = max(errs.get(what, 0), err(a, b))
+        if not np.asarray(m1).all():
+            raise AssertionError(f"merged round: task {j}'s honest reports did not verify")
+    max_err = max(errs.values())
+    if max_err != 0:
+        raise AssertionError(f"merged round: merged != solo ({errs})")
+    if _on_card(torch, dev):
+        for side in ("leader", "helper"):
+            solo, merged = launches[f"{side}_solo"], launches[f"{side}_merged"]
+            if merged != solo or not (solo["keccak_single_block"] and solo["expand_f128"]):
+                raise AssertionError(f"merged round: {side} launches solo {solo}, merged {merged}")
+    return {"tasks": len(keys), "rows_a_task": n, "max_abs_err": max_err, "max_abs_err_by_value": errs,
+            "launches": launches, "merged_rounds": engines[0].coalesce_stats["merged_rounds"]}
+
+
+class _MergeSeconds:
+    """While open, times every EngineCache.resident_merge to its device
+    work's end (a synchronize after it) and keeps the seconds."""
+
+    def __init__(self, torch, dev):
+        import threading
+
+        from janus_tpu_torch.aggregator.engine_cache import EngineCache
+
+        self.torch, self.dev, self.cls = torch, dev, EngineCache
+        self.seconds: list = []
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        self._raw = self.cls.__dict__["resident_merge"]
+        raw, torch, dev = self._raw, self.torch, self.dev
+
+        def timed(eng, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return raw(eng, *a, **kw)
+            finally:
+                _sync(torch, dev)
+                with self._lock:
+                    self.seconds.append(time.perf_counter() - t0)
+
+        self.cls.resident_merge = timed
+        return self.seconds
+
+    def __exit__(self, *exc):
+        self.cls.resident_merge = self._raw
+
+
+class _HoldFirstRound:
+    """While open, the coalescer's first round waits (at most timeout_s)
+    until `behind` more calls have queued behind it, as they do on a
+    leader whose jobs arrive together; behind 0 holds nothing. The wait
+    is kept in wait_s."""
+
+    def __init__(self, co, behind: int, timeout_s: float = 30.0):
+        self.co, self.behind, self.timeout_s = co, behind, timeout_s
+        self.wait_s = 0.0
+
+    def __enter__(self):
+        co, raw = self.co, self.co._run
+        self._raw, held = raw, []
+
+        def run(args_list, ns):
+            if self.behind and not held:
+                held.append(True)
+                t0 = time.perf_counter()
+                while time.perf_counter() - t0 < self.timeout_s:
+                    with co._lock:
+                        if len(co._queue) >= self.behind:
+                            break
+                    time.sleep(0.005)
+                self.wait_s = time.perf_counter() - t0
+            return raw(args_list, ns)
+
+        co._run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.co._run = self._raw
+
+
+def phase_pipeline_resident(torch, dev, inst, keys, per_task: int, job_size: int, bad_rows, runs,
+                            merged_check_rows: int = 0):
+    """The stage pipeline with prestaged leader columns, resident
+    accumulators and cross-task coalescing (see the module docstring,
+    phases 15 and 16): a port leader and a port helper over loopback
+    HTTP, one task per verify key in `keys`, per_task reports a task at
+    one client time, in jobs of job_size. `runs`: (device_lane_workers,
+    jobs) of each JobDriver pass, through a StepPipeline with that many
+    lane and read workers, or through the serial stepper where
+    device_lane_workers is 0; with more than two lane workers and jobs,
+    the pass's first leader round waits until the others queued behind it
+    (_HoldFirstRound) and a merged round must run. bad_rows: (task, row) pairs
+    whose leader share is bumped (dense circuits). The resident slots are
+    flushed once at the end with flush_resident_state("drain"), and each
+    task is collected and held against the truth. Returns the record."""
+    import dataclasses
+
+    import numpy as np
+
+    from janus_tpu_torch.aggregator import engine_cache as ec
+    from janus_tpu_torch.aggregator.aggregation_job_creator import AggregationJobCreator, AggregationJobCreatorConfig
+    from janus_tpu_torch.aggregator.aggregation_job_driver import (
+        AggregationJobDriver,
+        AggregationJobDriverConfig,
+        ResidentConfig,
+    )
+    from janus_tpu_torch.aggregator.core import Aggregator
+    from janus_tpu_torch.aggregator.http_handlers import DapHttpApp, DapServer
+    from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig
+    from janus_tpu_torch.aggregator.step_pipeline import StepPipeline, StepPipelineConfig
+    from janus_tpu_torch.aggregator.testing import leader_stored_reports
+    from janus_tpu_torch.convert import step_args_to_numpy
+    from janus_tpu_torch.core.auth import AuthenticationToken
+    from janus_tpu_torch.core.circuit_breaker import OutboundCircuitBreakers
+    from janus_tpu_torch.core.hpke import generate_hpke_config_and_private_key
+    from janus_tpu_torch.core.http_client import HttpClient
+    from janus_tpu_torch.core.time_util import MockClock
+    from janus_tpu_torch.datastore import EphemeralDatastore
+    from janus_tpu_torch.messages import Interval, PrepareError, Query, Role, Time, decode_reports_fast
+    from janus_tpu_torch.task import QueryTypeConfig, Task, TaskBuilder
+    from janus_tpu_torch.vdaf.feasibility import prepare_row_bytes, resident_route_bytes, sparse_aggregate_bytes
+    from janus_tpu_torch.vdaf.registry import circuit_for
+    from janus_tpu_torch.vdaf.testing import make_report_batch, make_wire_reports, random_measurements
+    from janus_tpu_torch.vdaf.wire import flat_scatter_indices
+
+    now = 1_700_000_000
+    sparse = inst.kind == "sparse_sumvec"
+    circ = circuit_for(inst)
+    field = circ.FIELD
+    counters = kernel_counters()
+    rec = {"vdaf": inst.to_dict(), "tasks": len(keys), "reports": per_task * len(keys), "job_size": job_size}
+    if merged_check_rows:
+        rec["merged_round"] = check_merged_round(torch, dev, inst, keys, merged_check_rows, SEED + 40)
+
+    leader_eds = EphemeralDatastore(MockClock(Time(now)))
+    helper_eds = EphemeralDatastore(MockClock(Time(now)))
+    helper = Aggregator(helper_eds.datastore, helper_eds.clock, device=dev)
+    leader = Aggregator(leader_eds.datastore, leader_eds.clock, device=dev)
+    server = DapServer(DapHttpApp(helper)).start()
+    leader_server = DapServer(DapHttpApp(leader)).start()
+    try:
+        collector_kp = generate_hpke_config_and_private_key(config_id=7)
+        tasks, truths, accepts, bad_ids = [], [], [], []
+        t0 = time.perf_counter()
+        for t, key in enumerate(keys):
+            built = TaskBuilder(QueryTypeConfig.time_interval(), inst, Role.LEADER).with_(
+                vdaf_verify_key=key, aggregator_auth_token=AuthenticationToken.random_bearer(),
+                collector_hpke_config=collector_kp.config, helper_aggregator_endpoint=server.url,
+            ).build()
+            task = Task.from_dict(built.to_dict())
+            helper_task = Task.from_dict(dataclasses.replace(
+                built, role=Role.HELPER, hpke_keys=(generate_hpke_config_and_private_key(config_id=1),)
+            ).to_dict())
+            helper_eds.datastore.run_tx(lambda tx: tx.put_task(helper_task))
+            leader_eds.datastore.run_tx(lambda tx: tx.put_task(task))
+            bad = sorted(r for tt, r in bad_rows if tt == t)
+            accept = np.ones(per_task, dtype=bool)
+            accept[bad] = False
+            if sparse:
+                meas, block_idx, compact = sparse_measurements(inst, per_task, SEED + 50 + t)
+                wire = make_wire_reports(inst, meas, task.task_id, task.hpke_keys[0].config,
+                                         helper_task.hpke_keys[0].config, Time(now - 100), seed=SEED + 50 + t,
+                                         shard_chunk=256, device=dev)
+                ta = leader.task_aggregator_for(task.task_id)
+                col = decode_reports_fast([r.to_bytes() for r in wire])
+                (kp,) = {id(k): k for k in ta.upload_prepare_columns(leader_eds.clock, col, range(per_task))}.values()
+                reports = ta.upload_decrypt_validate_batch(col, list(range(per_task)), kp)
+                flat = flat_scatter_indices(block_idx, circ)
+                truths.append(sparse_truth(circ.agg_output_len, flat, compact, np.flatnonzero(accept)))
+                ids = [r.metadata.report_id.data for r in wire]
+            else:
+                meas = random_measurements(inst, per_task, np.random.default_rng(SEED + 50 + t))
+                args, _ = make_report_batch(inst, meas, seed=SEED + 50 + t, shard_chunk=256, device=dev)
+                args = list(step_args_to_numpy(args))
+                args[2] = _bump_host_rows(args[2], bad, field.MODULUS)
+                reports = leader_stored_reports(task, helper_task.hpke_keys[0].config, args, [now - 100] * per_task)
+                truths.append([int(x) for x in np.asarray(meas)[accept].sum(axis=0).reshape(-1)])
+                ids = [r.report_id.data for r in reports]
+            leader_eds.datastore.run_tx(lambda tx: [tx.put_client_report(r) for r in reports])
+            tasks.append(task)
+            accepts.append(accept)
+            bad_ids.append({ids[i] for i in bad})
+        rec["upload_s"] = time.perf_counter() - t0
+        created = AggregationJobCreator(leader_eds.datastore, AggregationJobCreatorConfig(
+            min_aggregation_job_size=1, max_aggregation_job_size=job_size)).run_once()
+        n_jobs = len(keys) * -(-per_task // job_size)
+        if created != n_jobs or sum(j for _, j in runs) != n_jobs:
+            raise AssertionError(f"pipeline: the creator made {created} jobs, not {n_jobs}")
+
+        driver = AggregationJobDriver(
+            leader_eds.datastore, HttpClient(timeout=600),
+            AggregationJobDriverConfig(resident=ResidentConfig(enabled=True, flush_interval_s=3600.0)),
+            breakers=OutboundCircuitBreakers(), device=dev,
+        )
+        engines = [leader.task_aggregator_for(t.task_id).engine for t in tasks]
+        helper_engine = helper.task_aggregator_for(tasks[0].task_id).engine
+        # the model: a job's rows in flight on the lane and in the helper's
+        # requests (http_inflight of them), and what the resident route
+        # keeps: each job's pending delta and the slots
+        # (a serial pass: each of its jobs' inits and helper requests at once)
+        rows_in_flight = job_size * max(w + StepPipelineConfig().http_inflight if w else 2 * j for w, j in runs)
+        step_model = rows_in_flight * prepare_row_bytes(circ)
+        if sparse:
+            step_model = max(step_model, sparse_aggregate_bytes(circ, rows_in_flight))
+        run_recs = []
+        for workers, jobs in runs:
+            job_s = []
+            if workers:
+                pipe = StepPipeline(driver, StepPipelineConfig(device_lane_workers=workers,
+                                                               prefetch_depth=max(2, workers), double_buffer=True))
+                stepper = driver.stepper
+            else:  # the serial stepper on the same driver: a job's seconds are its step's
+                pipe = None
+
+                def stepper(acquired, job_s=job_s):
+                    t = time.perf_counter()
+                    try:
+                        driver.stepper(acquired)
+                    finally:
+                        job_s.append(time.perf_counter() - t)
+            job_driver = JobDriver(JobDriverConfig(max_concurrent_job_workers=jobs), driver.acquirer(), stepper,
+                                   pipeline=pipe)
+            hold = _HoldFirstRound(engines[0]._co_leader, jobs - 1 if workers > 2 and jobs > 2 else 0)
+            before = [dict(e.prestage_stats) for e in engines]
+            merges_before = sum(e.resident_status()["merges"] for e in engines)
+            engines[0]._co_leader.rounds.clear()
+            helper_engine._co_helper.rounds.clear()
+            # the run: counts at 0 just before, read just after
+            device_before = _peak_reset(torch, dev)
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            try:
+                with _MergeSeconds(torch, dev) as merge_s, hold:
+                    stepped = job_driver.run_once()
+                _sync(torch, dev)
+                run_s = time.perf_counter() - t0
+                launches = {k: fn.launches for k, fn in counters.items()}
+                peak = _peak(torch, dev)
+                if pipe is not None:
+                    status = pipe.status()
+                    stage_samples = {k: list(v) for k, v in pipe.stage_seconds.items()}
+                    job_s = list(pipe.job_seconds)
+                else:
+                    status = {"jobs_done": stepped, "classic_fallbacks": driver.classic_fallbacks,
+                              "prestage": {"declined": 0}, "device_lane": None, "overlap_events": None}
+                    stage_samples = {}
+            finally:
+                if pipe is not None:
+                    pipe.close()
+            if stepped != jobs or status["jobs_done"] != jobs:
+                raise AssertionError(f"pipeline: {stepped} jobs stepped, {status['jobs_done']} done, not {jobs}")
+            leader_rounds = list(engines[0]._co_leader.rounds)
+            helper_rounds = list(helper_engine._co_helper.rounds)
+            prestage = {k: sum(e.prestage_stats[k] - b[k] for e, b in zip(engines, before)) for k in before[0]}
+            merges = sum(e.resident_status()["merges"] for e in engines) - merges_before
+            if merges != jobs or status["classic_fallbacks"] != 0:
+                raise AssertionError(f"pipeline: {merges} merges for {jobs} jobs, {status['classic_fallbacks']} "
+                                     "classic fallbacks")
+            if workers == 1 and (prestage["issued"] != jobs or prestage["used"] != jobs):
+                raise AssertionError(f"pipeline: a single lane's prestages {prestage}, not every job's used")
+            if workers > 1 and status["prestage"]["declined"] != jobs:
+                raise AssertionError(f"pipeline: a parallel lane declined {status['prestage']} of {jobs} prestages")
+            if hold.behind and max(leader_rounds) < 2:
+                raise AssertionError(f"pipeline: {workers} lanes merged no leader round: {leader_rounds}")
+            if _on_card(torch, dev):
+                mr = rec.get("merged_round")
+                if mr is not None:
+                    # per round, not per job: a merged round launches what a solo one does
+                    for k in ("keccak_single_block", "expand_f128"):
+                        want = (len(leader_rounds) * mr["launches"]["leader_solo"][k]
+                                + len(helper_rounds) * mr["launches"]["helper_solo"][k])
+                        if launches[k] != want:
+                            raise AssertionError(f"pipeline: {k} launched {launches[k]} times, not {want} for "
+                                                 f"{len(leader_rounds)} leader and {len(helper_rounds)} helper rounds")
+                want_kernels = ("keccak_single_block", "expand_f128") + (("scatter_rows",) if sparse else ())
+                _check_launches(torch, dev, "pipeline run", launches, want_kernels)
+                if sparse and launches["scatter_rows"] != 2 * jobs:
+                    # a merge a job on the leader, an aggregate_sparse a request on the helper
+                    raise AssertionError(f"pipeline: kernel 4 launched {launches['scatter_rows']} times for {jobs} "
+                                         "resident merges and helper aggregates")
+            resident = ec.resident_bytes_total()
+            route = resident_route_bytes(circ, 1, resident)
+            model = step_model + jobs * route["pending_delta"] + resident
+            if _on_card(torch, dev) and peak - device_before > model:
+                raise AssertionError(f"pipeline: the run's peak {peak - device_before} bytes past model + resident "
+                                     f"{model}")
+            run_recs.append({
+                "device_lane_workers": workers,
+                "stepper": "pipeline" if workers else "serial",
+                "jobs": jobs,
+                "run_s": run_s,
+                "first_round_wait_s": hold.wait_s,
+                "job_s": {"p50": _percentile(job_s, 0.5), "p95": _percentile(job_s, 0.95), "all": job_s},
+                "stage_s": {k: {"p50": _percentile(v, 0.5), "p95": _percentile(v, 0.95), "n": len(v)}
+                            for k, v in sorted(stage_samples.items())},
+                "round_sizes": {"leader": leader_rounds, "helper": helper_rounds},
+                "prestage": {**prestage, "declined": status["prestage"]["declined"]},
+                "merges": merges,
+                "merge_s": merge_s,
+                "classic_fallbacks": status["classic_fallbacks"],
+                "device_lane": status["device_lane"],
+                "overlap_events": status["overlap_events"],
+                "launches": launches,
+                "peak_device_bytes": peak - device_before,
+                "model_peak_bytes": step_model + jobs * route["pending_delta"],
+                "resident_bytes": resident,
+            })
+        rec["runs"] = run_recs
+        rec["launches"] = {k: sum(r["launches"][k] for r in run_recs) for k in counters}
+        rec["resident_status"] = [e.resident_status() for e in engines]
+        if job_driver.run_once() != 0:
+            raise AssertionError("pipeline: a pass after the runs acquired a job")
+
+        # every job finished with its lease released, exactly the bumped
+        # reports failed
+        for t, task in enumerate(tasks):
+            rows = leader_eds.datastore.run_tx(lambda tx: tx._c.execute(
+                "SELECT state, lease_token IS NULL, lease_attempts FROM aggregation_jobs WHERE task_id = ?",
+                (task.task_id.data,)).fetchall())
+            if sorted(set(rows)) != [("finished", 1, 0)]:
+                raise AssertionError(f"pipeline: task {t}'s job rows {sorted(set(rows))}")
+            jobs = leader_eds.datastore.run_tx(lambda tx: tx.get_aggregation_jobs_for_task(task.task_id))
+            ras = [ra for j in jobs for ra in leader_eds.datastore.run_tx(
+                lambda tx: tx.get_report_aggregations_for_job(task.task_id, j.job_id))]
+            failed = {ra.report_id.data: ra.prepare_error for ra in ras if ra.state.value == "failed"}
+            if set(failed) != bad_ids[t] or set(failed.values()) - {PrepareError.VDAF_PREP_ERROR}:
+                raise AssertionError(f"pipeline: task {t} failed {len(failed)} reports, not its bumped ones")
+        merged_rows = sum(s["merged_rows"] for s in rec["resident_status"])
+        if merged_rows != sum(int(a.sum()) for a in accepts):
+            raise AssertionError(f"pipeline: {merged_rows} rows merged resident")
+
+        t0 = time.perf_counter()
+        flushed = driver.flush_resident_state("drain")
+        rec["flush_s"] = time.perf_counter() - t0
+        if flushed != len(keys) or ec.resident_bytes_total() != 0 or driver.resident_lost:
+            raise AssertionError(f"pipeline: the drain flushed {flushed} slots, {ec.resident_bytes_total()} bytes "
+                                 f"left, {driver.resident_lost} lost")
+        rec["flushed_slots"] = flushed
+        rec["collect"] = []
+        for task, accept, truth in zip(tasks, accepts, truths):
+            window = Time(now - 100).to_batch_interval_start(task.time_precision)
+            c = collect_batch(torch, counters, task, leader_server.url, leader_eds, collector_kp,
+                              Query.time_interval(Interval(window, task.time_precision)), int(accept.sum()), truth,
+                              dev=dev)
+            rec["collect"].append({"report_count": c["report_count"], "collect_s": c["collect_s"],
+                                   "result_ok": c["result_ok"]})
+        return rec
+    finally:
+        leader_server.stop()
+        server.stop()
+        leader.close()
+        leader_eds.cleanup()
+        helper_eds.cleanup()
+
+
 def profile_step(torch, step, args, step_s: float):
     """Device time by kernel over one step (torch.profiler), the share of
     the unprofiled step time `step_s` that the card was busy, and the
@@ -3142,11 +3626,9 @@ def main() -> int:
         ) if not failed else None
         if out is not None:
             paths[name] = out[0]
-            if name == "draft-sumvec":
-                step_s = out[0]["two_party_step_s"]
-                prof = phase("draft-profile", profile_step, torch, *out[1], sum(step_s) / len(step_s))
-                if prof is not None:
-                    emit({"profile": {"path": name, "batch": batch, **prof}})
+    # (the profile of one draft-sumvec step, 43.5 s, went when the pipeline
+    # phases took the script past 480 s: ROADMAP's second cut, after
+    # fixedpoint's batch)
     # long vectors and the last circuits: the north star SumVec(100000, 16)
     # on the streamed query in both XOF modes, and FixedPointVec(1000, 16)
     big = VdafInstance.sum_vec(100_000, 16)
@@ -3161,7 +3643,9 @@ def main() -> int:
         ("sumvec100k", big, 16, (5, 9, 13), fast, 1, 16, 1, 3, big_plan, 4, True),
         ("draft-sumvec100k", VdafInstance("sumvec", bits=16, length=100_000, xof_mode="draft"), 16, (3, 9, 13),
          ("keccak_sponge",), 1, 16, 0, 24, big_plan, 2, False),
-        ("fixedpoint", VdafInstance.fixed_point_vec(1000, 16), 1024, (5, 300, 1000), fast, 3, 256, 4, 24, None, 0,
+        # (cut from 1,024 reports when the pipeline phases took the script
+        # past 480 s: ROADMAP's first cut)
+        ("fixedpoint", VdafInstance.fixed_point_vec(1000, 16), 256, (5, 100, 200), fast, 3, 256, 4, 24, None, 0,
          False),
     )
     out = None  # the last phase's arguments leave the card before the next
@@ -3212,6 +3696,20 @@ def main() -> int:
     if out is not None:
         serves[out["path"]] = out
         emit({"upload_drive": out})
+    # the leader's stage pipeline with prestaged columns, resident
+    # accumulators and cross-task coalescing: two SumVec(1000, 16) tasks,
+    # then block-sparse SumVec merged into its dense slot by kernel 4
+    for name, inst, keys, bad, runs, check_rows in (
+        ("sumvec", VdafInstance.sum_vec(1000, 16), (VERIFY_KEY, VERIFY_KEY_B), ((0, 5), (0, 300), (1, 100)),
+         ((1, 4), (4, 4)), 128),
+        ("sparse", sparse_inst, (VERIFY_KEY,), (), ((1, 4),), 0),
+    ):
+        out = phase(f"pipeline-resident-{name}", phase_pipeline_resident, torch, dev, inst, keys, 512, 128, bad,
+                    runs, check_rows) if not failed else None
+        if out is not None:
+            out["path"] = f"pipeline-resident-{name}"
+            serves[out["path"]] = out
+            emit({"pipeline_resident": out})
     out = phase("poplar1", phase_poplar1, torch, dev) if not failed else None
     if out is not None:
         serves[out["path"]] = out

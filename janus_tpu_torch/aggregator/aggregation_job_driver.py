@@ -30,14 +30,27 @@ lease-bounded deadline, the step-back and the abandonment. The driver
 runs on CUDA unless it is built with device="cpu". There is no host
 engine, so a device failure fails the step (the lease expires and the
 job is retried, counting an attempt); `handle_step_error` has no
-device-hang branch.
+device-hang branch. The stage pipeline (`step_pipeline.py`) schedules the
+same stage methods; `device_init` hands the engine the prestaged columns
+its read stage uploaded.
 
-Not ported yet: the resident accumulators and `ResidentFlusher`
-(`ResidentConfig(enabled=True)` is refused), the stage pipeline
-(`step_pipeline.py`, which needs the engine's prestaged leader columns),
-the sparse pending deltas of the resident route, the peer outage tracker;
-and the calls into metrics, trace spans, failpoints and the conservation
-ledger. Each step's stage seconds are kept in `step_seconds`.
+Resident mode (`ResidentConfig(enabled=True)`): `device_accumulate` sums
+the job's accepted rows per batch bucket on the card
+(`EngineCache.aggregate_pending`) and the write transaction records the
+batch rows with their counts and checksums but no share; after it
+committed, `_resident_post_commit` merges the deltas into the engine's
+resident slots (a sparse job's through kernel 4), flushes slots evicted
+past the byte cap, and keeps the flush cadence. `flush_resident_state`
+(the drain, and `ResidentFlusher`'s pass) writes every slot's share
+through the batch-aggregation path. Where janus_tpu falls back to the
+classic accumulate on any error of the resident route, the port does so
+on memory exhaustion only, and counts it (`classic_fallbacks`); any other
+error fails the step. A flush into a batch collected meanwhile loses its
+share, counted in `resident_lost` (janus_tpu books it in its ledger).
+
+Not ported: the peer outage tracker, and the calls into metrics, trace
+spans, failpoints and the conservation ledger. Each step's stage seconds
+are kept in `step_seconds`.
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ from __future__ import annotations
 import base64
 import dataclasses
 import logging
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -107,10 +121,16 @@ from ..vdaf.wire import (
     pingpong_finish_frame_matches,
     seeds_to_lanes,
 )
-from .accumulator import Accumulator, accumulate_batched, fixed_size_batch_id
-from .engine_cache import engine_cache
-from .errors import NotPorted
+from .accumulator import (
+    Accumulator,
+    accumulate_batched,
+    bucket_metadata,
+    fixed_size_batch_id,
+    group_batch_buckets,
+)
+from .engine_cache import engine_cache, is_oom_error, live_engines
 from .job_driver import (
+    datastore_down,
     datastore_reconnect_delay_s,
     deadline_request_timeout,
     is_datastore_connection_error,
@@ -130,10 +150,23 @@ def _err_or_default(err) -> PrepareError:
 
 @dataclass
 class ResidentConfig:
-    """The device-resident accumulators of janus_tpu. Not ported:
-    AggregationJobDriver refuses enabled=True."""
+    """Device-resident accumulators (the driver's `resident_accumulators:`
+    settings). Off by default: resident mode trades the per-job share
+    fetch and write for a bounded durability window (a hard crash loses
+    the unflushed window; a drain and an eviction flush)."""
 
     enabled: bool = False
+    # flush cadence of the resident slots (and the background flusher's
+    # pass interval): a hard crash loses about this much accumulation
+    flush_interval_s: float = 5.0
+
+    @classmethod
+    def from_dict(cls, d: dict | None) -> "ResidentConfig":
+        d = d or {}
+        return cls(
+            enabled=bool(d.get("enabled", False)),
+            flush_interval_s=float(d.get("flush_interval_secs", 5.0)),
+        )
 
 
 @dataclass
@@ -183,6 +216,14 @@ class InitStepState:
     continue_msgs: list = field(default_factory=list)  # multi-round: the next message
     # accumulate output
     accumulator: Accumulator | None = None
+    # the padded columns the pipeline's read stage uploaded ahead
+    # (EngineCache.prestage_leader), consumed by device_init
+    prestaged: object = None
+    # resident mode: the device deltas and the per-bucket merge entries,
+    # consumed after the commit by commit_finish
+    resident_delta: object = None
+    resident_entries: list | None = None
+    resident_rids: list | None = None
     # block-sparse tasks: the public block indices of each lane from the
     # decoded public shares ([n, max_blocks] int32, -1 for padding and
     # failed lanes); the accumulate stage expands them to flat targets
@@ -204,8 +245,6 @@ class AggregationJobDriver:
         self.ds = ds
         self.http = http
         self.cfg = cfg or AggregationJobDriverConfig()
-        if self.cfg.resident.enabled:
-            raise NotPorted("device-resident accumulators are not ported to janus_tpu_torch yet")
         # CUDA unless the caller asks for the CPU; raises without CUDA
         self.device = resolve_device(device)
         self.breakers = (
@@ -216,6 +255,15 @@ class AggregationJobDriver:
         self.stopper = stopper
         # (job id bytes, {stage: seconds}) of the latest steps
         self.step_seconds: deque = deque(maxlen=64)
+        # resident flush cadence: the last time this driver flushed,
+        # seeded to now so the first inline flush waits a whole interval
+        self._resident_flush_lock = threading.Lock()
+        self._resident_last_flush = time.monotonic()
+        # jobs that asked for the resident route and took the classic
+        # accumulate (memory exhaustion), and resident shares lost to a
+        # flush that came after their batch's collection
+        self.classic_fallbacks = 0
+        self.resident_lost = 0
 
     # --- JobDriver callbacks (reference :840-894) ---
     def acquirer(self, lease_duration_s: int = 600):
@@ -471,9 +519,11 @@ class AggregationJobDriver:
 
     def device_init(self, st: InitStepState) -> None:
         """Device stage: batched leader prepare-init (reference hot loop
-        :329-402)."""
+        :329-402). A prestaged column set is consumed here; leader_init
+        stages from the host columns where it cannot use it."""
+        prestaged, st.prestaged = st.prestaged, None
         st.out0, st.seed0, st.ver0, st.part0 = st.engine.leader_init(
-            st.nonce_lanes, st.public_parts, st.meas, st.proof, st.blind_lanes, ok=st.ok
+            st.nonce_lanes, st.public_parts, st.meas, st.proof, st.blind_lanes, ok=st.ok, prestaged=prestaged
         )
 
     def http_init(self, st: InitStepState) -> None:
@@ -588,10 +638,16 @@ class AggregationJobDriver:
 
     def device_accumulate(self, st: InitStepState) -> None:
         """Device stage: one masked aggregate per batch bucket (reference
-        Accumulator::update :605-627)."""
+        Accumulator::update :605-627). In resident mode the buckets' sums
+        stay on the card as one PendingDeltas and the accumulator holds
+        share-less entries; the sums merge into the engine's resident
+        slots after the write transaction committed (commit_finish)."""
         st.accumulator = Accumulator(st.task, self.cfg.batch_aggregation_shard_count)
         metadatas = [ReportMetadata(ra.report_id, ra.client_time) for ra in st.pending]
         pbs = PartialBatchSelector.from_bytes(st.job.partial_batch_identifier)
+        bid_fixed = fixed_size_batch_id(pbs)
+        if self.cfg.resident.enabled and self._device_accumulate_resident(st, metadatas, bid_fixed):
+            return
         accumulate_batched(
             st.task,
             st.engine,
@@ -599,9 +655,52 @@ class AggregationJobDriver:
             st.out0,
             st.accept,
             metadatas,
-            batch_identifier=fixed_size_batch_id(pbs),
+            batch_identifier=bid_fixed,
             flat_idx=self._flat_idx(st),
         )
+
+    def _device_accumulate_resident(self, st, metadatas, bid_fixed) -> bool:
+        """The resident accumulate. True: st.accumulator holds share-less
+        entries and st.resident_delta the device sums. False: the engine
+        ran out of memory, and the caller runs the classic accumulate
+        (counted); any other error propagates and fails the step."""
+        n = len(metadatas)
+        buckets = group_batch_buckets(st.task, metadatas, st.accept, bid_fixed)
+        if not buckets:
+            return True  # nothing accepted, nothing to merge
+        keys = list(buckets)
+        lane_bucket = np.full(n, -1, dtype=np.int32)
+        for j, bid in enumerate(keys):
+            lane_bucket[buckets[bid]] = j
+        try:
+            delta = st.engine.aggregate_pending(st.out0, lane_bucket, len(keys), flat_idx=self._flat_idx(st))
+        except Exception as e:
+            if not is_oom_error(e):
+                raise
+            log.warning("resident accumulate ran out of device memory for job %s; taking the classic "
+                        "per-bucket path", st.acquired.job_id, exc_info=True)
+            self.classic_fallbacks += 1
+            st.engine.note_classic_fallback()
+            return False
+        entries = []
+        rids0 = []
+        for j, bid in enumerate(keys):
+            lanes = buckets[bid]
+            checksum, interval = bucket_metadata(st.task, metadatas, lanes)
+            st.accumulator.update(
+                bid,
+                None,  # the share stays on the card until a flush
+                len(lanes),
+                checksum,
+                interval,
+                [metadatas[i].report_id for i in lanes],
+            )
+            entries.append(((st.task.task_id.data, st.job.aggregation_parameter, bid), j, len(lanes), interval))
+            rids0.append(metadatas[lanes[0]].report_id.data)
+        st.resident_delta = delta
+        st.resident_entries = entries
+        st.resident_rids = rids0
+        return True
 
     @staticmethod
     def _flat_idx(st: InitStepState):
@@ -622,11 +721,15 @@ class AggregationJobDriver:
             else:
                 new_ras.append(ra.failed(_err_or_default(st.failed[i])))
         accumulator = st.accumulator
+        # the committing attempt's unmergeable set, carried out of the tx
+        # (run_tx may retry the closure)
+        cell: dict = {}
 
         def write(tx):
             # flush first: reports whose batch was collected mid-flight
             # fail one by one with BATCH_COLLECTED
             unmerged = accumulator.flush_to_datastore(tx)
+            cell["unmerged"] = unmerged
             for ra in new_ras:
                 if ra.report_id.data in unmerged:
                     ra = ra.failed(PrepareError.BATCH_COLLECTED)
@@ -635,6 +738,144 @@ class AggregationJobDriver:
             tx.release_aggregation_job(acquired)
 
         self.ds.run_tx(write, "step_agg_job_write")
+        # resident mode: the deltas merge only now, after the commit
+        # landed; a failed write (or a step-back earlier) drops them, so
+        # the re-step under a fresh lease cannot merge twice
+        if st.resident_delta is not None:
+            self._resident_post_commit(st, cell.get("unmerged", set()))
+
+    # --- resident aggregate state: merge and flush ---
+    def _resident_post_commit(self, st, unmerged: set) -> None:
+        """Merge the job's committed deltas into the resident slots, flush
+        slots evicted past the byte cap, and keep the flush cadence."""
+        engine = st.engine
+        # a bucket whose batch was collected mid-flight had all its
+        # reports refused by the flush (BATCH_COLLECTED): its delta must
+        # not enter the resident share either
+        entries = [e for e, rid0 in zip(st.resident_entries, st.resident_rids) if rid0 not in unmerged]
+        delta, st.resident_delta = st.resident_delta, None
+        if entries:
+            try:
+                evicted = engine.resident_merge(entries, delta)
+            except Exception as merge_exc:
+                # the commit landed and the merge did not: fetch the rows
+                # not merged yet and write them through the flush path (a
+                # merged prefix stays on the card and flushes with its
+                # slot; flushing it here too would count it twice)
+                merged_keys = getattr(merge_exc, "merged", frozenset())
+                remaining = [e for e in entries if e[0] not in merged_keys]
+                log.error(
+                    "resident merge failed after the commit of job %s (%d of %d buckets merged); "
+                    "flushing the remaining delta rows directly",
+                    st.acquired.job_id, len(merged_keys), len(entries), exc_info=True,
+                )
+                try:
+                    recs = engine.fetch_delta_records(remaining, delta)
+                except Exception:
+                    self.resident_lost += len(remaining)
+                    log.exception("resident delta fetch failed too; %d bucket contribution(s) of job %s are LOST",
+                                  len(remaining), st.acquired.job_id)
+                    recs = []
+                if recs:
+                    self.flush_resident_records(engine, recs, reason="merge_failed")
+            else:
+                if evicted:
+                    self.flush_resident_records(engine, evicted, reason="eviction")
+        self.maybe_flush_resident(engine)
+
+    def maybe_flush_resident(self, engine) -> None:
+        """Keep the flush cadence inline (the background flusher covers
+        idle periods; this bounds a busy driver too)."""
+        now = time.monotonic()
+        with self._resident_flush_lock:
+            if now - self._resident_last_flush < self.cfg.resident.flush_interval_s:
+                return
+            self._resident_last_flush = now
+        self.flush_engine_resident(engine, reason="interval")
+
+    def flush_engine_resident(self, engine, reason: str = "interval") -> int:
+        """Take every resident slot of `engine` and write the shares
+        through the batch-aggregation write path; returns the slots
+        flushed. A failed take leaves the slots resident for the next
+        pass. (janus_tpu also bounds the take by a deadline for its
+        dispatch watchdog; the port has no watchdog, so a deadline would
+        bound nothing.)"""
+        if reason != "drain" and datastore_down(self.ds):
+            # flushing into a store known to be down would pop the slots
+            # and lose their shares when the tx fails (a flush is at most
+            # once: no key guards a re-flush against double merging)
+            return 0
+        try:
+            recs = engine.resident_take()
+        except Exception:
+            log.warning("resident take failed for %s (%s); the state stays resident", engine.inst.kind, reason,
+                        exc_info=True)
+            return 0
+        if not recs:
+            return 0
+        return self.flush_resident_records(engine, recs, reason)
+
+    def flush_resident_state(self, reason: str = "interval") -> int:
+        """Flush every cached engine's resident slots (the drain, and the
+        background flusher's pass)."""
+        # shares the cadence stamp with the inline check, so a busy driver
+        # does not pay a second take and flush per interval
+        with self._resident_flush_lock:
+            self._resident_last_flush = time.monotonic()
+        return sum(self.flush_engine_resident(eng, reason) for eng in live_engines())
+
+    def flush_resident_records(self, engine, recs: list, reason: str) -> int:
+        """Persist fetched resident shares through the Accumulator write
+        path (share-only merges: count 0, the identity checksum; counts
+        and checksums were durable at each job's commit). A batch
+        collected before its flush arrived loses the share (counted in
+        `resident_lost`, logged); a deleted task is stale state."""
+        from ..messages import ReportIdChecksum, TaskId
+
+        by_task: dict[bytes, list] = {}
+        for r in recs:
+            by_task.setdefault(r["key"][0], []).append(r)
+        flushed = 0
+        for task_id_bytes, rows in by_task.items():
+            cell: dict = {}
+
+            def write(tx, task_id_bytes=task_id_bytes, rows=rows, cell=cell):
+                cell.clear()
+                task = tx.get_task(TaskId(task_id_bytes))
+                if task is None:
+                    cell["stale"] = len(rows)
+                    return
+                accs: dict[bytes, Accumulator] = {}
+                lost = flushed_n = 0
+                for r in rows:
+                    _, agg_param, bid = r["key"]
+                    if tx.batch_has_collected_shard(task.task_id, bid, agg_param):
+                        lost += 1
+                        log.error("resident share for task %s batch %r arrived after collection; the share is "
+                                  "lost (flush reason=%s)", task.task_id, bid[:16], reason)
+                        continue
+                    acc = accs.get(agg_param)
+                    if acc is None:
+                        acc = accs[agg_param] = Accumulator(
+                            task, self.cfg.batch_aggregation_shard_count, aggregation_parameter=agg_param
+                        )
+                    acc.update(bid, acc.field.encode_vec(r["share"]), 0, ReportIdChecksum(), r["interval"], [])
+                    flushed_n += 1
+                for acc in accs.values():
+                    acc.flush_to_datastore(tx)
+                cell["lost"] = lost
+                cell["flushed"] = flushed_n
+
+            try:
+                self.ds.run_tx(write, "flush_resident")
+            except Exception:
+                log.exception("resident flush tx failed (%d buffer(s), reason=%s); the fetched shares are LOST",
+                              len(rows), reason)
+                self.resident_lost += len(rows)
+                continue
+            self.resident_lost += cell.get("lost", 0)
+            flushed += cell.get("flushed", 0)
+        return flushed
 
     def commit_park(self, st: InitStepState) -> None:
         """Commit stage of a two-round init: park accepted reports as
@@ -908,3 +1149,32 @@ class AggregationJobDriver:
 
         self.ds.run_tx(cancel, "abandon_agg_job")
         log.warning("abandoned aggregation job %s after max attempts", acquired.job_id)
+
+
+class ResidentFlusher:
+    """Background resident flush: every interval_s it writes the resident
+    slots of every cached engine through the driver's flush path, so an
+    idle driver's last jobs do not wait for the next job. stop() and a
+    final `driver.flush_resident_state("drain")` are the drain."""
+
+    def __init__(self, driver: AggregationJobDriver, interval_s: float):
+        self.driver = driver
+        self.interval_s = max(0.1, float(interval_s))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, name="resident-flusher", daemon=True)
+
+    def start(self) -> "ResidentFlusher":
+        self._thread.start()
+        return self
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.driver.flush_resident_state(reason="interval")
+            except Exception:
+                log.exception("resident flush pass failed; retrying next pass")
+
+    def stop(self, timeout_s: float = 5.0) -> None:
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout_s)

@@ -23,25 +23,55 @@ serving code reaches the card only through an `EngineCache`:
   their public block indices (`aggregate_sparse`, on the scatter kernel
   of ops/scatter_cuda.py).
 
+- Cross-job and cross-task coalescing: an init of at most
+  COALESCE_MAX_JOB rows goes through a round-based `_Coalescer` shared by
+  every engine of one (VDAF, device) and side; calls that arrive while a
+  round runs ride the next one together, as one padded dispatch. A round
+  of one engine keeps the verify key constant; a round that mixes tasks
+  passes each lane its own key (`_verify_key_lanes`), which kernel 1's
+  counter launch reads as a column and kernel 2 takes in its prefix. A
+  merged round's out shares are `DeviceRows` views into one buffer.
+- Prestaged leader columns (`prestage_leader`, `PrestagedInit`): the
+  stage pipeline's read stage uploads a job's padded columns from pinned
+  memory on a side stream while the device lane runs the previous job;
+  `leader_init(prestaged=)` waits on the upload's event and uses them, or
+  discards them and stages from the host where its route cannot.
+- Device-resident accumulators: `aggregate_pending` sums one job's
+  accepted rows per batch bucket on the card (`PendingDeltas`; a sparse
+  job keeps its rows and scatter targets, `SparsePendingDeltas`), and
+  `resident_merge`, called after the job's write transaction committed,
+  adds them into per-(task, parameter, batch) slots that stay on the card
+  (a sparse job's rows through kernel 4 into the dense logical slot),
+  evicting LRU slots past RESIDENT_MAX_BYTES through the caller's flush.
+  The driver owns the flush policy (aggregation_job_driver.py).
+
 One engine may serve several threads at once: in one process the
 helper's handler threads and the leader's job-driver workers share it
 (the process LRU keys it by VDAF and verify key, which both roles
-hold). Its only mutable state, the OOM ladder's cap and history, changes
-under `_oom_lock`, and each call reads the cap once; the pipelined route
-makes its side stream and events per call and waits on them from the
-calling thread's current stream; the kernels count their launches under
+hold). The OOM ladder's cap and history change under `_oom_lock`, and
+each call reads the cap once; the resident slots change under
+`_resident_lock`; the pipelined route and each prestage make their side
+stream and event per call, and the consumer waits on the event from its
+own stream on the engine's device; a coalesced round runs on whichever
+submitting thread holds the dispatcher role, under the engine's device,
+never the thread's current one; the kernels count their launches under
 a lock (ops/cuda_build.py `count_launch`).
 
 The engine runs on CUDA unless it is built with device="cpu", where the
 kernels' plain versions run. Values equal janus_tpu's EngineCache on
-the same inputs. Not ported yet: cross-job coalescing, prestaged leader
-columns, resident accumulators (with them the sparse pending deltas),
-the mesh, the dispatch watchdog with its quarantine and canary, and the
-compile caches (the port runs eagerly and compiles nothing).
+the same inputs. janus_tpu's JANUS_COALESCE, JANUS_XTASK_COALESCE and
+JANUS_RESIDENT_MAX_BYTES environment knobs are not ported: coalescing
+and cross-task coalescing are always on, and the resident byte cap is
+the class constant RESIDENT_MAX_BYTES. Not ported: the mesh,
+the dispatch watchdog with its quarantine and canary (janus_tpu's
+quarantine serves from a host engine, which the port does not have),
+and the compile caches (the port runs eagerly and compiles nothing).
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import threading
 import time
 from collections import OrderedDict, deque
@@ -55,6 +85,8 @@ from ..fields.tfield import fzeros
 from ..vdaf.circuits import SparseSumVec
 from ..vdaf.feasibility import device_memory_budget, feasible_bucket
 from ..vdaf.registry import VdafInstance, prio3_batched
+
+log = logging.getLogger(__name__)
 
 MIN_BUCKET = 32
 
@@ -191,6 +223,384 @@ class DeviceRowsChunks:
         return tuple(np.concatenate([p[i] for p in parts]) for i in range(len(parts[0])))
 
 
+def _device_scope(device: torch.device):
+    """The engine's device as the thread's current one for the block: a
+    coalesced round runs on whichever thread holds the dispatcher role."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+class PrestagedInit:
+    """A leader init's padded columns, uploaded ahead (double-buffered
+    staging): `prestage_leader` issues the copies from pinned memory on a
+    side stream and records `ready` after them; `leader_init` consumes
+    them when its direct route runs at the same bucket. `discard()` drops
+    the references, so a fallback (a merged round, a cap moved by the OOM
+    ladder, the pipelined or chunked route) frees the buffers at once:
+    they were made on the side stream, whose later work is ordered after
+    the copies."""
+
+    __slots__ = ("b", "_staged", "_ready")
+
+    def __init__(self, b: int, staged, ready):
+        self.b = b
+        self._staged = staged
+        self._ready = ready  # torch.cuda.Event, or None on the CPU
+
+    def usable(self, b: int) -> bool:
+        return self._staged is not None and self.b == b
+
+    def take(self):
+        staged, ready = self._staged, self._ready
+        self._staged = self._ready = None
+        return staged, ready
+
+    def discard(self) -> None:
+        self._staged = self._ready = None
+
+
+class ResidentMergeError(RuntimeError):
+    """resident_merge died partway through its entry loop. `merged` holds
+    the keys whose delta did land in a resident slot before the failure:
+    those flush with their slot, so the caller flushes directly only the
+    remaining entries' rows (re-flushing a merged one double-counts it)."""
+
+    def __init__(self, merged: frozenset, cause: BaseException):
+        super().__init__(f"resident merge failed after {len(merged)} bucket(s): {cause!r}")
+        self.merged = merged
+
+
+class ResidentSlot:
+    """One per-(task, aggregation parameter, batch) aggregate living on
+    the card across job steps: `value` is an [output_len] field limb tuple
+    (the logical length for a sparse task). The interval is the union of
+    every merged contribution's; counts and checksums are durable already
+    (each job's write transaction records them), only the share lives
+    here until a flush."""
+
+    __slots__ = ("key", "value", "interval", "rows", "nbytes", "last_used")
+
+    def __init__(self, key: tuple, value, interval, rows: int, nbytes: int):
+        self.key = key  # (task_id bytes, agg_param bytes, batch_identifier bytes)
+        self.value = value
+        self.interval = interval
+        self.rows = rows
+        self.nbytes = nbytes
+        self.last_used = time.monotonic()
+
+
+class PendingDeltas:
+    """One job step's per-bucket masked sums, still on the card ([k,
+    output_len] limb tuple): made by aggregate_pending on the device lane,
+    merged into resident slots only after the job's write transaction
+    committed. A failed commit drops the object: no rollback, and the
+    re-step cannot merge twice."""
+
+    __slots__ = ("value", "k", "row_nbytes")
+
+    def __init__(self, value, k: int, row_nbytes: int):
+        self.value = value
+        self.k = k
+        self.row_nbytes = row_nbytes
+
+    def row(self, j: int):
+        """Row j as a device field value (a view, nothing fetched)."""
+        return tuple(x[j] for x in self.value)
+
+
+class SparsePendingDeltas:
+    """A block-sparse job's pending state. Two reports of one batch carry
+    different block indices, so a compact-width pre-sum would add values
+    of unrelated logical positions: the job's out shares ride to merge
+    time with each report's flat scatter targets, and resident_merge
+    scatters a bucket's rows straight into the dense logical slot (kernel
+    4). Same commit discipline as PendingDeltas.
+
+    flat_idx: [n, compact_len] host int32, the sentinel logical_len on
+    padding lanes; bucket_idx: [n] host int32, -1 for a rejected report.
+    row_nbytes is the dense logical row's size (what a slot holds)."""
+
+    __slots__ = ("out_shares", "flat_idx", "bucket_idx", "k", "row_nbytes", "logical_len")
+
+    def __init__(self, out_shares, flat_idx, bucket_idx, k: int, row_nbytes: int, logical_len: int):
+        self.out_shares = out_shares
+        self.flat_idx = flat_idx
+        self.bucket_idx = bucket_idx
+        self.k = k
+        self.row_nbytes = row_nbytes
+        self.logical_len = logical_len
+
+
+# The process-wide resident ledger: the device bytes every engine's slots
+# hold (the eviction cap reads the total) and the slot count per VDAF kind
+# (several engines share a kind, one per task verify key).
+_resident_bytes_lock = threading.Lock()
+_resident_bytes_total = 0
+_resident_buffer_counts: dict[str, int] = {}
+
+
+def _resident_bytes_add(delta: int, kind: str, nbuf: int) -> int:
+    """Account one slot insert (+) or removal (-): `delta` bytes and `nbuf`
+    slots of VDAF `kind`; returns the new byte total."""
+    global _resident_bytes_total
+    with _resident_bytes_lock:
+        _resident_bytes_total += delta
+        _resident_buffer_counts[kind] = _resident_buffer_counts.get(kind, 0) + nbuf
+        return _resident_bytes_total
+
+
+def resident_bytes_total() -> int:
+    with _resident_bytes_lock:
+        return _resident_bytes_total
+
+
+def resident_buffer_counts() -> dict[str, int]:
+    """Resident slots held, by VDAF kind, over every engine."""
+    with _resident_bytes_lock:
+        return dict(_resident_buffer_counts)
+
+
+class _Coalescer:
+    """Round-based dispatch coalescing across concurrent callers.
+
+    A call with no round in flight dispatches at once (no added latency
+    when idle); calls that arrive while a round runs queue and ride the
+    next round together, up to `max_rows` rows. The dispatcher role passes
+    between submitting threads: the thread whose entry finished hands it
+    to a waiter, which adopts it. Leases are untouched: each job still
+    writes and releases its own.
+    """
+
+    __slots__ = ("_run", "_max_rows", "_lock", "_cv", "_queue", "_active", "rounds")
+
+    def __init__(self, run, max_rows: int):
+        self._run = run  # ([args...], [n...]) -> [per-call results]
+        self._max_rows = max_rows
+        self._lock = threading.Lock()
+        # signalled when the dispatcher role frees up with work queued
+        self._cv = threading.Condition(self._lock)
+        self._queue: list[list] = []  # entries: [args, n, Event, result, error]
+        self._active = False
+        # calls per dispatched round, the recent window only
+        self.rounds: deque = deque(maxlen=1024)
+
+    def submit(self, args, n: int):
+        ent = [args, n, threading.Event(), None, None]
+        with self._lock:
+            self._queue.append(ent)
+            dispatcher = not self._active
+            if dispatcher:
+                self._active = True
+        if dispatcher:
+            self._dispatch_until_done(ent)
+        else:
+            while not ent[2].is_set():
+                # the previous dispatcher may leave with entries queued
+                # (its own round finished first): a waiter is notified
+                # and adopts the role (the timeout only covers a lost
+                # wake-up)
+                with self._lock:
+                    adopt = not self._active and not ent[2].is_set() and bool(self._queue)
+                    if adopt:
+                        self._active = True
+                    elif not ent[2].is_set():
+                        self._cv.wait(0.05)
+                        continue
+                if adopt:
+                    self._dispatch_until_done(ent)
+                    break
+        if ent[4] is not None:
+            raise ent[4]
+        return ent[3]
+
+    def _dispatch_until_done(self, own):
+        """Dispatch rounds until our own entry completes and the queue is
+        drained or another thread adopts the role."""
+        try:
+            while True:
+                with self._lock:
+                    batch: list[list] = []
+                    rows = 0
+                    while self._queue and (not batch or rows + self._queue[0][1] <= self._max_rows):
+                        e = self._queue.pop(0)
+                        batch.append(e)
+                        rows += e[1]
+                    if not batch:
+                        return
+                self.rounds.append(len(batch))
+                try:
+                    results = self._run([e[0] for e in batch], [e[1] for e in batch])
+                    for e, r in zip(batch, results):
+                        e[3] = r
+                except BaseException as ex:  # noqa: BLE001 - re-raised below or per entry
+                    # the round's entries were popped: nobody else would
+                    # ever set their events, so every one gets the error
+                    for e in batch:
+                        e[4] = ex
+                    if not isinstance(ex, Exception):
+                        for e in batch:
+                            e[2].set()
+                        with self._lock:
+                            self._cv.notify_all()
+                        raise
+                for e in batch:
+                    e[2].set()
+                with self._lock:
+                    self._cv.notify_all()
+                if own[2].is_set():
+                    # our caller has work to do with its result: hand the
+                    # role to a waiter (notified in finally)
+                    return
+        finally:
+            with self._lock:
+                self._active = False
+                if self._queue:
+                    self._cv.notify()
+
+
+def _concat_args(args_list):
+    """Concatenate per-call arg tuples along the batch axis. An arg is
+    None in every call or in none (one engine's schedule); arrays become
+    tensors (numpy bits unchanged), on the CPU unless all lie on one
+    device."""
+
+    def cat(parts):
+        ts = [_as_tensor(p) for p in parts]
+        if len({t.device for t in ts}) > 1:
+            ts = [t.cpu() for t in ts]
+        return torch.cat(ts)
+
+    out = []
+    for parts in zip(*args_list):
+        if parts[0] is None:
+            if any(p is not None for p in parts):
+                raise ValueError("coalesced round: an argument is None in some calls only")
+            out.append(None)
+        elif isinstance(parts[0], tuple):  # field limbs
+            out.append(tuple(cat([p[k] for p in parts]) for k in range(len(parts[0]))))
+        else:
+            out.append(cat(parts))
+    return tuple(out)
+
+
+def _split_rows(value, offsets):
+    """Slice a host array, a limb tuple or None back into per-call rows."""
+    if value is None:
+        return [None] * (len(offsets) - 1)
+    if isinstance(value, tuple):
+        return [tuple(x[s:e] for x in value) for s, e in zip(offsets, offsets[1:])]
+    return [value[s:e] for s, e in zip(offsets, offsets[1:])]
+
+
+_xtask_lock = threading.Lock()
+_xtask_coalescers: dict[tuple, "_Coalescer"] = {}
+
+
+def _shared_coalescer(inst, device, side: str, max_rows: int) -> "_Coalescer":
+    """The coalescer every engine of (inst, device) shares on one side."""
+    key = (inst, device, side)
+    with _xtask_lock:
+        co = _xtask_coalescers.get(key)
+        if co is None:
+            co = _Coalescer(_run_leader_round if side == "leader" else _run_helper_round, max_rows)
+            _xtask_coalescers[key] = co
+        return co
+
+
+def _clear_shared_coalescers() -> None:
+    with _xtask_lock:
+        _xtask_coalescers.clear()
+
+
+def _verify_key_lanes(engines, ns) -> np.ndarray:
+    """[sum(ns), 2] uint64 lanes carrying each entry's verify key across
+    its rows: the per-lane key of a cross-task round."""
+    rows = [
+        np.broadcast_to(np.frombuffer(e.verify_key, dtype="<u8").astype(np.uint64), (n, 2))
+        for e, n in zip(engines, ns)
+    ]
+    return np.ascontiguousarray(np.concatenate(rows, axis=0))
+
+
+def _round_prestage_fallback(args_list) -> None:
+    """A merged round re-stages from the concatenated host columns: every
+    entry's prestage is discarded (and counted by its engine)."""
+    for eng, prestaged, *_ in args_list:
+        if prestaged is not None:
+            prestaged.discard()
+            eng._count_prestage("discarded")
+
+
+@contextlib.contextmanager
+def _exec_engine(eng):
+    """Tag an error out of a round with the engine that ran it: every
+    entry of the round gets the same exception, and the memory ladder
+    halves the cap of the engine whose dispatch ran out, not the
+    caller's."""
+    try:
+        yield
+    except BaseException as e:
+        if not hasattr(e, "_janus_exec_engine"):
+            e._janus_exec_engine = eng
+        raise
+
+
+def _run_leader_round(args_list, ns):
+    """Coalescer round (leader init). Entries carry their engine and
+    prestage: a round of one is the engine's own init, with its verify key
+    constant and its prestage; a merged round runs on the first entry's
+    engine (one VdafInstance, one geometry) as one dispatch, with
+    per-lane keys when it mixes tasks."""
+    engines = [a[0] for a in args_list]
+    exec_eng = engines[0]
+    with _device_scope(exec_eng.device), _exec_engine(exec_eng):
+        if len(args_list) == 1:
+            eng, prestaged, *rest = args_list[0]
+            return [eng._leader_init_inner(*rest, prestaged=prestaged)]
+        cross = any(e is not exec_eng for e in engines)
+        offsets = list(np.cumsum([0] + list(ns)))
+        exec_eng._count_round(int(sum(ns)))
+        _round_prestage_fallback(args_list)
+        merged = _concat_args([a[2:] for a in args_list])
+        vk = _verify_key_lanes(engines, ns) if cross else None
+        # one padded dispatch for the whole round (no pipelined chunks:
+        # round-to-round overlap already covers the copies)
+        out0, seed0, ver0, part0 = exec_eng._leader_init_inner(
+            *merged, coalesced=len(ns), allow_pipeline=False, vk_lanes=vk
+        )
+        if isinstance(out0, DeviceRowsChunks):
+            # the cap halved between admission and dispatch and the round
+            # chunked: split host rows instead of buffer views
+            rows = out0.to_numpy()
+            outs = [tuple(x[s:e] for x in rows) for s, e in zip(offsets, offsets[1:])]
+        else:
+            outs = [DeviceRows(out0.value, e - s, offset=s) for s, e in zip(offsets, offsets[1:])]
+        return list(zip(outs, _split_rows(seed0, offsets), _split_rows(ver0, offsets), _split_rows(part0, offsets)))
+
+
+def _run_helper_round(args_list, ns):
+    """Coalescer round (helper init); see _run_leader_round."""
+    engines = [a[0] for a in args_list]
+    exec_eng = engines[0]
+    with _device_scope(exec_eng.device), _exec_engine(exec_eng):
+        if len(args_list) == 1:
+            eng, *rest = args_list[0]
+            return [eng._helper_init_inner(*rest)]
+        cross = any(e is not exec_eng for e in engines)
+        offsets = list(np.cumsum([0] + list(ns)))
+        exec_eng._count_round(int(sum(ns)))
+        merged = _concat_args([a[1:] for a in args_list])
+        vk = _verify_key_lanes(engines, ns) if cross else None
+        out1, mask, prep_msg = exec_eng._helper_init_inner(*merged, coalesced=len(ns), vk_lanes=vk)
+        if isinstance(out1, DeviceRowsChunks):
+            rows = out1.to_numpy()
+            return [(tuple(x[s:e] for x in rows), mask[s:e], prep_msg[s:e]) for s, e in zip(offsets, offsets[1:])]
+        return [
+            (DeviceRows(out1.value, e - s, offset=s), mask[s:e], prep_msg[s:e]) for s, e in zip(offsets, offsets[1:])
+        ]
+
+
 class EngineCache:
     """Per (VDAF, verify key, device) Prio3 steps over bucketed batches.
 
@@ -200,6 +610,16 @@ class EngineCache:
 
     # Leader batches of at least 2 x PIPELINE_CHUNK rows run pipelined.
     PIPELINE_CHUNK = 256
+    # Inits of at most COALESCE_MAX_JOB rows go through the coalescer; a
+    # round takes at most COALESCE_ROUND_ROWS rows, and at most
+    # COALESCE_ROUND_ELEMS input elements (a long circuit's round is
+    # smaller), and never more than the memory cap.
+    COALESCE_MAX_JOB = 4096
+    COALESCE_ROUND_ROWS = 32768
+    COALESCE_ROUND_ELEMS = 1 << 25
+    # Process-wide device bytes of resident slots; past it a merge evicts
+    # this engine's LRU slots through the driver's flush.
+    RESIDENT_MAX_BYTES = 256 << 20
 
     def __init__(self, inst: VdafInstance, verify_key: bytes, device=None, bucket_cap: int | None = None):
         self.inst = inst
@@ -222,11 +642,48 @@ class EngineCache:
         self.oom_history: deque = deque(maxlen=16)
         # block-sparse SumVec: aggregates scatter to the logical length
         self.sparse = isinstance(self.p3.circ, SparseSumVec)
+        # coalescing: the round's row cap follows the circuit's width and
+        # the memory cap; engines of one (VDAF, device) share a coalescer
+        # per side
+        in_len = max(1, getattr(self.p3.circ, "input_len", 1))
+        round_rows = max(MIN_BUCKET, min(self.COALESCE_ROUND_ROWS, self.COALESCE_ROUND_ELEMS // in_len))
+        if self.bucket_cap is not None:
+            round_rows = min(round_rows, self.bucket_cap)
+        self._co_leader = _shared_coalescer(inst, self.device, "leader", round_rows)
+        self._co_helper = _shared_coalescer(inst, self.device, "helper", round_rows)
+        # counters (the port's stand-in for janus_tpu's metrics): merged
+        # rounds this engine ran, their rows, and the prestages' outcomes
+        self._stats_lock = threading.Lock()
+        self.coalesce_stats = {"merged_rounds": 0, "merged_rows": 0}
+        self.prestage_stats = {"issued": 0, "used": 0, "discarded": 0}
+        # device-resident aggregate state: per-(task, parameter, batch)
+        # slots; the driver owns the flush policy
+        self._resident: "OrderedDict[tuple, ResidentSlot]" = OrderedDict()
+        self._resident_lock = threading.Lock()
+        self._resident_stats = {
+            "merged_rows": 0,
+            "merges": 0,
+            "evictions": 0,
+            "eviction_deferred": 0,
+            "takes": 0,
+            "classic_fallbacks": 0,
+        }
+        self._scatter_rows_total = 0
+        self._sparse_last_occupancy: float | None = None
 
     def _dispatch(self, name: str, fn, *args):
         """Run one step on staged device tensors: the one place a device
         computation starts (and where a test injects a failure)."""
         return fn(*args)
+
+    def _count_round(self, rows: int) -> None:
+        with self._stats_lock:
+            self.coalesce_stats["merged_rounds"] += 1
+            self.coalesce_stats["merged_rows"] += rows
+
+    def _count_prestage(self, outcome: str) -> None:
+        with self._stats_lock:
+            self.prestage_stats[outcome] += 1
 
     # --- memory-exhaustion ladder (shared by every public step) ---
     def _handle_engine_error(self, e: BaseException, n: int) -> None:
@@ -234,53 +691,76 @@ class EngineCache:
         exhaustion unchanged; otherwise frees the allocator's cache and
         halves the bucket cap, so the caller's retry chunks smaller. At
         the floor, or where halving cannot shrink the dispatch, it
-        re-raises: the port has no host engine to move to."""
+        re-raises: the port has no host engine to move to. An error out
+        of a coalesced round halves the cap of the engine that ran the
+        round (`_exec_engine`), which may be another task's."""
         if not is_oom_error(e):
             raise
-        with self._oom_lock:
-            # one exception object may reach several retry loops; only
-            # the first may touch the cap
+        eng = getattr(e, "_janus_exec_engine", self)
+        with eng._oom_lock:
+            # one exception object may reach several retry loops (every
+            # entry of a coalesced round gets it); only the first may
+            # touch the cap
             if getattr(e, "_janus_oom_handled", False):
                 return
             e._janus_oom_handled = True
             observed = getattr(e, "_janus_dispatch_bucket", None)
             if observed is None:
-                observed = bucket_size(n, self.bucket_cap)
+                observed = bucket_size(n, eng.bucket_cap)
             stuck = (
                 getattr(e, "_janus_fixed_bucket", False)
-                and self.bucket_cap is not None
-                and observed // 2 >= self.bucket_cap
+                and eng.bucket_cap is not None
+                and observed // 2 >= eng.bucket_cap
             )
             if observed <= 1 or stuck:
-                self.oom_history.append(
+                eng.oom_history.append(
                     {"at": time.time(), "bucket": observed, "action": "raised", "error": str(e)[:200]}
                 )
                 raise
-            if self.device.type == "cuda":
+            if eng.device.type == "cuda":
                 torch.cuda.empty_cache()
             new_cap = observed // 2
-            self.bucket_cap = new_cap if self.bucket_cap is None else min(self.bucket_cap, new_cap)
-            self.oom_history.append(
+            eng.bucket_cap = new_cap if eng.bucket_cap is None else min(eng.bucket_cap, new_cap)
+            eng.oom_history.append(
                 {
                     "at": time.time(),
                     "bucket": observed,
-                    "action": f"halved_to_{self.bucket_cap}",
+                    "action": f"halved_to_{eng.bucket_cap}",
                     "error": str(e)[:200],
                 }
             )
 
+    def would_coalesce(self, n: int) -> bool:
+        """True when an init of n rows enters a coalesced round (the
+        routing of the init entries). A prestage for such a job is wasted
+        whenever its round merges, so a parallel device lane declines to
+        prestage exactly these jobs."""
+        cap = self.bucket_cap
+        return n <= self.COALESCE_MAX_JOB and (cap is None or n <= cap)
+
     # --- helper side: init + combine + decide in one step ---
     def helper_init(self, nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask):
         """Returns (out1 DeviceRows, accept mask, prep_msg lanes), the
-        last two as numpy sliced to the true batch size."""
+        last two as numpy sliced to the true batch size. A batch of at
+        most COALESCE_MAX_JOB rows rides a coalesced round."""
         args = (nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask)
         while True:
             try:
-                return self._helper_init_inner(*args)
+                return self._helper_init_entry(*args)
             except Exception as e:  # noqa: BLE001 - memory filter inside
                 self._handle_engine_error(e, nonce_lanes.shape[0])
 
-    def _helper_init_chunked(self, nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask, cap: int):
+    def _helper_init_entry(self, nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask):
+        n = nonce_lanes.shape[0]
+        if self.would_coalesce(n):
+            return self._co_helper.submit(
+                (self, nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask), n
+            )
+        return self._helper_init_inner(nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask)
+
+    def _helper_init_chunked(
+        self, nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask, cap: int, vk_lanes=None
+    ):
         """Serial cap-sized dispatches for a batch past the memory bound;
         out shares stay on the device as DeviceRowsChunks."""
         n = nonce_lanes.shape[0]
@@ -288,27 +768,32 @@ class EngineCache:
         for s in range(0, n, cap):
             e = min(s + cap, n)
             out1, mask, prep = self._helper_init_inner(
-                *(_cut_rows(a, s, e) for a in (nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask))
+                *(_cut_rows(a, s, e) for a in (nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask)),
+                vk_lanes=_cut_rows(vk_lanes, s, e),
             )
             outs.append(out1)
             masks.append(mask)
             preps.append(prep)
         return DeviceRowsChunks(outs), np.concatenate(masks), np.concatenate(preps)
 
-    def _helper_init_inner(self, nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask):
+    def _helper_init_inner(
+        self, nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask, coalesced: int = 0,
+        vk_lanes=None,
+    ):
+        """One helper dispatch (chunked past the cap). `coalesced` is the
+        round's call count (0 outside a merged round); `vk_lanes` the
+        per-lane verify keys of a cross-task round."""
         p3 = self.p3
         n = nonce_lanes.shape[0]
         cap = self.bucket_cap  # read once: recovery may halve it meanwhile
         if cap is not None and n > cap:
             return self._helper_init_chunked(
-                nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask, cap
+                nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask, cap, vk_lanes=vk_lanes
             )
         b = bucket_size(n, cap)
 
-        def step(nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask):
-            out1, seed1, ver1, part1 = p3.prepare_init_helper(
-                self.verify_key, nonce_lanes, public_parts, helper_seeds, blinds
-            )
+        def step(vkey, nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask):
+            out1, seed1, ver1, part1 = p3.prepare_init_helper(vkey, nonce_lanes, public_parts, helper_seeds, blinds)
             mask, prep_msg = p3.prep_shares_to_prep(ver0, ver1, part0, part1)
             mask = p3.prepare_finish(seed1, prep_msg, mask)
             mask = mask & ok_mask
@@ -317,8 +802,13 @@ class EngineCache:
             return out1, mask, prep_msg
 
         try:
-            staged = put_args(pad_args(b, nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask), self.device)
-            out1, mask, prep_msg = self._dispatch("helper_init", step, *staged)
+            raw = (nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask)
+            if vk_lanes is None:
+                staged = put_args(pad_args(b, *raw), self.device)
+                vkey = self.verify_key
+            else:
+                vkey, *staged = put_args(pad_args(b, vk_lanes, *raw), self.device)
+            out1, mask, prep_msg = self._dispatch("helper_init", step, vkey, *staged)
             # out1 stays on the device; the mask and prep message come
             # back (the .cpu() blocks until the step has run)
             mask = mask[:n].cpu().numpy()
@@ -329,31 +819,75 @@ class EngineCache:
         return DeviceRows(out1, n), mask, prep_msg
 
     # --- leader side: init only (the helper round trip follows) ---
-    def leader_init(self, nonce_lanes, public_parts, meas, proof, blind0, ok=None):
+    def leader_init(self, nonce_lanes, public_parts, meas, proof, blind0, ok=None, prestaged=None):
         """Returns (out0 DeviceRows or DeviceRowsChunks, corrected seed
         lanes or None, verifier share limbs, own joint-rand part lanes or
         None), the last three as numpy. `ok` is accepted for interface
-        parity with janus_tpu; failed lanes cost nothing extra here."""
+        parity with janus_tpu; failed lanes cost nothing extra here.
+        `prestaged` (from prestage_leader) is used where the direct route
+        runs at its bucket, else discarded: the columns then go up from
+        the host."""
         while True:
             try:
-                return self._leader_init_inner(nonce_lanes, public_parts, meas, proof, blind0)
+                return self._leader_init_entry(nonce_lanes, public_parts, meas, proof, blind0, prestaged)
             except Exception as e:  # noqa: BLE001 - memory filter inside
+                if prestaged is not None:
+                    prestaged.discard()  # the retry stages from the host
+                    prestaged = None
                 self._handle_engine_error(e, nonce_lanes.shape[0])
 
-    def _leader_step(self, nonce_lanes, public_parts, meas, proof, blind0):
-        return self.p3.prepare_init_leader(self.verify_key, nonce_lanes, public_parts, meas, proof, blind0)
+    def _leader_init_entry(self, nonce_lanes, public_parts, meas, proof, blind0, prestaged=None):
+        n = nonce_lanes.shape[0]
+        if self.would_coalesce(n):
+            return self._co_leader.submit((self, prestaged, nonce_lanes, public_parts, meas, proof, blind0), n)
+        return self._leader_init_inner(nonce_lanes, public_parts, meas, proof, blind0, prestaged=prestaged)
 
-    def _leader_init_inner(self, nonce_lanes, public_parts, meas, proof, blind0, allow_pipeline: bool = True):
+    def _leader_step(self, vkey, nonce_lanes, public_parts, meas, proof, blind0):
+        return self.p3.prepare_init_leader(vkey, nonce_lanes, public_parts, meas, proof, blind0)
+
+    def _drop_prestage(self, prestaged) -> None:
+        if prestaged is not None:
+            prestaged.discard()
+            self._count_prestage("discarded")
+
+    def _leader_init_inner(
+        self, nonce_lanes, public_parts, meas, proof, blind0, coalesced: int = 0, allow_pipeline: bool = True,
+        vk_lanes=None, prestaged=None,
+    ):
+        """One leader init: chunked past the cap, pipelined at 2 x
+        PIPELINE_CHUNK rows or more (outside a merged round), else one
+        dispatch, from a usable prestage or from the host columns."""
         n = nonce_lanes.shape[0]
         cap = self.bucket_cap
         if cap is not None and n > cap:
-            return self._leader_init_chunked(nonce_lanes, public_parts, meas, proof, blind0, cap)
-        if allow_pipeline and n >= 2 * self.PIPELINE_CHUNK:
+            self._drop_prestage(prestaged)
+            return self._leader_init_chunked(nonce_lanes, public_parts, meas, proof, blind0, cap, vk_lanes=vk_lanes)
+        if allow_pipeline and vk_lanes is None and n >= 2 * self.PIPELINE_CHUNK:
+            self._drop_prestage(prestaged)
             return self._leader_init_pipelined(nonce_lanes, public_parts, meas, proof, blind0)
         b = bucket_size(n, cap)
+        use_prestaged = prestaged is not None and vk_lanes is None and prestaged.usable(b)
+        if prestaged is not None and not use_prestaged:
+            self._drop_prestage(prestaged)
         try:
-            staged = put_args(pad_args(b, nonce_lanes, public_parts, meas, proof, blind0), self.device)
-            out0, seed0, ver0, part0 = self._dispatch("leader_init", self._leader_step, *staged)
+            if use_prestaged:
+                self._count_prestage("used")
+                staged, ready = prestaged.take()
+                if ready is not None:
+                    # the columns were made on the prestage's side stream
+                    # and are read on this one: wait for the copies, and
+                    # keep the allocator from reusing them early
+                    compute = torch.cuda.current_stream(self.device)
+                    compute.wait_event(ready)
+                    _map_args(lambda t: t.record_stream(compute), staged)
+                vkey = self.verify_key
+            elif vk_lanes is None:
+                staged = put_args(pad_args(b, nonce_lanes, public_parts, meas, proof, blind0), self.device)
+                vkey = self.verify_key
+            else:
+                vkey, *staged = put_args(pad_args(b, vk_lanes, nonce_lanes, public_parts, meas, proof, blind0),
+                                         self.device)
+            out0, seed0, ver0, part0 = self._dispatch("leader_init", self._leader_step, vkey, *staged)
             seed0 = _fetch_rows(seed0, n) if seed0 is not None else None
             ver0 = tuple(_fetch_rows(x, n) for x in ver0)
             part0 = _fetch_rows(part0, n) if part0 is not None else None
@@ -362,6 +896,32 @@ class EngineCache:
             raise
         return DeviceRows(out0, n), seed0, ver0, part0
 
+    def prestage_leader(self, nonce_lanes, public_parts, meas, proof, blind0):
+        """Double-buffered staging: issue the padded columns' uploads now
+        (pinned, non-blocking, on a side stream; from the pipeline's read
+        stage, while the device lane runs the previous job) and return a
+        PrestagedInit for leader_init. None where the direct route will
+        not run: past the cap (chunked) and at 2 x PIPELINE_CHUNK rows or
+        more (the pipelined route stages its own chunks)."""
+        n = nonce_lanes.shape[0]
+        cap = self.bucket_cap
+        if cap is not None and n > cap:
+            return None
+        if n >= 2 * self.PIPELINE_CHUNK:
+            return None
+        b = bucket_size(n, cap)
+        args = pad_args(b, nonce_lanes, public_parts, meas, proof, blind0)
+        ready = None
+        if self.device.type == "cuda":
+            copy_stream = torch.cuda.Stream(device=self.device)
+            staged = put_args(args, self.device, stream=copy_stream)
+            ready = torch.cuda.Event()
+            ready.record(copy_stream)
+        else:
+            staged = put_args(args, self.device)
+        self._count_prestage("issued")
+        return PrestagedInit(b, staged, ready)
+
     @staticmethod
     def _merge_leader_chunks(outs, seeds, vers, parts):
         seed = np.concatenate(seeds) if seeds[0] is not None else None
@@ -369,7 +929,7 @@ class EngineCache:
         part = np.concatenate(parts) if parts[0] is not None else None
         return DeviceRowsChunks(outs), seed, ver, part
 
-    def _leader_init_chunked(self, nonce_lanes, public_parts, meas, proof, blind0, cap: int):
+    def _leader_init_chunked(self, nonce_lanes, public_parts, meas, proof, blind0, cap: int, vk_lanes=None):
         """Serial cap-sized leader inits for a batch past the memory
         bound. Unlike the pipelined route, chunk k+1 is not staged while
         chunk k computes: bounding resident bytes is the point."""
@@ -380,6 +940,7 @@ class EngineCache:
             out0, seed0, ver0, part0 = self._leader_init_inner(
                 *(_cut_rows(a, s, e) for a in (nonce_lanes, public_parts, meas, proof, blind0)),
                 allow_pipeline=False,
+                vk_lanes=_cut_rows(vk_lanes, s, e),
             )
             outs.append(out0)
             seeds.append(seed0)
@@ -418,7 +979,7 @@ class EngineCache:
                     # tensors made on the copy stream are read on this
                     # one: the allocator must not reuse them early
                     _map_args(lambda t: t.record_stream(compute), args)
-                results.append(self._dispatch("leader_init", self._leader_step, *args))
+                results.append(self._dispatch("leader_init", self._leader_step, self.verify_key, *args))
             outs, seeds, vers, parts = [], [], [], []
             for (s, e), (out0, seed0, ver0, part0) in zip(spans, results):
                 outs.append(DeviceRows(out0, e - s))
@@ -554,6 +1115,219 @@ class EngineCache:
         full[:n] = idx
         return self._scatter_rows(acc, padded, full, 0, b)
 
+    # --- device-resident aggregate state: the engine owns the slots and
+    # their device work; the driver owns the flush policy (interval,
+    # eviction, drain), through its write-transaction path ---
+    def note_classic_fallback(self) -> None:
+        """The driver took the classic per-bucket accumulate for a job
+        that asked for the resident route (memory exhaustion only)."""
+        with self._resident_lock:
+            self._resident_stats["classic_fallbacks"] += 1
+
+    def aggregate_pending(self, out_shares, bucket_idx, k: int, flat_idx=None):
+        """One job's per-bucket masked sums as a device [k, output_len]
+        value (`PendingDeltas`): one dispatch, one [n] int32 upload,
+        nothing fetched. bucket_idx: [n] int32, the bucket of each lane,
+        -1 for a rejected one. Errors propagate: the driver falls back to
+        the classic accumulate on memory exhaustion only.
+
+        `flat_idx` ([n, compact_len] int32 scatter targets) marks a
+        block-sparse job: nothing runs here, the scatter into the dense
+        slot runs at merge time (SparsePendingDeltas says why)."""
+        p3 = self.p3
+        bucket_idx = np.asarray(bucket_idx, np.int32)
+        if flat_idx is not None:
+            L = p3.circ.agg_output_len
+            return SparsePendingDeltas(
+                out_shares, np.asarray(flat_idx, np.int32), bucket_idx, k, L * p3.tf.LIMBS * 8, L
+            )
+        try:
+            value = self._pending_dispatch(out_shares, bucket_idx, k)
+        except Exception as e:
+            _annotate_dispatch_bucket(e, bucket_size(len(bucket_idx)), fixed=True)
+            raise
+        return PendingDeltas(value, k, p3.circ.output_len * p3.tf.LIMBS * 8)
+
+    def _pending_dispatch(self, out_shares, bucket_idx, k: int):
+        """aggregate_buckets over the rows of any out-share currency: a
+        DeviceRows reads only its own rows [offset, offset + n) of its
+        buffer (a merged round's neighbours never enter), chunks sum
+        chunk by chunk, host rows go up first."""
+        p3 = self.p3
+        if isinstance(out_shares, DeviceRowsChunks):
+            total = None
+            off = 0
+            for chunk in out_shares.chunks:
+                part = self._pending_dispatch(chunk, bucket_idx[off : off + chunk.n], k)
+                off += chunk.n
+                total = part if total is None else p3.tf.add(total, part)
+            return total
+        if isinstance(out_shares, DeviceRows):
+            n, s = out_shares.n, out_shares.offset
+            rows = tuple(x[s : s + n] for x in out_shares.value)
+        else:
+            (rows,) = put_args(pad_args(len(bucket_idx), out_shares), self.device)
+        idx = torch.from_numpy(np.ascontiguousarray(bucket_idx)).to(self.device)
+        return self._dispatch("aggregate_pending", p3.aggregate_buckets, rows, idx, k)
+
+    def _resident_add(self, acc, row):
+        """acc + row on the card (a new tensor: PyTorch has no donation,
+        and the old value is freed when the slot lets it go)."""
+        return self._dispatch("resident_add", self.p3.tf.add, acc, row)
+
+    def _sparse_slot_value(self, slot, deltas: SparsePendingDeltas, j: int):
+        """Bucket j's report rows scattered into the slot's dense logical
+        accumulator (a zero one for a fresh slot or a raw delta fetch):
+        kernel 4, which writes a new accumulator (acc copied, then added
+        into), one launch a dispatch."""
+        L = deltas.logical_len
+        sel = deltas.bucket_idx == j
+        idx = np.where(sel[:, None], deltas.flat_idx, np.int32(L)).astype(np.int32)
+        acc = self._zeros_row(L) if slot is None else slot.value
+        value = self._scatter_dispatch(acc, deltas.out_shares, idx)
+        n_rows = int(sel.sum())
+        self._scatter_rows_total += n_rows
+        if n_rows:
+            self._sparse_last_occupancy = int((idx < L).sum()) / (n_rows * deltas.flat_idx.shape[1])
+        return value
+
+    def resident_merge(self, entries, deltas) -> list[dict]:
+        """Merge one job's committed deltas into the resident slots.
+
+        entries: [(key, j, report_count, interval)], key = (task_id bytes,
+        agg_param bytes, batch_identifier bytes), j the delta's bucket.
+        Call only after the job's write transaction committed (a failed or
+        retried step drops its deltas, so nothing merges twice). Returns
+        flush records of slots evicted past RESIDENT_MAX_BYTES, fetched
+        and removed from the card already: the caller must persist them.
+        A failure partway raises ResidentMergeError with the merged keys."""
+        from ..messages import Interval
+
+        sparse = isinstance(deltas, SparsePendingDeltas)
+        evicted: list[ResidentSlot] = []
+        merged: set = set()
+        with self._resident_lock:
+            try:
+                for key, j, rows, interval in entries:
+                    slot = self._resident.get(key)
+                    if sparse:
+                        # the scatter lands in the fresh or the existing
+                        # dense logical accumulator
+                        value = self._sparse_slot_value(slot, deltas, j)
+                    if slot is None:
+                        slot = ResidentSlot(key, value if sparse else deltas.row(j), interval, rows, deltas.row_nbytes)
+                        self._resident[key] = slot
+                        _resident_bytes_add(slot.nbytes, self.inst.kind, +1)
+                    else:
+                        slot.value = value if sparse else self._resident_add(slot.value, deltas.row(j))
+                        slot.interval = Interval.merged(slot.interval, interval)
+                        slot.rows += rows
+                        self._resident.move_to_end(key)
+                    slot.last_used = time.monotonic()
+                    self._resident_stats["merged_rows"] += rows
+                    merged.add(key)
+            except BaseException as e:
+                # a merged prefix stays on the card: report exactly which
+                # keys landed, so the caller flushes only the rest
+                raise ResidentMergeError(frozenset(merged), e) from e
+            self._resident_stats["merges"] += 1
+            while resident_bytes_total() > self.RESIDENT_MAX_BYTES and self._resident:
+                _, slot = self._resident.popitem(last=False)
+                _resident_bytes_add(-slot.nbytes, self.inst.kind, -1)
+                evicted.append(slot)
+                self._resident_stats["evictions"] += 1
+            if not evicted:
+                return []
+            try:
+                return self._fetch_slots_locked(evicted)
+            except Exception:
+                for slot in evicted:  # eviction must not lose state
+                    self._resident[slot.key] = slot
+                    _resident_bytes_add(slot.nbytes, self.inst.kind, +1)
+                # the deltas all merged: raising would send the caller's
+                # merge-failed recovery after rows already on the card
+                # (counted twice). The eviction waits for the next merge
+                # or flush pass.
+                self._resident_stats["eviction_deferred"] += 1
+                log.warning("resident eviction fetch failed for %s; eviction deferred", self.inst.kind,
+                            exc_info=True)
+                return []
+
+    def resident_take(self, keys=None) -> list[dict]:
+        """Pop all (or `keys`) resident slots and fetch their shares for a
+        flush. On a fetch failure every popped slot is restored and the
+        error propagates: resident state is never dropped."""
+        with self._resident_lock:
+            take = list(self._resident.keys()) if keys is None else [k for k in keys if k in self._resident]
+            slots = [self._resident.pop(k) for k in take]
+            for slot in slots:
+                _resident_bytes_add(-slot.nbytes, self.inst.kind, -1)
+            if not slots:
+                return []
+            try:
+                recs = self._fetch_slots_locked(slots)
+            except BaseException:
+                for slot in slots:
+                    self._resident[slot.key] = slot
+                    _resident_bytes_add(slot.nbytes, self.inst.kind, +1)
+                raise
+            self._resident_stats["takes"] += len(slots)
+            return recs
+
+    def fetch_delta_records(self, entries, deltas) -> list[dict]:
+        """A job's raw delta rows as flush records: the driver's recovery
+        when a merge failed after the commit. A sparse job's rows scatter
+        into a zero dense row first (a flush record is always dense)."""
+        tf = self.p3.tf
+        sparse = isinstance(deltas, SparsePendingDeltas)
+
+        def fetch():
+            out = []
+            for key, j, rows, interval in entries:
+                value = self._sparse_slot_value(None, deltas, j) if sparse else deltas.row(j)
+                out.append({"key": key, "share": [int(x) for x in tf.to_ints(value)], "rows": rows,
+                            "interval": interval})
+            return out
+
+        return self._dispatch("resident_delta_fetch", fetch)
+
+    def _fetch_slots_locked(self, slots: list) -> list[dict]:
+        """Fetch popped slots' shares (callers hold _resident_lock)."""
+        tf = self.p3.tf
+
+        def fetch():
+            return [
+                {"key": s.key, "share": [int(x) for x in tf.to_ints(s.value)], "rows": s.rows, "interval": s.interval}
+                for s in slots
+            ]
+
+        return self._dispatch("resident_fetch", fetch)
+
+    def has_resident(self) -> bool:
+        """True while unflushed slots live on this engine: the process LRU
+        must not evict it (the flush walks cached engines only)."""
+        with self._resident_lock:
+            return bool(self._resident)
+
+    def resident_status(self) -> dict:
+        with self._resident_lock:
+            out = {
+                "vdaf": self.inst.kind,
+                "buffers": len(self._resident),
+                "bytes": sum(s.nbytes for s in self._resident.values()),
+                **dict(self._resident_stats),
+            }
+            if self.sparse:
+                circ = self.p3.circ
+                out["sparse"] = {
+                    "logical_length": circ.agg_output_len,
+                    "block_size": circ.block_size,
+                    "max_blocks": circ.max_blocks,
+                    "scatter_rows": self._scatter_rows_total,
+                    "block_occupancy": self._sparse_last_occupancy,
+                }
+            return out
+
 
 # LRU over live engines, keyed by (instance, verify key, device).
 _ENGINE_CACHE_MAX = 256
@@ -579,13 +1353,35 @@ def engine_cache(inst: VdafInstance, verify_key: bytes, device=None) -> EngineCa
             return cur
         _engine_cache[key] = eng
         while len(_engine_cache) > _ENGINE_CACHE_MAX:
-            _engine_cache.popitem(last=False)
+            # evict the oldest engine that holds no resident state: the
+            # flush walks cached engines only, so dropping one with live
+            # slots would lose their shares and leak their ledger bytes
+            victim = next((k for k, e in _engine_cache.items() if not e.has_resident()), None)
+            if victim is None:
+                # every engine holds unflushed state (bounded by
+                # RESIDENT_MAX_BYTES): keep them until a flush drains one
+                break
+            _engine_cache.pop(victim)
     return eng
 
 
+def live_engines() -> list[EngineCache]:
+    """The engines in the process cache, oldest first: the resident
+    flush and drain walk these."""
+    with _engine_cache_lock:
+        return list(_engine_cache.values())
+
+
 def _engine_cache_clear() -> None:
+    """Drop every cached engine, the shared coalescers and the resident
+    ledger (tests clear between modules)."""
+    global _resident_bytes_total
     with _engine_cache_lock:
         _engine_cache.clear()
+    _clear_shared_coalescers()
+    with _resident_bytes_lock:
+        _resident_bytes_total = 0
+        _resident_buffer_counts.clear()
 
 
 engine_cache.cache_clear = _engine_cache_clear

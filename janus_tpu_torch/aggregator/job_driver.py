@@ -8,10 +8,11 @@ The port's own copy of janus_tpu/aggregator/job_driver.py, with the
 datastore outage handling: the acquirers park while the datastore
 supervisor reports down and absorb connection-class failures, and a
 step that loses the datastore steps back by the supervisor's reconnect
-delay. It leaves out the fleet claim metrics (`record_acquire`) and the
-peer-outage park of `make_claim_acquirer` (`aggregator/peer_health.py`
-is not ported), the `job.step` trace span, the drain releaser, and the
-stage pipeline (`step_pipeline.py`, not ported).
+delay. A JobDriver given a stage pipeline (`aggregator/step_pipeline.py`)
+hands it every leased job. It leaves out the fleet claim metrics
+(`record_acquire`), the peer-outage park of `make_claim_acquirer`
+(`aggregator/peer_health.py` is not ported), the `job.step` trace span
+and the serial stepper's drain releaser (the pipeline has its own).
 """
 
 from __future__ import annotations
@@ -143,11 +144,28 @@ class JobDriver:
     stepper(acquired) -> None (owns release/cancel).
     """
 
-    def __init__(self, cfg: JobDriverConfig, acquirer, stepper, stopper: Stopper | None = None):
+    def __init__(
+        self,
+        cfg: JobDriverConfig,
+        acquirer,
+        stepper,
+        stopper: Stopper | None = None,
+        pipeline=None,
+    ):
         self.cfg = cfg
         self.acquirer = acquirer
         self.stepper = stepper
         self.stopper = stopper or Stopper()
+        # a stage pipeline (aggregator/step_pipeline.py) takes every
+        # leased job through pipeline.submit(acquired); its futures
+        # resolve when the step has completed (it owns the error mapping
+        # and the drain release), so the worker accounting is unchanged
+        self.pipeline = pipeline
+
+    def _submit(self, pool, acquired):
+        if self.pipeline is not None:
+            return self.pipeline.submit(acquired)
+        return pool.submit(self._step_one, acquired)
 
     def run_once(self) -> int:
         """One acquire+step pass (barrier semantics: tests and one-shot
@@ -156,7 +174,7 @@ class JobDriver:
         if not jobs:
             return 0
         with ThreadPoolExecutor(max_workers=self.cfg.max_concurrent_job_workers) as pool:
-            wait([pool.submit(self._step_one, j) for j in jobs])
+            wait([self._submit(pool, j) for j in jobs])
         return len(jobs)
 
     def _step_one(self, acquired) -> None:
@@ -180,7 +198,7 @@ class JobDriver:
                     jobs = self.acquirer(free)
                     n = len(jobs)
                     for j in jobs:
-                        in_flight.add(pool.submit(self._step_one, j))
+                        in_flight.add(self._submit(pool, j))
                 if n > 0:
                     delay = self.cfg.job_discovery_interval_s
                 else:

@@ -61,6 +61,14 @@ length) and the rows' flat indices (4 output_len a row); the kernel
 adds into its output in place, and its only scratch is a mark byte a
 64-position group (ops/scatter_cuda.py `scratch_bytes`), made per launch.
 
+The resident route (aggregator/engine_cache.py) adds what it keeps
+past a step (`resident_route_bytes`): the job's pending delta, k buckets
+of output_len elements (a sparse job keeps no delta: its out shares,
+counted above, wait for the merge, which writes a new logical slot of
+L e beside the one it reads), and the slots every engine holds, the
+process's resident ledger (`resident_bytes_total()`). The bucket choice
+does not count them, as janus_tpu's does not.
+
 A first-order count, checked against `max_memory_allocated` on the card
 (chip_smoke.py prints both); the engine's OOM ladder is the backstop.
 """
@@ -156,6 +164,18 @@ def sparse_aggregate_bytes(circ, rows: int) -> int:
     e = _elem_bytes(circ)
     L = circ.agg_output_len
     return rows * circ.output_len * (2 * e + 4) + 2 * L * e + scratch_bytes(L)
+
+
+def resident_route_bytes(circ, k: int, resident_bytes: int) -> dict:
+    """Bytes the resident route holds beside a step (above): the pending
+    delta of k batch buckets (for a sparse circuit, the merge's new
+    logical slot), the resident slots held, and their sum."""
+    e = _elem_bytes(circ)
+    if isinstance(circ, SparseSumVec):
+        pending = circ.agg_output_len * e
+    else:
+        pending = k * circ.output_len * e
+    return {"pending_delta": pending, "resident": resident_bytes, "total": pending + resident_bytes}
 
 
 def feasible_rows(circ, budget_bytes: int | None, tile_elems: int | None = None, draft: bool = False) -> int | None:

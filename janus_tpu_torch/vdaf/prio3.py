@@ -172,9 +172,18 @@ class Prio3Batched:
     def _joint_rand(self, jr_seed_lanes):
         return self._expand_vec(USAGE_JOINT_RANDOMNESS, jr_seed_lanes, [], 0, self.circ.joint_rand_len)
 
-    def _query_rand(self, verify_key: bytes, nonce_lanes):
-        assert len(verify_key) == SEED_SIZE
+    def _query_rand(self, verify_key, nonce_lanes):
+        """verify_key: 16 bytes (one task: passed to the kernels as
+        constant lanes) or an int64 [batch, 2] lane tensor (a cross-task
+        coalesced round: each lane carries its own task's key through the
+        XOF like the per-lane nonce, read in place as a column by kernel
+        1's counter launch and assembled into kernel 2's prefix)."""
         batch = nonce_lanes.shape[0]
+        if isinstance(verify_key, (bytes, bytearray)):
+            if len(verify_key) != SEED_SIZE:
+                raise ValueError(f"verify key of {len(verify_key)} bytes, not {SEED_SIZE}")
+        elif tuple(verify_key.shape) != (batch, SEED_LANES):
+            raise ValueError(f"verify key lanes {tuple(verify_key.shape)}, not ({batch}, {SEED_LANES})")
         parts = [
             (0, self._dst(USAGE_QUERY_RANDOMNESS)),
             (DST_LANES, verify_key),
@@ -235,7 +244,7 @@ class Prio3Batched:
     # ------------------------------------------------------------------
     # prepare (aggregator side)
     # ------------------------------------------------------------------
-    def prepare_init_leader(self, verify_key: bytes, nonce_lanes, public_parts, meas, proof, blind0):
+    def prepare_init_leader(self, verify_key, nonce_lanes, public_parts, meas, proof, blind0):
         """Leader prepare-init over a batch.
 
         Returns (out_share, corrected_seed_lanes|None, verifier, own_part|None).
@@ -243,7 +252,7 @@ class Prio3Batched:
         src = sliced_meas_source(self.bc, self.plan, meas) if self.plan is not None else None
         return self._prepare_init(verify_key, 0, nonce_lanes, public_parts, meas, proof, blind0, None, src)
 
-    def prepare_init_helper(self, verify_key: bytes, nonce_lanes, public_parts, helper_seed, blind1):
+    def prepare_init_helper(self, verify_key, nonce_lanes, public_parts, helper_seed, blind1):
         circ = self.circ
         proof = self._expand_share(helper_seed, USAGE_PROOF_SHARE, circ.proof_len)
         if self.plan is not None and self._stream_expand_offsets:
@@ -300,6 +309,19 @@ class Prio3Batched:
         Invalid lanes contribute zero."""
         masked = fmap(lambda x: torch.where(mask[:, None], x, torch.zeros_like(x)), out_shares)
         return fsum(self.tf, masked, axis=0)
+
+    def aggregate_buckets(self, out_shares, bucket_idx, k: int):
+        """Per-bucket masked sums -> [k, output_len] field value.
+
+        bucket_idx: [batch] int32 tensor assigning each lane to a batch
+        bucket 0..k-1; rejected lanes carry -1 and land nowhere. k masked
+        `aggregate`s, one bucket at a time, so the peak stays at one
+        bucket's working set (a one-hot [batch, k, output_len] would grow
+        with k). Equal to janus_tpu's Prio3Batched.aggregate_buckets, which
+        pads k to a power of two for its compile cache; eager code has no
+        such cache, so k stays as given."""
+        parts = [self.aggregate(out_shares, bucket_idx == j) for j in range(k)]
+        return tuple(torch.stack([p[i] for p in parts], dim=0) for i in range(self.tf.LIMBS))
 
     def merge_agg_shares(self, a, b):
         return self.tf.add(a, b)

@@ -802,3 +802,89 @@ def test_sparse_engine_on_the_card_matches_the_cpu(cuda):
         if dev != "cpu":
             assert scatter_cuda.scatter_rows.launches == before + 2
     assert shares["cpu"] == shares[str(cuda)]
+
+
+@pytest.mark.parametrize("kind", ["count", "sumvec"])
+def test_merged_two_task_round_on_the_card_equals_solo_rounds(cuda, kind):
+    """Two tasks' batches (different verify keys) as solo rounds and as
+    one merged round, leader then helper: every value equal bit for bit,
+    and equal to the CPU's merged round; the per-lane keys reach kernel 1
+    (Count, Field64) and kernel 2 (SumVec, Field128)."""
+    from janus_tpu_torch.aggregator import engine_cache as ec
+    from janus_tpu_torch.convert import step_args_to_numpy
+
+    inst = VdafInstance.count() if kind == "count" else VdafInstance.sum_vec(1000, 16)
+    keys = (bytes(range(16)), bytes(range(16, 32)))
+    n = 24
+    got = {}
+    for dev in ("cpu", cuda):
+        engines = [ec.EngineCache(inst, key, device=dev) for key in keys]
+        batches = []
+        for j in range(2):
+            meas = random_measurements(inst, n, np.random.default_rng(50 + j))
+            args, _ = make_report_batch(inst, meas, seed=50 + j, device=dev)
+            batches.append(step_args_to_numpy(args))
+        ok = np.ones(n, dtype=bool)
+
+        def rounds(idx):
+            lead = ec._run_leader_round([(engines[j], None, *batches[j][:5]) for j in idx], [n] * len(idx))
+            helped = ec._run_helper_round(
+                [(engines[j], batches[j][0], batches[j][1], batches[j][5], batches[j][6], lead[k][2], lead[k][3], ok)
+                 for k, j in enumerate(idx)], [n] * len(idx))
+            return [(o0.to_numpy(), s0, v0, p0, o1.to_numpy(), m1, q1)
+                    for (o0, s0, v0, p0), (o1, m1, q1) in zip(lead, helped)]
+
+        solo = rounds([0]) + rounds([1])
+        merged = rounds([0, 1])
+        for a, b in zip(solo, merged):
+            for x, y in zip(a, b):
+                if x is None:
+                    assert y is None
+                    continue
+                for xx, yy in zip(x if isinstance(x, tuple) else (x,), y if isinstance(y, tuple) else (y,)):
+                    assert np.array_equal(xx, yy)
+            assert a[5].all()
+        got[str(dev)] = merged
+    for a, b in zip(got["cpu"], got[str(cuda)]):
+        for x, y in zip(a, b):
+            if x is not None:
+                for xx, yy in zip(x if isinstance(x, tuple) else (x,), y if isinstance(y, tuple) else (y,)):
+                    assert np.array_equal(xx, yy)
+
+
+def test_sparse_resident_merge_through_kernel_4_matches_plain(cuda):
+    """Three sparse jobs' pending deltas merged into one resident slot: on
+    the card each merge is one launch of kernel 4 (the slot copied, the
+    job's rows added in), and the taken slot equals the CPU's, whose merges
+    run the plain scatter."""
+    from janus_tpu_torch.aggregator.engine_cache import EngineCache
+    from janus_tpu_torch.messages import Duration, Interval, Time
+    from janus_tpu_torch.vdaf.testing import sparse_compact_batch
+    from janus_tpu_torch.vdaf.wire import flat_scatter_indices
+
+    inst = VdafInstance.sparse_sumvec(16, 1_000_000, 64, 16)
+    iv = Interval(Time(0), Duration(3600))
+    taken = {}
+    for dev in ("cpu", cuda):
+        eng = EngineCache(inst, bytes(16), device=dev)
+        before = scatter_cuda.scatter_rows.launches
+        for j in range(3):
+            rng = np.random.default_rng(60 + j)
+            meas = []
+            for _ in range(20):  # the hot block 0 in every report
+                rest = sorted((1 + rng.choice(15_624, size=int(rng.integers(0, 4)), replace=False)).tolist())
+                meas.append([(b, [int(v) for v in rng.integers(0, 1 << 16, size=64)]) for b in [0] + rest])
+            args, _ = make_report_batch(inst, meas, seed=60 + j, device=dev)
+            out0, _, _, _ = eng.leader_init(*args[:5])
+            flat = flat_scatter_indices(sparse_compact_batch(inst, meas)[1], eng.p3.circ)
+            lane_bucket = np.zeros(20, np.int32)
+            lane_bucket[[2, 11]] = -1
+            pend = eng.aggregate_pending(out0, lane_bucket, 1, flat_idx=flat)
+            eng.resident_merge([((b"t", b"", b"bid"), 0, 18, iv)], pend)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert scatter_cuda.scatter_rows.launches == before + 3
+        (rec,) = eng.resident_take()
+        assert rec["rows"] == 54 and len(rec["share"]) == 1_000_000
+        taken[str(dev)] = rec["share"]
+    assert taken["cpu"] == taken[str(cuda)]

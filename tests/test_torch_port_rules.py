@@ -17,7 +17,6 @@ from janus_tpu_torch.aggregator.aggregation_job_driver import (
     ResidentConfig,
 )
 from janus_tpu_torch.aggregator.core import Aggregator, Config, TaskAggregator
-from janus_tpu_torch.aggregator.errors import NotPorted
 from janus_tpu_torch.aggregator.http_handlers import DapHttpApp
 from janus_tpu_torch.aggregator.engine_cache import EngineCache, engine_cache
 from janus_tpu_torch.datastore import EphemeralDatastore
@@ -70,6 +69,7 @@ def test_port_files_include_every_module_of_the_package():
         "aggregator/job_driver.py",
         "aggregator/aggregation_job_creator.py",
         "aggregator/aggregation_job_driver.py",
+        "aggregator/step_pipeline.py",
         "aggregator/accumulator.py",
         "aggregator/http_handlers.py",
         "binary_utils.py",
@@ -145,16 +145,39 @@ def test_no_cuda_and_no_cpu_request_raises_for_the_shell(monkeypatch):
 
 def test_driver_maps_no_device_failure_to_a_fallback():
     """handle_step_error has no device-hang branch (the port has no host
-    engine to serve a retry), and the resident accumulators are refused,
-    not ignored."""
+    engine to serve a retry); the driver takes resident mode, and the
+    resident route falls back to the classic accumulate on memory
+    exhaustion only: any other error out of aggregate_pending fails the
+    step."""
+    from types import SimpleNamespace
+
     src = inspect.getsource(AggregationJobDriver.handle_step_error)
     assert "DeviceHang" not in src and "device_hang" not in src
     eph = EphemeralDatastore()
     try:
-        with pytest.raises(NotPorted, match="resident"):
-            AggregationJobDriver(
-                eph.datastore, None, AggregationJobDriverConfig(resident=ResidentConfig(enabled=True)), device="cpu"
-            )
+        res = AggregationJobDriver(
+            eph.datastore, None, AggregationJobDriverConfig(resident=ResidentConfig(enabled=True)), device="cpu"
+        )
+        assert res.cfg.resident.enabled
+
+        def pending_raising(exc):
+            def aggregate_pending(*a, **kw):
+                raise exc
+
+            eng = SimpleNamespace(aggregate_pending=aggregate_pending, note_classic_fallback=lambda: None)
+            task = TaskBuilder(QueryTypeConfig.time_interval(), VdafInstance.count(), Role.LEADER).build()
+            wire = SimpleNamespace(sparse=False)
+            return SimpleNamespace(task=task, engine=eng, accept=np.ones(1, bool), out0=None, block_idx=None,
+                                   wire=wire, acquired=SimpleNamespace(job_id="job"))
+
+        md = [SimpleNamespace(report_id=None, time=Time(3600))]
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            res._device_accumulate_resident(pending_raising(RuntimeError("CUDA error: an illegal memory access")),
+                                            md, b"bid")
+        assert res.classic_fallbacks == 0
+        assert res._device_accumulate_resident(pending_raising(torch.cuda.OutOfMemoryError("out of memory")),
+                                               md, b"bid") is False
+        assert res.classic_fallbacks == 1
         drv = AggregationJobDriver(eph.datastore, None, device="cpu")
         # a device failure is not a step-back: it fails the step
         assert drv.handle_step_error(None, RuntimeError("CUDA error: an illegal memory access")) is False
