@@ -326,6 +326,44 @@ Phases, each of which must pass:
                    launch twice a job (the leader's merge, the helper's
                    aggregate); the drained slot is collected at the logical
                    length and must equal numpy's scatter-sum.
+  17. device-hang-drill  the card as a failable peer: a port leader and a
+                   port helper over loopback, sharing one engine, 3 jobs of
+                   128 SumVec(1000, 16) reports. One healthy step
+                   (kernels 1 and 2 launch); then the failpoint
+                   engine.dispatch=hang,count=1 parks the next step's
+                   dispatch on its watchdog worker under a 4 s lease:
+                   past the watchdog's hang bound (1 s for this step,
+                   inside the lease's budget; 30 s by default) it must
+                   raise DeviceHangError, step the job back
+                   `device_hang` with the attempt refunded, leave one
+                   abandoned thread and quarantine the engine; a step
+                   while quarantined must step back `device_quarantined`
+                   with no kernel launched (counts at 0 just before, read
+                   just after), and the helper must shed a direct
+                   aggregate-init 503 with Retry-After; the canary (its
+                   delay a minute on the instance, so that nothing
+                   restores the engine before) is woken then and must
+                   restore the engine; the parked
+                   worker is released (it raises) and retires; both jobs
+                   then complete and the collection equals the ground
+                   truth. Last, a prestaged leader init under an armed
+                   deadline on a side stream must run on the watchdog's
+                   worker, on the caller's stream, and equal the direct
+                   init bit for bit. The line gives the time from the hang
+                   to the step-back, from the canary's wake-up to the
+                   restore, the
+                   probe's seconds, the watchdog's status and the launches;
+  18. peer-outage-drill  the helper as a failable peer: the same pair, the
+                   leader's task naming a FaultProxy in front of the helper,
+                   one job of 256 reports. A `reset` toxic on the request
+                   bytes must open the breaker (the step steps back
+                   `circuit_open`) and make the PeerHealthTracker park the
+                   acquirer: three passes must run no claim transaction.
+                   With the toxic cleared the tracker's probe must close
+                   the circuit, the job step on the card (kernels 1 and 2)
+                   and the collection equal the ground truth. The line
+                   gives the claims skipped, the parked seconds, the probes,
+                   the steps' seconds and the launches.
 
 Output: JSON lines (build, the
 sponge chains, one serve line per XOF mode with the seconds of each
@@ -338,7 +376,8 @@ store, the helper's handle_aggregate_share, poll and unshard, and GC,
 with GC's seconds by side and by delete; the device bytes before and the
 peak during the collection step), the poplar1 and drive_poplar1 lines,
 the taskprov_histogram and outage_drill lines, the two pipeline_resident
-lines, the kernels, one line per path, the run's wall time), then the card's
+lines, the device_hang_drill and peer_outage_drill lines, the kernels,
+one line per path, the run's wall time), then the card's
 name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.
 Without CUDA, or without the package beside this script, it exits
@@ -347,9 +386,11 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -3538,6 +3579,417 @@ def phase_pipeline_resident(torch, dev, inst, keys, per_task: int, job_size: int
         helper_eds.cleanup()
 
 
+class DrillPair:
+    """The fault drills' pair (phases 17 and 18): a port leader and a port
+    helper over loopback DapServers (the leader behind its own as well,
+    for the collector), one time-interval task whose helper endpoint is
+    `endpoint(helper_url)` (a FaultProxy's URL in the peer-outage drill),
+    and `n` reports of `inst` made on `dev` and stored at the leader, packed
+    by the creator into jobs of `job_size` reports."""
+
+    NOW = 1_700_000_000
+
+    def __init__(self, torch, dev, inst, n: int, job_size: int, seed: int, endpoint=lambda url: url):
+        import dataclasses
+
+        import numpy as np
+
+        from janus_tpu_torch.aggregator.aggregation_job_creator import (
+            AggregationJobCreator,
+            AggregationJobCreatorConfig,
+        )
+        from janus_tpu_torch.aggregator.core import Aggregator
+        from janus_tpu_torch.aggregator.http_handlers import DapHttpApp, DapServer
+        from janus_tpu_torch.aggregator.testing import leader_stored_reports
+        from janus_tpu_torch.convert import step_args_to_numpy
+        from janus_tpu_torch.core.auth import AuthenticationToken
+        from janus_tpu_torch.core.hpke import generate_hpke_config_and_private_key
+        from janus_tpu_torch.core.time_util import MockClock
+        from janus_tpu_torch.datastore import EphemeralDatastore
+        from janus_tpu_torch.messages import Role, Time
+        from janus_tpu_torch.task import QueryTypeConfig, Task, TaskBuilder
+        from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
+
+        self.torch, self.dev, self.inst = torch, dev, inst
+        self.collector_kp = generate_hpke_config_and_private_key(config_id=7)
+        built = TaskBuilder(QueryTypeConfig.time_interval(), inst, Role.LEADER).with_(
+            vdaf_verify_key=VERIFY_KEY, aggregator_auth_token=AuthenticationToken.random_bearer(),
+            collector_hpke_config=self.collector_kp.config,
+        ).build()
+        self.helper_task = Task.from_dict(dataclasses.replace(
+            built, role=Role.HELPER, hpke_keys=(generate_hpke_config_and_private_key(config_id=1),)
+        ).to_dict())
+        self.leader_eds = EphemeralDatastore(MockClock(Time(self.NOW)))
+        self.helper_eds = EphemeralDatastore(MockClock(Time(self.NOW)))
+        self.helper = Aggregator(self.helper_eds.datastore, self.helper_eds.clock, device=dev)
+        self.leader = Aggregator(self.leader_eds.datastore, self.leader_eds.clock, device=dev)
+        self.server = DapServer(DapHttpApp(self.helper)).start()
+        self.leader_server = DapServer(DapHttpApp(self.leader)).start()
+        try:
+            self.task = Task.from_dict(dataclasses.replace(
+                built, helper_aggregator_endpoint=endpoint(self.server.url)).to_dict())
+            self.helper_eds.datastore.run_tx(lambda tx: tx.put_task(self.helper_task))
+            self.leader_eds.datastore.run_tx(lambda tx: tx.put_task(self.task))
+            self.engine = self.leader.task_aggregator_for(self.task.task_id).engine
+            if self.helper.task_aggregator_for(self.helper_task.task_id).engine is not self.engine:
+                raise AssertionError("drill: the leader and the helper do not share one engine")
+            self.meas = random_measurements(inst, n, np.random.default_rng(seed))
+            args, _ = make_report_batch(inst, self.meas, seed=seed, device=dev)
+            self.reports = leader_stored_reports(self.task, self.helper_task.hpke_keys[0].config,
+                                                 list(step_args_to_numpy(args)), [self.NOW - 100] * n)
+            self.leader_eds.datastore.run_tx(lambda tx: [tx.put_client_report(r) for r in self.reports])
+            cfg = AggregationJobCreatorConfig(min_aggregation_job_size=job_size, max_aggregation_job_size=job_size)
+            self.n_jobs = AggregationJobCreator(self.leader_eds.datastore, cfg).run_once()
+            if self.n_jobs != n // job_size:
+                raise AssertionError(f"drill: the creator made {self.n_jobs} jobs of {n} reports")
+        except BaseException:
+            self.close()
+            raise
+
+    def advance(self, secs: int) -> None:
+        from janus_tpu_torch.messages import Duration
+
+        self.leader_eds.clock.advance(Duration(secs))
+        self.helper_eds.clock.advance(Duration(secs))
+
+    def job_rows(self):
+        """(state, lease released, attempts) of every job, in job id order."""
+        return self.leader_eds.datastore.run_tx(lambda tx: tx._c.execute(
+            "SELECT state, lease_token IS NULL, lease_attempts FROM aggregation_jobs ORDER BY job_id").fetchall())
+
+    def collect(self, counters) -> dict:
+        """Collect the task's one batch: every report, summed, must come back."""
+        import numpy as np
+
+        from janus_tpu_torch.messages import Interval, Query, Time
+
+        tp = self.task.time_precision
+        window = Time(self.NOW - 100).to_batch_interval_start(tp)
+        truth = [int(x) for x in np.asarray(self.meas).sum(axis=0).reshape(-1)]
+        return collect_batch(self.torch, counters, self.task, self.leader_server.url, self.leader_eds,
+                             self.collector_kp, Query.time_interval(Interval(window, tp)), len(self.meas), truth,
+                             dev=self.dev)
+
+    def close(self) -> None:
+        self.leader_server.stop()
+        self.server.stop()
+        self.leader.close()
+        self.leader_eds.cleanup()
+        self.helper_eds.cleanup()
+
+
+def _count_step_backs(driver):
+    """Record each step-back's (reason, delay, monotonic time) on `driver`."""
+    real = driver.step_back
+    seen = []
+
+    def step_back(acquired, reason, delay_s):
+        seen.append((reason, delay_s, time.monotonic()))
+        return real(acquired, reason, delay_s)
+
+    driver.step_back = step_back
+    return seen
+
+
+def _zeroed(counters):
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def _launches(counters) -> dict:
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def phase_device_hang_drill(torch, dev, inst, job_size: int = 128, lease_s: int = 4, hang_after_s: float = 1.0):
+    """The card as a failable peer (see the module docstring, phase 17):
+    three jobs of `job_size` reports on one engine that the leader and the
+    helper share. A healthy step (which also warms the engine); a step
+    whose dispatch hangs (`engine.dispatch=hang,count=1` under a lease of
+    lease_s seconds, the watchdog's hang bound hang_after_s for this step
+    only: it must fall inside the lease's budget) steps back
+    `device_hang`; a step while quarantined steps back
+    `device_quarantined` with no kernel launched, and the helper sheds a
+    direct aggregate-init 503; then the drill wakes the canary (whose own
+    delay is a minute, so nothing restores the engine before), which
+    restores it; both jobs complete and the collection equals the ground
+    truth. Then a prestaged leader init through the watchdog's worker, on
+    a side stream, must equal the direct init."""
+    import base64
+
+    import numpy as np
+
+    from janus_tpu_torch import failpoints
+    from janus_tpu_torch.aggregator import device_watchdog
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver, AggregationJobDriverConfig
+    from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig
+    from janus_tpu_torch.core.circuit_breaker import OutboundCircuitBreakers
+    from janus_tpu_torch.core.deadline import deadline_scope
+    from janus_tpu_torch.core.http_client import HttpClient
+    from janus_tpu_torch.messages import AggregationJobInitializeReq, PartialBatchSelector
+
+    t_phase = time.perf_counter()
+    watchdog = device_watchdog.WATCHDOG
+    if watchdog.status()["abandoned_threads"] or watchdog.device_down():
+        raise AssertionError(f"device-hang-drill: the watchdog is not clean ({watchdog.status()})")
+    pair = DrillPair(torch, dev, inst, 3 * job_size, job_size, SEED + 20)
+    try:
+        engine = pair.engine
+        engine.QUARANTINE_CANARY_DELAY_SECS = 60.0  # the drill wakes the canary itself
+        cfg = AggregationJobDriverConfig(worker_lease_clock_skew_s=1, min_step_back_delay_s=1)
+        driver = AggregationJobDriver(pair.leader_eds.datastore, HttpClient(timeout=600), cfg,
+                                      breakers=OutboundCircuitBreakers(), device=dev)
+        step_backs = _count_step_backs(driver)
+        # the healthy and the completing steps under 600 s leases (a cold
+        # engine's first init may outlast a short one), the hung and the
+        # refused step under lease_s
+        job_driver = JobDriver(JobDriverConfig(max_concurrent_job_workers=1), driver.acquirer(), driver.stepper)
+        short_driver = JobDriver(JobDriverConfig(max_concurrent_job_workers=1),
+                                 driver.acquirer(lease_duration_s=lease_s), driver.stepper)
+        counters = kernel_counters()
+        rec = {"path": "device-hang-drill", "vdaf": inst.to_dict(), "jobs": pair.n_jobs, "job_size": job_size,
+               "lease_s": lease_s, "hang_after_s": hang_after_s}
+
+        # a healthy step
+        _sync(torch, dev)
+        _zeroed(counters)
+        t0 = time.perf_counter()
+        if job_driver.run_once() != 1:
+            raise AssertionError("device-hang-drill: the healthy step did not run")
+        rec["healthy_step_s"] = time.perf_counter() - t0
+        rec["launches_healthy"] = _launches(counters)
+        _check_launches(torch, dev, "device-hang-drill healthy step", rec["launches_healthy"])
+        if [r[0] for r in pair.job_rows()].count("finished") != 1:
+            raise AssertionError(f"device-hang-drill: after the healthy step {pair.job_rows()}")
+
+        # the hang: the step's dispatch parks its worker past the hang bound
+        failpoints.configure("engine.dispatch=hang,count=1")
+        default_bound = watchdog.hang_after_s
+        watchdog.hang_after_s = hang_after_s
+        t0 = time.perf_counter()
+        try:
+            if short_driver.run_once() != 1:
+                raise AssertionError("device-hang-drill: the hung step did not run")
+        finally:
+            watchdog.hang_after_s = default_bound
+        rec["hung_step_s"] = time.perf_counter() - t0
+        wd = watchdog.status()
+        if [s[0] for s in step_backs] != ["device_hang"] or wd["abandoned_threads"] != 1 or not engine._quarantined:
+            raise AssertionError(f"device-hang-drill: step-backs {step_backs}, watchdog {wd}, "
+                                 f"quarantined {engine._quarantined}")
+        hang_began = time.monotonic() - wd["stalled"][0]["age_s"]
+        rec["hang_to_step_back_s"] = step_backs[0][2] - hang_began
+        rec["watchdog"] = wd
+
+        # a step while quarantined: refused before staging, no launch
+        _zeroed(counters)
+        if short_driver.run_once() != 1:
+            raise AssertionError("device-hang-drill: the quarantined step did not run")
+        rec["launches_quarantined"] = _launches(counters)
+        if [s[0] for s in step_backs] != ["device_hang", "device_quarantined"] or any(
+                rec["launches_quarantined"].values()):
+            raise AssertionError(f"device-hang-drill: step-backs {step_backs}, launches while quarantined "
+                                 f"{rec['launches_quarantined']}")
+        rec["step_backs"] = [[r, d] for r, d, _ in step_backs]
+        rows = pair.job_rows()
+        if sorted(rows) != [("finished", 1, 0), ("in_progress", 1, 0), ("in_progress", 1, 0)]:
+            raise AssertionError(f"device-hang-drill: job rows {rows} (leases released, attempts refunded)")
+        b64 = lambda b: base64.urlsafe_b64encode(b).decode().rstrip("=")  # noqa: E731
+        http = HttpClient(timeout=60)
+        status, body = http.put(
+            f"{pair.server.url}tasks/{b64(pair.task.task_id.data)}/aggregation_jobs/{b64(bytes(range(16)))}",
+            AggregationJobInitializeReq(b"", PartialBatchSelector.time_interval(), ()).to_bytes(),
+            {"Content-Type": AggregationJobInitializeReq.MEDIA_TYPE,
+             **pair.task.aggregator_auth_token.request_headers()},
+        )
+        retry_after = {k.lower(): v for k, v in http.last_response_headers.items()}.get("retry-after")
+        if status != 503 or retry_after is None or b"device_quarantined" not in body:
+            raise AssertionError(f"device-hang-drill: the helper answered {status} {body[:200]!r}")
+        rec["helper_shed"] = {"status": status, "retry_after": retry_after}
+
+        # the canary, woken now, restores the engine
+        if not engine._quarantined or engine.quarantine_stats["canary_probes"]:
+            raise AssertionError(f"device-hang-drill: the canary ran before its wake-up ({engine.engine_status()})")
+        woken = time.monotonic()
+        engine._canary_wakeup.set()
+        while engine._quarantined and time.monotonic() < woken + 30:
+            time.sleep(0.01)
+        st = engine.engine_status()
+        if st["backend"] != "device" or st["quarantine"]["restored"] != 1:
+            raise AssertionError(f"device-hang-drill: the canary did not restore the engine ({st})")
+        rec["wake_to_restore_s"] = engine._quarantined_at + st["quarantine"]["last_quarantine_s"] - woken
+        rec["canary_probe_s"] = st["quarantine"]["last_probe_s"]
+        rec["engine"] = st
+        # the parked worker raises (no device work) and retires
+        failpoints.release_hangs()
+        failpoints.clear()
+        if not watchdog.drain(10.0):
+            raise AssertionError(f"device-hang-drill: the parked worker did not retire ({watchdog.status()})")
+
+        # both jobs complete (past the refused step's delay, the canary's
+        # minute); the collection equals the ground truth
+        pair.advance(120)
+        _sync(torch, dev)
+        _zeroed(counters)
+        t0 = time.perf_counter()
+        stepped = 0
+        while job_driver.run_once():
+            stepped += 1
+        rec["completing_steps_s"] = time.perf_counter() - t0
+        rec["launches"] = _launches(counters)
+        _check_launches(torch, dev, "device-hang-drill completing steps", rec["launches"])
+        rows = pair.job_rows()
+        if stepped != 2 or rows != [("finished", 1, 0)] * 3:
+            raise AssertionError(f"device-hang-drill: {stepped} completing steps, job rows {rows}")
+        if len(step_backs) != 2:
+            raise AssertionError(f"device-hang-drill: step-backs {step_backs}")
+        rec["collect"] = pair.collect(counters)
+
+        # a prestaged leader init through the watchdog's worker, on a side
+        # stream, equals the direct init
+        jobs = pair.leader_eds.datastore.run_tx(lambda tx: tx.get_aggregation_jobs_for_task(pair.task.task_id))
+        ras = pair.leader_eds.datastore.run_tx(
+            lambda tx: tx.get_report_aggregations_for_job(pair.task.task_id, jobs[0].job_id))
+        st_init = driver.stage_init(None, pair.task, jobs[0], ras, {r.report_id.data: r for r in pair.reports})
+        cols = (st_init.nonce_lanes, st_init.public_parts, st_init.meas, st_init.proof, st_init.blind_lanes)
+        direct = engine._leader_init_inner(*cols, allow_pipeline=False)
+        on_card = _on_card(torch, dev)
+        side = torch.cuda.Stream(device=dev) if on_card else None
+        streams = []
+        real_step = engine._leader_step
+
+        def step(*a):
+            streams.append((threading.current_thread().name,
+                            torch.cuda.current_stream(dev) == side if on_card else None))
+            return real_step(*a)
+
+        engine._leader_step = step
+        try:
+            with (torch.cuda.stream(side) if on_card else contextlib.nullcontext()):
+                with deadline_scope(time.monotonic() + 60):
+                    pre = engine.prestage_leader(*cols)
+                    supervised = engine.leader_init(*cols, prestaged=pre)
+            _sync(torch, dev)
+        finally:
+            del engine._leader_step
+        same = all(np.array_equal(a, b) for a, b in zip(direct[0].to_numpy(), supervised[0].to_numpy())) and all(
+            np.array_equal(a, b) for a, b in zip(direct[2], supervised[2]))
+        if (not same or len(streams) != 1 or not streams[0][0].startswith("device-watchdog-")
+                or streams[0][1] is False or engine.prestage_stats["used"] < 1):
+            raise AssertionError(f"device-hang-drill: the supervised prestaged init: equal {same}, worker and stream "
+                                 f"{streams}, prestages {engine.prestage_stats}")
+        rec["supervised_prestaged_equal"] = True
+        rec["worker_on_caller_stream"] = streams[0][1]
+        rec["phase_s"] = time.perf_counter() - t_phase
+        return rec
+    finally:
+        failpoints.release_hangs()
+        failpoints.clear()
+        pair.close()
+
+
+def phase_peer_outage_drill(torch, dev, inst, job_size: int = 256):
+    """The helper as a failable peer (see the module docstring, phase 18):
+    a port leader reaches a port helper through a FaultProxy. A `reset`
+    toxic on the request bytes opens the breaker (the step steps back
+    `circuit_open`); the tracker then parks the acquirer, whose passes run
+    no claim transaction (counted); with the toxic cleared the tracker's
+    probe closes the circuit, the job steps (kernels 1 and 2) and the
+    collection equals the ground truth."""
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver, AggregationJobDriverConfig
+    from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig
+    from janus_tpu_torch.aggregator.peer_health import PeerHealthConfig, PeerHealthTracker
+    from janus_tpu_torch.core.circuit_breaker import CircuitBreakerConfig, OutboundCircuitBreakers, peer_label
+    from janus_tpu_torch.core.http_client import HttpClient
+    from janus_tpu_torch.core.netsim import FaultProxy
+    from janus_tpu_torch.core.retries import Backoff
+
+    t_phase = time.perf_counter()
+    proxies = []
+
+    def through_proxy(url: str) -> str:
+        from urllib.parse import urlsplit
+
+        proxies.append(FaultProxy("127.0.0.1", urlsplit(url).port).start())
+        return proxies[0].url
+
+    pair = DrillPair(torch, dev, inst, job_size, job_size, SEED + 21, endpoint=through_proxy)
+    (proxy,) = proxies
+    try:
+        breakers = OutboundCircuitBreakers(CircuitBreakerConfig(failure_threshold=2, open_cooldown_s=0.5))
+        tracker = PeerHealthTracker(breakers, PeerHealthConfig(probe_interval_s=0.1, probe_timeout_s=5.0))
+        cfg = AggregationJobDriverConfig(http_backoff=Backoff(initial=0.02, max_interval=0.1, max_elapsed=10.0))
+        driver = AggregationJobDriver(pair.leader_eds.datastore, HttpClient(timeout=60), cfg, breakers=breakers,
+                                      device=dev, peer_health=tracker)
+        step_backs = _count_step_backs(driver)
+        ds = pair.leader_eds.datastore
+        real_run_tx = ds.run_tx
+        claims = []
+
+        def counting_run_tx(fn, name="tx", *a, **kw):
+            if name == "acquire_agg_jobs":
+                claims.append(name)
+            return real_run_tx(fn, name, *a, **kw)
+
+        ds.run_tx = counting_run_tx
+        job_driver = JobDriver(JobDriverConfig(max_concurrent_job_workers=1), driver.acquirer(), driver.stepper)
+        counters = kernel_counters()
+        peer = peer_label(pair.task.helper_aggregator_endpoint)
+        rec = {"path": "peer-outage-drill", "vdaf": inst.to_dict(), "batch": job_size}
+
+        # the reset toxic opens the breaker; the tracker parks the acquirer
+        proxy.set_toxics("up", [{"kind": "reset", "after_bytes": 0}])
+        t0 = time.perf_counter()
+        if job_driver.run_once() != 1:
+            raise AssertionError("peer-outage-drill: the first step did not run")
+        rec["failing_step_s"] = time.perf_counter() - t0
+        if [s[0] for s in step_backs] != ["circuit_open"] or not tracker.should_park():
+            raise AssertionError(f"peer-outage-drill: step-backs {step_backs}, breakers {breakers.status()}")
+        t_park = time.monotonic()
+        tracker.tick(now=t_park)  # anchors the outage accrual
+        pair.advance(10)  # the stepped-back job is claimable again: only the park keeps it
+        claims_before = len(claims)
+        parked_passes = 0
+        for _ in range(3):
+            if job_driver.run_once() != 0:
+                raise AssertionError("peer-outage-drill: a parked pass claimed a job")
+            parked_passes += 1
+        rec["claims_skipped"] = parked_passes - (len(claims) - claims_before)
+        if rec["claims_skipped"] != parked_passes:
+            raise AssertionError(f"peer-outage-drill: {len(claims) - claims_before} claim transactions while parked")
+        rec["resets"] = proxy.stats["resets"]
+
+        # the wire heals: the tracker's probe closes the circuit
+        proxy.clear()
+        deadline = time.monotonic() + 30
+        while breakers.state(peer) != "closed" and time.monotonic() < deadline:
+            time.sleep(0.05)
+            tracker.tick()
+        if breakers.state(peer) != "closed":
+            raise AssertionError(f"peer-outage-drill: the probe did not close the circuit ({tracker.status()})")
+        st = tracker.status()
+        rec["parked_s"] = st["peers"][peer]["outage_seconds_total"]
+        rec["probes"] = st["peers"][peer]["probes"]
+        rec["park_to_heal_s"] = time.monotonic() - t_park
+        _sync(torch, dev)
+        _zeroed(counters)
+        t0 = time.perf_counter()
+        if job_driver.run_once() != 1:
+            raise AssertionError("peer-outage-drill: the job did not step after the heal")
+        rec["healed_step_s"] = time.perf_counter() - t0
+        rec["launches"] = _launches(counters)
+        _check_launches(torch, dev, "peer-outage-drill healed step", rec["launches"])
+        if pair.job_rows() != [("finished", 1, 0)]:
+            raise AssertionError(f"peer-outage-drill: job rows {pair.job_rows()}")
+        rec["step_backs"] = [[r, d] for r, d, _ in step_backs]
+        rec["collect"] = pair.collect(counters)
+        rec["phase_s"] = time.perf_counter() - t_phase
+        return rec
+    finally:
+        pair.close()
+        proxy.stop()
+
+
 def profile_step(torch, step, args, step_s: float):
     """Device time by kernel over one step (torch.profiler), the share of
     the unprofiled step time `step_s` that the card was busy, and the
@@ -3734,6 +4186,13 @@ def main() -> int:
                 emit({"outage_drill": out})
         finally:
             pair.close()
+    # the card and the helper as failable peers
+    for name, fn, key in (("device-hang-drill", phase_device_hang_drill, "device_hang_drill"),
+                          ("peer-outage-drill", phase_peer_outage_drill, "peer_outage_drill")):
+        out = phase(name, fn, torch, dev, VdafInstance.sum_vec(1000, 16)) if not failed else None
+        if out is not None:
+            serves[out["path"]] = out
+            emit({key: out})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -29,10 +29,14 @@ the PUT and POST send path with its retries, circuit breaker and
 lease-bounded deadline, the step-back and the abandonment. The driver
 runs on CUDA unless it is built with device="cpu". There is no host
 engine, so a device failure fails the step (the lease expires and the
-job is retried, counting an attempt); `handle_step_error` has no
-device-hang branch. The stage pipeline (`step_pipeline.py`) schedules the
-same stage methods; `device_init` hands the engine the prestaged columns
-its read stage uploaded.
+job is retried, counting an attempt), but for two: a dispatch the
+watchdog abandoned (DeviceHangError) steps the job back as
+`device_hang`, and a dispatch the quarantined engine refused
+(DeviceQuarantinedError) as `device_quarantined`, both with the attempt
+refunded. The stage pipeline (`step_pipeline.py`) schedules the same
+stage methods; `device_init` hands the engine the prestaged columns its
+read stage uploaded. With a `peer_health` tracker the acquirer parks
+while every helper's circuit is open.
 
 Resident mode (`ResidentConfig(enabled=True)`): `device_accumulate` sums
 the job's accepted rows per batch bucket on the card
@@ -42,15 +46,17 @@ committed, `_resident_post_commit` merges the deltas into the engine's
 resident slots (a sparse job's through kernel 4), flushes slots evicted
 past the byte cap, and keeps the flush cadence. `flush_resident_state`
 (the drain, and `ResidentFlusher`'s pass) writes every slot's share
-through the batch-aggregation path. Where janus_tpu falls back to the
+through the batch-aggregation path; the take runs under the watchdog with
+a bounded deadline, and the flusher sweeps a quarantined engine's slots
+at its poll cadence (reason `quarantine`). Where janus_tpu falls back to the
 classic accumulate on any error of the resident route, the port does so
 on memory exhaustion only, and counts it (`classic_fallbacks`); any other
 error fails the step. A flush into a batch collected meanwhile loses its
 share, counted in `resident_lost` (janus_tpu books it in its ledger).
 
-Not ported: the peer outage tracker, and the calls into metrics, trace
-spans, failpoints and the conservation ledger. Each step's stage seconds
-are kept in `step_seconds`.
+Not ported: the calls into metrics, trace spans, failpoints and the
+conservation ledger. Each step's stage seconds are kept in
+`step_seconds`.
 """
 
 from __future__ import annotations
@@ -128,6 +134,7 @@ from .accumulator import (
     fixed_size_batch_id,
     group_batch_buckets,
 )
+from .device_watchdog import DeviceHangError, DeviceQuarantinedError
 from .engine_cache import engine_cache, is_oom_error, live_engines
 from .job_driver import (
     datastore_down,
@@ -140,6 +147,12 @@ from .job_driver import (
 from .poplar1_ops import Poplar1Ops
 
 log = logging.getLogger(__name__)
+
+# The deadline of a resident take with none around it (the flusher and
+# the drain carry no lease): without one a wedged device would block the
+# fetch for good while the take holds the engine's resident lock, and
+# every commit worker behind it. Past it the slots are restored.
+RESIDENT_FLUSH_FETCH_BOUND_S = 30.0
 
 
 def _err_or_default(err) -> PrepareError:
@@ -241,10 +254,14 @@ class AggregationJobDriver:
         breakers: OutboundCircuitBreakers | None = None,
         stopper=None,
         device=None,
+        peer_health=None,
     ):
         self.ds = ds
         self.http = http
         self.cfg = cfg or AggregationJobDriverConfig()
+        # the peer-outage parking tracker (peer_health.PeerHealthTracker);
+        # None: the acquirer never parks on a peer outage
+        self.peer_health = peer_health
         # CUDA unless the caller asks for the CPU; raises without CUDA
         self.device = resolve_device(device)
         self.breakers = (
@@ -264,6 +281,9 @@ class AggregationJobDriver:
         # flush that came after their batch's collection
         self.classic_fallbacks = 0
         self.resident_lost = 0
+        # step-backs by reason (janus_tpu's janus_job_step_back_total)
+        self._step_back_lock = threading.Lock()
+        self.step_backs: dict[str, int] = {}
 
     # --- JobDriver callbacks (reference :840-894) ---
     def acquirer(self, lease_duration_s: int = 600):
@@ -274,6 +294,7 @@ class AggregationJobDriver:
                 lambda tx: tx.acquire_incomplete_aggregation_jobs(Duration(lease_duration_s), limit),
                 "acquire_agg_jobs",
             ),
+            peer_gate=self.peer_health.park_gate() if self.peer_health is not None else None,
         )
 
     def _lease_deadline(self, acquired) -> float:
@@ -299,8 +320,8 @@ class AggregationJobDriver:
         """Map a step failure to the step-back / attempt-ledger semantics.
         Returns True when the failure became a step-back (lease released
         early, attempt refunded): the failure was not the job's fault.
-        Anything else, a device failure included, fails the step and
-        counts an attempt."""
+        Anything else, a device failure other than a hang or a refusal
+        included, fails the step and counts an attempt."""
         if isinstance(e, CircuitOpenError):
             # the helper's circuit is open: release the lease with the
             # cooldown as backoff instead of failing the step
@@ -316,6 +337,16 @@ class AggregationJobDriver:
             # lease, never burning the attempt ledger
             self.step_back(acquired, "deadline_expired", 0.0)
             return True
+        if isinstance(e, DeviceHangError):
+            # the device call hung and was abandoned; the engine is
+            # quarantined: not this job's fault
+            self.step_back(acquired, "device_hang", self.cfg.min_step_back_delay_s)
+            return True
+        if isinstance(e, DeviceQuarantinedError):
+            # the quarantined engine refused before staging anything: come
+            # back about when its canary probes again
+            self.step_back(acquired, "device_quarantined", max(e.retry_in_s, self.cfg.min_step_back_delay_s))
+            return True
         if is_datastore_connection_error(self.ds, e):
             self.step_back(acquired, "datastore_down", datastore_reconnect_delay_s(self.ds))
             return True
@@ -323,7 +354,9 @@ class AggregationJobDriver:
 
     def step_back(self, acquired: AcquiredAggregationJob, reason: str, delay_s: float) -> None:
         """Release the lease early (reacquirable after delay_s, attempt
-        refunded)."""
+        refunded); counted by reason in `step_backs`."""
+        with self._step_back_lock:
+            self.step_backs[reason] = self.step_backs.get(reason, 0) + 1
         delay = max(0, int(delay_s))
         log.warning(
             "stepping back aggregation job %s (%s): lease released, reacquirable in %ds",
@@ -796,17 +829,19 @@ class AggregationJobDriver:
     def flush_engine_resident(self, engine, reason: str = "interval") -> int:
         """Take every resident slot of `engine` and write the shares
         through the batch-aggregation write path; returns the slots
-        flushed. A failed take leaves the slots resident for the next
-        pass. (janus_tpu also bounds the take by a deadline for its
-        dispatch watchdog; the port has no watchdog, so a deadline would
-        bound nothing.)"""
+        flushed. The take runs under the watchdog, bounded by
+        RESIDENT_FLUSH_FETCH_BOUND_S where no deadline is around it. A
+        failed (or hung) take leaves the slots resident for the next
+        pass; after a hung quarantine take they wait for the restore."""
         if reason != "drain" and datastore_down(self.ds):
             # flushing into a store known to be down would pop the slots
             # and lose their shares when the tx fails (a flush is at most
             # once: no key guards a re-flush against double merging)
             return 0
         try:
-            recs = engine.resident_take()
+            ambient = current_deadline()
+            with deadline_scope(ambient if ambient is not None else time.monotonic() + RESIDENT_FLUSH_FETCH_BOUND_S):
+                recs = engine.resident_take()
         except Exception:
             log.warning("resident take failed for %s (%s); the state stays resident", engine.inst.kind, reason,
                         exc_info=True)
@@ -822,7 +857,9 @@ class AggregationJobDriver:
         # does not pay a second take and flush per interval
         with self._resident_flush_lock:
             self._resident_last_flush = time.monotonic()
-        return sum(self.flush_engine_resident(eng, reason) for eng in live_engines())
+        return sum(
+            self.flush_engine_resident(eng, reason if eng.resident_ready() else "quarantine") for eng in live_engines()
+        )
 
     def flush_resident_records(self, engine, recs: list, reason: str) -> int:
         """Persist fetched resident shares through the Accumulator write
@@ -1089,6 +1126,10 @@ class AggregationJobDriver:
         if task.aggregator_auth_token:
             headers.update(task.aggregator_auth_token.request_headers())
         peer = peer_label(task.helper_aggregator_endpoint)
+        if self.peer_health is not None:
+            # register before any attempt: the tracker can then probe a
+            # peer that never once answered
+            self.peer_health.observe_endpoint(task.helper_aggregator_endpoint)
         payload = req.to_bytes()  # encode once, not once per attempt
 
         def attempt():
@@ -1154,12 +1195,16 @@ class AggregationJobDriver:
 class ResidentFlusher:
     """Background resident flush: every interval_s it writes the resident
     slots of every cached engine through the driver's flush path, so an
-    idle driver's last jobs do not wait for the next job. stop() and a
-    final `driver.flush_resident_state("drain")` are the drain."""
+    idle driver's last jobs do not wait for the next job, and every
+    poll_s (at most a second) it flushes a quarantined engine's slots
+    (reason `quarantine`): their fetch is bounded, and if it hangs the
+    slots wait for the canary's restore. stop() and a final
+    `driver.flush_resident_state("drain")` are the drain."""
 
     def __init__(self, driver: AggregationJobDriver, interval_s: float):
         self.driver = driver
         self.interval_s = max(0.1, float(interval_s))
+        self.poll_s = min(1.0, self.interval_s)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, name="resident-flusher", daemon=True)
 
@@ -1168,9 +1213,17 @@ class ResidentFlusher:
         return self
 
     def _loop(self) -> None:
-        while not self._stop.wait(self.interval_s):
+        elapsed = 0.0
+        while not self._stop.wait(self.poll_s):
+            elapsed += self.poll_s
             try:
-                self.driver.flush_resident_state(reason="interval")
+                if elapsed >= self.interval_s:
+                    elapsed = 0.0
+                    self.driver.flush_resident_state(reason="interval")
+                else:
+                    for eng in live_engines():
+                        if not eng.resident_ready():
+                            self.driver.flush_engine_resident(eng, reason="quarantine")
             except Exception:
                 log.exception("resident flush pass failed; retrying next pass")
 

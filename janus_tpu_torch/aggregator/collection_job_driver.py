@@ -14,7 +14,8 @@ leader's share, persisted and reused, the AggregateShareReq, then mark
 and store in one transaction), the send path with its circuit breaker,
 retries and lease-bounded deadline, and the abandonment. The sum runs on
 the host, as in janus_tpu: collection launches no kernel. Each step's
-stage seconds are kept in `step_seconds`.
+stage seconds are kept in `step_seconds`. With a `peer_health` tracker
+the acquirer parks while every helper's circuit is open.
 
 A VDAF with an aggregation parameter (Poplar1) aggregates per
 collection: the first step of its collection job creates param-scoped
@@ -23,8 +24,8 @@ aggregation jobs of at most 512 reports over the batch interval
 it again until no job for the parameter is in progress, then compute the
 aggregate share as for Prio3.
 
-Not ported: the peer-outage parking, the cross-aggregator ledger
-reconciliation, and the trace spans, links and metrics.
+Not ported: the cross-aggregator ledger reconciliation, and the trace
+spans, links and metrics.
 """
 
 from __future__ import annotations
@@ -107,12 +108,16 @@ class CollectionJobDriver:
         cfg: CollectionJobDriverConfig | None = None,
         breakers: OutboundCircuitBreakers | None = None,
         stopper=None,
+        peer_health=None,
     ):
         self.ds = ds
         self.http = http
         self.cfg = cfg or CollectionJobDriverConfig()
         self.breakers = breakers if breakers is not None else default_breakers(self.cfg.circuit_breaker)
         self.stopper = stopper
+        # the peer-outage parking tracker (peer_health.PeerHealthTracker),
+        # shared with the aggregation driver
+        self.peer_health = peer_health
         # (collection job id bytes, {stage: seconds}) of the latest steps
         self.step_seconds: deque = deque(maxlen=64)
 
@@ -124,6 +129,7 @@ class CollectionJobDriver:
                 lambda tx: tx.acquire_incomplete_collection_jobs(Duration(lease_duration_s), limit),
                 "acquire_collection_jobs",
             ),
+            peer_gate=self.peer_health.park_gate() if self.peer_health is not None else None,
         )
 
     def stepper(self, acquired: AcquiredCollectionJob) -> None:
@@ -349,6 +355,9 @@ class CollectionJobDriver:
         if task.aggregator_auth_token:
             headers.update(task.aggregator_auth_token.request_headers())
         peer = peer_label(task.helper_aggregator_endpoint)
+        if self.peer_health is not None:
+            # register before any attempt (see aggregation_job_driver.py)
+            self.peer_health.observe_endpoint(task.helper_aggregator_endpoint)
 
         def attempt():
             # circuit gate per attempt; see AggregationJobDriver

@@ -36,6 +36,18 @@ serving code reaches the card only through an `EngineCache`:
   memory on a side stream while the device lane runs the previous job;
   `leader_init(prestaged=)` waits on the upload's event and uses them, or
   discards them and stages from the host where its route cannot.
+- The card as a failable peer: every device step (`_dispatch`) and
+  every blocking fetch (`_fetch`) runs under the process dispatch
+  watchdog (`device_watchdog.py`) with the ambient deadline, on a worker
+  thread that enters the engine's device and the caller's CUDA stream.
+  A call that outlives its caller's budget raises DeadlineExceeded and
+  runs on; one still unfinished at the watchdog's hang bound (30 s) is
+  hung: DeviceHangError, and the engine is quarantined: it refuses every dispatch with DeviceQuarantinedError before
+  staging anything, until a canary thread's probe (a masked aggregate of
+  zeros under its own bounded deadline) shows the device answers again;
+  the restore resets the caps. The `engine.dispatch` failpoint fires
+  inside every supervised step (`oom` rides the memory ladder, `hang`
+  parks the worker), `engine.canary` inside the probe.
 - Device-resident accumulators: `aggregate_pending` sums one job's
   accepted rows per batch bucket on the card (`PendingDeltas`; a sparse
   job keeps its rows and scatter targets, `SparsePendingDeltas`), and
@@ -62,10 +74,14 @@ kernels' plain versions run. Values equal janus_tpu's EngineCache on
 the same inputs. janus_tpu's JANUS_COALESCE, JANUS_XTASK_COALESCE and
 JANUS_RESIDENT_MAX_BYTES environment knobs are not ported: coalescing
 and cross-task coalescing are always on, and the resident byte cap is
-the class constant RESIDENT_MAX_BYTES. Not ported: the mesh,
-the dispatch watchdog with its quarantine and canary (janus_tpu's
-quarantine serves from a host engine, which the port does not have),
-and the compile caches (the port runs eagerly and compiles nothing).
+the class constant RESIDENT_MAX_BYTES. Not ported: the mesh and the
+compile caches (the port runs eagerly and compiles nothing). janus_tpu's
+quarantine serves the interim work from its host engine, which the port
+does not have: a quarantined engine refuses, the job drivers step back
+(`device_quarantined`) and the helper sheds 503 until the canary restores
+it; the watchdog's abandoned-thread cap, which sends janus_tpu's engines
+to their host engines for good, makes every engine here refuse for the
+life of the process (`device_watchdog.WATCHDOG.device_down()`).
 """
 
 from __future__ import annotations
@@ -79,12 +95,16 @@ from collections import OrderedDict, deque
 import numpy as np
 import torch
 
+from .. import failpoints
 from ..convert import from_numpy_u64, to_numpy_u64
+from ..core.deadline import current_deadline
 from ..device import resolve_device
 from ..fields.tfield import fzeros
 from ..vdaf.circuits import SparseSumVec
 from ..vdaf.feasibility import device_memory_budget, feasible_bucket
 from ..vdaf.registry import VdafInstance, prio3_batched
+from . import device_watchdog
+from .device_watchdog import DeviceQuarantinedError
 
 log = logging.getLogger(__name__)
 
@@ -187,22 +207,37 @@ def _fetch_rows(x, n: int) -> np.ndarray:
     return to_numpy_u64(x[:n])
 
 
+def _fetch_leader_rows(seed0, ver0, part0, n: int):
+    """A leader init's host outputs: seed lanes or None, verifier limbs,
+    joint-rand part lanes or None, first n rows each."""
+    return (
+        _fetch_rows(seed0, n) if seed0 is not None else None,
+        tuple(_fetch_rows(x, n) for x in ver0),
+        _fetch_rows(part0, n) if part0 is not None else None,
+    )
+
+
 class DeviceRows:
     """Out-share field value living on the device, padded to its bucket.
 
     `EngineCache.aggregate` reads it where it lies; `to_numpy()` fetches
-    the true rows as uint64 limb arrays, bit-identical to JAX's. `offset`
-    views rows [offset, offset + n) of a shared buffer."""
+    the true rows as uint64 limb arrays, bit-identical to JAX's, through
+    the engine that made them (a supervised fetch). `offset` views rows
+    [offset, offset + n) of a shared buffer."""
 
-    __slots__ = ("value", "n", "offset")
+    __slots__ = ("value", "n", "offset", "engine")
 
-    def __init__(self, value, n: int, offset: int = 0):
+    def __init__(self, value, n: int, offset: int = 0, engine=None):
         self.value = value  # tuple of [bucket, len] int64 limb tensors
         self.n = n  # true batch size (rows beyond n are padding)
         self.offset = offset
+        self.engine = engine
 
     def to_numpy(self):
-        return tuple(to_numpy_u64(x[self.offset : self.offset + self.n]) for x in self.value)
+        def fetch():
+            return tuple(to_numpy_u64(x[self.offset : self.offset + self.n]) for x in self.value)
+
+        return fetch() if self.engine is None else self.engine._fetch("fetch_rows", fetch)
 
 
 class DeviceRowsChunks:
@@ -229,6 +264,25 @@ def _device_scope(device: torch.device):
     if device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+def _stream_scope(stream):
+    """`stream` as the thread's current one for the block (None: as is)."""
+    if stream is not None:
+        return torch.cuda.stream(stream)
+    return contextlib.nullcontext()
+
+
+def _injected_oom():
+    return torch.cuda.OutOfMemoryError("CUDA out of memory (injected failpoint engine.dispatch)")
+
+
+def _engine_dispatch_failpoint() -> None:
+    """`engine.dispatch` failpoint inside every supervised device step:
+    `oom` raises the memory exhaustion the ladder recovers from, `hang`
+    parks the supervised worker as a wedged kernel would, so the
+    watchdog's abandon and quarantine path is what recovers it."""
+    failpoints.hit("engine.dispatch", oom_factory=_injected_oom)
 
 
 class PrestagedInit:
@@ -575,7 +629,7 @@ def _run_leader_round(args_list, ns):
             rows = out0.to_numpy()
             outs = [tuple(x[s:e] for x in rows) for s, e in zip(offsets, offsets[1:])]
         else:
-            outs = [DeviceRows(out0.value, e - s, offset=s) for s, e in zip(offsets, offsets[1:])]
+            outs = [DeviceRows(out0.value, e - s, offset=s, engine=exec_eng) for s, e in zip(offsets, offsets[1:])]
         return list(zip(outs, _split_rows(seed0, offsets), _split_rows(ver0, offsets), _split_rows(part0, offsets)))
 
 
@@ -597,7 +651,8 @@ def _run_helper_round(args_list, ns):
             rows = out1.to_numpy()
             return [(tuple(x[s:e] for x in rows), mask[s:e], prep_msg[s:e]) for s, e in zip(offsets, offsets[1:])]
         return [
-            (DeviceRows(out1.value, e - s, offset=s), mask[s:e], prep_msg[s:e]) for s, e in zip(offsets, offsets[1:])
+            (DeviceRows(out1.value, e - s, offset=s, engine=exec_eng), mask[s:e], prep_msg[s:e])
+            for s, e in zip(offsets, offsets[1:])
         ]
 
 
@@ -620,6 +675,14 @@ class EngineCache:
     # Process-wide device bytes of resident slots; past it a merge evicts
     # this engine's LRU slots through the driver's flush.
     RESIDENT_MAX_BYTES = 256 << 20
+    # The hang quarantine's canary: its first probe this long after the
+    # hang, doubling after each failed probe up to the max; each probe
+    # runs under its own deadline. Tests shorten them on the instance.
+    QUARANTINE_CANARY_DELAY_SECS = 5.0
+    QUARANTINE_CANARY_TIMEOUT_SECS = 30.0
+    QUARANTINE_CANARY_MAX_DELAY_SECS = 60.0
+    # every state `_backend_state` reports
+    BACKEND_STATES = ("device", "quarantined", "device_down")
 
     def __init__(self, inst: VdafInstance, verify_key: bytes, device=None, bucket_cap: int | None = None):
         self.inst = inst
@@ -651,6 +714,24 @@ class EngineCache:
             round_rows = min(round_rows, self.bucket_cap)
         self._co_leader = _shared_coalescer(inst, self.device, "leader", round_rows)
         self._co_helper = _shared_coalescer(inst, self.device, "helper", round_rows)
+        # what a canary restore resets
+        self._initial_bucket_cap = self.bucket_cap
+        self._initial_round_rows = round_rows
+        # the hang quarantine (under _oom_lock): set by a hung supervised
+        # call, cleared by the canary thread's successful probe
+        self._quarantined = False
+        self._quarantined_at = 0.0
+        self._canary_next_at = 0.0
+        # a quarantine flush's fetch hung too: the slots wait for the restore
+        self._quarantine_fetch_hung = False
+        self._canary_wakeup = threading.Event()
+        self._canary_stop = False
+        self._canary_thread: threading.Thread | None = None
+        # the port's stand-in for janus_tpu's quarantine counter and gauges
+        self.quarantine_stats = {
+            "opened": 0, "canary_probes": 0, "canary_failed": 0, "restored": 0, "refused": 0,
+            "canary_delay_s": None, "last_probe_s": None, "last_quarantine_s": None,
+        }
         # counters (the port's stand-in for janus_tpu's metrics): merged
         # rounds this engine ran, their rows, and the prestages' outcomes
         self._stats_lock = threading.Lock()
@@ -673,8 +754,191 @@ class EngineCache:
 
     def _dispatch(self, name: str, fn, *args):
         """Run one step on staged device tensors: the one place a device
-        computation starts (and where a test injects a failure)."""
-        return fn(*args)
+        computation starts (and where a test injects a failure), under the
+        watchdog with the `engine.dispatch` failpoint inside."""
+
+        def step():
+            _engine_dispatch_failpoint()
+            return fn(*args)
+
+        return self._supervised(name, step)
+
+    def _fetch(self, label: str, fn):
+        """A blocking device-to-host fetch under the watchdog. Not refused
+        while quarantined: the quarantine flush of resident slots is one."""
+        return self._supervised(label, fn)
+
+    def _supervised(self, label: str, fn):
+        """Run a device closure under the process watchdog with the
+        ambient deadline (a job driver's lease bound, a helper handler's
+        request budget); no deadline: a direct call. A spent budget raises
+        DeadlineExceeded; only a call past the watchdog's hang bound
+        quarantines. A quarantined engine's call (the quarantine flush's
+        fetch) gets no such grace: its bounded deadline is the hang bound.
+        The worker thread enters the engine's device and the caller's
+        current stream: both belong to a thread, and the caller's staged
+        tensors (a prestage's wait included) were ordered on that stream."""
+        deadline = current_deadline()
+        if deadline is None or device_watchdog.in_watchdog():
+            return fn()
+        dev = self.device
+        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+        def on_worker():
+            with _device_scope(dev), _stream_scope(stream):
+                return fn()
+
+        return device_watchdog.WATCHDOG.run(
+            on_worker, deadline=deadline, label=label, vdaf=self.inst.kind, on_hang=self._quarantine_on_hang,
+            hang_at_deadline=self._quarantined,
+        )
+
+    # --- the hang quarantine and its canary ---
+    def _backend_state(self) -> str:
+        if device_watchdog.WATCHDOG.device_down():
+            return "device_down"
+        return "quarantined" if self._quarantined else "device"
+
+    def resident_ready(self) -> bool:
+        """True while the device path serves: a quarantined engine's
+        resident slots flush on the flusher's quarantine sweep."""
+        return self._backend_state() == "device"
+
+    def check_available(self, what: str = "dispatch") -> None:
+        """Refuse before staging anything while quarantined (or with the
+        device down): DeviceQuarantinedError with the time to the canary's
+        next probe."""
+        if device_watchdog.WATCHDOG.device_down():
+            retry = device_watchdog.DEVICE_DOWN_RETRY_S
+        elif self._quarantined:
+            retry = max(0.0, self._canary_next_at - time.monotonic())
+        else:
+            return
+        with self._stats_lock:
+            self.quarantine_stats["refused"] += 1
+        raise DeviceQuarantinedError(f"{self.inst.kind} {what}", retry)
+
+    def _quarantine_on_hang(self, label: str) -> None:
+        """Watchdog hang hook: open the device circuit. Every dispatch is
+        refused from now on (the step that hung steps back, every other
+        job too) and the canary thread owns the way back."""
+        with self._oom_lock:
+            if self._quarantined:
+                # a call hung while quarantined; where it is the quarantine
+                # flush's fetch, no more fetches until the restore
+                if label == "resident_fetch":
+                    self._quarantine_fetch_hung = True
+                return
+            now = time.monotonic()
+            self._quarantined = True
+            self._quarantined_at = now
+            self._canary_next_at = now + self.QUARANTINE_CANARY_DELAY_SECS
+            self.oom_history.append(
+                {"at": time.time(), "bucket": None, "action": "quarantined", "error": f"hung dispatch {label}"}
+            )
+            start_canary = not device_watchdog.WATCHDOG.device_down()
+        with self._stats_lock:
+            self.quarantine_stats["opened"] += 1
+        log.error("engine %s QUARANTINED after a hung %s; refusing every dispatch while the canary probes the "
+                  "device", self.inst.kind, label)
+        if start_canary:
+            t = threading.Thread(target=self._canary_loop, name=f"engine-canary-{self.inst.kind}", daemon=True)
+            self._canary_thread = t
+            t.start()
+
+    def _canary_loop(self) -> None:
+        """After a cool-down, probe the device; on success restore the
+        device path with the initial caps, on failure back off (doubling,
+        capped) and probe again. Repeated hung probes walk the
+        abandoned-thread cap toward device_down(), which ends the loop."""
+        delay = self.QUARANTINE_CANARY_DELAY_SECS
+        while True:
+            self._canary_wakeup.wait(delay)
+            self._canary_wakeup.clear()
+            if self._canary_stop or not self._quarantined or device_watchdog.WATCHDOG.device_down():
+                return
+            with self._stats_lock:
+                self.quarantine_stats["canary_probes"] += 1
+            t0 = time.monotonic()
+            try:
+                self._canary_probe()
+            except Exception as e:  # noqa: BLE001 - a hung probe (DeviceHangError) included
+                delay = min(delay * 2, self.QUARANTINE_CANARY_MAX_DELAY_SECS)
+                with self._oom_lock:
+                    self._canary_next_at = time.monotonic() + delay
+                with self._stats_lock:
+                    self.quarantine_stats["canary_failed"] += 1
+                    self.quarantine_stats["canary_delay_s"] = delay
+                log.warning("canary probe for %s failed (%s: %s); next probe in %.1fs",
+                            self.inst.kind, type(e).__name__, e, delay)
+                continue
+            now = time.monotonic()
+            with self._oom_lock:
+                self._quarantined = False
+                self._quarantine_fetch_hung = False
+                self.bucket_cap = self._initial_bucket_cap
+                self._co_leader._max_rows = self._initial_round_rows
+                self._co_helper._max_rows = self._initial_round_rows
+                self.oom_history.append({"at": time.time(), "bucket": None, "action": "restored", "error": ""})
+                quarantined_s = now - self._quarantined_at
+            with self._stats_lock:
+                self.quarantine_stats["restored"] += 1
+                self.quarantine_stats["last_probe_s"] = now - t0
+                self.quarantine_stats["last_quarantine_s"] = quarantined_s
+            log.warning("engine %s restored to the device path (canary probe succeeded)", self.inst.kind)
+            return
+
+    def stop_canary(self, timeout_s: float = 2.0) -> None:
+        """Process-teardown hook: stop the canary loop and give an
+        in-flight probe a bounded window to finish."""
+        self._canary_stop = True
+        self._canary_wakeup.set()
+        t = self._canary_thread
+        if t is not None and t.is_alive():
+            t.join(timeout_s)
+
+    def _canary_probe(self) -> None:
+        """A small real masked aggregate of zeros on the engine's device,
+        under the watchdog with its own bounded deadline: success means the
+        device answers end to end. It runs on its own stream and waits on
+        its own event: a device-wide synchronize would wait on an
+        abandoned worker's stream, however healthy the card. The
+        `engine.canary` failpoint lets tests hold the quarantine open."""
+        p3 = self.p3
+        dev = self.device
+        cuda = dev.type == "cuda"
+
+        def probe():
+            failpoints.hit("engine.canary")
+            with _device_scope(dev):
+                stream = torch.cuda.Stream(device=dev) if cuda else None
+                with _stream_scope(stream):
+                    value = fzeros(p3.tf, (MIN_BUCKET, p3.circ.output_len), dev)
+                    mask = torch.zeros(MIN_BUCKET, dtype=torch.bool, device=dev)
+                    agg = p3.aggregate(value, mask)
+                    if cuda:
+                        done = torch.cuda.Event()
+                        done.record(stream)
+                        done.synchronize()
+                    return [int(x) for x in p3.tf.to_ints(agg)]
+
+        deadline = time.monotonic() + self.QUARANTINE_CANARY_TIMEOUT_SECS
+        result = device_watchdog.WATCHDOG.run(probe, deadline=deadline, label="canary", vdaf=self.inst.kind,
+                                              hang_at_deadline=True)
+        if any(result):
+            raise RuntimeError(f"canary probe returned garbage: {result[:4]}")
+
+    def engine_status(self) -> dict:
+        """The backend state, the quarantine's counters and the caps."""
+        with self._stats_lock:
+            stats = dict(self.quarantine_stats)
+        return {
+            "vdaf": self.inst.kind,
+            "backend": self._backend_state(),
+            "quarantined": self._quarantined,
+            "bucket_cap": self.bucket_cap,
+            "quarantine": stats,
+        }
 
     def _count_round(self, rows: int) -> None:
         with self._stats_lock:
@@ -744,6 +1008,7 @@ class EngineCache:
         last two as numpy sliced to the true batch size. A batch of at
         most COALESCE_MAX_JOB rows rides a coalesced round."""
         args = (nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask)
+        self.check_available("helper_init")
         while True:
             try:
                 return self._helper_init_entry(*args)
@@ -783,6 +1048,7 @@ class EngineCache:
         """One helper dispatch (chunked past the cap). `coalesced` is the
         round's call count (0 outside a merged round); `vk_lanes` the
         per-lane verify keys of a cross-task round."""
+        self.check_available("helper_init")  # a round queued behind a hang
         p3 = self.p3
         n = nonce_lanes.shape[0]
         cap = self.bucket_cap  # read once: recovery may halve it meanwhile
@@ -811,12 +1077,13 @@ class EngineCache:
             out1, mask, prep_msg = self._dispatch("helper_init", step, vkey, *staged)
             # out1 stays on the device; the mask and prep message come
             # back (the .cpu() blocks until the step has run)
-            mask = mask[:n].cpu().numpy()
-            prep_msg = _fetch_rows(prep_msg, n)
+            mask, prep_msg = self._fetch(
+                "helper_init_fetch", lambda: (mask[:n].cpu().numpy(), _fetch_rows(prep_msg, n))
+            )
         except Exception as e:
             _annotate_dispatch_bucket(e, b)
             raise
-        return DeviceRows(out1, n), mask, prep_msg
+        return DeviceRows(out1, n, engine=self), mask, prep_msg
 
     # --- leader side: init only (the helper round trip follows) ---
     def leader_init(self, nonce_lanes, public_parts, meas, proof, blind0, ok=None, prestaged=None):
@@ -827,6 +1094,11 @@ class EngineCache:
         `prestaged` (from prestage_leader) is used where the direct route
         runs at its bucket, else discarded: the columns then go up from
         the host."""
+        try:
+            self.check_available("leader_init")
+        except DeviceQuarantinedError:
+            self._drop_prestage(prestaged)
+            raise
         while True:
             try:
                 return self._leader_init_entry(nonce_lanes, public_parts, meas, proof, blind0, prestaged)
@@ -857,6 +1129,11 @@ class EngineCache:
         """One leader init: chunked past the cap, pipelined at 2 x
         PIPELINE_CHUNK rows or more (outside a merged round), else one
         dispatch, from a usable prestage or from the host columns."""
+        try:
+            self.check_available("leader_init")  # a round queued behind a hang
+        except DeviceQuarantinedError:
+            self._drop_prestage(prestaged)
+            raise
         n = nonce_lanes.shape[0]
         cap = self.bucket_cap
         if cap is not None and n > cap:
@@ -888,13 +1165,11 @@ class EngineCache:
                 vkey, *staged = put_args(pad_args(b, vk_lanes, nonce_lanes, public_parts, meas, proof, blind0),
                                          self.device)
             out0, seed0, ver0, part0 = self._dispatch("leader_init", self._leader_step, vkey, *staged)
-            seed0 = _fetch_rows(seed0, n) if seed0 is not None else None
-            ver0 = tuple(_fetch_rows(x, n) for x in ver0)
-            part0 = _fetch_rows(part0, n) if part0 is not None else None
+            seed0, ver0, part0 = self._fetch("leader_init_fetch", lambda: _fetch_leader_rows(seed0, ver0, part0, n))
         except Exception as e:
             _annotate_dispatch_bucket(e, b)
             raise
-        return DeviceRows(out0, n), seed0, ver0, part0
+        return DeviceRows(out0, n, engine=self), seed0, ver0, part0
 
     def prestage_leader(self, nonce_lanes, public_parts, meas, proof, blind0):
         """Double-buffered staging: issue the padded columns' uploads now
@@ -903,6 +1178,7 @@ class EngineCache:
         PrestagedInit for leader_init. None where the direct route will
         not run: past the cap (chunked) and at 2 x PIPELINE_CHUNK rows or
         more (the pipelined route stages its own chunks)."""
+        self.check_available("prestage_leader")
         n = nonce_lanes.shape[0]
         cap = self.bucket_cap
         if cap is not None and n > cap:
@@ -980,12 +1256,11 @@ class EngineCache:
                     # one: the allocator must not reuse them early
                     _map_args(lambda t: t.record_stream(compute), args)
                 results.append(self._dispatch("leader_init", self._leader_step, self.verify_key, *args))
-            outs, seeds, vers, parts = [], [], [], []
-            for (s, e), (out0, seed0, ver0, part0) in zip(spans, results):
-                outs.append(DeviceRows(out0, e - s))
-                seeds.append(_fetch_rows(seed0, e - s) if seed0 is not None else None)
-                vers.append(tuple(_fetch_rows(x, e - s) for x in ver0))
-                parts.append(_fetch_rows(part0, e - s) if part0 is not None else None)
+            outs = [DeviceRows(r[0], e - s, engine=self) for (s, e), r in zip(spans, results)]
+            fetched = self._fetch(
+                "leader_init_fetch", lambda: [_fetch_leader_rows(*r[1:], e - s) for (s, e), r in zip(spans, results)]
+            )
+            seeds, vers, parts = (list(col) for col in zip(*fetched))
         except Exception as exc:
             _annotate_dispatch_bucket(exc, bucket_size(min(n, C)))
             raise
@@ -997,6 +1272,7 @@ class EngineCache:
         memory ladder as the init steps. out_shares: DeviceRows (an
         offset view included), DeviceRowsChunks, or host rows (a limb
         tuple of arrays or tensors)."""
+        self.check_available("aggregate")
         while True:
             try:
                 return self._aggregate_inner(out_shares, mask)
@@ -1041,7 +1317,7 @@ class EngineCache:
             if args is None:
                 args = put_args(pad_args(dispatch_b, out_shares, mask), self.device)
             agg = self._dispatch("aggregate", p3.aggregate, *args)
-            return [int(x) for x in p3.tf.to_ints(agg)]
+            return self._fetch("aggregate_fetch", lambda: [int(x) for x in p3.tf.to_ints(agg)])
         except Exception as e:
             _annotate_dispatch_bucket(e, dispatch_b, fixed=fixed)
             raise
@@ -1056,13 +1332,14 @@ class EngineCache:
         out_shares as for `aggregate`. On memory exhaustion the ladder
         halves the rows a dispatch takes and starts the accumulator
         again; at the floor it raises (there is no host scatter)."""
+        self.check_available("aggregate_sparse")
         L = self.p3.circ.agg_output_len
         accept = np.asarray(mask, dtype=bool)
         idx = np.where(accept[:, None], np.asarray(flat_idx, dtype=np.int32), np.int32(L)).astype(np.int32)
         while True:
             try:
                 acc = self._scatter_dispatch(self._zeros_row(L), out_shares, idx)
-                return [int(x) for x in self.p3.tf.to_ints(acc)]
+                return self._fetch("aggregate_fetch", lambda: [int(x) for x in self.p3.tf.to_ints(acc)])
             except Exception as e:  # noqa: BLE001 - memory filter inside
                 self._handle_engine_error(e, idx.shape[0])
 
@@ -1134,6 +1411,7 @@ class EngineCache:
         `flat_idx` ([n, compact_len] int32 scatter targets) marks a
         block-sparse job: nothing runs here, the scatter into the dense
         slot runs at merge time (SparsePendingDeltas says why)."""
+        self.check_available("aggregate_pending")
         p3 = self.p3
         bucket_idx = np.asarray(bucket_idx, np.int32)
         if flat_idx is not None:
@@ -1203,6 +1481,7 @@ class EngineCache:
         A failure partway raises ResidentMergeError with the merged keys."""
         from ..messages import Interval
 
+        self.check_available("resident_merge")
         sparse = isinstance(deltas, SparsePendingDeltas)
         evicted: list[ResidentSlot] = []
         merged: set = set()
@@ -1256,7 +1535,11 @@ class EngineCache:
     def resident_take(self, keys=None) -> list[dict]:
         """Pop all (or `keys`) resident slots and fetch their shares for a
         flush. On a fetch failure every popped slot is restored and the
-        error propagates: resident state is never dropped."""
+        error propagates: resident state is never dropped. A quarantined
+        engine still takes (the quarantine flush), unless a quarantine
+        fetch hung already: then the slots wait for the canary's restore."""
+        if self._quarantine_fetch_hung:
+            self.check_available("resident_take")
         with self._resident_lock:
             take = list(self._resident.keys()) if keys is None else [k for k in keys if k in self._resident]
             slots = [self._resident.pop(k) for k in take]
@@ -1289,7 +1572,7 @@ class EngineCache:
                             "interval": interval})
             return out
 
-        return self._dispatch("resident_delta_fetch", fetch)
+        return self._fetch("resident_delta_fetch", fetch)
 
     def _fetch_slots_locked(self, slots: list) -> list[dict]:
         """Fetch popped slots' shares (callers hold _resident_lock)."""
@@ -1301,7 +1584,7 @@ class EngineCache:
                 for s in slots
             ]
 
-        return self._dispatch("resident_fetch", fetch)
+        return self._fetch("resident_fetch", fetch)
 
     def has_resident(self) -> bool:
         """True while unflushed slots live on this engine: the process LRU

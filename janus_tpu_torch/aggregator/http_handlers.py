@@ -24,8 +24,13 @@ with `Retry-After` before any decode, crypto or datastore work; admitted
 uploads decode, decrypt and commit on the pipeline's workers while the
 handler thread parks on its ticket. While the datastore supervisor
 reports the database not up, the aggregate routes shed 503 with
-`Retry-After` (uploads keep flowing into the spill journal). A budget
-that dies inside the aggregate-init handler answers the conclusive 408.
+`Retry-After` (uploads keep flowing into the spill journal), and so do
+they, before any decode or HPKE work, while the task's engine refuses
+dispatches (quarantined after a device hang, or the device down for the
+process; a refusal raised later inside the handler answers the same). A
+budget that dies inside the aggregate-init handler answers the
+conclusive 408; a device hang inside it answers 500, as janus_tpu's
+handler does.
 
 Taskprov: with `Config.taskprov_enabled`, the helper's routes read the
 `dap-taskprov` header (its SHA-256 must be the task ID), authorize the
@@ -76,6 +81,7 @@ from ..messages.codec import DecodeError
 from ..messages.problem_type import DapProblemType
 from ..messages.taskprov import TASKPROV_HEADER, TaskConfig
 from .core import Aggregator
+from .device_watchdog import DeviceQuarantinedError
 from .errors import AggregatorError, InvalidMessage, UnrecognizedTask
 
 # Advertises the sender's XOF framing mode on aggregation-job requests so
@@ -143,6 +149,21 @@ def _cors_allow(path: str) -> str | None:
 
 def _problem(status: int, doc: dict):
     return status, "application/problem+json", json.dumps(doc).encode()
+
+
+def _shed(e: ShedError):
+    """A shed request's answer: 429 (capacity) or 503 (availability),
+    with Retry-After."""
+    status, ctype, out = _problem(e.status, {"type": "about:blank", "status": e.status, "detail": str(e)})
+    return status, ctype, out, {"Retry-After": str(max(1, math.ceil(e.retry_after_s)))}
+
+
+def _refuse_if_device_down(ta) -> None:
+    """The aggregate routes' device shed: raise the engine's
+    DeviceQuarantinedError (answered 503) before any decode or HPKE work
+    while it refuses dispatches."""
+    if ta.engine is not None:
+        ta.engine.check_available("aggregate request")
 
 
 class DapHttpApp:
@@ -267,8 +288,11 @@ class DapHttpApp:
         except ShedError as e:
             # 429 for capacity sheds, 503 for availability sheds, both
             # with Retry-After
-            status, ctype, out = _problem(e.status, {"type": "about:blank", "status": e.status, "detail": str(e)})
-            return status, ctype, out, {"Retry-After": str(max(1, math.ceil(e.retry_after_s)))}
+            return _shed(e)
+        except DeviceQuarantinedError as e:
+            # the task's engine refuses dispatches: an availability shed,
+            # back about when its canary probes again
+            return _shed(ShedError("aggregate", "device_quarantined", e.retry_in_s, status=503))
         except DeadlineExceeded as e:
             # the caller's budget died mid-handler: the conclusive status,
             # not a retryable 5xx
@@ -329,6 +353,7 @@ class DapHttpApp:
         # the helper's endpoint: the provisioning peer is the leader
         ta = self.agg.task_aggregator_for(task_id, taskprov_config, headers, peer_role=Role.LEADER)
         self._check_helper_auth(ta, task_id, headers, taskprov_config)
+        _refuse_if_device_down(ta)
         # XOF framing check: the two framings produce disjoint streams, so
         # a mismatch would otherwise reject every report. Absence is
         # tolerated (a non-janus leader).
@@ -350,6 +375,7 @@ class DapHttpApp:
         taskprov_config = self._taskprov_config(task_id, headers)
         ta = self.agg.task_aggregator_for(task_id)
         self._check_helper_auth(ta, task_id, headers, taskprov_config)
+        _refuse_if_device_down(ta)
         req = AggregationJobContinueReq.from_bytes(body)
         resp = ta.handle_aggregate_continue(self.agg.ds, self.agg.clock, job_id, req, body)
         return 200, "application/dap-aggregation-job-resp", resp.to_bytes()

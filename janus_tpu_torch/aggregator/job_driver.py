@@ -8,11 +8,12 @@ The port's own copy of janus_tpu/aggregator/job_driver.py, with the
 datastore outage handling: the acquirers park while the datastore
 supervisor reports down and absorb connection-class failures, and a
 step that loses the datastore steps back by the supervisor's reconnect
-delay. A JobDriver given a stage pipeline (`aggregator/step_pipeline.py`)
-hands it every leased job. It leaves out the fleet claim metrics
-(`record_acquire`), the peer-outage park of `make_claim_acquirer`
-(`aggregator/peer_health.py` is not ported), the `job.step` trace span
-and the serial stepper's drain releaser (the pipeline has its own).
+delay; with a `peer_gate` (aggregator/peer_health.py) they park while
+every helper's circuit is open. A JobDriver given a stage pipeline
+(`aggregator/step_pipeline.py`) hands it every leased job. It leaves out
+the fleet claim metrics (`record_acquire`) and the fleet shard predicate,
+the `job.step` trace span and the serial stepper's drain releaser (the
+pipeline has its own).
 """
 
 from __future__ import annotations
@@ -81,10 +82,21 @@ def datastore_down(ds) -> bool:
     return supervisor is not None and supervisor.state == "down"
 
 
-def make_claim_acquirer(ds, claim_fn):
+def make_claim_acquirer(ds, claim_fn, peer_gate=None):
     """Shared acquirer body: run `claim_fn(limit)` (the datastore claim
-    run_tx) through the outage-tolerant wrapper."""
-    return lambda limit: acquire_tolerating_outage(ds, lambda: claim_fn(limit))
+    run_tx) through the outage-tolerant wrapper.
+
+    `peer_gate` is the peer-outage analog of the supervisor park: a
+    callable that is True while every known helper's circuit is open. A
+    parked pass returns [] without running the claim transaction: a helper
+    down for minutes must not have the driver claim jobs it cannot step."""
+
+    def acquire(limit: int):
+        if peer_gate is not None and peer_gate():
+            return []
+        return acquire_tolerating_outage(ds, lambda: claim_fn(limit))
+
+    return acquire
 
 
 def acquire_tolerating_outage(ds, acquire_tx):

@@ -38,7 +38,11 @@ prestages that failed for memory). The port's failure rule narrows two
 janus_tpu fallbacks: a prestage that fails for anything but memory
 exhaustion fails the step (janus_tpu stages from the host after any
 error), and so does a resident accumulate (aggregation_job_driver.py).
-There is no device-hang branch: the port has no dispatch watchdog.
+A dispatch the watchdog abandoned (DeviceHangError) or a quarantined
+engine refused (DeviceQuarantinedError, a prestage's included) fails its
+stage like any error, and `handle_step_error` maps it to the step-backs
+`device_hang` and `device_quarantined`, as the serial stepper's does; the
+step-back transaction never runs on the device lane.
 """
 
 from __future__ import annotations

@@ -19,7 +19,8 @@ conclusive response (2xx/4xx, DAP problem documents included) is a
 success.
 
 The port's own copy of janus_tpu/core/circuit_breaker.py; it leaves out
-the state gauge, the transition counter and the /statusz section.
+the state gauge and the transition counter, and `status()` (janus_tpu's
+/statusz section body) is registered nowhere.
 """
 
 from __future__ import annotations
@@ -76,6 +77,9 @@ class _PeerCircuit:
         "half_open_successes",
         "opened_at",
         "probe_in_flight",
+        "opens",
+        "total_failures",
+        "total_successes",
     )
 
     def __init__(self, peer: str):
@@ -85,6 +89,9 @@ class _PeerCircuit:
         self.half_open_successes = 0
         self.opened_at = 0.0
         self.probe_in_flight = False
+        self.opens = 0
+        self.total_failures = 0
+        self.total_successes = 0
 
 
 class OutboundCircuitBreakers:
@@ -109,6 +116,7 @@ class OutboundCircuitBreakers:
 
     def _open(self, pc: _PeerCircuit) -> None:
         pc.opened_at = time.monotonic()
+        pc.opens += 1
         self._transition(pc, OPEN)
 
     def check(self, peer: str) -> None:
@@ -140,6 +148,7 @@ class OutboundCircuitBreakers:
             return
         with self._lock:
             pc = self._get(peer)
+            pc.total_successes += 1
             pc.consecutive_failures = 0
             if pc.state == HALF_OPEN:
                 pc.probe_in_flight = False
@@ -152,6 +161,7 @@ class OutboundCircuitBreakers:
             return
         with self._lock:
             pc = self._get(peer)
+            pc.total_failures += 1
             pc.consecutive_failures += 1
             if pc.state == HALF_OPEN:
                 # the probe failed: back to a full cooldown
@@ -164,6 +174,12 @@ class OutboundCircuitBreakers:
         with self._lock:
             return self._get(peer).state
 
+    def peer_states(self) -> dict[str, str]:
+        """Every known peer's state: the peer-health tracker's parking
+        input (aggregator/peer_health.py). Creates no peer entry."""
+        with self._lock:
+            return {p: pc.state for p, pc in self._peers.items()}
+
     def retry_in_s(self, peer: str) -> float:
         """Seconds until the peer's circuit will admit a probe (0 when
         closed or half-open)."""
@@ -172,6 +188,32 @@ class OutboundCircuitBreakers:
             if pc.state != OPEN:
                 return 0.0
             return max(0.0, pc.opened_at + self.cfg.open_cooldown_s - time.monotonic())
+
+    def status(self) -> dict:
+        """The config and every peer's state and counters."""
+        with self._lock:
+            now = time.monotonic()
+            return {
+                "config": {
+                    "failure_threshold": self.cfg.failure_threshold,
+                    "open_cooldown_s": self.cfg.open_cooldown_s,
+                    "close_threshold": self.cfg.close_threshold,
+                    "enabled": self.cfg.enabled,
+                },
+                "peers": {
+                    pc.peer: {
+                        "state": pc.state,
+                        "consecutive_failures": pc.consecutive_failures,
+                        "opens": pc.opens,
+                        "total_failures": pc.total_failures,
+                        "total_successes": pc.total_successes,
+                        "retry_in_s": round(max(0.0, pc.opened_at + self.cfg.open_cooldown_s - now), 3)
+                        if pc.state == OPEN
+                        else 0.0,
+                    }
+                    for pc in self._peers.values()
+                },
+            }
 
 
 # Process-wide default registry, shared by every driver of the process.

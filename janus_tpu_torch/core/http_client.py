@@ -5,8 +5,9 @@ send_request_to_helper); this wraps urllib for the same purpose.
 The port's own copy of janus_tpu/core/http_client.py: per-attempt
 timeouts, a wall-clock budget and a size cap on every response body,
 the propagated deadline header, and each thread's last response headers
-(for Retry-After). It leaves out the `helper.request` and
-`helper.response` failpoints and the traceparent header.
+(for Retry-After), and `fetch_any_status`. It leaves out the
+`helper.request` and `helper.response` failpoints and the traceparent
+header.
 """
 
 from __future__ import annotations
@@ -60,6 +61,27 @@ class HttpClientConfig:
             body_budget_s=self.body_budget_s,
             max_response_bytes=self.max_response_bytes,
         )
+
+
+def fetch_any_status(
+    url: str,
+    method: str = "GET",
+    body: bytes | None = None,
+    headers: dict | None = None,
+    timeout: float = 10.0,
+    max_bytes: int = 64 << 10,
+) -> tuple[int, bytes]:
+    """One request returning (status, body) for any status: urllib raises
+    HTTPError on non-2xx, but a probe of a degraded endpoint needs the
+    status (the peer-health probe counts any answer as a live peer). The
+    body is read up to its cap, `max_bytes`, and cut there: the probe
+    ignores it, and a misbehaving peer must not make it read without end."""
+    req = urllib.request.Request(url, data=body, headers=headers or {}, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(max_bytes)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(max_bytes)
 
 
 class HttpClient:

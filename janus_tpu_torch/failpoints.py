@@ -324,7 +324,7 @@ def _lookup_and_arm(name: str) -> _Failpoint | None:
     return fp
 
 
-def _act(fp: _Failpoint, error_factory=None, timeout_factory=None) -> None:
+def _act(fp: _Failpoint, error_factory=None, timeout_factory=None, oom_factory=None) -> None:
     if fp.action == "delay":
         log.warning("failpoint %s: delaying %.3fs", fp.name, fp.arg)
         time.sleep(fp.arg)
@@ -344,6 +344,8 @@ def _act(fp: _Failpoint, error_factory=None, timeout_factory=None) -> None:
         log.error("failpoint %s: crashing (os._exit %d)", fp.name, CRASH_EXIT_CODE)
         os._exit(CRASH_EXIT_CODE)
     if fp.action == "oom":
+        if oom_factory is not None:
+            raise oom_factory()
         raise RuntimeError(f"RESOURCE_EXHAUSTED: injected failpoint {fp.name}")
     if fp.action == "hang":
         with _lock:
@@ -369,17 +371,18 @@ def _act(fp: _Failpoint, error_factory=None, timeout_factory=None) -> None:
     raise exc
 
 
-def hit(name: str, error_factory=None, timeout_factory=None) -> None:
+def hit(name: str, error_factory=None, timeout_factory=None, oom_factory=None) -> None:
     """The instrumented-site entry point. A no-op (one module-flag
     check) unless failpoints are armed; otherwise evaluates `name`'s
     probability/budget and performs its action. `error_factory` /
     `timeout_factory` let the site raise its own realistic exception
-    types for the error/timeout actions."""
+    types for the error/timeout actions, and `oom_factory` the memory
+    exhaustion its recovery path recognizes for the oom action."""
     if not ENABLED or _suppressed:
         return
     fp = _lookup_and_arm(name)
     if fp is not None:
-        _act(fp, error_factory, timeout_factory)
+        _act(fp, error_factory, timeout_factory, oom_factory)
 
 
 def hit_scoped(base: str, scope: str, error_factory=None, timeout_factory=None) -> None:

@@ -22,7 +22,10 @@ time by cProfile (the profile slows that request; its seconds are kept
 apart, and the other numbers are unaffected). Every process also keeps
 the seconds the interpreter's garbage collector paused inside the first
 request and inside the job step's JobDriver pass (`gc.callbacks`), with
-the generations collected there.
+the generations collected there, and, where the checkout has a dispatch
+watchdog, how many device calls the two phases ran on its worker
+threads and the seconds their hand-offs took (`armed_calls`,
+`armed_handoff_s`; None for a checkout without one).
 
 The pipeline, NEW_ROOT only: one process runs chip_smoke's pipeline
 phase with one SumVec(1000, 16) task, 2,048 reports in 16 jobs of 128
@@ -32,7 +35,7 @@ columns), the pipeline, the serial stepper. It keeps each pass's run
 seconds and job seconds.
 
 It prints one JSON line a process, then a summary: each case's mean,
-least and most seconds per checkout or stepper.
+least, most, quartiles and median seconds per checkout or stepper.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import argparse
 import gc
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -138,6 +142,17 @@ class _GcPauses:
                                   for g in (0, 1, 2)}}
 
 
+def _armed():
+    """(calls, hand-off seconds) of the process's dispatch watchdog so
+    far, or None in a checkout without one."""
+    try:
+        from janus_tpu_torch.aggregator.device_watchdog import WATCHDOG
+    except ImportError:
+        return None
+    st = WATCHDOG.status()
+    return st["armed_calls"], st["armed_handoff_s"]
+
+
 def child_paths(root: str, profile: bool) -> dict:
     torch, cs, dev = _load(root)
     from janus_tpu_torch.aggregator.core import Aggregator
@@ -151,8 +166,12 @@ def child_paths(root: str, profile: bool) -> dict:
             serve = cs.phase_serve(torch, dev, "sumvec", inst, 1024, bad, fast, 256, False, 2)
     finally:
         restore()
+    served = _armed()
     with _GcPauses([(JobDriver, "run_once")]) as gc_drive:
         drive = cs.phase_drive(torch, dev, "sumvec", inst, 1024, bad, fast)
+    armed = {"armed_calls": {"serve": served[0], "drive": _armed()[0] - served[0]},
+             "armed_handoff_s": {"serve": served[1], "drive": _armed()[1] - served[1]}} if served else {
+        "armed_calls": None, "armed_handoff_s": None}
     return {
         "root": root, "case": "paths", "device": torch.cuda.get_device_name(0), "profiled": profile,
         "request_s": serve["request_s"], "second_job_request_s": serve["second_job_request_s"],
@@ -163,6 +182,7 @@ def child_paths(root: str, profile: bool) -> dict:
         "serve_leader_init_s": serve["leader_init_s"], "drive_leader_init_s": drive["leader_init_turns_s"],
         "request_profile": prof,
         "request_gc": gc_serve.inside("handle_aggregate_init"), "step_gc": gc_drive.inside("run_once"),
+        **armed,
     }
 
 
@@ -194,7 +214,9 @@ def _spawn(case: str, root: str, profile: bool = False) -> dict:
 
 
 def _stats(xs) -> dict:
-    return {"mean": sum(xs) / len(xs), "min": min(xs), "max": max(xs), "n": len(xs)}
+    q1, med, q3 = statistics.quantiles(xs, n=4, method="inclusive") if len(xs) > 1 else (xs[0],) * 3
+    return {"mean": sum(xs) / len(xs), "min": min(xs), "q1": q1, "median": med, "q3": q3, "max": max(xs),
+            "n": len(xs)}
 
 
 def main() -> int:

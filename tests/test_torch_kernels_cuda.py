@@ -888,3 +888,43 @@ def test_sparse_resident_merge_through_kernel_4_matches_plain(cuda):
         assert rec["rows"] == 54 and len(rec["share"]) == 1_000_000
         taken[str(dev)] = rec["share"]
     assert taken["cpu"] == taken[str(cuda)]
+
+
+def test_supervised_leader_init_on_the_card_equals_the_unsupervised_one(cuda):
+    """A leader init under an armed deadline runs on the dispatch
+    watchdog's worker thread, on the caller's (side) stream, and equals the
+    unsupervised init bit for bit, prestaged or not, at SumVec(1000, 16)."""
+    import threading
+    import time
+
+    from janus_tpu_torch.aggregator.engine_cache import EngineCache
+    from janus_tpu_torch.convert import step_args_to_numpy
+    from janus_tpu_torch.core.deadline import deadline_scope
+
+    inst = VdafInstance.sum_vec(1000, 16)
+    eng = EngineCache(inst, bytes(range(16)), device=cuda)
+    meas = random_measurements(inst, 96, np.random.default_rng(60))
+    args, _ = make_report_batch(inst, meas, seed=60, device=cuda)
+    cols = step_args_to_numpy(args)[:5]
+    want = eng.leader_init(*cols)
+    seen = []
+    real_step = eng._leader_step
+    side = torch.cuda.Stream(device=cuda)
+
+    def step(*a):
+        seen.append((threading.current_thread().name, torch.cuda.current_stream(cuda) == side))
+        return real_step(*a)
+
+    eng._leader_step = step
+    with torch.cuda.stream(side), deadline_scope(time.monotonic() + 120):
+        pre = eng.prestage_leader(*cols)
+        staged = eng.leader_init(*cols, prestaged=pre)
+        plain = eng.leader_init(*cols)
+    torch.cuda.synchronize()
+    assert len(seen) == 2
+    assert all(name.startswith("device-watchdog-") and on_side for name, on_side in seen)
+    assert eng.prestage_stats["used"] == 1
+    for got in (staged, plain):
+        assert all(np.array_equal(a, b) for a, b in zip(got[0].to_numpy(), want[0].to_numpy()))
+        assert all(np.array_equal(a, b) for a, b in zip(got[2], want[2]))
+        assert np.array_equal(got[1], want[1]) and np.array_equal(got[3], want[3])

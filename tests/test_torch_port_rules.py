@@ -144,15 +144,19 @@ def test_no_cuda_and_no_cpu_request_raises_for_the_shell(monkeypatch):
 
 
 def test_driver_maps_no_device_failure_to_a_fallback():
-    """handle_step_error has no device-hang branch (the port has no host
-    engine to serve a retry); the driver takes resident mode, and the
+    """No device failure moves work to a fallback (the port has no host
+    engine to serve a retry): handle_step_error steps a hung or a refused
+    dispatch back (tests/test_torch_device_watchdog.py) and fails the step
+    on any other device error; the driver takes resident mode, and the
     resident route falls back to the classic accumulate on memory
-    exhaustion only: any other error out of aggregate_pending fails the
-    step."""
+    exhaustion only: any other error out of aggregate_pending, a hang
+    included, fails the step."""
     from types import SimpleNamespace
 
+    from janus_tpu_torch.aggregator.device_watchdog import DeviceHangError
+
     src = inspect.getsource(AggregationJobDriver.handle_step_error)
-    assert "DeviceHang" not in src and "device_hang" not in src
+    assert "host" not in src.lower()
     eph = EphemeralDatastore()
     try:
         res = AggregationJobDriver(
@@ -174,6 +178,9 @@ def test_driver_maps_no_device_failure_to_a_fallback():
         with pytest.raises(RuntimeError, match="illegal memory access"):
             res._device_accumulate_resident(pending_raising(RuntimeError("CUDA error: an illegal memory access")),
                                             md, b"bid")
+        assert res.classic_fallbacks == 0
+        with pytest.raises(DeviceHangError):
+            res._device_accumulate_resident(pending_raising(DeviceHangError("aggregate_pending", 1.0)), md, b"bid")
         assert res.classic_fallbacks == 0
         assert res._device_accumulate_resident(pending_raising(torch.cuda.OutOfMemoryError("out of memory")),
                                                md, b"bid") is False

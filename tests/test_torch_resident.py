@@ -25,9 +25,10 @@ Mirrors tests/test_resident_accumulator.py on the port's engine and driver
 Left out: janus_tpu's two quarantine and host-engine cases
 (`test_quarantine_mid_job_flushes_and_host_path_continues`,
 `test_host_engine_leader_init_accepts_prestaged_kwarg`): the port has no
-quarantine and no host engine. Its two watchdog cases (the flusher's
-fetch bound, the supervised recovery fetch) have no counterpart either:
-the port has no dispatch watchdog. Tolerance: exact equality.
+host engine. Its watchdog cases (the flush's fetch bound, a quarantined
+engine's slots flushed, and kept until the restore when that fetch
+hangs) are in tests/test_torch_device_watchdog.py. Tolerance: exact
+equality.
 """
 
 import dataclasses
@@ -229,14 +230,14 @@ def test_partial_merge_failure_flushes_only_unmerged(monkeypatch):
 
 
 def _failing_fetch(eng, monkeypatch, label):
-    real = eng._dispatch
+    real = eng._fetch
 
-    def flaky(name, fn, *args):
+    def flaky(name, fn):
         if name == label:
             raise RuntimeError("wedged fetch")
-        return real(name, fn, *args)
+        return real(name, fn)
 
-    monkeypatch.setattr(eng, "_dispatch", flaky)
+    monkeypatch.setattr(eng, "_fetch", flaky)
 
 
 def test_eviction_fetch_failure_defers_never_double_counts(monkeypatch):

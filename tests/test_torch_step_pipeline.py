@@ -7,9 +7,9 @@ to the serial stepper's step-back (circuit open, a lease budget dying
 between stages or already dead at the read), the shutdown drain's lease
 release, an unhandled stage error leaving the lease to expire, the
 device lane serializing dispatches under concurrent jobs, abandonment
-past the attempts ceiling. Left out: janus_tpu's
-`test_device_hang_in_lane_steps_back`, since the port has no dispatch
-watchdog and so no hang branch.
+past the attempts ceiling, and a device hang on the lane stepping back
+`device_hang` (with the port's refusal by a quarantined engine, raised
+by the read stage's prestage, stepping back `device_quarantined`).
 
 Added: prestaged columns used on a single lane and declined on a
 parallel one (where a merged round would discard them); a prestage that
@@ -198,6 +198,29 @@ def test_deadline_expiry_between_stages_steps_back(pair):
     drv.stage_init = slow_stage
     _submit(drv, acquired)
     assert reasons == ["deadline_expired"]
+    assert _job_rows(pair) == [("in_progress", 1, 0)]
+
+
+@pytest.mark.parametrize("fault", ["hang", "refusal"])
+def test_device_hang_in_lane_steps_back(pair, fault):
+    """A hung dispatch on the device lane and a quarantined engine's
+    refusal are step-backs with the attempt refunded, never failed
+    attempts."""
+    from janus_tpu_torch.aggregator.device_watchdog import DeviceHangError
+
+    drv, acquired = _one_leased(pair)
+    reasons = _steps_back(drv)
+    eng = t_ec.engine_cache(pair.task.vdaf, pair.task.vdaf_verify_key, "cpu")
+    if fault == "hang":
+        drv.device_init = lambda st: (_ for _ in ()).throw(DeviceHangError("leader_init", 0.1))
+    else:
+        eng.QUARANTINE_CANARY_DELAY_SECS = 3600.0
+        eng._quarantine_on_hang("test")
+    try:
+        _submit(drv, acquired)
+    finally:
+        eng.stop_canary()
+    assert reasons == ["device_hang" if fault == "hang" else "device_quarantined"]
     assert _job_rows(pair) == [("in_progress", 1, 0)]
 
 
