@@ -364,6 +364,27 @@ Phases, each of which must pass:
                    and the collection equal the ground truth. The line
                    gives the claims skipped, the parked seconds, the probes,
                    the steps' seconds and the launches.
+  19. mesh         multi-device serving in one process: a mesh of two
+                   distinct cards where the machine has two, else
+                   [cuda:0, cuda:0] (two shards on one card, the line says
+                   `distinct_devices: false`; its times are not a two-GPU
+                   figure). mesh-sumvec: SumVec(1000, 16), 1,024 reports with
+                   3 corrupted, through a dp = 2 EngineCache: leader init,
+                   helper init, both parties' pending sums merged into
+                   resident slots (the take must equal numpy's sum of the
+                   accepted reports), resident_take and both masked
+                   aggregates, every value held against a single-device
+                   engine that serves the same inputs just before
+                   (max_abs_err 0, the same accepted count). Counts at 0
+                   just before the mesh run, read just after: kernels 1 and
+                   2 must launch on each shard (launches counted by shard
+                   on the lane thread). mesh-sumvec100k, run just after
+                   phase 6a on its batch (SumVec(100000, 16), 16 reports,
+                   3 corrupted): two devices must choose dp = 1, sp = 2,
+                   and sharded_two_party_step must equal that phase's
+                   two_party_step. The line gives both engines' seconds in
+                   turns (single, mesh, mesh, single), the step's, the lane's status
+                   and the two parts' seconds;
 
 Output: JSON lines (build, the
 sponge chains, one serve line per XOF mode with the seconds of each
@@ -376,7 +397,8 @@ store, the helper's handle_aggregate_share, poll and unshard, and GC,
 with GC's seconds by side and by delete; the device bytes before and the
 peak during the collection step), the poplar1 and drive_poplar1 lines,
 the taskprov_histogram and outage_drill lines, the two pipeline_resident
-lines, the device_hang_drill and peer_outage_drill lines, the kernels,
+lines, the device_hang_drill and peer_outage_drill lines, the mesh line,
+the kernels,
 one line per path, the run's wall time), then the card's
 name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.
@@ -516,9 +538,14 @@ def kernel_case(torch, run, plain, reps: int, n_ops: float, nbytes: float, info:
 
 
 def max_abs_err(torch, got, want) -> int:
-    """Largest |got - want| over unsigned 64-bit words (0 when identical)."""
+    """Largest |got - want| over unsigned 64-bit words (0 when identical);
+    raises where the values' counts or shapes differ."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} values against {len(want)}")
     worst = 0
     for g, w in zip(got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"shapes differ: {tuple(g.shape)} against {tuple(w.shape)}")
         if torch.equal(g, w):
             continue
         diff = g != w
@@ -1148,7 +1175,7 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
              small_batch: int, small_rounds: int = 24, plan=None, identity_batch: int = 0,
              small_shard_on_card: bool = False):
     """Drive one path through the entry points; returns (its JSON record,
-    (the step function, its arguments)). `kernels` must launch during the
+    (the step function, its arguments, the first step's outputs)). `kernels` must launch during the
     step, every other kernel must not. The small batch held against the
     CPU runs at `small_rounds` Keccak rounds on both sides (none when
     small_batch is 0); with `small_shard_on_card` it is sharded once, on
@@ -1300,7 +1327,7 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
     if plan is not None:
         rec["stream_plan"] = {"tile_elems": plan[0], "gcalls": plan[1], "n_steps": plan[2]}
         rec["routes_agree"] = identity
-    return rec, (step, args)
+    return rec, (step, args, (agg0, agg1, count))
 
 
 def check_routes_agree(torch, p3, args, k: int, draft: bool):
@@ -3990,6 +4017,159 @@ def phase_peer_outage_drill(torch, dev, inst, job_size: int = 256):
         proxy.stop()
 
 
+def _host_words(torch, v) -> tuple:
+    """A host value (u64 lanes, limbs or masks as arrays, tuples of them,
+    or a list of field elements as Python ints) as a tuple of int64
+    tensors of its 64-bit words, for max_abs_err."""
+    import numpy as np
+
+    if isinstance(v, (tuple, list)) and v and not isinstance(v[0], int):
+        return tuple(w for x in v for w in _host_words(torch, x))
+    if isinstance(v, list):
+        lo = np.array([x & (2**64 - 1) for x in v], dtype=np.uint64)
+        hi = np.array([x >> 64 for x in v], dtype=np.uint64)
+        return tuple(torch.from_numpy(a.view(np.int64)) for a in (lo, hi))
+    return (torch.from_numpy(np.ascontiguousarray(np.asarray(v).astype(np.uint64)).view(np.int64)),)
+
+
+def phase_mesh(torch, dev, inst, batch: int, bad_rows):
+    """Multi-device serving in one process, the engine (see the module
+    docstring, phase 19): mesh-sumvec."""
+    import numpy as np
+
+    from janus_tpu_torch.aggregator import engine_cache as ec
+    from janus_tpu_torch.convert import step_args_to_numpy
+    from janus_tpu_torch.messages import Duration, Interval, Time
+    from janus_tpu_torch.ops import cuda_build
+    from janus_tpu_torch.vdaf.registry import prio3_batched
+    from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
+
+    t_phase = time.perf_counter()
+    devices, distinct = _mesh_devices(torch, dev)
+    counters = kernel_counters()
+    fast = ("keccak_single_block", "expand_f128")
+    p3 = prio3_batched(inst, devices[0])
+    meas = np.asarray(random_measurements(inst, batch, np.random.default_rng(SEED + 19)))
+    t0 = time.perf_counter()
+    args, _ = make_report_batch(inst, meas, seed=SEED + 19, device=devices[0])
+    args = list(args)
+    args[3] = _bump_rows(torch, p3, args[3], bad_rows)
+    nonce, parts, lmeas, proof, blind0, hseed, blind1 = step_args_to_numpy(args)
+    args = None
+    _sync(torch, dev)
+    shard_s = time.perf_counter() - t0
+    ok = np.ones(batch, dtype=bool)
+    k = 2
+    iv = Interval(Time(0), Duration(3600))
+    single = ec.EngineCache(inst, VERIFY_KEY, device=devices[0])
+    meshed = ec.EngineCache(inst, VERIFY_KEY, devices=devices)
+    if (meshed.dp, meshed.sp) != (2, 1) or meshed.mesh is None or meshed.mesh.distinct != distinct:
+        raise AssertionError(f"mesh-sumvec: geometry {meshed.mesh_status()}")
+
+    def serve(eng):
+        """Both inits, both parties' pending sums merged into one slot a
+        bucket (the slot then holds the plaintext sum), the take and both
+        masked aggregates: (seconds, host values)."""
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out0, seed0, ver0, part0 = eng.leader_init(nonce, parts, lmeas, proof, blind0)
+        out1, mask, prep = eng.helper_init(nonce, parts, hseed, blind1, ver0, part0, ok)
+        bucket_idx = np.where(mask, np.arange(batch) % k, -1).astype(np.int32)
+        for out in (out0, out1):
+            eng.resident_merge([((b"mesh", b"", bytes([j])), j, 0, iv) for j in range(k)],
+                               eng.aggregate_pending(out, bucket_idx, k))
+        taken = sorted((r["key"], r["share"]) for r in eng.resident_take())
+        aggs = (eng.aggregate(out0, mask), eng.aggregate(out1, mask))
+        _sync(torch, dev)
+        s = time.perf_counter() - t0
+        return s, {"out0": out0.to_numpy(), "seed0": seed0, "ver0": ver0, "part0": part0, "out1": out1.to_numpy(),
+                   "mask": mask, "prep": prep, "agg": [list(a) for a in aggs], "resident": [t[1] for t in taken]}
+
+    # turns: single, mesh, mesh, single; the first mesh serve is the main
+    # path, counts at 0 just before it, read just after
+    single_s, want = serve(single)
+    _zeroed(counters)
+    cuda_build.reset_shard_launches()
+    mesh_s, got = serve(meshed)
+    launches = _launches(counters)
+    by_shard = cuda_build.shard_launches()
+    mesh_s2, got2 = serve(meshed)
+    single_s2, want2 = serve(single)
+    _check_launches(torch, dev, "mesh-sumvec", launches, fast)
+    if _on_card(torch, dev):
+        for kernel in fast:
+            shards = by_shard.get(kernel, {})
+            if sorted(shards) != [0, 1] or min(shards.values()) == 0:
+                raise AssertionError(f"mesh-sumvec: {kernel} did not launch on every shard ({by_shard})")
+    errs = {key: max(max_abs_err(torch, _host_words(torch, other[key]), _host_words(torch, want[key]))
+                     for other in (got, got2, want2)) for key in want}
+    valid = np.ones(batch, dtype=bool)
+    valid[list(bad_rows)] = False
+    accepted = (int(got["mask"].sum()), int(want["mask"].sum()))
+    if accepted != (batch - len(bad_rows),) * 2 or any(errs.values()):
+        raise AssertionError(f"mesh-sumvec: accepted {accepted}, errors {errs}")
+    flat = meas.reshape(batch, -1).astype(object)
+    truth = [[int(x) % p3.tf.MODULUS for x in flat[valid & (np.arange(batch) % k == j)].sum(axis=0)]
+             for j in range(k)]
+    if got["resident"] != truth:
+        raise AssertionError("mesh-sumvec: the resident take is not the accepted reports' sum")
+    return {"path": "mesh-sumvec", "vdaf": inst.to_dict(), "devices": [str(d) for d in devices],
+            "distinct_devices": distinct, "reports": batch, "bad_rows": list(bad_rows), "dp": meshed.dp,
+            "sp": meshed.sp, "accepted": batch - len(bad_rows), "max_abs_err": 0, "max_abs_err_by_value": errs,
+            "shard_s": shard_s, "launches": launches, "launches_by_shard": by_shard,
+            "serve_s": {"single": [single_s, single_s2], "mesh": [mesh_s, mesh_s2]},
+            "turn_order": ["single", "mesh", "mesh", "single"],
+            "lane": ec._MESH_QUEUE.status(), "phase_s": time.perf_counter() - t_phase}
+
+
+def _mesh_devices(torch, dev):
+    """Two distinct cards where the machine has two, else the one card
+    twice (or the CPU twice in a rehearsal); and whether they differ."""
+    dev = torch.device(dev)
+    if not _on_card(torch, dev):
+        return [dev, dev], False
+    if torch.cuda.device_count() >= 2:
+        return [torch.device("cuda", i) for i in range(2)], True
+    return [torch.device("cuda", 0)] * 2, False
+
+
+def phase_mesh_step(torch, dev, big, args, want, bad_count: int):
+    """mesh-sumvec100k (see the module docstring, phase 19): the sharded
+    two-party step on the batch the single-device path just stepped
+    (`args`, its outputs `want`), at the geometry two devices choose for
+    the engine's vector-axis threshold."""
+    from janus_tpu_torch.aggregator import engine_cache as ec
+    from janus_tpu_torch.ops import cuda_build
+    from janus_tpu_torch.parallel import api
+    from janus_tpu_torch.vdaf.registry import prio3_batched
+
+    t_phase = time.perf_counter()
+    devices, distinct = _mesh_devices(torch, dev)
+    counters = kernel_counters()
+    circ = prio3_batched(big, devices[0]).circ
+    geometry = api.choose_mesh_geometry(len(devices), circ.input_len, circ.output_len, ec.EngineCache.SP_MIN_INPUT_LEN,
+                                        ec.MIN_BUCKET)
+    if geometry != (1, 2):
+        raise AssertionError(f"mesh-sumvec100k: geometry {geometry}, want (1, 2)")
+    mesh = api.make_mesh(*geometry, devices)
+    _zeroed(counters)
+    cuda_build.reset_shard_launches()
+    t0 = time.perf_counter()
+    agg0, agg1, count = api.sharded_two_party_step(big, VERIFY_KEY, mesh)(*args)
+    _sync(torch, dev)
+    step_s = time.perf_counter() - t0
+    launches = _launches(counters)
+    _check_launches(torch, dev, "mesh-sumvec100k", launches, ("keccak_single_block", "expand_f128"))
+    err = max(max_abs_err(torch, tuple(a), tuple(b)) for a, b in ((agg0, want[0]), (agg1, want[1])))
+    batch = args[0].shape[0]
+    if err or int(count) != int(want[2]) or int(count) != batch - bad_count:
+        raise AssertionError(f"mesh-sumvec100k: max_abs_err {err}, counts {int(count)} / {int(want[2])}")
+    return {"path": "mesh-sumvec100k", "vdaf": big.to_dict(), "devices": [str(d) for d in devices],
+            "distinct_devices": distinct, "reports": batch, "dp": geometry[0], "sp": geometry[1],
+            "accepted": int(count), "max_abs_err": err, "step_s": step_s, "launches": launches,
+            "launches_by_shard": cuda_build.shard_launches(), "phase_s": time.perf_counter() - t_phase}
+
+
 def profile_step(torch, step, args, step_s: float):
     """Device time by kernel over one step (torch.profiler), the share of
     the unprofiled step time `step_s` that the card was busy, and the
@@ -4100,7 +4280,7 @@ def main() -> int:
         ("fixedpoint", VdafInstance.fixed_point_vec(1000, 16), 256, (5, 100, 200), fast, 3, 256, 4, 24, None, 0,
          False),
     )
-    out = None  # the last phase's arguments leave the card before the next
+    out = mesh_big = None  # the last phase's arguments leave the card before the next
     for name, inst, batch, bad, kernels_of_path, reps, chunk, small, small_rounds, plan, ident, on_card in runs:
         out = phase(
             name, run_path, torch, dev, name, inst, batch, bad, kernels_of_path, reps, chunk, small, small_rounds,
@@ -4108,6 +4288,12 @@ def main() -> int:
         ) if not failed else None
         if out is not None:
             paths[name] = out[0]
+            if name == "sumvec100k":
+                # mesh-sumvec100k (phase 19) on the batch just stepped: its
+                # single-device outputs are the reference
+                _, args, want = out[1]
+                mesh_big = phase("mesh-sumvec100k", phase_mesh_step, torch, dev, inst, args, want, len(bad))
+                args = want = None
         out = None
     # block-sparse SumVec at the repo's sparse north star (bench.py's config)
     sparse_inst = VdafInstance.sparse_sumvec(16, 1_000_000, 64, 16)
@@ -4193,6 +4379,18 @@ def main() -> int:
         if out is not None:
             serves[out["path"]] = out
             emit({key: out})
+
+    # multi-device serving in one process (mesh-sumvec100k ran after
+    # sumvec100k, on its batch; the engines serve in turns single, mesh,
+    # mesh, single)
+    out = phase("mesh", phase_mesh, torch, dev, VdafInstance.sum_vec(1000, 16), 1024, (5, 300, 1000)) \
+        if not failed else None
+    if out is not None and mesh_big is not None:
+        serves[out["path"]] = out
+        serves[mesh_big["path"]] = mesh_big
+        emit({"mesh": {"devices": out["devices"], "distinct_devices": out["distinct_devices"],
+                       "lane": out["lane"], "phase_s": out["phase_s"] + mesh_big["phase_s"],
+                       "paths": [out, mesh_big]}})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -255,6 +255,7 @@ class AggregationJobDriver:
         stopper=None,
         device=None,
         peer_health=None,
+        devices=None,
     ):
         self.ds = ds
         self.http = http
@@ -262,8 +263,11 @@ class AggregationJobDriver:
         # the peer-outage parking tracker (peer_health.PeerHealthTracker);
         # None: the acquirer never parks on a peer outage
         self.peer_health = peer_health
-        # CUDA unless the caller asks for the CPU; raises without CUDA
-        self.device = resolve_device(device)
+        # CUDA unless the caller asks for the CPU; raises without CUDA. The
+        # engines serve on `devices` where the caller names several (a
+        # mesh), else on the one device
+        self.devices = tuple(map(resolve_device, devices or (device,)))
+        self.device = self.devices[0]
         self.breakers = (
             breakers if breakers is not None else default_breakers(self.cfg.circuit_breaker)
         )
@@ -527,7 +531,7 @@ class AggregationJobDriver:
         """Host stage: columnar staging of stored leader shares into
         device-ready arrays."""
         wire = Prio3Wire(circuit_for(task.vdaf))
-        engine = engine_cache(task.vdaf, task.vdaf_verify_key, self.device)
+        engine = engine_cache(task.vdaf, task.vdaf_verify_key, devices=self.devices)
         meas, proof, nonce_lanes, blind_lanes, public_parts, ok, failed, block_idx = self._stage_pending(
             task, wire, engine, pending, reports
         )

@@ -235,7 +235,7 @@ class Config:
 class TaskAggregator:
     """Per-task protocol ops (reference aggregator.rs:797)."""
 
-    def __init__(self, task: Task, cfg: Config, device=None, global_hpke_keypairs=None):
+    def __init__(self, task: Task, cfg: Config, device=None, global_hpke_keypairs=None, devices=None):
         self.task = task
         self.cfg = cfg
         self.global_hpke_keypairs = global_hpke_keypairs
@@ -248,7 +248,8 @@ class TaskAggregator:
         else:
             self.circ = circuit_for(task.vdaf)
             self.wire = Prio3Wire(self.circ)
-            self.engine = engine_cache(task.vdaf, task.vdaf_verify_key, device)
+            # several devices: the engine serves on a mesh
+            self.engine = engine_cache(task.vdaf, task.vdaf_verify_key, device, devices=devices)
             self.poplar = None
         self.stage_seconds: dict[str, float] = {}
 
@@ -1230,12 +1231,16 @@ class Aggregator:
     the helper's aggregate-init and aggregate-share, the leader's uploads
     and collection jobs."""
 
-    def __init__(self, ds: Datastore, clock: Clock | None = None, cfg: Config | None = None, device=None):
+    def __init__(self, ds: Datastore, clock: Clock | None = None, cfg: Config | None = None, device=None,
+                 devices=None):
         self.ds = ds
         self.clock = clock or RealClock()
         self.cfg = cfg or Config()
-        # CUDA unless the caller asks for the CPU; raises without CUDA
-        self.device = resolve_device(device)
+        # CUDA unless the caller asks for the CPU; raises without CUDA.
+        # The engines serve on `devices` where the caller names several (a
+        # mesh), else on the one device
+        self.devices = tuple(map(resolve_device, devices or (device,)))
+        self.device = self.devices[0]
         self._task_aggs: dict[bytes, TaskAggregator] = {}
         self._task_aggs_lock = threading.Lock()
         self.global_hpke_keypairs = GlobalHpkeKeypairCache(ds)
@@ -1296,7 +1301,8 @@ class Aggregator:
                 if task is None:
                     raise errors.UnrecognizedTask("unknown task", task_id)
             # first insert wins: every caller gets the same object
-            candidate = TaskAggregator(task, self.cfg, device=self.device, global_hpke_keypairs=self.global_hpke_keypairs)
+            candidate = TaskAggregator(task, self.cfg, device=self.device, global_hpke_keypairs=self.global_hpke_keypairs,
+                                       devices=self.devices)
             with self._task_aggs_lock:
                 ta = self._task_aggs.setdefault(task_id.data, candidate)
         return ta

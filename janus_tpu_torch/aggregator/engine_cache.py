@@ -56,6 +56,25 @@ serving code reaches the card only through an `EngineCache`:
   (a sparse job's rows through kernel 4 into the dense logical slot),
   evicting LRU slots past RESIDENT_MAX_BYTES through the caller's flush.
   The driver owns the flush policy (aggregation_job_driver.py).
+- Several devices, one process: an engine built over more than one device
+  (`devices=`; with none named it serves on the one device, as a mesh is
+  not yet measured on distinct cards) serves on a dp x sp mesh (parallel/api.py) of the geometry `choose_mesh_geometry`
+  picks, as janus_tpu's does. Every dispatch (both inits, the coalesced
+  rounds, the aggregates, the pending sums, the resident adds) splits its
+  padded bucket's rows over dp; each row block runs as a single-device
+  step on its row's first device; sp splits a long vector's measurement
+  columns (gathered for the query) and its out-share columns, and a
+  resident slot then lives as column shards on the sp devices until a take
+  or flush gathers it (`ColumnShards`). Out shares stay on the devices as
+  `MeshRows`. Partial sums reduce onto the mesh's first device mod p.
+  Every mesh step runs on one process-wide lane thread, `mesh-dispatch`
+  (`MeshDispatchQueue`, `_MESH_QUEUE`), in FIFO order, as janus_tpu's
+  enqueues do. The port runs eagerly, so the host builds every launch of
+  a step on the lane: the mesh engines of a process take turns for their
+  whole host-side step, and only the device work after the last launch
+  overlaps the next step. A shard that fails raises:
+  there is no single-device or CPU retry. Block-sparse engines stay on one
+  device (`mesh_fallback_reason`).
 
 One engine may serve several threads at once: in one process the
 helper's handler threads and the leader's job-driver workers share it
@@ -74,8 +93,10 @@ kernels' plain versions run. Values equal janus_tpu's EngineCache on
 the same inputs. janus_tpu's JANUS_COALESCE, JANUS_XTASK_COALESCE and
 JANUS_RESIDENT_MAX_BYTES environment knobs are not ported: coalescing
 and cross-task coalescing are always on, and the resident byte cap is
-the class constant RESIDENT_MAX_BYTES. Not ported: the mesh and the
-compile caches (the port runs eagerly and compiles nothing). janus_tpu's
+the class constant RESIDENT_MAX_BYTES; JANUS_MESH_DP and JANUS_MESH_SP
+neither: the geometry is the one `choose_mesh_geometry` picks for the
+devices given. Not ported: the compile caches (the port runs eagerly and
+compiles nothing). janus_tpu's
 quarantine serves the interim work from its host engine, which the port
 does not have: a quarantined engine refuses, the job drivers step back
 (`device_quarantined`) and the helper sheds 503 until the canary restores
@@ -88,6 +109,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import queue
 import threading
 import time
 from collections import OrderedDict, deque
@@ -100,8 +122,18 @@ from ..convert import from_numpy_u64, to_numpy_u64
 from ..core.deadline import current_deadline
 from ..device import resolve_device
 from ..fields.tfield import fzeros
+from ..ops.cuda_build import shard_scope
+from ..parallel.api import (
+    ColumnShards,
+    choose_mesh_geometry,
+    device_scope,
+    make_mesh,
+    reduce_columns,
+    stage_shards,
+)
 from ..vdaf.circuits import SparseSumVec
-from ..vdaf.feasibility import device_memory_budget, feasible_bucket
+from ..vdaf.engine import STREAM_MIN_INPUT_LEN
+from ..vdaf.feasibility import feasible_bucket, mesh_memory_budget
 from ..vdaf.registry import VdafInstance, prio3_batched
 from . import device_watchdog
 from .device_watchdog import DeviceQuarantinedError
@@ -233,6 +265,10 @@ class DeviceRows:
         self.offset = offset
         self.engine = engine
 
+    def view(self, offset: int, n: int) -> "DeviceRows":
+        """Rows [offset, offset + n) of this value."""
+        return DeviceRows(self.value, n, offset=self.offset + offset, engine=self.engine)
+
     def to_numpy(self):
         def fetch():
             return tuple(to_numpy_u64(x[self.offset : self.offset + self.n]) for x in self.value)
@@ -258,19 +294,122 @@ class DeviceRowsChunks:
         return tuple(np.concatenate([p[i] for p in parts]) for i in range(len(parts[0])))
 
 
-def _device_scope(device: torch.device):
-    """The engine's device as the thread's current one for the block: a
-    coalesced round runs on whichever thread holds the dispatcher role."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
+class MeshRows:
+    """Out shares of a mesh dispatch, living on the mesh, padded to the
+    bucket: `blocks[i]` holds dp row i's b/dp rows as `ColumnShards` over
+    the row's sp devices (one block when sp = 1). Rows [offset, offset +
+    n) are this value's; every other row (padding, a merged round's
+    neighbours) is masked out wherever the value is read."""
+
+    __slots__ = ("blocks", "n", "offset", "engine")
+
+    def __init__(self, blocks, n: int, offset: int = 0, engine=None):
+        self.blocks = blocks
+        self.n = n
+        self.offset = offset
+        self.engine = engine
+
+    @property
+    def bucket(self) -> int:
+        return sum(blk.blocks[0][0].shape[0] for blk in self.blocks)
+
+    def view(self, offset: int, n: int) -> "MeshRows":
+        return MeshRows(self.blocks, n, offset=self.offset + offset, engine=self.engine)
+
+    def full_lanes(self, lanes, fill):
+        """A per-row host array of this value's n rows, widened to the
+        whole bucket with `fill` on every row not its own."""
+        lanes = np.asarray(lanes)
+        out = np.full(self.bucket, fill, dtype=lanes.dtype)
+        out[self.offset : self.offset + self.n] = lanes
+        return out
+
+    def to_numpy(self):
+        def fetch():
+            host = [blk.to_host() for blk in self.blocks]
+            return tuple(
+                to_numpy_u64(torch.cat([h[k] for h in host])[self.offset : self.offset + self.n])
+                for k in range(len(host[0]))
+            )
+
+        return fetch() if self.engine is None else self.engine._fetch("fetch_rows", fetch)
 
 
-def _stream_scope(stream):
-    """`stream` as the thread's current one for the block (None: as is)."""
-    if stream is not None:
-        return torch.cuda.stream(stream)
-    return contextlib.nullcontext()
+def _current_streams(devices) -> list:
+    """The calling thread's current stream on each CUDA device."""
+    return [torch.cuda.current_stream(d) for d in dict.fromkeys(devices) if d.type == "cuda"]
+
+
+@contextlib.contextmanager
+def _streams_scope(streams):
+    """Each stream as the thread's current one on its device for the block
+    (streams belong to a thread: a worker or the lane takes the caller's)."""
+    with contextlib.ExitStack() as stack:
+        for stream in streams:
+            stack.enter_context(torch.cuda.stream(stream))
+        yield
+
+
+def _helper_step(p3, vkey, nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask):
+    """The helper's init, combine and decide over one staged batch:
+    (out share, accept mask, prep message lanes)."""
+    out1, seed1, ver1, part1 = p3.prepare_init_helper(vkey, nonce_lanes, public_parts, helper_seeds, blinds)
+    mask, prep_msg = p3.prep_shares_to_prep(ver0, ver1, part0, part1)
+    mask = p3.prepare_finish(seed1, prep_msg, mask)
+    mask = mask & ok_mask
+    if prep_msg is None:
+        prep_msg = torch.zeros((nonce_lanes.shape[0], 2), dtype=torch.int64, device=nonce_lanes.device)
+    return out1, mask, prep_msg
+
+
+def _tensors(x):
+    """Every tensor of a staged structure (tuples, lists, ColumnShards)."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, ColumnShards):
+        yield from _tensors(x.blocks)
+    elif isinstance(x, (tuple, list)):
+        for y in x:
+            yield from _tensors(y)
+
+
+def _take_prestaged(prestaged):
+    """A prestage's columns, ready to read on the calling thread's current
+    streams: the columns were made on the prestage's side streams, so each
+    device's current stream waits on its copies' event, and the allocator
+    must not reuse them before that stream has read them."""
+    staged, ready = prestaged.take()
+    for dev, ev in ready:
+        torch.cuda.current_stream(dev).wait_event(ev)
+    if ready:
+        for t in _tensors(staged):
+            t.record_stream(torch.cuda.current_stream(t.device))
+    return staged
+
+
+def _cat_host(parts, n: int):
+    """Per-shard host rows (None, limb tuples of arrays or arrays)
+    concatenated, first n rows."""
+    if parts[0] is None:
+        return None
+    if isinstance(parts[0], tuple):
+        return tuple(np.concatenate([p[k] for p in parts])[:n] for k in range(len(parts[0])))
+    return np.concatenate(parts)[:n]
+
+
+def _in_streams(streams, fn):
+    with _streams_scope(streams):
+        return fn()
+
+
+def _value_add(tf, a, b):
+    """a + b mod p for a limb tuple or column-sharded value."""
+    return a.add(tf, b) if isinstance(a, ColumnShards) else tf.add(a, b)
+
+
+def _value_ints(tf, v) -> list:
+    """A field value's elements as Python ints (fetched from the device)."""
+    return [int(x) for x in (v.to_ints(tf) if isinstance(v, ColumnShards) else tf.to_ints(v))]
 
 
 def _injected_oom():
@@ -293,17 +432,19 @@ class PrestagedInit:
     the references, so a fallback (a merged round, a cap moved by the OOM
     ladder, the pipelined or chunked route) frees the buffers at once:
     they were made on the side stream, whose later work is ordered after
-    the copies."""
+    the copies. A mesh engine's columns (`meshed`) are staged per dp row
+    on the mesh, with one side stream and event per device."""
 
-    __slots__ = ("b", "_staged", "_ready")
+    __slots__ = ("b", "_staged", "_ready", "meshed")
 
-    def __init__(self, b: int, staged, ready):
+    def __init__(self, b: int, staged, ready, meshed: bool = False):
         self.b = b
         self._staged = staged
-        self._ready = ready  # torch.cuda.Event, or None on the CPU
+        self._ready = ready  # [(device, torch.cuda.Event)], empty on the CPU
+        self.meshed = meshed
 
-    def usable(self, b: int) -> bool:
-        return self._staged is not None and self.b == b
+    def usable(self, b: int, meshed: bool = False) -> bool:
+        return self._staged is not None and self.b == b and self.meshed == meshed
 
     def take(self):
         staged, ready = self._staged, self._ready
@@ -346,7 +487,8 @@ class ResidentSlot:
 
 class PendingDeltas:
     """One job step's per-bucket masked sums, still on the card ([k,
-    output_len] limb tuple): made by aggregate_pending on the device lane,
+    output_len] limb tuple, or its ColumnShards on a mesh with sp > 1):
+    made by aggregate_pending on the device lane,
     merged into resident slots only after the job's write transaction
     committed. A failed commit drops the object: no rollback, and the
     re-step cannot merge twice."""
@@ -360,6 +502,8 @@ class PendingDeltas:
 
     def row(self, j: int):
         """Row j as a device field value (a view, nothing fetched)."""
+        if isinstance(self.value, ColumnShards):
+            return self.value.row(j)
         return tuple(x[j] for x in self.value)
 
 
@@ -547,13 +691,116 @@ def _split_rows(value, offsets):
     return [value[s:e] for s, e in zip(offsets, offsets[1:])]
 
 
+class _MeshDispatch:
+    """One queued mesh enqueue: the function, its args, and the rendezvous
+    the submitting thread blocks on."""
+
+    __slots__ = ("fn", "args", "t_submit", "done", "result", "error")
+
+    def __init__(self, fn, args):
+        self.fn = fn
+        self.args = args
+        self.t_submit = time.monotonic()
+        self.done = threading.Event()
+        self.result = None
+        self.error = None
+
+
+class MeshDispatchQueue:
+    """The single-controller dispatch lane of every mesh engine in the
+    process.
+
+    One thread, `mesh-dispatch`, runs every mesh step, in FIFO order, as
+    janus_tpu's lane runs its enqueues (there, two threads interleaving
+    the per-device enqueues of two multi-device programs can deadlock).
+    Unlike a lock it serves the waiters in order and counts its depth and
+    wait. In the eager port a step's host side is its enqueue, so the
+    lane serializes the whole host-side step of every mesh engine in the
+    process; only the device work after a step's last launch overlaps
+    the next one. `submit` blocks its caller until the
+    enqueue ran and re-raises the enqueue's error, the same object, in the
+    caller (the memory ladder marks and type-checks it); the lane lives
+    on."""
+
+    def __init__(self):
+        self._q: "queue.SimpleQueue[_MeshDispatch]" = queue.SimpleQueue()
+        self._lock = threading.Lock()
+        self._thread: threading.Thread | None = None
+        self._depth = 0
+        self._stats = self._zero_stats()
+
+    @staticmethod
+    def _zero_stats() -> dict:
+        return {"submitted": 0, "completed": 0, "errors": 0, "max_depth": 0, "wait_s": 0.0, "max_wait_s": 0.0,
+                "busy_s": 0.0}
+
+    def submit(self, fn, *args):
+        """Run fn(*args) on the lane; block until it returned; re-raise its
+        exception here."""
+        self._ensure_thread()
+        item = _MeshDispatch(fn, args)
+        with self._lock:
+            self._depth += 1
+            self._stats["submitted"] += 1
+            self._stats["max_depth"] = max(self._stats["max_depth"], self._depth)
+        self._q.put(item)
+        item.done.wait()
+        if item.error is not None:
+            raise item.error
+        return item.result
+
+    def _ensure_thread(self) -> None:
+        with self._lock:
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._run, name="mesh-dispatch", daemon=True)
+                self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            wait = time.monotonic() - item.t_submit
+            with self._lock:
+                self._depth -= 1
+                self._stats["wait_s"] += wait
+                self._stats["max_wait_s"] = max(self._stats["max_wait_s"], wait)
+            t0 = time.monotonic()
+            try:
+                item.result = item.fn(*item.args)
+            except BaseException as e:  # noqa: BLE001 - belongs to the caller
+                item.error = e
+            finally:
+                with self._lock:
+                    self._stats["busy_s"] += time.monotonic() - t0
+                    self._stats["completed"] += 1
+                    if item.error is not None:
+                        self._stats["errors"] += 1
+                item.done.set()
+
+    def status(self) -> dict:
+        with self._lock:
+            t = self._thread
+            return {"depth": self._depth, "lane_alive": bool(t is not None and t.is_alive()), **dict(self._stats)}
+
+    def reset_for_tests(self) -> None:
+        """Zero the counters; the lane thread, if any, runs on (it keeps no
+        other state)."""
+        with self._lock:
+            self._stats = self._zero_stats()
+
+
+# the process-wide lane: one queue for every engine's mesh enqueues (the
+# interleaved-enqueue hazard is the process's, not an engine's)
+_MESH_QUEUE = MeshDispatchQueue()
+
 _xtask_lock = threading.Lock()
 _xtask_coalescers: dict[tuple, "_Coalescer"] = {}
 
 
-def _shared_coalescer(inst, device, side: str, max_rows: int) -> "_Coalescer":
-    """The coalescer every engine of (inst, device) shares on one side."""
-    key = (inst, device, side)
+def _shared_coalescer(inst, placement, side: str, max_rows: int) -> "_Coalescer":
+    """The coalescer every engine of (inst, placement) shares on one side.
+    The placement is the engine's device, or its mesh's devices and
+    geometry: a mesh round never merges with a single-device engine's."""
+    key = (inst, placement, side)
     with _xtask_lock:
         co = _xtask_coalescers.get(key)
         if co is None:
@@ -608,7 +855,9 @@ def _run_leader_round(args_list, ns):
     per-lane keys when it mixes tasks."""
     engines = [a[0] for a in args_list]
     exec_eng = engines[0]
-    with _device_scope(exec_eng.device), _exec_engine(exec_eng):
+    # the round runs on whichever thread holds the dispatcher role: under
+    # the executing engine's device, never that thread's current one
+    with device_scope(exec_eng.device), _exec_engine(exec_eng):
         if len(args_list) == 1:
             eng, prestaged, *rest = args_list[0]
             return [eng._leader_init_inner(*rest, prestaged=prestaged)]
@@ -629,7 +878,7 @@ def _run_leader_round(args_list, ns):
             rows = out0.to_numpy()
             outs = [tuple(x[s:e] for x in rows) for s, e in zip(offsets, offsets[1:])]
         else:
-            outs = [DeviceRows(out0.value, e - s, offset=s, engine=exec_eng) for s, e in zip(offsets, offsets[1:])]
+            outs = [out0.view(s, e - s) for s, e in zip(offsets, offsets[1:])]
         return list(zip(outs, _split_rows(seed0, offsets), _split_rows(ver0, offsets), _split_rows(part0, offsets)))
 
 
@@ -637,7 +886,7 @@ def _run_helper_round(args_list, ns):
     """Coalescer round (helper init); see _run_leader_round."""
     engines = [a[0] for a in args_list]
     exec_eng = engines[0]
-    with _device_scope(exec_eng.device), _exec_engine(exec_eng):
+    with device_scope(exec_eng.device), _exec_engine(exec_eng):
         if len(args_list) == 1:
             eng, *rest = args_list[0]
             return [eng._helper_init_inner(*rest)]
@@ -650,18 +899,24 @@ def _run_helper_round(args_list, ns):
         if isinstance(out1, DeviceRowsChunks):
             rows = out1.to_numpy()
             return [(tuple(x[s:e] for x in rows), mask[s:e], prep_msg[s:e]) for s, e in zip(offsets, offsets[1:])]
-        return [
-            (DeviceRows(out1.value, e - s, offset=s, engine=exec_eng), mask[s:e], prep_msg[s:e])
-            for s, e in zip(offsets, offsets[1:])
-        ]
+        return [(out1.view(s, e - s), mask[s:e], prep_msg[s:e]) for s, e in zip(offsets, offsets[1:])]
 
 
 class EngineCache:
-    """Per (VDAF, verify key, device) Prio3 steps over bucketed batches.
+    """Per (VDAF, verify key, devices) Prio3 steps over bucketed batches.
 
-    device: CUDA unless the caller passes "cpu". bucket_cap: None takes
-    the memory model's cap (None on the CPU, uncapped); a positive value
-    overrides it, rounded down to a power of two; 0 means uncapped."""
+    device: CUDA unless the caller passes "cpu". devices: the devices to
+    serve on; None takes the one device. More than
+    one device makes a mesh of the geometry `choose_mesh_geometry` picks
+    (a device may repeat: the rehearsal on one card). bucket_cap: None
+    takes the memory model's cap (None on the CPU, uncapped); a positive
+    value overrides it, rounded down to a power of two; 0 means uncapped.
+    A mesh's cap is at least dp."""
+
+    # input_len from which the vector axis takes a slice of the mesh (sp):
+    # the streamed query's threshold, where the per-report vectors, not the
+    # report count, fill the device
+    SP_MIN_INPUT_LEN = STREAM_MIN_INPUT_LEN
 
     # Leader batches of at least 2 x PIPELINE_CHUNK rows run pipelined.
     PIPELINE_CHUNK = 256
@@ -684,11 +939,32 @@ class EngineCache:
     # every state `_backend_state` reports
     BACKEND_STATES = ("device", "quarantined", "device_down")
 
-    def __init__(self, inst: VdafInstance, verify_key: bytes, device=None, bucket_cap: int | None = None):
+    def __init__(self, inst: VdafInstance, verify_key: bytes, device=None, bucket_cap: int | None = None,
+                 devices=None):
         self.inst = inst
         self.verify_key = verify_key
-        self.p3 = prio3_batched(inst, device)
+        devices = [resolve_device(d) for d in devices or (device,)]
+        self.p3 = prio3_batched(inst, devices[0])
         self.device = self.p3.device
+        circ = self.p3.circ
+        # the geometry: dp splits the report rows, sp a long vector's
+        # columns; one device is no mesh
+        dp, sp = choose_mesh_geometry(
+            len(devices), getattr(circ, "input_len", 0), getattr(circ, "output_len", 0), self.SP_MIN_INPUT_LEN,
+            MIN_BUCKET,
+        )
+        # block-sparse SumVec: aggregates scatter to the logical length,
+        # into one accumulator on one device (as janus_tpu's)
+        self.sparse = isinstance(circ, SparseSumVec)
+        self.mesh_fallback_reason: str | None = None
+        if self.sparse and dp * sp > 1:
+            dp, sp = 1, 1
+            self.mesh_fallback_reason = "sparse_scatter_single_device"
+        self.dp, self.sp = dp, sp
+        self.mesh = make_mesh(dp, sp, devices) if dp * sp > 1 else None
+        self._devices = self.mesh.devices if self.mesh is not None else (self.device,)
+        # each dp row's engine, on the row's first device
+        self._p3s = [prio3_batched(inst, self.mesh.device(i)) for i in range(dp)] if self.mesh else [self.p3]
         if bucket_cap is not None:
             self.bucket_cap = (1 << (bucket_cap.bit_length() - 1)) if bucket_cap > 0 else None
         else:
@@ -696,24 +972,27 @@ class EngineCache:
             # input_len, sizes its working set)
             plan = self.p3.plan
             self.bucket_cap = feasible_bucket(
-                self.p3.circ,
-                device_memory_budget(self.device),
+                circ,
+                mesh_memory_budget(self._devices),
                 tile_elems=plan.group if plan is not None else None,
                 draft=inst.xof_mode != "fast",
             )
+        if self.bucket_cap is not None:
+            # a mesh dispatch splits its rows over dp: every bucket, hence
+            # the cap, must divide by dp
+            self.bucket_cap = max(self.bucket_cap, dp)
         self._oom_lock = threading.Lock()
         self.oom_history: deque = deque(maxlen=16)
-        # block-sparse SumVec: aggregates scatter to the logical length
-        self.sparse = isinstance(self.p3.circ, SparseSumVec)
         # coalescing: the round's row cap follows the circuit's width and
-        # the memory cap; engines of one (VDAF, device) share a coalescer
-        # per side
-        in_len = max(1, getattr(self.p3.circ, "input_len", 1))
+        # the memory cap; engines of one (VDAF, placement) share a
+        # coalescer per side
+        in_len = max(1, getattr(circ, "input_len", 1))
         round_rows = max(MIN_BUCKET, min(self.COALESCE_ROUND_ROWS, self.COALESCE_ROUND_ELEMS // in_len))
         if self.bucket_cap is not None:
             round_rows = min(round_rows, self.bucket_cap)
-        self._co_leader = _shared_coalescer(inst, self.device, "leader", round_rows)
-        self._co_helper = _shared_coalescer(inst, self.device, "helper", round_rows)
+        placement = (self.mesh.devices, dp, sp) if self.mesh is not None else self.device
+        self._co_leader = _shared_coalescer(inst, placement, "leader", round_rows)
+        self._co_helper = _shared_coalescer(inst, placement, "helper", round_rows)
         # what a canary restore resets
         self._initial_bucket_cap = self.bucket_cap
         self._initial_round_rows = round_rows
@@ -768,24 +1047,68 @@ class EngineCache:
         while quarantined: the quarantine flush of resident slots is one."""
         return self._supervised(label, fn)
 
+    # --- the mesh: every enqueue on the process's lane ---
+    def _on_lane(self, name: str, fn):
+        """Run a mesh closure on the `mesh-dispatch` lane, under the
+        watchdog with the `engine.dispatch` failpoint, as `_dispatch` runs a
+        single-device step. The lane enters the submitting thread's current
+        stream on each of the mesh's devices, so the work is ordered after
+        everything the caller queued there (its staged columns, a
+        prestage's wait)."""
+
+        def step():
+            _engine_dispatch_failpoint()
+            streams = _current_streams(self._devices)
+            return _MESH_QUEUE.submit(_in_streams, streams, fn)
+
+        return self._supervised(name, step)
+
+    def _mesh_dispatch(self, name: str, shard_fn, shards, reduce=None):
+        """One mesh step: shard_fn(p3, i, *shards[i]) for every dp row i,
+        on the row's first device (its launches counted for shard i), then
+        `reduce` over the rows' results, all in one lane enqueue. A shard
+        that fails raises: nothing is retried on fewer devices."""
+        mesh = self.mesh
+
+        def run():
+            outs = []
+            for i, args in enumerate(shards):
+                with device_scope(mesh.device(i)), shard_scope(i):
+                    outs.append(shard_fn(self._p3s[i], i, *args))
+            return outs if reduce is None else reduce(outs)
+
+        return self._on_lane(name, run)
+
+    def _stage(self, args, specs):
+        """Padded host args placed on the mesh, one arg tuple per dp row
+        (parallel/api.py stage_shards)."""
+        return stage_shards(self.mesh, _map_args(_as_tensor, args), specs)
+
+    def _mesh_rows(self, host_rows, b: int) -> MeshRows:
+        """Host out-share rows padded to b and placed on the mesh."""
+        (rows,) = pad_args(b, host_rows)
+        return MeshRows([shard[0] for shard in self._stage((rows,), ("vec2",))], host_rows[0].shape[0], engine=self)
+
     def _supervised(self, label: str, fn):
         """Run a device closure under the process watchdog with the
         ambient deadline (a job driver's lease bound, a helper handler's
         request budget); no deadline: a direct call. A spent budget raises
         DeadlineExceeded; only a call past the watchdog's hang bound
-        quarantines. A quarantined engine's call (the quarantine flush's
-        fetch) gets no such grace: its bounded deadline is the hang bound.
-        The worker thread enters the engine's device and the caller's
-        current stream: both belong to a thread, and the caller's staged
-        tensors (a prestage's wait included) were ordered on that stream."""
+        quarantines (a mesh engine's hang quarantines the whole engine). A
+        quarantined engine's call (the quarantine flush's fetch) gets no
+        such grace: its bounded deadline is the hang bound. The worker
+        thread enters the engine's device and the caller's current stream
+        on each of the engine's devices: both belong to a thread, and the
+        caller's staged tensors (a prestage's wait included) were ordered
+        on those streams."""
         deadline = current_deadline()
         if deadline is None or device_watchdog.in_watchdog():
             return fn()
         dev = self.device
-        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        streams = _current_streams(self._devices)
 
         def on_worker():
-            with _device_scope(dev), _stream_scope(stream):
+            with _streams_scope(streams), device_scope(dev):
                 return fn()
 
         return device_watchdog.WATCHDOG.run(
@@ -906,21 +1229,25 @@ class EngineCache:
         `engine.canary` failpoint lets tests hold the quarantine open."""
         p3 = self.p3
         dev = self.device
-        cuda = dev.type == "cuda"
+        # a mesh engine probes through its mesh, on every device and the
+        # lane, at the smallest bucket dp divides
+        b = max(MIN_BUCKET, self.dp)
 
         def probe():
             failpoints.hit("engine.canary")
-            with _device_scope(dev):
-                stream = torch.cuda.Stream(device=dev) if cuda else None
-                with _stream_scope(stream):
-                    value = fzeros(p3.tf, (MIN_BUCKET, p3.circ.output_len), dev)
-                    mask = torch.zeros(MIN_BUCKET, dtype=torch.bool, device=dev)
-                    agg = p3.aggregate(value, mask)
-                    if cuda:
-                        done = torch.cuda.Event()
-                        done.record(stream)
-                        done.synchronize()
-                    return [int(x) for x in p3.tf.to_ints(agg)]
+            streams = [torch.cuda.Stream(device=d) for d in dict.fromkeys(self._devices) if d.type == "cuda"]
+            with _streams_scope(streams), device_scope(dev):
+                shape = (b, p3.circ.output_len)
+                if self.mesh is not None:
+                    zeros = self._mesh_rows(fzeros(p3.tf, shape, torch.device("cpu")), b)
+                    agg = self._mesh_aggregate(zeros, np.zeros(b, dtype=bool))
+                else:
+                    agg = p3.aggregate(fzeros(p3.tf, shape, dev), torch.zeros(b, dtype=torch.bool, device=dev))
+                for stream in streams:
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                    done.synchronize()
+                return _value_ints(p3.tf, agg)
 
         deadline = time.monotonic() + self.QUARANTINE_CANARY_TIMEOUT_SECS
         result = device_watchdog.WATCHDOG.run(probe, deadline=deadline, label="canary", vdaf=self.inst.kind,
@@ -938,6 +1265,21 @@ class EngineCache:
             "quarantined": self._quarantined,
             "bucket_cap": self.bucket_cap,
             "quarantine": stats,
+            **self.mesh_status(),
+        }
+
+    def mesh_status(self) -> dict:
+        """This engine's geometry: dp, sp, whether it serves on a mesh,
+        whether its resident slots live column-sharded, and why a mesh was
+        declined."""
+        return {
+            "dp": self.dp,
+            "sp": self.sp,
+            "mesh": self.mesh is not None,
+            "devices": [str(d) for d in self._devices],
+            "distinct_devices": self.mesh.distinct if self.mesh is not None else True,
+            "sharded_resident": self.sp > 1,
+            "fallback_reason": self.mesh_fallback_reason,
         }
 
     def _count_round(self, rows: int) -> None:
@@ -976,7 +1318,8 @@ class EngineCache:
                 and eng.bucket_cap is not None
                 and observed // 2 >= eng.bucket_cap
             )
-            if observed <= 1 or stuck:
+            # a mesh bucket splits over dp: the ladder's floor is dp rows
+            if observed <= max(1, eng.dp) or stuck:
                 eng.oom_history.append(
                     {"at": time.time(), "bucket": observed, "action": "raised", "error": str(e)[:200]}
                 )
@@ -1057,24 +1400,17 @@ class EngineCache:
                 nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask, cap, vk_lanes=vk_lanes
             )
         b = bucket_size(n, cap)
-
-        def step(vkey, nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask):
-            out1, seed1, ver1, part1 = p3.prepare_init_helper(vkey, nonce_lanes, public_parts, helper_seeds, blinds)
-            mask, prep_msg = p3.prep_shares_to_prep(ver0, ver1, part0, part1)
-            mask = p3.prepare_finish(seed1, prep_msg, mask)
-            mask = mask & ok_mask
-            if prep_msg is None:
-                prep_msg = torch.zeros((nonce_lanes.shape[0], 2), dtype=torch.int64, device=self.device)
-            return out1, mask, prep_msg
+        raw = (nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask)
+        if self.mesh is not None:
+            return self._mesh_helper_init(raw, n, b, vk_lanes)
 
         try:
-            raw = (nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask)
             if vk_lanes is None:
                 staged = put_args(pad_args(b, *raw), self.device)
                 vkey = self.verify_key
             else:
                 vkey, *staged = put_args(pad_args(b, vk_lanes, *raw), self.device)
-            out1, mask, prep_msg = self._dispatch("helper_init", step, vkey, *staged)
+            out1, mask, prep_msg = self._dispatch("helper_init", _helper_step, p3, vkey, *staged)
             # out1 stays on the device; the mask and prep message come
             # back (the .cpu() blocks until the step has run)
             mask, prep_msg = self._fetch(
@@ -1084,6 +1420,29 @@ class EngineCache:
             _annotate_dispatch_bucket(e, b)
             raise
         return DeviceRows(out1, n, engine=self), mask, prep_msg
+
+    def _mesh_helper_init(self, raw, n: int, b: int, vk_lanes):
+        """One helper dispatch on the mesh: the bucket's rows split over dp,
+        each row block's step on its row's first device, the out shares
+        split by columns over the row's sp devices."""
+        mesh = self.mesh
+        vkey = self.verify_key if vk_lanes is None else vk_lanes
+
+        def shard(p3, i, *a):
+            out1, mask, prep_msg = _helper_step(p3, *a)
+            return ColumnShards.split(out1, mesh.row(i)), mask, prep_msg
+
+        try:
+            shards = self._stage(pad_args(b, vkey, *raw), ("rows",) * 8)
+            outs = self._mesh_dispatch("helper_init", shard, shards)
+            mask, prep_msg = self._fetch("helper_init_fetch", lambda: (
+                np.concatenate([o[1].cpu().numpy() for o in outs])[:n],
+                np.concatenate([to_numpy_u64(o[2]) for o in outs])[:n],
+            ))
+        except Exception as e:
+            _annotate_dispatch_bucket(e, b)
+            raise
+        return MeshRows([o[0] for o in outs], n, engine=self), mask, prep_msg
 
     # --- leader side: init only (the helper round trip follows) ---
     def leader_init(self, nonce_lanes, public_parts, meas, proof, blind0, ok=None, prestaged=None):
@@ -1139,24 +1498,24 @@ class EngineCache:
         if cap is not None and n > cap:
             self._drop_prestage(prestaged)
             return self._leader_init_chunked(nonce_lanes, public_parts, meas, proof, blind0, cap, vk_lanes=vk_lanes)
-        if allow_pipeline and vk_lanes is None and n >= 2 * self.PIPELINE_CHUNK:
+        # the pipelined route is the single-device engine's: a mesh splits
+        # a big batch over its devices instead
+        if allow_pipeline and vk_lanes is None and self.mesh is None and n >= 2 * self.PIPELINE_CHUNK:
             self._drop_prestage(prestaged)
             return self._leader_init_pipelined(nonce_lanes, public_parts, meas, proof, blind0)
         b = bucket_size(n, cap)
-        use_prestaged = prestaged is not None and vk_lanes is None and prestaged.usable(b)
+        meshed = self.mesh is not None
+        use_prestaged = prestaged is not None and vk_lanes is None and prestaged.usable(b, meshed)
         if prestaged is not None and not use_prestaged:
             self._drop_prestage(prestaged)
+        if meshed:
+            return self._mesh_leader_init(
+                (nonce_lanes, public_parts, meas, proof, blind0), n, b, vk_lanes, prestaged if use_prestaged else None
+            )
         try:
             if use_prestaged:
                 self._count_prestage("used")
-                staged, ready = prestaged.take()
-                if ready is not None:
-                    # the columns were made on the prestage's side stream
-                    # and are read on this one: wait for the copies, and
-                    # keep the allocator from reusing them early
-                    compute = torch.cuda.current_stream(self.device)
-                    compute.wait_event(ready)
-                    _map_args(lambda t: t.record_stream(compute), staged)
+                staged = _take_prestaged(prestaged)
                 vkey = self.verify_key
             elif vk_lanes is None:
                 staged = put_args(pad_args(b, nonce_lanes, public_parts, meas, proof, blind0), self.device)
@@ -1171,6 +1530,43 @@ class EngineCache:
             raise
         return DeviceRows(out0, n, engine=self), seed0, ver0, part0
 
+    # the staging of a leader init's columns on a mesh: the measurement's
+    # columns split over each row's sp devices
+    LEADER_SPECS = ("rows", "rows", "vec2", "rows", "rows")
+
+    def _mesh_leader_init(self, raw, n: int, b: int, vk_lanes, prestaged):
+        """One leader dispatch on the mesh, from a usable prestage or from
+        the host columns: each row block's measurement is gathered on its
+        row's first device for the query, its out shares split back by
+        columns over the row's sp devices."""
+        mesh = self.mesh
+
+        def shard(p3, i, vkey, nonce_lanes, public_parts, meas, proof, blind0):
+            out0, seed0, ver0, part0 = p3.prepare_init_leader(
+                vkey, nonce_lanes, public_parts, meas.gather(mesh.device(i)), proof, blind0
+            )
+            return ColumnShards.split(out0, mesh.row(i)), seed0, ver0, part0
+
+        try:
+            if prestaged is not None:
+                self._count_prestage("used")
+                shards = [(self.verify_key, *sh) for sh in _take_prestaged(prestaged)]
+            else:
+                vkey = self.verify_key if vk_lanes is None else vk_lanes
+                shards = self._stage(pad_args(b, vkey, *raw), ("rows",) + self.LEADER_SPECS)
+            outs = self._mesh_dispatch("leader_init", shard, shards)
+
+            def fetch():
+                h = b // self.dp
+                rows = [_fetch_leader_rows(*o[1:], h) for o in outs]
+                return tuple(_cat_host([r[k] for r in rows], n) for k in range(3))
+
+            seed0, ver0, part0 = self._fetch("leader_init_fetch", fetch)
+        except Exception as e:
+            _annotate_dispatch_bucket(e, b)
+            raise
+        return MeshRows([o[0] for o in outs], n, engine=self), seed0, ver0, part0
+
     def prestage_leader(self, nonce_lanes, public_parts, meas, proof, blind0):
         """Double-buffered staging: issue the padded columns' uploads now
         (pinned, non-blocking, on a side stream; from the pipeline's read
@@ -1183,20 +1579,32 @@ class EngineCache:
         cap = self.bucket_cap
         if cap is not None and n > cap:
             return None
-        if n >= 2 * self.PIPELINE_CHUNK:
+        if self.mesh is None and n >= 2 * self.PIPELINE_CHUNK:
             return None
         b = bucket_size(n, cap)
         args = pad_args(b, nonce_lanes, public_parts, meas, proof, blind0)
-        ready = None
-        if self.device.type == "cuda":
+        ready = []
+        if self.mesh is not None:
+            # one side stream per device; the copies read pinned memory
+            streams = [torch.cuda.Stream(device=d) for d in dict.fromkeys(self._devices) if d.type == "cuda"]
+            if streams:
+                args = _map_args(lambda t: t.pin_memory(), args)
+            with _streams_scope(streams):
+                staged = self._stage(args, self.LEADER_SPECS)
+            for stream in streams:
+                ev = torch.cuda.Event()
+                ev.record(stream)
+                ready.append((stream.device, ev))
+        elif self.device.type == "cuda":
             copy_stream = torch.cuda.Stream(device=self.device)
             staged = put_args(args, self.device, stream=copy_stream)
-            ready = torch.cuda.Event()
-            ready.record(copy_stream)
+            ev = torch.cuda.Event()
+            ev.record(copy_stream)
+            ready.append((self.device, ev))
         else:
             staged = put_args(args, self.device)
         self._count_prestage("issued")
-        return PrestagedInit(b, staged, ready)
+        return PrestagedInit(b, staged, ready, meshed=self.mesh is not None)
 
     @staticmethod
     def _merge_leader_chunks(outs, seeds, vers, parts):
@@ -1290,6 +1698,8 @@ class EngineCache:
     def _aggregate_inner(self, out_shares, mask):
         p3 = self.p3
         mask = np.asarray(mask, dtype=bool)
+        if self.mesh is not None:
+            return self._mesh_aggregate_inner(out_shares, mask)
         if isinstance(out_shares, DeviceRowsChunks):
             # per-chunk masked reduce, merged mod p on the host
             offs = np.cumsum([0] + [c.n for c in out_shares.chunks])
@@ -1321,6 +1731,66 @@ class EngineCache:
         except Exception as e:
             _annotate_dispatch_bucket(e, dispatch_b, fixed=fixed)
             raise
+
+    def _mesh_aggregate_inner(self, out_shares, mask):
+        """A mesh engine's masked aggregate: chunks chunk by chunk, host rows
+        staged on the mesh (cap-sized), then `_mesh_aggregate`."""
+        if isinstance(out_shares, DeviceRowsChunks):
+            offs = np.cumsum([0] + [c.n for c in out_shares.chunks])
+            return self._merge_partials(
+                self._mesh_aggregate_inner(c, mask[offs[i] : offs[i + 1]]) for i, c in enumerate(out_shares.chunks)
+            )
+        if isinstance(out_shares, MeshRows):
+            b, fixed, rows = out_shares.bucket, True, out_shares
+        else:
+            n = mask.shape[0]
+            cap = self.bucket_cap
+            if cap is not None and n > cap:
+                return self._merge_partials(
+                    self._mesh_aggregate_inner(_cut_rows(out_shares, s, min(s + cap, n)), mask[s : s + cap])
+                    for s in range(0, n, cap)
+                )
+            b, fixed, rows = bucket_size(n, cap), False, None
+        try:
+            if rows is None:
+                rows = self._mesh_rows(out_shares, b)
+            agg = self._mesh_aggregate(rows, mask)
+            return self._fetch("aggregate_fetch", lambda: _value_ints(self.p3.tf, agg))
+        except Exception as e:
+            _annotate_dispatch_bucket(e, b, fixed=fixed)
+            raise
+
+    def _reduced(self, parts):
+        """dp rows' column-sharded partials summed onto row 0's devices
+        mod p: a limb tuple on the mesh's first device when sp = 1."""
+        total = reduce_columns(self.p3.tf, parts)
+        return total.blocks[0] if self.sp == 1 else total
+
+    def _mesh_aggregate(self, rows: MeshRows, mask):
+        """Masked sum of a mesh value's own rows: each dp row's column
+        blocks summed on their devices under the row's slice of the mask
+        (False on every row not the value's), then reduced mod p."""
+        full = rows.full_lanes(np.asarray(mask, dtype=bool), False)
+        h = rows.bucket // self.dp
+
+        def shard(p3, i, cols):
+            m = torch.from_numpy(full[i * h : (i + 1) * h].copy())
+            return ColumnShards(p3.aggregate(blk, m.to(blk[0].device)) for blk in cols.blocks)
+
+        return self._mesh_dispatch("aggregate", shard, [(blk,) for blk in rows.blocks], reduce=self._reduced)
+
+    def _mesh_pending(self, rows: MeshRows, bucket_idx, k: int):
+        """aggregate_buckets over a mesh value's own rows (index -1 on every
+        row not the value's), reduced mod p: [k, output_len] on the mesh's
+        first device, column shards on row 0's devices when sp > 1."""
+        full = rows.full_lanes(np.asarray(bucket_idx, np.int32), -1)
+        h = rows.bucket // self.dp
+
+        def shard(p3, i, cols):
+            idx = torch.from_numpy(full[i * h : (i + 1) * h].copy())
+            return ColumnShards(p3.aggregate_buckets(blk, idx.to(blk[0].device), k) for blk in cols.blocks)
+
+        return self._mesh_dispatch("aggregate_pending", shard, [(blk,) for blk in rows.blocks], reduce=self._reduced)
 
     # --- block-sparse aggregate: scatter-merge into a logical accumulator ---
     def aggregate_sparse(self, out_shares, mask, flat_idx):
@@ -1438,8 +1908,12 @@ class EngineCache:
             for chunk in out_shares.chunks:
                 part = self._pending_dispatch(chunk, bucket_idx[off : off + chunk.n], k)
                 off += chunk.n
-                total = part if total is None else p3.tf.add(total, part)
+                total = part if total is None else _value_add(p3.tf, total, part)
             return total
+        if self.mesh is not None:
+            if not isinstance(out_shares, MeshRows):
+                out_shares = self._mesh_rows(out_shares, bucket_size(len(bucket_idx)))
+            return self._mesh_pending(out_shares, bucket_idx, k)
         if isinstance(out_shares, DeviceRows):
             n, s = out_shares.n, out_shares.offset
             rows = tuple(x[s : s + n] for x in out_shares.value)
@@ -1450,7 +1924,11 @@ class EngineCache:
 
     def _resident_add(self, acc, row):
         """acc + row on the card (a new tensor: PyTorch has no donation,
-        and the old value is freed when the slot lets it go)."""
+        and the old value is freed when the slot lets it go). On a mesh
+        through the lane; a column-sharded slot adds shard by shard on its
+        devices and stays sharded until a take or flush gathers it."""
+        if self.mesh is not None:
+            return self._on_lane("resident_add", lambda: _value_add(self.p3.tf, acc, row))
         return self._dispatch("resident_add", self.p3.tf.add, acc, row)
 
     def _sparse_slot_value(self, slot, deltas: SparsePendingDeltas, j: int):
@@ -1568,8 +2046,7 @@ class EngineCache:
             out = []
             for key, j, rows, interval in entries:
                 value = self._sparse_slot_value(None, deltas, j) if sparse else deltas.row(j)
-                out.append({"key": key, "share": [int(x) for x in tf.to_ints(value)], "rows": rows,
-                            "interval": interval})
+                out.append({"key": key, "share": _value_ints(tf, value), "rows": rows, "interval": interval})
             return out
 
         return self._fetch("resident_delta_fetch", fetch)
@@ -1580,7 +2057,7 @@ class EngineCache:
 
         def fetch():
             return [
-                {"key": s.key, "share": [int(x) for x in tf.to_ints(s.value)], "rows": s.rows, "interval": s.interval}
+                {"key": s.key, "share": _value_ints(tf, s.value), "rows": s.rows, "interval": s.interval}
                 for s in slots
             ]
 
@@ -1612,24 +2089,27 @@ class EngineCache:
             return out
 
 
-# LRU over live engines, keyed by (instance, verify key, device).
+# LRU over live engines, keyed by (instance, verify key, devices).
 _ENGINE_CACHE_MAX = 256
 _engine_cache_lock = threading.Lock()
 _engine_cache: "OrderedDict[tuple, EngineCache]" = OrderedDict()
 
 
-def engine_cache(inst: VdafInstance, verify_key: bytes, device=None) -> EngineCache:
-    """The process-wide engine of (inst, verify_key, device): CUDA unless
-    the caller passes "cpu". A draft circuit the port's draft engine
-    refuses raises ValueError; there is no host engine to fall back to."""
-    key = (inst, verify_key, resolve_device(device))
+def engine_cache(inst: VdafInstance, verify_key: bytes, device=None, devices=None) -> EngineCache:
+    """The process-wide engine of (inst, verify_key, devices): CUDA unless
+    the caller passes "cpu"; several devices (`devices=`) serve on a
+    mesh. A draft circuit
+    the port's draft engine refuses raises ValueError; there is no host
+    engine to fall back to."""
+    devs = tuple(resolve_device(d) for d in devices or (device,))
+    key = (inst, verify_key, devs)
     with _engine_cache_lock:
         eng = _engine_cache.get(key)
         if eng is not None:
             _engine_cache.move_to_end(key)
             return eng
     # build outside the lock; a concurrent double build keeps the first
-    eng = EngineCache(inst, verify_key, device=key[2])
+    eng = EngineCache(inst, verify_key, devices=devs)
     with _engine_cache_lock:
         cur = _engine_cache.get(key)
         if cur is not None:
@@ -1646,6 +2126,19 @@ def engine_cache(inst: VdafInstance, verify_key: bytes, device=None) -> EngineCa
                 break
             _engine_cache.pop(victim)
     return eng
+
+
+def mesh_status() -> dict:
+    """The mesh as the process sees it: the dispatch lane's counters and
+    each cached engine's geometry (janus_tpu's /statusz `mesh` section, a
+    plain dict until the port has a status registry)."""
+    with _engine_cache_lock:
+        engines = list(_engine_cache.values())
+    return {
+        "devices": torch.cuda.device_count() if torch.cuda.is_available() else 0,
+        "queue": _MESH_QUEUE.status(),
+        "engines": [{"vdaf": e.inst.kind, **e.mesh_status()} for e in engines],
+    }
 
 
 def live_engines() -> list[EngineCache]:

@@ -19,6 +19,7 @@ two threads of one process.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -105,9 +106,43 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def count_launch(wrapper) -> None:
-    """Add one to a kernel wrapper's `launches` counter (thread-safe)."""
+    """Add one to a kernel wrapper's `launches` counter (thread-safe), and
+    to its count for the mesh shard the thread runs, if any."""
     with _launch_lock:
         wrapper.launches += 1
+        shard = getattr(_shard, "index", None)
+        if shard is not None:
+            per = _shard_launches.setdefault(wrapper.__name__, {})
+            per[shard] = per.get(shard, 0) + 1
+
+
+# A mesh engine runs each dp row's step under `shard_scope(i)`, so that
+# the launches of each shard can be read apart, even where shards share a
+# card (`shard_launches`).
+_shard = threading.local()
+_shard_launches: dict[str, dict[int, int]] = {}
+
+
+@contextlib.contextmanager
+def shard_scope(index: int):
+    """Count this thread's launches in the block for mesh shard `index`."""
+    prev = getattr(_shard, "index", None)
+    _shard.index = index
+    try:
+        yield
+    finally:
+        _shard.index = prev
+
+
+def shard_launches() -> dict[str, dict[int, int]]:
+    """Launches per kernel and shard since the last reset."""
+    with _launch_lock:
+        return {k: dict(v) for k, v in _shard_launches.items()}
+
+
+def reset_shard_launches() -> None:
+    with _launch_lock:
+        _shard_launches.clear()
 
 
 def check(rc: int, what: str) -> None:

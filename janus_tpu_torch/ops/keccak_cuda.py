@@ -85,6 +85,7 @@ PAD_END = i64(0x80 << 56)
 class _LaunchCount:
     """Kernel 1's launch count, which both of its entries add to."""
 
+    __name__ = "keccak_single_block"
     launches = 0
 
 
@@ -279,8 +280,9 @@ def keccak_ctr_blocks(parts, prefix_lanes: int, batch: int, out_blocks: int, out
     out = torch.empty((batch, out_blocks, out_lanes), dtype=torch.int64, device=dev)
     if batch * out_blocks:
         fn = _fn("keccak_ctr_launch", [_P, ctypes.c_int, _LL, _LL, _LL, ctypes.c_int, _P, ctypes.c_int, _P])
-        rc = fn(ctypes.byref(pre), prefix_lanes, batch, out_blocks, int(ctr_offset), out_lanes, out.data_ptr(),
-                rounds, _stream(dev))
+        with torch.cuda.device(dev):  # the runtime launches on the current device
+            rc = fn(ctypes.byref(pre), prefix_lanes, batch, out_blocks, int(ctr_offset), out_lanes, out.data_ptr(),
+                    rounds, _stream(dev))
         cuda_build.check(rc, what)
         cuda_build.count_launch(keccak_single_block)
     return out
@@ -374,8 +376,9 @@ def keccak_tree_level(parts, lanes_n: int, batch: int, level: int, total_bytes: 
     out = torch.empty((batch, n, TREE_DIGEST_LANES), dtype=torch.int64, device=dev)
     if batch:
         fn = _fn("keccak_tree_launch", [_P, _LL, _LL, _LL, _LL, ctypes.c_ulonglong, _LL, _LL, _P, ctypes.c_int, _P])
-        rc = fn(ctypes.byref(m), batch, n, jstride, kstride, TREE_MAGIC_LANE & (2**64 - 1), level, total_bytes,
-                out.data_ptr(), rounds, _stream(dev))
+        with torch.cuda.device(dev):  # the runtime launches on the current device
+            rc = fn(ctypes.byref(m), batch, n, jstride, kstride, TREE_MAGIC_LANE & (2**64 - 1), level, total_bytes,
+                    out.data_ptr(), rounds, _stream(dev))
         cuda_build.check(rc, what)
         cuda_build.count_launch(keccak_single_block)
     return out

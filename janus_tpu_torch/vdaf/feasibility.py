@@ -106,6 +106,15 @@ def device_memory_budget(device) -> int | None:
     return torch.cuda.get_device_properties(dev).total_memory
 
 
+def mesh_memory_budget(devices) -> int | None:
+    """The smallest budget of a mesh's devices (None where any is the
+    CPU). janus_tpu caps a mesh engine's bucket from one device's budget
+    and the whole bucket, which is conservative for a mesh; the port keeps
+    that cap, so that its geometry and cap equal janus_tpu's."""
+    budgets = [device_memory_budget(d) for d in devices]
+    return None if any(b is None for b in budgets) else min(budgets)
+
+
 def _elem_bytes(circ) -> int:
     # one field element = LIMBS int64 lanes = ENCODED_SIZE bytes resident
     return circ.FIELD.ENCODED_SIZE

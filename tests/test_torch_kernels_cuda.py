@@ -928,3 +928,74 @@ def test_supervised_leader_init_on_the_card_equals_the_unsupervised_one(cuda):
         assert all(np.array_equal(a, b) for a, b in zip(got[0].to_numpy(), want[0].to_numpy()))
         assert all(np.array_equal(a, b) for a, b in zip(got[2], want[2]))
         assert np.array_equal(got[1], want[1]) and np.array_equal(got[3], want[3])
+
+
+def test_mesh_engine_on_one_card_equals_the_single_device_engine(cuda):
+    """A dp = 2 mesh of [cuda:0, cuda:0] (the rehearsal on one card) serves
+    SumVec(1000, 16) like the single-device engine, bit for bit: leader and
+    helper init, masked aggregates with rejected lanes, aggregate_pending,
+    a resident merge and the take; each shard launches kernels 1 and 2, on
+    the lane thread; then sharded_two_party_step at dp = 1, sp = 2 on a
+    long-enough SumVec equals two_party_step."""
+    from janus_tpu_torch.aggregator import engine_cache as ec
+    from janus_tpu_torch.convert import step_args_to_numpy
+    from janus_tpu_torch.messages import Duration, Interval, Time
+    from janus_tpu_torch.ops import cuda_build
+
+    inst = VdafInstance.sum_vec(1000, 16)
+    dev = torch.device("cuda", 0)
+    mesh_eng = ec.EngineCache(inst, bytes(range(16)), devices=[dev, dev])
+    single = ec.EngineCache(inst, bytes(range(16)), device=dev)
+    assert (mesh_eng.dp, mesh_eng.sp, mesh_eng.mesh.distinct) == (2, 1, False)
+    n, k = 200, 2
+    args, _ = make_report_batch(inst, random_measurements(inst, n, np.random.default_rng(61)), seed=61, device=dev)
+    nonce, parts, meas, proof, blind0, hseed, blind1 = step_args_to_numpy(args)
+    ok = np.ones(n, dtype=bool)
+    ok[::7] = False
+    iv = Interval(Time(0), Duration(3600))
+    got = {}
+    for name, eng in (("single", single), ("mesh", mesh_eng)):
+        cuda_build.reset_shard_launches()
+        out0, seed0, ver0, part0 = eng.leader_init(nonce, parts, meas, proof, blind0)
+        out1, mask, prep = eng.helper_init(nonce, parts, hseed, blind1, ver0, part0, ok)
+        pend = eng.aggregate_pending(out0, np.where(ok, np.arange(n) % k, -1).astype(np.int32), k)
+        eng.resident_merge([((b"t", b"", bytes([j])), j, n // k, iv) for j in range(k)], pend)
+        got[name] = (
+            [x.tolist() for x in out0.to_numpy()], seed0.tolist(), [x.tolist() for x in ver0], part0.tolist(),
+            mask.tolist(), prep.tolist(), eng.aggregate(out0, ok), eng.aggregate(out1, ok),
+            sorted((r["key"], r["share"]) for r in eng.resident_take()),
+        )
+        if name == "mesh":
+            per_shard = cuda_build.shard_launches()
+            for kernel in ("keccak_single_block", "expand_f128"):
+                assert set(per_shard[kernel]) == {0, 1} and min(per_shard[kernel].values()) > 0
+    torch.cuda.synchronize()
+    assert got["mesh"] == got["single"]
+    assert ec._MESH_QUEUE.status()["lane_alive"]
+
+    long_inst = VdafInstance.sum_vec(4096, 4)
+    meas = random_measurements(long_inst, 4, np.random.default_rng(62))
+    args, _ = make_report_batch(long_inst, meas, seed=62, device=dev)
+    want = api.two_party_step(long_inst, bytes(16), device=dev)(*args)
+    mesh = api.make_mesh(1, 2, [dev, dev])
+    got = api.sharded_two_party_step(long_inst, bytes(16), mesh)(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0])) and int(got[2]) == int(want[2]) == 4
+
+
+def test_kernel_1_launches_on_its_inputs_card_not_the_current_one(cuda):
+    """Kernel 1's two launches run inside their device's guard: on cuda:1
+    while cuda:0 is current they equal the plain version (without the
+    guard the launch would take cuda:0 with cuda:1's stream)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev1 = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        parts = _prefix_parts(5, 21, dev1)
+        want = keccak_cuda.keccak_ctr_blocks_plain(parts, 10, 5, 33, 21, dev1, ctr_offset=7)
+        got = keccak_cuda.keccak_ctr_blocks(parts, 10, 5, 33, 21, dev1, ctr_offset=7)
+        tparts = [(0, bytes(8)), (1, _lanes((6, 2), 3, dev1)), (3, _lanes((6, 4000), 4, dev1))]
+        twant = keccak_cuda.keccak_tree_level_plain(tparts, 4003, 6, 0, 32024, dev1)
+        tgot = keccak_cuda.keccak_tree_level(tparts, 4003, 6, 0, 32024, dev1)
+        torch.cuda.synchronize(dev1)
+    assert torch.equal(got, want) and torch.equal(tgot, twant)

@@ -91,6 +91,7 @@ def test_port_files_include_every_module_of_the_package():
         "ingest/journal.py",
         "ops/scatter_cuda.py",
         "vdaf/circuits.py",
+        "parallel/api.py",
     ):
         assert f"janus_tpu_torch/{module}" in names, module
 
@@ -120,6 +121,8 @@ def test_no_cuda_and_no_cpu_request_raises(monkeypatch):
         EngineCache(VdafInstance.count(), bytes(16))
     with pytest.raises(RuntimeError, match="CUDA"):
         engine_cache(VdafInstance.count(), bytes(16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.make_mesh(2)
     with pytest.raises(RuntimeError, match="CUDA"):
         TaskAggregator(TaskBuilder(QueryTypeConfig.time_interval(), VdafInstance.count(), Role.HELPER).build(), Config())
     with pytest.raises(RuntimeError, match="CUDA"):
