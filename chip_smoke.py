@@ -385,6 +385,37 @@ Phases, each of which must pass:
                    two_party_step. The line gives both engines' seconds in
                    turns (single, mesh, mesh, single), the step's, the lane's status
                    and the two parts' seconds;
+  20. fleet-drill  the leader as a fleet of two replicas over one
+                   datastore, after the drills of phases 17 and 18 (run
+                   before phase 19 in the script): two time-interval
+                   SumVec(1000, 16) tasks of 256 reports (2 corrupted each;
+                   cut from 512 when the phase alone took 26 s on an H100),
+                   task A in creator shard 0 of 2 and B in shard 1 (ids
+                   drawn from the seed), a MockClock for every wait.
+                   Creator replica a (FleetConfig shard 0 of 2, steal after
+                   5 s; replica b is dead) must create A's 2 jobs of 128 on
+                   its first sweep and B's only after stealing B, at most
+                   10 mock seconds after B's backlog appeared. Two
+                   AggregationJobDrivers with acquirer(fleet=), a (shard 0)
+                   and b (shard 1), steal fence 30 s: b claims one shard-1
+                   job, is stopped, and the armed helper.aggregate (one
+                   hit) fails its step, so JobDriver's drain releaser hands
+                   it back (shard_key -1, attempt refunded); a must then
+                   claim its own shard's jobs and the handed-back job
+                   without a clock step (counted as a hand-back, not a
+                   steal) and, 31 mock seconds on, the rest of shard 1,
+                   each counted as a steal, the sets derived from the jobs'
+                   stored shard keys. While a job is held,
+                   get_lease_holders must name the replica stepping it.
+                   Each of a's steps must launch kernels 1 and 2 (counts at
+                   0 just before, read just after; their sum is the
+                   phase's launches), every job finishes and both
+                   collections equal numpy's sum of the accepted reports.
+                   The line gives the jobs per task, the claims by replica
+                   and kind, the creator's steal latency in mock seconds,
+                   the hand-back's claim latency (mock and wall seconds),
+                   the failpoint's hits, the step seconds (p50, max), the
+                   launches and the phase's seconds;
 
 Output: JSON lines (build, the
 sponge chains, one serve line per XOF mode with the seconds of each
@@ -397,7 +428,8 @@ store, the helper's handle_aggregate_share, poll and unshard, and GC,
 with GC's seconds by side and by delete; the device bytes before and the
 peak during the collection step), the poplar1 and drive_poplar1 lines,
 the taskprov_histogram and outage_drill lines, the two pipeline_resident
-lines, the device_hang_drill and peer_outage_drill lines, the mesh line,
+lines, the device_hang_drill and peer_outage_drill lines, the fleet_drill
+line, the mesh line,
 the kernels,
 one line per path, the run's wall time), then the card's
 name and power limit as nvidia-smi gives them, and last
@@ -3607,16 +3639,22 @@ def phase_pipeline_resident(torch, dev, inst, keys, per_task: int, job_size: int
 
 
 class DrillPair:
-    """The fault drills' pair (phases 17 and 18): a port leader and a port
-    helper over loopback DapServers (the leader behind its own as well,
-    for the collector), one time-interval task whose helper endpoint is
+    """The fault drills' pair (phases 17, 18 and 20): a port leader and a
+    port helper over loopback DapServers (the leader behind its own as
+    well, for the collector), one time-interval task per entry of
+    `task_ids` (None: a random id) whose helper endpoint is
     `endpoint(helper_url)` (a FaultProxy's URL in the peer-outage drill),
-    and `n` reports of `inst` made on `dev` and stored at the leader, packed
-    by the creator into jobs of `job_size` reports."""
+    and `n` reports of `inst` a task made on `dev` and stored at the
+    leader, the leader shares of `bad_rows` bumped inside the field. With
+    `create`, the creator packs them into jobs of `job_size` reports. The
+    tasks share one verify key, so the leader and the helper share one
+    engine; `task`, `helper_task`, `meas` and `reports` are the first
+    task's."""
 
     NOW = 1_700_000_000
 
-    def __init__(self, torch, dev, inst, n: int, job_size: int, seed: int, endpoint=lambda url: url):
+    def __init__(self, torch, dev, inst, n: int, job_size: int, seed: int, endpoint=lambda url: url,
+                 task_ids=(None,), bad_rows=(), create: bool = True):
         import dataclasses
 
         import numpy as np
@@ -3633,42 +3671,57 @@ class DrillPair:
         from janus_tpu_torch.core.hpke import generate_hpke_config_and_private_key
         from janus_tpu_torch.core.time_util import MockClock
         from janus_tpu_torch.datastore import EphemeralDatastore
-        from janus_tpu_torch.messages import Role, Time
+        from janus_tpu_torch.messages import Role, TaskId, Time
         from janus_tpu_torch.task import QueryTypeConfig, Task, TaskBuilder
+        from janus_tpu_torch.vdaf.registry import circuit_for
         from janus_tpu_torch.vdaf.testing import make_report_batch, random_measurements
 
         self.torch, self.dev, self.inst = torch, dev, inst
         self.collector_kp = generate_hpke_config_and_private_key(config_id=7)
-        built = TaskBuilder(QueryTypeConfig.time_interval(), inst, Role.LEADER).with_(
-            vdaf_verify_key=VERIFY_KEY, aggregator_auth_token=AuthenticationToken.random_bearer(),
-            collector_hpke_config=self.collector_kp.config,
-        ).build()
-        self.helper_task = Task.from_dict(dataclasses.replace(
-            built, role=Role.HELPER, hpke_keys=(generate_hpke_config_and_private_key(config_id=1),)
-        ).to_dict())
         self.leader_eds = EphemeralDatastore(MockClock(Time(self.NOW)))
         self.helper_eds = EphemeralDatastore(MockClock(Time(self.NOW)))
         self.helper = Aggregator(self.helper_eds.datastore, self.helper_eds.clock, device=dev)
         self.leader = Aggregator(self.leader_eds.datastore, self.leader_eds.clock, device=dev)
         self.server = DapServer(DapHttpApp(self.helper)).start()
         self.leader_server = DapServer(DapHttpApp(self.leader)).start()
+        # per task: (leader task, helper task, measurements, stored reports,
+        # accepted rows)
+        self.tasks = []
         try:
-            self.task = Task.from_dict(dataclasses.replace(
-                built, helper_aggregator_endpoint=endpoint(self.server.url)).to_dict())
-            self.helper_eds.datastore.run_tx(lambda tx: tx.put_task(self.helper_task))
-            self.leader_eds.datastore.run_tx(lambda tx: tx.put_task(self.task))
+            for i, task_id in enumerate(task_ids):
+                built = TaskBuilder(QueryTypeConfig.time_interval(), inst, Role.LEADER).with_(
+                    vdaf_verify_key=VERIFY_KEY, aggregator_auth_token=AuthenticationToken.random_bearer(),
+                    collector_hpke_config=self.collector_kp.config,
+                    **({} if task_id is None else {"task_id": TaskId(task_id)}),
+                ).build()
+                helper_task = Task.from_dict(dataclasses.replace(
+                    built, role=Role.HELPER, hpke_keys=(generate_hpke_config_and_private_key(config_id=1),)
+                ).to_dict())
+                task = Task.from_dict(dataclasses.replace(
+                    built, helper_aggregator_endpoint=endpoint(self.server.url)).to_dict())
+                self.helper_eds.datastore.run_tx(lambda tx: tx.put_task(helper_task))
+                self.leader_eds.datastore.run_tx(lambda tx: tx.put_task(task))
+                meas = random_measurements(inst, n, np.random.default_rng(seed + i))
+                args, _ = make_report_batch(inst, meas, seed=seed + i, device=dev)
+                args = list(step_args_to_numpy(args))
+                if bad_rows:
+                    args[2] = _bump_host_rows(args[2], sorted(bad_rows), circuit_for(inst).FIELD.MODULUS)
+                reports = leader_stored_reports(task, helper_task.hpke_keys[0].config, args, [self.NOW - 100] * n)
+                self.leader_eds.datastore.run_tx(lambda tx: [tx.put_client_report(r) for r in reports])
+                accept = np.ones(n, dtype=bool)
+                accept[list(bad_rows)] = False
+                self.tasks.append((task, helper_task, meas, reports, accept))
+            self.task, self.helper_task, self.meas, self.reports, _ = self.tasks[0]
             self.engine = self.leader.task_aggregator_for(self.task.task_id).engine
-            if self.helper.task_aggregator_for(self.helper_task.task_id).engine is not self.engine:
+            if any(self.helper.task_aggregator_for(h.task_id).engine is not self.engine for _, h, *_ in self.tasks):
                 raise AssertionError("drill: the leader and the helper do not share one engine")
-            self.meas = random_measurements(inst, n, np.random.default_rng(seed))
-            args, _ = make_report_batch(inst, self.meas, seed=seed, device=dev)
-            self.reports = leader_stored_reports(self.task, self.helper_task.hpke_keys[0].config,
-                                                 list(step_args_to_numpy(args)), [self.NOW - 100] * n)
-            self.leader_eds.datastore.run_tx(lambda tx: [tx.put_client_report(r) for r in self.reports])
-            cfg = AggregationJobCreatorConfig(min_aggregation_job_size=job_size, max_aggregation_job_size=job_size)
-            self.n_jobs = AggregationJobCreator(self.leader_eds.datastore, cfg).run_once()
-            if self.n_jobs != n // job_size:
-                raise AssertionError(f"drill: the creator made {self.n_jobs} jobs of {n} reports")
+            self.n_jobs = 0
+            if create:
+                cfg = AggregationJobCreatorConfig(min_aggregation_job_size=job_size,
+                                                  max_aggregation_job_size=job_size)
+                self.n_jobs = AggregationJobCreator(self.leader_eds.datastore, cfg).run_once()
+                if self.n_jobs != len(self.tasks) * (n // job_size):
+                    raise AssertionError(f"drill: the creator made {self.n_jobs} jobs of {n} reports a task")
         except BaseException:
             self.close()
             raise
@@ -3684,17 +3737,20 @@ class DrillPair:
         return self.leader_eds.datastore.run_tx(lambda tx: tx._c.execute(
             "SELECT state, lease_token IS NULL, lease_attempts FROM aggregation_jobs ORDER BY job_id").fetchall())
 
-    def collect(self, counters) -> dict:
-        """Collect the task's one batch: every report, summed, must come back."""
+    def collect(self, counters, i: int = 0) -> dict:
+        """Collect task i's one batch: every accepted report, summed, must
+        come back."""
         import numpy as np
 
         from janus_tpu_torch.messages import Interval, Query, Time
 
-        tp = self.task.time_precision
+        task, _, meas, _, accept = self.tasks[i]
+        tp = task.time_precision
         window = Time(self.NOW - 100).to_batch_interval_start(tp)
-        truth = [int(x) for x in np.asarray(self.meas).sum(axis=0).reshape(-1)]
-        return collect_batch(self.torch, counters, self.task, self.leader_server.url, self.leader_eds,
-                             self.collector_kp, Query.time_interval(Interval(window, tp)), len(self.meas), truth,
+        total = np.asarray(meas)[accept].sum(axis=0)
+        truth = int(total) if np.ndim(total) == 0 else [int(x) for x in total.reshape(-1)]
+        return collect_batch(self.torch, counters, task, self.leader_server.url, self.leader_eds,
+                             self.collector_kp, Query.time_interval(Interval(window, tp)), int(accept.sum()), truth,
                              dev=self.dev)
 
     def close(self) -> None:
@@ -4015,6 +4071,214 @@ def phase_peer_outage_drill(torch, dev, inst, job_size: int = 256):
     finally:
         pair.close()
         proxy.stop()
+
+
+class _SeededTokens:
+    """A `secrets` stand-in whose token_bytes draws from a seeded numpy
+    generator: the creator's job ids, and so their shard keys, the same in
+    every run."""
+
+    def __init__(self, seed: int):
+        import numpy as np
+
+        self._rng = np.random.default_rng(seed)
+
+    def token_bytes(self, n: int) -> bytes:
+        return self._rng.bytes(n)
+
+
+def phase_fleet_drill(torch, dev, inst, per_task: int = 256, job_size: int = 128, bad_rows=(5, 200),
+                      creator_steal_after_s: int = 5, driver_steal_after_s: int = 30):
+    """The leader as a fleet of two replicas (see the module docstring,
+    phase 20): two tasks of `per_task` reports, task A in creator shard 0
+    of 2 and task B in shard 1 (their ids drawn from the seed until
+    job_shard_key(task_id, b"") % 2 gives both), behind one port leader
+    datastore and one port helper. Creator replica `a` sweeps alone
+    (`b` is dead): A's jobs at once, B's only once `a` steals B after its
+    backlog sat with no owner progress for creator_steal_after_s (mock
+    seconds, at most twice that). Then two AggregationJobDrivers with
+    acquirer(fleet=), `a` shard 0 and `b` shard 1 of 2 (steal fence
+    driver_steal_after_s): `b` claims one job of its shard and is stopped
+    while the armed `helper.aggregate` (one hit) fails its step, so the
+    drain releaser hands it back (shard_key -1, attempt refunded); `a`
+    claims its own shard's jobs and the handed-back job at once (no
+    steal), and, past the fence, the rest of shard 1 (each a steal). The
+    expected claims come from the jobs' stored shard keys. While a job is
+    held, get_lease_holders must name its replica. Every job finishes,
+    each of `a`'s steps launches kernels 1 and 2, and both collections
+    equal the ground truth. Returns the record."""
+    import numpy as np
+
+    from janus_tpu_torch import failpoints
+    from janus_tpu_torch.aggregator import aggregation_job_creator as creator_mod
+    from janus_tpu_torch.aggregator.aggregation_job_creator import AggregationJobCreator, AggregationJobCreatorConfig
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver, AggregationJobDriverConfig
+    from janus_tpu_torch.aggregator.job_driver import JobDriver, JobDriverConfig, Stopper
+    from janus_tpu_torch.config import FleetConfig
+    from janus_tpu_torch.core.circuit_breaker import OutboundCircuitBreakers
+    from janus_tpu_torch.core.http_client import HttpClient
+    from janus_tpu_torch.core.retries import Backoff
+    from janus_tpu_torch.datastore.store import job_shard_key, lease_holder_hex
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 22)
+    by_shard: dict[int, bytes] = {}
+    while len(by_shard) < 2:
+        tid = rng.bytes(32)
+        by_shard.setdefault(job_shard_key(tid, b"") % 2, tid)
+    pair = DrillPair(torch, dev, inst, per_task, job_size, SEED + 23, task_ids=(by_shard[0], by_shard[1]),
+                     bad_rows=bad_rows, create=False)
+    try:
+        ds = pair.leader_eds.datastore
+        clock = pair.leader_eds.clock
+        task_a, task_b = pair.tasks[0][0], pair.tasks[1][0]
+        counters = kernel_counters()
+        rec = {"path": "fleet-drill", "vdaf": inst.to_dict(), "reports_per_task": per_task, "job_size": job_size,
+               "bad_rows": list(bad_rows), "creator_steal_after_s": creator_steal_after_s,
+               "driver_steal_after_s": driver_steal_after_s}
+
+        def jobs_of(task):
+            return ds.run_tx(lambda tx: tx.get_aggregation_jobs_for_task(task.task_id), "drill_jobs")
+
+        # creator replica `a` sweeps; `b` is a dead replica and never does
+        fleets = {r: dict(replica_id=r, shard_count=2, shard_index=i) for i, r in enumerate("ab")}
+        ccfg = AggregationJobCreatorConfig(min_aggregation_job_size=1, max_aggregation_job_size=job_size,
+                                           max_concurrent_tasks=1)
+        creator = AggregationJobCreator(ds, ccfg, fleet=FleetConfig(**fleets["a"],
+                                                                    steal_after_secs=creator_steal_after_s))
+        backlog_since = clock.now().seconds  # B's reports were stored before the first sweep
+        real_secrets = creator_mod.secrets
+        # (this seed's four job ids fall two in each driver shard, so the
+        # drill has an own claim, a hand-back and a steal to make)
+        creator_mod.secrets = _SeededTokens(SEED + 25)
+        passes = []
+        try:
+            passes.append(creator.run_once())
+            if passes[0] != per_task // job_size or jobs_of(task_b):
+                raise AssertionError(f"fleet-drill: the first sweep made {passes[0]} jobs, "
+                                     f"{len(jobs_of(task_b))} of task B")
+            while not jobs_of(task_b) and clock.now().seconds - backlog_since <= 2 * creator_steal_after_s:
+                pair.advance(1)
+                passes.append(creator.run_once())
+        finally:
+            creator_mod.secrets = real_secrets
+        rec["creator_passes"] = passes
+        rec["creator_steal_s"] = clock.now().seconds - backlog_since
+        rec["jobs_per_task"] = {"A": len(jobs_of(task_a)), "B": len(jobs_of(task_b))}
+        if (rec["jobs_per_task"] != {"A": per_task // job_size, "B": per_task // job_size}
+                or rec["creator_steal_s"] > 2 * creator_steal_after_s):
+            raise AssertionError(f"fleet-drill: creator passes {passes}, jobs {rec['jobs_per_task']}, steal after "
+                                 f"{rec['creator_steal_s']} s")
+
+        # the expectations, from the jobs' stored shard keys as created
+        keys = dict(ds.run_tx(lambda tx: tx._c.execute("SELECT job_id, shard_key FROM aggregation_jobs").fetchall()))
+        shard = {r: {j for j, k in keys.items() if k % 2 == i} for i, r in enumerate("ab")}
+        if not shard["a"] or len(shard["b"]) < 2:
+            raise AssertionError(f"fleet-drill: the shards hold {len(shard['a'])} and {len(shard['b'])} jobs, "
+                                 "not one and two at least")
+        rec["jobs_by_shard"] = {r: len(v) for r, v in shard.items()}
+
+        drivers, acquirers, tags, held, step_s = {}, {}, {}, [], []
+        for r in "ab":
+            fleet = FleetConfig(**fleets[r], steal_after_secs=driver_steal_after_s)
+            tags[r] = fleet.holder_tag().hex()
+            # b's helper failure is conclusive at once (no retry), as a
+            # failure outside the retry loop would be
+            backoff = Backoff(initial=0.01, max_interval=0.01, max_elapsed=0.0) if r == "b" else Backoff()
+            drivers[r] = AggregationJobDriver(ds, HttpClient(timeout=600), AggregationJobDriverConfig(
+                http_backoff=backoff), breakers=OutboundCircuitBreakers(), device=dev)
+            acquirers[r] = drivers[r].acquirer(600, fleet=fleet)
+
+        def holding(r):
+            def stepper(acquired):
+                holders = ds.run_tx(lambda tx: tx.get_lease_holders(), "drill_lease_holders")
+                named = [h[3] for h in holders if h[0] == "aggregation" and h[2] == acquired.job_id.data]
+                held.append((r, acquired.job_id.data, acquired.shard_key, clock.now().seconds, named,
+                             lease_holder_hex(acquired.lease.token)))
+                t = time.perf_counter()
+                try:
+                    drivers[r].stepper(acquired)
+                finally:
+                    if r == "a":
+                        step_s.append(time.perf_counter() - t)
+            return stepper
+
+        # b claims one job of its shard, and is stopped while the armed
+        # helper.aggregate fails its step: the releaser hands it back
+        stopper_b = Stopper()
+        jd_b = JobDriver(JobDriverConfig(max_concurrent_job_workers=1), acquirers["b"], holding("b"), stopper_b,
+                         releaser=drivers["b"].release_on_drain)
+        failpoints.configure("helper.aggregate=error,count=1")
+        stopper_b.stop()
+        _zeroed(counters)
+        try:
+            if jd_b.run_once() != 1:
+                raise AssertionError("fleet-drill: replica b claimed nothing")
+            rec["failpoints"] = {k: {"hits": v["hits"], "fired": v["fired"]}
+                                 for k, v in failpoints.status()["failpoints"].items()}
+        finally:
+            failpoints.clear()
+        rec["launches_failed_step"] = _launches(counters)
+        (_, handed, _, handed_at, _, _), = held
+        row = ds.run_tx(lambda tx: tx._c.execute(
+            "SELECT state, lease_token IS NULL, lease_attempts, shard_key FROM aggregation_jobs WHERE job_id = ?",
+            (handed,)).fetchall())
+        if (handed not in shard["b"] or row != [("in_progress", 1, 0, -1)]
+                or drivers["b"].step_backs != {"shutdown_drain": 1} or rec["failpoints"]["helper.aggregate"]["fired"] != 1):
+            raise AssertionError(f"fleet-drill: the hand-back: row {row}, step-backs {drivers['b'].step_backs}, "
+                                 f"failpoints {rec['failpoints']}")
+        t_handback = time.perf_counter()
+
+        # a claims its own shard's jobs and the handed-back one at once, then
+        # (past the fence) the rest of shard 1
+        jd_a = JobDriver(JobDriverConfig(max_concurrent_job_workers=1), acquirers["a"], holding("a"), Stopper(),
+                         releaser=drivers["a"].release_on_drain)
+        launches = dict.fromkeys(counters, 0)
+        claimed = {}
+        for stage in ("at_once", "past_fence"):
+            if stage == "past_fence":
+                pair.advance(driver_steal_after_s + 1)
+            claimed[stage] = []
+            while True:
+                _sync(torch, dev)
+                _zeroed(counters)
+                n = jd_a.run_once()
+                if not n:
+                    break
+                step = _launches(counters)
+                _check_launches(torch, dev, f"fleet-drill step {len(step_s)}", step)
+                launches = {k: launches[k] + step[k] for k in launches}
+                claimed[stage].append(held[-1][1])
+                if held[-1][1] == handed:
+                    rec["handback_claim_mock_s"] = held[-1][3] - handed_at
+                    rec["handback_claim_wall_s"] = time.perf_counter() - t_handback
+        want = {"at_once": shard["a"] | {handed}, "past_fence": shard["b"] - {handed}}
+        if {k: set(v) for k, v in claimed.items()} != want:
+            raise AssertionError(f"fleet-drill: replica a claimed {claimed}, not {want}")
+        status = {r: acquirers[r].status() for r in "ab"}
+        rec["claims"] = {r: {"own": st["jobs"] - st["steals"] - st["handbacks"], "stolen": st["steals"],
+                             "handed_back": st["handbacks"], "claim_tx": st["claim_tx"]} for r, st in status.items()}
+        want_claims = {"a": {"own": len(shard["a"]), "stolen": len(shard["b"]) - 1, "handed_back": 1},
+                       "b": {"own": 1, "stolen": 0, "handed_back": 0}}
+        if {r: {k: c[k] for k in ("own", "stolen", "handed_back")} for r, c in rec["claims"].items()} != want_claims:
+            raise AssertionError(f"fleet-drill: claims {rec['claims']}, not {want_claims}")
+        wrong = [h for h in held if h[4] != [tags[h[0]]] or h[5] != tags[h[0]]]
+        if wrong:
+            raise AssertionError(f"fleet-drill: lease holders not the stepping replica: {wrong} ({tags})")
+        rec["holders"] = {r: tags[r] for r in "ab"}
+        if pair.job_rows() != [("finished", 1, 0)] * len(keys):
+            raise AssertionError(f"fleet-drill: job rows {pair.job_rows()}")
+        rec["steps"] = len(step_s)
+        rec["step_s_p50"] = _percentile(step_s, 0.5)
+        rec["step_s_max"] = max(step_s)
+        rec["launches"] = launches
+        rec["lease_conflicts"] = ds.status()["lease_conflicts"]
+        rec["collect"] = [pair.collect(counters, i) for i in range(2)]
+        rec["phase_s"] = time.perf_counter() - t_phase
+        return rec
+    finally:
+        failpoints.clear()
+        pair.close()
 
 
 def _host_words(torch, v) -> tuple:
@@ -4379,6 +4643,14 @@ def main() -> int:
         if out is not None:
             serves[out["path"]] = out
             emit({key: out})
+
+    # the leader as a fleet of two replicas: shard-affine claims, the
+    # creator's and the drivers' steals, a drain hand-back at a fault site
+    out = phase("fleet-drill", phase_fleet_drill, torch, dev, VdafInstance.sum_vec(1000, 16)) \
+        if not failed else None
+    if out is not None:
+        serves[out["path"]] = out
+        emit({"fleet_drill": out})
 
     # multi-device serving in one process (mesh-sumvec100k ran after
     # sumvec100k, on its batch; the engines serve in turns single, mesh,

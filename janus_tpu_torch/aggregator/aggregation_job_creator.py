@@ -7,9 +7,11 @@ report-aggregation rows. Fixed-size tasks also assign reports to
 outstanding batches (BatchCreator, batch_creator.rs:32).
 
 The port's own copy of janus_tpu/aggregator/aggregation_job_creator.py
-for both query types. Not ported yet: the fleet shard filter and its
-steal timers; and the `creator.create_job` span, so the job's
-`trace_context` is stored as None.
+for both query types, with the fleet shard filter (`fleet=`,
+`_shard_filter`): a creator replica sweeps its own shard's tasks every
+pass and steals a foreign task only once its backlog has sat nonempty
+with no owner progress for steal_after_secs. Not ported: the
+`creator.create_job` span (the job's `trace_context` is stored as None).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..datastore.models import (
     ReportAggregationModel,
     ReportAggregationState,
 )
-from ..datastore.store import Datastore
+from ..datastore.store import Datastore, job_shard_key
 from ..messages import (
     AggregationJobId,
     BatchId,
@@ -50,22 +52,126 @@ class AggregationJobCreatorConfig:
 
 
 class AggregationJobCreator:
-    def __init__(self, ds: Datastore, cfg: AggregationJobCreatorConfig | None = None):
+    def __init__(self, ds: Datastore, cfg: AggregationJobCreatorConfig | None = None, fleet=None):
         self.ds = ds
         self.cfg = cfg or AggregationJobCreatorConfig()
+        # the fleet shard preference (config.FleetConfig): a replica sweeps
+        # its own shard's tasks every pass, and a foreign shard's task only
+        # once its unaggregated backlog has sat nonempty for
+        # steal_after_secs with no owner progress, so replicas stay off
+        # each other's tasks while a dead replica's tasks still get jobs.
+        # Report claims are atomic either way: sharding is a contention
+        # predicate, never a correctness one.
+        self.fleet = fleet
+        # foreign-task steal timers: task_id -> (clock seconds when this
+        # replica opened the no-progress window, the task's aggregated
+        # count then, the last probe's time). A report's client_time is
+        # truncated to the task's time_precision, so it cannot measure how
+        # long work has waited; this replica's own clock can. The window
+        # restarts when the owner makes progress (the aggregated count
+        # moved): under steady traffic the backlog is never seen empty.
+        self._foreign_backlog_first_seen: dict[bytes, tuple[int, int, int]] = {}
+        # the lag scan runs at steal_after cadence, not every sweep: the
+        # steal cannot fire sooner
+        self._next_lag_scan = 0.0
+        # tasks this replica is stealing: swept every pass until their
+        # backlog drains (the stealer's own job creation would otherwise
+        # read as owner progress and restart the window)
+        self._stealing: set[bytes] = set()
+
+    def _shard_filter(self, tasks: list[Task]) -> list[Task]:
+        """The tasks this pass sweeps: every own-shard task (the task's
+        shard is job_shard_key(task_id, b"")), every task being stolen, and
+        a foreign task whose backlog has been nonempty with a static
+        aggregated count for steal_after_secs. The lag scan and the
+        progress probe run at steal_after cadence, so a steal is seen at
+        most 2 x steal_after after the backlog appeared; a failed scan
+        sweeps only what is already this replica's."""
+        fleet = self.fleet
+        if fleet is None or fleet.shard_count <= 1 or not tasks:
+            return tasks
+        count = int(fleet.shard_count)
+        index = int(fleet.shard_index) % count
+        own, foreign = [], []
+        for t in tasks:
+            (own if job_shard_key(t.task_id.data, b"") % count == index else foreign).append(t)
+        if not foreign:
+            return own
+        now = self.ds.clock.now().seconds
+        steal_after = max(0.0, float(fleet.steal_after_secs))
+        own.extend(t for t in foreign if t.task_id.data in self._stealing)
+        if now < self._next_lag_scan:
+            return own
+        self._next_lag_scan = now + steal_after
+        try:
+            backlog_tasks = {
+                task_id
+                for task_id, _ in self.ds.run_tx(
+                    lambda tx: tx.min_unaggregated_report_time_by_task(), "creator_lag_scan"
+                )
+            }
+        except Exception:
+            return own
+        candidates = [t for t in foreign if t.task_id.data in backlog_tasks]
+        due = [
+            t
+            for t in candidates
+            if t.task_id.data not in self._foreign_backlog_first_seen
+            or now - self._foreign_backlog_first_seen[t.task_id.data][2] >= steal_after
+        ]
+        try:
+            aggregated = (
+                self.ds.run_tx(
+                    lambda tx: {t.task_id.data: tx.count_client_reports_for_task(t.task_id)[1] for t in due},
+                    "creator_progress_scan",
+                )
+                if due
+                else {}
+            )
+        except Exception:
+            return own
+        live: set[bytes] = set()
+        for t in candidates:
+            key = t.task_id.data
+            live.add(key)
+            if key in self._stealing or key not in aggregated:
+                continue  # swept above, or its probe is not due yet
+            agg = int(aggregated[key])
+            first, last_agg, _ = self._foreign_backlog_first_seen.setdefault(key, (now, agg, now))
+            if agg != last_agg:
+                # the owner moved the count: it is alive, restart the window
+                self._foreign_backlog_first_seen[key] = (now, agg, now)
+            else:
+                self._foreign_backlog_first_seen[key] = (first, last_agg, now)
+                if now - first >= steal_after:
+                    # steal, and stay on it until the backlog drains
+                    self._stealing.add(key)
+                    del self._foreign_backlog_first_seen[key]
+                    own.append(t)
+        # prune the tasks no longer foreign with a backlog (drained,
+        # deleted, reassigned): a stale entry would hand a re-created task
+        # id an ancient first-seen
+        for key in list(self._foreign_backlog_first_seen):
+            if key not in live:
+                del self._foreign_backlog_first_seen[key]
+        self._stealing &= live
+        return own
 
     def run_once(self) -> int:
-        """Sweep all leader tasks once; returns the number of jobs created.
-        Tasks sweep concurrently in a thread pool."""
+        """Sweep the leader tasks of this replica's shard (all of them when
+        unsharded) once; returns the number of jobs created. Tasks sweep
+        concurrently in a thread pool."""
         tasks = self.ds.run_tx(lambda tx: tx.get_tasks(), "creator_tasks")
-        eligible = [
-            t
-            for t in tasks
-            if t.role == Role.LEADER
-            # parameterized VDAFs (Poplar1) get their jobs from the
-            # collection job driver
-            and not t.vdaf.has_aggregation_parameter
-        ]
+        eligible = self._shard_filter(
+            [
+                t
+                for t in tasks
+                if t.role == Role.LEADER
+                # parameterized VDAFs (Poplar1) get their jobs from the
+                # collection job driver
+                and not t.vdaf.has_aggregation_parameter
+            ]
+        )
         if len(eligible) <= 1 or self.cfg.max_concurrent_tasks <= 1:
             return sum(self.create_jobs_for_task(t) for t in eligible)
         workers = min(self.cfg.max_concurrent_tasks, len(eligible))

@@ -54,9 +54,16 @@ on memory exhaustion only, and counts it (`classic_fallbacks`); any other
 error fails the step. A flush into a batch collected meanwhile loses its
 share, counted in `resident_lost` (janus_tpu books it in its ledger).
 
-Not ported: the calls into metrics, trace spans, failpoints and the
-conservation ledger. Each step's stage seconds are kept in
-`step_seconds`.
+In a fleet the acquirer takes `fleet=` (config.FleetConfig): the claim's
+shard predicate and steal fence, the replica's tag in every lease token,
+and the claim counts in the acquirer's status(). `release_on_drain` is
+the releaser janus_tpu's driver binary wires into JobDriver and the
+stage pipeline. The helper's failpoints (`helper.request`,
+`helper.response`, `retry.attempt`) fire in the HTTP client and the retry
+loop this driver sends through.
+
+Not ported: the calls into metrics, trace spans and the conservation
+ledger. Each step's stage seconds are kept in `step_seconds`.
 """
 
 from __future__ import annotations
@@ -290,16 +297,32 @@ class AggregationJobDriver:
         self.step_backs: dict[str, int] = {}
 
     # --- JobDriver callbacks (reference :840-894) ---
-    def acquirer(self, lease_duration_s: int = 600):
-        """Batched claim acquirer over in-progress jobs."""
+    def acquirer(self, lease_duration_s: int = 600, fleet=None):
+        """Batched claim acquirer over in-progress jobs. `fleet`
+        (config.FleetConfig) adds the shard predicate with its steal-after
+        fallback and stamps this replica's provenance tag into every lease
+        token it mints; the acquirer's status() counts its claims."""
+        shard = fleet.shard_spec() if fleet is not None else None
+        holder = fleet.holder_tag() if fleet is not None else None
         return make_claim_acquirer(
             self.ds,
+            "aggregation",
             lambda limit: self.ds.run_tx(
-                lambda tx: tx.acquire_incomplete_aggregation_jobs(Duration(lease_duration_s), limit),
+                lambda tx: tx.acquire_incomplete_aggregation_jobs(
+                    Duration(lease_duration_s), limit, shard=shard, holder=holder
+                ),
                 "acquire_agg_jobs",
             ),
+            shard=shard,
             peer_gate=self.peer_health.park_gate() if self.peer_health is not None else None,
         )
+
+    def release_on_drain(self, acquired: AcquiredAggregationJob) -> None:
+        """The drain releaser of JobDriver and StepPipeline: a step that
+        failed during a shutdown hands its lease back at once, the attempt
+        refunded and the shard affinity released, so a surviving replica
+        claims it with no wait."""
+        self.step_back(acquired, "shutdown_drain", 0.0)
 
     def _lease_deadline(self, acquired) -> float:
         return lease_deadline(self.ds.clock, acquired.lease, self.cfg.worker_lease_clock_skew_s)

@@ -7,8 +7,9 @@ AggregateShareReq to the helper, store the helper's encrypted share and
 finish the job.
 
 The port's own copy of janus_tpu/aggregator/collection_job_driver.py:
-the config, the batched acquirer (without a fleet's shard predicate, as
-the port's AggregationJobDriver.acquirer), the stepper with its
+the config, the batched acquirer (with a fleet's shard predicate and
+holder tag, as AggregationJobDriver.acquirer) and its drain releaser
+`release_on_drain`, the stepper with its
 step-backs, the step (gather, sum, the min-batch gate, DP noise on the
 leader's share, persisted and reused, the AggregateShareReq, then mark
 and store in one transaction), the send path with its circuit breaker,
@@ -121,16 +122,27 @@ class CollectionJobDriver:
         # (collection job id bytes, {stage: seconds}) of the latest steps
         self.step_seconds: deque = deque(maxlen=64)
 
-    def acquirer(self, lease_duration_s: int = 600):
-        """Batched claim acquirer over collectable collection jobs."""
+    def acquirer(self, lease_duration_s: int = 600, fleet=None):
+        """Batched claim acquirer over collectable collection jobs; `fleet`
+        as in AggregationJobDriver.acquirer."""
+        shard = fleet.shard_spec() if fleet is not None else None
+        holder = fleet.holder_tag() if fleet is not None else None
         return make_claim_acquirer(
             self.ds,
+            "collection",
             lambda limit: self.ds.run_tx(
-                lambda tx: tx.acquire_incomplete_collection_jobs(Duration(lease_duration_s), limit),
+                lambda tx: tx.acquire_incomplete_collection_jobs(
+                    Duration(lease_duration_s), limit, shard=shard, holder=holder
+                ),
                 "acquire_collection_jobs",
             ),
+            shard=shard,
             peer_gate=self.peer_health.park_gate() if self.peer_health is not None else None,
         )
+
+    def release_on_drain(self, acquired: AcquiredCollectionJob) -> None:
+        """JobDriver's drain releaser: see AggregationJobDriver.release_on_drain."""
+        self.step_back(acquired, "shutdown_drain", 0.0)
 
     def stepper(self, acquired: AcquiredCollectionJob) -> None:
         if acquired.lease.attempts > self.cfg.maximum_attempts_before_failure:

@@ -62,8 +62,13 @@ journal's and the supervisor's `status()` and `readiness()` are methods
 nothing registers (janus_tpu's statusz and readiness registries are not
 ported).
 
+The helper's failpoints fire where janus_tpu's do: `helper.aggregate`
+at the head of aggregate-init (before the request hash, so an armed error
+is a 500 to the leader) and `helper.aggregate_share` just after the
+aggregate-share handler's deadline check.
+
 Not ported: the observability calls of janus_tpu's handlers (metrics,
-trace spans, failpoints, the conservation ledger); a collection job's
+trace spans, the conservation ledger); a collection job's
 `trace_context` is None.
 """
 
@@ -78,6 +83,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import failpoints
 from ..core import deadline as deadline_mod
 from ..core.hpke import HpkeApplicationInfo, HpkeError, Label, hpke_open_batch, hpke_seal
 from ..core.time_util import Clock, RealClock
@@ -436,6 +442,9 @@ class TaskAggregator:
         request_bytes: bytes,
     ) -> AggregationJobResp:
         task = self.task
+        # helper-outage injection: an unhandled FailpointError here is a
+        # 500 to the leader's driver, which its breaker counts
+        failpoints.hit("helper.aggregate")
         stage = self.stage_seconds = {}
         t0 = time.perf_counter()
         request_hash = hashlib.sha256(request_bytes).digest()
@@ -1154,6 +1163,7 @@ class TaskAggregator:
     def handle_aggregate_share(self, ds: Datastore, req: AggregateShareReq) -> AggregateShare:
         task = self.task
         deadline_mod.check("helper_aggregate_share")
+        failpoints.hit("helper.aggregate_share")
         if req.batch_selector.query_type != task.query_type.code:
             raise errors.InvalidMessage("query type mismatch", task.task_id)
         if req.batch_selector.query_type == TimeInterval.CODE:

@@ -10,10 +10,16 @@ supervisor reports down and absorb connection-class failures, and a
 step that loses the datastore steps back by the supervisor's reconnect
 delay; with a `peer_gate` (aggregator/peer_health.py) they park while
 every helper's circuit is open. A JobDriver given a stage pipeline
-(`aggregator/step_pipeline.py`) hands it every leased job. It leaves out
-the fleet claim metrics (`record_acquire`) and the fleet shard predicate,
-the `job.step` trace span and the serial stepper's drain releaser (the
-pipeline has its own).
+(`aggregator/step_pipeline.py`) hands it every leased job.
+
+Fleet sharding: `make_claim_acquirer(shard=)` classifies every claim
+transaction's jobs (`record_acquire`: own, stolen from another replica's
+shard past the steal fence, or handed back by a draining replica) and
+keeps the counts in the acquirer's `status()`, where janus_tpu feeds its
+lease_acquire_tx_total, lease_acquired_jobs_total and lease_steals_total
+(its metrics registry is not ported). A JobDriver given a `releaser`
+hands back at once the lease of a step that fails while it is stopped.
+The `job.step` trace span is not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from dataclasses import dataclass
 
 from ..core.deadline import DeadlineExceeded
+from ..datastore.store import job_shard_key
 
 log = logging.getLogger(__name__)
 
@@ -82,21 +89,101 @@ def datastore_down(ds) -> bool:
     return supervisor is not None and supervisor.state == "down"
 
 
-def make_claim_acquirer(ds, claim_fn, peer_gate=None):
-    """Shared acquirer body: run `claim_fn(limit)` (the datastore claim
-    run_tx) through the outage-tolerant wrapper.
+def record_acquire(kind: str, jobs, shard=None) -> dict:
+    """The fleet claim counts of one claim transaction: its outcome
+    (claimed or empty), the jobs leased, and, with an active shard
+    predicate, how many were stolen from another replica's shard (the
+    steal-after-delay fallback draining a dead peer). A job whose stored
+    shard_key is negative was handed back by a draining replica: claimed
+    across shards at once by design and never a steal, so a routine
+    rolling restart does not read as a starving shard; those are counted
+    as `handbacks`. The shard index is reduced modulo the count first, as
+    the claim's SQL does. Called after run_tx returned (a busy-retried
+    attempt must not count twice), and only when a claim transaction ran.
+    Returns {"outcome", "jobs", "steals", "handbacks"}; `kind` names the
+    job type, as janus_tpu's metric label does."""
+    out = {"outcome": "claimed" if jobs else "empty", "jobs": len(jobs), "steals": 0, "handbacks": 0}
+    for a in jobs:
+        sk = a.shard_key
+        if sk is None:  # an acquired job built without its stored key
+            sk = job_shard_key(a.task_id.data, _job_id_of(a).data)
+        if sk < 0:
+            out["handbacks"] += 1
+        elif shard is not None and shard.active and sk % shard.shard_count != shard.shard_index % shard.shard_count:
+            out["steals"] += 1
+    return out
+
+
+def _job_id_of(acquired):
+    """The job-id field of either acquired-job shape."""
+    if hasattr(acquired, "job_id"):
+        return acquired.job_id
+    return acquired.collection_job_id
+
+
+class ClaimAcquirer:
+    """Shared acquirer body for both drivers: `acquirer(limit)` runs
+    `claim_fn(limit)` (the datastore claim run_tx) through the
+    outage-tolerant wrapper and records the pass's fleet claim counts
+    (`record_acquire`) only when a claim transaction ran: a parked or a
+    connection-lost pass ran none, and counting it would make up claim
+    traffic during the very outages the counts should stay honest
+    through. `shard` is the claim's ShardSpec (None: unsharded).
 
     `peer_gate` is the peer-outage analog of the supervisor park: a
     callable that is True while every known helper's circuit is open. A
     parked pass returns [] without running the claim transaction: a helper
     down for minutes must not have the driver claim jobs it cannot step."""
 
-    def acquire(limit: int):
-        if peer_gate is not None and peer_gate():
-            return []
-        return acquire_tolerating_outage(ds, lambda: claim_fn(limit))
+    def __init__(self, ds, kind: str, claim_fn, shard=None, peer_gate=None):
+        self.ds = ds
+        self.kind = kind
+        self.claim_fn = claim_fn
+        self.shard = shard
+        self.peer_gate = peer_gate
+        self._lock = threading.Lock()
+        self._claim_tx = {"claimed": 0, "empty": 0}
+        self._totals = {"jobs": 0, "steals": 0, "handbacks": 0}
 
-    return acquire
+    def __call__(self, limit: int):
+        if self.peer_gate is not None and self.peer_gate():
+            return []
+        ran = False
+
+        def claim_tx():
+            nonlocal ran
+            out = self.claim_fn(limit)
+            ran = True
+            return out
+
+        jobs = acquire_tolerating_outage(self.ds, claim_tx)
+        if ran:
+            counts = record_acquire(self.kind, jobs, self.shard)
+            with self._lock:
+                self._claim_tx[counts["outcome"]] += 1
+                for k in self._totals:
+                    self._totals[k] += counts[k]
+        return jobs
+
+    def status(self) -> dict:
+        """{"kind", "shard": {count, index, steal_after_s} or None,
+        "claim_tx": {"claimed", "empty"}, "jobs", "steals", "handbacks"}."""
+        shard = self.shard
+        with self._lock:
+            return {
+                "kind": self.kind,
+                "shard": None if shard is None else {"count": shard.shard_count,
+                                                     "index": shard.shard_index % shard.shard_count,
+                                                     "steal_after_s": shard.steal_after_s},
+                "claim_tx": dict(self._claim_tx),
+                **self._totals,
+            }
+
+
+def make_claim_acquirer(ds, kind: str, claim_fn, shard=None, peer_gate=None) -> ClaimAcquirer:
+    """The acquirer of a `kind` ("aggregation" or "collection") driver; see
+    ClaimAcquirer."""
+    return ClaimAcquirer(ds, kind, claim_fn, shard, peer_gate)
 
 
 def acquire_tolerating_outage(ds, acquire_tx):
@@ -162,12 +249,18 @@ class JobDriver:
         acquirer,
         stepper,
         stopper: Stopper | None = None,
+        releaser=None,
         pipeline=None,
     ):
         self.cfg = cfg
         self.acquirer = acquirer
         self.stepper = stepper
         self.stopper = stopper or Stopper()
+        # releaser(acquired): called when a step fails while the stopper
+        # is stopped (a shutdown drain), so the lease goes back at once
+        # instead of aging out a whole TTL before a surviving replica takes
+        # it (the drivers pass their `release_on_drain`)
+        self.releaser = releaser
         # a stage pipeline (aggregator/step_pipeline.py) takes every
         # leased job through pipeline.submit(acquired); its futures
         # resolve when the step has completed (it owns the error mapping
@@ -193,7 +286,15 @@ class JobDriver:
         try:
             self.stepper(acquired)
         except Exception:
-            log.exception("job step failed (lease will expire and retry)")
+            if self.stopper.stopped and self.releaser is not None:
+                # shutdown drain: this process will not retry
+                log.exception("job step failed during shutdown; releasing lease")
+                try:
+                    self.releaser(acquired)
+                except Exception:
+                    log.exception("shutdown lease release failed")
+            else:
+                log.exception("job step failed (lease will expire and retry)")
 
     def run(self) -> None:
         """Streaming discovery loop until stopped: acquire as worker

@@ -5,9 +5,11 @@ send_request_to_helper); this wraps urllib for the same purpose.
 The port's own copy of janus_tpu/core/http_client.py: per-attempt
 timeouts, a wall-clock budget and a size cap on every response body,
 the propagated deadline header, and each thread's last response headers
-(for Retry-After), and `fetch_any_status`. It leaves out the
-`helper.request` and `helper.response` failpoints and the traceparent
-header.
+(for Retry-After), `fetch_any_status`, and the `helper.request`
+failpoint (error: a transport failure; timeout: a hung peer; before the
+request is built) and `helper.response` (timeout: a peer that answers
+and then stalls the body). It leaves out the traceparent header (trace
+spans are not ported).
 """
 
 from __future__ import annotations
@@ -20,11 +22,23 @@ import urllib.error
 import urllib.request
 from dataclasses import dataclass
 
+from .. import failpoints
 from . import deadline
 
 # chunked body reads: each recv is bounded by the socket timeout AND the
 # whole body by the wall-clock budget
 _READ_CHUNK = 65536
+
+
+def _injected_transport_error() -> urllib.error.URLError:
+    return urllib.error.URLError("injected transport error (failpoint helper.request)")
+
+
+def _injected_timeout() -> urllib.error.URLError:
+    # what a real socket timeout looks like through urllib: a URLError
+    # wrapping socket.timeout (an OSError), so the retry loop treats it
+    # as any other transport failure
+    return urllib.error.URLError(socket.timeout("injected timeout (failpoint)"))
 
 
 class PeerResponseTooLarge(Exception):
@@ -149,6 +163,14 @@ class HttpClient:
         # clear this thread's previous response headers first, so a
         # transport error cannot leave a stale Retry-After visible
         self.last_response_headers = {}
+        # fault injection for the whole outbound path (error: a transport
+        # failure, delay: a slow WAN, timeout: a hung peer, crash: the
+        # process dies mid-request)
+        failpoints.hit(
+            "helper.request",
+            error_factory=_injected_transport_error,
+            timeout_factory=_injected_timeout,
+        )
         headers = dict(headers or {})
         # inside a driver's lease-bounded step the remaining budget rides
         # every outbound request (re-stamped per attempt)
@@ -164,6 +186,8 @@ class HttpClient:
         try:
             with urllib.request.urlopen(req, timeout=effective_timeout) as resp:
                 self.last_response_headers = dict(resp.headers.items())
+                # a slow body: the peer answered but trickles the payload
+                failpoints.hit("helper.response", timeout_factory=_injected_timeout)
                 return resp.status, self._read_body(resp, url, budget)
         except urllib.error.HTTPError as e:
             self.last_response_headers = dict(e.headers.items())

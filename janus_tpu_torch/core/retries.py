@@ -4,8 +4,9 @@ Equivalent of reference core/src/retries.rs:30-72: retries transport
 errors and retryable status codes (5xx, 429) with capped exponential
 backoff and jitter, honouring a server's Retry-After.
 
-The port's own copy of janus_tpu/core/retries.py; it leaves out the
-`retry.attempt` failpoint.
+The port's own copy of janus_tpu/core/retries.py, with the
+`retry.attempt` failpoint inside each attempt's `try`, so that an
+injected transport error is retried exactly like a real one.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import random
 import time
 from dataclasses import dataclass
 
+from .. import failpoints
 from .deadline import DeadlineExceeded  # noqa: F401  (re-exported)
 
 
@@ -110,6 +112,10 @@ def retry_http_request(
             )
         retry_after = None
         try:
+            failpoints.hit(
+                "retry.attempt",
+                error_factory=lambda: OSError("injected transport error (failpoint retry.attempt)"),
+            )
             result = do_request()
             status, body = result[0], result[1]
             if not is_retryable_status(status):

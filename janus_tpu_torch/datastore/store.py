@@ -37,15 +37,25 @@ journal spill, the admission controller and the job drivers read. The
 checkout; `datastore.tx_begin`, `.commit` and `.post_commit` (scoped by
 the transaction's name) fire inside run_tx, as in janus_tpu.
 
+Fleet sharding, as in janus_tpu: every job row carries its persisted
+`job_shard_key`; the batched claims take a `ShardSpec` and a holder tag
+(`replica_holder_tag`, the first 8 bytes of every lease token the
+replica mints, read back by `lease_holder_hex` and `get_lease_holders`);
+a shutdown hand-back stores `HANDBACK_SHARD_KEY`. The creator's lag scan
+and progress probe are `min_unaggregated_report_time_by_task` and
+`count_client_reports_for_task`. A `LeaseConflict` carries its `kind`
+and `op`, and the datastore counts it (`status()["lease_conflicts"]`)
+where janus_tpu counts janus_lease_conflicts_total.
+
 Not ported: the conservation ledger's ops (`increment_task_counters`,
 `ledger_*`, and the lost-row counts janus_tpu's expiry deletes return
 for it), the health sampler's reads, the trace links of collection
-(`get_aggregation_job_trace_contexts`); and the observability calls of
-janus_tpu's run_tx and supervisor (the transaction duration and retry
-metrics, the slow-transaction warning, the lease conflict counter, the
-datastore up and failure gauges). The supervisor keeps `status()` and
-`readiness()` as methods; nothing registers them (janus_tpu's statusz
-and readiness registries are not ported).
+(`get_aggregation_job_trace_contexts`); and the metrics of janus_tpu's
+run_tx and supervisor (the transaction duration and retry metrics, the
+slow-transaction warning, the datastore up and failure gauges). The
+supervisor keeps `status()` and `readiness()` as methods, and the
+datastore `status()`; nothing registers them (janus_tpu's statusz and
+readiness registries are not ported).
 """
 
 from __future__ import annotations
@@ -299,8 +309,16 @@ class TxConflict(Exception):
 
 class LeaseConflict(TxConflict):
     """A token-guarded lease write (release / step-back) found the token
-    no longer matching: the lease expired and another worker re-acquired
-    it. Deterministic, so run_tx raises it at once instead of retrying."""
+    no longer matching: the lease expired and another replica re-acquired
+    it. Deterministic, so run_tx raises it at once instead of retrying.
+    `kind` ("aggregation" or "collection") and `op` ("release" or
+    "step_back") classify it, as janus_tpu's janus_lease_conflicts_total
+    labels do; the datastore counts it in `lease_conflicts`."""
+
+    def __init__(self, msg: str, kind: str | None = None, op: str | None = None):
+        super().__init__(msg)
+        self.kind = kind
+        self.op = op
 
 
 # modulo space of the persisted shard hash: far above any plausible
@@ -317,8 +335,21 @@ def job_shard_key(task_id: bytes, job_id: bytes) -> int:
     return int.from_bytes(digest[:8], "big") % SHARD_KEY_SPACE
 
 
+def replica_holder_tag(replica_id: str) -> bytes:
+    """8-byte stable provenance tag of a replica id, carried in the first
+    half of every lease token the replica mints."""
+    return hashlib.sha256(replica_id.encode()).digest()[:8]
+
+
+def lease_holder_hex(token: bytes | None) -> str | None:
+    """Provenance half of a lease token (hex), or None when no lease is
+    held. Only meaningful for tokens minted with a holder tag."""
+    return bytes(token[:8]).hex() if token else None
+
+
 # shard_key sentinel for a clean shutdown hand-back: the row's shard
-# affinity is released, so any worker claims it at once
+# affinity is released, so any replica claims it at once, and the claim
+# (which returns the stored key) is told apart from a steal
 HANDBACK_SHARD_KEY = -1
 
 
@@ -354,10 +385,12 @@ class Transaction:
     lease-select locking suffix (Postgres gets a real FOR UPDATE SKIP
     LOCKED, datastore.rs:1853-1860) and the RETURNING form."""
 
-    def __init__(self, conn, crypter: Crypter, clock, dialect: str = "sqlite"):
+    def __init__(self, conn, crypter: Crypter, clock, dialect: str = "sqlite", on_lease_conflict=None):
         self._c = conn
         self._crypter = crypter
         self._clock = clock
+        # on_lease_conflict(kind, op): the datastore's conflict count
+        self._on_lease_conflict = on_lease_conflict
         self._lease_suffix = " FOR UPDATE SKIP LOCKED" if dialect == "postgres" else ""
         # UPDATE ... RETURNING needs SQLite >= 3.35; older libraries take
         # the two-statement form, exact inside the serialized transaction.
@@ -365,6 +398,14 @@ class Transaction:
         # it on an old SQLite, so the recorded stream is what a server
         # receives).
         self._returning = dialect == "postgres" or sqlite3.sqlite_version_info >= (3, 35)
+
+    def _lease_conflict(self, kind: str, op: str, msg: str) -> LeaseConflict:
+        """Count a token mismatch on a guarded lease write and build the
+        LeaseConflict to raise. Counted here, not in run_tx: the conflict
+        is fatal, so the transaction never retries and it counts once."""
+        if self._on_lease_conflict is not None:
+            self._on_lease_conflict(kind, op)
+        return LeaseConflict(msg, kind, op)
 
     def _update_returning_one(self, update_sql: str, params, returning: str, select_sql: str, select_params):
         """Single-row guarded `UPDATE ... RETURNING <returning>`, with the
@@ -526,6 +567,24 @@ class Transaction:
                 [(task_id.data, r[0]) for r in rows],
             )
         return [(ReportId(r[0]), Time(r[1])) for r in rows]
+
+    def count_client_reports_for_task(self, task_id: TaskId) -> tuple[int, int]:
+        """(total, aggregated) client reports of a task: the creator's
+        owner-progress probe reads the second."""
+        row = self._c.execute(
+            "SELECT COUNT(*), COALESCE(SUM(aggregation_started), 0) FROM client_reports WHERE task_id = ?",
+            (task_id.data,),
+        ).fetchone()
+        return row[0], row[1]
+
+    def min_unaggregated_report_time_by_task(self) -> list[tuple[bytes, int]]:
+        """[(task_id, oldest unaggregated client_time)]: the tasks with a
+        backlog no aggregation job has claimed yet (the creator's lag scan)."""
+        rows = self._c.execute(
+            "SELECT task_id, MIN(client_time) FROM client_reports"
+            " WHERE aggregation_started = 0 GROUP BY task_id"
+        ).fetchall()
+        return [(r[0], int(r[1])) for r in rows]
 
     def mark_reports_unaggregated(self, task_id: TaskId, report_ids: list[ReportId]) -> None:
         self._c.executemany(
@@ -725,7 +784,7 @@ class Transaction:
             ),
         )
         if cur.rowcount != 1:
-            raise LeaseConflict("lease token mismatch on release")
+            raise self._lease_conflict("aggregation", "release", "lease token mismatch on release")
 
     def step_back_aggregation_job(
         self,
@@ -764,7 +823,7 @@ class Transaction:
             ),
         )
         if cur.rowcount != 1:
-            raise LeaseConflict("lease token mismatch on step-back")
+            raise self._lease_conflict("aggregation", "step_back", "lease token mismatch on step-back")
 
     def put_report_aggregation(self, ra: ReportAggregationModel) -> None:
         row_key = ra.task_id.data + ra.job_id.data + ra.ord.to_bytes(8, "big")
@@ -1187,7 +1246,7 @@ class Transaction:
             ),
         )
         if cur.rowcount != 1:
-            raise LeaseConflict("lease token mismatch on release")
+            raise self._lease_conflict("collection", "release", "lease token mismatch on release")
 
     def step_back_collection_job(
         self,
@@ -1221,7 +1280,26 @@ class Transaction:
             ),
         )
         if cur.rowcount != 1:
-            raise LeaseConflict("lease token mismatch on step-back")
+            raise self._lease_conflict("collection", "step_back", "lease token mismatch on step-back")
+
+    def get_lease_holders(self) -> list[tuple[str, bytes, bytes, str, int]]:
+        """[(job type, task_id, job_id, holder provenance hex,
+        lease_expiry)] for every outstanding lease (token set, not yet
+        expired): which replica holds which job, read off the provenance
+        half of the lease token."""
+        now = self._clock.now().seconds
+        out: list[tuple[str, bytes, bytes, str, int]] = []
+        for typ, table, id_col in (
+            ("aggregation", "aggregation_jobs", "job_id"),
+            ("collection", "collection_jobs", "collection_job_id"),
+        ):
+            rows = self._c.execute(
+                f"SELECT task_id, {id_col}, lease_token, lease_expiry FROM {table}"
+                " WHERE lease_token IS NOT NULL AND lease_expiry > ?",
+                (now,),
+            ).fetchall()
+            out.extend((typ, r[0], r[1], lease_holder_hex(r[2]), int(r[3])) for r in rows)
+        return out
 
     # ---- aggregate share jobs (reference datastore.rs:3369-3706) ----
     def put_aggregate_share_job(self, job: AggregateShareJob) -> None:
@@ -1492,6 +1570,10 @@ class Datastore:
         # attached by start_supervision(); run_tx feeds it successes and
         # connection failures even before its probe thread runs
         self.supervisor: DatastoreSupervisor | None = None
+        # token mismatches on guarded lease writes, by (kind, op): janus_tpu's
+        # janus_lease_conflicts_total, read through status()
+        self._lease_conflicts: dict[tuple[str, str], int] = {}
+        self._lease_conflicts_lock = threading.Lock()
         self._bootstrap_schema()
 
     def _bootstrap_schema(self) -> None:
@@ -1605,7 +1687,21 @@ class Datastore:
         return (sqlite3.OperationalError, TxConflict)
 
     def _tx_obj(self, conn) -> Transaction:
-        return Transaction(self._adapt(conn), self._crypter, self._clock, dialect=self.DIALECT)
+        return Transaction(self._adapt(conn), self._crypter, self._clock, dialect=self.DIALECT,
+                           on_lease_conflict=self._count_lease_conflict)
+
+    def _count_lease_conflict(self, kind: str, op: str) -> None:
+        with self._lease_conflicts_lock:
+            self._lease_conflicts[(kind, op)] = self._lease_conflicts.get((kind, op), 0) + 1
+
+    def status(self) -> dict:
+        """{"lease_conflicts": {kind: {op: count}}}: the lease races this
+        datastore's transactions lost."""
+        out: dict[str, dict[str, int]] = {}
+        with self._lease_conflicts_lock:
+            for (kind, op), n in sorted(self._lease_conflicts.items()):
+                out.setdefault(kind, {})[op] = n
+        return {"lease_conflicts": out}
 
     def tx(self):
         """Single-attempt transaction as a context manager (no retry):

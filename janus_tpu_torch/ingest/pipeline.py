@@ -28,9 +28,15 @@ fill once it holds at least one upload. A window of 1 runs each report
 alone through the same stages. `stage_seconds` sums the wall seconds of
 the decode and decrypt windows (per stage, over all workers).
 
-Not ported: janus_tpu's per-report stage loops for task doubles without
-the column surface (every port TaskAggregator has it), and the metrics,
-trace spans and failpoints of each stage.
+The stage failpoints fire per lane, as in janus_tpu's windowed stages:
+`ingest.decode` before the lane's parse verdict (an armed error wins over
+a malformed body) and `ingest.decrypt` before the lane's HPKE open (a
+fired lane is rejected without crypto); each rejects its own lane only.
+
+Not ported: janus_tpu's per-report stage loops (`batch_window=1` there;
+here a window of 1 runs the windowed stages, failpoints included) and
+its oracle loops for task doubles without the column surface (every port
+TaskAggregator has it), and the metrics and trace spans of each stage.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import queue
 import threading
 import time
 
+from .. import failpoints
 from ..core import hpke_backend
 from ..messages import decode_reports_fast
 from .admission import ShedError
@@ -235,12 +242,16 @@ class IngestPipeline:
         for t in window:
             t.body = b""  # decoded; free the raw copy
 
-        # per lane: the parse verdict; then per task the cheap checks,
-        # columnar
+        # per lane: the failpoint, then the parse verdict; then per task
+        # the cheap checks, columnar
         by_ta: dict[int, list[tuple[UploadTicket, int]]] = {}
         for i, ticket in enumerate(window):
-            if col.errors[i] is not None:
-                self._resolve(ticket, error=col.errors[i])
+            try:
+                failpoints.hit("ingest.decode")
+                if col.errors[i] is not None:
+                    raise col.errors[i]
+            except BaseException as e:
+                self._resolve(ticket, error=e)
                 continue
             by_ta.setdefault(id(ticket.ta), []).append((ticket, i))
         survivors: list[tuple[UploadTicket, int]] = []
@@ -274,9 +285,15 @@ class IngestPipeline:
         t0 = time.perf_counter()
         col = item.col
         # group by (task, HPKE config id): one batched open per group. The
-        # config id comes from the decoded column, not keypair identity.
+        # config id comes from the decoded column, not keypair identity. A
+        # lane whose failpoint fires is rejected before any crypto.
         groups: dict[tuple, list[tuple[UploadTicket, int]]] = {}
         for ticket, i in item.lanes:
+            try:
+                failpoints.hit("ingest.decrypt")
+            except BaseException as e:
+                self._resolve(ticket, error=e)
+                continue
             groups.setdefault((id(ticket.ta), col.leader_config_ids[i]), []).append((ticket, i))
         for lanes in groups.values():
             ta, keypair = lanes[0][0].ta, lanes[0][0].keypair

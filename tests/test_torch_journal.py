@@ -561,11 +561,20 @@ def test_aggregator_arms_the_journal_and_its_replayer(tmp_path, eph):
         )
         assert r.journal is j and r.writer is w and r._thread is not None and r.interval_s == 0.05
         assert r.supervisor_fn() is None
+        # the database goes away before the supervisor starts, so its
+        # probes (the first at once, one on every state change) fail too
+        failpoints.configure(f"datastore.connect.{eph.datastore.failpoint_scope}=error:1.0")
         sup = eph.datastore.start_supervision(probe_interval_s=3600)
         assert r.supervisor_fn() is sup
-        # a spilled upload drains on its own through the running replayer
-        sup.record_failure()
+        # a spilled upload drains on its own through the running replayer:
+        # the supervisor is driven down (the replayer holds while it is
+        # down, and only then), so the report stays journaled until the
+        # database is back
+        for _ in range(sup.down_threshold):
+            sup.record_failure()
+        assert sup.state == "down"
         assert w.write_report(mkreport(3)) is True and j.depth()[0] == 1
+        failpoints.clear()
         sup.record_success()
         deadline = time.monotonic() + 10
         while j.depth()[0] and time.monotonic() < deadline:

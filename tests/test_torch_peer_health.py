@@ -259,7 +259,7 @@ def test_park_gate_skips_claim_transactions(engine):
             claims.append(limit)
             return ds.run_tx(lambda tx: tx.acquire_incomplete_aggregation_jobs(tm.Duration(600), limit), "acq")
 
-        acquire = make_claim_acquirer(ds, claim, peer_gate=tr.park_gate())
+        acquire = make_claim_acquirer(ds, "aggregation", claim, peer_gate=tr.park_gate())
         br.record_failure(PEER)
         assert tr.should_park() and acquire(8) == [] and claims == []
         time.sleep(0.02)
