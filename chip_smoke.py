@@ -178,7 +178,20 @@ Phases, each of which must pass:
                    aggregations, keyed by the job's BatchId, unshard to the
                    sum of the 1,021 accepted measurements. Then the batch is
                    collected as in phase 9 by a fixed-size current-batch
-                   query (no GC).
+                   query (no GC). The instrumentation (always on) is
+                   checked along the way (ObservabilityProbe): a Chrome
+                   trace of the drive to a temporary file (its events
+                   counted, the file removed), the device-cost ledger's
+                   split of the job step beside its wall time, every
+                   aggregation and collection job row holding a
+                   traceparent and the helper's row and spans the leader
+                   job's trace id, both parties' books (admitted 1,024,
+                   aggregated 1,021, rejected 3, collected 1,021, every
+                   imbalance 0) and the peer divergence 0 from the
+                   collection driver's reconciliation, the registry's 107
+                   families rendering with no exposition error in either
+                   format, the statusz sections, and the cost of a span
+                   and of a counter add on this host;
   10a. upload-drive-sparse  the same for sparse_sumvec(16, 1000000, 64, 16)
                    (measurements as in phase 6d): besides, an upload whose
                    public share has descending block indices must get 400
@@ -429,7 +442,7 @@ with GC's seconds by side and by delete; the device bytes before and the
 peak during the collection step), the poplar1 and drive_poplar1 lines,
 the taskprov_histogram and outage_drill lines, the two pipeline_resident
 lines, the device_hang_drill and peer_outage_drill lines, the fleet_drill
-line, the mesh line,
+line, the mesh line, the observability line after upload-drive-sumvec's,
 the kernels,
 one line per path, the run's wall time), then the card's
 name and power limit as nvidia-smi gives them, and last
@@ -1899,15 +1912,194 @@ def phase_drive(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
         helper_eds.cleanup()
 
 
-def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, kernels, threads: int = 8):
+class ObservabilityProbe:
+    """The observability checks of one served drive (upload-drive-sumvec):
+    every check reads what the instrumentation recorded, and adds no
+    synchronization or launch to the drive it watches. `start()` before
+    the uploads, `step_begin()` / `step_end(step_s)` around the job step,
+    `check_trace(...)` after it, `check_ledger(...)` after the
+    collection, `finish()` last; any failed check raises."""
+
+    SPAN_LOOPS = 20_000
+    COUNTER_LOOPS = 200_000
+
+    def __init__(self, chrome_path: str):
+        self.chrome_path = chrome_path
+        self._chrome = None
+        self.record: dict = {}
+
+    @staticmethod
+    def _span_counts() -> dict:
+        from janus_tpu_torch import trace
+
+        return {n: d["count"] for n, d in trace.flight_recorder().status()["names"].items()}
+
+    @staticmethod
+    def _cost_entries() -> dict:
+        from janus_tpu_torch.profiler import DEVICE_COST
+
+        return {(e["vdaf"], e["op"], e["bucket"]): e for e in DEVICE_COST.status()["entries"]}
+
+    def abandon(self) -> None:
+        """Close the Chrome trace of a drive that failed."""
+        if self._chrome is not None:
+            self._chrome.__exit__(None, None, None)
+            self._chrome = None
+
+    def start(self) -> None:
+        from janus_tpu_torch import trace
+
+        self._names0 = self._span_counts()
+        self._chrome = trace.scoped_chrome_trace(self.chrome_path)
+        self._chrome.__enter__()
+
+    def step_begin(self) -> None:
+        self._cost0 = self._cost_entries()
+
+    def step_end(self, step_s: float) -> None:
+        """The device-cost ledger's split of the job step (helper_init,
+        leader_init and aggregate; both parties run in this process),
+        beside the step's wall time. On the card a dispatch's `execute`
+        is its enqueue: the queued kernels' time lands in the `d2h` of
+        the fetch that waits for them."""
+        from janus_tpu_torch.profiler import COST_PHASES
+
+        ops: dict = {}
+        for key, e in self._cost_entries().items():
+            if key[1] not in ("helper_init", "leader_init", "aggregate"):
+                continue
+            e0 = self._cost0.get(key, {})
+            op = ops.setdefault(key[1], {"dispatches": 0, "rows": 0, "buckets": [], **{f"{p}_s": 0.0 for p in COST_PHASES}})
+            d = e["dispatches"] - e0.get("dispatches", 0)
+            if d or any(e[f"{p}_s"] != e0.get(f"{p}_s", 0.0) for p in COST_PHASES):
+                op["buckets"].append(key[2])
+            op["dispatches"] += d
+            op["rows"] += e["rows"] - e0.get("rows", 0)
+            for p in COST_PHASES:
+                op[f"{p}_s"] += e[f"{p}_s"] - e0.get(f"{p}_s", 0.0)
+        if set(ops) != {"helper_init", "leader_init", "aggregate"} or any(o["dispatches"] < 1 for o in ops.values()):
+            raise AssertionError(f"observability: the step's device-cost ops {ops}")
+        total = sum(o[f"{p}_s"] for o in ops.values() for p in COST_PHASES)
+        self.record["device_cost"] = {"ops": ops, "phases_sum_s": total, "request_wall_s": step_s,
+                                      "queued_time_in": "d2h"}
+
+    def check_trace(self, leader_ds, helper_ds) -> None:
+        """Every aggregation job row of both parties carries a traceparent,
+        the helper's with the leader job's trace id, and the helper's
+        spans in the recorder carry it too."""
+        from janus_tpu_torch import trace
+
+        def contexts(ds, table):
+            return ds.run_tx(lambda tx: [r[0] for r in tx._c.execute(f"SELECT trace_context FROM {table}").fetchall()])
+
+        leader_ctx = contexts(leader_ds, "aggregation_jobs")
+        helper_ctx = contexts(helper_ds, "aggregation_jobs")
+        if not leader_ctx or any(trace.trace_id_of(c) is None for c in leader_ctx + helper_ctx):
+            raise AssertionError(f"observability: job trace contexts {leader_ctx} / {helper_ctx}")
+        job_trace = trace.trace_id_of(leader_ctx[0])
+        if [trace.trace_id_of(c) for c in helper_ctx] != [job_trace]:
+            raise AssertionError("observability: the helper's job row has another trace than the leader's")
+        recent = trace.flight_recorder().snapshot(recent_limit=512)["recent"]
+        helper_spans = sorted({s["name"] for s in recent if s["trace_id"] == job_trace
+                               and (s["name"].startswith("helper.") or s["name"] == "dap.aggregate_init")})
+        if "dap.aggregate_init" not in helper_spans or "helper.write_tx" not in helper_spans:
+            raise AssertionError(f"observability: the helper's spans under the job's trace: {helper_spans}")
+        self.record["trace"] = {"job_trace_id": job_trace, "helper_job_trace_ok": True,
+                                "helper_spans_in_job_trace": helper_spans}
+
+    def check_ledger(self, leader_ds, helper_ds, task_id, want_admitted: int, want_aggregated: int,
+                     want_rejected: dict) -> None:
+        """Both parties' books after the collection (evaluated now, grace
+        0): the counts, every imbalance 0, the collection job's trace
+        context set, and the peer divergence the leader's collection
+        driver recorded, which must be 0."""
+        from janus_tpu_torch import ledger, trace
+        from janus_tpu_torch.metrics import task_id_label
+
+        coll = leader_ds.run_tx(lambda tx: [r[0] for r in tx._c.execute(
+            "SELECT trace_context FROM collection_jobs").fetchall()])
+        if not coll or any(trace.trace_id_of(c) is None for c in coll):
+            raise AssertionError(f"observability: collection job trace contexts {coll}")
+        label = task_id_label(task_id.data)
+        books = {}
+        for side, ev in (("leader", ledger.installed_ledger()),
+                         ("helper", ledger.LedgerEvaluator(helper_ds, ledger.LedgerConfig(grace_s=0.0)))):
+            t = ev.evaluate_once()["tasks"][label]
+            books[side] = {k: t[k] for k in ("admitted", "aggregated", "rejected", "collected", "lost", "imbalance")}
+            if (t["admitted"], t["aggregated"], t["collected"], t["lost"]) != (
+                    want_admitted, want_aggregated, want_aggregated, 0) or t["rejected"] != want_rejected \
+                    or any(t["imbalance"].values()):
+                raise AssertionError(f"observability: the {side}'s books {books[side]}")
+        peer = ledger.installed_ledger().document()["tasks"][label]["peer"]
+        if peer is None or peer["divergence"] != 0 or peer["batches_compared"] < 1:
+            raise AssertionError(f"observability: the peer reconciliation {peer}")
+        self.record["ledger"] = {**books, "peer_divergence": peer["divergence"],
+                                 "batches_compared": peer["batches_compared"], "collection_trace_ok": True}
+
+    def finish(self) -> dict:
+        """Close the Chrome trace and count its events; the spans by name
+        of the drive; the registry's families and the exposition errors
+        in both formats; the statusz sections; and the cost of a span
+        and of a counter add on this host (no trace writer installed)."""
+        from janus_tpu_torch import exposition, metrics, statusz, trace
+
+        self.abandon()
+        with open(self.chrome_path) as f:
+            events = [e for e in json.load(f) if e]
+        names1 = self._span_counts()
+        spans = {n: c - self._names0.get(n, 0) for n, c in sorted(names1.items()) if c - self._names0.get(n, 0)}
+        text = metrics.REGISTRY.render()
+        om = metrics.REGISTRY.render(openmetrics=True)
+        errors = exposition.validate_exposition(text)
+        om_errors = exposition.validate_exposition(om, openmetrics=True)
+        lint = exposition.lint_metric_names(exposition.registry_names_by_type(metrics.REGISTRY))
+        if errors or om_errors or lint:
+            raise AssertionError(f"observability: exposition errors {errors[:5]} {om_errors[:5]} {lint[:5]}")
+        t0 = time.perf_counter_ns()
+        for _ in range(self.SPAN_LOOPS):
+            with trace.span("observability.span_cost"):
+                pass
+        span_ns = (time.perf_counter_ns() - t0) / self.SPAN_LOOPS
+        probe = metrics.Counter("janus_observability_probe_total")  # not registered
+        t0 = time.perf_counter_ns()
+        for _ in range(self.COUNTER_LOOPS):
+            probe.add(1, op="probe")
+        add_ns = (time.perf_counter_ns() - t0) / self.COUNTER_LOOPS
+        sections = sorted(k for k in statusz.status_snapshot() if k != "generated_at")
+        for want in ("engine_cache", "resident_accumulators", "mesh", "device_watchdog", "ingest", "failpoints",
+                     "fleet", "ledger", "profile", "device_cost"):
+            if want not in sections:
+                raise AssertionError(f"observability: statusz has no {want} section ({sections})")
+        if len(metrics.REGISTRY.metrics_list()) != 107:
+            raise AssertionError(f"observability: {len(metrics.REGISTRY.metrics_list())} families, not 107")
+        self.record.update({
+            "families": len(metrics.REGISTRY.metrics_list()),
+            "exposition_errors": len(errors),
+            "openmetrics_errors": len(om_errors),
+            "lint_errors": len(lint),
+            "spans": spans,
+            "chrome_trace_events": len(events),
+            "statusz_sections": sections,
+            "span_ns": span_ns,
+            "counter_add_ns": add_ns,
+        })
+        return self.record
+
+
+def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, kernels, threads: int = 8,
+                       observe: bool = False):
     """The leader's intake end to end (see the module docstring, phase
     10): reports uploaded over loopback HTTP to a port leader, admitted,
     decoded, opened, validated and group-committed by its ingest
     pipeline, packed into one fixed-size batch by the creator, and
     stepped by the job driver against a port helper, then collected by a
-    current-batch query; returns the record."""
+    current-batch query; returns the record. With `observe`, an
+    ObservabilityProbe watches the drive and the record carries its
+    `observability` record."""
     import dataclasses
     import json as json_mod
+    import os
+    import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -1960,12 +2152,20 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
     def check_launches(what, launches, want=kernels):
         _check_launches(torch, dev, f"upload-drive {what}", launches, tuple(want))
 
+    from janus_tpu_torch import ledger
+
     leader_eds = EphemeralDatastore(MockClock(Time(now)))
     helper_eds = EphemeralDatastore(MockClock(Time(now)))
     helper = Aggregator(helper_eds.datastore, helper_eds.clock, device=dev)
     leader = Aggregator(leader_eds.datastore, leader_eds.clock, device=dev)
     helper_server = DapServer(DapHttpApp(helper)).start()
     leader_server = DapServer(DapHttpApp(leader)).start()
+    probe = None
+    if observe:
+        fd, chrome_path = tempfile.mkstemp(prefix="janus-chrome-", suffix=".json")
+        os.close(fd)
+        probe = ObservabilityProbe(chrome_path)
+        probe.start()
     try:
         collector_kp = generate_hpke_config_and_private_key(config_id=7)
         built = TaskBuilder(QueryTypeConfig.fixed_size(max_batch_size=batch), inst, Role.LEADER).with_(
@@ -2116,6 +2316,8 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
                                       breakers=OutboundCircuitBreakers(), device=dev)
         job_driver = JobDriver(JobDriverConfig(max_concurrent_job_workers=1), driver.acquirer(), driver.stepper)
         _peak_reset(torch, dev)
+        if probe is not None:
+            probe.step_begin()
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -2123,6 +2325,8 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
                 MethodSeconds(Field128, ["encode_vec"]) as encode_s:
             stepped = job_driver.run_once()
         step_s = time.perf_counter() - t0
+        if probe is not None:
+            probe.step_end(step_s)
         launches = {k: fn.launches for k, fn in counters.items()}
         peak = _peak(torch, dev)
         if stepped != 1 or not driver.step_seconds:
@@ -2159,6 +2363,11 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
             truth = [int(x) for x in np.asarray(meas)[accept].sum(axis=0).reshape(-1)]
         if total != truth:
             raise AssertionError("upload-drive: leader + helper shares != the accepted reports' sum")
+        if probe is not None:
+            probe.check_trace(leader_eds.datastore, helper_eds.datastore)
+            # the leader's books, and its collection driver's peer
+            # reconciliation, read the installed evaluator
+            ledger.install_ledger(leader_eds.datastore, ledger.LedgerConfig(grace_s=0.0))
 
         # 6. collection of the filled batch by a current-batch query
         with MethodSeconds(Field128, ["decode_vec"]) as decode_s:
@@ -2167,6 +2376,12 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
                 Query.fixed_size(FixedSizeQuery(FixedSizeQuery.CURRENT_BATCH)), finished, truth, batch_id=batch_id,
                 dev=dev,
             )
+        observability = None
+        if probe is not None:
+            probe.check_ledger(leader_eds.datastore, helper_eds.datastore, task.task_id, batch, finished,
+                               {"vdaf_prep_error": len(bad_rows)})
+            observability = probe.finish()
+            probe = None
         return {
             "path": "upload-drive-sparse" if sparse else "upload-drive-sumvec",
             "vdaf": inst.to_dict(),
@@ -2210,8 +2425,14 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
                 "collect_decode_vec": decode_s["decode_vec"],
             },
             "collect": collect,
+            **({"observability": observability} if observability is not None else {}),
         }
     finally:
+        if observe:
+            ledger.uninstall_ledger()
+            if probe is not None:
+                probe.abandon()
+            os.unlink(chrome_path)
         leader_server.stop()
         helper_server.stop()
         leader.close()
@@ -4480,9 +4701,12 @@ def main() -> int:
     except ImportError as e:
         log(f"chip_smoke: janus_tpu_torch is not beside this script ({e})")
         return 3
+    from janus_tpu_torch import metrics
     from janus_tpu_torch.vdaf.registry import VdafInstance
 
     dev = torch.device("cuda")
+    # janus_build_info's backend label: the card this run serves on
+    metrics.register_build_info(torch.cuda.get_device_name(0))
     failed = []
     run_t0 = time.perf_counter()
 
@@ -4589,10 +4813,12 @@ def main() -> int:
             serves[out["path"]] = out
             emit({"drive": out})
     out = phase("upload-drive-sumvec", phase_upload_drive, torch, dev, VdafInstance.sum_vec(1000, 16), 8, 1016,
-                (5, 300, 1000), fast) if not failed else None
+                (5, 300, 1000), fast, 8, True) if not failed else None
     if out is not None:
+        observability = out.pop("observability")
         serves[out["path"]] = out
         emit({"upload_drive": out})
+        emit({"observability": observability})
     out = phase("upload-drive-sparse", phase_upload_drive, torch, dev, sparse_inst, 8, 1016, (5, 300, 1000),
                 fast) if not failed else None
     if out is not None:

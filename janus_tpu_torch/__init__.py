@@ -12,3 +12,5 @@ hand-written kernels live in csrc/ and are built with nvcc on first use
 """
 
 from .device import resolve_device  # noqa: F401
+
+__version__ = "0.1.0"

@@ -14,9 +14,10 @@ per bucket), so the host merges a handful of vectors per job.
 The port's own copy of janus_tpu/aggregator/accumulator.py: Prio3's
 batched path, and the per-report `update_single` of the continue step,
 where a parameterized VDAF (Poplar1) accumulates in its level's field
-and keys its batch rows by the aggregation parameter. The per-task
-counters and the e2e histogram it feeds there are left out with the
-rest of the metrics.
+and keys its batch rows by the aggregation parameter, with janus_tpu's
+per-task aggregated-reports counter (`count_reports_aggregated`) and
+end-to-end histogram (`observe_report_e2e`), both fed only outside a
+run_tx closure.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ import secrets
 
 import numpy as np
 
-from ..datastore.models import BatchAggregation, BatchAggregationState
-from ..messages import FixedSize, Interval, ReportIdChecksum, Time
+from .. import metrics
+from ..datastore.models import BatchAggregation, BatchAggregationState, ReportAggregationState
+from ..messages import FixedSize, Interval, ReportIdChecksum, TaskId, Time
 from ..task import Task
 from ..vdaf.registry import circuit_for
 
@@ -47,6 +49,35 @@ def fixed_size_batch_id(pbs) -> bytes | None:
     """BatchId bytes for a fixed-size PartialBatchSelector, else None
     (time-interval jobs bucket by time window)."""
     return pbs.batch_id.data if pbs.query_type == FixedSize.CODE else None
+
+
+def count_reports_aggregated(task_id: TaskId, n: int) -> None:
+    """Increment the per-task aggregated-reports counter. Call it outside
+    any run_tx closure: a retried transaction would double the count."""
+    if n <= 0:
+        return
+    metrics.task_reports_aggregated_total.add(n, task_id=metrics.task_id_label(task_id.data))
+
+
+def observe_report_e2e(clock, times, stage: str = "aggregate") -> None:
+    """janus_report_e2e_seconds{stage} for each client timestamp in
+    `times` (clock now - report time, floored at 0). Call it only after
+    the write transaction that persists the work committed."""
+    if clock is None or not times:
+        return
+    now = clock.now().seconds
+    for t in times:
+        metrics.report_e2e_seconds.observe(float(max(0, now - t.seconds)), stage=stage)
+
+
+def observe_finished_report_e2e(clock, ras, unmerged) -> None:
+    """The post-commit e2e observation of a write's report-aggregation
+    rows: FINISHED rows whose report merged (not in `unmerged`)."""
+    observe_report_e2e(
+        clock,
+        [ra.client_time for ra in ras if ra.state == ReportAggregationState.FINISHED
+         and ra.report_id.data not in unmerged],
+    )
 
 
 def group_batch_buckets(task, metadatas, accept, batch_identifier: bytes | None) -> dict[bytes, list[int]]:
@@ -128,16 +159,27 @@ def accumulate_batched(
 class Accumulator:
     """reference accumulator.rs:32."""
 
-    def __init__(self, task: Task, shard_count: int = 1, field=None, aggregation_parameter: bytes = b""):
+    def __init__(self, task: Task, shard_count: int = 1, field=None, aggregation_parameter: bytes = b"",
+                 count_metrics: bool = True):
         """field/aggregation_parameter: a parameterized VDAF (Poplar1)
         accumulates in its parameter's field and keys its batch rows by
-        the parameter; Prio3 uses the circuit's field and b""."""
+        the parameter; Prio3 uses the circuit's field and b"".
+
+        count_metrics: update() increments the per-task aggregated-reports
+        counter. Pass False where the Accumulator lives inside a run_tx
+        closure (a retry re-creates it); such callers count after commit
+        with count_reports_aggregated."""
         self.task = task
         self.field = field if field is not None else circuit_for(task.vdaf).FIELD
         self.agg_param = aggregation_parameter
         self.shard_count = shard_count
+        self._count_metrics = count_metrics
         # batch_identifier bytes -> [share bytes | None, count, checksum, interval | None, report ids]
         self._state: dict[bytes, list] = {}
+
+    def total_report_count(self) -> int:
+        """Reports merged into this accumulator so far."""
+        return sum(ent[1] for ent in self._state.values())
 
     def update(
         self,
@@ -149,6 +191,8 @@ class Accumulator:
         report_ids: list | None = None,
     ) -> None:
         """Merge one already-reduced contribution (device output)."""
+        if self._count_metrics:
+            count_reports_aggregated(self.task.task_id, report_count)
         ent = self._state.get(batch_identifier)
         if ent is None:
             self._state[batch_identifier] = [

@@ -10,8 +10,10 @@ The port's own copy of janus_tpu/aggregator/aggregation_job_creator.py
 for both query types, with the fleet shard filter (`fleet=`,
 `_shard_filter`): a creator replica sweeps its own shard's tasks every
 pass and steals a foreign task only once its backlog has sat nonempty
-with no owner progress for steal_after_secs. Not ported: the
-`creator.create_job` span (the job's `trace_context` is stored as None).
+with no owner progress for steal_after_secs. Each job's trace is rooted
+in its `creator.create_job` span: the row's `trace_context` is that
+span's traceparent, which the drivers adopt on every step and the helper
+through the propagated header.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from ..messages import (
     TimeInterval,
 )
 from ..task import Task
+from ..trace import current_traceparent, span
 
 
 @dataclass
@@ -63,6 +66,8 @@ class AggregationJobCreator:
         # Report claims are atomic either way: sharding is a contention
         # predicate, never a correctness one.
         self.fleet = fleet
+        if fleet is not None:
+            fleet.install_identity()
         # foreign-task steal timers: task_id -> (clock seconds when this
         # replica opened the no-progress window, the task's aggregated
         # count then, the last probe's time). A report's client_time is
@@ -289,20 +294,26 @@ class AggregationJobCreator:
     def _write_job_in_tx(self, tx, task: Task, claimed, pbs: PartialBatchSelector) -> None:
         job_id = AggregationJobId(secrets.token_bytes(16))
         times = [t.seconds for _, t in claimed]
-        tx.put_aggregation_job(
-            AggregationJobModel(
-                task.task_id,
-                job_id,
-                b"",
-                pbs.to_bytes(),
-                Interval(Time(min(times)), Duration(max(times) - min(times) + 1)),
-                AggregationJobState.IN_PROGRESS,
-                0,
-            )
-        )
-        for i, (rid, t) in enumerate(claimed):
-            tx.put_report_aggregation(
-                ReportAggregationModel(
-                    task.task_id, job_id, rid, t, i, ReportAggregationState.START
+        # the job's trace is rooted here: the creating span's context is
+        # persisted in the row, so the leader driver (every step, every
+        # restart) and the helper (through the propagated traceparent)
+        # attach their spans under one trace id per job
+        with span("creator.create_job", reports=len(claimed)):
+            tx.put_aggregation_job(
+                AggregationJobModel(
+                    task.task_id,
+                    job_id,
+                    b"",
+                    pbs.to_bytes(),
+                    Interval(Time(min(times)), Duration(max(times) - min(times) + 1)),
+                    AggregationJobState.IN_PROGRESS,
+                    0,
+                    trace_context=current_traceparent(),
                 )
             )
+            for i, (rid, t) in enumerate(claimed):
+                tx.put_report_aggregation(
+                    ReportAggregationModel(
+                        task.task_id, job_id, rid, t, i, ReportAggregationState.START
+                    )
+                )

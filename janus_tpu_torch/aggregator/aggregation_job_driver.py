@@ -52,7 +52,8 @@ at its poll cadence (reason `quarantine`). Where janus_tpu falls back to the
 classic accumulate on any error of the resident route, the port does so
 on memory exhaustion only, and counts it (`classic_fallbacks`); any other
 error fails the step. A flush into a batch collected meanwhile loses its
-share, counted in `resident_lost` (janus_tpu books it in its ledger).
+share, counted in `resident_lost` and booked `lost` in the conservation
+ledger, as janus_tpu books it.
 
 In a fleet the acquirer takes `fleet=` (config.FleetConfig): the claim's
 shard predicate and steal fence, the replica's tag in every lease token,
@@ -62,8 +63,15 @@ stage pipeline. The helper's failpoints (`helper.request`,
 `helper.response`, `retry.attempt`) fire in the HTTP client and the retry
 loop this driver sends through.
 
-Not ported: the calls into metrics, trace spans and the conservation
-ledger. Each step's stage seconds are kept in `step_seconds`.
+Observability, as in janus_tpu: a step runs under the trace its job's
+creator persisted (`use_traceparent` of the row's `trace_context`), so
+its spans (`driver.read_tx`, `.stage`, `.encode_init`, `.http_init`,
+`.accumulate`, `.write_tx`, `.http_continue`, the engine's) and the
+helper's (through the propagated traceparent) join one trace; the
+step-back, step-failure, order-mismatch, cancellation and resident-flush
+metrics are janus_tpu's; every write transaction books its rows'
+terminal outcomes in the conservation ledger, and resident share loss
+books `lost`. Each step's stage seconds are kept in `step_seconds`.
 """
 
 from __future__ import annotations
@@ -91,6 +99,7 @@ from ..core.deadline import (
     current_deadline,
     deadline_scope,
 )
+from .. import ledger, metrics
 from ..core.retries import Backoff, RequestAborted, retry_http_request
 from ..datastore.models import (
     AcquiredAggregationJob,
@@ -118,6 +127,7 @@ from ..messages import (
 )
 from ..messages.codec import DecodeError
 from ..task import Task
+from ..trace import span, use_traceparent
 from ..vdaf.registry import circuit_for
 from ..vdaf.wire import (
     PP_CONTINUE,
@@ -140,6 +150,7 @@ from .accumulator import (
     bucket_metadata,
     fixed_size_batch_id,
     group_batch_buckets,
+    observe_finished_report_e2e,
 )
 from .device_watchdog import DeviceHangError, DeviceQuarantinedError
 from .engine_cache import engine_cache, is_oom_error, live_engines
@@ -302,6 +313,8 @@ class AggregationJobDriver:
         (config.FleetConfig) adds the shard predicate with its steal-after
         fallback and stamps this replica's provenance tag into every lease
         token it mints; the acquirer's status() counts its claims."""
+        if fleet is not None:
+            fleet.install_identity()
         shard = fleet.shard_spec() if fleet is not None else None
         holder = fleet.holder_tag() if fleet is not None else None
         return make_claim_acquirer(
@@ -384,6 +397,7 @@ class AggregationJobDriver:
         refunded); counted by reason in `step_backs`."""
         with self._step_back_lock:
             self.step_backs[reason] = self.step_backs.get(reason, 0) + 1
+        metrics.job_step_back_total.add(reason=reason, **metrics.replica_labels())
         delay = max(0, int(delay_s))
         log.warning(
             "stepping back aggregation job %s (%s): lease released, reacquirable in %ds",
@@ -477,7 +491,8 @@ class AggregationJobDriver:
                     reports[ra.report_id.data] = tx.get_client_report(acquired.task_id, ra.report_id)
             return task, job, ras, reports
 
-        return self.ds.run_tx(read, "step_agg_job_read")
+        with span("driver.read_tx"):
+            return self.ds.run_tx(read, "step_agg_job_read")
 
     def release_job(self, acquired: AcquiredAggregationJob) -> None:
         self.ds.run_tx(lambda tx: tx.release_aggregation_job(acquired), "release")
@@ -491,9 +506,12 @@ class AggregationJobDriver:
         if job.state != AggregationJobState.IN_PROGRESS:
             self.release_job(acquired)
             return
-        # the lease budget bounds every stage of the step, and the HTTP
-        # client stamps its remainder on the helper request
-        with deadline_scope(self._lease_deadline(acquired)):
+        # adopt the trace the job's creator persisted in the row: every
+        # span below, and the helper's through the propagated
+        # traceparent, joins it, whichever process steps the job. The
+        # lease budget bounds every stage of the step, and the HTTP client
+        # stamps its remainder on the helper request
+        with use_traceparent(job.trace_context), deadline_scope(self._lease_deadline(acquired)):
             self._step_leased_job(acquired, task, job, ras, reports, seconds={"read_tx": read_s})
 
     def plan_step(self, acquired, task, job, ras):
@@ -555,9 +573,10 @@ class AggregationJobDriver:
         device-ready arrays."""
         wire = Prio3Wire(circuit_for(task.vdaf))
         engine = engine_cache(task.vdaf, task.vdaf_verify_key, devices=self.devices)
-        meas, proof, nonce_lanes, blind_lanes, public_parts, ok, failed, block_idx = self._stage_pending(
-            task, wire, engine, pending, reports
-        )
+        with span("driver.stage", batch=len(pending)):
+            meas, proof, nonce_lanes, blind_lanes, public_parts, ok, failed, block_idx = self._stage_pending(
+                task, wire, engine, pending, reports
+            )
         return InitStepState(
             acquired=acquired,
             task=task,
@@ -596,27 +615,28 @@ class AggregationJobDriver:
         failed = st.failed
         # one vectorized framing pass; each PrepareInit body is spliced
         # from pre-encoded rows
-        frames = encode_pingpong_share_column(st.engine.p3.tf, st.ver0, st.part0 if wire.uses_jr else None)
-        prep_inits = []
-        send_idx = []
-        for i, ra in enumerate(pending):
-            if failed[i] is not None or not st.ok[i]:
-                if failed[i] is None:
-                    failed[i] = PrepareError.INVALID_MESSAGE
-                continue
-            rep = reports[ra.report_id.data]
-            prep_inits.append(
-                PreEncoded(
-                    encode_report_share_raw(
-                        ra.report_id.data,
-                        ra.client_time.seconds,
-                        rep.public_share,
-                        rep.helper_encrypted_input_share,
+        with span("driver.encode_init", batch=n):
+            frames = encode_pingpong_share_column(st.engine.p3.tf, st.ver0, st.part0 if wire.uses_jr else None)
+            prep_inits = []
+            send_idx = []
+            for i, ra in enumerate(pending):
+                if failed[i] is not None or not st.ok[i]:
+                    if failed[i] is None:
+                        failed[i] = PrepareError.INVALID_MESSAGE
+                    continue
+                rep = reports[ra.report_id.data]
+                prep_inits.append(
+                    PreEncoded(
+                        encode_report_share_raw(
+                            ra.report_id.data,
+                            ra.client_time.seconds,
+                            rep.public_share,
+                            rep.helper_encrypted_input_share,
+                        )
+                        + frames.row(i)
                     )
-                    + frames.row(i)
                 )
-            )
-            send_idx.append(i)
+                send_idx.append(i)
 
         multi_round = st.multi_round
         accept = np.zeros(n, dtype=bool)
@@ -627,7 +647,8 @@ class AggregationJobDriver:
                 PartialBatchSelector.from_bytes(job.partial_batch_identifier),
                 tuple(prep_inits),
             )
-            body = self._send_init_request_raw(task, acquired, req)
+            with span("driver.http_init", reports=len(prep_inits)):
+                body = self._send_init_request_raw(task, acquired, req)
             col = decode_prepare_resps_fast(body)
             mapping = self._match_resps([pending[i].report_id.data for i in send_idx], col)
             seed_rows = (
@@ -693,6 +714,7 @@ class AggregationJobDriver:
         helper did not answer."""
         if len(col.report_ids) == len(sent_ids) and all(a == b for a, b in zip(col.report_ids, sent_ids)):
             return None
+        metrics.prep_resp_order_mismatch_total.add()
         by_id = {rid: j for j, rid in enumerate(col.report_ids)}
         return [by_id.get(rid) for rid in sent_ids]
 
@@ -706,18 +728,19 @@ class AggregationJobDriver:
         metadatas = [ReportMetadata(ra.report_id, ra.client_time) for ra in st.pending]
         pbs = PartialBatchSelector.from_bytes(st.job.partial_batch_identifier)
         bid_fixed = fixed_size_batch_id(pbs)
-        if self.cfg.resident.enabled and self._device_accumulate_resident(st, metadatas, bid_fixed):
-            return
-        accumulate_batched(
-            st.task,
-            st.engine,
-            st.accumulator,
-            st.out0,
-            st.accept,
-            metadatas,
-            batch_identifier=bid_fixed,
-            flat_idx=self._flat_idx(st),
-        )
+        with span("driver.accumulate", batch=len(st.pending)):
+            if self.cfg.resident.enabled and self._device_accumulate_resident(st, metadatas, bid_fixed):
+                return
+            accumulate_batched(
+                st.task,
+                st.engine,
+                st.accumulator,
+                st.out0,
+                st.accept,
+                metadatas,
+                batch_identifier=bid_fixed,
+                flat_idx=self._flat_idx(st),
+            )
 
     def _device_accumulate_resident(self, st, metadatas, bid_fixed) -> bool:
         """The resident accumulate. True: st.accumulator holds share-less
@@ -779,7 +802,9 @@ class AggregationJobDriver:
             if st.accept[i]:
                 new_ras.append(ra.finished())
             else:
-                new_ras.append(ra.failed(_err_or_default(st.failed[i])))
+                err = _err_or_default(st.failed[i])
+                metrics.aggregate_step_failure_counter.add(type=err.name.lower())
+                new_ras.append(ra.failed(err))
         accumulator = st.accumulator
         # the committing attempt's unmergeable set, carried out of the tx
         # (run_tx may retry the closure)
@@ -794,15 +819,22 @@ class AggregationJobDriver:
                 if ra.report_id.data in unmerged:
                     ra = ra.failed(PrepareError.BATCH_COLLECTED)
                 tx.update_report_aggregation(ra)
+            # the conservation ledger: every row is terminal in this
+            # transaction (a parameterized job books the param lane)
+            ledger.count_ra_outcomes(tx, job.task_id, new_ras, unmerged, aggregation_parameter=job.aggregation_parameter)
             tx.update_aggregation_job(job.with_state(AggregationJobState.FINISHED))
             tx.release_aggregation_job(acquired)
 
-        self.ds.run_tx(write, "step_agg_job_write")
+        with span("driver.write_tx", batch=len(st.pending)):
+            self.ds.run_tx(write, "step_agg_job_write")
         # resident mode: the deltas merge only now, after the commit
         # landed; a failed write (or a step-back earlier) drops them, so
         # the re-step under a fresh lease cannot merge twice
         if st.resident_delta is not None:
             self._resident_post_commit(st, cell.get("unmerged", set()))
+        # the e2e histogram only after the commit: a failed step retried
+        # under a fresh lease must leave no sample
+        observe_finished_report_e2e(self.ds.clock, new_ras, cell.get("unmerged", ()))
 
     # --- resident aggregate state: merge and flush ---
     def _resident_post_commit(self, st, unmerged: set) -> None:
@@ -833,6 +865,8 @@ class AggregationJobDriver:
                     recs = engine.fetch_delta_records(remaining, delta)
                 except Exception:
                     self.resident_lost += len(remaining)
+                    metrics.engine_resident_flushes_total.add(len(remaining), reason="merge_failed", outcome="lost")
+                    ledger.count_lost(self.ds, st.task.task_id, len(remaining))
                     log.exception("resident delta fetch failed too; %d bucket contribution(s) of job %s are LOST",
                                   len(remaining), st.acquired.job_id)
                     recs = []
@@ -921,12 +955,17 @@ class AggregationJobDriver:
                     acc = accs.get(agg_param)
                     if acc is None:
                         acc = accs[agg_param] = Accumulator(
-                            task, self.cfg.batch_aggregation_shard_count, aggregation_parameter=agg_param
+                            task, self.cfg.batch_aggregation_shard_count, aggregation_parameter=agg_param,
+                            count_metrics=False,
                         )
                     acc.update(bid, acc.field.encode_vec(r["share"]), 0, ReportIdChecksum(), r["interval"], [])
                     flushed_n += 1
                 for acc in accs.values():
                     acc.flush_to_datastore(tx)
+                if lost:
+                    # the ledger's terminal for share loss, booked in the
+                    # transaction that established it
+                    tx.increment_task_counters(task.task_id, {"lost": lost})
                 cell["lost"] = lost
                 cell["flushed"] = flushed_n
 
@@ -936,8 +975,13 @@ class AggregationJobDriver:
                 log.exception("resident flush tx failed (%d buffer(s), reason=%s); the fetched shares are LOST",
                               len(rows), reason)
                 self.resident_lost += len(rows)
+                metrics.engine_resident_flushes_total.add(len(rows), reason=reason, outcome="lost")
+                ledger.count_lost(self.ds, TaskId(task_id_bytes), len(rows))
                 continue
             self.resident_lost += cell.get("lost", 0)
+            for outcome in ("flushed", "lost", "stale"):
+                if cell.get(outcome, 0):
+                    metrics.engine_resident_flushes_total.add(cell[outcome], reason=reason, outcome=outcome)
             flushed += cell.get("flushed", 0)
         return flushed
 
@@ -953,13 +997,18 @@ class AggregationJobDriver:
                 blob = len(msg).to_bytes(4, "big") + msg + out0_rows[i]
                 new_ras.append(dataclasses.replace(ra, state=ReportAggregationState.WAITING_LEADER, prep_blob=blob))
             else:
-                new_ras.append(ra.failed(_err_or_default(st.failed[i])))
-        self._write_parked(st.acquired, new_ras, "step_agg_job_park")
+                err = _err_or_default(st.failed[i])
+                metrics.aggregate_step_failure_counter.add(type=err.name.lower())
+                new_ras.append(ra.failed(err))
+        self._write_parked(st.acquired, st.job, new_ras, "step_agg_job_park")
 
-    def _write_parked(self, acquired, new_ras, name: str) -> None:
+    def _write_parked(self, acquired, job, new_ras, name: str) -> None:
         def write(tx):
             for ra in new_ras:
                 tx.update_report_aggregation(ra)
+            # the conservation ledger: FAILED rows reach their terminal
+            # here (parked WAITING rows stay in flight)
+            ledger.count_ra_outcomes(tx, job.task_id, new_ras, aggregation_parameter=job.aggregation_parameter)
             tx.release_aggregation_job(acquired)
 
         self.ds.run_tx(write, name)
@@ -1066,8 +1115,10 @@ class AggregationJobDriver:
             if i in parked:
                 new_ras.append(dataclasses.replace(ra, state=ReportAggregationState.WAITING_LEADER, prep_blob=parked[i]))
             else:
-                new_ras.append(ra.failed(_err_or_default(failed[i])))
-        self._write_parked(acquired, new_ras, "step_p1_job_park")
+                err = _err_or_default(failed[i])
+                metrics.aggregate_step_failure_counter.add(type=err.name.lower())
+                new_ras.append(ra.failed(err))
+        self._write_parked(acquired, job, new_ras, "step_p1_job_park")
         lap("commit_park")
 
     def _continue_step(self, acquired, task: Task, job, waiting, seconds: dict) -> None:
@@ -1091,7 +1142,8 @@ class AggregationJobDriver:
             AggregationJobStep(job.step + 1),
             tuple(PreEncoded(ra.report_id.data + msg) for ra, msg in zip(waiting, msgs)),
         )
-        body = self._send_agg_job_request_raw(task, acquired, req, method="POST")
+        with span("driver.http_continue", reports=len(waiting)):
+            body = self._send_agg_job_request_raw(task, acquired, req, method="POST")
         now = time.perf_counter()
         seconds["http_continue"] = now - t
         t = now
@@ -1115,19 +1167,24 @@ class AggregationJobDriver:
                 err = _err_or_default(
                     col.errors[j] if j is not None and col.kinds[j] == PrepareStepResult.REJECT else None
                 )
+                metrics.aggregate_step_failure_counter.add(type=err.name.lower())
                 new_ras.append(ra.failed(err))
         new_job = dataclasses.replace(job, state=AggregationJobState.FINISHED, step=job.step + 1)
+        cell: dict = {}
 
         def write(tx):
             unmerged = accumulator.flush_to_datastore(tx)
+            cell["unmerged"] = unmerged
             for ra in new_ras:
                 if ra.report_id.data in unmerged:
                     ra = ra.failed(PrepareError.BATCH_COLLECTED)
                 tx.update_report_aggregation(ra)
+            ledger.count_ra_outcomes(tx, task.task_id, new_ras, unmerged, aggregation_parameter=job.aggregation_parameter)
             tx.update_aggregation_job(new_job)
             tx.release_aggregation_job(acquired)
 
         self.ds.run_tx(write, "step_agg_job_continue_write")
+        observe_finished_report_e2e(self.ds.clock, new_ras, cell.get("unmerged", ()))
         seconds["commit_continue"] = time.perf_counter() - t
 
     def _send_agg_job_request_raw(
@@ -1216,6 +1273,7 @@ class AggregationJobDriver:
             tx.release_aggregation_job(acquired)
 
         self.ds.run_tx(cancel, "abandon_agg_job")
+        metrics.job_cancel_counter.add(kind="aggregation")
         log.warning("abandoned aggregation job %s after max attempts", acquired.job_id)
 
 

@@ -25,14 +25,23 @@ aggregation jobs of at most 512 reports over the batch interval
 it again until no job for the parameter is in progress, then compute the
 aggregate share as for Prio3.
 
-Not ported: the cross-aggregator ledger reconciliation, and the trace
-spans, links and metrics.
+Observability, as in janus_tpu: a step runs under the trace the
+collection-create handler persisted (`use_traceparent` of the row's
+`trace_context`), its finishing span links the trace ids of the
+aggregation jobs that filled the batch, param-scoped jobs join the
+collection's trace, the store books `collected` (and the param lane's
+admissions `admitted_param`) in the conservation ledger, and after the
+store `_reconcile_with_helper` reads the helper's per-batch counts
+(GET /tasks/{id}/ledger) into the installed ledger evaluator's peer
+divergence. The step-back, cancellation and collect-stage e2e metrics are
+janus_tpu's.
 """
 
 from __future__ import annotations
 
 import base64
 import dataclasses
+import json
 import logging
 import secrets
 import time
@@ -47,6 +56,7 @@ from ..core.circuit_breaker import (
     peer_label,
 )
 from ..core.deadline import DEADLINE_EXCEEDED_STATUS, DeadlineExceeded, deadline_scope
+from .. import ledger, metrics
 from ..core.retries import Backoff, RequestAborted, retry_http_request
 from ..datastore.models import (
     AcquiredCollectionJob,
@@ -74,6 +84,7 @@ from ..messages import (
     TimeInterval,
 )
 from ..task import Task
+from ..trace import current_traceparent, span, trace_id_of, use_traceparent
 from ..vdaf.registry import circuit_for
 from .accumulator import add_encoded_aggregate_shares
 from .job_driver import (
@@ -125,6 +136,8 @@ class CollectionJobDriver:
     def acquirer(self, lease_duration_s: int = 600, fleet=None):
         """Batched claim acquirer over collectable collection jobs; `fleet`
         as in AggregationJobDriver.acquirer."""
+        if fleet is not None:
+            fleet.install_identity()
         shard = fleet.shard_spec() if fleet is not None else None
         holder = fleet.holder_tag() if fleet is not None else None
         return make_claim_acquirer(
@@ -167,6 +180,7 @@ class CollectionJobDriver:
     def step_back(self, acquired: AcquiredCollectionJob, reason: str, delay_s: float) -> None:
         """See AggregationJobDriver.step_back: early lease release with a
         reacquire delay, attempt refunded."""
+        metrics.job_step_back_total.add(reason=reason, **metrics.replica_labels())
         delay = max(0, int(delay_s))
         log.warning(
             "stepping back collection job %s (%s): lease released, reacquirable in %ds",
@@ -203,9 +217,12 @@ class CollectionJobDriver:
         if job.state not in (CollectionJobState.START, CollectionJobState.COLLECTABLE):
             self.ds.run_tx(lambda tx: tx.release_collection_job(acquired), "release")
             return
-        # the lease budget bounds the step, and the HTTP client stamps its
+        # adopt the trace the collection-create handler persisted: the
+        # driver's spans, and the helper's aggregate-share handler through
+        # the propagated traceparent, join the collector's trace. The
+        # lease budget bounds the step, and the HTTP client stamps its
         # remainder on the helper request
-        with deadline_scope(self._lease_deadline(acquired)):
+        with use_traceparent(job.trace_context), deadline_scope(self._lease_deadline(acquired)):
             self._step_leased_job(acquired, task, job)
 
     def _step_leased_job(self, acquired: AcquiredCollectionJob, task: Task, job) -> None:
@@ -234,17 +251,27 @@ class CollectionJobDriver:
             field = circuit_for(task.vdaf).FIELD
         query = Query.from_bytes(job.query)
 
-        # tx1: gather the shard rows (reference :160-199)
+        # tx1: gather the shard rows (reference :160-199), and the covered
+        # aggregation jobs' persisted trace contexts: the collection
+        # span's links
         def gather(tx):
             if query.query_type == TimeInterval.CODE:
-                return tx.get_batch_aggregations_intersecting_interval(
-                    task.task_id,
-                    Interval.from_bytes(job.batch_identifier),
-                    aggregation_parameter=job.aggregation_parameter,
+                interval = Interval.from_bytes(job.batch_identifier)
+                rows = tx.get_batch_aggregations_intersecting_interval(
+                    task.task_id, interval, aggregation_parameter=job.aggregation_parameter
                 )
-            return tx.get_batch_aggregations_for_batch(task.task_id, job.batch_identifier, job.aggregation_parameter)
+                links = tx.get_aggregation_job_trace_contexts(task.task_id, interval=interval)
+            else:
+                rows = tx.get_batch_aggregations_for_batch(
+                    task.task_id, job.batch_identifier, job.aggregation_parameter
+                )
+                links = tx.get_aggregation_job_trace_contexts(
+                    task.task_id,
+                    partial_batch_identifier=PartialBatchSelector.fixed_size(BatchId(job.batch_identifier)).to_bytes(),
+                )
+            return rows, links
 
-        rows = self.ds.run_tx(gather, "step_collection_gather")
+        rows, links = self.ds.run_tx(gather, "step_collection_gather")
         lap("gather")
         share = None
         total = 0
@@ -290,12 +317,16 @@ class CollectionJobDriver:
         else:
             batch_selector = BatchSelector.fixed_size(BatchId(job.batch_identifier))
         req = AggregateShareReq(batch_selector, job.aggregation_parameter, total, checksum)
-        helper_share = self._send_aggregate_share_request(task, req, deadline=self._lease_deadline(acquired))
+        with span("driver.http_aggregate_share", reports=total):
+            helper_share = self._send_aggregate_share_request(task, req, deadline=self._lease_deadline(acquired))
         lap("http_aggregate_share")
 
         def mark_and_store(tx):
             for row in rows:
                 tx.mark_batch_aggregations_collected(task.task_id, row.batch_identifier, row.aggregation_parameter)
+            # the conservation ledger: only rows still uncollected at
+            # gather time book `collected` (a re-query adds nothing)
+            ledger.count_collected(tx, task.task_id, rows)
             tx.update_collection_job(
                 dataclasses.replace(
                     job,
@@ -308,9 +339,69 @@ class CollectionJobDriver:
             )
             tx.release_collection_job(acquired)
 
-        self.ds.run_tx(mark_and_store, "step_collection_store")
+        # the finishing span links the aggregation jobs that filled the
+        # batch: their persisted trace ids ride as an attribute (capped,
+        # and the overflow shows)
+        link_ids = sorted({t for t in (trace_id_of(h) for h in links) if t})
+        with span("driver.collect_finish", reports=total, linked_traces=",".join(link_ids[:32]),
+                  linked_truncated=len(link_ids) > 32):
+            self.ds.run_tx(mark_and_store, "step_collection_store")
         lap("store")
+        # the collect-stage e2e histogram, outside the transaction: batch
+        # close (the batch interval's end; a fixed-size batch: the newest
+        # report's window) to aggregate share released
+        if query.query_type == TimeInterval.CODE:
+            batch_close = Interval.from_bytes(job.batch_identifier).end.seconds
+        else:
+            batch_close = interval.end.seconds
+        metrics.report_e2e_seconds.observe(float(max(0, self.ds.clock.now().seconds - batch_close)), stage="collect")
+        # cross-aggregator reconciliation, after the books closed here
+        self._reconcile_with_helper(task, rows)
         self.step_seconds.append((acquired.collection_job_id.data, seconds))
+
+    def _reconcile_with_helper(self, task: Task, rows) -> None:
+        """Fetch the helper's aggregated report counts (the authenticated
+        GET /tasks/{id}/ledger) and compare them with the batches this
+        collection covered, keyed "<batch hex>:<aggregation parameter
+        hex>" on both sides. The divergence goes to the installed ledger
+        evaluator (janus_ledger_peer_divergence, the peer breach track).
+        Best-effort: the collection is released already."""
+        ev = ledger.installed_ledger()
+        if ev is None or not ev.cfg.reconcile_peer:
+            return
+        ours: dict[str, int] = {}
+        for row in rows:
+            key = f"{row.batch_identifier.hex()}:{row.aggregation_parameter.hex()}"
+            ours[key] = ours.get(key, 0) + int(row.report_count)
+        if not ours:
+            return
+        try:
+            theirs = self._fetch_helper_ledger(task)
+        except Exception:
+            # an unreachable endpoint never fails a finished collection;
+            # the divergence gauge keeps its last value
+            log.warning("peer ledger reconciliation fetch failed for task %s", task.task_id, exc_info=True)
+            return
+        divergence = ev.record_peer_divergence(task.task_id, ours, theirs)
+        if divergence:
+            log.error(
+                "cross-aggregator ledger divergence for task %s: %d report(s) differ between our batch "
+                "aggregations and the helper's", task.task_id, divergence,
+            )
+
+    def _fetch_helper_ledger(self, task: Task) -> dict[str, int]:
+        url = (
+            task.helper_aggregator_endpoint.rstrip("/")
+            + f"/tasks/{base64.urlsafe_b64encode(task.task_id.data).decode().rstrip('=')}/ledger"
+        )
+        headers = {}
+        if task.aggregator_auth_token:
+            headers.update(task.aggregator_auth_token.request_headers())
+        status, body = self.http.get(url, headers, timeout=30.0)
+        if status != 200:
+            raise RuntimeError(f"helper ledger endpoint returned HTTP {status}")
+        doc = json.loads(body.decode("utf-8"))
+        return {str(k): int(v) for k, v in (doc.get("batch_counts") or {}).items()}
 
     def _ensure_param_aggregation(self, task: Task, job) -> bool:
         """Create aggregation jobs for the collection's parameter over the
@@ -338,6 +429,8 @@ class CollectionJobDriver:
                         AggregationJobState.IN_PROGRESS,
                         0,
                         None,
+                        # spawned by the collection: they join its trace
+                        trace_context=current_traceparent(),
                     )
                 )
                 for ord_, (rid, t) in enumerate(chunk):
@@ -346,6 +439,9 @@ class CollectionJobDriver:
                             task.task_id, job_id, rid, t, ord_, ReportAggregationState.START, b"", None
                         )
                     )
+            # the conservation ledger's param lane: creating the (report,
+            # parameter) rows is its admission, exactly once per pair
+            ledger.count_admitted(tx, task.task_id, len(todo), aggregation_parameter=param)
             if todo:
                 return False  # fresh jobs: not ready this pass
             # ready once no job for this parameter is still in progress
@@ -410,4 +506,5 @@ class CollectionJobDriver:
             tx.release_collection_job(acquired)
 
         self.ds.run_tx(cancel, "abandon_collection_job")
+        metrics.job_cancel_counter.add(kind="collection")
         log.warning("abandoned collection job %s", acquired.collection_job_id)

@@ -58,18 +58,24 @@ With `Config.upload_journal_path` set, the report writer spills to the
 durable upload journal (`ingest/journal.py`) while the datastore is
 unreachable, and a `JournalReplayer` thread drains it back once the
 supervisor reports the database reachable; `close()` stops both. The
-journal's and the supervisor's `status()` and `readiness()` are methods
-nothing registers (janus_tpu's statusz and readiness registries are not
-ported).
+journal's `status()` is the statusz `upload_journal` section while the
+aggregator lives; its `readiness()` stays a method (the readiness
+registry comes with the binaries).
 
 The helper's failpoints fire where janus_tpu's do: `helper.aggregate`
 at the head of aggregate-init (before the request hash, so an armed error
 is a 500 to the leader) and `helper.aggregate_share` just after the
 aggregate-share handler's deadline check.
 
-Not ported: the observability calls of janus_tpu's handlers (metrics,
-trace spans, the conservation ledger); a collection job's
-`trace_context` is None.
+The handlers make janus_tpu's observability calls: the upload and
+helper spans (`upload.*`, `helper.hpke_stage`, `.replay_tx`,
+`.columnar`, `.accumulate`, `.write_tx`), the upload and step-failure
+counters, the HPKE batch-size histogram, the conservation ledger's
+bookings inside the write transactions (the helper's admissions and
+outcomes, a collection's `collected`), the aggregated-reports counter
+and end-to-end histogram after each commit, and `trace_context`, the
+current traceparent, on every aggregation and collection job row the
+handlers write.
 """
 
 from __future__ import annotations
@@ -83,7 +89,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .. import failpoints
+from .. import failpoints, ledger, metrics
 from ..core import deadline as deadline_mod
 from ..core.hpke import HpkeApplicationInfo, HpkeError, Label, hpke_open_batch, hpke_seal
 from ..core.time_util import Clock, RealClock
@@ -158,7 +164,16 @@ from ..vdaf.wire import (
     split_prep_share_columns,
 )
 from . import errors
-from .accumulator import Accumulator, accumulate_batched, add_encoded_aggregate_shares, fixed_size_batch_id
+from ..statusz import register_status_provider, unregister_status_provider
+from ..trace import current_traceparent, span
+from .accumulator import (
+    Accumulator,
+    accumulate_batched,
+    add_encoded_aggregate_shares,
+    count_reports_aggregated,
+    fixed_size_batch_id,
+    observe_report_e2e,
+)
 from .engine_cache import engine_cache
 from .cache import GlobalHpkeKeypairCache, PeerAggregatorCache
 from .poplar1_ops import Poplar1Ops
@@ -322,12 +337,14 @@ class TaskAggregator:
             # the decrypt stage (validate_shares decodes it once)
             if sparse_ok is not None:
                 if not sparse_ok[k]:
+                    metrics.upload_decode_failure_counter.add()
                     out.append(errors.InvalidMessage("bad public share: invalid sparse block indices", task.task_id))
                     continue
             elif self.poplar is None:
                 try:
                     self.wire.decode_public_share(col.public_shares[i])
                 except DecodeError as e:
+                    metrics.upload_decode_failure_counter.add()
                     out.append(errors.InvalidMessage(f"bad public share: {e}", task.task_id))
                     continue
             cfg = col.leader_config_ids[i]
@@ -354,15 +371,18 @@ class TaskAggregator:
             tid + col.report_ids[i] + struct.pack(">QI", col.times[i], len(col.public_shares[i])) + col.public_shares[i]
             for i in idxs
         ]
-        opened = hpke_open_batch(
-            keypair,
-            HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.LEADER),
-            [col.leader_encs[i] for i in idxs],
-            [col.leader_payloads[i] for i in idxs],
-            aads,
-        )
+        with span("upload.hpke_validate_batch", batch=n):
+            metrics.hpke_batch_size.observe(n)
+            opened = hpke_open_batch(
+                keypair,
+                HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.LEADER),
+                [col.leader_encs[i] for i in idxs],
+                [col.leader_payloads[i] for i in idxs],
+                aads,
+            )
 
         def reject(e) -> errors.ReportRejected:
+            metrics.upload_decrypt_failure_counter.add()
             return errors.ReportRejected(f"undecryptable/undecodable share: {e}", task.task_id)
 
         out: list = [None] * n
@@ -425,10 +445,13 @@ class TaskAggregator:
         replay is silent success, as in DAP."""
         keypair = self.upload_prepare(clock, report)
         stored = self.upload_decrypt_validate(report, keypair)
-        if writer is not None:
-            writer.write_report(stored)
-        else:
-            ds.run_tx(lambda tx: tx.put_client_report(stored), "upload")
+        with span("upload.write"):
+            if writer is not None:
+                fresh = writer.write_report(stored)
+            else:
+                fresh = ds.run_tx(lambda tx: tx.put_client_report(stored), "upload")
+        if not fresh:
+            metrics.upload_replay_counter.add()
 
     # ------------------------------------------------------------------
     # helper aggregate init (reference aggregator.rs:1561)
@@ -478,76 +501,79 @@ class TaskAggregator:
         # block-sparse tasks: the validated public block indices per lane
         idx_rows: list | None = [None] * n if self.wire.sparse else None
 
-        # pass 1: cheap per-report checks + keypair lookup; HPKE lanes
-        # collect per config id for the batched opens
-        kp_cache: dict = {}
-        hpke_groups: dict = {}  # config id -> (keypair, [i], encs, pays, aads)
-        for i, pi in enumerate(inits):
-            rs = pi.report_share
-            md = rs.metadata
-            if task.task_expiration and md.time > task.task_expiration:
-                prep_err[i] = PrepareError.TASK_EXPIRED
-                continue
-            if task.report_expired(md.time, now):
-                prep_err[i] = PrepareError.REPORT_DROPPED
-                continue
-            cfg_id = rs.encrypted_input_share.config_id
-            if cfg_id not in kp_cache:
-                kp_cache[cfg_id] = self._hpke_keypair(cfg_id)
-            keypair = kp_cache[cfg_id]
-            if keypair is None:
-                prep_err[i] = PrepareError.HPKE_UNKNOWN_CONFIG_ID
-                continue
-            group = hpke_groups.setdefault(cfg_id, (keypair, [], [], [], []))
-            group[1].append(i)
-            group[2].append(rs.encrypted_input_share.encapsulated_key)
-            group[3].append(rs.encrypted_input_share.payload)
-            group[4].append(InputShareAad(task.task_id, md, rs.public_share).to_bytes())
+        with span("helper.hpke_stage", batch=n):
+            # pass 1: cheap per-report checks + keypair lookup; HPKE lanes
+            # collect per config id for the batched opens
+            kp_cache: dict = {}
+            hpke_groups: dict = {}  # config id -> (keypair, [i], encs, pays, aads)
+            for i, pi in enumerate(inits):
+                rs = pi.report_share
+                md = rs.metadata
+                if task.task_expiration and md.time > task.task_expiration:
+                    prep_err[i] = PrepareError.TASK_EXPIRED
+                    continue
+                if task.report_expired(md.time, now):
+                    prep_err[i] = PrepareError.REPORT_DROPPED
+                    continue
+                cfg_id = rs.encrypted_input_share.config_id
+                if cfg_id not in kp_cache:
+                    kp_cache[cfg_id] = self._hpke_keypair(cfg_id)
+                keypair = kp_cache[cfg_id]
+                if keypair is None:
+                    prep_err[i] = PrepareError.HPKE_UNKNOWN_CONFIG_ID
+                    continue
+                group = hpke_groups.setdefault(cfg_id, (keypair, [], [], [], []))
+                group[1].append(i)
+                group[2].append(rs.encrypted_input_share.encapsulated_key)
+                group[3].append(rs.encrypted_input_share.payload)
+                group[4].append(InputShareAad(task.task_id, md, rs.public_share).to_bytes())
 
-        # pass 2: one batched open per config-id group
-        plaintexts: list[bytes | None] = [None] * n
-        info = HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.HELPER)
-        for keypair, idxs_g, encs_g, pays_g, aads_g in hpke_groups.values():
-            deadline_mod.check("helper_decrypt")
-            opened = hpke_open_batch(keypair, info, encs_g, pays_g, aads_g)
-            for i, pt in zip(idxs_g, opened):
-                if isinstance(pt, HpkeError):
-                    prep_err[i] = PrepareError.HPKE_DECRYPT_ERROR
-                else:
-                    plaintexts[i] = pt
-        t1 = time.perf_counter()
-        stage["hpke_open"] = t1 - t0
+            # pass 2: one batched open per config-id group
+            plaintexts: list[bytes | None] = [None] * n
+            info = HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.HELPER)
+            for keypair, idxs_g, encs_g, pays_g, aads_g in hpke_groups.values():
+                deadline_mod.check("helper_decrypt")
+                metrics.hpke_batch_size.observe(len(idxs_g))
+                opened = hpke_open_batch(keypair, info, encs_g, pays_g, aads_g)
+                for i, pt in zip(idxs_g, opened):
+                    if isinstance(pt, HpkeError):
+                        prep_err[i] = PrepareError.HPKE_DECRYPT_ERROR
+                    else:
+                        plaintexts[i] = pt
+            t1 = time.perf_counter()
+            stage["hpke_open"] = t1 - t0
 
-        # pass 3: per-report payload/message decode into columns
-        for i, pi in enumerate(inits):
-            if prep_err[i] is not None or plaintexts[i] is None:
-                continue
-            rs = pi.report_share
-            try:
-                payload = plaintext_input_share_payload_fast(plaintexts[i])
-                seed, blind = self.wire.decode_helper_share(payload)
-                parts = self.wire.decode_public_share(rs.public_share)
-                tag, _, prep_share = decode_pingpong(pi.message)
-                if tag != PP_INITIALIZE or prep_share is None:
-                    raise DecodeError("expected ping-pong initialize")
-            except DecodeError:
-                prep_err[i] = PrepareError.INVALID_MESSAGE
-                continue
-            helper_seed_rows[i] = seed
-            blind_rows[i] = blind
-            if self.wire.uses_jr:
-                part_rows0[i] = parts[0]
-                part_rows1[i] = parts[1]
-            if idx_rows is not None:
-                idx_rows[i] = parts.indices
-            leader_prep_rows[i] = prep_share
+            # pass 3: per-report payload/message decode into columns
+            for i, pi in enumerate(inits):
+                if prep_err[i] is not None or plaintexts[i] is None:
+                    continue
+                rs = pi.report_share
+                try:
+                    payload = plaintext_input_share_payload_fast(plaintexts[i])
+                    seed, blind = self.wire.decode_helper_share(payload)
+                    parts = self.wire.decode_public_share(rs.public_share)
+                    tag, _, prep_share = decode_pingpong(pi.message)
+                    if tag != PP_INITIALIZE or prep_share is None:
+                        raise DecodeError("expected ping-pong initialize")
+                except DecodeError:
+                    prep_err[i] = PrepareError.INVALID_MESSAGE
+                    continue
+                helper_seed_rows[i] = seed
+                blind_rows[i] = blind
+                if self.wire.uses_jr:
+                    part_rows0[i] = parts[0]
+                    part_rows1[i] = parts[1]
+                if idx_rows is not None:
+                    idx_rows[i] = parts.indices
+                leader_prep_rows[i] = prep_share
 
         # replay check against prior aggregations: one set-valued query
         fresh_ids = [rid for i, rid in enumerate(ids) if prep_err[i] is None]
         deadline_mod.check("helper_replay_tx")
-        replayed_ids = ds.run_tx(
-            lambda tx: tx.get_aggregated_report_ids(task.task_id, fresh_ids), "agg_init_replay"
-        )
+        with span("helper.replay_tx", batch=len(fresh_ids)):
+            replayed_ids = ds.run_tx(
+                lambda tx: tx.get_aggregated_report_ids(task.task_id, fresh_ids), "agg_init_replay"
+            )
         for i, rid in enumerate(ids):
             if prep_err[i] is None and rid.data in replayed_ids:
                 prep_err[i] = PrepareError.REPORT_REPLAYED
@@ -559,19 +585,20 @@ class TaskAggregator:
                     prep_err[i] = PrepareError.VDAF_PREP_ERROR
 
         # columnar staging
-        nonce_lanes, ok_nonce = seeds_to_lanes([rid.data for rid in ids])
-        seed_lanes, ok_seed = seeds_to_lanes(helper_seed_rows)
-        ver0, part0_lanes, ok_prep = split_prep_share_columns(self.wire, self.engine.p3.tf, leader_prep_rows)
-        ok = ok_nonce & ok_seed & ok_prep & np.array([e is None for e in prep_err])
-        if self.wire.uses_jr:
-            blind_lanes, ok_b = seeds_to_lanes(blind_rows)
-            p0_pub, ok_p0 = seeds_to_lanes(part_rows0)
-            p1_pub, ok_p1 = seeds_to_lanes(part_rows1)
-            ok = ok & ok_b & ok_p0 & ok_p1
-            public_parts = np.stack([p0_pub, p1_pub], axis=1)
-        else:
-            blind_lanes = None
-            public_parts = None
+        with span("helper.columnar", batch=n):
+            nonce_lanes, ok_nonce = seeds_to_lanes([rid.data for rid in ids])
+            seed_lanes, ok_seed = seeds_to_lanes(helper_seed_rows)
+            ver0, part0_lanes, ok_prep = split_prep_share_columns(self.wire, self.engine.p3.tf, leader_prep_rows)
+            ok = ok_nonce & ok_seed & ok_prep & np.array([e is None for e in prep_err])
+            if self.wire.uses_jr:
+                blind_lanes, ok_b = seeds_to_lanes(blind_rows)
+                p0_pub, ok_p0 = seeds_to_lanes(part_rows0)
+                p1_pub, ok_p1 = seeds_to_lanes(part_rows1)
+                ok = ok & ok_b & ok_p0 & ok_p1
+                public_parts = np.stack([p0_pub, p1_pub], axis=1)
+            else:
+                blind_lanes = None
+                public_parts = None
         t2 = time.perf_counter()
         stage["decode"] = t2 - t1
 
@@ -591,6 +618,9 @@ class TaskAggregator:
             if prep_err[i] is None and not accept[i]:
                 prep_err[i] = PrepareError.VDAF_PREP_ERROR
 
+        for e in prep_err:
+            if e is not None:
+                metrics.aggregate_step_failure_counter.add(type=e.name.lower())
         # a two-round VDAF parks accepted reports in WaitingHelper with
         # (prep_msg || out_share) and answers ping-pong CONTINUE; the
         # continue request finishes them
@@ -625,16 +655,17 @@ class TaskAggregator:
             flat_idx = None
             if idx_rows is not None:
                 flat_idx = flat_scatter_indices(block_index_rows(idx_rows, self.wire.circ), self.wire.circ)
-            accumulate_batched(
-                task,
-                self.engine,
-                accumulator,
-                out1,
-                accept,
-                [pi.report_share.metadata for pi in inits],
-                batch_identifier=fixed_size_batch_id(req.partial_batch_selector),
-                flat_idx=flat_idx,
-            )
+            with span("helper.accumulate", batch=n):
+                accumulate_batched(
+                    task,
+                    self.engine,
+                    accumulator,
+                    out1,
+                    accept,
+                    [pi.report_share.metadata for pi in inits],
+                    batch_identifier=fixed_size_batch_id(req.partial_batch_selector),
+                    flat_idx=flat_idx,
+                )
         t4 = time.perf_counter()
         stage["accumulate"] = t4 - t3
 
@@ -648,6 +679,9 @@ class TaskAggregator:
             AggregationJobState.IN_PROGRESS if multi_round else AggregationJobState.FINISHED,
             0,
             request_hash,
+            # the leader's propagated traceparent: the helper's row records
+            # the job trace id the leader persisted
+            trace_context=current_traceparent(),
         )
 
         def write(tx):
@@ -659,11 +693,26 @@ class TaskAggregator:
                 if ra.report_id.data in unmerged:
                     ra = ra.failed(PrepareError.BATCH_COLLECTED)
                 tx.put_report_aggregation(ra)
+            # the conservation ledger, helper side: the RA rows are the
+            # admission record, and rows terminal in this transaction book
+            # their outcome too (a non-empty parameter: the param lane)
+            ledger.count_admitted(tx, task.task_id, len(report_aggs), aggregation_parameter=req.aggregation_parameter)
+            ledger.count_ra_outcomes(tx, task.task_id, report_aggs, unmerged,
+                                     aggregation_parameter=req.aggregation_parameter)
             return unmerged
 
         deadline_mod.check("helper_write_tx")
-        unmerged = ds.run_tx(write, "aggregate_init")
+        with span("helper.write_tx", batch=n):
+            unmerged = ds.run_tx(write, "aggregate_init")
         stage["write_tx"] = time.perf_counter() - t4
+        # the e2e histogram only after the commit; a two-round job
+        # accumulates at continue
+        if not multi_round:
+            observe_report_e2e(
+                clock,
+                [pi.report_share.metadata.time for i, pi in enumerate(inits)
+                 if accept[i] and pi.report_share.metadata.report_id.data not in unmerged],
+            )
         if unmerged:
             resps = [
                 PrepareResp(r.report_id, PrepareStepResult.reject(PrepareError.BATCH_COLLECTED))
@@ -790,6 +839,7 @@ class TaskAggregator:
             else:
                 if err is None:
                     err = PrepareError.INVALID_MESSAGE
+                metrics.aggregate_step_failure_counter.add(type=err.name.lower())
                 result = PrepareStepResult.reject(err)
             resps.append(PrepareResp(md.report_id, result))
             report_aggs.append(ReportAggregationModel(task.task_id, job_id, md.report_id, md.time, i, state, blob, err))
@@ -806,12 +856,17 @@ class TaskAggregator:
             AggregationJobState.IN_PROGRESS,
             0,
             request_hash,
+            trace_context=current_traceparent(),
         )
 
         def write(tx):
             tx.put_aggregation_job(job)
             for ra in report_aggs:
                 tx.put_report_aggregation(ra)
+            # the conservation ledger (see handle_aggregate_init): Poplar1
+            # always carries a parameter, so both land in the param lane
+            ledger.count_admitted(tx, task.task_id, len(report_aggs), aggregation_parameter=req.aggregation_parameter)
+            ledger.count_ra_outcomes(tx, task.task_id, report_aggs, aggregation_parameter=req.aggregation_parameter)
 
         deadline_mod.check("helper_write_tx")
         ds.run_tx(write, "aggregate_init_p1")
@@ -933,8 +988,11 @@ class TaskAggregator:
                 msg_len = 16 if self.wire.uses_jr else 0
                 skip_len = msg_len
                 field = None
+            # count_metrics=False: this accumulator lives inside the run_tx
+            # closure (a retry re-creates it); counted after the commit
             accumulator = Accumulator(
-                task, self.cfg.batch_aggregation_shard_count, field=field, aggregation_parameter=job.aggregation_parameter
+                task, self.cfg.batch_aggregation_shard_count, field=field, aggregation_parameter=job.aggregation_parameter,
+                count_metrics=False,
             )
             fixed_bid = fixed_size_batch_id(PartialBatchSelector.from_bytes(job.partial_batch_identifier))
             updated = []
@@ -964,23 +1022,36 @@ class TaskAggregator:
                     updated.append(dataclasses.replace(ra, state=ReportAggregationState.FINISHED, prep_blob=b""))
                     resps.append(PrepareResp(ra.report_id, PrepareStepResult.finished()))
                 else:
+                    metrics.aggregate_step_failure_counter.add(type="vdaf_prep_error")
                     updated.append(ra.failed(PrepareError.VDAF_PREP_ERROR))
                     resps.append(PrepareResp(ra.report_id, PrepareStepResult.reject(PrepareError.VDAF_PREP_ERROR)))
 
             unmerged = accumulator.flush_to_datastore(tx)
+            counted["n"] = accumulator.total_report_count() - len(unmerged)
+            # the merged reports' client times, out of the committing
+            # attempt, for the post-commit e2e observation
+            counted["times"] = [
+                ra.client_time for ra in updated
+                if ra.state == ReportAggregationState.FINISHED and ra.report_id.data not in unmerged
+            ]
             tx.update_aggregation_job(
                 dataclasses.replace(
                     job, state=AggregationJobState.FINISHED, step=step, last_request_hash=request_hash
                 )
             )
-            for ra in dropped:
+            dropped_terminal = [ra.failed(PrepareError.REPORT_DROPPED) for ra in dropped]
+            for ra in dropped_terminal:
                 # waiting rows the leader omitted (failed on its side):
                 # reference marks them ReportDropped (:72-81)
-                tx.update_report_aggregation(ra.failed(PrepareError.REPORT_DROPPED))
+                tx.update_report_aggregation(ra)
             for ra in updated:
                 tx.update_report_aggregation(
                     ra.failed(PrepareError.BATCH_COLLECTED) if ra.report_id.data in unmerged else ra
                 )
+            # the conservation ledger: every addressed or omitted row
+            # reaches a terminal in this transaction
+            ledger.count_ra_outcomes(tx, task.task_id, updated + dropped_terminal, unmerged,
+                                     aggregation_parameter=job.aggregation_parameter)
             if unmerged:
                 resps = [
                     PrepareResp(r.report_id, PrepareStepResult.reject(PrepareError.BATCH_COLLECTED))
@@ -990,7 +1061,11 @@ class TaskAggregator:
                 ]
             return AggregationJobResp(tuple(resps))
 
-        return ds.run_tx(process, "aggregate_continue")
+        counted: dict = {}
+        resp = ds.run_tx(process, "aggregate_continue")
+        count_reports_aggregated(task.task_id, counted.get("n", 0))
+        observe_report_e2e(clock, counted.get("times", ()))
+        return resp
 
     def _rebuild_continue_resps(self, tx, job_id, req) -> AggregationJobResp:
         """The replay's response, scoped to exactly the reports the
@@ -1110,6 +1185,9 @@ class TaskAggregator:
                     req.aggregation_parameter,
                     bid,
                     CollectionJobState.START,
+                    # the collection_create handler span's context: the
+                    # collection job driver adopts it on every step
+                    trace_context=current_traceparent(),
                 )
             )
 
@@ -1206,6 +1284,10 @@ class TaskAggregator:
                 total += row.report_count
                 checksum = checksum.combined_with(row.checksum)
                 tx.mark_batch_aggregations_collected(task.task_id, row.batch_identifier, row.aggregation_parameter)
+            # the conservation ledger: only rows still uncollected at
+            # gather time book `collected` (a re-query adds nothing, a
+            # failed transaction books nothing)
+            ledger.count_collected(tx, task.task_id, rows)
             if share is None:
                 raise errors.BatchInvalid("no aggregated reports in batch", task.task_id)
             # leader/helper consistency (reference checksum/count match)
@@ -1277,6 +1359,7 @@ class Aggregator:
             spill_latency_s=self.cfg.upload_journal_spill_latency_s,
         )
         if self.upload_journal is not None:
+            register_status_provider("upload_journal", self.upload_journal.status)
             self.journal_replayer = JournalReplayer(
                 self.upload_journal,
                 self.report_writer,
@@ -1293,6 +1376,7 @@ class Aggregator:
             self.journal_replayer.stop()
         self.report_writer.close()
         if self.upload_journal is not None:
+            unregister_status_provider("upload_journal", self.upload_journal.status)
             self.upload_journal.close()
 
     def task_aggregator_for(

@@ -41,9 +41,11 @@ and `run` refuses with `DeviceQuarantinedError`. janus_tpu declares a
 hang at the caller's deadline, where a quarantine costs little because
 its host engine serves; here a quarantine refuses every dispatch, so a
 short budget alone must not cause one, hence the separate bound. The
-metrics and the /statusz registration are left out: `status()` keeps the
-counts, and the JANUS_WATCHDOG_ABANDONED_CAP environment default is not
-ported (the cap is a constructor argument and `configure`).
+hung-dispatch counter and the abandoned-thread gauge are janus_tpu's,
+`status()` is the statusz `device_watchdog` section (each parked
+thread's stack rendered by profiler.format_stack, as janus_tpu's), and
+the JANUS_WATCHDOG_ABANDONED_CAP environment default is not ported (the
+cap is a constructor argument and `configure`).
 """
 
 from __future__ import annotations
@@ -56,6 +58,8 @@ import threading
 import time
 
 from ..core.deadline import DeadlineExceeded
+from ..profiler import format_stack
+from ..statusz import register_status_provider as _register_status_provider
 
 log = logging.getLogger(__name__)
 
@@ -127,17 +131,6 @@ class _Job:
         return self.result
 
 
-def _format_stack(frame, limit: int = 12) -> list[str]:
-    """Outermost-first `file:line function` labels of a live frame chain."""
-    out: list[str] = []
-    while frame is not None and len(out) < limit:
-        code = frame.f_code
-        out.append(f"{code.co_filename}:{frame.f_lineno} {code.co_name}")
-        frame = frame.f_back
-    out.reverse()
-    return out
-
-
 class DispatchWatchdog:
     """One per process (WATCHDOG below); engines call through `run`."""
 
@@ -162,10 +155,13 @@ class DispatchWatchdog:
     def reset_for_tests(self) -> None:
         """Drop device_down() and forget the stalled bookkeeping (the
         parked threads are daemons and unwind on their own)."""
+        from .. import metrics
+
         with self._lock:
             self._device_down = False
             self._stalled.clear()
             self._idle.clear()
+        metrics.abandoned_dispatch_threads.set(0.0)
 
     def _worker_loop(self, q) -> None:
         while True:
@@ -187,8 +183,12 @@ class DispatchWatchdog:
             if abandoned:
                 # the hung call returned at last (the device answered, or a
                 # released failpoint): the result is dropped, the thread retires
+                from .. import metrics
+
                 with self._lock:
                     self._stalled.pop(ident, None)
+                    n = len(self._stalled)
+                metrics.abandoned_dispatch_threads.set(float(n))
                 log.warning("abandoned dispatch %s completed after %.1fs; worker retiring",
                             job.label, time.monotonic() - job.started_at)
                 return
@@ -282,6 +282,9 @@ class DispatchWatchdog:
 
     def _record_hang(self, thread: threading.Thread, job: _Job, vdaf: str) -> None:
         """Under job.lock, so a worker that returns now finds its entry."""
+        from .. import metrics
+
+        metrics.hung_dispatches_total.add(vdaf=vdaf, op=job.label)
         waited = time.monotonic() - job.started_at
         with self._lock:
             self._stalled[thread.ident] = {
@@ -296,6 +299,7 @@ class DispatchWatchdog:
             if tripped:
                 self._device_down = True
             self._hung_total += 1
+        metrics.abandoned_dispatch_threads.set(float(n))
         log.error("device dispatch %s HUNG (%.3fs, past its bound); thread %s abandoned (%d/%d parked)",
                   job.label, waited, thread.name, n, self.abandoned_thread_cap)
         if tripped:
@@ -339,7 +343,7 @@ class DispatchWatchdog:
             }
             frame = frames.get(ident)
             if frame is not None:
-                ent["stack"] = _format_stack(frame)
+                ent["stack"] = format_stack(frame, limit=12, lineno=True)
             out_stalled.append(ent)
         return {
             "abandoned_threads": len(stalled),
@@ -353,6 +357,8 @@ class DispatchWatchdog:
 
 
 WATCHDOG = DispatchWatchdog()
+
+_register_status_provider("device_watchdog", WATCHDOG.status)
 
 
 def configure(abandoned_thread_cap: int | None = None) -> None:

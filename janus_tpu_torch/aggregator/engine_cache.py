@@ -103,6 +103,23 @@ does not have: a quarantined engine refuses, the job drivers step back
 it; the watchdog's abandoned-thread cap, which sends janus_tpu's engines
 to their host engines for good, makes every engine here refuse for the
 life of the process (`device_watchdog.WATCHDOG.device_down()`).
+
+Observability, as in janus_tpu: the put/dispatch/fetch spans of both
+inits and the aggregate (`engine.<op>.put`, `.dispatch`, `.fetch`,
+`.fetch_seed`/`_ver`/`_part`, the pipelined route's `put_all_async` and
+`chunk`), `_record_dispatch` (dispatch, row and fill metrics, and the
+device-cost ledger's compile/execute rows), the host<->device byte
+counter (`count_h2d` / `count_d2h`, from the tensors' `nbytes`), the
+coalescer, prestage, quarantine, resident, scatter and mesh-lane metrics,
+and the statusz sections `engine_cache`, `resident_accumulators` and
+`mesh`. Every value is one the host already holds (rows, buckets,
+`nbytes`, `time.monotonic()`): no metric adds a synchronization or a
+launch. A dispatch span times the enqueue; the fetch that waits for the
+kernels absorbs their time (the device-cost ledger's `d2h`). The dispatch
+and fetch spans run inside the supervised closures, on the watchdog's
+worker when it is armed (the worker runs in a copy of the caller's
+context, so they carry the caller's trace id); the mesh lane runs each
+step under the submitter's trace context.
 """
 
 from __future__ import annotations
@@ -117,12 +134,14 @@ from collections import OrderedDict, deque
 import numpy as np
 import torch
 
-from .. import failpoints
+from .. import failpoints, metrics
 from ..convert import from_numpy_u64, to_numpy_u64
 from ..core.deadline import current_deadline
 from ..device import resolve_device
 from ..fields.tfield import fzeros
 from ..ops.cuda_build import shard_scope
+from ..profiler import DEVICE_COST
+from ..trace import current_context, span, use_context
 from ..parallel.api import (
     ColumnShards,
     choose_mesh_geometry,
@@ -217,6 +236,29 @@ def pad_args(b: int, *args):
     return _map_args(lambda a: _pad(a, b), args)
 
 
+def _tree_nbytes(tree) -> int:
+    if tree is None or isinstance(tree, (bytes, int)):
+        return 0
+    if isinstance(tree, (tuple, list)):
+        return sum(_tree_nbytes(x) for x in tree)
+    nb = getattr(tree, "nbytes", None)
+    return int(nb) if nb is not None else 0
+
+
+def count_h2d(tree_or_bytes) -> None:
+    """Account host->device bytes (staged uploads, masks, bucket ids)."""
+    n = tree_or_bytes if isinstance(tree_or_bytes, int) else _tree_nbytes(tree_or_bytes)
+    if n:
+        metrics.engine_hd_bytes_total.add(n, direction="h2d")
+
+
+def count_d2h(tree_or_bytes) -> None:
+    """Account device->host bytes (fetches of masks, seeds, aggregates)."""
+    n = tree_or_bytes if isinstance(tree_or_bytes, int) else _tree_nbytes(tree_or_bytes)
+    if n:
+        metrics.engine_hd_bytes_total.add(n, direction="d2h")
+
+
 def put_args(args, device: torch.device, stream=None):
     """Move every array of an arg tuple to `device`. With a CUDA `stream`
     each host array is pinned and copied asynchronously on that stream;
@@ -249,6 +291,19 @@ def _fetch_leader_rows(seed0, ver0, part0, n: int):
     )
 
 
+def _fetch_leader_rows_spanned(kind: str, b: int, seed0, ver0, part0, n: int):
+    """`_fetch_leader_rows` under janus_tpu's three fetch spans: the seed
+    lanes, the verifier limbs, the joint-rand part lanes."""
+    with span("engine.leader_init.fetch_seed", vdaf=kind, bucket=b):
+        seed = _fetch_rows(seed0, n) if seed0 is not None else None
+    with span("engine.leader_init.fetch_ver", vdaf=kind, bucket=b):
+        ver = tuple(_fetch_rows(x, n) for x in ver0)
+    with span("engine.leader_init.fetch_part", vdaf=kind, bucket=b):
+        part = _fetch_rows(part0, n) if part0 is not None else None
+    count_d2h((seed, ver, part))
+    return seed, ver, part
+
+
 class DeviceRows:
     """Out-share field value living on the device, padded to its bucket.
 
@@ -271,7 +326,9 @@ class DeviceRows:
 
     def to_numpy(self):
         def fetch():
-            return tuple(to_numpy_u64(x[self.offset : self.offset + self.n]) for x in self.value)
+            rows = tuple(to_numpy_u64(x[self.offset : self.offset + self.n]) for x in self.value)
+            count_d2h(rows)
+            return rows
 
         return fetch() if self.engine is None else self.engine._fetch("fetch_rows", fetch)
 
@@ -544,8 +601,12 @@ def _resident_bytes_add(delta: int, kind: str, nbuf: int) -> int:
     global _resident_bytes_total
     with _resident_bytes_lock:
         _resident_bytes_total += delta
-        _resident_buffer_counts[kind] = _resident_buffer_counts.get(kind, 0) + nbuf
-        return _resident_bytes_total
+        total = _resident_bytes_total
+        n = _resident_buffer_counts.get(kind, 0) + nbuf
+        _resident_buffer_counts[kind] = n
+    metrics.engine_resident_bytes.set(float(total))
+    metrics.engine_resident_buffers.set(float(n), vdaf=kind)
+    return total
 
 
 def resident_bytes_total() -> int:
@@ -695,11 +756,15 @@ class _MeshDispatch:
     """One queued mesh enqueue: the function, its args, and the rendezvous
     the submitting thread blocks on."""
 
-    __slots__ = ("fn", "args", "t_submit", "done", "result", "error")
+    __slots__ = ("fn", "args", "vdaf", "program", "ctx", "t_submit", "done", "result", "error")
 
-    def __init__(self, fn, args):
+    def __init__(self, fn, args, vdaf: str = "", program: str = ""):
         self.fn = fn
         self.args = args
+        self.vdaf = vdaf
+        self.program = program
+        # the submitter's trace context: the lane's spans are its children
+        self.ctx = current_context()
         self.t_submit = time.monotonic()
         self.done = threading.Event()
         self.result = None
@@ -727,6 +792,8 @@ class MeshDispatchQueue:
         self._lock = threading.Lock()
         self._thread: threading.Thread | None = None
         self._depth = 0
+        # (vdaf, program) pairs run once: the cost ledger's compile row
+        self._seen: set[tuple[str, str]] = set()
         self._stats = self._zero_stats()
 
     @staticmethod
@@ -734,15 +801,18 @@ class MeshDispatchQueue:
         return {"submitted": 0, "completed": 0, "errors": 0, "max_depth": 0, "wait_s": 0.0, "max_wait_s": 0.0,
                 "busy_s": 0.0}
 
-    def submit(self, fn, *args):
+    def submit(self, fn, *args, vdaf: str = "", program: str = ""):
         """Run fn(*args) on the lane; block until it returned; re-raise its
-        exception here."""
+        exception here. `vdaf` and `program` name the step for the metrics
+        and the device-cost ledger."""
         self._ensure_thread()
-        item = _MeshDispatch(fn, args)
+        item = _MeshDispatch(fn, args, vdaf, program)
         with self._lock:
             self._depth += 1
+            depth = self._depth
             self._stats["submitted"] += 1
             self._stats["max_depth"] = max(self._stats["max_depth"], self._depth)
+        metrics.mesh_dispatch_queue_depth.set(float(depth))
         self._q.put(item)
         item.done.wait()
         if item.error is not None:
@@ -761,19 +831,36 @@ class MeshDispatchQueue:
             wait = time.monotonic() - item.t_submit
             with self._lock:
                 self._depth -= 1
+                depth = self._depth
                 self._stats["wait_s"] += wait
                 self._stats["max_wait_s"] = max(self._stats["max_wait_s"], wait)
+                first = (item.vdaf, item.program) not in self._seen
+                if first:
+                    self._seen.add((item.vdaf, item.program))
+            metrics.mesh_dispatch_queue_depth.set(float(depth))
+            metrics.mesh_dispatch_wait_seconds.observe(wait)
             t0 = time.monotonic()
             try:
-                item.result = item.fn(*item.args)
+                with use_context(item.ctx):
+                    item.result = item.fn(*item.args)
             except BaseException as e:  # noqa: BLE001 - belongs to the caller
                 item.error = e
             finally:
+                dt = time.monotonic() - t0
                 with self._lock:
-                    self._stats["busy_s"] += time.monotonic() - t0
+                    self._stats["busy_s"] += dt
                     self._stats["completed"] += 1
                     if item.error is not None:
                         self._stats["errors"] += 1
+                metrics.mesh_dispatch_busy_seconds.add(dt)
+                metrics.mesh_dispatch_total.add(program=item.program or "unknown")
+                if item.vdaf:
+                    # the lane's own row per mesh program: its host-side
+                    # step (the enqueue), the first run of a program as
+                    # the cold call
+                    DEVICE_COST.record(
+                        item.vdaf, f"mesh:{item.program}", 0, "compile" if first else "execute", dt, dispatches=1
+                    )
                 item.done.set()
 
     def status(self) -> dict:
@@ -786,6 +873,7 @@ class MeshDispatchQueue:
         other state)."""
         with self._lock:
             self._stats = self._zero_stats()
+            self._seen.clear()
 
 
 # the process-wide lane: one queue for every engine's mesh enqueues (the
@@ -863,6 +951,8 @@ def _run_leader_round(args_list, ns):
             return [eng._leader_init_inner(*rest, prestaged=prestaged)]
         cross = any(e is not exec_eng for e in engines)
         offsets = list(np.cumsum([0] + list(ns)))
+        metrics.engine_coalesced_rounds_total.add()
+        metrics.engine_coalesced_rows_total.add(int(sum(ns)))
         exec_eng._count_round(int(sum(ns)))
         _round_prestage_fallback(args_list)
         merged = _concat_args([a[2:] for a in args_list])
@@ -892,6 +982,8 @@ def _run_helper_round(args_list, ns):
             return [eng._helper_init_inner(*rest)]
         cross = any(e is not exec_eng for e in engines)
         offsets = list(np.cumsum([0] + list(ns)))
+        metrics.engine_coalesced_rounds_total.add()
+        metrics.engine_coalesced_rows_total.add(int(sum(ns)))
         exec_eng._count_round(int(sum(ns)))
         merged = _concat_args([a[1:] for a in args_list])
         vk = _verify_key_lanes(engines, ns) if cross else None
@@ -1006,13 +1098,14 @@ class EngineCache:
         self._canary_wakeup = threading.Event()
         self._canary_stop = False
         self._canary_thread: threading.Thread | None = None
-        # the port's stand-in for janus_tpu's quarantine counter and gauges
+        # the quarantine's counts per engine (the process-wide counter is
+        # janus_engine_quarantines_total)
         self.quarantine_stats = {
             "opened": 0, "canary_probes": 0, "canary_failed": 0, "restored": 0, "refused": 0,
             "canary_delay_s": None, "last_probe_s": None, "last_quarantine_s": None,
         }
-        # counters (the port's stand-in for janus_tpu's metrics): merged
-        # rounds this engine ran, their rows, and the prestages' outcomes
+        # this engine's own counts beside the process-wide metrics: merged
+        # rounds it ran, their rows, and the prestages' outcomes
         self._stats_lock = threading.Lock()
         self.coalesce_stats = {"merged_rounds": 0, "merged_rows": 0}
         self.prestage_stats = {"issued": 0, "used": 0, "discarded": 0}
@@ -1030,6 +1123,12 @@ class EngineCache:
         }
         self._scatter_rows_total = 0
         self._sparse_last_occupancy: float | None = None
+        # the (op, bucket) pairs dispatched once (the compile histogram)
+        # and the cost ledger's keys run once (its compile row)
+        self._dispatched_buckets: set[tuple[str, int]] = set()
+        self._ledger_dispatched: set[tuple] = set()
+        self._dispatch_track_lock = threading.Lock()
+        self._publish_state()
 
     def _dispatch(self, name: str, fn, *args):
         """Run one step on staged device tensors: the one place a device
@@ -1047,6 +1146,42 @@ class EngineCache:
         while quarantined: the quarantine flush of resident slots is one."""
         return self._supervised(label, fn)
 
+    def _publish_state(self) -> None:
+        """Refresh the janus_engine_backend / janus_engine_bucket_cap
+        gauges of this engine's VDAF kind: exactly one state is 1."""
+        state = self._backend_state()
+        for s in self.BACKEND_STATES:
+            metrics.engine_backend_state.set(1.0 if s == state else 0.0, vdaf=self.inst.kind, state=s)
+        metrics.engine_bucket_cap.set(float(self.bucket_cap or 0), vdaf=self.inst.kind)
+
+    def _record_dispatch(self, op: str, n: int, b: int, elapsed_s: float, ledger_op: str | None = None,
+                         compile_key: tuple | None = None) -> None:
+        """Per-dispatch accounting, as janus_tpu's: the dispatch and row
+        counters, the padding-waste gauge, the first-call-per-(op, bucket)
+        histogram, and the device-cost ledger's row (the first call of a
+        key is its `compile` row, later calls `execute`). `elapsed_s` is
+        host time: on the card the enqueue, not the kernels."""
+        metrics.engine_dispatches_total.add(op=op)
+        metrics.engine_rows_total.add(n, op=op)
+        if b > 0:
+            metrics.engine_batch_fill_ratio.set(n / b, op=op)
+        lkey = compile_key if compile_key is not None else (ledger_op or op, b)
+        if self.mesh is not None:
+            lkey = tuple(lkey) + ("mesh", self.dp, self.sp, len(self._devices))
+        with self._dispatch_track_lock:
+            first = (op, b) not in self._dispatched_buckets
+            if first:
+                self._dispatched_buckets.add((op, b))
+            ledger_first = lkey not in self._ledger_dispatched
+            if ledger_first:
+                self._ledger_dispatched.add(lkey)
+        if first:
+            metrics.engine_compile_seconds.observe(elapsed_s, op=op, bucket=str(b))
+        DEVICE_COST.record(
+            self.inst.kind, ledger_op or op, b, "compile" if ledger_first else "execute", elapsed_s, rows=n,
+            dispatches=1,
+        )
+
     # --- the mesh: every enqueue on the process's lane ---
     def _on_lane(self, name: str, fn):
         """Run a mesh closure on the `mesh-dispatch` lane, under the
@@ -1059,7 +1194,7 @@ class EngineCache:
         def step():
             _engine_dispatch_failpoint()
             streams = _current_streams(self._devices)
-            return _MESH_QUEUE.submit(_in_streams, streams, fn)
+            return _MESH_QUEUE.submit(_in_streams, streams, fn, vdaf=self.inst.kind, program=name)
 
         return self._supervised(name, step)
 
@@ -1101,6 +1236,25 @@ class EngineCache:
         on each of the engine's devices: both belong to a thread, and the
         caller's staged tensors (a prestage's wait included) were ordered
         on those streams."""
+        phase = self._LEDGER_SUPERVISED_PHASES.get(label)
+        if phase is None:
+            return self._supervised_call(label, fn)
+        t0 = time.monotonic()
+        try:
+            return self._supervised_call(label, fn)
+        finally:
+            DEVICE_COST.record(self.inst.kind, label, 0, phase, time.monotonic() - t0)
+
+    # Supervised regions the device-cost ledger books whole, as janus_tpu
+    # does: the resident fetches are pure device-to-host waits. The inits'
+    # and the aggregate's phases are split inside them instead
+    # (_record_dispatch and the put/fetch span hooks).
+    _LEDGER_SUPERVISED_PHASES = {
+        "resident_fetch": "d2h",
+        "resident_delta_fetch": "d2h",
+    }
+
+    def _supervised_call(self, label: str, fn):
         deadline = current_deadline()
         if deadline is None or device_watchdog.in_watchdog():
             return fn()
@@ -1160,8 +1314,10 @@ class EngineCache:
                 {"at": time.time(), "bucket": None, "action": "quarantined", "error": f"hung dispatch {label}"}
             )
             start_canary = not device_watchdog.WATCHDOG.device_down()
+            self._publish_state()
         with self._stats_lock:
             self.quarantine_stats["opened"] += 1
+        metrics.engine_quarantines_total.add(vdaf=self.inst.kind, event="open")
         log.error("engine %s QUARANTINED after a hung %s; refusing every dispatch while the canary probes the "
                   "device", self.inst.kind, label)
         if start_canary:
@@ -1182,6 +1338,7 @@ class EngineCache:
                 return
             with self._stats_lock:
                 self.quarantine_stats["canary_probes"] += 1
+            metrics.engine_quarantines_total.add(vdaf=self.inst.kind, event="canary_probe")
             t0 = time.monotonic()
             try:
                 self._canary_probe()
@@ -1192,6 +1349,7 @@ class EngineCache:
                 with self._stats_lock:
                     self.quarantine_stats["canary_failed"] += 1
                     self.quarantine_stats["canary_delay_s"] = delay
+                metrics.engine_quarantines_total.add(vdaf=self.inst.kind, event="canary_failed")
                 log.warning("canary probe for %s failed (%s: %s); next probe in %.1fs",
                             self.inst.kind, type(e).__name__, e, delay)
                 continue
@@ -1204,6 +1362,8 @@ class EngineCache:
                 self._co_helper._max_rows = self._initial_round_rows
                 self.oom_history.append({"at": time.time(), "bucket": None, "action": "restored", "error": ""})
                 quarantined_s = now - self._quarantined_at
+                self._publish_state()
+            metrics.engine_quarantines_total.add(vdaf=self.inst.kind, event="restored")
             with self._stats_lock:
                 self.quarantine_stats["restored"] += 1
                 self.quarantine_stats["last_probe_s"] = now - t0
@@ -1290,6 +1450,8 @@ class EngineCache:
     def _count_prestage(self, outcome: str) -> None:
         with self._stats_lock:
             self.prestage_stats[outcome] += 1
+        if outcome != "issued":
+            metrics.engine_prestage_total.add(outcome="hit" if outcome == "used" else "fallback")
 
     # --- memory-exhaustion ladder (shared by every public step) ---
     def _handle_engine_error(self, e: BaseException, n: int) -> None:
@@ -1336,6 +1498,8 @@ class EngineCache:
                     "error": str(e)[:200],
                 }
             )
+            metrics.engine_oom_retry_counter.add()
+            eng._publish_state()
 
     def would_coalesce(self, n: int) -> bool:
         """True when an init of n rows enters a coalesced round (the
@@ -1404,18 +1568,35 @@ class EngineCache:
         if self.mesh is not None:
             return self._mesh_helper_init(raw, n, b, vk_lanes)
 
+        kind = self.inst.kind
         try:
-            if vk_lanes is None:
-                staged = put_args(pad_args(b, *raw), self.device)
-                vkey = self.verify_key
-            else:
-                vkey, *staged = put_args(pad_args(b, vk_lanes, *raw), self.device)
-            out1, mask, prep_msg = self._dispatch("helper_init", _helper_step, p3, vkey, *staged)
-            # out1 stays on the device; the mask and prep message come
-            # back (the .cpu() blocks until the step has run)
-            mask, prep_msg = self._fetch(
-                "helper_init_fetch", lambda: (mask[:n].cpu().numpy(), _fetch_rows(prep_msg, n))
-            )
+            with span("engine.helper_init", vdaf=kind, batch=n, bucket=b, coalesced=coalesced):
+                with span("engine.helper_init.put", vdaf=kind, bucket=b):
+                    host = pad_args(b, *raw) if vk_lanes is None else pad_args(b, vk_lanes, *raw)
+                    count_h2d(host)
+                    if vk_lanes is None:
+                        staged = put_args(host, self.device)
+                        vkey = self.verify_key
+                    else:
+                        vkey, *staged = put_args(host, self.device)
+
+                def dispatch():
+                    with span("engine.helper_init.dispatch", vdaf=kind):
+                        return _helper_step(p3, vkey, *staged)
+
+                t_disp = time.monotonic()
+                out1, mask, prep_msg = self._dispatch("helper_init", dispatch)
+                self._record_dispatch("helper_init", n, b, time.monotonic() - t_disp)
+
+                # out1 stays on the device; the mask and prep message come
+                # back (the .cpu() blocks until the step has run)
+                def fetch():
+                    with span("engine.helper_init.fetch", vdaf=kind, bucket=b):
+                        got = (mask[:n].cpu().numpy(), _fetch_rows(prep_msg, n))
+                        count_d2h(got)
+                        return got
+
+                mask, prep_msg = self._fetch("helper_init_fetch", fetch)
         except Exception as e:
             _annotate_dispatch_bucket(e, b)
             raise
@@ -1432,13 +1613,28 @@ class EngineCache:
             out1, mask, prep_msg = _helper_step(p3, *a)
             return ColumnShards.split(out1, mesh.row(i)), mask, prep_msg
 
+        kind = self.inst.kind
+
+        def fetch():
+            with span("engine.helper_init.fetch", vdaf=kind, bucket=b):
+                got = (
+                    np.concatenate([o[1].cpu().numpy() for o in outs])[:n],
+                    np.concatenate([to_numpy_u64(o[2]) for o in outs])[:n],
+                )
+                count_d2h(got)
+                return got
+
         try:
-            shards = self._stage(pad_args(b, vkey, *raw), ("rows",) * 8)
-            outs = self._mesh_dispatch("helper_init", shard, shards)
-            mask, prep_msg = self._fetch("helper_init_fetch", lambda: (
-                np.concatenate([o[1].cpu().numpy() for o in outs])[:n],
-                np.concatenate([to_numpy_u64(o[2]) for o in outs])[:n],
-            ))
+            with span("engine.helper_init", vdaf=kind, batch=n, bucket=b, coalesced=0):
+                with span("engine.helper_init.put", vdaf=kind, bucket=b):
+                    host = pad_args(b, vkey, *raw)
+                    count_h2d(host)
+                    shards = self._stage(host, ("rows",) * 8)
+                t_disp = time.monotonic()
+                with span("engine.helper_init.dispatch", vdaf=kind):
+                    outs = self._mesh_dispatch("helper_init", shard, shards)
+                self._record_dispatch("helper_init", n, b, time.monotonic() - t_disp)
+                mask, prep_msg = self._fetch("helper_init_fetch", fetch)
         except Exception as e:
             _annotate_dispatch_bucket(e, b)
             raise
@@ -1512,19 +1708,35 @@ class EngineCache:
             return self._mesh_leader_init(
                 (nonce_lanes, public_parts, meas, proof, blind0), n, b, vk_lanes, prestaged if use_prestaged else None
             )
+        kind = self.inst.kind
         try:
-            if use_prestaged:
-                self._count_prestage("used")
-                staged = _take_prestaged(prestaged)
-                vkey = self.verify_key
-            elif vk_lanes is None:
-                staged = put_args(pad_args(b, nonce_lanes, public_parts, meas, proof, blind0), self.device)
-                vkey = self.verify_key
-            else:
-                vkey, *staged = put_args(pad_args(b, vk_lanes, nonce_lanes, public_parts, meas, proof, blind0),
-                                         self.device)
-            out0, seed0, ver0, part0 = self._dispatch("leader_init", self._leader_step, vkey, *staged)
-            seed0, ver0, part0 = self._fetch("leader_init_fetch", lambda: _fetch_leader_rows(seed0, ver0, part0, n))
+            with span("engine.leader_init", vdaf=kind, batch=n, bucket=b, coalesced=coalesced,
+                      prestaged=bool(use_prestaged)):
+                with span("engine.leader_init.put", vdaf=kind, bucket=b):
+                    if use_prestaged:
+                        self._count_prestage("used")
+                        staged = _take_prestaged(prestaged)
+                        vkey = self.verify_key
+                    elif vk_lanes is None:
+                        host = pad_args(b, nonce_lanes, public_parts, meas, proof, blind0)
+                        count_h2d(host)
+                        staged = put_args(host, self.device)
+                        vkey = self.verify_key
+                    else:
+                        host = pad_args(b, vk_lanes, nonce_lanes, public_parts, meas, proof, blind0)
+                        count_h2d(host)
+                        vkey, *staged = put_args(host, self.device)
+
+                def dispatch():
+                    with span("engine.leader_init.dispatch", vdaf=kind):
+                        return self._leader_step(vkey, *staged)
+
+                t_disp = time.monotonic()
+                out0, seed0, ver0, part0 = self._dispatch("leader_init", dispatch)
+                self._record_dispatch("leader_init", n, b, time.monotonic() - t_disp)
+                seed0, ver0, part0 = self._fetch(
+                    "leader_init_fetch", lambda: _fetch_leader_rows_spanned(kind, b, seed0, ver0, part0, n)
+                )
         except Exception as e:
             _annotate_dispatch_bucket(e, b)
             raise
@@ -1547,21 +1759,33 @@ class EngineCache:
             )
             return ColumnShards.split(out0, mesh.row(i)), seed0, ver0, part0
 
+        kind = self.inst.kind
         try:
-            if prestaged is not None:
-                self._count_prestage("used")
-                shards = [(self.verify_key, *sh) for sh in _take_prestaged(prestaged)]
-            else:
-                vkey = self.verify_key if vk_lanes is None else vk_lanes
-                shards = self._stage(pad_args(b, vkey, *raw), ("rows",) + self.LEADER_SPECS)
-            outs = self._mesh_dispatch("leader_init", shard, shards)
+            with span("engine.leader_init", vdaf=kind, batch=n, bucket=b, coalesced=0,
+                      prestaged=prestaged is not None):
+                with span("engine.leader_init.put", vdaf=kind, bucket=b):
+                    if prestaged is not None:
+                        self._count_prestage("used")
+                        shards = [(self.verify_key, *sh) for sh in _take_prestaged(prestaged)]
+                    else:
+                        vkey = self.verify_key if vk_lanes is None else vk_lanes
+                        host = pad_args(b, vkey, *raw)
+                        count_h2d(host)
+                        shards = self._stage(host, ("rows",) + self.LEADER_SPECS)
+                t_disp = time.monotonic()
+                with span("engine.leader_init.dispatch", vdaf=kind):
+                    outs = self._mesh_dispatch("leader_init", shard, shards)
+                self._record_dispatch("leader_init", n, b, time.monotonic() - t_disp)
 
-            def fetch():
-                h = b // self.dp
-                rows = [_fetch_leader_rows(*o[1:], h) for o in outs]
-                return tuple(_cat_host([r[k] for r in rows], n) for k in range(3))
+                def fetch():
+                    with span("engine.leader_init.fetch", vdaf=kind, bucket=b):
+                        h = b // self.dp
+                        rows = [_fetch_leader_rows(*o[1:], h) for o in outs]
+                        got = tuple(_cat_host([r[k] for r in rows], n) for k in range(3))
+                        count_d2h(got)
+                        return got
 
-            seed0, ver0, part0 = self._fetch("leader_init_fetch", fetch)
+                seed0, ver0, part0 = self._fetch("leader_init_fetch", fetch)
         except Exception as e:
             _annotate_dispatch_bucket(e, b)
             raise
@@ -1643,31 +1867,47 @@ class EngineCache:
         spans = [(s, min(s + C, n)) for s in range(0, n, C)]
         cuda = self.device.type == "cuda"
         copy_stream = torch.cuda.Stream(device=self.device) if cuda else None
+        kind = self.inst.kind
+        # the dominant chunk bucket keys the ledger's row of the whole
+        # pass's put and fetch, as in janus_tpu
+        chunk_b = bucket_size(min(n, C))
+
+        def fetch():
+            with span("engine.leader_init.fetch", vdaf=kind, bucket=chunk_b):
+                got = [_fetch_leader_rows(*r[1:], e - s) for (s, e), r in zip(spans, results)]
+                count_d2h(got)
+                return got
+
         try:
-            staged, ready = [], []
-            for s, e in spans:
-                args = pad_args(
-                    bucket_size(e - s),
-                    *(_cut_rows(a, s, e) for a in (nonce_lanes, public_parts, meas, proof, blind0)),
-                )
-                staged.append(put_args(args, self.device, stream=copy_stream))
-                if cuda:
-                    ev = torch.cuda.Event()
-                    ev.record(copy_stream)
-                    ready.append(ev)
-            results = []
-            for k, args in enumerate(staged):
-                if cuda:
-                    compute = torch.cuda.current_stream(self.device)
-                    compute.wait_event(ready[k])
-                    # tensors made on the copy stream are read on this
-                    # one: the allocator must not reuse them early
-                    _map_args(lambda t: t.record_stream(compute), args)
-                results.append(self._dispatch("leader_init", self._leader_step, self.verify_key, *args))
-            outs = [DeviceRows(r[0], e - s, engine=self) for (s, e), r in zip(spans, results)]
-            fetched = self._fetch(
-                "leader_init_fetch", lambda: [_fetch_leader_rows(*r[1:], e - s) for (s, e), r in zip(spans, results)]
-            )
+            with span("engine.leader_init", vdaf=kind, batch=n, pipelined=len(spans)):
+                staged, ready = [], []
+                with span("engine.leader_init.put_all_async", vdaf=kind, bucket=chunk_b):
+                    for s, e in spans:
+                        args = pad_args(
+                            bucket_size(e - s),
+                            *(_cut_rows(a, s, e) for a in (nonce_lanes, public_parts, meas, proof, blind0)),
+                        )
+                        count_h2d(args)
+                        staged.append(put_args(args, self.device, stream=copy_stream))
+                        if cuda:
+                            ev = torch.cuda.Event()
+                            ev.record(copy_stream)
+                            ready.append(ev)
+                results = []
+                for k, args in enumerate(staged):
+                    s, e = spans[k]
+                    with span("engine.leader_init.chunk", k=k, rows=e - s, vdaf=kind):
+                        if cuda:
+                            compute = torch.cuda.current_stream(self.device)
+                            compute.wait_event(ready[k])
+                            # tensors made on the copy stream are read on this
+                            # one: the allocator must not reuse them early
+                            _map_args(lambda t: t.record_stream(compute), args)
+                        t_disp = time.monotonic()
+                        results.append(self._dispatch("leader_init", self._leader_step, self.verify_key, *args))
+                        self._record_dispatch("leader_init", e - s, bucket_size(e - s), time.monotonic() - t_disp)
+                outs = [DeviceRows(r[0], e - s, engine=self) for (s, e), r in zip(spans, results)]
+                fetched = self._fetch("leader_init_fetch", fetch)
             seeds, vers, parts = (list(col) for col in zip(*fetched))
         except Exception as exc:
             _annotate_dispatch_bucket(exc, bucket_size(min(n, C)))
@@ -1712,6 +1952,7 @@ class EngineCache:
             n, s = out_shares.n, out_shares.offset
             dispatch_b, fixed = out_shares.value[0].shape[0], True
             args = (tuple(x[s : s + n] for x in out_shares.value), torch.from_numpy(mask.copy()).to(self.device))
+            count_h2d(int(mask.nbytes))
         else:
             n = mask.shape[0]
             cap = self.bucket_cap
@@ -1724,10 +1965,19 @@ class EngineCache:
             dispatch_b, fixed = bucket_size(n, cap), False
             args = None
         try:
-            if args is None:
-                args = put_args(pad_args(dispatch_b, out_shares, mask), self.device)
-            agg = self._dispatch("aggregate", p3.aggregate, *args)
-            return self._fetch("aggregate_fetch", lambda: [int(x) for x in p3.tf.to_ints(agg)])
+            t_disp = time.monotonic()
+            # the fetch (to_ints) waits for the kernels: inside the span,
+            # as janus_tpu's, so it bounds the device work, not the enqueue
+            with span("engine.aggregate.dispatch", vdaf=self.inst.kind, batch=n, bucket=dispatch_b):
+                if args is None:
+                    host = pad_args(dispatch_b, out_shares, mask)
+                    count_h2d(host)
+                    args = put_args(host, self.device)
+                agg = self._dispatch("aggregate", p3.aggregate, *args)
+                result = self._fetch("aggregate_fetch", lambda: [int(x) for x in p3.tf.to_ints(agg)])
+                count_d2h(len(result) * p3.tf.LIMBS * 8)
+            self._record_dispatch("aggregate", n, dispatch_b, time.monotonic() - t_disp)
+            return result
         except Exception as e:
             _annotate_dispatch_bucket(e, dispatch_b, fixed=fixed)
             raise
@@ -1752,10 +2002,18 @@ class EngineCache:
                 )
             b, fixed, rows = bucket_size(n, cap), False, None
         try:
-            if rows is None:
-                rows = self._mesh_rows(out_shares, b)
-            agg = self._mesh_aggregate(rows, mask)
-            return self._fetch("aggregate_fetch", lambda: _value_ints(self.p3.tf, agg))
+            t_disp = time.monotonic()
+            with span("engine.aggregate.dispatch", vdaf=self.inst.kind, batch=rows.n if rows is not None else n,
+                      bucket=b):
+                if rows is None:
+                    count_h2d(out_shares)
+                    rows = self._mesh_rows(out_shares, b)
+                count_h2d(int(mask.nbytes))
+                agg = self._mesh_aggregate(rows, mask)
+                result = self._fetch("aggregate_fetch", lambda: _value_ints(self.p3.tf, agg))
+                count_d2h(len(result) * self.p3.tf.LIMBS * 8)
+            self._record_dispatch("aggregate", rows.n, b, time.monotonic() - t_disp)
+            return result
         except Exception as e:
             _annotate_dispatch_bucket(e, b, fixed=fixed)
             raise
@@ -1806,12 +2064,34 @@ class EngineCache:
         L = self.p3.circ.agg_output_len
         accept = np.asarray(mask, dtype=bool)
         idx = np.where(accept[:, None], np.asarray(flat_idx, dtype=np.int32), np.int32(L)).astype(np.int32)
+        n = idx.shape[0]
+        n_rows = int(accept.sum())
+        live = int((idx < L).sum())
         while True:
             try:
+                t_disp = time.monotonic()
                 acc = self._scatter_dispatch(self._zeros_row(L), out_shares, idx)
-                return self._fetch("aggregate_fetch", lambda: [int(x) for x in self.p3.tf.to_ints(acc)])
+                result = self._fetch("aggregate_fetch", lambda: [int(x) for x in self.p3.tf.to_ints(acc)])
+                count_d2h(len(result) * self.p3.tf.LIMBS * 8)
+                self._record_dispatch("aggregate", n, bucket_size(n), time.monotonic() - t_disp,
+                                      ledger_op="scatter_merge", compile_key=("scatter_merge", bucket_size(n)))
+                self._count_scatter(n_rows, live, idx.shape[1], resident=False)
+                return result
             except Exception as e:  # noqa: BLE001 - memory filter inside
                 self._handle_engine_error(e, idx.shape[0])
+
+    def _count_scatter(self, n_rows: int, live: int, width: int, resident: bool = True) -> None:
+        """The scatter metrics of one scatter-merge: its accepted reports
+        and the share of their block slots that carried a block (host
+        index data only). The resident status counts the resident merges'
+        rows alone."""
+        metrics.engine_scatter_rows_total.add(n_rows, vdaf=self.inst.kind)
+        if resident:
+            self._scatter_rows_total += n_rows
+        if n_rows:
+            occ = live / (n_rows * width)
+            self._sparse_last_occupancy = occ
+            metrics.engine_sparse_block_occupancy.set(occ, vdaf=self.inst.kind)
 
     def _zeros_row(self, length: int):
         """A fresh logical accumulator: a zero field row on the device."""
@@ -1827,7 +2107,9 @@ class EngineCache:
             hi = min(lo + step, e)
             try:
                 rows = tuple(x[lo:hi] for x in values)
-                idx_t = torch.from_numpy(np.ascontiguousarray(idx[lo - s : hi - s])).to(self.device)
+                idx_h = np.ascontiguousarray(idx[lo - s : hi - s])
+                count_h2d(int(idx_h.nbytes))
+                idx_t = torch.from_numpy(idx_h).to(self.device)
                 acc = self._dispatch("scatter_rows", self.p3.scatter_rows, acc, rows, idx_t)
             except Exception as exc:
                 _annotate_dispatch_bucket(exc, hi - lo)
@@ -1857,7 +2139,9 @@ class EngineCache:
         # host limb rows
         n = idx.shape[0]
         b = bucket_size(n)
-        (padded,) = put_args(pad_args(b, out_shares), self.device)
+        host = pad_args(b, out_shares)
+        count_h2d(host)
+        (padded,) = put_args(host, self.device)
         full = np.full((b, idx.shape[1]), np.int32(L), np.int32)
         full[:n] = idx
         return self._scatter_rows(acc, padded, full, 0, b)
@@ -1889,8 +2173,13 @@ class EngineCache:
             return SparsePendingDeltas(
                 out_shares, np.asarray(flat_idx, np.int32), bucket_idx, k, L * p3.tf.LIMBS * 8, L
             )
+        n_rows = len(bucket_idx)
         try:
+            t_disp = time.monotonic()
             value = self._pending_dispatch(out_shares, bucket_idx, k)
+            self._record_dispatch("aggregate", n_rows, bucket_size(n_rows), time.monotonic() - t_disp,
+                                  ledger_op="aggregate_pending",
+                                  compile_key=("aggregate_pending", k, bucket_size(n_rows)))
         except Exception as e:
             _annotate_dispatch_bucket(e, bucket_size(len(bucket_idx)), fixed=True)
             raise
@@ -1918,8 +2207,12 @@ class EngineCache:
             n, s = out_shares.n, out_shares.offset
             rows = tuple(x[s : s + n] for x in out_shares.value)
         else:
-            (rows,) = put_args(pad_args(len(bucket_idx), out_shares), self.device)
-        idx = torch.from_numpy(np.ascontiguousarray(bucket_idx)).to(self.device)
+            host = pad_args(len(bucket_idx), out_shares)
+            count_h2d(host)
+            (rows,) = put_args(host, self.device)
+        idx_h = np.ascontiguousarray(bucket_idx)
+        count_h2d(int(idx_h.nbytes))
+        idx = torch.from_numpy(idx_h).to(self.device)
         return self._dispatch("aggregate_pending", p3.aggregate_buckets, rows, idx, k)
 
     def _resident_add(self, acc, row):
@@ -1940,11 +2233,12 @@ class EngineCache:
         sel = deltas.bucket_idx == j
         idx = np.where(sel[:, None], deltas.flat_idx, np.int32(L)).astype(np.int32)
         acc = self._zeros_row(L) if slot is None else slot.value
-        value = self._scatter_dispatch(acc, deltas.out_shares, idx)
         n_rows = int(sel.sum())
-        self._scatter_rows_total += n_rows
-        if n_rows:
-            self._sparse_last_occupancy = int((idx < L).sum()) / (n_rows * deltas.flat_idx.shape[1])
+        t_disp = time.monotonic()
+        value = self._scatter_dispatch(acc, deltas.out_shares, idx)
+        self._record_dispatch("aggregate", n_rows, bucket_size(len(sel)), time.monotonic() - t_disp,
+                              ledger_op="scatter_merge", compile_key=("scatter_merge", bucket_size(len(sel))))
+        self._count_scatter(n_rows, int((idx < L).sum()), deltas.flat_idx.shape[1])
         return value
 
     def resident_merge(self, entries, deltas) -> list[dict]:
@@ -2047,6 +2341,7 @@ class EngineCache:
             for key, j, rows, interval in entries:
                 value = self._sparse_slot_value(None, deltas, j) if sparse else deltas.row(j)
                 out.append({"key": key, "share": _value_ints(tf, value), "rows": rows, "interval": interval})
+            count_d2h(deltas.row_nbytes * len(entries))
             return out
 
         return self._fetch("resident_delta_fetch", fetch)
@@ -2056,10 +2351,12 @@ class EngineCache:
         tf = self.p3.tf
 
         def fetch():
-            return [
+            recs = [
                 {"key": s.key, "share": _value_ints(tf, s.value), "rows": s.rows, "interval": s.interval}
                 for s in slots
             ]
+            count_d2h(sum(s.nbytes for s in slots))
+            return recs
 
         return self._fetch("resident_fetch", fetch)
 
@@ -2107,7 +2404,9 @@ def engine_cache(inst: VdafInstance, verify_key: bytes, device=None, devices=Non
         eng = _engine_cache.get(key)
         if eng is not None:
             _engine_cache.move_to_end(key)
+            metrics.engine_cache_hits.add()
             return eng
+    metrics.engine_cache_misses.add()
     # build outside the lock; a concurrent double build keeps the first
     eng = EngineCache(inst, verify_key, devices=devs)
     with _engine_cache_lock:
@@ -2125,17 +2424,18 @@ def engine_cache(inst: VdafInstance, verify_key: bytes, device=None, devices=Non
                 # RESIDENT_MAX_BYTES): keep them until a flush drains one
                 break
             _engine_cache.pop(victim)
+        metrics.engine_cache_entries.set(float(len(_engine_cache)))
     return eng
 
 
 def mesh_status() -> dict:
-    """The mesh as the process sees it: the dispatch lane's counters and
-    each cached engine's geometry (janus_tpu's /statusz `mesh` section, a
-    plain dict until the port has a status registry)."""
+    """The statusz `mesh` section: the dispatch lane's counters and each
+    cached engine's geometry. The device count reads CUDA's only where
+    CUDA is up already (a statusz read must not initialize it)."""
     with _engine_cache_lock:
         engines = list(_engine_cache.values())
     return {
-        "devices": torch.cuda.device_count() if torch.cuda.is_available() else 0,
+        "devices": torch.cuda.device_count() if torch.cuda.is_initialized() else None,
         "queue": _MESH_QUEUE.status(),
         "engines": [{"vdaf": e.inst.kind, **e.mesh_status()} for e in engines],
     }
@@ -2155,9 +2455,56 @@ def _engine_cache_clear() -> None:
     with _engine_cache_lock:
         _engine_cache.clear()
     _clear_shared_coalescers()
+    _MESH_QUEUE.reset_for_tests()
     with _resident_bytes_lock:
         _resident_bytes_total = 0
+        kinds = list(_resident_buffer_counts)
         _resident_buffer_counts.clear()
+    metrics.engine_resident_bytes.set(0.0)
+    for kind in kinds:
+        metrics.engine_resident_buffers.set(0.0, vdaf=kind)
+    metrics.engine_cache_entries.set(0.0)
 
 
 engine_cache.cache_clear = _engine_cache_clear
+
+
+def engine_cache_status() -> dict:
+    """The statusz `engine_cache` section: per-engine bucket cap, backend
+    state, geometry, quarantine counters and recent OOM history."""
+    with _engine_cache_lock:
+        engines = list(_engine_cache.values())
+    out = []
+    for eng in engines:
+        out.append({
+            **eng.engine_status(),
+            "xof_mode": eng.inst.xof_mode,
+            "initial_bucket_cap": eng._initial_bucket_cap,
+            "coalesce_round_rows": eng._co_leader._max_rows,
+            "resident": eng.resident_status(),
+            "oom_history": list(eng.oom_history),
+        })
+    return {"entries": len(engines), "max_entries": _ENGINE_CACHE_MAX, "engines": out}
+
+
+def resident_accumulators_status() -> dict:
+    """The statusz `resident_accumulators` section: the process's resident
+    bytes beside the cap, the sparse engines' scatter rollup, and every
+    engine's slots and counters."""
+    engines = live_engines()
+    return {
+        "total_bytes": resident_bytes_total(),
+        "max_bytes": EngineCache.RESIDENT_MAX_BYTES,
+        "sparse": {
+            "engines": sum(1 for e in engines if e.sparse),
+            "scatter_rows": sum(e._scatter_rows_total for e in engines),
+        },
+        "engines": [eng.resident_status() for eng in engines],
+    }
+
+
+from ..statusz import register_status_provider as _register_status_provider  # noqa: E402
+
+_register_status_provider("engine_cache", engine_cache_status)
+_register_status_provider("resident_accumulators", resident_accumulators_status)
+_register_status_provider("mesh", mesh_status)

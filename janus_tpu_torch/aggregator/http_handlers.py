@@ -14,6 +14,7 @@ aggregation and aggregate-share requests:
   POST   /tasks/:task_id/collection_jobs/:collection_job_id   (poll)
   DELETE /tasks/:task_id/collection_jobs/:collection_job_id
   POST   /tasks/:task_id/aggregate_shares
+  GET    /tasks/:task_id/ledger   (the conservation ledger's peer read)
 
 with janus_tpu's media-type check, aggregator and collector auth,
 XOF-mode check, the poll's 202 with Retry-After and RFC 7807 problem
@@ -44,9 +45,15 @@ lines up to 1 MiB (`binary_utils.LongHeaderLines`): the header of a
 Prio3Histogram(10000) TaskConfig is ~106,700 characters, which
 janus_tpu's server, on http.server's 64 KiB line limit, refuses.
 
-Not ported, and answered as janus_tpu answers an unknown route (404):
-the ledger read (GET /tasks/:id/ledger); and the calls into metrics,
-statusz and trace spans.
+Observability, as in janus_tpu: every request adopts an incoming
+`traceparent` and runs under a `dap.<route>` span (so a helper's spans
+carry the leader job's trace id), feeds the per-route request counter
+and latency histogram (the request span's trace id as its exemplar),
+and a shed counts in janus_upload_shed_total; the ingest pipeline's
+occupancy is the statusz `ingest` section. The ledger route answers the
+leader's reconciliation read behind the same aggregator auth as the
+aggregation steps: this aggregator's per-(batch, parameter) aggregated
+counts and its task counters, janus_tpu's JSON byte for byte.
 """
 
 from __future__ import annotations
@@ -58,9 +65,11 @@ import logging
 import math
 import re
 import threading
+import time
 from http.server import BaseHTTPRequestHandler
 from urllib.parse import parse_qsl, urlsplit
 
+from .. import metrics
 from ..binary_utils import BoundedThreadingHTTPServer, LongHeaderLines
 from ..core import deadline as deadline_mod
 from ..core.deadline import DEADLINE_EXCEEDED_STATUS, DeadlineExceeded
@@ -80,6 +89,8 @@ from ..messages import (
 from ..messages.codec import DecodeError
 from ..messages.problem_type import DapProblemType
 from ..messages.taskprov import TASKPROV_HEADER, TaskConfig
+from ..statusz import register_status_provider
+from ..trace import adopt_traceparent, current_context, reset_traceparent, span
 from .core import Aggregator
 from .device_watchdog import DeviceQuarantinedError
 from .errors import AggregatorError, InvalidMessage, UnrecognizedTask
@@ -108,6 +119,10 @@ _ROUTES = [
     ("POST", re.compile(r"^/tasks/([^/]+)/collection_jobs/([^/]+)$"), "collection_poll"),
     ("DELETE", re.compile(r"^/tasks/([^/]+)/collection_jobs/([^/]+)$"), "collection_delete"),
     ("POST", re.compile(r"^/tasks/([^/]+)/aggregate_shares$"), "aggregate_share"),
+    # the conservation ledger's reconciliation: the leader's collection
+    # driver reads the helper's per-batch counts over the aggregator-auth
+    # channel of the DAP steps
+    ("GET", re.compile(r"^/tasks/([^/]+)/ledger$"), "ledger"),
 ]
 
 # Admission route classes: client uploads shed first; the
@@ -189,6 +204,22 @@ class DapHttpApp:
                     batch_window=cfg.ingest_batch_window,
                     batch_linger_ms=cfg.ingest_batch_linger_ms,
                 )
+                pipe = self._ingest
+
+                def _ingest_status(pipe=pipe, cfg=cfg):
+                    inflight, bound = pipe.depth()
+                    return {
+                        "inflight": inflight,
+                        "queue_depth_bound": bound,
+                        "occupancy": round(inflight / bound, 3) if bound else 0.0,
+                        "decrypt_workers": pipe.decrypt_workers,
+                        "decode_workers": pipe.decode_workers,
+                        "batch_window": pipe.batch_window,
+                        "batch_linger_ms": pipe.batch_linger_s * 1000.0,
+                        "queue_high_watermark": cfg.queue_high_watermark,
+                    }
+
+                register_status_provider("ingest", _ingest_status)
             if self._admission is None:
                 self._admission = AdmissionController(
                     AdmissionConfig(
@@ -242,8 +273,31 @@ class DapHttpApp:
             self.agg.check_aggregator_auth(ta.task, headers)
 
     def handle(self, method: str, path: str, query: dict, headers, body: bytes):
-        """-> (status, content_type, body_bytes, extra_headers)."""
-        result = self._handle(method, path, query, headers, body)
+        """-> (status, content_type, body_bytes, extra_headers). Wraps
+        _handle with the incoming traceparent, the `dap.<route>` span and
+        the per-route request counter and latency histogram."""
+        route = "none"
+        for m, rx, name in _ROUTES:
+            if m == method and rx.match(path):
+                route = name
+                break
+        start = time.monotonic()
+        # adopt the caller's trace (leader -> helper): one trace stitches
+        # the job's steps across both aggregators
+        tp_token = adopt_traceparent(next((v for k, v in headers.items() if k.lower() == "traceparent"), None))
+        exemplar_ctx = None
+        try:
+            with span(f"dap.{route}", method=method):
+                # the request span's trace id is the latency sample's
+                # exemplar (the span has reset its context by then)
+                exemplar_ctx = current_context()
+                result = self._handle(method, path, query, headers, body)
+        finally:
+            reset_traceparent(tp_token)
+        metrics.http_request_duration.observe(
+            time.monotonic() - start, exemplar_trace_id=exemplar_ctx[0] if exemplar_ctx else None, route=route
+        )
+        metrics.http_request_counter.add(route=route, status=str(result[0]))
         if len(result) == 3:
             result = result + ({},)
         return result
@@ -288,6 +342,7 @@ class DapHttpApp:
         except ShedError as e:
             # 429 for capacity sheds, 503 for availability sheds, both
             # with Retry-After
+            metrics.upload_shed_counter.add(route=e.route_class, reason=e.reason)
             return _shed(e)
         except DeviceQuarantinedError as e:
             # the task's engine refuses dispatches: an availability shed,
@@ -343,7 +398,8 @@ class DapHttpApp:
         # still means "durably written"; a stage error re-raises here and
         # maps to its problem document. A replay is silent success.
         ingest, _ = self._ensure_ingest()
-        ingest.submit(ta, self.agg.clock, body).result()
+        if not ingest.submit(ta, self.agg.clock, body).result():
+            metrics.upload_replay_counter.add()
         return 201, "text/plain", b""
 
     def h_aggregate_init(self, match, query, headers, body):
@@ -419,6 +475,23 @@ class DapHttpApp:
         req = AggregateShareReq.from_bytes(body)
         resp = ta.handle_aggregate_share(self.agg.ds, req)
         return 200, "application/dap-aggregate-share", resp.to_bytes()
+
+    def h_ledger(self, match, query, headers, body):
+        """The conservation ledger's cross-aggregator read: this
+        aggregator's per-batch aggregated report counts and its task
+        counters, behind the leader->helper aggregator auth of the DAP
+        aggregation steps (janus_tpu's route and JSON)."""
+        task_id = TaskId(_b64dec(match.group(1), 32))
+        taskprov_config = self._taskprov_config(task_id, headers)
+        ta = self.agg.task_aggregator_for(task_id, taskprov_config, headers, peer_role=Role.LEADER)
+        self._check_helper_auth(ta, task_id, headers, taskprov_config)
+
+        def read(tx):
+            return tx.ledger_batch_counts(task_id), tx.get_task_counters(task_id)
+
+        batch_counts, counters = self.agg.ds.run_tx(read, "ledger_peer_read")
+        doc = {"batch_counts": batch_counts, "counters": counters}
+        return 200, "application/json", json.dumps(doc, sort_keys=True).encode()
 
 
 class DapServer:

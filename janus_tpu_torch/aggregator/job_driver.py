@@ -15,11 +15,13 @@ every helper's circuit is open. A JobDriver given a stage pipeline
 Fleet sharding: `make_claim_acquirer(shard=)` classifies every claim
 transaction's jobs (`record_acquire`: own, stolen from another replica's
 shard past the steal fence, or handed back by a draining replica) and
-keeps the counts in the acquirer's `status()`, where janus_tpu feeds its
+keeps the counts in the acquirer's `status()`, and feeds janus_tpu's
 lease_acquire_tx_total, lease_acquired_jobs_total and lease_steals_total
-(its metrics registry is not ported). A JobDriver given a `releaser`
-hands back at once the lease of a step that fails while it is stopped.
-The `job.step` trace span is not ported.
+(labelled by replica once a fleet identity is set:
+metrics.set_replica_identity, from the drivers' `acquirer(fleet=)`). A
+JobDriver given a `releaser` hands back at once the lease of a step that
+fails while it is stopped. Every serial step runs under a `job.step`
+span.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import time
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from dataclasses import dataclass
 
+from .. import metrics
 from ..core.deadline import DeadlineExceeded
 from ..datastore.store import job_shard_key
 
@@ -111,6 +114,12 @@ def record_acquire(kind: str, jobs, shard=None) -> dict:
             out["handbacks"] += 1
         elif shard is not None and shard.active and sk % shard.shard_count != shard.shard_index % shard.shard_count:
             out["steals"] += 1
+    labels = metrics.replica_labels()
+    metrics.lease_acquire_tx_total.add(kind=kind, outcome=out["outcome"], **labels)
+    if jobs:
+        metrics.lease_acquired_jobs_total.add(len(jobs), kind=kind, **labels)
+    if out["steals"]:
+        metrics.lease_steals_total.add(out["steals"], kind=kind, **labels)
     return out
 
 
@@ -283,8 +292,11 @@ class JobDriver:
         return len(jobs)
 
     def _step_one(self, acquired) -> None:
+        from ..trace import span
+
         try:
-            self.stepper(acquired)
+            with span("job.step", job=type(acquired).__name__):
+                self.stepper(acquired)
         except Exception:
             if self.stopper.stopped and self.releaser is not None:
                 # shutdown drain: this process will not retry

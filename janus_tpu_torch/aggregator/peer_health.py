@@ -24,14 +24,14 @@ transaction, no lease), and let a cheap probe resume it.
   breaker's single probe slot (any HTTP status counts as alive), so
   recovery does not wait for a parked driver to stumble into the peer.
 
-The port's own copy of janus_tpu/aggregator/peer_health.py. janus_tpu
-publishes the parked gauge, the outage-seconds counter and the probe
-counter in its process-wide metrics registry; here they live in the
-tracker's own state (`status()`), so two trackers never share a count.
-Left out: the /statusz registration, the `peer_health:` config section
-with its `enabled` and `park` switches (a driver given no tracker does
-not park), and the process-wide default tracker (the caller builds one
-and hands it to both drivers).
+The port's own copy of janus_tpu/aggregator/peer_health.py. It feeds
+janus_tpu's parked gauge, outage-seconds counter and probe counter, and
+keeps the same counts in the tracker's own state (`status()`), so two
+trackers never share a count there; the newest tracker's `status()` is
+the statusz `peer_health` section. Left out: the `peer_health:` config
+section with its `enabled` and `park` switches (a driver given no
+tracker does not park), and the process-wide default tracker (the caller
+builds one and hands it to both drivers).
 """
 
 from __future__ import annotations
@@ -42,6 +42,8 @@ import time
 from dataclasses import dataclass
 
 from ..core.circuit_breaker import CLOSED, CircuitOpenError, OutboundCircuitBreakers, peer_label
+from .. import metrics
+from ..statusz import register_status_provider
 
 log = logging.getLogger(__name__)
 
@@ -87,6 +89,7 @@ class PeerHealthTracker:
         self._outage_seconds: dict[str, float] = {}
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        register_status_provider("peer_health", self.status)
 
     # --- the drivers' side ---
     def observe_endpoint(self, url: str) -> str:
@@ -127,11 +130,13 @@ class PeerHealthTracker:
             for peer, state in states.items():
                 down = state != CLOSED
                 self._parked[peer] = down
+                metrics.peer_parked.set(1.0 if down else 0.0, peer=peer)
                 last = self._last_accrual.get(peer)
                 if down:
                     self._outage_started.setdefault(peer, now)
                     if last is not None:
                         self._outage_seconds[peer] = self._outage_seconds.get(peer, 0.0) + max(0.0, now - last)
+                        metrics.peer_outage_seconds_total.add(max(0.0, now - last), peer=peer)
                     self._last_accrual[peer] = now
                 else:
                     self._outage_started.pop(peer, None)
@@ -169,6 +174,7 @@ class PeerHealthTracker:
                 log.info("peer probe %s answered %d: resuming", peer, status)
                 self.breakers.record_success(peer)
                 outcome = PROBE_ALIVE
+        metrics.peer_probes_total.add(peer=peer, outcome=outcome)
         with self._lock:
             counts = self._probe_counts.setdefault(peer, {PROBE_ALIVE: 0, PROBE_DEAD: 0, PROBE_REJECTED: 0})
             counts[outcome] += 1

@@ -24,8 +24,10 @@ exactly-once. With no journal (the default) the flush path is the
 pre-journal one. The `report_writer.flush` failpoint fails a whole
 batch, as in janus_tpu.
 
-Not ported: the conservation ledger's admission count (and its
-`ledger.drop_report` failpoint) and the flush's trace spans.
+Every fresh admission books `admitted` in the conservation ledger inside
+the flush's transaction (the journal replay's too), followed by the
+`ledger.drop_report` failpoint's window; the flush and the spill run
+under janus_tpu's spans `upload.flush_tx` and `upload.flush_spill`.
 """
 
 from __future__ import annotations
@@ -38,6 +40,37 @@ from ..datastore.models import LeaderStoredReport
 from ..datastore.store import Datastore
 
 log = logging.getLogger(__name__)
+
+
+def _ledger_book_admitted(tx, reports, results) -> None:
+    """Book fresh admissions in the conservation ledger, inside the
+    transaction of the puts (run_tx re-runs the whole closure on a
+    retry, so the count is exactly-once; replays book nothing). Then the
+    `ledger.drop_report` failpoint's window: it deletes one just-admitted
+    row after the counter booked it, a silent loss the ledger's ingest
+    equation must show."""
+    from .. import failpoints, ledger
+
+    per_task: dict = {}
+    for r, fresh in zip(reports, results):
+        if fresh:
+            per_task[r.task_id] = per_task.get(r.task_id, 0) + 1
+    for task_id, n in per_task.items():
+        ledger.count_admitted(tx, task_id, n)
+    if not per_task:
+        return
+    try:
+        failpoints.hit("ledger.drop_report")
+    except failpoints.FailpointError:
+        for r, fresh in zip(reports, results):
+            if fresh:
+                tx.delete_client_report(r.task_id, r.report_id)
+                log.error(
+                    "failpoint ledger.drop_report: silently dropped admitted report %s of task %s",
+                    r.report_id,
+                    r.task_id,
+                )
+                break
 
 
 class _Pending:
@@ -149,7 +182,13 @@ class ReportWriteBatcher:
         (the journal replayer's path: spilling a replay back into the
         journal would loop). Returns fresh-vs-replayed per report; raises
         on failure."""
-        return self.ds.run_tx(lambda tx: [tx.put_client_report(r) for r in reports], "upload_journal_replay")
+
+        def tx_fn(tx):
+            results = [tx.put_client_report(r) for r in reports]
+            _ledger_book_admitted(tx, reports, results)
+            return results
+
+        return self.ds.run_tx(tx_fn, "upload_journal_replay")
 
     def _should_spill_without_trying(self) -> bool:
         """Skip the doomed datastore attempt while the supervisor says the
@@ -174,6 +213,7 @@ class ReportWriteBatcher:
     def _flush(self, batch: list[_Pending]) -> None:
         """One transaction for the whole batch (reference :96-165)."""
         from .. import failpoints
+        from ..trace import span
 
         try:
             # the whole batch's waiters see an injected flush failure, and
@@ -183,12 +223,20 @@ class ReportWriteBatcher:
                 error_factory=lambda: RuntimeError("injected flush failure (failpoint report_writer.flush)"),
             )
             if self._should_spill_without_trying():
-                self._spill(batch)
+                with span("upload.flush_spill", batch=len(batch)):
+                    self._spill(batch)
                 log.warning("datastore not up: spilled %d upload(s) to the journal", len(batch))
                 return
+
+            def tx_fn(tx):
+                results = [tx.put_client_report(p.report) for p in batch]
+                _ledger_book_admitted(tx, [p.report for p in batch], results)
+                return results
+
             t0 = time.perf_counter()
             try:
-                results = self.ds.run_tx(lambda tx: [tx.put_client_report(p.report) for p in batch], "upload_batch")
+                with span("upload.flush_tx", batch=len(batch)):
+                    results = self.ds.run_tx(tx_fn, "upload_batch")
             except BaseException as e:
                 # a connection-class failure with a journal: the ack rests
                 # on local disk. Anything else (integrity, injected flush
@@ -198,7 +246,8 @@ class ReportWriteBatcher:
                     and getattr(self.ds, "classify_error", None) is not None
                     and self.ds.classify_error(e) == "connection"
                 ):
-                    self._spill(batch)
+                    with span("upload.flush_spill", batch=len(batch)):
+                        self._spill(batch)
                     log.warning("datastore connection lost (%s); spilled %d upload(s) to the journal", e, len(batch))
                     return
                 raise

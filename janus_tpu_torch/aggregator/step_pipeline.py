@@ -30,11 +30,16 @@ shutdown (the stopper set) a failing step's lease goes back through the
 releaser at once. At most prefetch_depth jobs hold staged columns the
 card has not consumed (the staging window).
 
-janus_tpu's metrics become counters that `status()` returns: stage
-seconds (the recent window, per stage), queue depths, the device lane's
-busy time and concurrency peak, overlap events, the prestages declined,
-and the classic fallbacks (the driver's resident-route fallbacks and the
-prestages that failed for memory). The port's failure rule narrows two
+janus_tpu's metrics are fed (stage seconds, queue depths, the device
+lane's busy seconds and ratio, overlap events, `job.step` through
+trace.record_operation), and `status()`, the statusz `step_pipeline`
+section, returns the same counts: stage seconds (the recent window, per
+stage), queue depths, the device lane's busy time and concurrency peak,
+overlap events, the prestages declined, and the classic fallbacks (the
+driver's resident-route fallbacks and the prestages that failed for
+memory). Every stage runs under the job's persisted trace context
+(`use_traceparent` of the row's `trace_context`, read at the read
+stage), so a stage's spans on any lane thread join the job's trace. The port's failure rule narrows two
 janus_tpu fallbacks: a prestage that fails for anything but memory
 exhaustion fails the step (janus_tpu stages from the host after any
 error), and so does a resident accumulate (aggregation_job_driver.py).
@@ -54,8 +59,11 @@ from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 
+from .. import metrics
 from ..core import deadline as deadline_mod
 from ..datastore.models import AggregationJobState
+from ..statusz import register_status_provider, unregister_status_provider
+from ..trace import record_operation, use_traceparent
 from .engine_cache import is_oom_error
 
 log = logging.getLogger(__name__)
@@ -117,6 +125,15 @@ class DeviceLane:
         self.concurrent_peak = 0
         self._prev_t, self._prev_busy = t0, 0.0
         self._snap_t, self._snap_busy = t0, 0.0
+        # the ratio gauge must decay while the lane idles: a low-cadence
+        # refresher keeps it honest between dispatches
+        self._stop = threading.Event()
+        self._refresher = threading.Thread(target=self._refresh_loop, name="device-lane-gauge", daemon=True)
+        self._refresher.start()
+
+    def _refresh_loop(self) -> None:
+        while not self._stop.wait(self.RATIO_WINDOW_S / 4):
+            metrics.device_lane_busy_ratio.set(self.busy_ratio())
 
     def submit(self, fn, *args) -> Future:
         return self._pool.submit(self._run, fn, *args)
@@ -134,6 +151,8 @@ class DeviceLane:
                 self.concurrent -= 1
                 self.busy_s += dt
                 self.dispatches += 1
+            metrics.device_lane_busy_seconds.add(dt)
+            metrics.device_lane_busy_ratio.set(self.busy_ratio())
 
     def busy_ratio(self) -> float:
         now = time.monotonic()
@@ -149,17 +168,20 @@ class DeviceLane:
         return min(1.0, (busy - base_busy) / (wall * self.workers))
 
     def close(self, wait: bool = True) -> None:
+        self._stop.set()
         self._pool.shutdown(wait=wait)
 
 
 class _PipelinedStep:
     """One leased job moving through the stage chain."""
 
-    __slots__ = ("acquired", "outer", "deadline", "state", "classic", "t_submit", "error", "staging_permit")
+    __slots__ = ("acquired", "outer", "trace_context", "deadline", "state", "classic", "t_submit", "error",
+                 "staging_permit")
 
     def __init__(self, acquired, outer: Future):
         self.acquired = acquired
         self.outer = outer
+        self.trace_context = None  # the creator's persisted trace, set at read
         self.deadline = None  # the lease budget, set at read
         self.state = None  # InitStepState on the hot path
         self.classic = None  # zero-arg step body of a non-pipelined kind
@@ -208,6 +230,10 @@ class StepPipeline:
         # the staged-memory bound: at most prefetch_depth jobs hold staged
         # columns the card has not consumed yet
         self._staging_window = threading.Semaphore(self.cfg.prefetch_depth)
+        # the exact registered object: close()'s guarded unregister is an
+        # identity check
+        self._status_provider = self.status
+        register_status_provider("step_pipeline", self._status_provider)
 
     # --- submission ---
     def submit(self, acquired) -> Future:
@@ -219,6 +245,7 @@ class StepPipeline:
     def _enqueue(self, stage: str, fn, job: _PipelinedStep, label: str | None = None) -> None:
         with self._lock:
             self._queued[stage] += 1
+            metrics.step_pipeline_queue_depth.set(self._queued[stage], stage=stage)
         try:
             if stage == STAGE_DEVICE:
                 self.lane.submit(self._run_stage, stage, fn, job, label)
@@ -228,6 +255,7 @@ class StepPipeline:
             # a pool shut down mid-chain: surface it, never strand the lease
             with self._lock:
                 self._queued[stage] -= 1
+                metrics.step_pipeline_queue_depth.set(self._queued[stage], stage=stage)
             self._fail(job, e)
 
     # --- stage execution ---
@@ -236,20 +264,27 @@ class StepPipeline:
         is_http = stage == STAGE_HTTP and label is None
         with self._lock:
             self._queued[stage] -= 1
+            metrics.step_pipeline_queue_depth.set(self._queued[stage], stage=stage)
+            direction = None
             if is_http:
                 self._http_inflight += 1
                 if self.lane.concurrent > 0:
+                    direction = "http_start"
                     self._overlap_http += 1
             elif stage == STAGE_DEVICE and self._http_inflight > 0:
+                direction = "device_start"
                 self._overlap_device += 1
+            if direction is not None:
+                metrics.step_pipeline_overlap_total.add(direction=direction)
         t0 = time.monotonic()
         err: BaseException | None = None
         nxt = None
         try:
-            # re-enter the job's lease budget on this thread (contextvars
-            # do not cross threads) and check it before any stage work:
-            # a job whose lease died in a queue steps back here
-            with deadline_mod.deadline_scope(job.deadline):
+            # re-enter the job's trace and lease budget on this thread
+            # (contextvars do not cross threads) and check the budget
+            # before any stage work: a job whose lease died in a queue
+            # steps back here
+            with use_traceparent(job.trace_context), deadline_mod.deadline_scope(job.deadline):
                 deadline_mod.check(f"step_pipeline_{stage}")
                 nxt = fn(job)
         except BaseException as e:  # noqa: BLE001 - mapped to a step-back or a failure below
@@ -277,6 +312,7 @@ class StepPipeline:
             self._enqueue(nstage, nfn, job, nlabel)
 
     def _observe_stage(self, stage: str, dur_s: float) -> None:
+        metrics.step_pipeline_stage_seconds.observe(dur_s, stage=stage)
         with self._lock:
             q = self.stage_seconds.get(stage)
             if q is None:
@@ -285,9 +321,14 @@ class StepPipeline:
 
     def _finish(self, job: _PipelinedStep) -> None:
         self._release_staging(job)  # a no-op unless the chain died staged
+        job_s = time.monotonic() - job.t_submit
         with self._lock:
             self._jobs_done += 1
-            self.job_seconds.append(time.monotonic() - job.t_submit)
+            self.job_seconds.append(job_s)
+        args = {"job": type(job.acquired).__name__, "pipelined": True}
+        if job.error is not None:
+            args["error"] = job.error
+        record_operation("job.step", job_s, **args)
         job.outer.set_result(None)
 
     def _fail(self, job: _PipelinedStep, e: BaseException) -> None:
@@ -330,9 +371,11 @@ class StepPipeline:
         if jobrow.state != AggregationJobState.IN_PROGRESS:
             driver.release_job(acquired)
             return None
-        # the lease budget bounds every later stage, and the rest of this one
+        # the persisted creator trace and the lease budget hold for every
+        # later stage, and for the rest of this one
+        job.trace_context = jobrow.trace_context
         job.deadline = driver._lease_deadline(acquired)
-        with deadline_mod.deadline_scope(job.deadline):
+        with use_traceparent(job.trace_context), deadline_mod.deadline_scope(job.deadline):
             kind, rows = driver.plan_step(acquired, task, jobrow, ras)
             if kind == "continue":
                 job.classic = lambda: driver._continue_step(acquired, task, jobrow, rows, {})
@@ -464,6 +507,7 @@ class StepPipeline:
         if self._closed:
             return
         self._closed = True
+        unregister_status_provider("step_pipeline", self._status_provider)
         for pool in self._pools.values():
             pool.shutdown(wait=wait)
         self.lane.close(wait=wait)

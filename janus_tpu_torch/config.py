@@ -5,8 +5,12 @@ The port's own copy of `FleetConfig` from janus_tpu/config.py (the YAML
 shard space, read by `AggregationJobCreator(fleet=)` and both drivers'
 `acquirer(fleet=)`. `from_dict` reads the dict alone: janus_tpu's
 `JANUS_REPLICA_ID`, `JANUS_SHARD_COUNT`, `JANUS_SHARD_INDEX` and
-`JANUS_STEAL_AFTER_S` overrides are not ported. The rest of janus_tpu's
-configuration (the binaries' YAML sections) is not ported.
+`JANUS_STEAL_AFTER_S` overrides are not ported. `install_identity()`
+feeds the identity to the metrics registry (metrics.set_replica_identity:
+janus_replica_info, the `fleet` statusz section and the replica label of
+the lease, step-back and ledger families), as janus_main does from the
+YAML; the drivers' and the creator's `fleet=` call it. The rest of
+janus_tpu's configuration (the binaries' YAML sections) is not ported.
 """
 
 from __future__ import annotations
@@ -66,6 +70,13 @@ class FleetConfig:
             # not disable the fence while the creator honours the float
             steal_after_s=math.ceil(max(0.0, self.steal_after_secs)),
         )
+
+    def install_identity(self) -> None:
+        """The process's replica identity in the metrics registry: labelled
+        per replica only where a replica_id is configured."""
+        from . import metrics
+
+        metrics.set_replica_identity(self.replica_id, self.shard_index, self.shard_count)
 
     def holder_tag(self) -> bytes:
         """8-byte provenance tag stamped into every lease token this replica

@@ -18,9 +18,9 @@ an attempt).
 conclusive response (2xx/4xx, DAP problem documents included) is a
 success.
 
-The port's own copy of janus_tpu/core/circuit_breaker.py; it leaves out
-the state gauge and the transition counter, and `status()` (janus_tpu's
-/statusz section body) is registered nowhere.
+The port's own copy of janus_tpu/core/circuit_breaker.py, with its
+state gauge and transition counter; the process's shared registry
+(`default_breakers`) is the statusz `outbound_circuit` section.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ log = logging.getLogger(__name__)
 CLOSED = "closed"
 OPEN = "open"
 HALF_OPEN = "half_open"
+_STATE_VALUE = {CLOSED: 0.0, OPEN: 1.0, HALF_OPEN: 2.0}
 
 
 class CircuitOpenError(RuntimeError):
@@ -106,13 +107,23 @@ class OutboundCircuitBreakers:
         pc = self._peers.get(peer)
         if pc is None:
             pc = self._peers[peer] = _PeerCircuit(peer)
+            self._publish(pc)
         return pc
 
+    def _publish(self, pc: _PeerCircuit) -> None:
+        from .. import metrics
+
+        metrics.outbound_circuit_state.set(_STATE_VALUE[pc.state], peer=pc.peer)
+
     def _transition(self, pc: _PeerCircuit, to: str) -> None:
+        from .. import metrics
+
         if pc.state == to:
             return
         log.warning("outbound circuit %s: %s -> %s", pc.peer, pc.state, to)
         pc.state = to
+        metrics.outbound_circuit_transitions.add(peer=pc.peer, to=to)
+        self._publish(pc)
 
     def _open(self, pc: _PeerCircuit) -> None:
         pc.opened_at = time.monotonic()
@@ -227,7 +238,10 @@ def default_breakers(cfg: CircuitBreakerConfig | None = None) -> OutboundCircuit
     global _default
     with _default_lock:
         if _default is None:
+            from ..statusz import register_status_provider
+
             _default = OutboundCircuitBreakers(cfg)
+            register_status_provider("outbound_circuit", _default.status)
         elif cfg is not None and _default.cfg == CircuitBreakerConfig():
             _default.cfg = cfg
         return _default

@@ -22,8 +22,8 @@ maps back to DeadlineExceeded and steps back on.
 
 With no scope entered, every hook here is a no-op.
 
-The port's own copy of janus_tpu/core/deadline.py; it leaves out the
-per-stage counter that `check` feeds there (metrics).
+The port's own copy of janus_tpu/core/deadline.py, with the per-stage
+counter (janus_request_deadline_exceeded_total) that `check` feeds.
 """
 
 from __future__ import annotations
@@ -94,6 +94,9 @@ def check(stage: str) -> None:
     dl = _deadline_var.get()
     if dl is None or time.monotonic() < dl:
         return
+    from .. import metrics
+
+    metrics.request_deadline_exceeded_total.add(stage=stage)
     raise DeadlineExceeded(f"deadline exceeded during {stage}")
 
 

@@ -8,8 +8,8 @@ the propagated deadline header, and each thread's last response headers
 (for Retry-After), `fetch_any_status`, and the `helper.request`
 failpoint (error: a transport failure; timeout: a hung peer; before the
 request is built) and `helper.response` (timeout: a peer that answers
-and then stalls the body). It leaves out the traceparent header (trace
-spans are not ported).
+and then stalls the body), and the outgoing `traceparent` header of the
+current span, which the peer's DAP server adopts.
 """
 
 from __future__ import annotations
@@ -172,6 +172,12 @@ class HttpClient:
             timeout_factory=_injected_timeout,
         )
         headers = dict(headers or {})
+        if not any(k.lower() == "traceparent" for k in headers):
+            from ..trace import current_traceparent
+
+            tp = current_traceparent()
+            if tp is not None:
+                headers["traceparent"] = tp
         # inside a driver's lease-bounded step the remaining budget rides
         # every outbound request (re-stamped per attempt)
         if not any(k.lower() == deadline.DEADLINE_HEADER.lower() for k in headers):

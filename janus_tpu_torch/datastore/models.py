@@ -106,7 +106,7 @@ class AggregationJobModel:
     # W3C traceparent persisted by whoever created the job (the leader's
     # job creator / the helper's init handler); both job drivers adopt it
     # so a step's spans join the creating trace across processes and
-    # driver restarts (janus_tpu.trace.use_traceparent)
+    # driver restarts (trace.use_traceparent)
     trace_context: str | None = None
 
     def with_state(self, state: AggregationJobState) -> "AggregationJobModel":
@@ -220,8 +220,8 @@ class CollectionJobModel:
     client_timestamp_interval: Interval | None = None
     leader_aggregate_share: bytes | None = None  # encrypted at rest
     helper_encrypted_aggregate_share: bytes | None = None
-    # W3C traceparent of the creating span in janus_tpu; the port, with
-    # no spans, stores None
+    # W3C traceparent of the creating span (the collection_create
+    # handler's); the collection driver adopts it on every step
     trace_context: str | None = None
 
 

@@ -45,17 +45,21 @@ a shutdown hand-back stores `HANDBACK_SHARD_KEY`. The creator's lag scan
 and progress probe are `min_unaggregated_report_time_by_task` and
 `count_client_reports_for_task`. A `LeaseConflict` carries its `kind`
 and `op`, and the datastore counts it (`status()["lease_conflicts"]`)
-where janus_tpu counts janus_lease_conflicts_total.
+and in janus_lease_conflicts_total, as janus_tpu does.
 
-Not ported: the conservation ledger's ops (`increment_task_counters`,
-`ledger_*`, and the lost-row counts janus_tpu's expiry deletes return
-for it), the health sampler's reads, the trace links of collection
-(`get_aggregation_job_trace_contexts`); and the metrics of janus_tpu's
-run_tx and supervisor (the transaction duration and retry metrics, the
-slow-transaction warning, the datastore up and failure gauges). The
-supervisor keeps `status()` and `readiness()` as methods, and the
-datastore `status()`; nothing registers them (janus_tpu's statusz and
-readiness registries are not ported).
+The conservation ledger's ops are janus_tpu's: `increment_task_counters`
+(called inside the transaction of the state change it counts),
+`get_task_counters`, `get_all_task_counters`, `ledger_inflight_by_task`,
+`ledger_batch_counts`, `ledger_report_trace`; the expiry deletes return
+janus_tpu's per-lane counts for the GC's `expired` booking; a
+collection's trace links come from `get_aggregation_job_trace_contexts`.
+run_tx feeds the transaction duration and retry metrics, the supervisor
+the datastore up and failure gauges, and `start_supervision` registers
+the supervisor's `status()` as the statusz `datastore` section.
+
+Not ported: the health sampler's reads (`count_table_rows` and the
+report-age quantiles) and the slow-transaction warning with its
+JANUS_SLOW_TX_WARN_S knob.
 """
 
 from __future__ import annotations
@@ -403,6 +407,11 @@ class Transaction:
         """Count a token mismatch on a guarded lease write and build the
         LeaseConflict to raise. Counted here, not in run_tx: the conflict
         is fatal, so the transaction never retries and it counts once."""
+        from .. import metrics
+
+        metrics.lease_conflicts_total.add(
+            kind=kind, op=op, **metrics.replica_labels()
+        )
         if self._on_lease_conflict is not None:
             self._on_lease_conflict(kind, op)
         return LeaseConflict(msg, kind, op)
@@ -512,6 +521,18 @@ class Transaction:
         )
         return cur.rowcount == 1
 
+    def delete_client_report(self, task_id: TaskId, report_id: ReportId) -> bool:
+        """Delete one stored report row. Production code never calls
+        this: it exists for the `ledger.drop_report` failpoint (a silent
+        loss after the admission counter booked the report, which the
+        conservation ledger must catch) and for tests. True if a row was
+        deleted."""
+        cur = self._c.execute(
+            "DELETE FROM client_reports WHERE task_id = ? AND report_id = ?",
+            (task_id.data, report_id.data),
+        )
+        return cur.rowcount == 1
+
     def get_client_report(self, task_id: TaskId, report_id: ReportId) -> LeaderStoredReport | None:
         row = self._c.execute(
             "SELECT client_time, public_share, leader_input_share, helper_encrypted_input_share"
@@ -592,19 +613,189 @@ class Transaction:
             [(task_id.data, r.data) for r in report_ids],
         )
 
-    def delete_expired_client_reports(self, task_id: TaskId, cutoff: Time, limit: int) -> int:
-        """Expired rows deleted, never-claimed ones first (janus_tpu's
-        order, which it splits for its ledger), at most `limit`."""
-        deleted = 0
+    def delete_expired_client_reports(self, task_id: TaskId, cutoff: Time, limit: int) -> tuple[int, int]:
+        """(never-claimed, claimed) expired rows deleted — split by
+        aggregation_started so the GC can attribute expiry in the
+        conservation ledger: a never-claimed report leaves the pending
+        pool for the `expired` terminal, while a claimed one already
+        resolved (or will resolve) through its report_aggregations row
+        and only its storage is reclaimed here."""
+        out = []
         for started in (0, 1):
             cur = self._c.execute(
                 "DELETE FROM client_reports WHERE (task_id, report_id) IN ("
                 " SELECT task_id, report_id FROM client_reports"
                 " WHERE task_id = ? AND client_time < ? AND aggregation_started = ? LIMIT ?)",
-                (task_id.data, cutoff.seconds, started, max(0, limit - deleted)),
+                (task_id.data, cutoff.seconds, started, max(0, limit - sum(out))),
             )
-            deleted += cur.rowcount
-        return deleted
+            out.append(cur.rowcount)
+        return out[0], out[1]
+
+    # ---- report-flow conservation ledger (ledger.py) ----
+    def increment_task_counters(self, task_id: TaskId, deltas: dict[str, int]) -> None:
+        """Upsert-add monotone lifecycle counters for a task. MUST be
+        called inside the same transaction as the state change being
+        counted: run_tx re-runs the whole closure on a retry, so an
+        in-tx increment is exactly-once where an in-process counter
+        would double-count (the documented run_tx retry discipline)."""
+        rows = [(task_id.data, name, int(n)) for name, n in deltas.items() if n]
+        if not rows:
+            return
+        self._c.executemany(
+            "INSERT INTO task_counters (task_id, counter_name, amount) VALUES (?,?,?)"
+            " ON CONFLICT (task_id, counter_name) DO UPDATE SET"
+            " amount = task_counters.amount + excluded.amount",
+            rows,
+        )
+
+    def get_task_counters(self, task_id: TaskId) -> dict[str, int]:
+        rows = self._c.execute(
+            "SELECT counter_name, amount FROM task_counters WHERE task_id = ?",
+            (task_id.data,),
+        ).fetchall()
+        return {str(r[0]): int(r[1]) for r in rows}
+
+    def get_all_task_counters(self) -> dict[bytes, dict[str, int]]:
+        """{task_id: {counter: amount}} over every task with books."""
+        out: dict[bytes, dict[str, int]] = {}
+        for task_id, name, amount in self._c.execute(
+            "SELECT task_id, counter_name, amount FROM task_counters"
+        ).fetchall():
+            out.setdefault(bytes(task_id), {})[str(name)] = int(amount)
+        return out
+
+    def ledger_inflight_by_task(self) -> dict[bytes, dict[str, int]]:
+        """{task_id: {category: count}} of attributably in-flight
+        reports, read in one transaction so the ledger's balance
+        evaluates against a single snapshot:
+
+        - pending_reports: admitted client_reports no aggregation job
+          has claimed yet (aggregation_started = 0)
+        - pending_aggregation: report_aggregations still in a
+          non-terminal state (start / waiting_*) — claimed, outcome due
+        - pending_aggregation_param: same, but for jobs carrying a
+          non-empty aggregation parameter (the param-fanout lane —
+          those rows debit `admitted_param`, never `admitted`)
+        - awaiting_collection: aggregated report mass sitting in
+          uncollected batch_aggregations shards
+        """
+        out: dict[bytes, dict[str, int]] = {}
+        for task_id, n in self._c.execute(
+            "SELECT task_id, COUNT(*) FROM client_reports"
+            " WHERE aggregation_started = 0 GROUP BY task_id"
+        ).fetchall():
+            out.setdefault(bytes(task_id), {})["pending_reports"] = int(n)
+        # only RAs of live jobs: abandon_job releases a job's START rows
+        # back to the unclaimed pool without rewriting them, so counting
+        # an abandoned job's rows would double-book those reports (and a
+        # WAITING row stuck in an abandoned job SHOULD read as imbalance
+        # — it will never resolve, which is exactly a lost report)
+        for task_id, param, n in self._c.execute(
+            "SELECT ra.task_id, aj.aggregation_parameter <> ?, COUNT(*)"
+            " FROM report_aggregations ra"
+            " JOIN aggregation_jobs aj"
+            "   ON aj.task_id = ra.task_id AND aj.job_id = ra.job_id"
+            " WHERE ra.state IN ('start', 'waiting_leader', 'waiting_helper')"
+            " AND aj.state = 'in_progress'"
+            " GROUP BY 1, 2",
+            (b"",),
+        ).fetchall():
+            key = "pending_aggregation_param" if param else "pending_aggregation"
+            t = out.setdefault(bytes(task_id), {})
+            t[key] = t.get(key, 0) + int(n)
+        for task_id, n in self._c.execute(
+            "SELECT task_id, COALESCE(SUM(report_count), 0) FROM batch_aggregations"
+            " WHERE state <> 'collected' GROUP BY task_id"
+        ).fetchall():
+            out.setdefault(bytes(task_id), {})["awaiting_collection"] = int(n)
+        return out
+
+    def ledger_batch_counts(self, task_id: TaskId) -> dict[str, int]:
+        """{"<batch_identifier hex>:<aggregation_parameter hex>":
+        aggregated report count} for a task — the cross-aggregator
+        reconciliation payload (both aggregators persist
+        batch_aggregations; equal per-key counts mean neither side
+        silently dropped or double-counted a report the other
+        aggregated — the observability analog of a linear tag). Keyed
+        per (batch, param): a multi-parameter task accumulates the same
+        batch once per collection parameter, and summing across params
+        would inflate the helper's count against a leader comparison
+        that covers a single collection's parameter."""
+        rows = self._c.execute(
+            "SELECT batch_identifier, aggregation_parameter,"
+            " COALESCE(SUM(report_count), 0)"
+            " FROM batch_aggregations WHERE task_id = ?"
+            " GROUP BY batch_identifier, aggregation_parameter",
+            (task_id.data,),
+        ).fetchall()
+        return {
+            f"{bytes(r[0]).hex()}:{bytes(r[1]).hex()}": int(r[2]) for r in rows
+        }
+
+    def ledger_report_trace(self, task_id: TaskId, report_id: ReportId) -> dict:
+        """One report's whereabouts across every pipeline table — the
+        per-report drill-down behind janus_tpu's tools/report_trace.py (the ledger
+        says HOW MANY are unaccounted; this answers WHICH stage one
+        specific report reached). Read-only; single snapshot."""
+        out: dict = {"client_report": None, "report_aggregations": [], "batch_aggregations": []}
+        row = self._c.execute(
+            "SELECT client_time, aggregation_started FROM client_reports"
+            " WHERE task_id = ? AND report_id = ?",
+            (task_id.data, report_id.data),
+        ).fetchone()
+        client_time = None
+        if row is not None:
+            client_time = int(row[0])
+            out["client_report"] = {
+                "client_time": client_time,
+                "aggregation_started": bool(row[1]),
+            }
+        for r in self._c.execute(
+            "SELECT ra.job_id, ra.ord, ra.state, ra.prepare_error, ra.client_time,"
+            " aj.state, aj.step, aj.lease_attempts"
+            " FROM report_aggregations ra"
+            " LEFT JOIN aggregation_jobs aj"
+            "   ON aj.task_id = ra.task_id AND aj.job_id = ra.job_id"
+            " WHERE ra.task_id = ? AND ra.report_id = ?"
+            " ORDER BY ra.job_id, ra.ord",
+            (task_id.data, report_id.data),
+        ).fetchall():
+            if client_time is None:
+                client_time = int(r[4])
+            out["report_aggregations"].append(
+                {
+                    "job_id": bytes(r[0]).hex(),
+                    "ord": int(r[1]),
+                    "state": str(r[2]),
+                    "prepare_error": None if r[3] is None else int(r[3]),
+                    "job_state": None if r[5] is None else str(r[5]),
+                    "job_step": None if r[6] is None else int(r[6]),
+                    "job_attempts": None if r[7] is None else int(r[7]),
+                }
+            )
+        if client_time is not None:
+            # every accumulator shard whose client interval covers this
+            # report's timestamp — collected shards mean the report's
+            # mass (if it FINISHED) has left through a collection
+            for r in self._c.execute(
+                "SELECT batch_identifier, ord, state, report_count"
+                " FROM batch_aggregations WHERE task_id = ?"
+                " AND client_interval_start <= ?"
+                " AND client_interval_start + client_interval_duration > ?"
+                " ORDER BY batch_identifier, ord",
+                (task_id.data, client_time, client_time),
+            ).fetchall():
+                out["batch_aggregations"].append(
+                    {
+                        "batch_identifier": bytes(r[0]).hex(),
+                        "ord": int(r[1]),
+                        "state": str(r[2]),
+                        "report_count": int(r[3]),
+                    }
+                )
+        return out
+
+    # ---- aggregation jobs (reference datastore.rs:1724-2051) ----
 
     def put_aggregation_job(self, job: AggregationJobModel) -> None:
         self._c.execute(
@@ -1503,27 +1694,95 @@ class Transaction:
     def delete_global_hpke_keypair(self, config_id: int) -> None:
         self._c.execute("DELETE FROM global_hpke_keys WHERE config_id = ?", (config_id,))
 
+    def get_aggregation_job_trace_contexts(
+        self,
+        task_id: TaskId,
+        interval: Interval | None = None,
+        partial_batch_identifier: bytes | None = None,
+        limit: int = 64,
+    ) -> list[str]:
+        """Distinct persisted trace contexts of the aggregation jobs a
+        collection covers (time-interval INTERSECTION — the same
+        semantics as the batch gather, so a job whose claimed reports
+        straddle the collection boundary still links — or fixed-size
+        partial-batch-selector match) — the collection span's causality
+        links back to the aggregation work that filled the batch.
+        Callers wanting to detect truncation ask for one more than they
+        display."""
+        if interval is not None:
+            rows = self._c.execute(
+                "SELECT DISTINCT trace_context FROM aggregation_jobs"
+                " WHERE task_id = ? AND trace_context IS NOT NULL"
+                " AND client_interval_start < ?"
+                " AND client_interval_start + client_interval_duration > ?"
+                " LIMIT ?",
+                (task_id.data, interval.end.seconds, interval.start.seconds, limit),
+            ).fetchall()
+        elif partial_batch_identifier is not None:
+            rows = self._c.execute(
+                "SELECT DISTINCT trace_context FROM aggregation_jobs"
+                " WHERE task_id = ? AND trace_context IS NOT NULL"
+                " AND partial_batch_identifier = ? LIMIT ?",
+                (task_id.data, partial_batch_identifier, limit),
+            ).fetchall()
+        else:
+            return []
+        return [str(r[0]) for r in rows]
+
     # ---- GC (reference datastore.rs:4162-4315) ----
-    def delete_expired_aggregation_artifacts(self, task_id: TaskId, cutoff: Time, limit: int) -> int:
-        """Jobs whose client interval ended before `cutoff` (at most
-        `limit`), with their report aggregations; returns the jobs
-        deleted."""
+    def delete_expired_aggregation_artifacts(self, task_id: TaskId, cutoff: Time, limit: int) -> tuple[int, int, int]:
+        """(jobs deleted, never-resolved rows of the canonical lane,
+        never-resolved rows of the param-fanout lane). The row counts
+        are the GC's ledger attribution: a non-terminal row deleted
+        here would otherwise sit unaccounted forever (its job expired
+        before resolving), so the GC books it `expired` /
+        `expired_param` in the same transaction.
+
+        Abandoned jobs need care: abandon_job returns a canonical job's
+        START rows to the unclaimed pool (mark_reports_unaggregated),
+        so those reports reach a real terminal later (re-aggregated,
+        rejected, or expired as unclaimed client_reports) — booking the
+        stale START rows again here would double-debit `admitted` and
+        latch a false negative residual. Only an abandoned canonical
+        job's waiting_* rows really are lost. Param-fanout jobs have no
+        pool to return to (the per-param replay check treats ANY row as
+        done), so ALL their non-terminal rows are lost on abandonment
+        and book `expired_param` here."""
         rows = self._c.execute(
-            "SELECT job_id FROM aggregation_jobs WHERE task_id = ?"
+            "SELECT job_id, state, aggregation_parameter FROM aggregation_jobs"
+            " WHERE task_id = ?"
             " AND client_interval_start + client_interval_duration < ? LIMIT ?",
             (task_id.data, cutoff.seconds, limit),
         ).fetchall()
-        n = 0
-        for (job_id,) in rows:
+        n = pending = pending_param = 0
+        for job_id, job_state, agg_param in rows:
+            is_param = bytes(agg_param or b"") != b""
+            if str(job_state) == "abandoned" and not is_param:
+                states = "('waiting_leader', 'waiting_helper')"
+            else:
+                states = "('start', 'waiting_leader', 'waiting_helper')"
+            lost = int(
+                self._c.execute(
+                    "SELECT COUNT(*) FROM report_aggregations"
+                    " WHERE task_id = ? AND job_id = ?"
+                    f" AND state IN {states}",
+                    (task_id.data, job_id),
+                ).fetchone()[0]
+            )
+            if is_param:
+                pending_param += lost
+            else:
+                pending += lost
             self._c.execute(
                 "DELETE FROM report_aggregations WHERE task_id = ? AND job_id = ?",
                 (task_id.data, job_id),
             )
-            n += self._c.execute(
+            cur = self._c.execute(
                 "DELETE FROM aggregation_jobs WHERE task_id = ? AND job_id = ?",
                 (task_id.data, job_id),
-            ).rowcount
-        return n
+            )
+            n += cur.rowcount
+        return n, pending, pending_param
 
     def delete_expired_collection_artifacts(self, task_id: TaskId, cutoff: Time, limit: int) -> int:
         # aggregate_share_jobs carry no client-time column in this schema;
@@ -1750,8 +2009,12 @@ class Datastore:
         """Create, attach and start the background supervisor
         (idempotent); kwargs go to DatastoreSupervisor."""
         if self.supervisor is None:
+            from ..statusz import register_status_provider
+
             self.supervisor = DatastoreSupervisor(self, **kwargs)
             self.supervisor.start()
+            self._status_provider = self.supervisor.status
+            register_status_provider("datastore", self._status_provider)
         return self.supervisor
 
     def run_tx(self, fn, name: str = "tx"):
@@ -1761,11 +2024,12 @@ class Datastore:
         `datastore.post_commit` failpoints (scoped by `name`) raise a
         retryable TxConflict; a connection-class failure discards the
         connection and counts once per call toward the supervisor."""
-        from .. import failpoints
+        from .. import failpoints, metrics
 
         def _inj() -> TxConflict:
             return TxConflict(f"injected conflict (failpoint, tx={name})")
 
+        start = _time.monotonic()
         # one supervisor observation per call, not per attempt: one doomed
         # transaction retrying three times in ~10 ms is one outage sighting
         supervisor_notified = False
@@ -1781,11 +2045,14 @@ class Datastore:
                 failpoints.hit_scoped("datastore.commit", name, error_factory=_inj)
                 conn.commit()
                 failpoints.hit_scoped("datastore.post_commit", name, error_factory=_inj)
+                metrics.tx_duration.observe(_time.monotonic() - start, tx=name)
                 if self.supervisor is not None:
                     self.supervisor.record_success()
                 return result
             except self._retryable_errors as e:
                 kind = self.classify_error(e)
+                if kind != "fatal":
+                    metrics.tx_retries_total.add(tx=name, kind=kind)
                 if conn is not None:
                     if kind == "connection":
                         # never retry into a dead cached connection
@@ -1819,7 +2086,13 @@ class Datastore:
     def close(self) -> None:
         """Stop the supervisor and close every per-thread connection."""
         if self.supervisor is not None:
+            from ..statusz import unregister_status_provider
+
             self.supervisor.stop()
+            # a supervisor attached by hand (tests) was never registered
+            provider = getattr(self, "_status_provider", None)
+            if provider is not None:
+                unregister_status_provider("datastore", provider)
             self.supervisor = None
         with self._conn_registry_lock:
             conns, self._conn_registry = list(self._conn_registry), set()
@@ -1882,6 +2155,7 @@ class DatastoreSupervisor:
         # instead of sleeping out a reconnect backoff
         self._kick = threading.Event()
         self._thread: threading.Thread | None = None
+        self._publish_locked()
 
     def _set_state_locked(self, new: str) -> None:
         if new == self._state:
@@ -1892,6 +2166,12 @@ class DatastoreSupervisor:
         self.transition_log.append((_time.monotonic(), new))
         self._down_since = _time.monotonic() if new == "down" else None
         self._kick.set()
+
+    def _publish_locked(self) -> None:
+        from .. import metrics
+
+        metrics.datastore_up.set(0.0 if self._state == "down" else 1.0)
+        metrics.datastore_consecutive_failures.set(float(self._consecutive_failures))
 
     def record_failure(self, error: BaseException | None = None) -> None:
         """One connection-class failure (probe or real transaction)."""
@@ -1906,6 +2186,7 @@ class DatastoreSupervisor:
                 self._set_state_locked("degraded")
             elif self._state == "recovering":
                 self._set_state_locked("down")
+            self._publish_locked()
 
     def record_success(self) -> None:
         """One successful commit or probe."""
@@ -1920,6 +2201,7 @@ class DatastoreSupervisor:
                     self._set_state_locked("up")
             elif self._state == "degraded" and _time.monotonic() >= self._degraded_until:
                 self._set_state_locked("up")
+            self._publish_locked()
 
     def record_slow_commit(self, elapsed_s: float) -> None:
         """A commit past the writer's spill latency threshold: the
@@ -1930,6 +2212,7 @@ class DatastoreSupervisor:
             if self._state == "up":
                 self._set_state_locked("degraded")
             self._last_error = f"slow commit: {elapsed_s:.3f}s"
+            self._publish_locked()
 
     @property
     def state(self) -> str:

@@ -65,7 +65,8 @@ armed.
 
 The port's own copy of janus_tpu/failpoints.py, with its own registry
 (configuring one package's failpoints arms nothing in the other). It
-leaves out the `janus_failpoints_fired_total` counter; `status()` gives
+counts janus_failpoints_fired_total as janus_tpu does, and `status()`,
+the statusz `failpoints` section, gives
 each failpoint's hits and firings.
 """
 
@@ -321,6 +322,9 @@ def _lookup_and_arm(name: str) -> _Failpoint | None:
         if fp.prob < 1.0 and _rng.random() >= fp.prob:
             return None
         fp.fired += 1
+    from . import metrics
+
+    metrics.failpoints_fired_total.add(name=name, action=fp.action)
     return fp
 
 
@@ -397,3 +401,9 @@ def hit_scoped(base: str, scope: str, error_factory=None, timeout_factory=None) 
     fp = _lookup_and_arm(base + "." + scope)
     if fp is not None:
         _act(fp, error_factory, timeout_factory)
+
+
+# the statusz `failpoints` section (janus_tpu registers it in its binaries)
+from .statusz import register_status_provider as _register_status_provider  # noqa: E402
+
+_register_status_provider("failpoints", status)

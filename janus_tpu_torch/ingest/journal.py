@@ -56,8 +56,8 @@ encrypted leader_input_share and helper_encrypted_input_share.
 The port's own copy of janus_tpu/ingest/journal.py. The segment names,
 the framing and the payload are janus_tpu's byte for byte, so a segment
 written by either package replays into the other's datastore (with the
-same Crypter keys). It leaves out the journal's counters and gauges
-(depth, bytes, appends, replayed by outcome): `status()`, `depth()` and
+same Crypter keys). It feeds janus_tpu's journal gauges (depth, bytes)
+and counters (appends, replayed by outcome); `status()`, `depth()` and
 the replayer's `replayed_fresh` / `replayed_dupes` carry the same counts.
 """
 
@@ -250,6 +250,7 @@ class UploadJournal:
         self.quarantined_bytes = 0
         os.makedirs(self.dir, exist_ok=True)
         self._recover()
+        self._publish()
 
     def _fsync_dir(self, required: bool = False) -> None:
         """Persist directory entries (segment create/unlink): a file
@@ -296,6 +297,13 @@ class UploadJournal:
             "quarantined_bytes": self.quarantined_bytes,
             "full": self.is_full(),
         }
+
+    def _publish(self) -> None:
+        from .. import metrics
+
+        records, nbytes, _ = self.depth()
+        metrics.upload_journal_depth.set(float(records))
+        metrics.upload_journal_bytes.set(float(nbytes))
 
     # a journal is reported full once less than this headroom remains:
     # readiness must flip BEFORE the next typical append is refused
@@ -413,6 +421,7 @@ class UploadJournal:
         with self._lock:
             self._sealed.pop(seq, None)
             self._quarantine_path_locked(seq, self._seg_path(seq))
+        self._publish()
 
     def _open_active_locked(self):
         if self._fh is None:
@@ -502,6 +511,10 @@ class UploadJournal:
             self.appended_total += len(frames)
             if self._active_bytes >= self.max_segment_bytes:
                 self._rotate_locked()
+        from .. import metrics
+
+        metrics.upload_journal_appends_total.add(len(frames))
+        self._publish()
 
     # ------------------------------------------------------------------
     # replay surface
@@ -565,6 +578,7 @@ class UploadJournal:
         # not resurrect a replayed segment... it would dedup anyway,
         # but the bound accounting should match the disk)
         self._fsync_dir()
+        self._publish()
 
     def close(self) -> None:
         with self._lock:
@@ -670,6 +684,8 @@ class JournalReplayer:
         tails are never-acked rows) for clean/torn segments,
         quarantined (bytes preserved as .corrupt) for CRC-damaged
         ones, whose post-damage region may hold acked data."""
+        from .. import metrics
+
         replayed = 0
         for seq in self.journal.sealed_segments():
             if self._stop.is_set():
@@ -693,6 +709,10 @@ class JournalReplayer:
                 dupes = len(outcomes) - fresh
                 self.replayed_fresh += fresh
                 self.replayed_dupes += dupes
+                if fresh:
+                    metrics.upload_journal_replayed_total.add(fresh, outcome="fresh")
+                if dupes:
+                    metrics.upload_journal_replayed_total.add(dupes, outcome="replayed")
                 replayed += len(outcomes)
             # the covering commit landed: the segment may leave the queue
             if reason == "crc":

@@ -36,7 +36,14 @@ fired lane is rejected without crypto); each rejects its own lane only.
 Not ported: janus_tpu's per-report stage loops (`batch_window=1` there;
 here a window of 1 runs the windowed stages, failpoints included) and
 its oracle loops for task doubles without the column surface (every port
-TaskAggregator has it), and the metrics and trace spans of each stage.
+TaskAggregator has it).
+
+Observability, as in janus_tpu: each ticket carries its request's trace
+context onto the stage workers, so the per-lane `ingest.decode`,
+`ingest.decrypt` and `ingest.commit` spans (and each window's
+`ingest.decrypt_batch`) sit in the upload's trace; the in-flight gauge,
+the per-stage queue depths, the per-report stage durations and the
+decrypt batch seconds are janus_tpu's metrics.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ import queue
 import threading
 import time
 
-from .. import failpoints
+from .. import failpoints, metrics, trace
 from ..core import hpke_backend
 from ..messages import decode_reports_fast
 from .admission import ShedError
@@ -72,13 +79,15 @@ def default_decrypt_workers(batched: bool = True) -> int:
 class UploadTicket:
     """One admitted upload's journey through the pipeline."""
 
-    __slots__ = ("ta", "clock", "body", "keypair", "event", "fresh", "error")
+    __slots__ = ("ta", "clock", "body", "keypair", "trace_ctx", "event", "fresh", "error")
 
     def __init__(self, ta, clock, body: bytes):
         self.ta = ta
         self.clock = clock
         self.body = body
         self.keypair = None
+        # the submitting request's trace: the stage workers' spans join it
+        self.trace_ctx = trace.current_context()
         self.event = threading.Event()
         self.fresh: bool | None = None
         self.error: BaseException | None = None
@@ -156,6 +165,7 @@ class IngestPipeline:
             if self._inflight >= self.queue_depth:
                 raise ShedError("upload", "queue_full", 1.0)
             self._inflight += 1
+            metrics.ingest_inflight.set(self._inflight)
             if not self._started:
                 self._start_locked()
             # enqueue under the lock (never blocks: queue capacity is the
@@ -163,6 +173,7 @@ class IngestPipeline:
             # lock before inserting its stop sentinels, cannot strand a
             # ticket behind a sentinel
             self._decode_q.put(ticket)
+        metrics.ingest_queue_depth.set(self._decode_q.qsize(), stage="decode")
         return ticket
 
     def _start_locked(self) -> None:
@@ -185,13 +196,23 @@ class IngestPipeline:
         ticket.error = error
         with self._lock:
             self._inflight -= 1
+            metrics.ingest_inflight.set(self._inflight)
         ticket.event.set()
 
     def _submit_stored(self, ticket: UploadTicket, stored) -> None:
         """Hand one validated report to the group-commit writer; the
         flusher thread resolves the ticket when its batch lands."""
 
-        def on_done(pending, ticket=ticket):
+        t_commit = time.monotonic()
+
+        def on_done(pending, ticket=ticket, t_commit=t_commit):
+            # on the flusher thread: the group commit carrying this report
+            # finished or failed
+            wait_s = time.monotonic() - t_commit
+            metrics.ingest_stage_duration.observe(wait_s, stage="commit")
+            # a marker span in the upload's trace: when the commit landed
+            with trace.use_context(ticket.trace_ctx), trace.span("ingest.commit", wait_s=round(wait_s, 6)):
+                pass
             if pending.error is not None:
                 self._resolve(ticket, error=pending.error)
             else:
@@ -226,6 +247,7 @@ class IngestPipeline:
             if first is _STOP:
                 return
             window, stop = self._drain_window(first)
+            metrics.ingest_queue_depth.set(self._decode_q.qsize(), stage="decode")
             try:
                 self._decode_window(window)
             except BaseException:  # never kill the worker; fail the window
@@ -247,9 +269,10 @@ class IngestPipeline:
         by_ta: dict[int, list[tuple[UploadTicket, int]]] = {}
         for i, ticket in enumerate(window):
             try:
-                failpoints.hit("ingest.decode")
-                if col.errors[i] is not None:
-                    raise col.errors[i]
+                with trace.use_context(ticket.trace_ctx), trace.span("ingest.decode", batch=len(window)):
+                    failpoints.hit("ingest.decode")
+                    if col.errors[i] is not None:
+                        raise col.errors[i]
             except BaseException as e:
                 self._resolve(ticket, error=e)
                 continue
@@ -264,15 +287,21 @@ class IngestPipeline:
                 else:
                     ticket.keypair = res
                     survivors.append((ticket, i))
-        self._add_seconds("decode", time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self._add_seconds("decode", dt)
+        per_report = dt / max(1, len(window))
+        for _ in window:
+            metrics.ingest_stage_duration.observe(per_report, stage="decode")
         if survivors:
             self._decrypt_q.put(_DecryptWindow(col, survivors))
+            metrics.ingest_queue_depth.set(self._decrypt_q.qsize(), stage="decrypt")
 
     def _decrypt_loop(self) -> None:
         while True:
             item = self._decrypt_q.get()
             if item is _STOP:
                 return
+            metrics.ingest_queue_depth.set(self._decrypt_q.qsize(), stage="decrypt")
             try:
                 self._decrypt_window(item)
             except BaseException:
@@ -290,20 +319,29 @@ class IngestPipeline:
         groups: dict[tuple, list[tuple[UploadTicket, int]]] = {}
         for ticket, i in item.lanes:
             try:
-                failpoints.hit("ingest.decrypt")
+                with trace.use_context(ticket.trace_ctx):
+                    failpoints.hit("ingest.decrypt")
             except BaseException as e:
                 self._resolve(ticket, error=e)
                 continue
             groups.setdefault((id(ticket.ta), col.leader_config_ids[i]), []).append((ticket, i))
         for lanes in groups.values():
             ta, keypair = lanes[0][0].ta, lanes[0][0].keypair
-            results = ta.upload_decrypt_validate_batch(col, [i for _, i in lanes], keypair)
+            with trace.span("ingest.decrypt_batch", batch=len(lanes)):
+                results = ta.upload_decrypt_validate_batch(col, [i for _, i in lanes], keypair)
             for (ticket, _), res in zip(lanes, results):
+                with trace.use_context(ticket.trace_ctx), trace.span("ingest.decrypt", batch=len(lanes)):
+                    pass  # marker: this lane's decrypt ran in the batch
                 if isinstance(res, BaseException):
                     self._resolve(ticket, error=res)
                 else:
                     self._submit_stored(ticket, res)
-        self._add_seconds("decrypt", time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self._add_seconds("decrypt", dt)
+        metrics.ingest_decrypt_batch_seconds.observe(dt)
+        per_report = dt / max(1, len(item.lanes))
+        for _ in item.lanes:
+            metrics.ingest_stage_duration.observe(per_report, stage="decrypt")
 
     def close(self) -> None:
         with self._lock:

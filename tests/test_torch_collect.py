@@ -54,6 +54,7 @@ from janus_tpu.core.auth import AuthenticationToken
 from janus_tpu.datastore import models as j_models
 from janus_tpu.datastore import store as j_store
 from janus_tpu.vdaf import registry as j_registry
+from janus_tpu.trace import trace_id_of
 from janus_tpu_torch import collector as t_collector
 from janus_tpu_torch import messages as tm
 from janus_tpu_torch.aggregator import collection_job_driver as t_cdriver
@@ -251,7 +252,8 @@ class Scenario:
             return tid, job, lease
 
         tid, job, lease = ds.run_tx(read)
-        assert pkg.m is jm or job.trace_context is None  # the port has no spans
+        # both packages store the collection-create span's traceparent
+        traced = trace_id_of(job.trace_context) is not None
         aad = jm.AggregateShareAad(jm.TaskId(tid), b"", self.batch_selector(job.batch_identifier)).to_bytes()
         helper_share = j_hpke.hpke_open(
             self.collector_kp,
@@ -259,7 +261,7 @@ class Scenario:
             jm.HpkeCiphertext.from_bytes(job.helper_encrypted_aggregate_share), aad,
         )
         cj = (job.query, job.aggregation_parameter, job.batch_identifier, job.state.value, job.report_count,
-              job.client_timestamp_interval.to_bytes(), job.leader_aggregate_share, helper_share, lease)
+              job.client_timestamp_interval.to_bytes(), job.leader_aggregate_share, helper_share, lease, traced)
         return cj, share_job_rows(ds, pkg), batch_rows(ds)
 
 

@@ -38,6 +38,7 @@ from janus_tpu.aggregator import aggregation_job_driver as j_driver
 from janus_tpu.core import circuit_breaker as j_cb
 from janus_tpu.core import retries as j_retries
 from janus_tpu.core import time_util as j_time
+from janus_tpu.trace import trace_id_of
 from janus_tpu.core.auth import AuthenticationToken
 from janus_tpu.core.hpke import generate_hpke_config_and_private_key
 from janus_tpu.datastore import models as j_models
@@ -183,9 +184,8 @@ def _jobs_up_to_renaming(side):
                 job.client_timestamp_interval.to_bytes(), job.partial_batch_identifier, job.state.value, job.step,
                 job.aggregation_parameter,
             )
-            # janus_tpu stores the creating span's traceparent; the port,
-            # with no spans, None
-            assert side.pkg == "jax" or job.trace_context is None
+            # both packages store the creating span's traceparent
+            assert trace_id_of(job.trace_context) is not None
         return out
 
     return side.ds.run_tx(read)

@@ -92,6 +92,12 @@ def test_port_files_include_every_module_of_the_package():
         "ops/scatter_cuda.py",
         "vdaf/circuits.py",
         "parallel/api.py",
+        "statusz.py",
+        "metrics.py",
+        "exposition.py",
+        "trace.py",
+        "profiler.py",
+        "ledger.py",
     ):
         assert f"janus_tpu_torch/{module}" in names, module
 
