@@ -192,6 +192,39 @@ Phases, each of which must pass:
                    families rendering with no exposition error in either
                    format, the statusz sections, and the cost of a span
                    and of a counter add on this host;
+  10b. binaries-sumvec  the deployed process pair, as an operator runs it:
+                   `python -m janus_tpu_torch.bin.janus_cli provision-tasks`
+                   puts one SumVec(1000, 16) fixed-size task (1,024
+                   reports a batch) in each side's SQLite file, then five
+                   processes boot at once from .json configs with
+                   `device: "cuda:<this card>"` (a helper `bin.aggregator`;
+                   the leader's `bin.aggregator`, `aggregation_job_creator`,
+                   `aggregation_job_driver` and `collection_job_driver`),
+                   each side with its own DATASTORE_KEYS, and each must
+                   answer /readyz. With a `POST /debug/profile` window open
+                   on the job driver and on the helper, 8 reports are
+                   uploaded through the Client and 1,016 made by
+                   make_wire_reports are PUT by 8 threads (3 corrupted as
+                   in phase 10); the creator packs one job of 1,024, the
+                   driver steps it (the leader's job_health statusz says
+                   when it finished), and the Collector's current-batch
+                   query must give the ground truth over 1,021 reports.
+                   Each window's CUDA trace must hold kernels 1 and 2
+                   (their symbols in csrc/) and no kernel 3: the kernel
+                   counters live in those processes, so the traces show
+                   that the binaries ran the hand-written kernels. Every
+                   listener is scraped: /metrics and its OpenMetrics form
+                   with 0 exposition errors, janus_build_info's backend the
+                   card's name, the statusz sections, /alertz,
+                   /debug/flight; both parties' /debug/ledger books balance
+                   and the leader's peer divergence is 0. Last, SIGTERM:
+                   every process exits 0 and logs "shut down" within 30 s.
+                   The `binaries` line gives each process's boot seconds
+                   (/debug/boot) and time to ready, uploads/s, the job
+                   driver's stage seconds (its metrics), the collection's
+                   seconds, each profile's kernel counts, each process's
+                   device memory, the exit codes and drain seconds, and the
+                   phase's seconds;
   10a. upload-drive-sparse  the same for sparse_sumvec(16, 1000000, 64, 16)
                    (measurements as in phase 6d): besides, an upload whose
                    public share has descending block indices must get 400
@@ -442,7 +475,8 @@ with GC's seconds by side and by delete; the device bytes before and the
 peak during the collection step), the poplar1 and drive_poplar1 lines,
 the taskprov_histogram and outage_drill lines, the two pipeline_resident
 lines, the device_hang_drill and peer_outage_drill lines, the fleet_drill
-line, the mesh line, the observability line after upload-drive-sumvec's,
+line, the mesh line, the observability line after upload-drive-sumvec's
+and the binaries line after it,
 the kernels,
 one line per path, the run's wall time), then the card's
 name and power limit as nvidia-smi gives them, and last
@@ -2113,13 +2147,7 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
     from janus_tpu_torch.client import Client, ClientParameters
     from janus_tpu_torch.core.auth import AuthenticationToken
     from janus_tpu_torch.core.circuit_breaker import OutboundCircuitBreakers
-    from janus_tpu_torch.core.hpke import (
-        HpkeApplicationInfo,
-        Label,
-        generate_hpke_config_and_private_key,
-        hpke_open,
-        hpke_seal,
-    )
+    from janus_tpu_torch.core.hpke import generate_hpke_config_and_private_key
     from janus_tpu_torch.core.http_client import HttpClient
     from janus_tpu_torch.core.retries import Backoff, retry_http_request
     from janus_tpu_torch.core.time_util import MockClock
@@ -2127,9 +2155,7 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
     from janus_tpu_torch.datastore.store import Crypter, Transaction
     from janus_tpu_torch.messages import (
         FixedSizeQuery,
-        InputShareAad,
         PartialBatchSelector,
-        PlaintextInputShare,
         PrepareError,
         Query,
         Report,
@@ -2210,23 +2236,11 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
         wire_reports_s = time.perf_counter() - t0
         shard_launches = {k: fn.launches for k, fn in counters.items()}
         check_launches("device shard", shard_launches)
-        keypair = task.hpke_keys[0]
-        info = HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.LEADER)
         field = circuit_for(inst).FIELD
         size = field.ENCODED_SIZE
 
         def reseal(src, md, mutate):
-            """`src` as `md`, its leader payload changed by mutate(bytearray)
-            and sealed again: the client's seal of another share."""
-            payload = bytearray(PlaintextInputShare.from_bytes(hpke_open(
-                keypair, info, src.leader_encrypted_input_share,
-                InputShareAad(task.task_id, src.metadata, src.public_share).to_bytes(),
-            )).payload)
-            mutate(payload)
-            return Report(md, src.public_share, hpke_seal(
-                client.leader_hpke_config, info, PlaintextInputShare((), bytes(payload)).to_bytes(),
-                InputShareAad(task.task_id, md, src.public_share).to_bytes(),
-            ), src.helper_encrypted_input_share)
+            return _reseal(task, client.leader_hpke_config, src, md, mutate)
 
         def bump(payload):  # the first measurement element plus 1, inside the field
             v = (int.from_bytes(payload[:size], "little") + 1) % field.MODULUS
@@ -2393,7 +2407,7 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
             "wire_reports_s": wire_reports_s,
             "upload_threads": threads,
             "upload_s": upload_s,
-            "uploads_per_s": n_wire / upload_s,
+            "uploads_per_s": (n_wire - 1) / upload_s,
             "upload_bytes": sum(len(r.to_bytes()) for r in reports),
             "sheds_429": len(sheds),
             "ingest_stage_s": {**ingest_stages, **writer_stages},
@@ -2438,6 +2452,407 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
         leader.close()
         leader_eds.cleanup()
         helper_eds.cleanup()
+
+
+BINARY_SERVICES = ("helper", "leader", "creator", "agg_driver", "col_driver")
+# the kernel symbols of rows 1 and 2 of PERF.md's table (csrc/keccak.cu,
+# csrc/expand_f128.cu), and of the kernels the fast path must not launch
+TRACE_KERNELS = {
+    "keccak_single_block": ("keccak_ctr_kernel", "keccak_tree_kernel"),
+    "expand_f128": ("expand_f128_kernel",),
+    "keccak_sponge": ("keccak_sponge_kernel",),
+}
+
+
+def _reseal(task, leader_hpke_config, src, md, mutate):
+    """`src` as `md`, its leader payload changed by mutate(bytearray) and
+    sealed again: the client's seal of another share."""
+    from janus_tpu_torch.core.hpke import HpkeApplicationInfo, Label, hpke_open, hpke_seal
+    from janus_tpu_torch.messages import InputShareAad, PlaintextInputShare, Report, Role
+
+    info = HpkeApplicationInfo(Label.INPUT_SHARE, Role.CLIENT, Role.LEADER)
+    payload = bytearray(PlaintextInputShare.from_bytes(hpke_open(
+        task.hpke_keys[0], info, src.leader_encrypted_input_share,
+        InputShareAad(task.task_id, src.metadata, src.public_share).to_bytes(),
+    )).payload)
+    mutate(payload)
+    return Report(md, src.public_share, hpke_seal(
+        leader_hpke_config, info, PlaintextInputShare((), bytes(payload)).to_bytes(),
+        InputShareAad(task.task_id, md, src.public_share).to_bytes(),
+    ), src.helper_encrypted_input_share)
+
+
+def _http(url: str, method: str = "GET", timeout: float = 60.0):
+    """(status, body) of one request to a health listener, whatever the
+    status, the whole body."""
+    from janus_tpu_torch.core.http_client import fetch_any_status
+
+    return fetch_any_status(url, method, b"" if method == "POST" else None, timeout=timeout, max_bytes=1 << 30)
+
+
+def trace_kernel_counts(path: str) -> dict:
+    """Kernel launches by TRACE_KERNELS row in a torch.profiler Chrome
+    trace (the events of category `kernel`), and every kernel name's count."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name[e.get("name", "")] = by_name.get(e.get("name", ""), 0) + 1
+    rows = {k: sum(c for n, c in by_name.items() if any(s in n for s in syms)) for k, syms in TRACE_KERNELS.items()}
+    ours = {n: c for n, c in by_name.items() if any(s in n for syms in TRACE_KERNELS.values() for s in syms)}
+    return {"rows": rows, "kernel_events": sum(by_name.values()), "distinct_kernels": len(by_name),
+            "by_symbol": ours}
+
+
+def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profile_s: float = 25.0,
+                   base_port: int = 27300):
+    """The deployed process pair (see the module docstring, phase 10b):
+    janus_cli provisions one task on each side, the five binaries boot
+    from .json configs on `dev`, the reports are uploaded over HTTP with
+    two profile windows open (the leader's job driver and the helper),
+    the collection must equal the ground truth, every listener is
+    scraped, and every process drains on SIGTERM. Returns the record."""
+    import base64
+    import dataclasses
+    import os
+    import secrets
+    import shutil
+    import signal
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from janus_tpu_torch import exposition
+    from janus_tpu_torch.client import Client, ClientParameters
+    from janus_tpu_torch.collector import CollectionJobNotReady, Collector, CollectorParameters
+    from janus_tpu_torch.core.auth import AuthenticationToken
+    from janus_tpu_torch.core.hpke import generate_hpke_config_and_private_key
+    from janus_tpu_torch.core.http_client import HttpClient
+    from janus_tpu_torch.core.retries import Backoff, retry_http_request
+    from janus_tpu_torch.messages import FixedSizeQuery, Query, Report, Role, Time
+    from janus_tpu_torch.metrics import task_id_label
+    from janus_tpu_torch.task import QueryTypeConfig, Task, TaskBuilder
+    from janus_tpu_torch.vdaf.registry import circuit_for
+    from janus_tpu_torch.vdaf.testing import make_wire_reports, random_measurements
+
+    phase_t0 = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    batch = n_client + n_wire
+    on_card = dev.type == "cuda"
+    device = f"cuda:{torch.cuda.current_device()}" if on_card else "cpu"
+    device_name = torch.cuda.get_device_name(0) if on_card else "cpu"
+    health = {name: base_port + i for i, name in enumerate(BINARY_SERVICES)}
+    dap = {"helper": base_port + 10, "leader": base_port + 11}
+    url = {side: f"http://127.0.0.1:{p}/" for side, p in dap.items()}
+    tmp = Path(tempfile.mkdtemp(prefix="janus-binaries-"))
+    keys = {side: base64.urlsafe_b64encode(secrets.token_bytes(16)).decode().rstrip("=") for side in dap}
+    db = {side: str(tmp / f"{side}.sqlite") for side in dap}
+    env = {side: dict(os.environ, PYTHONPATH=str(repo), DATASTORE_KEYS=keys[side]) for side in dap}
+    procs: dict = {}
+    profile_dirs: list = []
+    try:
+        # 1. the tasks, provisioned through janus_cli on each side
+        collector_kp = generate_hpke_config_and_private_key(config_id=7)
+        built = TaskBuilder(QueryTypeConfig.fixed_size(max_batch_size=batch), inst, Role.LEADER).with_(
+            vdaf_verify_key=VERIFY_KEY, aggregator_auth_token=AuthenticationToken.random_bearer(),
+            collector_auth_token=AuthenticationToken.random_bearer(), leader_aggregator_endpoint=url["leader"],
+            helper_aggregator_endpoint=url["helper"], collector_hpke_config=collector_kp.config, min_batch_size=1,
+        ).build()
+        task = Task.from_dict(built.to_dict())
+        helper_task = Task.from_dict(dataclasses.replace(
+            built, role=Role.HELPER, hpke_keys=(generate_hpke_config_and_private_key(config_id=1),)
+        ).to_dict())
+        t0 = time.perf_counter()
+        provision = {}
+        for side, t in (("leader", task), ("helper", helper_task)):
+            tasks_file = tmp / f"{side}_tasks.json"
+            tasks_file.write_text(json.dumps([t.to_dict()]))
+            provision[side] = subprocess.Popen(
+                [sys.executable, "-m", "janus_tpu_torch.bin.janus_cli", "provision-tasks", str(tasks_file),
+                 "--database", db[side], f"--datastore-keys={keys[side]}"],
+                cwd=str(repo), env=env[side], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+        # 2. one .json config a process, all five booted at once, while
+        # janus_cli provisions (a binary reads its tasks when it serves)
+        common = {"device": device, "health_sampler_interval_secs": 2, "flight": {"interval_secs": 2},
+                  "slo": {"evaluation_interval_secs": 2}}
+        driver = {"min_job_discovery_delay_secs": 0.1, "max_job_discovery_delay_secs": 0.5,
+                  "worker_lease_duration_secs": 120}
+        specs = {
+            "helper": ("aggregator", "helper", {"listen_address": f"127.0.0.1:{dap['helper']}"}),
+            "leader": ("aggregator", "leader", {"listen_address": f"127.0.0.1:{dap['leader']}"}),
+            "creator": ("aggregation_job_creator", "leader", {
+                "aggregation_job_creation_interval_secs": 0.5, "min_aggregation_job_size": batch,
+                "max_aggregation_job_size": batch}),
+            "agg_driver": ("aggregation_job_driver", "leader", driver),
+            "col_driver": ("collection_job_driver", "leader", driver),
+        }
+        spawned = {}
+        for name, (binary, side, extra) in specs.items():
+            cfg = tmp / f"{name}.json"
+            cfg.write_text(json.dumps({"database": {"url": db[side]},
+                                       "health_check_listen_address": f"127.0.0.1:{health[name]}", **common,
+                                       **extra}))
+            logf = open(tmp / f"{name}.log", "wb")
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"janus_tpu_torch.bin.{binary}", "--config-file", str(cfg)],
+                cwd=str(repo), env=env[side], stdout=logf, stderr=subprocess.STDOUT,
+            )
+            logf.close()
+            spawned[name] = time.perf_counter()
+
+        # meanwhile the batched client shards its reports on the card
+        meas = random_measurements(inst, batch, np.random.default_rng(SEED + 18))
+        now = int(time.time())
+        reports = make_wire_reports(
+            inst, meas[n_client:], task.task_id, task.hpke_keys[0].config, helper_task.hpke_keys[0].config,
+            Time(now - 60).to_batch_interval_start(task.time_precision), seed=SEED + 18, shard_chunk=256, device=dev,
+        )
+        field = circuit_for(inst).FIELD
+        size = field.ENCODED_SIZE
+
+        def bump(payload):  # the first measurement element plus 1, inside the field
+            v = (int.from_bytes(payload[:size], "little") + 1) % field.MODULUS
+            payload[:size] = v.to_bytes(size, "little")
+
+        for i in bad_rows:
+            reports[i] = _reseal(task, task.hpke_keys[0].config, reports[i], reports[i].metadata, bump)
+
+        def log_tail(name, n=3000):
+            return (tmp / f"{name}.log").read_text(errors="replace")[-n:]
+
+        for side, p in provision.items():
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0 or json.loads(out) != [{"task_id": task_id_label(task.task_id.data)}]:
+                raise AssertionError(f"binaries: janus_cli provision-tasks ({side}) exited {p.returncode}: "
+                                     f"{out[-1000:]} {err[-2000:]}")
+        provision_s = time.perf_counter() - t0
+        ready_s = {}
+        deadline = time.monotonic() + 180
+        while len(ready_s) < len(procs):
+            for name, p in procs.items():
+                if name in ready_s:
+                    continue
+                if p.poll() is not None:
+                    raise AssertionError(f"binaries: {name} exited {p.returncode} at boot: {log_tail(name)}")
+                try:
+                    if _http(f"http://127.0.0.1:{health[name]}/readyz", timeout=2)[0] == 200:
+                        ready_s[name] = time.perf_counter() - spawned[name]
+                except OSError:
+                    pass
+            if time.monotonic() > deadline:
+                raise AssertionError(f"binaries: not ready after 180 s: {sorted(set(procs) - set(ready_s))}")
+            time.sleep(0.1)
+        boot = {name: json.loads(_http(f"http://127.0.0.1:{health[name]}/debug/boot")[1]) for name in procs}
+
+        # 3. the uploads but one: 8 through the Client (8 threads), the
+        # rest of the wire reports PUT by 8 threads; the creator packs no
+        # job before the batch is whole
+        http = HttpClient(timeout=600)
+        params = ClientParameters(task.task_id, url["leader"], url["helper"], task.time_precision)
+        client = Client.with_fetched_configs(params, inst, http)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            list(pool.map(lambda m: client.upload([int(x) for x in m]), meas[:n_client]))
+        client_upload_s = time.perf_counter() - t0
+        sheds = []
+
+        def put(report):
+            def attempt():
+                status, body = http.put(params.upload_uri(), report.to_bytes(), {"Content-Type": Report.MEDIA_TYPE})
+                if status == 429:
+                    sheds.append(1)
+                return status, body, http.last_response_headers
+
+            return retry_http_request(attempt, Backoff())[0]
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            statuses = list(pool.map(put, reports[:-1]))
+        upload_s = time.perf_counter() - t0
+        if set(statuses) != {201}:
+            raise AssertionError(f"binaries: upload statuses {sorted(set(statuses))}")
+
+        # 4. the profile windows of the job driver and the helper, then the
+        # last report: the job is created, stepped and collected inside them
+        windows = {}
+        window_pool = ThreadPoolExecutor(max_workers=2)
+        for name in ("agg_driver", "helper"):
+            windows[name] = window_pool.submit(
+                _http, f"http://127.0.0.1:{health[name]}/debug/profile?seconds={profile_s}", "POST",
+                profile_s + 120.0)
+        time.sleep(1.5)  # the profilers start
+        window_t0 = time.perf_counter()
+        timeline = {}
+        if put(reports[-1]) != 201:
+            raise AssertionError("binaries: the last upload was refused")
+        timeline["uploaded_s"] = time.perf_counter() - window_t0
+
+        # 5. the job: the creator packs it, the driver steps it; the
+        # leader's job_health section says when it finished
+        t_uploaded = time.perf_counter()
+        deadline = time.monotonic() + 120
+        while True:
+            jobs = json.loads(_http(f"http://127.0.0.1:{health['leader']}/statusz")[1]).get("job_health", {})
+            if jobs.get("jobs", {}).get("aggregation/finished", 0) >= 1:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"binaries: no finished aggregation job: {jobs} {log_tail('agg_driver')}")
+            time.sleep(0.25)
+        job_done_s = time.perf_counter() - t_uploaded
+        timeline["job_finished_s"] = time.perf_counter() - window_t0
+
+        # 6. the collection, by the collector's current-batch query
+        collector = Collector(CollectorParameters(task.task_id, url["leader"], task.collector_auth_token,
+                                                  collector_kp), inst, http)
+        t0 = time.perf_counter()
+        query = Query.fixed_size(FixedSizeQuery(FixedSizeQuery.CURRENT_BATCH))
+        job_id = collector.start_collection(query)
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                result = collector.poll_once(job_id, query)
+                break
+            except CollectionJobNotReady:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"binaries: collection not ready: {log_tail('col_driver')}")
+                time.sleep(0.2)
+        collect_s = time.perf_counter() - t0
+        accept = np.ones(batch, dtype=bool)
+        accept[[n_client + i for i in bad_rows]] = False
+        truth = [int(x) for x in np.asarray(meas)[accept].sum(axis=0).reshape(-1)]
+        finished = batch - len(bad_rows)
+        if result.report_count != finished or [int(x) for x in result.aggregate_result] != truth:
+            raise AssertionError(f"binaries: collected {result.report_count} reports; the aggregate "
+                                 f"{'equals' if list(result.aggregate_result) == truth else 'differs from'} the truth")
+        window_wait_t0 = time.perf_counter()
+        timeline["collected_s"] = window_wait_t0 - window_t0
+
+        # 7. the profiles: the kernels each process launched on the card
+        profiles = {}
+        for name, fut in windows.items():
+            status, body = fut.result(timeout=profile_s + 180.0)
+            if status != 200:
+                raise AssertionError(f"binaries: POST /debug/profile on {name} answered {status}: {body[:300]!r}")
+            doc = json.loads(body)
+            profile_dirs.append(str(Path(doc["device_trace_dir"]).parent))
+            t0 = time.perf_counter()
+            counts = trace_kernel_counts(doc["device_trace"])
+            profiles[name] = {"activities": doc["activities"], "stop_s": doc["stop_s"], "export_s": doc["export_s"],
+                              "trace_bytes": os.path.getsize(doc["device_trace"]),
+                              "read_s": time.perf_counter() - t0, **counts}
+            if on_card and (doc["activities"] != ["cuda"] or not counts["rows"]["keccak_single_block"]
+                            or not counts["rows"]["expand_f128"] or counts["rows"]["keccak_sponge"]):
+                raise AssertionError(f"binaries: {name}'s CUDA profile shows {counts}; since the windows opened "
+                                     f"{timeline} (window {profile_s} s)")
+        window_pool.shutdown()
+        window_wait_s = time.perf_counter() - window_wait_t0
+
+        # 8. every listener: metrics (both formats, 0 errors), build info,
+        # statusz sections, alertz, the flight recorder, the books
+        label = task_id_label(task.task_id.data)
+        scrapes = {}
+        for name in procs:
+            base = f"http://127.0.0.1:{health[name]}"
+            status, text = _http(base + "/metrics")
+            families, errors = exposition.parse_exposition(text.decode())
+            om_errors = exposition.validate_exposition(_http(base + "/metrics?openmetrics=1")[1].decode(),
+                                                       openmetrics=True)
+            build = [lbl for _, lbl, v in families["janus_build_info"].samples if v == 1]
+            statusz = json.loads(_http(base + "/statusz")[1])
+            alertz = json.loads(_http(base + "/alertz")[1])
+            flight = json.loads(_http(base + "/debug/flight")[1])
+            want = {"process", "tasks", "slo", "flight", "fleet", "failpoints", "datastore", "device_cost",
+                    "engine_cache"} | ({"job_health", "ledger"} if name != "creator" else set())
+            if (status != 200 or errors or om_errors or len(build) != 1 or build[0]["backend"] != device_name
+                    or not want <= set(statusz) or not alertz.get("enabled") or not flight.get("running")):
+                raise AssertionError(f"binaries: {name}'s listener: {errors[:3]} {om_errors[:3]} {build} "
+                                     f"{sorted(want - set(statusz))} alertz={alertz.get('enabled')} "
+                                     f"flight={flight.get('running')}")
+            scrapes[name] = {"families": len(families), "exposition_errors": len(errors),
+                             "openmetrics_errors": len(om_errors), "backend": build[0]["backend"],
+                             "statusz_sections": len(statusz) - 1, "alerts_firing": alertz["firing"],
+                             "flight_snapshots": flight["snapshots_total"],
+                             "device_memory": statusz["process"].get("device_memory")}
+            if name == "agg_driver":
+                stages = {}
+                fam = families.get("janus_step_pipeline_stage_seconds")
+                for sample, lbl, v in (fam.samples if fam else []):
+                    if sample.endswith("_sum"):
+                        stages[lbl["stage"]] = v
+                scrapes[name]["step_stage_s"] = stages
+                scrapes[name]["device_cost"] = statusz["device_cost"]
+            if name == "helper":
+                scrapes[name]["device_cost"] = statusz["device_cost"]
+
+        def books(name, want_peer):
+            deadline = time.monotonic() + 30
+            while True:
+                doc = json.loads(_http(f"http://127.0.0.1:{health[name]}/debug/ledger")[1])
+                t = doc.get("tasks", {}).get(label)
+                ok = t is not None and (t["admitted"], t["aggregated"], t["collected"], t["lost"]) == (
+                    batch, finished, finished, 0) and t["rejected"] == {"vdaf_prep_error": len(bad_rows)} \
+                    and not any(t["imbalance"].values()) and not doc.get("breaches")
+                peer = t.get("peer") if t else None
+                if ok and (not want_peer or (peer and peer["divergence"] == 0 and peer["batches_compared"] >= 1)):
+                    return {k: t[k] for k in ("admitted", "aggregated", "collected", "rejected", "imbalance")} | (
+                        {"peer_divergence": peer["divergence"]} if want_peer else {})
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"binaries: {name}'s books {t} breaches {doc.get('breaches')}")
+                time.sleep(0.5)
+
+        ledger_books = {"leader": books("col_driver", True), "helper": books("helper", False)}
+
+        # 9. SIGTERM: every process exits 0 and logs its shutdown
+        drain_s, rcs = {}, {}
+        t0 = time.perf_counter()
+        for p in procs.values():
+            p.send_signal(signal.SIGTERM)
+        for name, p in procs.items():
+            try:
+                rcs[name] = p.wait(timeout=max(1.0, 30.0 - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"binaries: {name} still running 30 s after SIGTERM: {log_tail(name)}")
+            drain_s[name] = time.perf_counter() - t0
+            if rcs[name] != 0 or "shut down" not in log_tail(name, 20000):
+                raise AssertionError(f"binaries: {name} exited {rcs[name]}: {log_tail(name)}")
+        return {
+            "path": "binaries-sumvec",
+            "vdaf": inst.to_dict(),
+            "device": device,
+            "batch": batch,
+            "provision_s": provision_s,
+            "ready_s": ready_s,
+            "boot_s": {n: b.get("total_s") for n, b in boot.items()},
+            "boot_phases_s": {n: {p["phase"]: p["seconds"] for p in b["phases"]} for n, b in boot.items()},
+            "client_upload_s": client_upload_s,
+            "upload_s": upload_s,
+            "uploads_per_s": (n_wire - 1) / upload_s,
+            "sheds_429": len(sheds),
+            "uploaded_to_job_finished_s": job_done_s,
+            "collect_s": collect_s,
+            "report_count": result.report_count,
+            "aggregate_ok": True,
+            "profile_s": profile_s,
+            "since_windows_opened_s": timeline,
+            "profile_wait_s": window_wait_s,
+            "profiles": profiles,
+            "scrapes": scrapes,
+            "ledger": ledger_books,
+            "exit_codes": rcs,
+            "drain_s": drain_s,
+            "phase_s": time.perf_counter() - phase_t0,
+        }
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for d in profile_dirs:
+            shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def corrupt_poplar1_keys(poplar):
@@ -4819,6 +5234,15 @@ def main() -> int:
         serves[out["path"]] = out
         emit({"upload_drive": out})
         emit({"observability": observability})
+    # the deployed process pair: the five binaries booted from config on
+    # this card, as an operator runs them (this process's cached blocks go
+    # back to the card first: the two device processes size their buckets
+    # from the card's total memory)
+    torch.cuda.empty_cache()
+    out = phase("binaries-sumvec", phase_binaries, torch, dev, VdafInstance.sum_vec(1000, 16), 8, 1016,
+                (5, 300, 1000)) if not failed else None
+    if out is not None:
+        emit({"binaries": out})
     out = phase("upload-drive-sparse", phase_upload_drive, torch, dev, sparse_inst, 8, 1016, (5, 300, 1000),
                 fast) if not failed else None
     if out is not None:

@@ -95,7 +95,8 @@ JANUS_RESIDENT_MAX_BYTES environment knobs are not ported: coalescing
 and cross-task coalescing are always on, and the resident byte cap is
 the class constant RESIDENT_MAX_BYTES; JANUS_MESH_DP and JANUS_MESH_SP
 neither: the geometry is the one `choose_mesh_geometry` picks for the
-devices given. Not ported: the compile caches (the port runs eagerly and
+devices given, or the (MESH_DP, MESH_SP) the binaries' `engine: mesh:`
+settings pin. Not ported: the compile caches (the port runs eagerly and
 compiles nothing). janus_tpu's
 quarantine serves the interim work from its host engine, which the port
 does not have: a quarantined engine refuses, the job drivers step back
@@ -1028,6 +1029,11 @@ class EngineCache:
     QUARANTINE_CANARY_DELAY_SECS = 5.0
     QUARANTINE_CANARY_TIMEOUT_SECS = 30.0
     QUARANTINE_CANARY_MAX_DELAY_SECS = 60.0
+    # the serving mesh's pinned (dp, sp) axes (the binaries' `engine: mesh:`
+    # settings); None picks them from the device count. choose_mesh_geometry
+    # validates a pin against the circuit and the devices
+    MESH_DP: int | None = None
+    MESH_SP: int | None = None
     # every state `_backend_state` reports
     BACKEND_STATES = ("device", "quarantined", "device_down")
 
@@ -1043,7 +1049,7 @@ class EngineCache:
         # columns; one device is no mesh
         dp, sp = choose_mesh_geometry(
             len(devices), getattr(circ, "input_len", 0), getattr(circ, "output_len", 0), self.SP_MIN_INPUT_LEN,
-            MIN_BUCKET,
+            MIN_BUCKET, dp=self.MESH_DP, sp=self.MESH_SP,
         )
         # block-sparse SumVec: aggregates scatter to the logical length,
         # into one accumulator on one device (as janus_tpu's)
@@ -2446,6 +2452,17 @@ def live_engines() -> list[EngineCache]:
     flush and drain walk these."""
     with _engine_cache_lock:
         return list(_engine_cache.values())
+
+
+def shutdown_engines(timeout_s: float = 2.0) -> None:
+    """Process teardown: stop every live engine's canary loop (bounded) so
+    that no probe's device work races interpreter finalization. janus_main
+    calls it before the watchdog drain."""
+    for eng in live_engines():
+        try:
+            eng.stop_canary(timeout_s)
+        except Exception:
+            log.exception("stopping canary for %s failed", eng.inst.kind)
 
 
 def _engine_cache_clear() -> None:

@@ -47,6 +47,11 @@ class JobDriverConfig:
     job_discovery_interval_s: float = 0.2
     max_job_discovery_interval_s: float = 5.0
     max_concurrent_job_workers: int = 4
+    # the binaries' lease and attempt settings, read by the drivers they
+    # build (the YAML's worker_lease_duration_secs and
+    # maximum_attempts_before_failure)
+    worker_lease_duration_s: int = 600
+    maximum_attempts_before_failure: int = 10
     # fractional jitter applied to every discovery sleep
     discovery_jitter: float = 0.25
 

@@ -28,10 +28,10 @@ The port's own copy of janus_tpu/aggregator/peer_health.py. It feeds
 janus_tpu's parked gauge, outage-seconds counter and probe counter, and
 keeps the same counts in the tracker's own state (`status()`), so two
 trackers never share a count there; the newest tracker's `status()` is
-the statusz `peer_health` section. Left out: the `peer_health:` config
-section with its `enabled` and `park` switches (a driver given no
-tracker does not park), and the process-wide default tracker (the caller
-builds one and hands it to both drivers).
+the statusz `peer_health` section. `PeerHealthConfig.from_dict` reads
+the job driver binaries' `peer_health:` section, with its `enabled` and
+`park` switches; `default_tracker` is the process-wide tracker that both
+drivers of a binary share.
 """
 
 from __future__ import annotations
@@ -54,13 +54,28 @@ PROBE_REJECTED = "rejected"
 
 @dataclass(frozen=True)
 class PeerHealthConfig:
-    """The prober's settings. A driver built without a tracker does not
-    park: that is the off switch."""
+    """The job driver binaries' `peer_health:` section. A driver built
+    without a tracker does not park either (the binaries hand the tracker
+    over only where `enabled`)."""
 
+    enabled: bool = True
+    # park claim acquisition while every known peer is not closed; off:
+    # probe and export state only, and keep the per-step breaker step-backs
+    park: bool = True
     # background prober cadence (also the outage seconds' accrual grain)
     probe_interval_s: float = 5.0
     # budget of one probe GET
     probe_timeout_s: float = 5.0
+
+    @classmethod
+    def from_dict(cls, d: dict | None) -> "PeerHealthConfig":
+        d = d or {}
+        return cls(
+            enabled=bool(d.get("enabled", True)),
+            park=bool(d.get("park", True)),
+            probe_interval_s=float(d.get("probe_interval_secs", 5.0)),
+            probe_timeout_s=float(d.get("probe_timeout_secs", 5.0)),
+        )
 
 
 class PeerHealthTracker:
@@ -106,8 +121,10 @@ class PeerHealthTracker:
         return sorted(p for p, s in self.breakers.peer_states().items() if s != CLOSED)
 
     def should_park(self) -> bool:
-        """True while claim acquisition should park: at least one peer
-        known, and every known peer not closed."""
+        """True while claim acquisition should park: parking enabled, at
+        least one peer known, and every known peer not closed."""
+        if not (self.cfg.enabled and self.cfg.park):
+            return False
         states = self.breakers.peer_states()
         if not states:
             return False
@@ -216,6 +233,8 @@ class PeerHealthTracker:
         parked = self.should_park()
         return {
             "config": {
+                "enabled": self.cfg.enabled,
+                "park": self.cfg.park,
                 "probe_interval_s": self.cfg.probe_interval_s,
                 "probe_timeout_s": self.cfg.probe_timeout_s,
             },
@@ -234,3 +253,29 @@ class PeerHealthTracker:
             },
         }
 
+
+
+# The process-wide tracker, shared by both job drivers of a binary (as
+# default_breakers is): the first caller's config wins, and a later one
+# replaces it only where the first was the default.
+_default_lock = threading.Lock()
+_default: PeerHealthTracker | None = None
+
+
+def default_tracker(breakers: OutboundCircuitBreakers, cfg: PeerHealthConfig | None = None) -> PeerHealthTracker:
+    global _default
+    with _default_lock:
+        if _default is None:
+            _default = PeerHealthTracker(breakers, cfg)
+        elif cfg is not None and _default.cfg == PeerHealthConfig():
+            _default.cfg = cfg
+        return _default
+
+
+def reset_default_tracker() -> None:
+    """Stop the prober and drop the process-wide tracker (tests)."""
+    global _default
+    with _default_lock:
+        if _default is not None:
+            _default.stop()
+        _default = None

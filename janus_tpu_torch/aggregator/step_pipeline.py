@@ -80,6 +80,9 @@ STAGES = (STAGE_READ, STAGE_DEVICE, STAGE_HTTP, STAGE_COMMIT)
 class StepPipelineConfig:
     """The aggregation job driver's `step_pipeline:` settings."""
 
+    # the binary builds the pipeline only where enabled (else it steps
+    # serially)
+    enabled: bool = True
     # jobs reading and staging ahead of the device lane (each holds its
     # staged columns until the card consumed them)
     prefetch_depth: int = 2
@@ -98,6 +101,7 @@ class StepPipelineConfig:
     def from_dict(cls, d: dict | None) -> "StepPipelineConfig":
         d = d or {}
         return cls(
+            enabled=bool(d.get("enabled", True)),
             prefetch_depth=max(1, int(d.get("prefetch_depth", 2))),
             http_inflight=max(1, int(d.get("http_inflight", 2))),
             commit_inflight=max(1, int(d.get("commit_inflight", 2))),

@@ -52,6 +52,8 @@ class CircuitOpenError(RuntimeError):
 
 @dataclass(frozen=True)
 class CircuitBreakerConfig:
+    """The job driver binaries' `outbound_circuit_breaker:` section."""
+
     # consecutive per-attempt failures before the circuit opens
     failure_threshold: int = 5
     # how long an open circuit rejects before admitting a probe
@@ -59,6 +61,16 @@ class CircuitBreakerConfig:
     # successes required in half-open before closing
     close_threshold: int = 1
     enabled: bool = True
+
+    @classmethod
+    def from_dict(cls, d: dict | None) -> "CircuitBreakerConfig":
+        d = d or {}
+        return cls(
+            failure_threshold=int(d.get("failure_threshold", 5)),
+            open_cooldown_s=float(d.get("open_cooldown_secs", 30.0)),
+            close_threshold=int(d.get("close_threshold", 1)),
+            enabled=bool(d.get("enabled", True)),
+        )
 
 
 def peer_label(url: str) -> str:

@@ -56,9 +56,10 @@ class PeerResponseTooLarge(Exception):
 
 @dataclass(frozen=True)
 class HttpClientConfig:
-    """The per-attempt half of the overall-deadline/per-attempt-timeout
-    split; the retry loop's overall budget stays the lease deadline
-    (job_driver.py deadline_request_timeout)."""
+    """The job driver binaries' `helper_http:` section: the per-attempt
+    half of the overall-deadline/per-attempt-timeout split; the retry
+    loop's overall budget stays the lease deadline (job_driver.py
+    deadline_request_timeout)."""
 
     # connect + per-read socket timeout and the default body budget of one
     # attempt
@@ -68,6 +69,16 @@ class HttpClientConfig:
     body_budget_s: float | None = None
     # response body size cap
     max_response_bytes: int = 64 << 20
+
+    @classmethod
+    def from_dict(cls, d: dict | None) -> "HttpClientConfig":
+        d = d or {}
+        budget = d.get("body_budget_secs")
+        return cls(
+            attempt_timeout_s=float(d.get("attempt_timeout_secs", 300.0)),
+            body_budget_s=None if budget is None else float(budget),
+            max_response_bytes=int(float(d.get("max_response_mb", 64.0)) * (1 << 20)),
+        )
 
     def build(self) -> "HttpClient":
         return HttpClient(

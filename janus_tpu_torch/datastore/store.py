@@ -57,15 +57,18 @@ run_tx feeds the transaction duration and retry metrics, the supervisor
 the datastore up and failure gauges, and `start_supervision` registers
 the supervisor's `status()` as the statusz `datastore` section.
 
-Not ported: the health sampler's reads (`count_table_rows` and the
-report-age quantiles) and the slow-transaction warning with its
-JANUS_SLOW_TX_WARN_S knob.
+The health sampler's reads are janus_tpu's (`count_table_rows`,
+`count_jobs_by_state`, `get_held_lease_expiries`,
+`count_batches_pending_collection`, the report-age quantiles), and so is
+the slow-transaction warning (`slow_tx_warn_s`, set from the binaries'
+YAML; its JANUS_SLOW_TX_WARN_S knob is not ported).
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import logging
 import os
 import re
@@ -458,6 +461,22 @@ class Transaction:
     def get_tasks(self) -> list[Task]:
         return [t for t in (self.get_task(tid) for tid in self.get_task_ids()) if t]
 
+    def delete_task(self, task_id: TaskId) -> None:
+        """The task and every row of its reports, jobs and batches (the
+        aggregator API's DELETE /tasks/:task_id)."""
+        for table in (
+            "tasks",
+            "client_reports",
+            "aggregation_jobs",
+            "report_aggregations",
+            "batch_aggregations",
+            "collection_jobs",
+            "aggregate_share_jobs",
+            "batches",
+            "outstanding_batches",
+        ):
+            self._c.execute(f"DELETE FROM {table} WHERE task_id = ?", (task_id.data,))  # noqa: S608
+
     # ---- taskprov peer aggregators (reference datastore.rs:4436-4748) ----
     def put_taskprov_peer_aggregator(self, peer) -> None:
         row_key = peer.endpoint.encode() + bytes([int(peer.role)])
@@ -597,6 +616,106 @@ class Transaction:
             (task_id.data,),
         ).fetchone()
         return row[0], row[1]
+
+    # ---- health reads (aggregator/health_sampler.py): cheap aggregate
+    # queries the sampler runs on a period against the serving database ----
+
+    # the durable tables whose row counts the sampler exports
+    # (janus_datastore_table_rows{table}, the flight recorder's
+    # datastore_rows series)
+    COUNTED_TABLES = (
+        "tasks",
+        "client_reports",
+        "aggregation_jobs",
+        "report_aggregations",
+        "batch_aggregations",
+        "collection_jobs",
+        "aggregate_share_jobs",
+        "batches",
+        "outstanding_batches",
+        "task_counters",
+    )
+
+    def count_table_rows(self) -> dict[str, int]:
+        """{table: row count} over COUNTED_TABLES."""
+        return {
+            t: self._c.execute(f"SELECT COUNT(*) FROM {t}").fetchone()[0]  # noqa: S608
+            for t in self.COUNTED_TABLES
+        }
+
+    def count_jobs_by_state(self) -> dict[tuple[str, str], int]:
+        """{(job type, state): count} over aggregation and collection jobs
+        (the janus_jobs{type,state} backlog gauges)."""
+        out: dict[tuple[str, str], int] = {}
+        for typ, table in (("aggregation", "aggregation_jobs"), ("collection", "collection_jobs")):
+            for state, n in self._c.execute(f"SELECT state, COUNT(*) FROM {table} GROUP BY state").fetchall():
+                out[(typ, str(state))] = int(n)
+        return out
+
+    def get_held_lease_expiries(self) -> list[tuple[str, bytes, bytes, int]]:
+        """[(job type, task_id, job_id, lease_expiry)] of every outstanding
+        lease: a projection of get_lease_holders, so both reads share one
+        definition of held."""
+        return [(typ, task_id, job_id, expiry) for typ, task_id, job_id, _holder, expiry in self.get_lease_holders()]
+
+    def get_pending_aggregation_job_sizes(self, limit: int = 256) -> dict[bytes, list[int]]:
+        """{task_id: [report counts]} of in-progress aggregation jobs: the
+        batch sizes the next driver pass dispatches, which the boot warmup
+        warms."""
+        rows = self._c.execute(
+            "SELECT aj.task_id, COUNT(*) FROM aggregation_jobs aj"
+            " JOIN report_aggregations ra"
+            "   ON ra.task_id = aj.task_id AND ra.job_id = aj.job_id"
+            " WHERE aj.state = 'in_progress'"
+            " GROUP BY aj.task_id, aj.job_id LIMIT ?",
+            (int(limit),),
+        ).fetchall()
+        out: dict[bytes, list[int]] = {}
+        for task_id, n in rows:
+            out.setdefault(task_id, []).append(int(n))
+        return out
+
+    def count_batches_pending_collection(self) -> int:
+        """Collection jobs still awaiting an aggregate result."""
+        return int(
+            self._c.execute("SELECT COUNT(*) FROM collection_jobs WHERE state IN ('start', 'collectable')").fetchone()[0]
+        )
+
+    def unaggregated_report_time_quantiles_by_task(
+        self, quantiles: tuple[float, ...] = (0.5, 0.95, 0.99), bucket_s: int = 60
+    ) -> list[tuple[bytes, int, int, dict[float, int]]]:
+        """[(task_id, count, exact oldest client_time, {q: client_time at
+        the q age-quantile})] over unaggregated reports, from one scan
+        bucketed by `bucket_s` of client time in the database. The q
+        age-quantile is the bucket of the report at 1-based rank
+        n - ceil(q * (n - 1)) counted from the oldest, given as the
+        bucket's older edge: both lean to the older report, the
+        conservative side for a lag gauge."""
+        rows = self._c.execute(
+            "SELECT task_id, client_time / ?, COUNT(*), MIN(client_time)"
+            " FROM client_reports"
+            " WHERE aggregation_started = 0 GROUP BY task_id, client_time / ?"
+            " ORDER BY task_id, client_time / ?",
+            (bucket_s, bucket_s, bucket_s),
+        ).fetchall()
+        by_task: dict[bytes, list[tuple[int, int, int]]] = {}
+        for task_id, bucket, cnt, bucket_min in rows:
+            by_task.setdefault(task_id, []).append((int(bucket), int(cnt), int(bucket_min)))
+        out: list[tuple[bytes, int, int, dict[float, int]]] = []
+        for task_id, buckets in by_task.items():
+            n = sum(c for _, c, _ in buckets)
+            oldest = buckets[0][2]  # ascending: the first bucket holds the min
+            vals: dict[float, int] = {}
+            for q in quantiles:
+                rank = n - math.ceil(q * (n - 1))
+                cum = 0
+                for bucket, cnt, _ in buckets:  # ascending time: oldest first
+                    cum += cnt
+                    if cum >= rank:
+                        vals[q] = bucket * bucket_s
+                        break
+            out.append((task_id, n, oldest, vals))
+        return out
 
     def min_unaggregated_report_time_by_task(self) -> list[tuple[bytes, int]]:
         """[(task_id, oldest unaggregated client_time)]: the tasks with a
@@ -1813,6 +1932,9 @@ class Datastore:
     # [0, min(cap, base * 2^attempt)]
     retry_max_interval_s = 0.128
     retry_base_interval_s = 0.002
+    # a transaction (retries included) slower than this logs a warning
+    # (the binaries' database.slow_tx_warn_secs); <= 0 turns it off
+    slow_tx_warn_s = 1.0
 
     def __init__(self, path: str, crypter: Crypter, clock):
         self._path = path
@@ -2045,7 +2167,13 @@ class Datastore:
                 failpoints.hit_scoped("datastore.commit", name, error_factory=_inj)
                 conn.commit()
                 failpoints.hit_scoped("datastore.post_commit", name, error_factory=_inj)
-                metrics.tx_duration.observe(_time.monotonic() - start, tx=name)
+                elapsed = _time.monotonic() - start
+                metrics.tx_duration.observe(elapsed, tx=name)
+                if 0 < self.slow_tx_warn_s < elapsed:
+                    _log.warning(
+                        "slow datastore transaction %s: %.3fs over %d attempt(s) (threshold %.2fs)",
+                        name, elapsed, attempt + 1, self.slow_tx_warn_s,
+                    )
                 if self.supervisor is not None:
                     self.supervisor.record_success()
                 return result

@@ -10,10 +10,10 @@ The port's own copy of janus_tpu/metrics.py: the same 107 families,
 types, help strings and label names, so one dashboard reads either
 package. `janus_build_info` is the one family whose labels differ: it
 carries a `torch` label (PyTorch's version and its CUDA version) where
-janus_tpu's carries `jax`, and its `backend` names the device. Families
-whose feeders the port does not have (the SLO engine, the flight
-recorder's history, the health sampler, the engine prewarm) are
-registered all the same and stay at zero.
+janus_tpu's carries `jax`, and its `backend` names the device (a binary
+sets it from its configured device at boot). The engine-prewarm families,
+whose feeder the port does not have, are registered all the same and
+stay at zero.
 """
 
 from __future__ import annotations

@@ -12,8 +12,8 @@ Providers must be cheap and must never raise into the handler: a
 provider error renders as {"error": ...} under its section instead of
 failing the whole snapshot.
 
-The port's own copy of janus_tpu/statusz.py. Until the port's binaries
-bring the health listener, `status_snapshot()` is read in process.
+The port's own copy of janus_tpu/statusz.py, served at GET /statusz by
+every binary's health listener (binary_utils.HealthServer).
 """
 
 from __future__ import annotations

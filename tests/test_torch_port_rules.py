@@ -98,6 +98,22 @@ def test_port_files_include_every_module_of_the_package():
         "trace.py",
         "profiler.py",
         "ledger.py",
+        "config.py",
+        "slo.py",
+        "flight_recorder.py",
+        "aggregator/health_sampler.py",
+        "aggregator/peer_health.py",
+        "bin/__init__.py",
+        "bin/aggregator.py",
+        "bin/aggregation_job_creator.py",
+        "bin/aggregation_job_driver.py",
+        "bin/collection_job_driver.py",
+        "bin/janus_cli.py",
+        "bin/interop_aggregator.py",
+        "bin/interop_client.py",
+        "bin/interop_collector.py",
+        "aggregator_api.py",
+        "interop.py",
     ):
         assert f"janus_tpu_torch/{module}" in names, module
 
