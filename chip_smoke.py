@@ -207,8 +207,21 @@ Phases, each of which must pass:
                    make_wire_reports are PUT by 8 threads (3 corrupted as
                    in phase 10); the creator packs one job of 1,024, the
                    driver steps it (the leader's job_health statusz says
-                   when it finished), and the Collector's current-batch
-                   query must give the ground truth over 1,021 reports.
+                   when it finished), and `python -m
+                   janus_tpu_torch.tools.collect --current-batch`, its
+                   collector keys made by tools.hpke_keygen, must print
+                   the ground truth over 1,021 reports. Then the other
+                   operator tools, each as a process: tools.report_trace
+                   --json on the leader's SQLite file must trace an
+                   accepted report to collected and a corrupted one to
+                   rejected (vdaf_prep_error), each with its task's
+                   imbalance 0; tools.dap_decode must print an uploaded
+                   report's bytes; tools.gen_alert_rules --check must find
+                   docs/alerts/janus-alerts.yaml's rules the port's;
+                   tools.debug_bundle over the five listeners must report
+                   0 capture errors and a replica id for each; and
+                   tools.scrape_check must exit 0 on each listener, with
+                   --statusz on the four whose process owns a ledger.
                    Each window's CUDA trace must hold kernels 1 and 2
                    (their symbols in csrc/) and no kernel 3: the kernel
                    counters live in those processes, so the traces show
@@ -223,8 +236,27 @@ Phases, each of which must pass:
                    (/debug/boot) and time to ready, uploads/s, the job
                    driver's stage seconds (its metrics), the collection's
                    seconds, each profile's kernel counts, each process's
-                   device memory, the exit codes and drain seconds, and the
-                   phase's seconds;
+                   device memory, the exit codes and drain seconds, each
+                   tool's own seconds (`tools_s`, from its start until it
+                   was reaped; the collection and the traces run while the
+                   profile windows close) and the phase's seconds;
+  10c. chaos-crash-storm  exactly-once aggregation across a crashed job
+                   driver, on the card: tools.chaos_run.run_chaos's smoke
+                   schedule with the leader and the helper in this process
+                   on this card and the real `bin.aggregation_job_driver`
+                   binaries booted with `device: "cuda:<this card>"`: a
+                   Prio3Count task of 5 reports; driver A crashes (exit 77)
+                   before its step commits and leaves the lease held;
+                   driver B boots into a transport and helper-500 storm,
+                   opens and closes its breaker, steps back and finishes
+                   the job; the collection equals the ground truth
+                   exactly; driver B's /statusz, read before its SIGTERM,
+                   names this card in `process` and holds at least one
+                   dispatch in `device_cost`; it drains with rc 0. Every
+                   `*_ok` of the record must hold, and the helper's inits
+                   in this process must launch kernel 1 and no other
+                   (counts at 0 just before, read just after). The
+                   `chaos` line gives the record and the phase's seconds;
   10a. upload-drive-sparse  the same for sparse_sumvec(16, 1000000, 64, 16)
                    (measurements as in phase 6d): besides, an upload whose
                    public share has descending block indices must get 400
@@ -476,7 +508,7 @@ peak during the collection step), the poplar1 and drive_poplar1 lines,
 the taskprov_histogram and outage_drill lines, the two pipeline_resident
 lines, the device_hang_drill and peer_outage_drill lines, the fleet_drill
 line, the mesh line, the observability line after upload-drive-sumvec's
-and the binaries line after it,
+and the binaries line after it, the chaos line,
 the kernels,
 one line per path, the run's wall time), then the card's
 name and power limit as nvidia-smi gives them, and last
@@ -2505,6 +2537,35 @@ def trace_kernel_counts(path: str) -> dict:
             "by_symbol": ours}
 
 
+def _start_tool(repo: Path, name: str, *args):
+    """`python -m janus_tpu_torch.tools.<name> args` as a process, as an
+    operator runs it; returns (process, start time)."""
+    import os
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"janus_tpu_torch.tools.{name}", *map(str, args)], cwd=str(repo),
+        env=dict(os.environ, PYTHONPATH=str(repo)), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    return proc, time.perf_counter()
+
+
+def _finish_tool(started, what: str, seconds: dict, timeout: float = 180.0):
+    """Wait for a tool started by _start_tool; records its seconds from
+    its start until it was reaped in `seconds` under `what`, and returns
+    (rc, stdout, stderr). An rc other than 0 fails."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"tools: {what} still running after {timeout} s")
+    seconds[what] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"tools: {what} exited {proc.returncode}: {out[-1500:]} {err[-2500:]}")
+    return proc.returncode, out, err
+
+
 def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profile_s: float = 25.0,
                    base_port: int = 27300):
     """The deployed process pair (see the module docstring, phase 10b):
@@ -2524,15 +2585,19 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
 
     import numpy as np
 
+    import ast
+    import io
+    import tarfile
+
     from janus_tpu_torch import exposition
     from janus_tpu_torch.client import Client, ClientParameters
-    from janus_tpu_torch.collector import CollectionJobNotReady, Collector, CollectorParameters
     from janus_tpu_torch.core.auth import AuthenticationToken
-    from janus_tpu_torch.core.hpke import generate_hpke_config_and_private_key
+    from janus_tpu_torch.core.hpke import HpkeKeypair, generate_hpke_config_and_private_key
     from janus_tpu_torch.core.http_client import HttpClient
     from janus_tpu_torch.core.retries import Backoff, retry_http_request
-    from janus_tpu_torch.messages import FixedSizeQuery, Query, Report, Role, Time
+    from janus_tpu_torch.messages import HpkeConfig, Report, Role, Time
     from janus_tpu_torch.metrics import task_id_label
+    from janus_tpu_torch.tools import hpke_keygen
     from janus_tpu_torch.task import QueryTypeConfig, Task, TaskBuilder
     from janus_tpu_torch.vdaf.registry import circuit_for
     from janus_tpu_torch.vdaf.testing import make_wire_reports, random_measurements
@@ -2552,9 +2617,16 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
     env = {side: dict(os.environ, PYTHONPATH=str(repo), DATASTORE_KEYS=keys[side]) for side in dap}
     procs: dict = {}
     profile_dirs: list = []
+    tools_s: dict = {}  # each tool's own seconds
     try:
-        # 1. the tasks, provisioned through janus_cli on each side
-        collector_kp = generate_hpke_config_and_private_key(config_id=7)
+        # 1. the tasks, provisioned through janus_cli on each side; the
+        # collector's keypair made by tools.hpke_keygen
+        keygen_out = io.StringIO()
+        with contextlib.redirect_stdout(keygen_out):
+            hpke_keygen.main(["7"])
+        keygen = dict(line.split(": ") for line in keygen_out.getvalue().strip().splitlines())
+        collector_kp = HpkeKeypair(HpkeConfig.from_bytes(_unb64(keygen["hpke_config"])),
+                                   _unb64(keygen["private_key"]))
         built = TaskBuilder(QueryTypeConfig.fixed_size(max_batch_size=batch), inst, Role.LEADER).with_(
             vdaf_verify_key=VERIFY_KEY, aggregator_auth_token=AuthenticationToken.random_bearer(),
             collector_auth_token=AuthenticationToken.random_bearer(), leader_aggregator_endpoint=url["leader"],
@@ -2704,31 +2776,42 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
         job_done_s = time.perf_counter() - t_uploaded
         timeline["job_finished_s"] = time.perf_counter() - window_t0
 
-        # 6. the collection, by the collector's current-batch query
-        collector = Collector(CollectorParameters(task.task_id, url["leader"], task.collector_auth_token,
-                                                  collector_kp), inst, http)
-        t0 = time.perf_counter()
-        query = Query.fixed_size(FixedSizeQuery(FixedSizeQuery.CURRENT_BATCH))
-        job_id = collector.start_collection(query)
-        deadline = time.monotonic() + 120
-        while True:
-            try:
-                result = collector.poll_once(job_id, query)
-                break
-            except CollectionJobNotReady:
-                if time.monotonic() > deadline:
-                    raise AssertionError(f"binaries: collection not ready: {log_tail('col_driver')}")
-                time.sleep(0.2)
-        collect_s = time.perf_counter() - t0
-        accept = np.ones(batch, dtype=bool)
-        accept[[n_client + i for i in bad_rows]] = False
-        truth = [int(x) for x in np.asarray(meas)[accept].sum(axis=0).reshape(-1)]
-        finished = batch - len(bad_rows)
-        if result.report_count != finished or [int(x) for x in result.aggregate_result] != truth:
-            raise AssertionError(f"binaries: collected {result.report_count} reports; the aggregate "
-                                 f"{'equals' if list(result.aggregate_result) == truth else 'differs from'} the truth")
+        # 6. the collection by the collect tool's current-batch query, then
+        # where two reports ended by report_trace on the leader's SQLite
+        # file (an accepted one collected, a corrupted one rejected), with
+        # dap_decode on an uploaded report's bytes and the alert rules'
+        # sync check: each a process, as an operator runs it, all in a
+        # thread while the profile windows close
+        (tmp / "report.bin").write_bytes(reports[0].to_bytes())
+
+        def collect_and_trace():
+            collect_tool = _start_tool(
+                repo, "collect", f"--task-id={_b64url(task.task_id.data)}", "--leader", url["leader"],
+                f"--authorization-bearer-token={task.collector_auth_token.token}",
+                f"--hpke-config={keygen['hpke_config']}", f"--hpke-private-key={keygen['private_key']}",
+                "--vdaf", "sumvec", "--bits", str(inst.bits), "--length", str(inst.length), "--current-batch",
+                "--timeout", "120",
+            )
+            decode_tool = _start_tool(repo, "dap_decode", tmp / "report.bin", "--media-type", "report")
+            rules_tool = _start_tool(repo, "gen_alert_rules", "--check",
+                                     repo / "docs" / "alerts" / "janus-alerts.yaml")
+            _, collected, _ = _finish_tool(collect_tool, "collect", tools_s)
+            timeline["collected_s"] = time.perf_counter() - window_t0
+            decoded = _finish_tool(decode_tool, "dap_decode", tools_s)[1]
+            rules = _finish_tool(rules_tool, "gen_alert_rules", tools_s)[1]
+            trace_tools = {
+                kind: _start_tool(repo, "report_trace", "--db", db["leader"],  # ids may begin with "-"
+                                  f"--task-id={_b64url(task.task_id.data)}",
+                                  f"--report-id={_b64url(reports[i].metadata.report_id.data)}", "--json")
+                for kind, i in (("collected", 0), ("rejected", bad_rows[0]))
+            }
+            traces = {kind: json.loads(_finish_tool(started, f"report_trace_{kind}", tools_s)[1])
+                      for kind, started in trace_tools.items()}
+            return collected, traces, decoded, rules
+
+        tools_pool = ThreadPoolExecutor(max_workers=1)
+        tools_fut = tools_pool.submit(collect_and_trace)
         window_wait_t0 = time.perf_counter()
-        timeline["collected_s"] = window_wait_t0 - window_t0
 
         # 7. the profiles: the kernels each process launched on the card
         profiles = {}
@@ -2750,8 +2833,43 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
         window_pool.shutdown()
         window_wait_s = time.perf_counter() - window_wait_t0
 
-        # 8. every listener: metrics (both formats, 0 errors), build info,
-        # statusz sections, alertz, the flight recorder, the books
+        # the tools of step 6
+        out, traces, decoded, rules = tools_fut.result(timeout=600)
+        tools_pool.shutdown()
+        collect_s = tools_s["collect"]
+        lines = dict(line.split(": ", 1) for line in out.strip().splitlines())
+        report_count = int(lines["Number of reports"])
+        aggregate = [int(x) for x in ast.literal_eval(lines["Aggregation result"])]
+        accept = np.ones(batch, dtype=bool)
+        accept[[n_client + i for i in bad_rows]] = False
+        truth = [int(x) for x in np.asarray(meas)[accept].sum(axis=0).reshape(-1)]
+        finished = batch - len(bad_rows)
+        if report_count != finished or aggregate != truth or "Batch" not in lines:
+            raise AssertionError(f"binaries: the collect tool printed {report_count} reports; the aggregate "
+                                 f"{'equals' if aggregate == truth else 'differs from'} the truth: {out[:300]}")
+        traced = {}
+        for kind, doc in traces.items():
+            want = "AGGREGATED and COLLECTED" if kind == "collected" else "REJECTED (vdaf_prep_error)"
+            if not doc["verdict"].startswith(want) or any(doc["ledger"]["imbalance"].values()):
+                raise AssertionError(f"binaries: report_trace of the {kind} report: {doc['verdict']!r}, "
+                                     f"imbalance {doc['ledger']['imbalance']}")
+            traced[kind] = {"verdict": doc["verdict"], "imbalance": doc["ledger"]["imbalance"]}
+        if not decoded.startswith("Report(") or str(reports[0].metadata.report_id) not in decoded:
+            raise AssertionError(f"binaries: dap_decode printed {decoded[:300]!r}")
+        if "is in sync" not in rules:
+            raise AssertionError(f"binaries: gen_alert_rules --check printed {rules!r}")
+
+        # 8. every listener: the debug bundle of all five and the deploy
+        # scrape check of each (with --statusz where the process owns a
+        # ledger), as processes while this one reads metrics (both
+        # formats, 0 errors), build info, statusz sections, alertz, the
+        # flight recorder and the books
+        bases = {name: f"http://127.0.0.1:{health[name]}" for name in procs}
+        bundle_tool = _start_tool(repo, "debug_bundle", *[a for b in bases.values() for a in ("--url", b)],
+                                  "--out", tmp / "bundle.tar.gz", "--timeout", "30")
+        scrape_tools = {name: _start_tool(repo, "scrape_check", "--url", base, "--timeout", "30",
+                                          *(["--statusz"] if name != "creator" else []))
+                        for name, base in bases.items()}
         label = task_id_label(task.task_id.data)
         scrapes = {}
         for name in procs:
@@ -2805,6 +2923,22 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
 
         ledger_books = {"leader": books("col_driver", True), "helper": books("helper", False)}
 
+        _, out, _ = _finish_tool(bundle_tool, "debug_bundle", tools_s)
+        with tarfile.open(tmp / "bundle.tar.gz") as tar:
+            top = tar.getnames()[0].split("/")[0]
+            manifest = json.load(tar.extractfile(f"{top}/MANIFEST.json"))
+        capture_errors = [f for f in manifest["files"] if f.get("error")]
+        replicas = {t["url"]: t["replica_id"] for t in manifest["targets"].values()}
+        if capture_errors or " 0 capture errors" not in out or len(replicas) != len(procs) \
+                or not all(replicas.values()):
+            raise AssertionError(f"binaries: debug_bundle: {out.strip()} {capture_errors[:3]} {replicas}")
+        scrape_rcs = {}
+        for name, started in scrape_tools.items():
+            scrape_rcs[name], _, _ = _finish_tool(started, f"scrape_check_{name}", tools_s)
+        tools = {"report_trace": traced, "bundle_files": len(manifest["files"]),
+                 "bundle_capture_errors": len(capture_errors), "bundle_replica_ids": replicas,
+                 "scrape_check_rcs": scrape_rcs}
+
         # 9. SIGTERM: every process exits 0 and logs its shutdown
         drain_s, rcs = {}, {}
         t0 = time.perf_counter()
@@ -2833,8 +2967,10 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
             "sheds_429": len(sheds),
             "uploaded_to_job_finished_s": job_done_s,
             "collect_s": collect_s,
-            "report_count": result.report_count,
+            "report_count": report_count,
             "aggregate_ok": True,
+            "tools_s": tools_s,
+            "tools": tools,
             "profile_s": profile_s,
             "since_windows_opened_s": timeline,
             "profile_wait_s": window_wait_s,
@@ -2853,6 +2989,46 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
         for d in profile_dirs:
             shutil.rmtree(d, ignore_errors=True)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_chaos_crash_storm(torch, dev):
+    """Exactly-once aggregation across a crashed job driver on the card
+    (see the module docstring, phase 10c): tools.chaos_run.run_chaos's
+    smoke schedule, the leader and the helper in this process on `dev`,
+    the driver binaries booted on it. Returns the record."""
+    import shutil
+    import tempfile
+
+    from janus_tpu_torch.failpoints import CRASH_EXIT_CODE
+    from janus_tpu_torch.tools import chaos_run
+
+    phase_t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    device = f"cuda:{torch.cuda.current_device()}" if on_card else "cpu"
+    device_name = torch.cuda.get_device_name(device) if on_card else "cpu"
+    tmp = tempfile.mkdtemp(prefix="janus-chaos-")
+    try:
+        counters = _zeroed(kernel_counters())
+        rec = chaos_run.run_chaos(n_reports=5, full=False, workdir=tmp, device=device)
+        launches = _launches(counters)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.perf_counter() - phase_t0
+    failed = [k for k, v in rec.items() if k.endswith("_ok") and not v]
+    if failed or not rec.get("ok"):
+        raise AssertionError(f"chaos-crash-storm: {failed} failed: {rec}")
+    if (rec["crash_exit_code"] != CRASH_EXIT_CODE or rec["driver_devices"] != [device]
+            or rec["driver_device_name"] != device_name or rec["driver_dispatches"] < 1):
+        raise AssertionError(f"chaos-crash-storm: driver B's statusz: devices {rec['driver_devices']} "
+                             f"({rec['driver_device_name']}), {rec['driver_dispatches']} dispatches; "
+                             f"driver A exited {rec['crash_exit_code']}")
+    # the helper's inits (and the harness's warm-up) in this process: the
+    # Count path runs kernel 1 alone
+    if on_card and (not launches["keccak_single_block"]
+                    or any(v for k, v in launches.items() if k != "keccak_single_block")):
+        raise AssertionError(f"chaos-crash-storm: launches in this process {launches}")
+    return {"path": "chaos-crash-storm", "device": device, "launches": launches, "record": rec,
+            "phase_s": phase_s}
 
 
 def corrupt_poplar1_keys(poplar):
@@ -3519,6 +3695,12 @@ def _b64url(b: bytes) -> str:
     import base64
 
     return base64.urlsafe_b64encode(b).decode().rstrip("=")
+
+
+def _unb64(s: str) -> bytes:
+    import base64
+
+    return base64.urlsafe_b64decode(s + "=" * (-len(s) % 4))
 
 
 def _truth(pair, meas, accept):
@@ -5243,6 +5425,12 @@ def main() -> int:
                 (5, 300, 1000)) if not failed else None
     if out is not None:
         emit({"binaries": out})
+    # a job driver binary crashed mid-commit and restarted into a storm,
+    # on this card (phase 10c)
+    out = phase("chaos-crash-storm", phase_chaos_crash_storm, torch, dev) if not failed else None
+    if out is not None:
+        serves[out["path"]] = out
+        emit({"chaos": out})
     out = phase("upload-drive-sparse", phase_upload_drive, torch, dev, sparse_inst, 8, 1016, (5, 300, 1000),
                 fast) if not failed else None
     if out is not None:

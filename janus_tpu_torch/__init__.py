@@ -11,6 +11,15 @@ hand-written kernels live in csrc/ and are built with nvcc on first use
 (ops/cuda_build.py).
 """
 
-from .device import resolve_device  # noqa: F401
-
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # `resolve_device` is read lazily: importing the package imports no
+    # torch, so an operator tool that needs no device (debug_bundle,
+    # dap_decode, hpke_keygen) starts without it
+    if name == "resolve_device":
+        from .device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

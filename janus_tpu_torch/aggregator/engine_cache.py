@@ -2512,6 +2512,9 @@ def resident_accumulators_status() -> dict:
     return {
         "total_bytes": resident_bytes_total(),
         "max_bytes": EngineCache.RESIDENT_MAX_BYTES,
+        # always on: merged rounds carry each lane's verify key, and the
+        # config refuses `cross_task_coalesce: false`
+        "cross_task_coalesce": True,
         "sparse": {
             "engines": sum(1 for e in engines if e.sparse),
             "scatter_rows": sum(e._scatter_rows_total for e in engines),

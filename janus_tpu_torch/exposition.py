@@ -414,3 +414,31 @@ def registry_names_by_type(registry) -> dict[str, str]:
         elif isinstance(metric, m.Histogram):
             out[metric.name] = "histogram"
     return out
+
+
+def validate_collapsed(text: str) -> list[str]:
+    """Well-formedness errors of a collapsed-stack (flamegraph.pl)
+    document: every non-empty line is `frame;frame;... count` with an
+    integer count and non-empty, whitespace-free frame components (the
+    profiler's sanitizer guarantees this even for hostile thread/frame
+    names — tools/scrape_check.py and the tests enforce it stays true).
+    It lives here, with the other scrape validators, so that the deploy
+    check imports no torch; profiler.py re-exports it."""
+    errors = []
+    for i, line in enumerate(text.splitlines(), 1):
+        if not line:
+            continue
+        stack, sep, count = line.rpartition(" ")
+        if not sep or not count.isdigit():
+            errors.append(f"line {i}: no trailing integer count: {line[:80]!r}")
+            continue
+        if not stack:
+            errors.append(f"line {i}: empty stack: {line[:80]!r}")
+            continue
+        for comp in stack.split(";"):
+            if not comp or any(c in comp for c in " \t\n\r"):
+                errors.append(
+                    f"line {i}: bad frame component {comp[:40]!r}: {line[:80]!r}"
+                )
+                break
+    return errors

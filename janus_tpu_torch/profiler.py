@@ -59,6 +59,7 @@ import time
 from collections import deque
 from dataclasses import dataclass
 
+from .exposition import validate_collapsed  # noqa: F401  (re-exported)
 from .statusz import register_status_provider
 
 # ---------------------------------------------------------------------------
@@ -91,32 +92,6 @@ def format_stack(frame, limit: int = 48, lineno: bool = True) -> list[str]:
         frame = frame.f_back
     out.reverse()
     return out
-
-
-def validate_collapsed(text: str) -> list[str]:
-    """Well-formedness errors of a collapsed-stack (flamegraph.pl)
-    document: every non-empty line is `frame;frame;... count` with an
-    integer count and non-empty, whitespace-free frame components (the
-    sanitizer guarantees this even for hostile thread/frame names —
-    scripts/scrape_check.py and the tests enforce it stays true)."""
-    errors = []
-    for i, line in enumerate(text.splitlines(), 1):
-        if not line:
-            continue
-        stack, sep, count = line.rpartition(" ")
-        if not sep or not count.isdigit():
-            errors.append(f"line {i}: no trailing integer count: {line[:80]!r}")
-            continue
-        if not stack:
-            errors.append(f"line {i}: empty stack: {line[:80]!r}")
-            continue
-        for comp in stack.split(";"):
-            if not comp or any(c in comp for c in " \t\n\r"):
-                errors.append(
-                    f"line {i}: bad frame component {comp[:40]!r}: {line[:80]!r}"
-                )
-                break
-    return errors
 
 
 def fold_component(s: str) -> str:

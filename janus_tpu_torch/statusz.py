@@ -37,9 +37,11 @@ def register_status_provider(name: str, fn) -> None:
 def unregister_status_provider(name: str, fn=None) -> None:
     """Remove the section `name`. With `fn`, remove only if it is still
     the registered provider — a closing subsystem must not tear down a
-    successor's registration (latest registration wins)."""
+    successor's registration (latest registration wins). Compared by
+    equality: a bound method (`ev.status`) is a new object at each
+    attribute read, and equal to the one registered."""
     with _lock:
-        if fn is None or _providers.get(name) is fn:
+        if fn is None or _providers.get(name) == fn:
             _providers.pop(name, None)
 
 

@@ -3,7 +3,7 @@
 - After the same CPU-served requests (tests/test_torch_ledger.py's drive:
   a leader job step over loopback HTTP with its helper's aggregate-init),
   the port pair's `DEVICE_COST` gained janus_tpu's ops with janus_tpu's
-  dispatches and rows per op, keyed by the same (op, bucket) pairs: both
+  dispatches and rows per op, keyed by the same (VDAF, op, bucket) keys: both
   engines pick the same bucket at these sizes. The port's `compile` row
   is the cold first call of an (op, bucket) key, janus_tpu's the jit
   compile; both are the first dispatch of the key. janus_tpu's engine
@@ -30,7 +30,7 @@ def engine_ops(delta: dict) -> dict:
 
 
 def engine_keys(delta: dict) -> set:
-    return {k for k in delta if not k[0].startswith("mesh:")}
+    return {k for k in delta if not k[1].startswith("mesh:")}
 
 
 def test_device_cost_of_the_same_requests_has_janus_tpus_ops_dispatches_and_rows(monkeypatch):

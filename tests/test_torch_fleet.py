@@ -51,6 +51,7 @@ from janus_tpu.datastore import store as j_store
 from janus_tpu.vdaf.registry import VdafInstance as JVdafInstance
 from janus_tpu_torch import config as t_config
 from janus_tpu_torch import messages as tm
+from janus_tpu_torch import metrics as t_metrics
 from janus_tpu_torch import task as t_task
 from janus_tpu_torch.aggregator import aggregation_job_creator as t_creator
 from janus_tpu_torch.aggregator import aggregation_job_driver as t_agg
@@ -72,6 +73,17 @@ PKGS = {
         coll=t_coll, creator=t_creator, pipe=t_pipe, driver_kw={"device": "cpu"}),
 }
 JANUS_ENV = ("JANUS_REPLICA_ID", "JANUS_SHARD_COUNT", "JANUS_SHARD_INDEX", "JANUS_STEAL_AFTER_S")
+
+
+@pytest.fixture(autouse=True)
+def _unlabeled_replica_identity():
+    """A fleet config's acquirer installs its replica identity in the
+    metrics registry, as a binary does, and the per-replica labels stay on
+    for the process; the unlabeled default goes back after each test, so a
+    later test in the process reads single-process label sets."""
+    yield
+    t_metrics.set_replica_identity()
+    j_metrics.set_replica_identity()
 
 
 @pytest.fixture(autouse=True)

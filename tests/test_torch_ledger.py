@@ -99,12 +99,14 @@ def _single_jax_device(monkeypatch):
 
 
 def _cost_by_key(profiler) -> dict:
-    return {(e["op"], e["bucket"]): e for e in profiler.DEVICE_COST.status()["entries"]}
+    # keyed by VDAF too: an earlier test in the process may have booked
+    # another VDAF's dispatches under the same (op, bucket)
+    return {(e["vdaf"], e["op"], e["bucket"]): e for e in profiler.DEVICE_COST.status()["entries"]}
 
 
 def cost_delta(before: dict, after: dict) -> dict:
-    """{(op, bucket): (dispatches, rows)} added between two device-cost
-    snapshots, for the keys that gained a dispatch."""
+    """{(vdaf, op, bucket): (dispatches, rows)} added between two
+    device-cost snapshots, for the keys that gained a dispatch."""
     out = {}
     for key, e in after.items():
         e0 = before.get(key, {"dispatches": 0, "rows": 0})
@@ -116,7 +118,7 @@ def cost_delta(before: dict, after: dict) -> dict:
 
 def by_op(delta: dict) -> dict:
     out: dict = {}
-    for (op, _), (d, rows) in delta.items():
+    for (_, op, _), (d, rows) in delta.items():
         tot = out.setdefault(op, [0, 0])
         tot[0] += d
         tot[1] += rows

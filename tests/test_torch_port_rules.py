@@ -114,8 +114,62 @@ def test_port_files_include_every_module_of_the_package():
         "bin/interop_collector.py",
         "aggregator_api.py",
         "interop.py",
+        "tools/__init__.py",
+        "tools/hpke_keygen.py",
+        "tools/dap_decode.py",
+        "tools/collect.py",
+        "tools/gen_alert_rules.py",
+        "tools/report_trace.py",
+        "tools/debug_bundle.py",
+        "tools/scrape_check.py",
+        "tools/chaos_run.py",
     ):
         assert f"janus_tpu_torch/{module}" in names, module
+
+
+# janus_tpu's modules that the port leaves out by design, each with the
+# port module that does its work (or stands in its place)
+NOT_PORTED = {
+    # no per-shape compiled executables: the kernel libraries build once
+    # from source, the eager code needs no AOT blobs
+    "aggregator/aot_cache.py": "ops/cuda_build.py",
+    # no shape manifest to prewarm from: a binary warms the sizes of the
+    # pending aggregation jobs (`warmup_engines`)
+    "aggregator/shape_manifest.py": "binary_utils.py",
+    "aggregator/prewarm.py": "binary_utils.py",
+    # the host C XOF: the port's host XOF is hashlib, with no compiler and
+    # no fallback
+    "native/__init__.py": "vdaf/xof.py",
+    # the Pallas kernels: hand-written CUDA kernels with plain versions
+    "ops/keccak_pallas.py": "ops/keccak_cuda.py",
+    "ops/expand_pallas.py": "ops/expand_cuda.py",
+    # the JAX device code: the PyTorch device code
+    "fields/jfield.py": "fields/tfield.py",
+    "vdaf/keccak_jax.py": "vdaf/keccak.py",
+    "vdaf/draft_jax.py": "vdaf/draft.py",
+    "vdaf/prio3_jax.py": "vdaf/prio3.py",
+    "vdaf/poplar1_jax.py": "vdaf/poplar1_device.py",
+}
+
+
+def test_every_janus_tpu_module_has_a_counterpart_or_a_named_exclusion():
+    """Each module of janus_tpu/ is either ported (the same path under
+    janus_tpu_torch/) or left out by design with the port module named in
+    NOT_PORTED, so a module added to janus_tpu cannot go unported
+    unnoticed. The host engine (`HostEngineCache`, a class of the ported
+    engine_cache.py) is left out too: the port's engines raise at the
+    floor of their memory ladder."""
+    ref = ROOT / "janus_tpu"
+    port = ROOT / "janus_tpu_torch"
+    modules = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py"))
+    assert set(NOT_PORTED) <= set(modules), sorted(set(NOT_PORTED) - set(modules))
+    missing = [m for m in modules if not (port / m).exists() and m not in NOT_PORTED]
+    assert missing == [], missing
+    assert [m for m in NOT_PORTED if (port / m).exists()] == []
+    assert all((port / rep).exists() for rep in NOT_PORTED.values())
+    ref_cache = (ref / "aggregator" / "engine_cache.py").read_text()
+    port_cache = (port / "aggregator" / "engine_cache.py").read_text()
+    assert "class HostEngineCache" in ref_cache and "class HostEngineCache" not in port_cache
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

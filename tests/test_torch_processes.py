@@ -218,3 +218,12 @@ def test_rehearse_chip_smoke_binaries_phase():
     assert all(s["exposition_errors"] == 0 and s["backend"] == "cpu" for s in out["scrapes"].values())
     assert out["ledger"]["leader"]["peer_divergence"] == 0
     assert {p["activities"][0] for p in out["profiles"].values()} == {"cpu"}
+    # the operator tools as processes: the collection by tools.collect,
+    # report_trace's verdicts, the bundle and the scrape checks
+    tools = out["tools"]
+    assert tools["report_trace"]["collected"]["verdict"].startswith("AGGREGATED and COLLECTED")
+    assert tools["report_trace"]["rejected"]["verdict"].startswith("REJECTED (vdaf_prep_error)")
+    assert tools["bundle_capture_errors"] == 0 and all(tools["bundle_replica_ids"].values())
+    assert set(tools["scrape_check_rcs"].values()) == {0}
+    assert {"collect", "dap_decode", "gen_alert_rules", "report_trace_collected", "report_trace_rejected",
+            "debug_bundle"} <= set(out["tools_s"])
