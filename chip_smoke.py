@@ -26,7 +26,10 @@ Phases, each of which must pass:
                    8,848) and kernel 3 at draft SumVec(100000, 16)'s
                    152,382-block absorb (64 reports, 24 rounds), held against
                    hashlib.shake_128 on 4 reports, since its plain per-block
-                   loop would take hours (its plain_ms is null); kernel 4
+                   loop would take hours (its plain_ms is null), and so,
+                   besides its 3-round plain chain, at the draft
+                   SumVec(1000, 16) path's full joint-rand part (1,024
+                   reports of 256,042 bytes, 24 rounds); kernel 4
                    (the Field128 scatter-add of block-sparse SumVec) at the
                    sparse north star (1,024 reports x 1,024 compact lanes
                    into 1,000,000 positions, block 0 in every report, with
@@ -257,6 +260,56 @@ Phases, each of which must pass:
                    in this process must launch kernel 1 and no other
                    (counts at 0 just before, read just after). The
                    `chaos` line gives the record and the phase's seconds;
+  10d. chaos-resident  resident state through a hang, a quarantine and a
+                   drain, in a job driver binary on the card:
+                   tools.chaos_run.run_resident's smoke schedule (after
+                   torch.cuda.empty_cache()), the leader and the helper in
+                   this process, the binary booted with `device:
+                   "cuda:<this card>"`, resident accumulators on under a
+                   byte cap of one Count slot (8 bytes) and
+                   `device_watchdog: hang_after_secs: 2`; two Count tasks
+                   of janus_tpu's shape and a block-sparse task at the
+                   repo's sparse north star, sparse_sumvec(16, 1000000,
+                   64, 16), whose every merge in the binary runs kernel 4
+                   into a 16 MB slot and leaves by the eviction flush. The
+                   third Count job's dispatch wedges
+                   (`engine.dispatch=hang,count=1,after=4`), steps back
+                   `device_hang` inside its 6 s lease, the engine
+                   quarantines, the quarantine sweep flushes its slot,
+                   the canary fails twice and restores; the job re-steps
+                   on the card, a last one lands resident and the SIGTERM
+                   drain flushes it; all three collections equal their
+                   ground truths exactly (the sparse one at 1,000,000).
+                   Every `*_ok` of the record must hold, the driver's
+                   /statusz must name this card and
+                   janus_engine_scatter_rows_total{vdaf="sparse_sumvec"}
+                   on its /metrics must be > 0, and in this process (the
+                   helper's inits and sparse aggregates) kernels 1 and 4
+                   must launch and kernel 3 not (counts at 0 just before,
+                   read just after). The `chaos_resident` line gives the
+                   eviction, quarantine and drain flush counts, the time
+                   from the wedged dispatch's start to the step-back, from
+                   the quarantine to the restore, the driver's peak device
+                   bytes (statusz `process`), the record and the phase's
+                   seconds;
+  10e. chaos-fleet  tools.chaos_run.run_fleet's smoke schedule on the
+                   card: Count, a 0.1 s helper RTT, each replica a real
+                   `bin.aggregation_job_driver` booted on `cuda:<this
+                   card>` with its `fleet:` stanza: one replica, then two
+                   (the scaling curve, gate 1.2), then two under chaos
+                   (replica 0 SIGKILLed while it holds a lease, replica 1
+                   drained, replica 0 restarted): six CUDA processes in
+                   all, at most three at once. Every `*_ok` of the record
+                   must hold (zero lease conflicts, steals, the ledger's
+                   books balanced at every quiesce point, the exact
+                   collection, the injected loss detected); every replica
+                   read before its drain (all but the SIGKILLed one) must
+                   name this card in its /statusz and hold at least one
+                   dispatch; in this process kernel 1 alone launches. The
+                   `chaos_fleet` line gives each replica's allocator
+                   counts (allocated, peak, reserved bytes) and engine
+                   bucket caps, the `fleet_scaling` record, the record and
+                   the phase's seconds;
   10a. upload-drive-sparse  the same for sparse_sumvec(16, 1000000, 64, 16)
                    (measurements as in phase 6d): besides, an upload whose
                    public share has descending block indices must get 400
@@ -508,7 +561,8 @@ peak during the collection step), the poplar1 and drive_poplar1 lines,
 the taskprov_histogram and outage_drill lines, the two pipeline_resident
 lines, the device_hang_drill and peer_outage_drill lines, the fleet_drill
 line, the mesh line, the observability line after upload-drive-sumvec's
-and the binaries line after it, the chaos line,
+and the binaries line after it, the chaos, chaos_resident and
+chaos_fleet lines,
 the kernels,
 one line per path, the run's wall time), then the card's
 name and power limit as nvidia-smi gives them, and last
@@ -780,6 +834,7 @@ def phase_kernels(torch, dev):
                       "mode": mode if isinstance(mode, int) else list(mode[:2]),
                       **check_sponge(torch, head, msg_len, body, head_bytes, mode, rounds)})
         del head, body
+    cases.append(check_long_absorb(torch, dev, n=1024, elems=length, case="joint-rand part, full, 24 rounds"))
     cases.append(check_long_absorb(torch, dev))
     results["keccak_sponge"] = cases
     results["scatter_rows"] = check_scatter(torch, dev, rng, VdafInstance.sparse_sumvec(16, 1_000_000, 64, 16))
@@ -904,14 +959,17 @@ def check_sponge(torch, head, msg_len: int, body, body_off: int, mode, rounds: i
             "plain_ms_by_piece": plain, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_long_absorb(torch, dev, n: int = 64, elems: int = 1_600_000, head_bytes: int = 42, held: int = 4):
-    """Kernel 3 at draft SumVec(100000, 16)'s joint-rand part: a
-    25,600,042-byte message a report (152,382 absorbed blocks), 64
-    reports, 24 rounds, a 16-byte seed out. Its plain version is a
-    per-block loop of eager ops, hours at this length: the case is held
-    instead against hashlib.shake_128 of the same message on `held`
-    reports (at 24 rounds the draft sponge is SHAKE128), and its
-    plain_ms is null."""
+def check_long_absorb(torch, dev, n: int = 64, elems: int = 1_600_000, head_bytes: int = 42, held: int = 4,
+                      case: str = "joint-rand part, SumVec(100000, 16)"):
+    """Kernel 3 at a draft joint-rand part, by default draft
+    SumVec(100000, 16)'s: a 25,600,042-byte message a report (152,382
+    absorbed blocks), 64 reports, 24 rounds, a 16-byte seed out. Its
+    plain version is a per-block loop of eager ops, hours at this length:
+    the case is held instead against hashlib.shake_128 of the same
+    message on `held` reports (at 24 rounds the draft sponge is
+    SHAKE128), and its plain_ms is null. The kernels phase also runs it
+    at the draft SumVec(1000, 16) path's full part (1,024 reports of
+    256,042 bytes)."""
     import hashlib
 
     import numpy as np
@@ -941,7 +999,7 @@ def check_long_absorb(torch, dev, n: int = 64, elems: int = 1_600_000, head_byte
     perms = n * (msg_len // 168 + 1)
     b_ms, b_by = bound_ms(perms * 24 * KECCAK_OPS_PER_ROUND, head.numel() * 8 + n * elems * 16 + n * 16)
     del head, body, got
-    return {"case": "joint-rand part, SumVec(100000, 16)", "states": n, "msg_bytes": msg_len, "rounds": 24,
+    return {"case": case, "states": n, "msg_bytes": msg_len, "rounds": 24,
             "mode": 2, "permutations": perms, "held_against": f"hashlib.shake_128 on {held} reports",
             "max_abs_err": worst, "ms": ms, "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
@@ -2991,6 +3049,22 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _chaos_device(torch, dev) -> tuple:
+    """(device string with its index, the card's name): what a driver
+    binary's YAML names and what its /statusz must say."""
+    if dev.type == "cuda":
+        device = f"cuda:{torch.cuda.current_device()}"
+        return device, torch.cuda.get_device_name(device)
+    return "cpu", "cpu"
+
+
+def _process_memory(status: dict | None) -> dict:
+    """{device: (allocated, peak, reserved) bytes} of a binary's statusz
+    `process.device_memory` (the caching allocator's counts; CUDA only)."""
+    return {d: [m["allocated_bytes"], m["peak_allocated_bytes"], m["reserved_bytes"]]
+            for d, m in (status or {}).items()}
+
+
 def phase_chaos_crash_storm(torch, dev):
     """Exactly-once aggregation across a crashed job driver on the card
     (see the module docstring, phase 10c): tools.chaos_run.run_chaos's
@@ -3003,9 +3077,7 @@ def phase_chaos_crash_storm(torch, dev):
     from janus_tpu_torch.tools import chaos_run
 
     phase_t0 = time.perf_counter()
-    on_card = dev.type == "cuda"
-    device = f"cuda:{torch.cuda.current_device()}" if on_card else "cpu"
-    device_name = torch.cuda.get_device_name(device) if on_card else "cpu"
+    device, device_name = _chaos_device(torch, dev)
     tmp = tempfile.mkdtemp(prefix="janus-chaos-")
     try:
         counters = _zeroed(kernel_counters())
@@ -3024,11 +3096,93 @@ def phase_chaos_crash_storm(torch, dev):
                              f"driver A exited {rec['crash_exit_code']}")
     # the helper's inits (and the harness's warm-up) in this process: the
     # Count path runs kernel 1 alone
-    if on_card and (not launches["keccak_single_block"]
-                    or any(v for k, v in launches.items() if k != "keccak_single_block")):
+    if dev.type == "cuda" and (not launches["keccak_single_block"]
+                               or any(v for k, v in launches.items() if k != "keccak_single_block")):
         raise AssertionError(f"chaos-crash-storm: launches in this process {launches}")
     return {"path": "chaos-crash-storm", "device": device, "launches": launches, "record": rec,
             "phase_s": phase_s}
+
+
+def phase_chaos_resident(torch, dev, sparse_inst):
+    """Resident state through a hang, a quarantine and a drain in a job
+    driver binary on the card (see the module docstring, phase 10d):
+    tools.chaos_run.run_resident's smoke schedule with `sparse_inst` as
+    its block-sparse task, the leader and the helper in this process on
+    `dev`, the binary booted on it. Returns the line."""
+    import shutil
+    import tempfile
+
+    from janus_tpu_torch.tools import chaos_run
+
+    phase_t0 = time.perf_counter()
+    device, device_name = _chaos_device(torch, dev)
+    tmp = tempfile.mkdtemp(prefix="janus-chaos-resident-")
+    try:
+        counters = _zeroed(kernel_counters())
+        rec = chaos_run.run_resident(full=False, workdir=tmp, device=device, sparse_vdaf=sparse_inst)
+        launches = _launches(counters)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.perf_counter() - phase_t0
+    failed = [k for k, v in rec.items() if k.endswith("_ok") and not v]
+    if failed or not rec.get("ok"):
+        raise AssertionError(f"chaos-resident: {failed} failed: {rec}")
+    scatter = rec["sparse_scatter_rows"]
+    if rec["driver_devices"] != [device] or rec["driver_device_name"] != device_name or scatter <= 0:
+        raise AssertionError(f"chaos-resident: the driver's statusz: devices {rec['driver_devices']} "
+                             f"({rec['driver_device_name']}), sparse scatter rows {scatter}")
+    # in this process: the helper's inits (kernels 1 and 2, the sparse
+    # task's Field128 expansion) and its sparse aggregates (kernel 4);
+    # fast mode, so never the sponge
+    if dev.type == "cuda" and (not launches["keccak_single_block"] or not launches["scatter_rows"]
+                               or launches["keccak_sponge"]):
+        raise AssertionError(f"chaos-resident: launches in this process {launches}")
+    peak = {d: m[1] for d, m in _process_memory(rec["driver_device_memory"]).items()}
+    return {"path": "chaos-resident", "device": device, "sparse_vdaf": rec["sparse_vdaf"], "launches": launches,
+            "driver_scatter_rows": scatter, "flushes": rec["flush_samples"],
+            "wedge_to_step_back_s": rec["wedge_to_step_back_s"],
+            "quarantine_to_restore_s": rec["quarantine_to_restore_s"], "step_backs": rec["step_backs"],
+            "driver_peak_device_bytes": peak, "record": rec, "phase_s": phase_s}
+
+
+def phase_chaos_fleet(torch, dev):
+    """A fleet of job driver binaries on one card (see the module
+    docstring, phase 10e): tools.chaos_run.run_fleet's smoke schedule,
+    the leader and the helper in this process on `dev`, every replica
+    booted on it. Returns the line."""
+    import shutil
+    import tempfile
+
+    from janus_tpu_torch.tools import chaos_run
+
+    phase_t0 = time.perf_counter()
+    device, device_name = _chaos_device(torch, dev)
+    tmp = tempfile.mkdtemp(prefix="janus-chaos-fleet-")
+    try:
+        counters = _zeroed(kernel_counters())
+        rec = chaos_run.run_fleet(full=False, workdir=tmp, device=device)
+        launches = _launches(counters)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.perf_counter() - phase_t0
+    failed = [k for k, v in rec.items() if k.endswith("_ok") and not v]
+    if failed or not rec.get("ok"):
+        raise AssertionError(f"chaos-fleet: {failed} failed: {rec}")
+    replicas = rec["replica_status"]
+    bad = {tag: st for tag, st in replicas.items()
+           if st["devices"] != [device] or st["device_name"] != device_name or st["dispatches"] < 1}
+    if bad or len(replicas) < 5:
+        raise AssertionError(f"chaos-fleet: replicas off the card or idle: {bad or replicas}")
+    # the helper's Count inits in this process: kernel 1 alone
+    if dev.type == "cuda" and (not launches["keccak_single_block"]
+                               or any(v for k, v in launches.items() if k != "keccak_single_block")):
+        raise AssertionError(f"chaos-fleet: launches in this process {launches}")
+    return {"path": "chaos-fleet", "device": device, "launches": launches,
+            "fleet_scaling": rec["fleet_scaling"],
+            "replicas": {tag: {"dispatches": st["dispatches"], "device_memory": _process_memory(st["device_memory"]),
+                               "buckets": st["buckets"]} for tag, st in replicas.items()},
+            "post_kill_drain_s": rec["post_kill_drain_s"], "lease_steals": rec["lease_steals"],
+            "record": rec, "phase_s": phase_s}
 
 
 def corrupt_poplar1_keys(poplar):
@@ -5431,6 +5585,17 @@ def main() -> int:
     if out is not None:
         serves[out["path"]] = out
         emit({"chaos": out})
+    # resident state through a hang and a quarantine in a driver binary
+    # (kernel 4 merging into a north-star slot there), then a fleet of
+    # driver binaries on this card (phases 10d, 10e); this process's
+    # cached blocks go back to the card first, as before the binaries
+    torch.cuda.empty_cache()
+    for name, fn, key, args in (("chaos-resident", phase_chaos_resident, "chaos_resident", (sparse_inst,)),
+                                ("chaos-fleet", phase_chaos_fleet, "chaos_fleet", ())):
+        out = phase(name, fn, torch, dev, *args) if not failed else None
+        if out is not None:
+            serves[out["path"]] = out
+            emit({key: out})
     out = phase("upload-drive-sparse", phase_upload_drive, torch, dev, sparse_inst, 8, 1016, (5, 300, 1000),
                 fast) if not failed else None
     if out is not None:

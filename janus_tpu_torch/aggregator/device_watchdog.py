@@ -45,7 +45,8 @@ hung-dispatch counter and the abandoned-thread gauge are janus_tpu's,
 `status()` is the statusz `device_watchdog` section (each parked
 thread's stack rendered by profiler.format_stack, as janus_tpu's), and
 the JANUS_WATCHDOG_ABANDONED_CAP environment default is not ported (the
-cap is a constructor argument and `configure`).
+cap is a constructor argument and `configure`). A binary sets the bound
+with the port's own `device_watchdog: hang_after_secs` key.
 """
 
 from __future__ import annotations
@@ -361,8 +362,10 @@ WATCHDOG = DispatchWatchdog()
 _register_status_provider("device_watchdog", WATCHDOG.status)
 
 
-def configure(abandoned_thread_cap: int | None = None) -> None:
-    """Set the process watchdog's abandoned-thread cap."""
+def configure(abandoned_thread_cap: int | None = None, hang_after_s: float | None = None) -> None:
+    """Set the process watchdog's abandoned-thread cap and hang bound."""
     if abandoned_thread_cap is not None:
         WATCHDOG.abandoned_thread_cap = max(1, int(abandoned_thread_cap))
+    if hang_after_s is not None:
+        WATCHDOG.hang_after_s = float(hang_after_s)
 

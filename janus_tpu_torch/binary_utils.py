@@ -635,12 +635,15 @@ def _backend_init(devices) -> None:
 
 def configure_engines(common: CommonConfig) -> None:
     """The process-wide engine settings of a CommonConfig: the watchdog's
-    abandoned-thread cap, the quarantine canary's delay and timeout, and
+    abandoned-thread cap and hang bound, the quarantine canary's delay and
+    timeout, and
     the `engine:` stanza's resident byte cap and mesh geometry pin."""
     from .aggregator import device_watchdog
     from .aggregator.engine_cache import EngineCache
 
-    device_watchdog.configure(abandoned_thread_cap=common.watchdog_abandoned_thread_cap)
+    device_watchdog.configure(
+        abandoned_thread_cap=common.watchdog_abandoned_thread_cap, hang_after_s=common.watchdog_hang_after_secs
+    )
     EngineCache.QUARANTINE_CANARY_DELAY_SECS = common.quarantine_canary_delay_secs
     EngineCache.QUARANTINE_CANARY_TIMEOUT_SECS = common.quarantine_canary_timeout_secs
     if common.engine.resident_max_bytes:

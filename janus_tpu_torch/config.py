@@ -26,6 +26,10 @@ Where janus_tpu differs:
 - `FleetConfig.from_dict` reads the dict alone: janus_tpu's
   `JANUS_REPLICA_ID`, `JANUS_SHARD_COUNT`, `JANUS_SHARD_INDEX` and
   `JANUS_STEAL_AFTER_S` overrides are not ported (no `JANUS_*` knob is).
+- `device_watchdog: hang_after_secs` (default 30 s,
+  `device_watchdog.HANG_AFTER_S`) is the port's own key: a supervised
+  device call still running that long after it started is hung. janus_tpu
+  declares a hang at the caller's deadline and has no separate bound.
 - `load_config` reads a `.json` file with `json` (JSON is YAML 1.2, so
   janus_tpu reads the same file) and any other with PyYAML's
   `safe_load`, which must then be installed.
@@ -41,6 +45,7 @@ from dataclasses import dataclass, field
 
 from .aggregator.aggregation_job_creator import AggregationJobCreatorConfig
 from .aggregator.aggregation_job_driver import ResidentConfig
+from .aggregator.device_watchdog import HANG_AFTER_S
 from .aggregator.core import Config as AggregatorProtocolConfig
 from .aggregator.job_driver import JobDriverConfig
 from .aggregator.peer_health import PeerHealthConfig
@@ -233,8 +238,11 @@ class CommonConfig:
     # fault injection (failpoints.py): a spec string or a {name: spec}
     # mapping; None arms nothing
     failpoints: object = None
-    # the device watchdog and the quarantine's canary (`device_watchdog:`)
+    # the device watchdog and the quarantine's canary (`device_watchdog:`);
+    # `hang_after_secs` is the port's own key (janus_tpu declares a hang at
+    # the caller's deadline and has no separate bound)
     watchdog_abandoned_thread_cap: int = 8
+    watchdog_hang_after_secs: float = HANG_AFTER_S
     quarantine_canary_delay_secs: float = 5.0
     quarantine_canary_timeout_secs: float = 30.0
     # the SLO burn-rate engine (`slo:`), on by default: every binary
@@ -278,6 +286,7 @@ class CommonConfig:
             health_sampler_interval_s=float(d.get("health_sampler_interval_secs", 15.0)),
             failpoints=d.get("failpoints"),
             watchdog_abandoned_thread_cap=int(wd.get("abandoned_thread_cap", 8)),
+            watchdog_hang_after_secs=float(wd.get("hang_after_secs", HANG_AFTER_S)),
             quarantine_canary_delay_secs=float(wd.get("canary_delay_secs", 5.0)),
             quarantine_canary_timeout_secs=float(wd.get("canary_timeout_secs", 30.0)),
             slo=SloEngineConfig.from_dict(d.get("slo")),

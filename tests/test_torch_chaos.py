@@ -8,15 +8,26 @@ counterpart of tests/test_chaos.py:
   binary, and every `*_ok` holds: the crashed driver exits 77, the
   restarted one steps the job on the device its YAML names, and the
   collection equals the ground truth exactly;
-- the full schedules carry `slow` and `chaos`, as janus_tpu's do.
+- the full schedules carry `slow` and `chaos`, as janus_tpu's do;
+- for each scenario, the set of `*_ok` keys its `run_*` can set equals
+  janus_tpu's, both read from the sources with `ast`, less the named
+  divergences (DIVERGENCES);
+- `--scenario cold_start` is refused (exit 2), and every `run_*` raises
+  without CUDA before it boots anything.
+
+The other six scenarios' smokes run in one file each
+(tests/test_torch_chaos_<scenario>.py), so that `--dist loadfile`
+spreads them over the workers.
 
 Each schedule runs as an operator runs it, `python -m
 janus_tpu_torch.tools.chaos_run`, in a process of its own (its
 failpoints and servers stay out of the test process).
 """
 
+import ast
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -39,20 +50,40 @@ def test_schedules_parse():
         chaos_run.STORM_SCHEDULE,
         chaos_run.HELPER_5XX_SCHEDULE,
         chaos_run.DB_OUTAGE_SCHEDULE,
+        chaos_run.DEVICE_HANG_SCHEDULE,
+        chaos_run.PIPELINE_RTT_SCHEDULE,
+        chaos_run.FLEET_RTT_SCHEDULE,
+        chaos_run.RESIDENT_SCHEDULE,
     ):
         assert failpoints.parse_spec(spec)
     crash = failpoints.parse_spec(chaos_run.CRASH_SCHEDULE)["datastore.commit.step_agg_job_write"]
     assert crash.action == "crash" and crash.count == 1
     outage = failpoints.parse_spec(chaos_run.DB_OUTAGE_SCHEDULE)["datastore.connect.leader"]
     assert outage.action == "error" and outage.prob == 1.0
+    hang = failpoints.parse_spec(chaos_run.DEVICE_HANG_SCHEDULE)["engine.dispatch"]
+    assert hang.action == "hang" and hang.count == 1
+    resident = failpoints.parse_spec(chaos_run.RESIDENT_SCHEDULE)
+    assert (resident["engine.dispatch"].after, resident["engine.canary"].count) == (4, 2)
+    assert failpoints.parse_spec(chaos_run.PIPELINE_RTT_SCHEDULE)["helper.request"].action == "delay"
+    assert failpoints.parse_spec(chaos_run.FLEET_RTT_SCHEDULE)["helper.request"].action == "delay"
     assert failpoints.CRASH_EXIT_CODE == 77
 
     # janus_tpu's script, read as text: its module top sets JAX's
     # environment, which the test process must not take
     src = (REPO / "scripts" / "chaos_run.py").read_text()
+    # janus_tpu's module-level constants, evaluated from the source
+    j_consts = {
+        node.targets[0].id: ast.literal_eval(node.value)
+        for node in ast.parse(src).body
+        if isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name)
+        and node.targets[0].id.endswith("_SCHEDULE")
+    }
     for name in ("CRASH_SCHEDULE", "POST_COMMIT_CRASH_SCHEDULE", "STORM_SCHEDULE", "HELPER_5XX_SCHEDULE",
-                 "DB_OUTAGE_SCHEDULE"):
-        assert repr(getattr(chaos_run, name)).strip("'") in src, name
+                 "DB_OUTAGE_SCHEDULE", "DEVICE_HANG_SCHEDULE", "PIPELINE_RTT_SCHEDULE", "FLEET_RTT_SCHEDULE",
+                 "RESIDENT_SCHEDULE"):
+        # byte for byte
+        assert getattr(chaos_run, name) == j_consts[name], name
+    assert set(j_consts) == {n for n in dir(chaos_run) if n.endswith("_SCHEDULE")}
 
 
 def test_driver_yaml_names_the_device(tmp_path):
@@ -150,3 +181,113 @@ def test_no_cuda_and_no_cpu_request_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         chaos_run.run_db_outage(workdir=str(tmp_path / "b"))
     assert not (tmp_path / "a").exists() and not (tmp_path / "b").exists()
+
+
+@pytest.mark.parametrize("fn", ["run_device_hang", "run_pipeline", "run_resident", "run_fleet", "run_soak",
+                                "run_peer_outage"])
+def test_new_scenarios_raise_without_cuda_before_booting(monkeypatch, tmp_path, fn):
+    """The same for the other six: no CUDA and no `device="cpu"` raises
+    before a directory, a datastore, a server or a process exists."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spawned = []
+    monkeypatch.setattr(chaos_run, "_spawn_driver", lambda *a, **k: spawned.append(a))
+    monkeypatch.setattr(chaos_run, "_Pair", lambda *a, **k: spawned.append(a))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(chaos_run, fn)(workdir=str(tmp_path / "w"))
+    assert not (tmp_path / "w").exists() and spawned == []
+
+
+# `*_ok` keys the port's scenarios set where janus_tpu's do not, or the
+# reverse, each with its reason (ROADMAP "Divergences")
+DIVERGENCES = {
+    # no host engine: the re-acquired job steps back `device_quarantined`
+    # and nothing may finish between the quarantine's open and restore
+    "run_device_hang": ({"no_interim_work_ok"}, set()),
+    # the byte cap is sized from the port's own Count row and the record
+    # says it holds exactly one slot
+    "run_resident": ({"cap_one_count_slot_ok"}, set()),
+    "run_pipeline": (set(), set()),
+    "run_peer_outage": (set(), set()),
+    "run_fleet": (set(), set()),
+    "run_soak": (set(), set()),
+}
+
+
+def _ok_keys(tree: ast.Module, fn_name: str, depth: int = 2) -> set:
+    """The `*_ok` keys function `fn_name` of a module can put in its
+    record: `result["x_ok"] = ...` (an f-string key as its pattern with
+    `{}`), and the `_ok` keys of dict literals, in its body and in the
+    module's functions and methods it calls (to `depth` calls deep)."""
+    defs = {n.name: n for n in ast.walk(tree) if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+
+    def key(node):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            return node.value
+        if isinstance(node, ast.JoinedStr):
+            return "".join(v.value if isinstance(v, ast.Constant) else "{}" for v in node.values)
+        return None
+
+    out: set = set()
+    seen: set = set()
+
+    def visit(name: str, d: int) -> None:
+        if name in seen or name not in defs:
+            return
+        seen.add(name)
+        for node in ast.walk(defs[name]):
+            if isinstance(node, ast.Subscript) and isinstance(node.ctx, ast.Store):
+                k = key(node.slice)
+                if k and k.endswith("_ok"):
+                    out.add(k)
+            elif isinstance(node, ast.Dict):
+                out.update(k for k in map(key, node.keys) if k and k.endswith("_ok"))
+            elif isinstance(node, ast.Call) and d > 0:
+                f = node.func
+                callee = f.id if isinstance(f, ast.Name) else f.attr if isinstance(f, ast.Attribute) else None
+                if callee:
+                    visit(callee, d - 1)
+
+    visit(fn_name, depth)
+    return out
+
+
+@pytest.mark.parametrize("fn", sorted(DIVERGENCES))
+def test_ok_key_sets_equal_janus_tpus_less_named_divergences(fn):
+    """Each scenario's invariant keys are janus_tpu's: janus_tpu's script
+    parsed with ast (never imported: its module top sets JAX's
+    environment) against the port's module parsed the same way."""
+    j_tree = ast.parse((REPO / "scripts" / "chaos_run.py").read_text())
+    t_tree = ast.parse(Path(chaos_run.__file__).read_text())
+    j_keys, t_keys = _ok_keys(j_tree, fn), _ok_keys(t_tree, fn)
+    added, removed = DIVERGENCES[fn]
+    assert j_keys, fn  # the extraction found janus_tpu's keys
+    assert t_keys - j_keys == added, sorted(t_keys - j_keys)
+    assert j_keys - t_keys == removed, sorted(j_keys - t_keys)
+
+
+def ok_key_pattern(fn: str) -> re.Pattern:
+    """A pattern matching every `*_ok` key janus_tpu's `fn` can set, and
+    the port's named additions: a smoke record's keys must all match."""
+    keys = _ok_keys(ast.parse((REPO / "scripts" / "chaos_run.py").read_text()), fn) | DIVERGENCES[fn][0]
+    return re.compile("|".join(re.escape(k).replace(r"\{\}", "[^_]+") for k in sorted(keys)))
+
+
+def test_cold_start_is_refused():
+    """janus_tpu's cold_start scenario measures its AOT cache and prewarm,
+    which the port has not: argparse refuses it (exit 2), and the help
+    names it as excluded by design."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "janus_tpu_torch.tools.chaos_run", "--scenario", "cold_start", "--smoke",
+         "--device", "cpu"],
+        cwd=str(REPO), env=env, capture_output=True, text=True, timeout=60,
+    )
+    assert proc.returncode == 2 and "invalid choice: 'cold_start'" in proc.stderr
+    assert "cold_start is excluded by design" in " ".join(
+        subprocess.run([sys.executable, "-m", "janus_tpu_torch.tools.chaos_run", "--help"], cwd=str(REPO),
+                       env=env, capture_output=True, text=True, timeout=60).stdout.split()
+    )
+    assert set(chaos_run.SCENARIOS) == {"crash_storm", "db_outage", "device_hang", "pipeline", "resident", "fleet",
+                                        "soak", "peer_outage"}

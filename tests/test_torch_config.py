@@ -54,7 +54,9 @@ JAX_ONLY = {
     "common.engine.prewarm",
     "common.engine.prewarm_boot_budget_secs",
 }
-PORT_ONLY = {"common.device", "common.ignored_keys"}
+# the port's own hang bound (`device_watchdog: hang_after_secs`): janus_tpu
+# declares a hang at the caller's deadline
+PORT_ONLY = {"common.device", "common.ignored_keys", "common.watchdog_hang_after_secs"}
 
 
 def _flat(d: dict, prefix: str = "") -> dict:
@@ -181,6 +183,7 @@ def test_device_list_with_mesh_stanza_builds_that_geometry(monkeypatch, mesh, wa
                  "RESIDENT_MAX_BYTES"):
         monkeypatch.setattr(EngineCache, name, getattr(EngineCache, name))
     monkeypatch.setattr(WATCHDOG, "abandoned_thread_cap", WATCHDOG.abandoned_thread_cap)
+    monkeypatch.setattr(WATCHDOG, "hang_after_s", WATCHDOG.hang_after_s)
     EngineCache.MESH_DP = EngineCache.MESH_SP = None
     doc = {"device": ["cpu", "cpu"]}
     if mesh is not None:
@@ -191,6 +194,26 @@ def test_device_list_with_mesh_stanza_builds_that_geometry(monkeypatch, mesh, wa
     eng = EngineCache(VdafInstance.sum_vec(4, 2), bytes(16), devices=common.devices())
     assert (eng.dp, eng.sp) == want
     assert (eng.mesh is not None) == (want != (1, 1))
+
+
+@pytest.mark.parametrize("doc,want", [({}, 30.0), ({"device_watchdog": {"hang_after_secs": 2}}, 2.0),
+                                      ({"device_watchdog": {"hang_after_secs": 0.5, "canary_delay_secs": 1.5}}, 0.5)])
+def test_hang_after_secs_reaches_the_process_watchdog(monkeypatch, doc, want):
+    """`device_watchdog: hang_after_secs`, the port's own key, sets the
+    process watchdog's hang bound through configure_engines; absent, the
+    bound stays device_watchdog.HANG_AFTER_S (30 s)."""
+    from janus_tpu_torch.aggregator import device_watchdog
+
+    for name in ("QUARANTINE_CANARY_DELAY_SECS", "QUARANTINE_CANARY_TIMEOUT_SECS", "RESIDENT_MAX_BYTES"):
+        monkeypatch.setattr(EngineCache, name, getattr(EngineCache, name))
+    monkeypatch.setattr(device_watchdog.WATCHDOG, "abandoned_thread_cap", device_watchdog.WATCHDOG.abandoned_thread_cap)
+    monkeypatch.setattr(device_watchdog.WATCHDOG, "hang_after_s", 123.0)
+    assert device_watchdog.HANG_AFTER_S == 30.0
+    common = tcfg.CommonConfig.from_dict({"device": "cpu", **doc})
+    assert common.watchdog_hang_after_secs == want
+    configure_engines(common)
+    assert device_watchdog.WATCHDOG.hang_after_s == want
+    assert device_watchdog.WATCHDOG.status()["hang_after_s"] == want
 
 
 def test_cross_task_coalesce_false_is_refused():

@@ -111,9 +111,9 @@ def fresh_latency(monkeypatch):
                     del gauge._values[key]
 
 
-def _drive(tmp_path, regs, seed=0, n=120, step=7.0, with_dir=True):
+def _drive(tmp_path, regs, seed=0, n=120, step=7.0, with_dir=True, lat=None):
     specs = _series(seed, n)
-    lat = _latency(seed, n)
+    lat = lat or _latency(seed, n)
     now = [1_700_000_000.0]
     recs = []
     for mod, sub in ((jfr, "jax"), (tfr, "port")):
@@ -162,6 +162,27 @@ def test_snapshots_verdicts_and_rollups_equal(tmp_path, fresh_latency):
     assert strip(trec.status()) == strip(jrec.status())
     jring, tring = jrec._ring.state(), trec._ring.state()
     assert {k: v for k, v in tring.items() if k != "dir"} == {k: v for k, v in jring.items() if k != "dir"}
+    jrec.stop()
+    trec.stop()
+
+
+@pytest.mark.parametrize("late,late_p99,verdict", [
+    # one bucket up, at the ladder's 2.5x step
+    ([0.0005] * 10 + [0.002], 0.0025, "degraded"),
+    # two buckets up
+    ([0.0005] * 2 + [0.004] * 10, 0.005, "degraded"),
+    # no move
+    ([0.0005] * 10, 0.001, "stable"),
+])
+def test_p99_verdict_of_a_bucket_move_equal(tmp_path, fresh_latency, late, late_p99, verdict):
+    """Early snapshots observe 0.5 ms ten times each, late ones `late`:
+    both packages give the same p99 estimates, ratio and verdict."""
+    n = 60
+    lat = [[0.0005] * 10 if i <= n // 2 else list(late) for i in range(n)]
+    (jrec, trec), _ = _drive(tmp_path, fresh_latency, n=n, lat=lat)
+    jdoc, tdoc = jrec.analyze()["latency"][LATENCY], trec.analyze()["latency"][LATENCY]
+    assert (tdoc["p99_early_s"], tdoc["p99_late_s"], tdoc["verdict"]) == (0.001, late_p99, verdict)
+    assert tdoc == jdoc
     jrec.stop()
     trec.stop()
 
