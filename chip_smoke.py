@@ -204,8 +204,10 @@ Phases, each of which must pass:
                    the leader's `bin.aggregator`, `aggregation_job_creator`,
                    `aggregation_job_driver` and `collection_job_driver`),
                    each side with its own DATASTORE_KEYS, and each must
-                   answer /readyz. With a `POST /debug/profile` window open
-                   on the job driver and on the helper, 8 reports are
+                   answer /readyz. The job driver's YAML names a shape
+                   manifest (`engine: shape_manifest_path`), which records
+                   the first dispatch of each specialization the job runs
+                   (phase 10f restarts the driver on it). 8 reports are
                    uploaded through the Client and 1,016 made by
                    make_wire_reports are PUT by 8 threads (3 corrupted as
                    in phase 10); the creator packs one job of 1,024, the
@@ -221,14 +223,22 @@ Phases, each of which must pass:
                    imbalance 0; tools.dap_decode must print an uploaded
                    report's bytes; tools.gen_alert_rules --check must find
                    docs/alerts/janus-alerts.yaml's rules the port's;
-                   tools.debug_bundle over the five listeners must report
-                   0 capture errors and a replica id for each; and
+                   tools.debug_bundle over the five listeners, with
+                   --shape-manifest on the job driver's, must report 0
+                   capture errors, a replica id for each and the
+                   manifest's entries; and
                    tools.scrape_check must exit 0 on each listener, with
                    --statusz on the four whose process owns a ledger.
-                   Each window's CUDA trace must hold kernels 1 and 2
-                   (their symbols in csrc/) and no kernel 3: the kernel
-                   counters live in those processes, so the traces show
-                   that the binaries ran the hand-written kernels. Every
+                   The job driver's and the helper's statusz `device_cost`
+                   must hold their inits of the job, in a process that
+                   names this card, and their statusz `process` launch
+                   totals (each wrapper's count in that process) must show
+                   kernels 1 and 2 and neither kernel 3 nor kernel 4: the
+                   binaries ran the hand-written kernels (this took the
+                   place of the `POST /debug/profile` windows on both and
+                   their CUDA traces' 20-35 s of post-processing when
+                   phase 10f came in: ROADMAP's named cut); a 1 s window
+                   on the idle job driver must record CUDA activity. Every
                    listener is scraped: /metrics and its OpenMetrics form
                    with 0 exposition errors, janus_build_info's backend the
                    card's name, the statusz sections, /alertz,
@@ -238,11 +248,13 @@ Phases, each of which must pass:
                    The `binaries` line gives each process's boot seconds
                    (/debug/boot) and time to ready, uploads/s, the job
                    driver's stage seconds (its metrics), the collection's
-                   seconds, each profile's kernel counts, each process's
+                   seconds, the idle profile window's stop and export
+                   seconds, the recorded shape manifest's entries, the job
+                   driver's and the helper's kernel launches, each
+                   process's
                    device memory, the exit codes and drain seconds, each
                    tool's own seconds (`tools_s`, from its start until it
-                   was reaped; the collection and the traces run while the
-                   profile windows close) and the phase's seconds;
+                   was reaped) and the phase's seconds;
   10c. chaos-crash-storm  exactly-once aggregation across a crashed job
                    driver, on the card: tools.chaos_run.run_chaos's smoke
                    schedule with the leader and the helper in this process
@@ -310,8 +322,47 @@ Phases, each of which must pass:
                    counts (allocated, peak, reserved bytes) and engine
                    bucket caps, the `fleet_scaling` record, the record and
                    the phase's seconds;
+  10f. chaos-cold-start  a restart of phase 10b's job driver, cold and
+                   warm: tools.chaos_run.run_cold_start with its
+                   SumVec(1000, 16) task and the shape manifest it
+                   recorded, the leader's store and the helper in this
+                   process, each boot a real `bin.aggregation_job_driver`
+                   on `cuda:<this card>`. The cold boot's compile cache
+                   directory is empty, so its `backend_init` builds the
+                   four kernel libraries with nvcc into the kernel-library
+                   cache; the warm boot loads them and builds none. Each
+                   boot replays the manifest before /readyz reports ready,
+                   with none failed, and its launch totals (statusz
+                   `process`) at ready must show kernels 1 and 2 and no
+                   other in the driver. Then the warm boot steps one real
+                   job of 512 reports (stored from make_report_batch,
+                   packed by the creator; two pipelined 256-row chunks at
+                   the keys the 1,024-report job recorded; cut from 1,024
+                   when the control boot below came in): it must add no
+                   `compile` row to
+                   the driver's device-cost split at any key the manifest
+                   covers, and its launches in the driver (the totals'
+                   difference over the job) and in this process, where
+                   the helper's inits run (counts at 0 just before, read
+                   just after), must be kernels 1 and 2 and no other. A
+                   control boot (`unwarmed`: the warm libraries, no
+                   manifest, no prewarm) steps the same job: it must book
+                   the cold first call at the covered keys it runs, and
+                   the record puts each one's seconds beside the steady
+                   dispatches of both jobs. The structural `*_ok` keys
+                   must hold; the speed keys (cold and warm boot totals,
+                   the speedup against janus_tpu's 1.5x gate, the warm
+                   boot under 10 s, both jobs' step seconds and the first
+                   calls) are printed. One `cold_start_boot` line per boot
+                   (the phases and total, the libraries built and loaded,
+                   the nvcc seconds, the entries warmed and deferred, the
+                   driver's kernel launches, the device peak), then the
+                   `chaos_cold_start` line with both jobs, the record and
+                   the phase's seconds;
   10a. upload-drive-sparse  the same for sparse_sumvec(16, 1000000, 64, 16)
-                   (measurements as in phase 6d): besides, an upload whose
+                   (measurements as in phase 6d) at 512 reports (8 by the
+                   Client, 504 PUT; cut from 1,024 when phase 10f came
+                   in): besides, an upload whose
                    public share has descending block indices must get 400
                    invalidMessage and add no row; the stored batch
                    aggregations and the collection are 1,000,000 long and
@@ -561,8 +612,8 @@ peak during the collection step), the poplar1 and drive_poplar1 lines,
 the taskprov_histogram and outage_drill lines, the two pipeline_resident
 lines, the device_hang_drill and peer_outage_drill lines, the fleet_drill
 line, the mesh line, the observability line after upload-drive-sumvec's
-and the binaries line after it, the chaos, chaos_resident and
-chaos_fleet lines,
+and the binaries line after it, the cold_start_boot lines and the
+chaos_cold_start line, the chaos, chaos_resident and chaos_fleet lines,
 the kernels,
 one line per path, the run's wall time), then the card's
 name and power limit as nvidia-smi gives them, and last
@@ -575,8 +626,10 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -2545,15 +2598,6 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
 
 
 BINARY_SERVICES = ("helper", "leader", "creator", "agg_driver", "col_driver")
-# the kernel symbols of rows 1 and 2 of PERF.md's table (csrc/keccak.cu,
-# csrc/expand_f128.cu), and of the kernels the fast path must not launch
-TRACE_KERNELS = {
-    "keccak_single_block": ("keccak_ctr_kernel", "keccak_tree_kernel"),
-    "expand_f128": ("expand_f128_kernel",),
-    "keccak_sponge": ("keccak_sponge_kernel",),
-}
-
-
 def _reseal(task, leader_hpke_config, src, md, mutate):
     """`src` as `md`, its leader payload changed by mutate(bytearray) and
     sealed again: the client's seal of another share."""
@@ -2578,21 +2622,6 @@ def _http(url: str, method: str = "GET", timeout: float = 60.0):
     from janus_tpu_torch.core.http_client import fetch_any_status
 
     return fetch_any_status(url, method, b"" if method == "POST" else None, timeout=timeout, max_bytes=1 << 30)
-
-
-def trace_kernel_counts(path: str) -> dict:
-    """Kernel launches by TRACE_KERNELS row in a torch.profiler Chrome
-    trace (the events of category `kernel`), and every kernel name's count."""
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    by_name: dict = {}
-    for e in events:
-        if e.get("cat") == "kernel":
-            by_name[e.get("name", "")] = by_name.get(e.get("name", ""), 0) + 1
-    rows = {k: sum(c for n, c in by_name.items() if any(s in n for s in syms)) for k, syms in TRACE_KERNELS.items()}
-    ours = {n: c for n, c in by_name.items() if any(s in n for syms in TRACE_KERNELS.values() for s in syms)}
-    return {"rows": rows, "kernel_events": sum(by_name.values()), "distinct_kernels": len(by_name),
-            "by_symbol": ours}
 
 
 def _start_tool(repo: Path, name: str, *args):
@@ -2624,14 +2653,15 @@ def _finish_tool(started, what: str, seconds: dict, timeout: float = 180.0):
     return proc.returncode, out, err
 
 
-def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profile_s: float = 25.0,
-                   base_port: int = 27300):
+def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, manifest_path: str,
+                   profile_s: float = 1.0, base_port: int = 27300):
     """The deployed process pair (see the module docstring, phase 10b):
     janus_cli provisions one task on each side, the five binaries boot
-    from .json configs on `dev`, the reports are uploaded over HTTP with
-    two profile windows open (the leader's job driver and the helper),
-    the collection must equal the ground truth, every listener is
-    scraped, and every process drains on SIGTERM. Returns the record."""
+    from .json configs on `dev` (the leader's job driver records its shape
+    manifest at `manifest_path`), the reports are uploaded over HTTP, the
+    collection must equal the ground truth, a `profile_s` profile window
+    runs on the idle job driver, every listener is scraped, and every
+    process drains on SIGTERM. Returns the record."""
     import base64
     import dataclasses
     import os
@@ -2716,7 +2746,9 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
             "creator": ("aggregation_job_creator", "leader", {
                 "aggregation_job_creation_interval_secs": 0.5, "min_aggregation_job_size": batch,
                 "max_aggregation_job_size": batch}),
-            "agg_driver": ("aggregation_job_driver", "leader", driver),
+            # the job driver records the shape manifest a restart would find
+            "agg_driver": ("aggregation_job_driver", "leader", {**driver, "engine": {
+                "shape_manifest_path": manifest_path}}),
             "col_driver": ("collection_job_driver", "leader", driver),
         }
         spawned = {}
@@ -2805,15 +2837,10 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
         if set(statuses) != {201}:
             raise AssertionError(f"binaries: upload statuses {sorted(set(statuses))}")
 
-        # 4. the profile windows of the job driver and the helper, then the
-        # last report: the job is created, stepped and collected inside them
-        windows = {}
-        window_pool = ThreadPoolExecutor(max_workers=2)
-        for name in ("agg_driver", "helper"):
-            windows[name] = window_pool.submit(
-                _http, f"http://127.0.0.1:{health[name]}/debug/profile?seconds={profile_s}", "POST",
-                profile_s + 120.0)
-        time.sleep(1.5)  # the profilers start
+        # 4. the last report: the batch is whole, so the creator packs the
+        # job (the profile windows that held it went when phase 10f came
+        # in: ROADMAP's named cut; the card's dispatches show in each
+        # process's statusz device_cost, step 8)
         window_t0 = time.perf_counter()
         timeline = {}
         if put(reports[-1]) != 201:
@@ -2839,7 +2866,7 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
         # file (an accepted one collected, a corrupted one rejected), with
         # dap_decode on an uploaded report's bytes and the alert rules'
         # sync check: each a process, as an operator runs it, all in a
-        # thread while the profile windows close
+        # thread
         (tmp / "report.bin").write_bytes(reports[0].to_bytes())
 
         def collect_and_trace():
@@ -2869,31 +2896,21 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
 
         tools_pool = ThreadPoolExecutor(max_workers=1)
         tools_fut = tools_pool.submit(collect_and_trace)
-        window_wait_t0 = time.perf_counter()
-
-        # 7. the profiles: the kernels each process launched on the card
-        profiles = {}
-        for name, fut in windows.items():
-            status, body = fut.result(timeout=profile_s + 180.0)
-            if status != 200:
-                raise AssertionError(f"binaries: POST /debug/profile on {name} answered {status}: {body[:300]!r}")
-            doc = json.loads(body)
-            profile_dirs.append(str(Path(doc["device_trace_dir"]).parent))
-            t0 = time.perf_counter()
-            counts = trace_kernel_counts(doc["device_trace"])
-            profiles[name] = {"activities": doc["activities"], "stop_s": doc["stop_s"], "export_s": doc["export_s"],
-                              "trace_bytes": os.path.getsize(doc["device_trace"]),
-                              "read_s": time.perf_counter() - t0, **counts}
-            if on_card and (doc["activities"] != ["cuda"] or not counts["rows"]["keccak_single_block"]
-                            or not counts["rows"]["expand_f128"] or counts["rows"]["keccak_sponge"]):
-                raise AssertionError(f"binaries: {name}'s CUDA profile shows {counts}; since the windows opened "
-                                     f"{timeline} (window {profile_s} s)")
-        window_pool.shutdown()
-        window_wait_s = time.perf_counter() - window_wait_t0
-
-        # the tools of step 6
         out, traces, decoded, rules = tools_fut.result(timeout=600)
         tools_pool.shutdown()
+
+        # 7. a `POST /debug/profile` window on the idle job driver: the
+        # capture path with CUDA activity on the card
+        status, body = _http(f"http://127.0.0.1:{health['agg_driver']}/debug/profile?seconds={profile_s}", "POST",
+                             profile_s + 120.0)
+        if status != 200:
+            raise AssertionError(f"binaries: POST /debug/profile on agg_driver answered {status}: {body[:300]!r}")
+        doc = json.loads(body)
+        profile_dirs.append(str(Path(doc["device_trace_dir"]).parent))
+        profile = {"activities": doc["activities"], "stop_s": doc["stop_s"], "export_s": doc["export_s"],
+                   "trace_bytes": os.path.getsize(doc["device_trace"])}
+        if on_card and doc["activities"] != ["cuda"]:
+            raise AssertionError(f"binaries: the job driver's profile window recorded {doc['activities']}")
         collect_s = tools_s["collect"]
         lines = dict(line.split(": ", 1) for line in out.strip().splitlines())
         report_count = int(lines["Number of reports"])
@@ -2924,7 +2941,8 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
         # flight recorder and the books
         bases = {name: f"http://127.0.0.1:{health[name]}" for name in procs}
         bundle_tool = _start_tool(repo, "debug_bundle", *[a for b in bases.values() for a in ("--url", b)],
-                                  "--out", tmp / "bundle.tar.gz", "--timeout", "30")
+                                  "--out", tmp / "bundle.tar.gz", "--timeout", "30", "--shape-manifest",
+                                  manifest_path)
         scrape_tools = {name: _start_tool(repo, "scrape_check", "--url", base, "--timeout", "30",
                                           *(["--statusz"] if name != "creator" else []))
                         for name, base in bases.items()}
@@ -2952,6 +2970,19 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
                              "statusz_sections": len(statusz) - 1, "alerts_firing": alertz["firing"],
                              "flight_snapshots": flight["snapshots_total"],
                              "device_memory": statusz["process"].get("device_memory")}
+            if name in ("agg_driver", "helper"):
+                # the job's inits ran in that process on the card, through
+                # kernels 1 and 2 and no other (its launch totals)
+                launches = statusz["process"]["kernel_launches"]
+                scrapes[name]["kernel_launches"] = launches
+                init = "leader_init" if name == "agg_driver" else "helper_init"
+                inits = [e for e in statusz["device_cost"]["entries"] if e["op"] == init]
+                if on_card and (statusz["process"]["device_name"] != device_name
+                                or sum(e["dispatches"] for e in inits) < 1
+                                or not launches["keccak_single_block"] or not launches["expand_f128"]
+                                or launches["keccak_sponge"] or launches["scatter_rows"]):
+                    raise AssertionError(f"binaries: {name}'s launches {launches}, device_cost "
+                                         f"{statusz['device_cost']} on {statusz['process']['device_name']}")
             if name == "agg_driver":
                 stages = {}
                 fam = families.get("janus_step_pipeline_stage_seconds")
@@ -2985,7 +3016,10 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
         with tarfile.open(tmp / "bundle.tar.gz") as tar:
             top = tar.getnames()[0].split("/")[0]
             manifest = json.load(tar.extractfile(f"{top}/MANIFEST.json"))
+            shapes_state = json.load(tar.extractfile(f"{top}/shape-manifest.json"))
         capture_errors = [f for f in manifest["files"] if f.get("error")]
+        if not shapes_state.get("entries"):
+            raise AssertionError(f"binaries: debug_bundle's shape-manifest.json {shapes_state}")
         replicas = {t["url"]: t["replica_id"] for t in manifest["targets"].values()}
         if capture_errors or " 0 capture errors" not in out or len(replicas) != len(procs) \
                 or not all(replicas.values()):
@@ -2994,6 +3028,7 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
         for name, started in scrape_tools.items():
             scrape_rcs[name], _, _ = _finish_tool(started, f"scrape_check_{name}", tools_s)
         tools = {"report_trace": traced, "bundle_files": len(manifest["files"]),
+                 "bundle_shape_manifest_entries": shapes_state["entries"],
                  "bundle_capture_errors": len(capture_errors), "bundle_replica_ids": replicas,
                  "scrape_check_rcs": scrape_rcs}
 
@@ -3010,6 +3045,14 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
             drain_s[name] = time.perf_counter() - t0
             if rcs[name] != 0 or "shut down" not in log_tail(name, 20000):
                 raise AssertionError(f"binaries: {name} exited {rcs[name]}: {log_tail(name)}")
+        # the job driver's shape manifest: the first dispatch of each
+        # specialization the job ran, with its cold cost
+        from janus_tpu_torch.aggregator.shape_manifest import inspect_file
+
+        recorded, load_stats = inspect_file(manifest_path)
+        if not any(e["vdaf"] == inst.to_dict() and e["op"] == "leader_init" for e in recorded) \
+                or load_stats["skipped_corrupt"]:
+            raise AssertionError(f"binaries: the job driver's shape manifest {recorded} {load_stats}")
         return {
             "path": "binaries-sumvec",
             "vdaf": inst.to_dict(),
@@ -3029,14 +3072,13 @@ def phase_binaries(torch, dev, inst, n_client: int, n_wire: int, bad_rows, profi
             "aggregate_ok": True,
             "tools_s": tools_s,
             "tools": tools,
-            "profile_s": profile_s,
-            "since_windows_opened_s": timeline,
-            "profile_wait_s": window_wait_s,
-            "profiles": profiles,
+            "since_last_upload_s": timeline,
+            "profile": profile,
             "scrapes": scrapes,
             "ledger": ledger_books,
             "exit_codes": rcs,
             "drain_s": drain_s,
+            "shape_manifest": [{k: e[k] for k in ("op", "bucket", "key", "cost_s", "rows")} for e in recorded],
             "phase_s": time.perf_counter() - phase_t0,
         }
     finally:
@@ -3183,6 +3225,73 @@ def phase_chaos_fleet(torch, dev):
                                "buckets": st["buckets"]} for tag, st in replicas.items()},
             "post_kill_drain_s": rec["post_kill_drain_s"], "lease_steals": rec["lease_steals"],
             "record": rec, "phase_s": phase_s}
+
+
+def phase_chaos_cold_start(torch, dev, inst, manifest_path: str, job_reports: int = 512):
+    """Cold start of a job driver binary on the card (see the module
+    docstring, phase 10f): tools.chaos_run.run_cold_start with `inst` as
+    its task and binaries-sumvec's recorded shape manifest: a cold boot
+    (empty compile cache directory: it builds the four kernel libraries
+    with nvcc) and a warm one (it loads them), each replaying the manifest
+    before ready, then one real job of `job_reports` reports on the warm
+    boot, the helper in this process. Returns the line."""
+    import shutil
+    import tempfile
+
+    from janus_tpu_torch.tools import chaos_run
+
+    phase_t0 = time.perf_counter()
+    device, device_name = _chaos_device(torch, dev)
+    tmp = tempfile.mkdtemp(prefix="janus-chaos-cold-start-")
+    try:
+        counters = _zeroed(kernel_counters())
+        rec = chaos_run.run_cold_start(workdir=tmp, device=device, vdafs=(inst,), manifest=manifest_path,
+                                       job_reports=job_reports)
+        launches = _launches(counters)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.perf_counter() - phase_t0
+    boots = rec.get("boots", [])
+    for boot in boots:
+        peak = {d: m[1] for d, m in _process_memory(boot.get("device_memory")).items()}
+        emit({"cold_start_boot": {
+            "label": boot["label"], "total_s": boot["total_s"], "phases_s": boot["phases"],
+            "libraries_built": boot["aot_saves"], "libraries_loaded": boot["aot_loads"], "nvcc_s": boot["nvcc_s"],
+            "warmed": boot["warmed"], "deferred": boot["deferred"], "failed": boot["failed"],
+            "priority_elapsed_s": boot["priority_elapsed_s"], "kernel_launches": boot["kernel_launches"],
+            "peak_device_bytes": peak,
+        }})
+    # structural: every boot ready with the manifest phase and every entry
+    # warmed, none failed; the cold boot built the four libraries and the
+    # warm one loaded them; the warm boot's real job added no compile row
+    # at a recorded key; every drain clean. The speed keys are printed
+    structural = ("boots_ready_ok", "manifest_phase_ok", "prewarm_observed_ok", "cold_aot_saves_ok",
+                  "warm_aot_loads_ok", "warm_cache_hits_ok", "cold_cache_misses_ok", "drain_ok", "warm_job_ok",
+                  "warm_job_no_compile_ok", "unwarmed_job_compiles_ok")
+    failed = [k for k in structural if rec.get(k) is not True]
+    if failed or [b["label"] for b in boots] != ["cold", "warm", "unwarmed"] or any(b["failed"] for b in boots):
+        raise AssertionError(f"chaos-cold-start: {failed} failed: {rec}")
+    job = boots[1]["job"]
+    if job["finished"] < 1 or not job["covered"]:
+        raise AssertionError(f"chaos-cold-start: the warm job {job}")
+
+    def fast_dense(got) -> bool:  # kernels 1 and 2, neither kernel 3 nor 4
+        return bool(got["keccak_single_block"] and got["expand_f128"]) and not (
+            got["keccak_sponge"] or got["scatter_rows"])
+
+    # in the driver: the prewarm of each manifest boot and the warm job;
+    # in this process: the helper's inits of both jobs
+    driver_launches = {"cold_prewarm": boots[0]["kernel_launches"], "warm_prewarm": boots[1]["kernel_launches"],
+                       "warm_job": job["launches_added"], "unwarmed_job": boots[2]["job"]["launches_added"]}
+    if dev.type == "cuda" and not (all(fast_dense(v) for v in driver_launches.values()) and fast_dense(launches)):
+        raise AssertionError(f"chaos-cold-start: launches in the driver {driver_launches}, in this process "
+                             f"{launches}")
+    return {"path": "chaos-cold-start", "device": device, "device_name": device_name, "launches": launches,
+            "driver_launches": driver_launches,
+            "speed": {k: rec.get(k) for k in ("cold_restart_to_first_dispatch_s", "warm_restart_to_first_dispatch_s",
+                                                "speedup", "speedup_gate", "speedup_ok", "warm_under_budget_ok",
+                                                "warm_job_step_s", "unwarmed_job_step_s", "job_cold_cost")},
+            "job": job, "unwarmed_job": boots[2]["job"], "record": rec, "phase_s": phase_s}
 
 
 def corrupt_poplar1_keys(poplar):
@@ -5575,10 +5684,27 @@ def main() -> int:
     # back to the card first: the two device processes size their buckets
     # from the card's total memory)
     torch.cuda.empty_cache()
+    shapes_dir = tempfile.mkdtemp(prefix="janus-shapes-")
+    manifest_path = str(Path(shapes_dir) / "shape_manifest.jsonl")
     out = phase("binaries-sumvec", phase_binaries, torch, dev, VdafInstance.sum_vec(1000, 16), 8, 1016,
-                (5, 300, 1000)) if not failed else None
+                (5, 300, 1000), manifest_path) if not failed else None
+    # each kernel's launches in the binaries' own processes (their statusz
+    # launch totals), for the kernels line
+    process_launches = {}
     if out is not None:
         emit({"binaries": out})
+        for name in ("agg_driver", "helper"):
+            process_launches[f"binaries-sumvec/{name}"] = out["scrapes"][name]["kernel_launches"]
+    # a restart of that job driver, cold and warm, on the manifest it
+    # recorded, and one real job on the warm boot (phase 10f)
+    out = phase("chaos-cold-start", phase_chaos_cold_start, torch, dev, VdafInstance.sum_vec(1000, 16),
+                manifest_path) if not failed else None
+    shutil.rmtree(shapes_dir, ignore_errors=True)
+    if out is not None:
+        serves[out["path"]] = out
+        emit({"chaos_cold_start": out})
+        for run, got in out["driver_launches"].items():
+            process_launches[f"chaos-cold-start/driver/{run}"] = got
     # a job driver binary crashed mid-commit and restarted into a storm,
     # on this card (phase 10c)
     out = phase("chaos-crash-storm", phase_chaos_crash_storm, torch, dev) if not failed else None
@@ -5596,7 +5722,9 @@ def main() -> int:
         if out is not None:
             serves[out["path"]] = out
             emit({key: out})
-    out = phase("upload-drive-sparse", phase_upload_drive, torch, dev, sparse_inst, 8, 1016, (5, 300, 1000),
+    # (cut from 1,024 reports to 512 when chaos-cold-start came in:
+    # ROADMAP's named cut)
+    out = phase("upload-drive-sparse", phase_upload_drive, torch, dev, sparse_inst, 8, 504, (5, 300, 500),
                 fast) if not failed else None
     if out is not None:
         serves[out["path"]] = out
@@ -5701,6 +5829,7 @@ def main() -> int:
             "launches": paths[main_path[name]]["launches"][name],
             "launches_path": main_path[name],
             "launches_by_path": {p: rec["launches"][name] for p, rec in {**paths, **serves}.items()},
+            "launches_by_process": {p: got[name] for p, got in process_launches.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main_case["ms"],
             "device_ms": main_case.get("device_ms"),

@@ -108,8 +108,9 @@ life of the process (`device_watchdog.WATCHDOG.device_down()`).
 Observability, as in janus_tpu: the put/dispatch/fetch spans of both
 inits and the aggregate (`engine.<op>.put`, `.dispatch`, `.fetch`,
 `.fetch_seed`/`_ver`/`_part`, the pipelined route's `put_all_async` and
-`chunk`), `_record_dispatch` (dispatch, row and fill metrics, and the
-device-cost ledger's compile/execute rows), the host<->device byte
+`chunk`), `_record_dispatch` (dispatch, row and fill metrics, the
+device-cost ledger's compile/execute rows, and the first dispatch of each
+specialization into the installed shape manifest), the host<->device byte
 counter (`count_h2d` / `count_d2h`, from the tensors' `nbytes`), the
 coalescer, prestage, quarantine, resident, scatter and mesh-lane metrics,
 and the statusz sections `engine_cache`, `resident_accumulators` and
@@ -155,7 +156,7 @@ from ..vdaf.circuits import SparseSumVec
 from ..vdaf.engine import STREAM_MIN_INPUT_LEN
 from ..vdaf.feasibility import feasible_bucket, mesh_memory_budget
 from ..vdaf.registry import VdafInstance, prio3_batched
-from . import device_watchdog
+from . import device_watchdog, shape_manifest
 from .device_watchdog import DeviceQuarantinedError
 
 log = logging.getLogger(__name__)
@@ -406,6 +407,12 @@ def _streams_scope(streams):
         for stream in streams:
             stack.enter_context(torch.cuda.stream(stream))
         yield
+
+
+def _init_variant(op: str, vk_lanes) -> str:
+    """janus_tpu's variant name of an init: `<op>_vk` where the verify key
+    is a per-lane input (a cross-task round), else `<op>`."""
+    return op if vk_lanes is None else f"{op}_vk"
 
 
 def _helper_step(p3, vkey, nonce_lanes, public_parts, helper_seeds, blinds, ver0, part0, ok_mask):
@@ -1108,7 +1115,7 @@ class EngineCache:
         # janus_engine_quarantines_total)
         self.quarantine_stats = {
             "opened": 0, "canary_probes": 0, "canary_failed": 0, "restored": 0, "refused": 0,
-            "canary_delay_s": None, "last_probe_s": None, "last_quarantine_s": None,
+            "canary_delay_s": None, "last_probe_s": None, "last_quarantine_s": None, "rewarmed": 0,
         }
         # this engine's own counts beside the process-wide metrics: merged
         # rounds it ran, their rows, and the prestages' outcomes
@@ -1160,13 +1167,27 @@ class EngineCache:
             metrics.engine_backend_state.set(1.0 if s == state else 0.0, vdaf=self.inst.kind, state=s)
         metrics.engine_bucket_cap.set(float(self.bucket_cap or 0), vdaf=self.inst.kind)
 
+    def dispatched_all(self, ops, b: int) -> bool:
+        """Whether this engine has dispatched every op of `ops` at bucket
+        `b` in this process."""
+        with self._dispatch_track_lock:
+            return all((op, b) in self._dispatched_buckets for op in ops)
+
     def _record_dispatch(self, op: str, n: int, b: int, elapsed_s: float, ledger_op: str | None = None,
                          compile_key: tuple | None = None) -> None:
         """Per-dispatch accounting, as janus_tpu's: the dispatch and row
         counters, the padding-waste gauge, the first-call-per-(op, bucket)
         histogram, and the device-cost ledger's row (the first call of a
         key is its `compile` row, later calls `execute`). `elapsed_s` is
-        host time: on the card the enqueue, not the kernels."""
+        host time: on the card the enqueue, not the kernels.
+
+        `compile_key` is janus_tpu's jit variant name for the same
+        specialization (`leader_init_vk`, `aggregate_view_<vb>`,
+        `("aggregate_pending", kk, b)`, ...), so that the key, suffixed
+        with ("mesh", dp, sp, device count) on a mesh, is the one
+        janus_tpu records: a shape manifest either package wrote warms the
+        other. The first call of a key is recorded into the installed
+        manifest with its cost."""
         metrics.engine_dispatches_total.add(op=op)
         metrics.engine_rows_total.add(n, op=op)
         if b > 0:
@@ -1187,6 +1208,10 @@ class EngineCache:
             self.inst.kind, ledger_op or op, b, "compile" if ledger_first else "execute", elapsed_s, rows=n,
             dispatches=1,
         )
+        if ledger_first:
+            # the cold first call a restarted process would pay again: the
+            # boot prewarm replays exactly this set before ready
+            shape_manifest.record_dispatch(self.inst, ledger_op or op, b, lkey, elapsed_s, rows=n)
 
     # --- the mesh: every enqueue on the process's lane ---
     def _on_lane(self, name: str, fn):
@@ -1335,7 +1360,20 @@ class EngineCache:
         """After a cool-down, probe the device; on success restore the
         device path with the initial caps, on failure back off (doubling,
         capped) and probe again. Repeated hung probes walk the
-        abandoned-thread cap toward device_down(), which ends the loop."""
+        abandoned-thread cap toward device_down(), which ends the loop.
+
+        After a restore the canary thread re-warms the engine's recorded
+        specializations from the installed shape manifest, stop-aware
+        between entries, as janus_tpu's does (`quarantine_stats`
+        `rewarmed` counts them). janus_tpu's probe drops every compiled
+        executable, so its re-warm recompiles them off the serving path.
+        The port's quarantine and restore drop nothing a dispatch reuses:
+        the kernel libraries stay loaded, PyTorch's loaded modules and the
+        caching allocator's segments stay, and the cost ledger's keys stay
+        dispatched. So the re-warm replays warm dispatches: the device-cost
+        ledger books them `execute`, and the manifest records nothing new.
+        What a restore resets is the bucket cap and the coalescers' round
+        rows."""
         delay = self.QUARANTINE_CANARY_DELAY_SECS
         while True:
             self._canary_wakeup.wait(delay)
@@ -1375,6 +1413,17 @@ class EngineCache:
                 self.quarantine_stats["last_probe_s"] = now - t0
                 self.quarantine_stats["last_quarantine_s"] = quarantined_s
             log.warning("engine %s restored to the device path (canary probe succeeded)", self.inst.kind)
+            if not self._canary_stop:
+                try:
+                    from .prewarm import warm_engine_from_manifest
+
+                    warmed = warm_engine_from_manifest(self, should_stop=lambda: self._canary_stop)
+                    with self._stats_lock:
+                        self.quarantine_stats["rewarmed"] += warmed
+                    if warmed:
+                        log.info("canary re-warmed %d recorded specialization(s) for %s", warmed, self.inst.kind)
+                except Exception:
+                    log.warning("post-restore manifest warm failed", exc_info=True)
             return
 
     def stop_canary(self, timeout_s: float = 2.0) -> None:
@@ -1592,7 +1641,8 @@ class EngineCache:
 
                 t_disp = time.monotonic()
                 out1, mask, prep_msg = self._dispatch("helper_init", dispatch)
-                self._record_dispatch("helper_init", n, b, time.monotonic() - t_disp)
+                self._record_dispatch("helper_init", n, b, time.monotonic() - t_disp,
+                                      compile_key=(_init_variant("helper_init", vk_lanes), b))
 
                 # out1 stays on the device; the mask and prep message come
                 # back (the .cpu() blocks until the step has run)
@@ -1639,7 +1689,8 @@ class EngineCache:
                 t_disp = time.monotonic()
                 with span("engine.helper_init.dispatch", vdaf=kind):
                     outs = self._mesh_dispatch("helper_init", shard, shards)
-                self._record_dispatch("helper_init", n, b, time.monotonic() - t_disp)
+                self._record_dispatch("helper_init", n, b, time.monotonic() - t_disp,
+                                      compile_key=(_init_variant("helper_init", vk_lanes), b))
                 mask, prep_msg = self._fetch("helper_init_fetch", fetch)
         except Exception as e:
             _annotate_dispatch_bucket(e, b)
@@ -1739,7 +1790,8 @@ class EngineCache:
 
                 t_disp = time.monotonic()
                 out0, seed0, ver0, part0 = self._dispatch("leader_init", dispatch)
-                self._record_dispatch("leader_init", n, b, time.monotonic() - t_disp)
+                self._record_dispatch("leader_init", n, b, time.monotonic() - t_disp,
+                                      compile_key=(_init_variant("leader_init", vk_lanes), b))
                 seed0, ver0, part0 = self._fetch(
                     "leader_init_fetch", lambda: _fetch_leader_rows_spanned(kind, b, seed0, ver0, part0, n)
                 )
@@ -1781,7 +1833,8 @@ class EngineCache:
                 t_disp = time.monotonic()
                 with span("engine.leader_init.dispatch", vdaf=kind):
                     outs = self._mesh_dispatch("leader_init", shard, shards)
-                self._record_dispatch("leader_init", n, b, time.monotonic() - t_disp)
+                self._record_dispatch("leader_init", n, b, time.monotonic() - t_disp,
+                                      compile_key=(_init_variant("leader_init", vk_lanes), b))
 
                 def fetch():
                     with span("engine.leader_init.fetch", vdaf=kind, bucket=b):
@@ -1952,11 +2005,17 @@ class EngineCache:
             return self._merge_partials(
                 self._aggregate_inner(c, mask[offs[i] : offs[i + 1]]) for i, c in enumerate(out_shares.chunks)
             )
+        variant, rec_b = "aggregate", None
         if isinstance(out_shares, DeviceRows):
             # resident rows: only the mask moves; the reduce reads the
             # job's own rows of the buffer in place
             n, s = out_shares.n, out_shares.offset
             dispatch_b, fixed = out_shares.value[0].shape[0], True
+            vb = bucket_size(n)
+            if (s or vb < dispatch_b) and s + vb <= dispatch_b:
+                # a view of a wider buffer (a merged round's job): janus_tpu
+                # jits it as its own variant at the view's bucket
+                variant, rec_b = f"aggregate_view_{vb}", vb
             args = (tuple(x[s : s + n] for x in out_shares.value), torch.from_numpy(mask.copy()).to(self.device))
             count_h2d(int(mask.nbytes))
         else:
@@ -1982,7 +2041,8 @@ class EngineCache:
                 agg = self._dispatch("aggregate", p3.aggregate, *args)
                 result = self._fetch("aggregate_fetch", lambda: [int(x) for x in p3.tf.to_ints(agg)])
                 count_d2h(len(result) * p3.tf.LIMBS * 8)
-            self._record_dispatch("aggregate", n, dispatch_b, time.monotonic() - t_disp)
+            rec_b = rec_b or dispatch_b
+            self._record_dispatch("aggregate", n, rec_b, time.monotonic() - t_disp, compile_key=(variant, rec_b))
             return result
         except Exception as e:
             _annotate_dispatch_bucket(e, dispatch_b, fixed=fixed)
@@ -1996,8 +2056,12 @@ class EngineCache:
             return self._merge_partials(
                 self._mesh_aggregate_inner(c, mask[offs[i] : offs[i + 1]]) for i, c in enumerate(out_shares.chunks)
             )
+        variant, rec_b = "aggregate", None
         if isinstance(out_shares, MeshRows):
             b, fixed, rows = out_shares.bucket, True, out_shares
+            vb = bucket_size(rows.n)
+            if (rows.offset or vb < b) and rows.offset + vb <= b:
+                variant, rec_b = f"aggregate_view_{vb}", vb  # a view: as on one device
         else:
             n = mask.shape[0]
             cap = self.bucket_cap
@@ -2018,7 +2082,8 @@ class EngineCache:
                 agg = self._mesh_aggregate(rows, mask)
                 result = self._fetch("aggregate_fetch", lambda: _value_ints(self.p3.tf, agg))
                 count_d2h(len(result) * self.p3.tf.LIMBS * 8)
-            self._record_dispatch("aggregate", rows.n, b, time.monotonic() - t_disp)
+            rec_b = rec_b or b
+            self._record_dispatch("aggregate", rows.n, rec_b, time.monotonic() - t_disp, compile_key=(variant, rec_b))
             return result
         except Exception as e:
             _annotate_dispatch_bucket(e, b, fixed=fixed)
@@ -2183,9 +2248,12 @@ class EngineCache:
         try:
             t_disp = time.monotonic()
             value = self._pending_dispatch(out_shares, bucket_idx, k)
+            # janus_tpu's program specializes on k padded to a power of
+            # two (kk); the port sums k buckets as they are, under its key
+            kk = 1 << max(0, int(k - 1).bit_length())
             self._record_dispatch("aggregate", n_rows, bucket_size(n_rows), time.monotonic() - t_disp,
                                   ledger_op="aggregate_pending",
-                                  compile_key=("aggregate_pending", k, bucket_size(n_rows)))
+                                  compile_key=("aggregate_pending", kk, bucket_size(n_rows)))
         except Exception as e:
             _annotate_dispatch_bucket(e, bucket_size(len(bucket_idx)), fixed=True)
             raise

@@ -24,10 +24,9 @@ time, so age is measured from when THIS sampler first observed the
 lease — a lower bound on the true age (exact once the lease has been
 visible for one sampling period).
 
-The port's own copy of janus_tpu/aggregator/health_sampler.py. Its only
-on-disk artifact is the upload journal: the port keeps no shape manifest
-and no AOT cache, so janus_artifact_bytes has no `shape_manifest` or
-`aot_cache` label here.
+The port's own copy of janus_tpu/aggregator/health_sampler.py. Its
+on-disk artifacts are janus_tpu's: the upload journal, the shape manifest
+and the kernel-library cache's directory (the port's AOT cache).
 """
 
 from __future__ import annotations
@@ -63,12 +62,21 @@ def _path_bytes(path: str) -> int:
 
 
 def artifact_paths_from_config(common, aggregator=None) -> dict[str, str]:
-    """{artifact label: path} for janus_artifact_bytes: the upload spill
-    journal's directory, from the AggregatorConfig where one is given
-    (`common`, the CommonConfig, names no artifact of the port's)."""
+    """{artifact label: path} for janus_artifact_bytes, derived from a
+    CommonConfig (and the AggregatorConfig for the upload journal): the
+    spill journal dir, the shape manifest and the kernel-library cache's
+    directory, the locally persisted state that can leak bytes."""
     out = {}
     if aggregator is not None and getattr(aggregator, "upload_journal_path", None):
         out["upload_journal"] = aggregator.upload_journal_path
+    cache_dir = common.engine.compile_cache_dir or common.compilation_cache_dir
+    manifest = common.engine.shape_manifest_path
+    if manifest is None and cache_dir:
+        manifest = os.path.join(cache_dir, "shape_manifest.jsonl")
+    if manifest:
+        out["shape_manifest"] = manifest
+    if cache_dir and common.engine.aot_cache:
+        out["aot_cache"] = os.path.join(cache_dir, "aot")
     return out
 
 

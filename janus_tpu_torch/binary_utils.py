@@ -14,12 +14,21 @@ Datastore keys come from --datastore-keys or the DATASTORE_KEYS
 environment variable (comma-separated base64, the first key primary),
 matching the reference's k8s-secret pathway.
 
+The boot sequence is janus_tpu's: config, `backend_init`, the datastore,
+then the cold-start layer: the shape manifest installed (boot phase
+`engine_warm_manifest`), the `engine_prewarm` readiness check registered,
+the manifest's specializations replayed by `prewarm_engines` before the
+listener is up (`ready` is set whatever happens, so a failed prewarm
+cannot wedge /readyz), then `warmup_engines`, which skips a bucket the
+prewarm already dispatched in this process (`skipped_covered`).
+
 Where janus_tpu differs: the device is `device:` from the configuration,
 resolved first (no CUDA and no `device:` refuses the boot); the boot
-phase `backend_init` is the CUDA context and the kernel libraries' load
-(ops/cuda_build.py); there is no compile cache, AOT cache, shape
-manifest or prewarm, so the boot phases `engine_warm_manifest` and the
-prewarm's readiness check are gone; the `process` statusz section carries
+phase `backend_init` is the CUDA context and the kernel libraries'
+build or load (ops/cuda_build.py) through the kernel-library cache that
+the compile cache directory arms (aggregator/aot_cache.py, in
+`<dir>/aot`), where janus_tpu's is its XLA compile cache and AOT
+executables; the `process` statusz section carries
 `torch` (its version and CUDA version), the devices and the device's name;
 the capture window is a torch.profiler window (CUDA activity on a CUDA
 process), and a CUDA profiler that cannot start fails the request (500)
@@ -45,11 +54,15 @@ from http import HTTPStatus
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qsl, urlsplit
 
+from .aggregator import aot_cache
+from .aggregator import prewarm as prewarm_mod
+from .aggregator import shape_manifest as shape_manifest_mod
 from .aggregator.job_driver import Stopper
 from .config import CommonConfig, load_config
 from .core.time_util import RealClock
 from .datastore.store import Crypter, open_datastore
 from .metrics import REGISTRY
+from .ops import cuda_build
 from .statusz import register_status_provider, render_statusz_html, status_snapshot
 from .trace import install_trace_subscriber
 
@@ -532,8 +545,9 @@ def setup_signal_handler(stopper) -> None:
 
 # ---------------------------------------------------------------------------
 # Engine warmup. The port compiles nothing: an engine's first dispatch at
-# a bucket loads the kernel libraries, builds the engine's tables and
-# warms the allocator, which the first job would otherwise wait for.
+# a bucket loads PyTorch's CUDA modules for its ops, builds the engine's
+# tables and warms the allocator, which the first job would otherwise
+# wait for.
 # ---------------------------------------------------------------------------
 
 
@@ -558,11 +572,17 @@ def warmup_engines(ds, batch: int | None = None, devices=None) -> dict:
     `batch` selects the batch size to warm. Without it, each task warms
     the sizes of its pending aggregation jobs (the buckets the next driver
     pass dispatches, at most four), or MIN_BUCKET where none is pending.
-    Fakes and Poplar1 (no Prio3 engine) are skipped. Failpoints stay
-    inert throughout. Returns {"warmed": [(task_id, bucket)]}."""
+    A bucket whose three ops the engine has already dispatched in this
+    process is skipped (`outcome="skipped_covered"`): the manifest prewarm
+    warmed it. The warm is a real batch of that size through the engine's
+    public entry points (the pipelined leader init from 2 x
+    PIPELINE_CHUNK rows), where the prewarm replays single recorded
+    dispatches. Fakes and Poplar1 (no Prio3 engine) are skipped.
+    Failpoints stay inert throughout. Returns {"warmed": [(task_id,
+    bucket)], "skipped_covered": n}."""
     import numpy as np
 
-    from . import failpoints
+    from . import failpoints, metrics
     from .aggregator.engine_cache import MIN_BUCKET, bucket_size, engine_cache
     from .vdaf.testing import make_report_batch, random_measurements
 
@@ -573,7 +593,10 @@ def warmup_engines(ds, batch: int | None = None, devices=None) -> dict:
             pending = ds.run_tx(lambda tx: tx.get_pending_aggregation_job_sizes(), "warmup_job_sizes")
         except Exception:
             log.warning("pending aggregation job sizes unavailable; warming the minimum bucket", exc_info=True)
-    result: dict = {"warmed": []}
+    # a bucket is skipped only where all three ops ran (a partial warm
+    # would still pay the leader leg the aggregate needs)
+    warm_ops = ("leader_init", "helper_init", "aggregate")
+    result: dict = {"warmed": [], "skipped_covered": 0}
     with failpoints.suppressed():
         for task in tasks:
             if task.vdaf.kind.startswith("fake") or task.vdaf.kind == "poplar1":
@@ -590,6 +613,10 @@ def warmup_engines(ds, batch: int | None = None, devices=None) -> dict:
                 b = bucket_size(warm_batch)
                 try:
                     eng = engine_cache(task.vdaf, task.vdaf_verify_key, devices=devices)
+                    if eng.dispatched_all(warm_ops, b):
+                        result["skipped_covered"] += 1
+                        metrics.engine_prewarm_total.add(outcome="skipped_covered")
+                        continue
                     rng = np.random.default_rng(0)
                     meas = random_measurements(task.vdaf, warm_batch, rng)
                     args, _ = make_report_batch(task.vdaf, meas, seed=0, device=eng.device)
@@ -618,10 +645,10 @@ def warmup_engines(ds, batch: int | None = None, devices=None) -> dict:
 
 def _backend_init(devices) -> None:
     """The CUDA context of each CUDA device, and every kernel library
-    loaded (built first where the source has no library yet)."""
+    loaded from the build directory (the armed kernel-library cache, else
+    janus_tpu_torch/_build/): the missing or refused ones built first, one
+    nvcc per source, all together."""
     import torch
-
-    from .ops import cuda_build
 
     cuda = [d for d in devices if d.type == "cuda"]
     if not cuda:
@@ -629,8 +656,26 @@ def _backend_init(devices) -> None:
     for d in dict.fromkeys(cuda):
         with torch.cuda.device(d):
             torch.zeros(1, device=d)
+    cuda_build.build()
     for name in cuda_build.KERNELS:
         cuda_build.load(name)
+
+
+def _compile_cache_dir(common: CommonConfig) -> str | None:
+    """The compile cache directory: `engine: compile_cache_dir` over the
+    top-level `compilation_cache_dir`, as in janus_tpu."""
+    d = common.engine.compile_cache_dir or common.compilation_cache_dir
+    return os.path.expanduser(d) if d else None
+
+
+def _manifest_path(common: CommonConfig) -> str | None:
+    """`engine: shape_manifest_path`, else shape_manifest.jsonl in the
+    compile cache directory; "" (or neither) is no manifest."""
+    path = common.engine.shape_manifest_path
+    if path is None:
+        cache_dir = _compile_cache_dir(common)
+        path = os.path.join(cache_dir, shape_manifest_mod.DEFAULT_FILENAME) if cache_dir else None
+    return os.path.expanduser(path) if path else None
 
 
 def configure_engines(common: CommonConfig) -> None:
@@ -737,6 +782,12 @@ def janus_main(description: str, config_cls, run, argv=None, install_signals: bo
     configure_engines(common)
     BOOT.phase_done("config")
 
+    # the kernel-library cache: the compile cache directory arms it, so the
+    # libraries build (cold) or load (warm) in <dir>/aot
+    cache_dir = _compile_cache_dir(common)
+    prewarm_mod.note_compile_cache(cache_dir)
+    if cache_dir and common.engine.aot_cache:
+        aot_cache.arm(os.path.join(cache_dir, "aot"))
     _backend_init(devices)
     BOOT.phase_done("backend_init")
 
@@ -769,6 +820,9 @@ def janus_main(description: str, config_cls, run, argv=None, install_signals: bo
             "device_name": device_name(devices[0]),
             "torch": f"{torch.__version__} cuda {torch.version.cuda or 'none'}",
             "health_sampler_interval_s": common.health_sampler_interval_s,
+            # each hand-written kernel's launches in this process (a dict
+            # read under one lock)
+            "kernel_launches": cuda_build.launch_totals(),
         }
         # the caching allocator's counts (host-side, no synchronization)
         cuda = [d for d in devices if d.type == "cuda"]
@@ -802,6 +856,34 @@ def janus_main(description: str, config_cls, run, argv=None, install_signals: bo
     register_status_provider("tasks", _tasks_status)
     BOOT.phase_done("datastore")
 
+    # the shape manifest of observed dispatch specializations, and its
+    # prewarm BEFORE the listener is up: /readyz never reports a process
+    # ready whose first jobs would pay the recorded cold first calls
+    manifest = None
+    manifest_path = _manifest_path(common)
+    if manifest_path:
+        try:
+            manifest = shape_manifest_mod.install_manifest(
+                manifest_path, max_entries=common.engine.shape_manifest_max_entries
+            )
+        except Exception:
+            log.exception("could not install the shape manifest at %s", manifest_path)
+    BOOT.phase_done("engine_warm_manifest")
+
+    prewarm_ready = threading.Event()
+    register_readiness_check(
+        "engine_prewarm",
+        lambda: None if prewarm_ready.is_set() else "boot-budget engine prewarm still warming",
+    )
+    try:
+        if common.engine.prewarm and manifest is not None:
+            prewarm_mod.prewarm_engines(ds, manifest, boot_budget_s=common.engine.prewarm_boot_budget_secs,
+                                        ready_event=prewarm_ready, devices=devices)
+    except Exception:
+        # counted (`failed` per entry) and logged; the process serves
+        log.exception("manifest prewarm failed")
+    finally:
+        prewarm_ready.set()  # a disabled or failed prewarm never wedges /readyz
     if common.warmup_engines_at_boot:
         if common.warmup_buckets:
             # serve at once, warm the buckets behind
@@ -852,4 +934,7 @@ def janus_main(description: str, config_cls, run, argv=None, install_signals: bo
         shutdown_engines(2.0)
         failpoints.release_hangs()
         device_watchdog.WATCHDOG.drain(2.0)
+        unregister_readiness_check("engine_prewarm")
+        shape_manifest_mod.uninstall_manifest()
+        aot_cache.disarm()
         ds.close()

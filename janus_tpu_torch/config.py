@@ -15,12 +15,21 @@ Where janus_tpu differs:
   those devices, with the geometry `engine: mesh: {dp, sp}` pins). Absent,
   the process runs on CUDA and refuses to boot without it
   (`device.resolve_device`); the CPU runs only where the file says so.
-- The keys that configure what the port does not have are read and
-  ignored, as `from_dict` ignores any key it does not know: the
-  top-level `jax_platform` and `compilation_cache_dir`, and `engine:`'s
-  `compile_cache_dir`, `aot_cache`, `prewarm*` and `shape_manifest_*`.
-  `CommonConfig.ignored_keys` names those a file set, and janus_main logs
-  them once at boot.
+- `jax_platform` configures what the port does not have: it is read and
+  ignored, as `from_dict` ignores any key it does not know.
+  `CommonConfig.ignored_keys` names it where a file sets it, and
+  janus_main logs it once at boot.
+- The cold-start keys are janus_tpu's, with its defaults and precedence:
+  `engine: compile_cache_dir` over the top-level `compilation_cache_dir`
+  names the directory that arms the kernel-library cache (`aot_cache`,
+  in `<dir>/aot`) and holds the shape manifest by default
+  (`<dir>/shape_manifest.jsonl`, unless `shape_manifest_path` names
+  another; "" disables it), and `prewarm` / `prewarm_boot_budget_secs` /
+  `shape_manifest_max_entries` drive the boot prewarm. One named
+  divergence: `compilation_cache_dir` defaults to none, where janus_tpu's
+  is `~/.cache/janus_tpu_xla`, so that a process no key points elsewhere
+  builds and loads its kernel libraries in `janus_tpu_torch/_build/` and
+  keeps no manifest.
 - `engine: cross_task_coalesce: false` is refused at load: the port
   always coalesces across tasks.
 - `FleetConfig.from_dict` reads the dict alone: janus_tpu's
@@ -60,17 +69,9 @@ from .profiler import ProfilerConfig
 from .slo import SloEngineConfig
 from .trace import TraceConfiguration
 
-# keys of janus_tpu's YAML that configure the JAX runtime, its compile
-# caches and its prewarm: read and ignored here
-IGNORED_TOP_LEVEL_KEYS = ("jax_platform", "compilation_cache_dir")
-IGNORED_ENGINE_KEYS = (
-    "compile_cache_dir",
-    "aot_cache",
-    "prewarm",
-    "prewarm_boot_budget_secs",
-    "shape_manifest_path",
-    "shape_manifest_max_entries",
-)
+# keys of janus_tpu's YAML that configure the JAX runtime: read and
+# ignored here
+IGNORED_TOP_LEVEL_KEYS = ("jax_platform",)
 
 
 def default_replica_id() -> str:
@@ -138,6 +139,10 @@ class EngineConfig:
     """The `engine:` stanza: engine-layer knobs shared by every binary
     with a device path."""
 
+    # the compile cache directory; overrides the top-level
+    # compilation_cache_dir when set. It arms the kernel-library cache
+    # (<dir>/aot) and holds the shape manifest by default
+    compile_cache_dir: str | None = None
     # process-wide device-byte bound on resident aggregate buffers
     # (EngineCache.RESIDENT_MAX_BYTES); 0/None keeps the class default
     resident_max_bytes: int | None = None
@@ -149,6 +154,19 @@ class EngineConfig:
     # from the device count; choose_mesh_geometry validates the pin
     mesh_dp: int | None = None
     mesh_sp: int | None = None
+    # the persisted shape manifest of observed dispatch specializations.
+    # None puts it next to the compile cache (<dir>/shape_manifest.jsonl;
+    # no compile cache: no manifest); "" disables recording and prewarm
+    shape_manifest_path: str | None = None
+    shape_manifest_max_entries: int = 512
+    # build and load the kernel libraries in <compile cache dir>/aot (the
+    # kernel-library cache); false keeps janus_tpu_torch/_build/
+    aot_cache: bool = True
+    # replay the manifest's specializations at boot, before /readyz
+    # reports ready (highest recorded cost first, bounded by the budget;
+    # the remainder warms in the background)
+    prewarm: bool = True
+    prewarm_boot_budget_secs: float = 30.0
 
     @classmethod
     def from_dict(cls, d: dict | None) -> "EngineConfig":
@@ -164,10 +182,16 @@ class EngineConfig:
         mdp = mesh.get("dp")
         msp = mesh.get("sp")
         return cls(
+            compile_cache_dir=d.get("compile_cache_dir"),
             resident_max_bytes=int(rmb) if rmb is not None else None,
             cross_task_coalesce=bool(xt) if xt is not None else None,
             mesh_dp=int(mdp) if mdp is not None else None,
             mesh_sp=int(msp) if msp is not None else None,
+            shape_manifest_path=d.get("shape_manifest_path"),
+            shape_manifest_max_entries=int(d.get("shape_manifest_max_entries", 512)),
+            aot_cache=bool(d.get("aot_cache", True)),
+            prewarm=bool(d.get("prewarm", True)),
+            prewarm_boot_budget_secs=float(d.get("prewarm_boot_budget_secs", 30.0)),
         )
 
 
@@ -224,6 +248,11 @@ class CommonConfig:
     # the device this process serves on: a device string, or a tuple of
     # them for a mesh; None is CUDA, and no CUDA refuses the boot
     device: str | tuple[str, ...] | None = None
+    # the compile cache directory (`engine: compile_cache_dir` overrides
+    # it): arms the kernel-library cache and holds the shape manifest.
+    # None (the default; janus_tpu's is ~/.cache/janus_tpu_xla) keeps the
+    # libraries in janus_tpu_torch/_build/ and records no manifest
+    compilation_cache_dir: str | None = None
     # warm the engines of every provisioned task at boot (a first dispatch
     # at a bucket: the kernel libraries loaded, the allocator warmed)
     # instead of paying it on the first request. The device-path binaries
@@ -259,7 +288,7 @@ class CommonConfig:
     # fleet identity and job-claim sharding (`fleet:`)
     fleet: FleetConfig = field(default_factory=FleetConfig)
     # keys of the file that configure janus_tpu's JAX runtime and that this
-    # package reads and ignores ("engine.aot_cache" for a nested one)
+    # package reads and ignores
     ignored_keys: tuple[str, ...] = ()
 
     @classmethod
@@ -272,15 +301,13 @@ class CommonConfig:
                 raise ValueError("device: an empty list names no device")
         elif device is not None:
             device = str(device)
-        engine = d.get("engine") or {}
-        ignored = tuple(k for k in IGNORED_TOP_LEVEL_KEYS if k in d) + tuple(
-            f"engine.{k}" for k in IGNORED_ENGINE_KEYS if k in engine
-        )
+        ignored = tuple(k for k in IGNORED_TOP_LEVEL_KEYS if k in d)
         return cls(
             database=DbConfig.from_dict(d.get("database", {})),
             logging_config=TraceConfiguration.from_dict(d.get("logging_config")),
             health_check_listen_address=str(d.get("health_check_listen_address", "0.0.0.0:9001")),
             device=device,
+            compilation_cache_dir=d.get("compilation_cache_dir"),
             warmup_engines_at_boot=bool(d.get("warmup_engines_at_boot", False)),
             warmup_buckets=tuple(int(b) for b in d.get("warmup_buckets", ())),
             health_sampler_interval_s=float(d.get("health_sampler_interval_secs", 15.0)),
@@ -290,7 +317,7 @@ class CommonConfig:
             quarantine_canary_delay_secs=float(wd.get("canary_delay_secs", 5.0)),
             quarantine_canary_timeout_secs=float(wd.get("canary_timeout_secs", 30.0)),
             slo=SloEngineConfig.from_dict(d.get("slo")),
-            engine=EngineConfig.from_dict(engine),
+            engine=EngineConfig.from_dict(d.get("engine")),
             profiler=ProfilerConfig.from_dict(d.get("profiler")),
             flight=FlightRecorderConfig.from_dict(d.get("flight")),
             ledger=LedgerConfig.from_dict(d.get("ledger")),

@@ -39,9 +39,9 @@ The recorder measures its own cost and exports it
 grows a synthetic tracked series while armed, so the leak detector can
 be shown live end to end.
 
-The port's own copy of janus_tpu/flight_recorder.py. Its builtin series
-leave out janus_tpu's `shape_manifest_bytes` and `aot_cache_bytes`: the
-port keeps no shape manifest and no AOT cache on disk.
+The port's own copy of janus_tpu/flight_recorder.py, with janus_tpu's
+builtin series: `shape_manifest_bytes` is the shape manifest's file and
+`aot_cache_bytes` the kernel-library cache's directory.
 """
 
 from __future__ import annotations
@@ -122,9 +122,10 @@ class SeriesSpec:
 
 def BUILTIN_SERIES() -> list[SeriesSpec]:
     """The shipped tracked set: the slow-leak risks (RSS, device-resident
-    bytes, datastore rows, the upload journal's bytes) plus the GC
-    counters for history. YAML `flight.series` entries override these by
-    name."""
+    bytes, datastore rows, on-disk artifacts) plus the GC counters for
+    history. YAML `flight.series` entries override these by name."""
+    from .metrics import compile_matchers
+
     return [
         SeriesSpec(name="rss_bytes", source="rss", leak=True),
         SeriesSpec(
@@ -137,6 +138,18 @@ def BUILTIN_SERIES() -> list[SeriesSpec]:
         ),
         SeriesSpec(
             name="upload_journal_bytes", metric="janus_upload_journal_bytes", leak=True
+        ),
+        SeriesSpec(
+            name="shape_manifest_bytes",
+            metric="janus_artifact_bytes",
+            labels=compile_matchers({"artifact": "shape_manifest"}),
+            leak=True,
+        ),
+        SeriesSpec(
+            name="aot_cache_bytes",
+            metric="janus_artifact_bytes",
+            labels=compile_matchers({"artifact": "aot_cache"}),
+            leak=True,
         ),
         # cumulative: recorded into the ring for history/debug-bundle
         # evidence, never leak-gated (a healthy GC's counter RISES)

@@ -29,10 +29,11 @@ production binary:
      time *buys* per report.
 
      On the card the port compiles nothing per shape: its `compile`
-     row is the cold first call of an (op, bucket) key (kernel builds,
-     allocator growth, the engine's first staging), kept under
-     janus_tpu's name so that rows, dispatches and keys mean the same in
-     both packages. Launches are asynchronous: `execute` is the host
+     row is the cold first call of an (op, bucket) key (PyTorch's lazy
+     module loading, cuBLAS's first handle, allocator growth, the
+     engine's first staging; the shape manifest records it and the
+     prewarm pays it before ready), kept under janus_tpu's name so that
+     rows, dispatches and keys mean the same in both packages. Launches are asynchronous: `execute` is the host
      time to enqueue a dispatch, and the queued kernels' time lands in
      the `d2h` phase of the fetch that waits for them, as in janus_tpu's
      `device_get`.

@@ -1,16 +1,14 @@
 """Crash-recovery chaos harness: prove exactly-once aggregation under
 injected faults, against the port's own job driver binary.
 
-The port's counterpart of janus_tpu's scripts/chaos_run.py: eight of
-its nine scenarios (`crash_storm`, the default, `db_outage`,
-`device_hang`, `pipeline`, `resident`, `fleet`, `soak`, `peer_outage`),
+The port's counterpart of janus_tpu's scripts/chaos_run.py: its nine
+scenarios (`crash_storm`, the default, `db_outage`, `device_hang`,
+`pipeline`, `resident`, `fleet`, `soak`, `peer_outage`, `cold_start`),
 each against the port's own binaries, with janus_tpu's schedules, lease,
-breaker and canary timings, wave sizes and `*_ok` keys. `cold_start` is
-excluded by design: it measures janus_tpu's AOT compile cache and
-shape-manifest prewarm, which the port does not have. Where the port
+breaker and canary timings, wave sizes and `*_ok` keys. Where the port
 differs (no host engine, the port's own hang bound and slot size,
-SQLite only, the soak smoke's health cadence), each `run_*` docstring
-says so.
+SQLite only, the soak smoke's health cadence, the kernel-library cache
+in place of the AOT compile cache), each `run_*` docstring says so.
 
 Topology — chosen so the component being killed is the REAL binary
 while everything else stays fast:
@@ -76,7 +74,7 @@ in-process). Invariants:
   - while the datastore is healthy the armed-but-idle journal performs
     ZERO fsyncs — the hot path is unchanged.
 
-The other six, one function each (its docstring has the invariants):
+The other seven, one function each (its docstring has the invariants):
 
   - `device_hang` (run_device_hang): a driver binary's first dispatch
     wedges; past the `device_watchdog: hang_after_secs` bound (2 s,
@@ -101,14 +99,19 @@ The other six, one function each (its docstring has the invariants):
     SQLite only (the port reads no JANUS_TEST_DATABASE_URL);
   - `peer_outage` (run_peer_outage): both driver binaries reach the
     helper through a core/netsim.py FaultProxy: blackhole, park, probe,
-    heal, slicer and truncate lanes.
+    heal, slicer and truncate lanes;
+  - `cold_start` (run_cold_start, with seed_manifest): a cold and a warm
+    boot of the driver binary on one shape manifest: the manifest phase,
+    the prewarm before ready, the kernel libraries built cold and loaded
+    warm, and on request one real job after ready with no cold first call
+    at a recorded key.
 
 Usage:
     python -m janus_tpu_torch.tools.chaos_run --smoke --json
     python -m janus_tpu_torch.tools.chaos_run --json        # full schedule
     python -m janus_tpu_torch.tools.chaos_run --scenario <name> --smoke --json
         (<name>: db_outage, device_hang, resident, pipeline, peer_outage,
-        fleet, soak)
+        fleet, soak, cold_start)
     ... --device cpu                  # the default is CUDA
 
 Exit code 0 iff every invariant held; the result JSON rides on stdout.
@@ -2178,10 +2181,11 @@ def run_soak(
 
     Both schedules run on SQLite (`engine: "sqlite"` in the record): the
     port reads no JANUS_TEST_DATABASE_URL. The smoke's drivers sample
-    health every 0.05 s, not janus_tpu's 0.5 s, so that each half of the
-    p99 window holds hundreds of transactions (the record's
+    health every 0.02 s, not janus_tpu's 0.5 s, so that each half of the
+    p99 window holds about two thousand transactions (the record's
     `p99_windows`): at 0.5 s each half held about 100, its p99 was the
-    second-largest, and one slow read on a shared host moved it a bucket.
+    second-largest, and one slow read on a shared host moved it a bucket;
+    at 0.05 s (about 900 a half) a burst of nine slow reads still did.
     The verdict itself is janus_tpu's. The report-flow ledger checks the
     books close at every epoch. Every `*_ok` key must be True to pass."""
     from .. import ledger as ledger_mod
@@ -2212,8 +2216,10 @@ def run_soak(
     # of the p99 window holds: janus_tpu's 0.5 s gives about 100 a half
     # in the smoke's 15 s window, where the p99 is the second-largest
     # and one slow read on a shared host moves it; 0.05 s gives about
-    # 900. The full schedule's 600 s window holds thousands at 0.5 s
-    health_interval_s = 0.5 if full else 0.05
+    # 900 (its p99 the ninth-largest, still moved by a burst on a loaded
+    # host), 0.02 s about 2,200. The full schedule's 600 s window holds
+    # thousands at 0.5 s
+    health_interval_s = 0.5 if full else 0.02
 
     def soak_extra(flight_dir: str) -> str:
         return (
@@ -2789,7 +2795,271 @@ def run_peer_outage(
         pair.close()
 
 
-SCENARIOS = ("crash_storm", "db_outage", "device_hang", "pipeline", "resident", "fleet", "soak", "peer_outage")
+def seed_manifest(path: str, insts, buckets=(32, 64, 128)) -> int:
+    """janus_tpu's cold-start manifest, byte for byte at one clock: for each
+    VDAF, leader_init, helper_init and aggregate at each bucket (cost
+    bucket / 10, so the priority order is fixed) and one aggregate_pending
+    of 8 buckets at 64 rows (cost 3.0). Returns the entries written."""
+    from ..aggregator.shape_manifest import ShapeManifest
+
+    man = ShapeManifest(path)
+    n = 0
+    for inst in insts:
+        for b in buckets:
+            for op in ("leader_init", "helper_init", "aggregate"):
+                man.record(inst.to_dict(), op, b, (op, b), float(b) / 10, rows=b)
+                n += 1
+        man.record(inst.to_dict(), "aggregate_pending", 64, ("aggregate_pending", 8, 64), 3.0, rows=64)
+        n += 1
+    return n
+
+
+def _compile_rows(statusz: dict, kind: str) -> dict:
+    """{(op, bucket): (compile_s, dispatches, execute_s)} of one VDAF
+    kind's rows in a /statusz `device_cost` section."""
+    return {(e["op"], e["bucket"]): (e["compile_s"], e["dispatches"], e["execute_s"])
+            for e in (statusz.get("device_cost") or {}).get("entries", []) if e["vdaf"] == kind}
+
+
+def run_cold_start(
+    pairs: int = 1,
+    full: bool = False,
+    warm_budget_s: float = 10.0,
+    workdir: str | None = None,
+    device: str = "cuda",
+    vdafs=None,
+    buckets=(32, 64, 128),
+    manifest: str | None = None,
+    job_reports: int = 0,
+) -> dict:
+    """Cold-start A/B: interleaved cold and warm boots of the real job
+    driver binary, restart to first dispatch read from /debug/boot. Both
+    boots of a pair replay the SAME shape manifest through the prewarm
+    before /readyz reports ready, so ready means every recorded
+    specialization has run once, and the boot total is the restart to
+    first dispatch. What differs is the compile cache directory: empty
+    (cold: `backend_init` builds the four kernel libraries with nvcc into
+    its kernel-library cache) or the one the cold boot filled (warm: it
+    loads them and builds none).
+
+    The leader (whose store the drivers share) and the helper run in this
+    process on `device` (CUDA unless named; raises without it before
+    anything boots), one task each of `vdafs` (janus_tpu's: Count, and
+    Histogram(4) with `full`). The manifest is janus_tpu's seeded one
+    (`seed_manifest` over `buckets`), or a copy of `manifest`, a manifest a
+    serving process recorded. With `job_reports`, the last warm boot then
+    steps one real job of that many reports of the first VDAF after
+    ready: it must finish, and add no `compile` row to the device-cost
+    split at any (op, bucket) the manifest covers (`warm_job_ok`,
+    `warm_job_no_compile_ok`, the port's additions). The same job then
+    runs on a control boot, `unwarmed`: the warm libraries, no manifest
+    and no prewarm. Its job books the cold first call at those keys
+    (`unwarmed_job_compiles_ok`), so the record holds, per covered key,
+    the first call's seconds beside the steady per-dispatch seconds of
+    both jobs (`job_cold_cost`), and both jobs' step seconds. Each boot
+    and each job reports the process's kernel launches (/statusz
+    `process`), the prewarm's and the job's own.
+
+    Gates, as janus_tpu's: every boot ready, with the
+    `engine_warm_manifest` phase and every entry warmed; the warm boot
+    under `warm_budget_s`; SIGTERM drains. On CUDA also: the cold boot
+    built the four libraries (`cold_aot_saves_ok`), the warm boot built
+    none (`warm_aot_loads_ok`), the warms' cache hits and misses follow
+    them (`warm_cache_hits_ok`, `cold_cache_misses_ok`), and warm is at
+    least 1.5x (3x with `full`) faster than cold (`speedup_ok`). The CPU
+    builds no library, so those five keys are absent from a CPU record."""
+    import shutil
+
+    from ..aggregator.shape_manifest import inspect_file
+    from ..core.time_util import RealClock
+    from ..ops.cuda_build import KERNELS
+    from ..vdaf.registry import VdafInstance
+
+    device, tmp = _open_run(device, workdir, "janus-coldstart-")
+    t_run0 = time.monotonic()
+    on_card = device.startswith("cuda")
+    insts = tuple(vdafs) if vdafs is not None else (
+        (VdafInstance.count(), VdafInstance.histogram(length=4)) if full else (VdafInstance.count(),)
+    )
+    result: dict = {"workdir": tmp, "schedule": "cold_start", "pairs": pairs, "device": device,
+                    "vdafs": [inst.to_dict() for inst in insts]}
+    clock = RealClock()
+    pair = _Pair(tmp, device, clock).start()
+    procs: list = []
+    try:
+        tasks = [pair.provision(30 + 2 * i, 31 + 2 * i, vdaf=inst)[0] for i, inst in enumerate(insts)]
+
+        def one_boot(idx: int, label: str, cache_dir: str, manifest_path: str, job_seed: int | None = None,
+                     covered=(), prewarm: bool = True) -> dict:
+            port = _free_port()
+            log_path = os.path.join(tmp, f"driver-{idx}-{label}.log")
+            cfg = _driver_cfg(
+                os.path.join(tmp, f"driver-{idx}-{label}.yaml"), pair.leader_db, port, 600, 1.5, device,
+                extra=f"compilation_cache_dir: {json.dumps(cache_dir)}\n"
+                "engine:\n"
+                f"  shape_manifest_path: {json.dumps(manifest_path)}\n"
+                f"  prewarm: {json.dumps(prewarm)}\n"
+                "  prewarm_boot_budget_secs: 300\n",
+            )
+            drv = _spawn_driver(cfg, pair.key, log_path, None)
+            procs.append(drv)
+            boot: dict = {"label": label}
+            _wait_healthz(port, deadline_s=600.0)
+            deadline = time.monotonic() + 60
+            doc: dict = {}
+            while time.monotonic() < deadline:
+                doc = json.loads(_scrape(port, "/debug/boot"))
+                if doc.get("ready"):
+                    break
+                time.sleep(0.1)
+            boot["ready_ok"] = bool(doc.get("ready"))
+            boot["total_s"] = doc.get("total_s")
+            boot["phases"] = {ph["phase"]: ph["seconds"] for ph in doc.get("phases", [])}
+            boot["manifest_phase_ok"] = "engine_warm_manifest" in boot["phases"]
+            pw = _metric_samples(_scrape(port, "/metrics"), "janus_engine_prewarm_total")
+            boot["prewarm_total"] = pw
+            boot["warmed"] = _label_sum(pw, 'outcome="warmed"')
+            statusz = json.loads(_scrape(port, "/statusz"))
+            ep = statusz.get("engine_prewarm", {})
+            prewarm = ep.get("prewarm", {})
+            aot = ep.get("aot", {})
+            boot.update(
+                cache_hits=prewarm.get("cache_hits", 0), cache_misses=prewarm.get("cache_misses", 0),
+                failed=prewarm.get("failed", 0), deferred=prewarm.get("deferred", 0),
+                priority_elapsed_s=prewarm.get("priority_elapsed_s"),
+                manifest_entries=ep.get("manifest", {}).get("entries", 0),
+                aot_loads=aot.get("loads", 0), aot_saves=aot.get("saves", 0), aot_errors=aot.get("errors", 0),
+                nvcc_s=aot.get("nvcc_s", 0.0), aot_dir=aot.get("dir"),
+                device_memory=statusz.get("process", {}).get("device_memory"),
+                kernel_launches=statusz.get("process", {}).get("kernel_launches"),
+            )
+            if job_seed is not None:
+                boot["job"] = step_job(port, statusz, covered, job_seed)
+            boot["drain_rc"], boot["drained"] = _sigterm_drain(drv, log_path)
+            return boot
+
+        def step_job(port: int, statusz: dict, covered, seed: int) -> dict:
+            """One real job of `job_reports` new reports of the first task,
+            stepped by the ready driver: the device-cost rows and the
+            kernel launches it adds."""
+            import numpy as np
+
+            from ..aggregator.aggregation_job_creator import AggregationJobCreator
+            from ..aggregator.testing import leader_stored_reports
+            from ..convert import step_args_to_numpy
+            from ..vdaf.testing import make_report_batch, random_measurements
+
+            task, inst = tasks[0], insts[0]
+            helper_task = pair.helper_ds.run_tx(lambda tx: tx.get_task(task.task_id), "chaos_provision")
+            meas = random_measurements(inst, job_reports, np.random.default_rng(seed))
+            args, _ = make_report_batch(inst, meas, seed=seed, shard_chunk=256, device=device)
+            now = clock.now().seconds
+            reports = leader_stored_reports(task, helper_task.hpke_keys[0].config, step_args_to_numpy(args),
+                                            [now - 60] * job_reports)
+            pair.leader_ds.run_tx(lambda tx: [tx.put_client_report(r) for r in reports], "chaos_upload")
+            before = _compile_rows(statusz, inst.kind)
+            launches0 = statusz.get("process", {}).get("kernel_launches") or {}
+            finished0 = pair.finished_jobs()
+            t0 = time.monotonic()
+            created = AggregationJobCreator(pair.leader_ds).run_once()
+            deadline = time.monotonic() + 600
+            while pair.finished_jobs() <= finished0 and time.monotonic() < deadline:
+                time.sleep(0.1)
+            step_s = time.monotonic() - t0
+            after_doc = json.loads(_scrape(port, "/statusz"))
+            after = _compile_rows(after_doc, inst.kind)
+            zero = (0.0, 0, 0.0)
+            grown = sorted(k for k, row in after.items() if row[0] > before.get(k, zero)[0])
+            added = {k: tuple(a - b for a, b in zip(row, before.get(k, zero))) for k, row in after.items()}
+            launches = after_doc.get("process", {}).get("kernel_launches") or {}
+            return {"reports": job_reports, "jobs_created": created, "finished": pair.finished_jobs() - finished0,
+                    "step_s": step_s, "covered": sorted(covered), "compile_rows_added": grown,
+                    "covered_compile_rows_added": [k for k in grown if k in covered],
+                    "dispatches_added": {f"{k[0]}@{k[1]}": d for k, (_, d, _) in added.items() if d > 0},
+                    # per (op, bucket): (compile_s, dispatches, execute_s) added
+                    "cost_added": {f"{k[0]}@{k[1]}": v for k, v in added.items() if v[1] > 0},
+                    "launches_added": {k: v - launches0.get(k, 0) for k, v in launches.items()}}
+
+        boots: list[dict] = []
+        for i in range(pairs):
+            cache_dir = os.path.join(tmp, f"cache-{i}")
+            manifest_path = os.path.join(tmp, f"shape-manifest-{i}.jsonl")
+            if manifest is not None:
+                shutil.copyfile(manifest, manifest_path)
+                result["manifest_seeded_entries"] = len(inspect_file(manifest_path)[0])
+            else:
+                result["manifest_seeded_entries"] = seed_manifest(manifest_path, insts, buckets)
+            # interleaved: cold then warm on the same (cache, manifest)
+            # pair, so the warm boot reads exactly what the cold one wrote
+            boots.append(one_boot(i, "cold", cache_dir, manifest_path))
+            want = insts[0].to_dict()
+            covered = {(e["op"], e["bucket"]) for e in inspect_file(manifest_path)[0] if e["vdaf"] == want}
+            job = job_reports > 0 and i == pairs - 1
+            boots.append(one_boot(i, "warm", cache_dir, manifest_path, 0xC01D if job else None, covered))
+            if job:
+                # the control: the same job on the warm libraries with no
+                # manifest and no prewarm, after the warm boot (whatever
+                # else warmed in between favours the control)
+                boots.append(one_boot(i, "unwarmed", cache_dir, "", 0xC01E, covered, prewarm=False))
+        result["boots"] = boots
+        colds = [b for b in boots if b["label"] == "cold"]
+        warms = [b for b in boots if b["label"] == "warm"]
+        unwarmed = [b for b in boots if b["label"] == "unwarmed"]
+        ok_shape = all(b.get("ready_ok") and b.get("total_s") is not None for b in boots)
+        result["boots_ready_ok"] = ok_shape
+        if ok_shape:
+            cold_s = sorted(b["total_s"] for b in colds)[len(colds) // 2]
+            warm_s = sorted(b["total_s"] for b in warms)[len(warms) // 2]
+            result["cold_restart_to_first_dispatch_s"] = round(cold_s, 3)
+            result["warm_restart_to_first_dispatch_s"] = round(warm_s, 3)
+            result["speedup"] = round(cold_s / max(1e-9, warm_s), 2)
+            result["warm_under_budget_ok"] = warm_s < warm_budget_s
+            result["speedup_gate"] = 3.0 if full else 1.5
+            result["manifest_phase_ok"] = all(b.get("manifest_phase_ok") for b in boots)
+            result["prewarm_observed_ok"] = all(b.get("warmed", 0) >= result["manifest_seeded_entries"]
+                                                for b in colds + warms)
+            if on_card:
+                # the kernel-library cache: the cold boot builds the four
+                # libraries, the warm one loads them and builds none
+                result["speedup_ok"] = result["speedup"] >= result["speedup_gate"]
+                result["warm_cache_hits_ok"] = all(b.get("cache_hits", 0) > 0 for b in warms)
+                result["cold_cache_misses_ok"] = all(b.get("cache_misses", 0) > 0 for b in colds)
+                result["cold_aot_saves_ok"] = all(b.get("aot_saves", 0) == len(KERNELS) for b in colds)
+                result["warm_aot_loads_ok"] = all(
+                    b.get("aot_saves", 0) == 0 and b.get("aot_loads", 0) == len(KERNELS) for b in warms
+                )
+            result["drain_ok"] = all(b.get("drain_rc") == 0 for b in boots)
+            job = next((b["job"] for b in warms if "job" in b), None)
+            if job is not None:
+                result["warm_job_ok"] = job["finished"] >= 1
+                result["warm_job_no_compile_ok"] = not job["covered_compile_rows_added"]
+                control = unwarmed[0]["job"]
+                result["unwarmed_job_compiles_ok"] = control["finished"] >= 1 and bool(
+                    control["covered_compile_rows_added"])
+                result["warm_job_step_s"] = job["step_s"]
+                result["unwarmed_job_step_s"] = control["step_s"]
+                # per covered key the job ran: the control's first call, the
+                # control's steady dispatches and the warm job's dispatches
+                # (host seconds of the dispatch, each)
+                cost: dict = {}
+                for key in control["covered_compile_rows_added"]:
+                    k = f"{key[0]}@{key[1]}"
+                    c_compile, c_n, c_exec = control["cost_added"][k]
+                    w = job["cost_added"].get(k)
+                    cost[k] = {"first_call_s": c_compile,
+                               "unwarmed_steady_s": c_exec / (c_n - 1) if c_n > 1 else None,
+                               "warm_per_dispatch_s": w[2] / w[1] if w else None}
+                result["job_cold_cost"] = cost
+        result["elapsed_s"] = round(time.monotonic() - t_run0, 1)
+        result["ok"] = bool(boots) and all(v for k, v in result.items() if k.endswith("_ok"))
+        return result
+    finally:
+        _stop_all(procs)
+        pair.close()
+
+
+SCENARIOS = ("crash_storm", "db_outage", "device_hang", "pipeline", "resident", "fleet", "soak", "peer_outage",
+             "cold_start")
 
 
 def main(argv=None) -> int:
@@ -2822,11 +3092,19 @@ def main(argv=None) -> int:
         "alert; SQLite only); peer_outage = helper behind a netsim fault "
         "proxy (a blackhole past the breaker threshold parks BOTH real "
         "driver binaries, a cheap probe resumes them, slow-drip + "
-        "truncation lanes recover, collections exact). janus_tpu's "
-        "cold_start is excluded by design: it measures the AOT compile "
-        "cache and the shape-manifest prewarm, which the port has not",
+        "truncation lanes recover, collections exact); cold_start = "
+        "interleaved cold and warm boots of the real driver binary, each "
+        "replaying the shape manifest through the prewarm before ready "
+        "(the cold boot builds the kernel libraries, the warm one loads "
+        "them; restart to first dispatch from /debug/boot)",
     )
     ap.add_argument("--reports", type=int, default=0, help="0 = schedule default")
+    ap.add_argument(
+        "--job-reports",
+        type=int,
+        default=0,
+        help="cold_start: step one real job of this many reports on the warm boot (0: none)",
+    )
     ap.add_argument("--json", action="store_true", help="print the result record as JSON")
     ap.add_argument("--workdir", default=None, help="keep artifacts here (default: temp dir)")
     ap.add_argument(
@@ -2859,6 +3137,8 @@ def main(argv=None) -> int:
             report_expiry_s=30.0 if args.smoke else 120.0,
             **common,
         )
+    elif args.scenario == "cold_start":
+        result = run_cold_start(job_reports=args.job_reports, **common)
     elif args.scenario == "peer_outage":
         result = run_peer_outage(n_reports=args.reports or (4 if args.smoke else 8), **common)
     else:

@@ -3,6 +3,7 @@
     python -m janus_tpu_torch.tools.debug_bundle --url http://127.0.0.1:9001 \\
         [--url http://127.0.0.1:9002 ...] [--config-file cfg.yaml] \\
         [--journal-dir /var/janus/journal] [--flight-dir /var/janus/flight] \\
+        [--shape-manifest /var/janus/cache/shape_manifest.jsonl] [--aot-dir DIR] \\
         [--out bundle.tar.gz]
 
 Snapshots every introspection endpoint of one or several binaries'
@@ -25,10 +26,10 @@ Non-200 answers (a degraded /readyz) are captured, never fatal; an
 unreachable endpoint is recorded in the manifest with its error so a
 half-dead process still yields a bundle.
 
-The port keeps janus_tpu's endpoints, manifest and exit rule, and has no
-shape manifest and no AOT cache (it compiles nothing per shape), so it
-takes no `--shape-manifest` or `--aot-dir` and writes no
-shape-manifest.json.
+The port keeps janus_tpu's endpoints, manifest and exit rule. Its
+`--shape-manifest` inventories the shape manifest and `--aot-dir` the
+kernel-library cache (the port's AOT cache: `<compile cache dir>/aot`,
+the manifest's sibling by default) into shape-manifest.json.
 """
 
 from __future__ import annotations
@@ -137,6 +138,48 @@ def journal_dir_state(path: str) -> dict:
     }
 
 
+def shape_manifest_state(path: str, aot_dir: str | None = None) -> dict:
+    """Non-content inventory of the shape manifest and the kernel-library
+    cache's directory (names and sizes only; entry counts from a
+    tolerant, read-only parse: a corrupt manifest is evidence, not an
+    error). `aot_dir` defaults to the manifest's sibling `aot/` (the
+    layout under the compile cache dir)."""
+    out: dict = {"path": path}
+    try:
+        st = os.stat(path)
+        out["bytes"] = st.st_size
+        out["mtime"] = st.st_mtime
+    except OSError as e:
+        out["error"] = f"{type(e).__name__}: {e}"
+        return out
+    try:
+        # READ-ONLY: a diagnostic tool never compacts the live manifest
+        from ..aggregator.shape_manifest import inspect_file
+
+        entries, stats = inspect_file(path)
+        out["entries"] = len(entries)
+        out["load"] = stats
+    except Exception as e:  # stdlib-only parse, but stay non-fatal
+        out["parse_error"] = f"{type(e).__name__}: {e}"
+    aot_dir = aot_dir or os.path.join(os.path.dirname(path), "aot")
+    blobs = []
+    try:
+        for name in sorted(os.listdir(aot_dir)):
+            try:
+                blobs.append({"name": name, "bytes": os.stat(os.path.join(aot_dir, name)).st_size})
+            except OSError:
+                continue
+        out["aot"] = {
+            "dir": aot_dir,
+            "blobs": blobs,
+            "blob_count": len(blobs),
+            "total_bytes": sum(b["bytes"] for b in blobs),
+        }
+    except OSError as e:
+        out["aot"] = {"dir": aot_dir, "error": f"{type(e).__name__}: {e}"}
+    return out
+
+
 def flight_dir_state(path: str) -> dict:
     """Non-content inventory of the flight-recorder segment ring:
     segment names/sizes/mtimes plus per-segment record/torn-line counts
@@ -198,6 +241,8 @@ def collect_bundle(
     out_path: str | None = None,
     config_file: str | None = None,
     journal_dir: str | None = None,
+    shape_manifest: str | None = None,
+    aot_dir: str | None = None,
     flight_dir: str | None = None,
     timeout: float = 10.0,
     now: float | None = None,
@@ -314,6 +359,14 @@ def collect_bundle(
             f"journal:{journal_dir}",
         )
 
+    if shape_manifest:
+        state = shape_manifest_state(shape_manifest, aot_dir=aot_dir)
+        add_file(
+            f"{bundle_name}/shape-manifest.json",
+            json.dumps(state, indent=2, default=str).encode(),
+            f"shape_manifest:{shape_manifest}",
+        )
+
     if flight_dir:
         state = flight_dir_state(flight_dir)
         add_file(
@@ -357,6 +410,15 @@ def main(argv=None) -> int:
         help="upload-journal directory to inventory (names/sizes only)",
     )
     ap.add_argument(
+        "--shape-manifest",
+        help="shape manifest file to inventory (entry counts + kernel-library names/sizes, no contents)",
+    )
+    ap.add_argument(
+        "--aot-dir",
+        help="kernel-library cache dir to inventory (default: the manifest's sibling aot/, the layout "
+        "under the compile cache dir)",
+    )
+    ap.add_argument(
         "--flight-dir",
         help="flight-recorder segment-ring dir to inventory (segment "
         "names/sizes + record/torn-line counts, read-only)",
@@ -368,6 +430,8 @@ def main(argv=None) -> int:
         out_path=args.out,
         config_file=args.config_file,
         journal_dir=args.journal_dir,
+        shape_manifest=args.shape_manifest,
+        aot_dir=args.aot_dir,
         flight_dir=args.flight_dir,
         timeout=args.timeout,
     )

@@ -9,9 +9,9 @@ non-zero with the errors on stderr otherwise.
 
 The port's counterpart of janus_tpu's scripts/scrape_check.py, over the
 port's own exposition parser and HTTP helper. It keeps every family
-check and every section check but one: the port has no prewarm, AOT
-cache or compile cache, so it requires no `engine_prewarm` section.
-Two keys are read under the port's names: janus_build_info's `torch`
+check and every section check, the `engine_prewarm` section's (compile
+cache, kernel-library cache, manifest, prewarm) among them. Two keys are
+read under the port's names: janus_build_info's `torch`
 label where janus_tpu's carries `jax`, and the device watchdog's
 `device_down` (the port moves no work to the host at the thread cap)
 where janus_tpu's has `host_only`.
@@ -283,6 +283,28 @@ def main(argv=None) -> int:
                     for key in ("enabled", "roles", "top_frames", "overhead_ratio"):
                         if key not in prof:
                             errors.append(f"/statusz profile missing {key!r}")
+                # the cold-start layer: the compile cache directory, the
+                # kernel-library cache, the manifest inventory and the
+                # prewarm's outcome counts, which an operator reads after a
+                # slow boot
+                ep = snap.get("engine_prewarm")
+                if not isinstance(ep, dict):
+                    errors.append("/statusz missing the engine_prewarm section")
+                else:
+                    for key in ("compile_cache", "aot", "manifest", "prewarm"):
+                        if key not in ep:
+                            errors.append(f"/statusz engine_prewarm missing {key!r}")
+                    for key in ("enabled", "dir", "files", "bytes"):
+                        if key not in (ep.get("compile_cache") or {}):
+                            errors.append(f"/statusz engine_prewarm compile_cache missing {key!r}")
+                    for key in ("state", "warmed", "cache_hits", "cache_misses"):
+                        if key not in (ep.get("prewarm") or {}):
+                            errors.append(f"/statusz engine_prewarm prewarm missing {key!r}")
+                    for key in ("enabled", "blobs", "loads", "saves"):
+                        if key not in (ep.get("aot") or {}):
+                            errors.append(f"/statusz engine_prewarm aot missing {key!r}")
+                    if "installed" not in (ep.get("manifest") or {}):
+                        errors.append("/statusz engine_prewarm manifest missing 'installed'")
                 # fleet identity: every process carries its
                 # replica id + shard slice on /statusz
                 fl = snap.get("fleet")

@@ -182,6 +182,9 @@ def test_every_health_route_answers(deployment, name):
     for section in ("process", "tasks", "slo", "flight", "fleet", "failpoints", "datastore", "profile", "device_cost"):
         assert section in statusz, section
     assert statusz["process"]["devices"] == ["cpu"] and statusz["process"]["torch"].startswith("2.")
+    # the kernels' launch totals: none on the CPU, where every wrapper runs its plain version
+    assert statusz["process"]["kernel_launches"] == {
+        "keccak_single_block": 0, "expand_f128": 0, "keccak_sponge": 0, "scatter_rows": 0}
     if name != "aggregation_job_creator":
         deadline = time.monotonic() + 20
         while "job_health" not in statusz and time.monotonic() < deadline:
@@ -189,9 +192,12 @@ def test_every_health_route_answers(deployment, name):
             statusz = json.loads(fetch(base + "/statusz")[2])
         assert "ledger" in statusz and "job_health" in statusz
     boot = json.loads(fetch(base + "/debug/boot")[2])
-    assert boot["ready"] and [p["phase"] for p in boot["phases"][:6]] == [
-        "imports", "config", "backend_init", "datastore", "engine_warm", "listener_up"
+    # janus_tpu's boot phases, the shape manifest's among them (no
+    # manifest configured here: an empty phase)
+    assert boot["ready"] and [p["phase"] for p in boot["phases"][:7]] == [
+        "imports", "config", "backend_init", "datastore", "engine_warm_manifest", "engine_warm", "listener_up"
     ]
+    assert statusz["engine_prewarm"]["manifest"] == {"installed": False}
     alertz = json.loads(fetch(base + "/alertz")[2])
     assert alertz["enabled"] and {s["name"] for s in alertz["slos"]} >= {"upload_availability", "device_health"}
     assert json.loads(fetch(base + "/debug/flight")[2])["enabled"]

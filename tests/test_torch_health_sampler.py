@@ -141,8 +141,16 @@ def test_artifact_paths_keep_the_upload_journal_only():
     doc = {"upload_journal": {"path": "/var/lib/janus/journal"}, "compilation_cache_dir": "/c"}
     j = j_hs.artifact_paths_from_config(jcfg.CommonConfig.from_dict(doc), jcfg.AggregatorConfig.from_dict(doc))
     t = t_hs.artifact_paths_from_config(tcfg.CommonConfig.from_dict(doc), tcfg.AggregatorConfig.from_dict(doc))
-    assert t == {"upload_journal": "/var/lib/janus/journal"}
-    assert {k: v for k, v in j.items() if k not in ("shape_manifest", "aot_cache")} == t
+    # the upload journal, the shape manifest and the kernel-library cache,
+    # as janus_tpu's
+    assert t == j == {"upload_journal": "/var/lib/janus/journal", "shape_manifest": "/c/shape_manifest.jsonl",
+                      "aot_cache": "/c/aot"}
+    doc["engine"] = {"shape_manifest_path": "", "aot_cache": False}
+    j = j_hs.artifact_paths_from_config(jcfg.CommonConfig.from_dict(doc), jcfg.AggregatorConfig.from_dict(doc))
+    t = t_hs.artifact_paths_from_config(tcfg.CommonConfig.from_dict(doc), tcfg.AggregatorConfig.from_dict(doc))
+    assert t == j == {"upload_journal": "/var/lib/janus/journal"}
+    # the named divergence: no compile cache directory unless a key names
+    # one (janus_tpu's default is ~/.cache/janus_tpu_xla)
     assert t_hs.artifact_paths_from_config(tcfg.CommonConfig.from_dict({})) == {}
 
 

@@ -130,13 +130,6 @@ def test_port_files_include_every_module_of_the_package():
 # janus_tpu's modules that the port leaves out by design, each with the
 # port module that does its work (or stands in its place)
 NOT_PORTED = {
-    # no per-shape compiled executables: the kernel libraries build once
-    # from source, the eager code needs no AOT blobs
-    "aggregator/aot_cache.py": "ops/cuda_build.py",
-    # no shape manifest to prewarm from: a binary warms the sizes of the
-    # pending aggregation jobs (`warmup_engines`)
-    "aggregator/shape_manifest.py": "binary_utils.py",
-    "aggregator/prewarm.py": "binary_utils.py",
     # the host C XOF: the port's host XOF is hashlib, with no compiler and
     # no fallback
     "native/__init__.py": "vdaf/xof.py",

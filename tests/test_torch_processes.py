@@ -198,11 +198,12 @@ def test_every_process_drains(pair):
         assert "shut down" in text, name
 
 
-def test_rehearse_chip_smoke_binaries_phase():
+def test_rehearse_chip_smoke_binaries_phase(tmp_path):
     """chip_smoke.py's binaries-sumvec phase on the CPU at SumVec(4, 2):
-    janus_cli, the five processes from .json configs, the uploads under
-    the profile windows, the collection, the scrapes and the drain (the
-    card's kernel check reads CUDA traces, so it runs on the card only)."""
+    janus_cli, the five processes from .json configs, the uploads, the
+    collection, a profile window on the idle job driver, the scrapes and
+    the drain (the check that the binaries' dispatches ran on the card
+    runs on the card only); the job driver records its shape manifest."""
     import sys
 
     import torch
@@ -211,13 +212,18 @@ def test_rehearse_chip_smoke_binaries_phase():
     import chip_smoke
     from janus_tpu_torch.vdaf.registry import VdafInstance
 
+    manifest = str(tmp_path / "shape_manifest.jsonl")
     out = chip_smoke.phase_binaries(torch, torch.device("cpu"), VdafInstance.sum_vec(4, 2), 2, 30, (3, 20),
-                                    profile_s=1.0, base_port=23540)
+                                    manifest, profile_s=1.0, base_port=23540)
+    # the job's first leader init and aggregate, at its bucket
+    assert sorted((e["op"], tuple(e["key"])) for e in out["shape_manifest"]) == [
+        ("aggregate", ("aggregate", 32)), ("leader_init", ("leader_init", 32))]
+    assert out["tools"]["bundle_shape_manifest_entries"] == 2
     assert out["report_count"] == 30 and out["aggregate_ok"]
     assert set(out["exit_codes"].values()) == {0}
     assert all(s["exposition_errors"] == 0 and s["backend"] == "cpu" for s in out["scrapes"].values())
     assert out["ledger"]["leader"]["peer_divergence"] == 0
-    assert {p["activities"][0] for p in out["profiles"].values()} == {"cpu"}
+    assert out["profile"]["activities"] == ["cpu"]
     # the operator tools as processes: the collection by tools.collect,
     # report_trace's verdicts, the bundle and the scrape checks
     tools = out["tools"]

@@ -23,8 +23,9 @@
   a janus_tpu pair's, and a report with bad indices is refused at upload.
 
 The port runs with device="cpu"; tolerance: exact equality of field
-elements and bytes. janus_tpu's host engine, resident accumulators, mesh,
-manifest, prewarm and metrics cases have no port counterpart.
+elements and bytes. janus_tpu's host engine, resident accumulators, mesh
+and metrics cases have no port counterpart here (the sparse prewarm's is
+in tests/test_torch_prewarm.py).
 """
 
 import base64

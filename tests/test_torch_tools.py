@@ -26,11 +26,12 @@ inputs, on the CPU:
   (a family, an exposition line, build_info, a section, an endpoint)
   with the same error.
 
-Divergences by design, named where tested: the port's debug_bundle has
-no shape manifest (no `--shape-manifest`/`--aot-dir`), its scrape_check
-requires no `engine_prewarm` section and reads janus_build_info's
-`torch` label where janus_tpu's reads `jax`, and its gen_alert_rules
-header names the port's generator.
+Divergences by design, named where tested: the port's scrape_check reads
+janus_build_info's `torch` label where janus_tpu's reads `jax` (and the
+watchdog's `device_down` for `host_only`), and its gen_alert_rules header
+names the port's generator. Both debug bundles inventory a shape manifest
+(`--shape-manifest`/`--aot-dir`), and both checkers require the
+`engine_prewarm` section.
 
 Everything runs on one module-scoped port pair (device="cpu") and one
 health listener; tolerance: exact equality.
@@ -566,16 +567,29 @@ def test_debug_bundle_holds_janus_tpus_files(pair, listener, tmp_path):
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text("database:\n  url: x.sqlite\naggregator_api:\n  auth_tokens: [hunter2]\n")
     now = time.time()
-    names, manifests = {}, {}
+    names, manifests, states = {}, {}, {}
+    # a shape manifest of two entries and a torn tail, beside a cache dir
+    # holding one library
+    from janus_tpu_torch.aggregator.shape_manifest import ShapeManifest
+
+    shapes = tmp_path / "cache" / "shape_manifest.jsonl"
+    man = ShapeManifest(str(shapes))
+    for b in (32, 64):
+        man.record({"kind": "count"}, "leader_init", b, ("leader_init", b), 0.5, rows=b)
+    with open(shapes, "a") as f:
+        f.write('{"v": 1, "crc": 1')
+    (tmp_path / "cache" / "aot").mkdir()
+    (tmp_path / "cache" / "aot" / "libkeccak-0.so").write_bytes(b"\x7fELF" + bytes(60))
     for pkg, fn in (("port", debug_bundle.collect_bundle), ("janus_tpu", j_debug_bundle.collect_bundle)):
         out = tmp_path / f"{pkg}.tar.gz"
         manifests[pkg] = fn([url], out_path=str(out), config_file=str(cfg), journal_dir=pair.journal_dir,
-                            flight_dir=ring, now=now)
+                            flight_dir=ring, shape_manifest=str(shapes), now=now)
         with tarfile.open(out) as tar:
             names[pkg] = set(tar.getnames())
             top = next(iter(names[pkg])).split("/")[0]
             mf = json.load(tar.extractfile(f"{top}/MANIFEST.json"))
             assert {f["path"] for f in mf["files"]} == names[pkg] - {f"{top}/MANIFEST.json"}
+            states[pkg] = json.load(tar.extractfile(f"{top}/shape-manifest.json"))
             if pkg == "port":
                 cfg_text = tar.extractfile(f"{top}/resolved-config.yaml").read().decode()
                 assert "hunter2" not in cfg_text and "**REDACTED**" in cfg_text
@@ -586,8 +600,11 @@ def test_debug_bundle_holds_janus_tpus_files(pair, listener, tmp_path):
     assert names["port"] == names["janus_tpu"]
     port = manifests["port"]
     assert port["tool"] == "janus_tpu_torch.tools.debug_bundle"
-    # divergence by design: no shape manifest, no AOT blobs
-    assert not any("shape" in f["path"] or f["source"].startswith("shape_manifest") for f in port["files"])
+    # the same read-only inventory of the manifest and the cache dir, the
+    # file left as it was (torn tail and all)
+    assert states["port"] == states["janus_tpu"]
+    assert (states["port"]["entries"], states["port"]["load"]["skipped_corrupt"]) == (2, 1)
+    assert states["port"]["aot"]["blob_count"] == 1 and shapes.read_text().endswith('{"v": 1, "crc": 1')
     target = next(iter(port["targets"].values()))
     assert all("error" not in e for e in target["endpoints"].values())
     from janus_tpu_torch import metrics
@@ -605,23 +622,26 @@ def test_debug_bundle_main_exit_rule(listener, tmp_path, capsys):
     assert "0 capture errors" in capsys.readouterr().out
     assert debug_bundle.main(["--url", "http://127.0.0.1:1", "--out", str(tmp_path / "b.tar.gz"),
                               "--timeout", "0.5"]) == 1
-    for flag in ("--shape-manifest", "--aot-dir"):
-        with pytest.raises(SystemExit):
-            debug_bundle.main(["--url", url, flag, "x"])
+    # a missing manifest is recorded in its inventory, not a capture error
+    assert debug_bundle.main(["--url", url, "--out", str(tmp_path / "c.tar.gz"), "--shape-manifest",
+                              str(tmp_path / "none.jsonl"), "--aot-dir", str(tmp_path)]) == 0
+    assert "0 capture errors" in capsys.readouterr().out
 
 
 # --- scrape_check ----------------------------------------------------------
 
 
 def test_scrape_check_passes_against_a_listener_owning_a_datastore(listener, capsys):
-    """Divergence by design: the port's listener has no engine_prewarm
-    section (no prewarm, AOT cache or compile cache), and its check
-    requires none."""
+    """The port's listener carries the engine_prewarm section (compile
+    cache, kernel-library cache, manifest, prewarm), with janus_tpu's
+    keys, and its check requires it."""
     import urllib.request
 
     url, _ = listener
     with urllib.request.urlopen(url + "/statusz", timeout=10) as r:
-        assert "engine_prewarm" not in json.loads(r.read())
+        ep = json.loads(r.read())["engine_prewarm"]
+    assert set(ep) == {"compile_cache", "aot", "manifest", "prewarm"}
+    assert ep["manifest"] == {"installed": False} and ep["prewarm"]["state"] in ("idle", "done")
     assert scrape_check.main(["--url", url, "--statusz"]) == 0, capsys.readouterr().err
     assert "scrape_check: OK" in capsys.readouterr().out
     assert scrape_check.main(["--url", url + "/nope"]) != 0
@@ -686,20 +706,15 @@ def _relabel(family, old, new):
 
 def _both_checkers_agree(docs):
     """The union of both deployments' documents: the port's capture plus
-    janus_tpu's three named keys (janus_build_info's `jax` label, the
-    device watchdog's `host_only`, the `engine_prewarm` section), so that
-    each checker passes it and any planted fault is a fault to both."""
+    janus_tpu's two named keys (janus_build_info's `jax` label, the device
+    watchdog's `host_only`), so that each checker passes it and any
+    planted fault is a fault to both. The `engine_prewarm` section is the
+    port's own, as captured."""
     _edit_metrics(docs, _relabel("janus_build_info", "torch", None))
     _edit_metrics(docs, lambda t: t.replace("janus_build_info{", 'janus_build_info{jax="x",torch="x",'))
 
     def union(snap):
         snap["device_watchdog"]["host_only"] = snap["device_watchdog"]["device_down"]
-        snap["engine_prewarm"] = {
-            "compile_cache": {"enabled": False, "dir": None, "files": 0, "bytes": 0},
-            "aot": {"enabled": False, "blobs": 0, "loads": 0, "saves": 0},
-            "manifest": {"installed": False},
-            "prewarm": {"state": "idle", "warmed": 0, "cache_hits": 0, "cache_misses": 0},
-        }
     _edit_json(docs, "/statusz", union)
 
 
@@ -831,6 +846,13 @@ def _boot_not_monotone(doc):
 
 # (case, fault, the text both checkers print for it)
 SCRAPE_FAULTS = [
+    ("no_engine_prewarm_section", _fault_statusz(lambda snap: snap.pop("engine_prewarm")),
+     "/statusz missing the engine_prewarm section"),
+    ("engine_prewarm_aot_without_loads", _fault_statusz(lambda snap: snap["engine_prewarm"]["aot"].pop("loads")),
+     "/statusz engine_prewarm aot missing 'loads'"),
+    ("engine_prewarm_manifest_without_installed",
+     _fault_statusz(lambda snap: snap["engine_prewarm"]["manifest"].pop("installed")),
+     "/statusz engine_prewarm manifest missing 'installed'"),
     ("missing_family", lambda d: _edit_metrics(d, _drop_family("janus_ledger_imbalance")),
      "/metrics missing the janus_ledger_imbalance family"),
     ("malformed_exposition_line", lambda d: _edit_metrics(d, _append_line('janus_up{x="1" 1'), ("/metrics",)),
@@ -888,7 +910,7 @@ SCRAPE_FAULTS = [
 
 def test_scrape_check_both_pass_the_union_of_the_deployments(scrape_stub, capsys):
     """The baseline of the planted faults: both checkers pass the port
-    listener's documents with janus_tpu's three named keys added."""
+    listener's documents with janus_tpu's two named keys added."""
     import copy
 
     scrape_stub.docs = copy.deepcopy(scrape_stub.captured)
@@ -911,7 +933,6 @@ def test_scrape_check_rejects_what_janus_tpus_rejects(scrape_stub, capsys, case,
 
 # the named divergences: (case, fault, port rc, janus_tpu rc)
 SCRAPE_DIVERGENCES = [
-    ("no_engine_prewarm_section", _fault_statusz(lambda snap: snap.pop("engine_prewarm")), 0, 1),
     ("build_info_without_jax_label", lambda d: _edit_metrics(d, _relabel("janus_build_info", "jax", None)), 0, 1),
     ("build_info_without_torch_label", lambda d: _edit_metrics(d, _relabel("janus_build_info", "torch", None)), 1, 0),
     ("watchdog_without_host_only", _fault_statusz(lambda snap: snap["device_watchdog"].pop("host_only")), 0, 1),
@@ -921,9 +942,8 @@ SCRAPE_DIVERGENCES = [
 
 @pytest.mark.parametrize("case,fault,port_rc,janus_rc", SCRAPE_DIVERGENCES, ids=[c[0] for c in SCRAPE_DIVERGENCES])
 def test_scrape_check_divergences_by_design(scrape_stub, capsys, case, fault, port_rc, janus_rc):
-    """The port requires no engine_prewarm section (no prewarm, AOT cache
-    or compile cache) and reads its own names for the build's framework
-    label and the watchdog's cap state; nothing else differs."""
+    """The port reads its own names for the build's framework label and
+    the watchdog's cap state; nothing else differs."""
     import copy
 
     scrape_stub.docs = copy.deepcopy(scrape_stub.captured)
