@@ -5,11 +5,14 @@
 
 Phases, each of which must pass:
 
-  1. build         the four CUDA kernels from csrc/ (one nvcc per source,
+  1. build         the eight CUDA kernels from csrc/ (one nvcc per source,
                    all started together): the single-block Keccak (its
                    counter-mode and tree-level launches), the fused Field128
-                   expansion, the whole draft sponge and the sparse
-                   scatter-merge;
+                   expansion, the whole draft sponge, the sparse
+                   scatter-merge, and the step's field arithmetic: the
+                   elementwise Field64/Field128 ops, the NTT, the row
+                   functions (powers, sums, dots) and the limb
+                   contraction's decompose and recombine;
   2. kernels       each kernel against its plain PyTorch version on the
                    card, bit for bit, at the shapes of the paths that run it
                    (24 rounds, plus a reduced-round case), with its time, the
@@ -35,16 +38,32 @@ Phases, each of which must pass:
                    into 1,000,000 positions, block 0 in every report, with
                    its three device kernels' times), the pipelined leader's 256-row
                    chunk and a 64-row bucket with 3 rejected and 24 padding
-                   rows (all sentinel);
+                   rows (all sentinel); kernels 5-8 (the field
+                   arithmetic) at the SumVec(1000, 16) step's shapes and
+                   operand layouts, 1,024 reports: strided and broadcast
+                   elementwise ops, the truncation's mul_pow2 over a
+                   strided [1024, 1000] view, the NTT and inverse NTT of
+                   n = 128 rows (a strided Lagrange row among them) and a
+                   16,384-element row on the stage-a-launch route, powers
+                   of 127 and 255, the aggregate's sum over 1,024 reports
+                   of 16,000, a long sum, the fused dot, and the limb
+                   contraction's decompositions and recombination, each
+                   call one counted launch (the long row 1 + 14), each
+                   bit-exact (max_abs_err 0);
   3. sumvec        the fast-mode main path: Prio3SumVec(length=1000, bits=16)
                    at batch 1024 through make_report_batch and two_party_step,
                    with a few reports corrupted; the count must exclude
                    exactly those, the two aggregate shares must sum to the
                    numpy ground truth, the path's kernels must have launched
                    during the step and the other kernels not (launch counts
-                   are set to 0 just before the step and read just after); a
+                   are set to 0 just before the step and read just after;
+                   kernels 5-8 must launch on every Prio3 path, kernel 8
+                   on the contraction's circuits); a
                    small batch must agree with the plain path on the CPU;
-                   then two_party_step and helper_init_step are timed;
+                   then two_party_step and helper_init_step are timed, and
+                   one step is profiled (torch.profiler): its CUDA kernel
+                   count and the card's busy share, beside PR 12's 93,614
+                   kernels and 19.5 % (also on draft-sumvec);
   4. count         Prio3Count at batch 8192, the same checks (the Field64
                    path, through the single-block kernel);
   5. draft-sumvec  the same SumVec in draft mode (VDAF-07 sponge: one
@@ -664,6 +683,16 @@ KECCAK_OPS_PER_ROUND = 180
 # two folds and two conditional corrections of carry-chained 32-bit adds,
 # about 40 instructions.
 F128_REDUCE_OPS = 40
+# 32-bit instructions an element of the field kernels (csrc/field_ops.cuh),
+# counted by hand from the plain versions' algorithms: a 64 x 64 -> 128
+# product is 8 multiplies and 8 adds; a Field128 mul is four of them, the
+# carries and three folds; add, sub and neg are carry chains and compares.
+FIELD_OPS = {1: {"add": 8, "sub": 8, "neg": 4, "mul": 32, "mul_pow2": 20},
+             2: {"add": 24, "sub": 16, "neg": 10, "mul": 160, "mul_pow2": 80}}
+# kernels 5-8, which every Prio3 path runs (kernel 8 only on the circuits
+# that take the limb contraction: SumVec, its sparse form, Histogram)
+FIELD_KERNELS = ("field_arith", "ntt_transform", "field_rows")
+MM_KERNELS = FIELD_KERNELS + ("limb_contract",)
 # The two fields' moduli (the sponge kernel takes its modulus as an argument).
 F64 = 2**64 - 2**32 + 1
 F128 = 2**128 - 7 * 2**66 + 1
@@ -671,10 +700,21 @@ F128 = 2**128 - 7 * 2**66 + 1
 
 def kernel_counters():
     """Each kernel's wrapper, whose `launches` counts its launches."""
-    from janus_tpu_torch.ops import expand_cuda, keccak_cuda, scatter_cuda, sponge_cuda
+    from janus_tpu_torch.ops import (
+        expand_cuda,
+        field_cuda,
+        keccak_cuda,
+        limb_cuda,
+        ntt_cuda,
+        rows_cuda,
+        scatter_cuda,
+        sponge_cuda,
+    )
 
     return {"keccak_single_block": keccak_cuda.keccak_single_block, "expand_f128": expand_cuda.expand_f128,
-            "keccak_sponge": sponge_cuda.keccak_sponge, "scatter_rows": scatter_cuda.scatter_rows}
+            "keccak_sponge": sponge_cuda.keccak_sponge, "scatter_rows": scatter_cuda.scatter_rows,
+            "field_arith": field_cuda.field_arith, "ntt_transform": ntt_cuda.ntt_transform,
+            "field_rows": rows_cuda.field_rows, "limb_contract": limb_cuda.limb_contract}
 
 
 def log(msg: str) -> None:
@@ -891,10 +931,178 @@ def phase_kernels(torch, dev):
     cases.append(check_long_absorb(torch, dev))
     results["keccak_sponge"] = cases
     results["scatter_rows"] = check_scatter(torch, dev, rng, VdafInstance.sparse_sumvec(16, 1_000_000, 64, 16))
+    results.update(field_kernel_cases(torch, dev, rng))
     bad = [c for cs in results.values() for c in cs if c["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
     return results
+
+
+def field_values(torch, dev, rng, tf, shape):
+    """Reduced field elements of `shape` on the card (a value: its limb
+    tensors), uniform from the seed, with 0, 1, p - 1 and p - 2 first."""
+    import numpy as np
+
+    n = int(np.prod(shape, dtype=np.int64))
+    p = tf.MODULUS
+    words = rng.integers(0, 2**64 - 1, size=(tf.LIMBS, n), dtype=np.uint64, endpoint=True)
+    if tf.LIMBS == 2:
+        # a uniform 128-bit value is below p but for a 2^-61 share: clear
+        # the top bit where it lands at or past p
+        over = words[1] >= np.uint64(p >> 64)
+        words[1][over] &= np.uint64(2**63 - 1)
+    else:
+        words[0] = words[0] % np.uint64(p)
+    for i, e in enumerate((0, 1, p - 1, p - 2)[:n]):
+        for li in range(tf.LIMBS):
+            words[li][i] = np.uint64((e >> (64 * li)) & (2**64 - 1))
+    return tuple(torch.from_numpy(w.reshape(shape).view(np.int64)).to(dev) for w in words)
+
+
+def field_kernel_cases(torch, dev, rng, batch: int = 1024):
+    """Kernels 5-8 against their plain versions at the SumVec(1000, 16)
+    step's shapes and operand layouts (calls 127, chunk 126, m 128, the
+    proof's 255 gadget coefficients), and the Count path's Field64: each
+    call one counted launch (the long NTT row one a stage), bit-exact."""
+    from janus_tpu_torch.fields import tfield
+    from janus_tpu_torch.fields.tfield import TF64, TF128
+    from janus_tpu_torch.ops import field_cuda, limb_cuda, limbmm, ntt_cuda, rows_cuda
+
+    def vals(tf, shape):
+        return field_values(torch, dev, rng, tf, shape)
+
+    def nbytes(*values):
+        return sum(x.numel() * 8 for v in values for x in (v if isinstance(v, tuple) else (v,)))
+
+    def case(counter, launches, run, plain, n_ops, moved, info, reps=20):
+        before = counter.launches
+        run()
+        torch.cuda.synchronize()
+        if counter.launches != before + launches:
+            raise AssertionError(f"{info}: {counter.launches - before} launches, want {launches}")
+        return kernel_case(torch, run, plain, reps, n_ops, moved, info)
+
+    out = {"field_arith": [], "ntt_transform": [], "field_rows": [], "limb_contract": []}
+    fa = field_cuda.field_arith
+
+    def arith(name, tf, op, a, b=None, k=0):
+        ops = FIELD_OPS[tf.LIMBS][op]
+        res = fa(op, tf, a, b, k)
+        n = res[0].numel()
+        moved = nbytes(a, res) + (nbytes(b) if b is not None else 0)
+        out["field_arith"].append(case(fa, 1, lambda: fa(op, tf, a, b, k),
+                                       lambda: field_cuda.field_arith_plain(op, tf, a, b, k), n * ops, moved,
+                                       {"case": name, "field": tf.__name__, "op": op, "shape": list(res[0].shape)}))
+
+    # the truncation's hot op: 2^b times bit b of every entry, a strided
+    # [1024, 1000] view of the [1024, 1000, 16] bits (30 such launches a step)
+    bits = vals(TF128, (batch, 1000, 16))
+    arith("truncate: mul_pow2 of bit 15, [1024, 1000] of stride 16", TF128, "mul_pow2",
+          tuple(x[..., 15] for x in bits), k=15)
+    arith("truncate: add of two strided [1024, 1000] bits", TF128, "add", tuple(x[..., 3] for x in bits),
+          tuple(x[..., 4] for x in bits))
+    del bits
+    lag = vals(TF128, (batch, 255))
+    rp = vals(TF128, (batch, 128))
+    arith("[b] strided column x [b]", TF128, "mul", tuple(x[:, 7] for x in lag), tuple(x[:, 0] for x in rp))
+    arith("[b, 126] x [b, 1]", TF128, "mul", tuple(x[:, 1:127] for x in lag), tuple(x[:, :1] for x in rp))
+    arith("NTT stage [b, 4, 16] half rows x twiddles [16]", TF128, "mul",
+          tuple(x.reshape(batch, 4, 32)[..., 16:] for x in rp), tuple(x[0, :16] for x in lag))
+    arith("[b, 126] - 0-d constant", TF128, "sub", tuple(x[:, :126] for x in rp),
+          tfield.fconst(TF128, 12345678901234567891, (), dev))
+    arith("[b, 255] strided x strided", TF128, "mul", lag, tuple(x.t().contiguous().t() for x in lag))
+    arith("neg [b, 126]", TF128, "neg", tuple(x[:, :126] for x in rp))
+    f64 = vals(TF64, (8192, 3))
+    arith("Field64 [8192] strided x strided (Count)", TF64, "mul", tuple(x[:, 0] for x in f64),
+          tuple(x[:, 2] for x in f64))
+    arith("Field64 add [8192, 3] x [8192, 1]", TF64, "add", f64, tuple(x[:, 1:2] for x in f64))
+    arith("Field64 mul_pow2 of bit 40, [8192, 3]", TF64, "mul_pow2", f64, k=40)
+
+    # kernel 6: the Lagrange weights' inverse NTT of t's powers (a strided
+    # [b, 128] view of [b, 255]), the wires' [b, 2, 128] and the gadget
+    # values' forward n = 128, Count's Field64 n = 2, and a 16,384-element
+    # row on the stage-a-launch route
+    nt = ntt_cuda.ntt_transform
+    for name, tf, v, n, inverse, launches in (
+        ("lagrange: inverse, strided [b, 128] of [b, 255]", TF128, tuple(x[:, :128] for x in lag), 128, True, 1),
+        ("wires: inverse [b, 2, 128]", TF128, vals(TF128, (batch, 2, 128)), 128, True, 1),
+        ("gadget values: forward [b, 128]", TF128, rp, 128, False, 1),
+        ("Field64 forward [8192, 2]", TF64, tuple(x[:, :2] for x in f64), 2, False, 1),
+        ("long row: inverse [4, 16384], a launch a stage", TF128, vals(TF128, (4, 16384)), 16384, True, 15),
+    ):
+        log2n = n.bit_length() - 1
+        rows = v[0].numel() // n
+        bfly = rows * (n // 2) * log2n
+        ops_ = FIELD_OPS[tf.LIMBS]
+        n_ops = bfly * (ops_["mul"] + ops_["add"] + ops_["sub"]) + (rows * n * ops_["mul"] if inverse else 0)
+        out["ntt_transform"].append(case(
+            nt, launches, lambda tf=tf, v=v, n=n, inverse=inverse: ntt_cuda.transform(tf, v, n, inverse),
+            lambda tf=tf, v=v, n=n, inverse=inverse: ntt_cuda.ntt_transform_plain(tf, v, n, inverse),
+            n_ops, 2 * nbytes(v) + 8 * tf.LIMBS * n, {"case": name, "field": tf.__name__, "rows": rows, "n": n}))
+
+    # kernel 7: the aggregate's masked sum over 1,024 reports of 16,000,
+    # the query's powers of r (127) and of t (255), the gadget sum, the
+    # proof's evaluation (a fused dot) and a long sum (block mode)
+    fr = rows_cuda.field_rows
+    mul128 = FIELD_OPS[2]["mul"]
+    add128 = FIELD_OPS[2]["add"]
+    agg = vals(TF128, (batch, 16000))
+    out["field_rows"].append(case(
+        fr, 1, lambda: rows_cuda.fsum(TF128, agg, 0), lambda: rows_cuda.fsum_plain(TF128, agg, 0),
+        batch * 16000 * add128, nbytes(agg) + 16000 * 16, {"case": "aggregate: sum over 1,024 of [1024, 16000]"}))
+    del agg
+    col = tuple(x[:, 5] for x in lag)
+
+    def pow_muls(n):
+        return sum(max(0, i.bit_length() - 1) + max(0, bin(i).count("1") - 1) for i in range(n))
+
+    for n in (255, 127):
+        out["field_rows"].append(case(
+            fr, 1, lambda n=n: rows_cuda.powers(TF128, col, n), lambda n=n: rows_cuda.powers_plain(TF128, col, n),
+            batch * pow_muls(n) * mul128, nbytes(col) + batch * n * 16,
+            {"case": f"powers of a strided [b] column, n = {n}"}))
+    out["field_rows"].append(case(
+        fr, 1, lambda: rows_cuda.fsum(TF128, rp, -1), lambda: rows_cuda.fsum_plain(TF128, rp, -1),
+        batch * 128 * add128, nbytes(rp) + batch * 16, {"case": "gadget sum over [b, 128]"}))
+    coeffs = tuple(x[:, 2:255] for x in lag)
+    out["field_rows"].append(case(
+        fr, 1, lambda: rows_cuda.poly_eval_powers(TF128, coeffs, lag),
+        lambda: rows_cuda.poly_eval_powers_plain(TF128, coeffs, lag), batch * 253 * (mul128 + add128),
+        2 * batch * 253 * 16 + batch * 16, {"case": "proof evaluation: [b, 253] strided at [b, 255] powers"}))
+    long_rows = vals(TF128, (16, 61936))
+    out["field_rows"].append(case(
+        fr, 1, lambda: rows_cuda.fsum(TF128, long_rows, -1), lambda: rows_cuda.fsum_plain(TF128, long_rows, -1),
+        16 * 61936 * add128, nbytes(long_rows) + 16 * 16, {"case": "a streamed tile's sum, [16, 61936] (block mode)"}))
+    del long_rows
+
+    # kernel 8: the contraction's two decompositions ([b, 2, 127] weights,
+    # [b, 127, 126] chunked shares) and the recombination of their product
+    lc = limb_cuda.limb_contract
+    w = vals(TF128, (batch, 2, 127))
+    X = tuple(x.reshape(batch, 127, 126) for x in vals(TF128, (batch, 127 * 126)))
+    nl = limb_cuda.NLIMB[2]
+    for name, v, dim in (("decompose7 of the chunked shares [b, 127, 126] at dim 2", X, 2),
+                         ("decompose7 of the weights [b, 2, 127] at dim 2", w, 2)):
+        out["limb_contract"].append(case(
+            lc, 1, lambda v=v, dim=dim: limb_cuda.decompose7(TF128, v, dim),
+            lambda v=v, dim=dim: limb_cuda.decompose7_plain(TF128, v, dim), v[0].numel() * nl * 4,
+            nbytes(v) + v[0].numel() * nl * 8, {"case": name}, reps=10))
+    dl = limb_cuda.decompose7(TF128, w, 2).reshape(batch, 2 * nl, 127)
+    dr = limb_cuda.decompose7(TF128, X, 2).reshape(batch, 127, nl * 126)
+    acc = torch.bmm(dl, dr)
+    del dl, dr
+    out["limb_contract"].append(case(
+        lc, 1, lambda: limb_cuda.recombine(TF128, acc, 2, 126), lambda: limb_cuda.recombine_plain(TF128, acc, 2, 126),
+        batch * 2 * 126 * 2300, acc.numel() * 8 + batch * 2 * 126 * 16,
+        {"case": "recombine of the [b, 38, 2394] float64 product"}, reps=10))
+    del acc
+    got = limbmm.fold_contract(TF128, w, X)
+    want = tfield.fsum_plain(TF128, TF128.mul_plain(tuple(x[..., None] for x in w), tuple(x[:, None] for x in X)), 2)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    out["limb_contract"][-1]["fold_contract_vs_definition_max_abs_err"] = err
+    out["limb_contract"][-1]["max_abs_err"] = max(out["limb_contract"][-1]["max_abs_err"], err)
+    return out
 
 
 def kernel1_cases(torch, dev, lanes, batch: int, length: int, hist_length: int, walk_states: int):
@@ -1319,7 +1527,8 @@ def phase_sparse(torch, dev, inst, batch: int, bad_rows, reps: int = 1, small_ba
     truth = sparse_truth(L, flat, compact, np.flatnonzero(valid))
     if len(total) != L or total != truth:
         raise AssertionError("sparse: leader + helper logical shares != numpy scatter-sum of the valid reports")
-    _check_launches(torch, dev, "sparse", launches, kernels=("keccak_single_block", "expand_f128", "scatter_rows"))
+    _check_launches(torch, dev, "sparse", launches,
+                    kernels=("keccak_single_block", "expand_f128", "scatter_rows") + MM_KERNELS)
     if _on_card(torch, dev) and launches["scatter_rows"] != dispatches:
         raise AssertionError(f"sparse: the scatter launched {launches['scatter_rows']} times, not {dispatches}")
 
@@ -1463,7 +1672,9 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {name} path: {missing} ({launches})")
-    stray = [k for k in counters if k not in kernels and launches[k] != 0]
+    # kernels 5-8 are the field arithmetic every path may run; kernels 1-4
+    # belong to paths
+    stray = [k for k in counters if k not in kernels and k not in MM_KERNELS and launches[k] != 0]
     if stray:
         raise AssertionError(f"kernels of another path launched on the {name} path: {stray} ({launches})")
 
@@ -1546,6 +1757,14 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
     }
     if decoded_ok is not None:
         rec["decodes_to_float_sum"] = decoded_ok
+    if name in ("sumvec", "draft-sumvec"):
+        # one step under torch.profiler: the CUDA kernels it launched and
+        # the card's busy share, beside the eager field arithmetic's
+        prof = profile_step(torch, step, args, sum(two_s) / len(two_s))
+        rec["step_profile"] = {**{k: prof[k] for k in ("kernel_launches", "device_ms_total", "step_s",
+                                                       "device_busy_share", "top")},
+                               "before": {"kernel_launches": 93_614, "device_busy_share": 0.195,
+                                          "origin": "a draft-sumvec step, PR 12, call 33"}}
     if plan is not None:
         rec["stream_plan"] = {"tile_elems": plan[0], "gcalls": plan[1], "n_steps": plan[2]}
         rec["routes_agree"] = identity
@@ -1692,7 +1911,7 @@ def phase_serve(torch, dev, name: str, inst, batch: int, bad_rows, kernels, shar
         stages = dict(helper.task_aggregator_for(task.task_id).stage_seconds)
 
         missing = [k for k in kernels if launches[k] == 0]
-        stray = [k for k in counters if k not in kernels and launches[k] != 0]
+        stray = [k for k in counters if k not in kernels and k not in MM_KERNELS and launches[k] != 0]
         if missing or stray:
             raise AssertionError(f"serve {name}: kernels not launched {missing}, stray {stray} ({launches})")
         got = outcomes(resp)
@@ -1977,7 +2196,7 @@ def phase_drive(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
         helper_stages = dict(helper.task_aggregator_for(helper_task.task_id).stage_seconds)
 
         missing = [k for k in kernels if launches[k] == 0]
-        stray = [k for k in counters if k not in kernels and launches[k] != 0]
+        stray = [k for k in counters if k not in kernels and k not in MM_KERNELS and launches[k] != 0]
         if missing or stray:
             raise AssertionError(f"drive {name}: kernels not launched {missing}, stray {stray} ({launches})")
         row = leader_eds.datastore.run_tx(lambda tx: tx._c.execute(
@@ -3137,9 +3356,10 @@ def phase_chaos_crash_storm(torch, dev):
                              f"({rec['driver_device_name']}), {rec['driver_dispatches']} dispatches; "
                              f"driver A exited {rec['crash_exit_code']}")
     # the helper's inits (and the harness's warm-up) in this process: the
-    # Count path runs kernel 1 alone
+    # Count path runs kernel 1 alone of kernels 1-4
     if dev.type == "cuda" and (not launches["keccak_single_block"]
-                               or any(v for k, v in launches.items() if k != "keccak_single_block")):
+                               or any(v for k, v in launches.items()
+                                      if k != "keccak_single_block" and k not in MM_KERNELS)):
         raise AssertionError(f"chaos-crash-storm: launches in this process {launches}")
     return {"path": "chaos-crash-storm", "device": device, "launches": launches, "record": rec,
             "phase_s": phase_s}
@@ -3215,9 +3435,10 @@ def phase_chaos_fleet(torch, dev):
            if st["devices"] != [device] or st["device_name"] != device_name or st["dispatches"] < 1}
     if bad or len(replicas) < 5:
         raise AssertionError(f"chaos-fleet: replicas off the card or idle: {bad or replicas}")
-    # the helper's Count inits in this process: kernel 1 alone
+    # the helper's Count inits in this process: kernel 1 alone of kernels 1-4
     if dev.type == "cuda" and (not launches["keccak_single_block"]
-                               or any(v for k, v in launches.items() if k != "keccak_single_block")):
+                               or any(v for k, v in launches.items()
+                                      if k != "keccak_single_block" and k not in MM_KERNELS)):
         raise AssertionError(f"chaos-fleet: launches in this process {launches}")
     return {"path": "chaos-fleet", "device": device, "launches": launches,
             "fleet_scaling": rec["fleet_scaling"],
@@ -3365,10 +3586,14 @@ def phase_poplar1(torch, dev):
     step_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
+    # kernels 1-4 exactly; of the field kernels the sketch's muls and dots
+    # (kernels 5 and 7), no NTT and no limb contraction
     want_launches = {"keccak_single_block": 2 * (2 * (level + 1) + 1), "expand_f128": 0, "keccak_sponge": 0,
                      "scatter_rows": 0}
-    if launches != want_launches:
-        raise AssertionError(f"poplar1: launches {launches}, not {want_launches}")
+    if ({k: v for k, v in launches.items() if k not in MM_KERNELS} != want_launches
+            or not (launches["field_arith"] and launches["field_rows"])
+            or launches["ntt_transform"] or launches["limb_contract"]):
+        raise AssertionError(f"poplar1: launches {launches}, not {want_launches} and kernels 5 and 7")
     ok = sketch_ok(outs)
     if [i for i in range(batch) if not ok[i]] != list(bad):
         raise AssertionError(f"poplar1: the sketch failed for {[i for i in range(batch) if not ok[i]][:10]}")
@@ -3556,7 +3781,7 @@ def phase_drive_poplar1(torch, dev, n_reports: int = 1024, threshold: int = 32, 
         with ThreadPoolExecutor(max_workers=threads) as pool:
             statuses = list(pool.map(upload, range(n_reports)))
         upload_s = time.perf_counter() - t0
-        if set(statuses) != {201} or any(fn.launches for fn in counters.values()):
+        if set(statuses) != {201} or any(fn.launches for k, fn in counters.items() if k not in MM_KERNELS):
             raise AssertionError(f"drive-poplar1: upload statuses {sorted(set(statuses))}")
 
         cfg = JobDriverConfig(max_concurrent_job_workers=1)
@@ -3630,9 +3855,13 @@ def phase_drive_poplar1(torch, dev, n_reports: int = 1024, threshold: int = 32, 
                             rec["init_s"] += secs
                             add(rec["init_stage_s"], stage)
                             add(rec["helper_init_stage_s"], helper_ta.stage_seconds)
+                            # kernels 1-4 exactly, and the sketch's muls and
+                            # dots (kernels 5 and 7), no NTT, no contraction
                             want = {"keccak_single_block": 2 * per_side, "expand_f128": 0, "keccak_sponge": 0,
                                     "scatter_rows": 0}
-                            if launched != want:
+                            if ({k: v for k, v in launched.items() if k not in MM_KERNELS} != want
+                                    or not (launched["field_arith"] and launched["field_rows"])
+                                    or launched["ntt_transform"] or launched["limb_contract"]):
                                 raise AssertionError(f"drive-poplar1 level {level}: an init step launched {launched}")
                     if not stepped and not ran_agg:
                         break
@@ -3980,7 +4209,7 @@ def _check_launches(torch, dev, what: str, launches, kernels=("keccak_single_blo
             raise AssertionError(f"{what}: a CPU run counted kernel launches ({launches})")
         return
     missing = [k for k in kernels if launches[k] == 0]
-    stray = [k for k, n in launches.items() if k not in kernels and n != 0]
+    stray = [k for k, n in launches.items() if k not in kernels and k not in MM_KERNELS and n != 0]
     if missing or stray:
         raise AssertionError(f"{what}: kernels not launched {missing}, stray {stray} ({launches})")
 
@@ -5588,17 +5817,18 @@ def main() -> int:
     fast = ("keccak_single_block", "expand_f128")
     sumvec = phase(
         "sumvec", run_path, torch, dev, "sumvec", VdafInstance.sum_vec(1000, 16), 1024, (5, 300, 1000),
-        fast, 3, 256, 4,
+        fast + MM_KERNELS, 3, 256, 4,
     ) if not failed else None
     if sumvec is not None:
         paths["sumvec"] = sumvec[0]
         sumvec = None  # its arguments leave the card
     runs = (
-        ("count", VdafInstance.count(), 8192, (7, 4000, 8000), ("keccak_single_block",), 5, 0, 8, 24),
+        ("count", VdafInstance.count(), 8192, (7, 4000, 8000), ("keccak_single_block",) + FIELD_KERNELS, 5, 0, 8,
+         24),
         ("draft-sumvec", VdafInstance("sumvec", bits=16, length=1000, xof_mode="draft"), 1024, (5, 300, 1000),
-         ("keccak_sponge",), 3, 256, 4, 3),
-        ("draft-count", VdafInstance("count", xof_mode="draft"), 8192, (7, 4000, 8000), ("keccak_sponge",),
-         5, 0, 8, 24),
+         ("keccak_sponge",) + MM_KERNELS, 3, 256, 4, 3),
+        ("draft-count", VdafInstance("count", xof_mode="draft"), 8192, (7, 4000, 8000),
+         ("keccak_sponge",) + FIELD_KERNELS, 5, 0, 8, 24),
     )
     for name, inst, batch, bad, kernels_of_path, reps, chunk, small, small_rounds in runs:
         out = phase(
@@ -5620,13 +5850,13 @@ def main() -> int:
     # follow its batch (its sponge chains run one after another), so its
     # batch stays)
     runs = (
-        ("sumvec100k", big, 16, (5, 9, 13), fast, 1, 16, 1, 3, big_plan, 4, True),
+        ("sumvec100k", big, 16, (5, 9, 13), fast + MM_KERNELS, 1, 16, 1, 3, big_plan, 4, True),
         ("draft-sumvec100k", VdafInstance("sumvec", bits=16, length=100_000, xof_mode="draft"), 16, (3, 9, 13),
-         ("keccak_sponge",), 1, 16, 0, 24, big_plan, 2, False),
+         ("keccak_sponge",) + MM_KERNELS, 1, 16, 0, 24, big_plan, 2, False),
         # (cut from 1,024 reports when the pipeline phases took the script
         # past 480 s: ROADMAP's first cut)
-        ("fixedpoint", VdafInstance.fixed_point_vec(1000, 16), 256, (5, 100, 200), fast, 3, 256, 4, 24, None, 0,
-         False),
+        ("fixedpoint", VdafInstance.fixed_point_vec(1000, 16), 256, (5, 100, 200), fast + FIELD_KERNELS, 3, 256, 4,
+         24, None, 0, False),
     )
     out = mesh_big = None  # the last phase's arguments leave the card before the next
     for name, inst, batch, bad, kernels_of_path, reps, chunk, small, small_rounds, plan, ident, on_card in runs:
@@ -5808,16 +6038,26 @@ def main() -> int:
 
     # each kernel's launches are read from the path that runs it
     main_path = {"keccak_single_block": "sumvec", "expand_f128": "sumvec", "keccak_sponge": "draft-sumvec",
-                 "scatter_rows": "sparse"}
+                 "scatter_rows": "sparse", "field_arith": "sumvec", "ntt_transform": "sumvec",
+                 "field_rows": "sumvec", "limb_contract": "sumvec"}
     source = {"keccak_single_block": "janus_tpu_torch/csrc/keccak.cu",
               "expand_f128": "janus_tpu_torch/csrc/expand_f128.cu",
               "keccak_sponge": "janus_tpu_torch/csrc/keccak_sponge.cu",
-              "scatter_rows": "janus_tpu_torch/csrc/scatter_rows.cu"}
-    # kernel 4 replaces an XLA-compiled lax.scan, not a Pallas kernel
+              "scatter_rows": "janus_tpu_torch/csrc/scatter_rows.cu",
+              "field_arith": "janus_tpu_torch/csrc/field_arith.cu",
+              "ntt_transform": "janus_tpu_torch/csrc/ntt.cu",
+              "field_rows": "janus_tpu_torch/csrc/field_rows.cu",
+              "limb_contract": "janus_tpu_torch/csrc/limb_contract.cu"}
+    # kernel 4 replaces an XLA-compiled lax.scan, kernels 5-8 the field
+    # arithmetic XLA fuses into the jitted step: not Pallas kernels
     replaces = {"keccak_single_block": "janus_tpu/ops/keccak_pallas.py:236",
                 "expand_f128": "janus_tpu/ops/expand_pallas.py:249",
                 "keccak_sponge": "janus_tpu/ops/keccak_pallas.py:169",
-                "scatter_rows": "janus_tpu/vdaf/prio3_jax.py:458"}
+                "scatter_rows": "janus_tpu/vdaf/prio3_jax.py:458",
+                "field_arith": "janus_tpu/fields/jfield.py:277",
+                "ntt_transform": "janus_tpu/ops/ntt.py:80",
+                "field_rows": "janus_tpu/ops/ntt.py:147",
+                "limb_contract": "janus_tpu/ops/limbmm.py:64"}
     kernels = []
     for name, cases in checks.items():
         main_case = cases[0]

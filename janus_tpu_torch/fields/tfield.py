@@ -18,6 +18,13 @@ Every limb is a `torch.int64` holding the bit pattern of an unsigned
 Reduction exploits the sparse moduli (no Montgomery form):
   Field64:  2^64 = 2^32 - 1,  2^96 = -1          (mod p)
   Field128: 2^128 = 7*2^66 - 1                   (mod p)
+
+On the card the field ops are kernels: TF64/TF128's add, sub, neg and
+mul and fmul_pow2 are one launch of csrc/field_arith.cu each
+(ops/field_cuda.py), fsum and fdot one of csrc/field_rows.cu
+(ops/rows_cuda.py). The eager bodies here (`add_plain`, ...,
+`fmul_pow2_plain`, `fsum_plain`, `fdot_plain`) are their plain versions,
+which CPU tensors run.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import field_cuda as _field_cuda
+from ..ops import rows_cuda as _rows_cuda
 from .field import Field64, Field128
 
 I64 = torch.int64
@@ -198,6 +207,10 @@ class TF64:
 
     @staticmethod
     def add(a, b):
+        return _field_cuda.field_arith("add", TF64, a, b)
+
+    @staticmethod
+    def add_plain(a, b):
         (x,), (y,) = a, b
         s = x + y
         s = torch.where(ult(s, x), s + _EPS64, s)
@@ -205,6 +218,10 @@ class TF64:
 
     @staticmethod
     def sub(a, b):
+        return _field_cuda.field_arith("sub", TF64, a, b)
+
+    @staticmethod
+    def sub_plain(a, b):
         (x,), (y,) = a, b
         d = x - y
         d = torch.where(ult(x, y), d - _EPS64, d)
@@ -212,13 +229,25 @@ class TF64:
 
     @staticmethod
     def neg(a):
+        return _field_cuda.field_arith("neg", TF64, a)
+
+    @staticmethod
+    def neg_plain(a):
         (x,) = a
         return (torch.where(x == 0, x, _P64 - x),)
 
     @staticmethod
     def mul(a, b):
+        return _field_cuda.field_arith("mul", TF64, a, b)
+
+    @staticmethod
+    def mul_plain(a, b):
         (x,), (y,) = a, b
         return (_f64_reduce_wide(*mul64wide(x, y)),)
+
+    @staticmethod
+    def mul_pow2_plain(v, k: int):
+        return fmul_pow2_plain(TF64, v, k)
 
     @classmethod
     def from_ints(cls, arr, device) -> tuple:
@@ -301,6 +330,10 @@ class TF128:
 
     @staticmethod
     def add(a, b):
+        return _field_cuda.field_arith("add", TF128, a, b)
+
+    @staticmethod
+    def add_plain(a, b):
         (alo, ahi), (blo, bhi) = a, b
         lo, c = adc(alo, blo)
         hi1 = ahi + bhi
@@ -320,6 +353,10 @@ class TF128:
 
     @staticmethod
     def sub(a, b):
+        return _field_cuda.field_arith("sub", TF128, a, b)
+
+    @staticmethod
+    def sub_plain(a, b):
         (alo, ahi), (blo, bhi) = a, b
         lo, brw = sbb(alo, blo)
         hi1, brw2 = sbb(ahi, bhi, brw)
@@ -331,6 +368,10 @@ class TF128:
 
     @staticmethod
     def neg(a):
+        return _field_cuda.field_arith("neg", TF128, a)
+
+    @staticmethod
+    def neg_plain(a):
         (lo, hi) = a
         z = (lo == 0) & (hi == 0)
         n_lo, bb = sbb(torch.full_like(lo, _P128_LO), lo)
@@ -339,6 +380,10 @@ class TF128:
 
     @staticmethod
     def mul(a, b):
+        return _field_cuda.field_arith("mul", TF128, a, b)
+
+    @staticmethod
+    def mul_plain(a, b):
         (a0, a1), (b0, b1) = a, b
         l00, h00 = mul64wide(a0, b0)
         l01, h01 = mul64wide(a0, b1)
@@ -350,6 +395,10 @@ class TF128:
         r2, c4 = adc(r2, l11, c2)
         r3 = h11 + c3 + c4
         return _f128_reduce256(l00, r1, r2, r3)
+
+    @staticmethod
+    def mul_pow2_plain(v, k: int):
+        return fmul_pow2_plain(TF128, v, k)
 
     @classmethod
     def from_ints(cls, arr, device) -> tuple:
@@ -367,10 +416,16 @@ class TF128:
 
 def fmul_pow2(tf, v, k: int):
     """v * 2^k mod p for a static 0 <= k < 64: shifts and sparse-moduli
-    folds instead of a generic multiply by the constant."""
+    folds instead of a generic multiply by the constant (one launch of
+    csrc/field_arith.cu on the card; v itself for k = 0)."""
     assert 0 <= k < 64, k
     if k == 0:
         return v
+    return _field_cuda.field_arith("mul_pow2", tf, v, k=k)
+
+
+def fmul_pow2_plain(tf, v, k: int):
+    """The plain version of fmul_pow2 (0 < k < 64)."""
     if tf.LIMBS == 1:
         (lo,) = v
         return (_f64_reduce_wide(lo << k, lsr(lo, 64 - k)),)
@@ -482,6 +537,12 @@ def finv(tf, x):
 
 
 def fsum(tf, v, axis: int):
+    """Sum a field value along an axis (one launch of csrc/field_rows.cu
+    on the card)."""
+    return _rows_cuda.fsum(tf, v, axis)
+
+
+def fsum_plain(tf, v, axis: int):
     """Sum a field value along an axis by log-depth halving (mod-add tree)."""
     axis = axis % v[0].ndim
     n = v[0].shape[axis]
@@ -497,14 +558,20 @@ def fsum(tf, v, axis: int):
         v = fmap(lambda x: torch.cat([x, x.new_zeros(pad_shape)], dim=axis), v)
     while m > 1:
         half = m // 2
-        v = tf.add(fmap(lambda x: x.narrow(axis, 0, half), v), fmap(lambda x: x.narrow(axis, half, half), v))
+        v = tf.add_plain(fmap(lambda x: x.narrow(axis, 0, half), v), fmap(lambda x: x.narrow(axis, half, half), v))
         m = half
     return fmap(lambda x: x.squeeze(axis), v)
 
 
 def fdot(tf, a, b, axis=-1):
-    """Inner product along an axis."""
-    return fsum(tf, tf.mul(a, b), axis=axis)
+    """Inner product along an axis (one fused launch of csrc/field_rows.cu
+    on the card)."""
+    return _rows_cuda.fdot(tf, a, b, axis)
+
+
+def fdot_plain(tf, a, b, axis=-1):
+    """The plain version of fdot."""
+    return fsum_plain(tf, tf.mul_plain(a, b), axis=axis)
 
 
 def is_zero(v):

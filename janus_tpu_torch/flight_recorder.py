@@ -270,15 +270,21 @@ def _p99_from_bucket_delta(
 ) -> float | None:
     """p99 upper-bound estimate from cumulative-bucket deltas
     (late - early, both cumulative counts per bound + the +Inf total
-    appended last). None when the delta window saw no observations."""
+    appended last): the least bucket bound at or under which 99 % of
+    the window's observations lie, so the bound of the bucket that holds
+    the nearest-rank p99 observation (+Inf past the last bound). None
+    when the delta window saw no observations.
+
+    A named divergence from janus_tpu/flight_recorder.py:270, which adds
+    the deltas up again as if they were per-bucket counts, although each
+    is already cumulative, and so reads one or more buckets low (0.004 s
+    observations as 0.0025 s)."""
     deltas = [b - a for a, b in zip(early, late)]
     total = deltas[-1]
     if total <= 0:
         return None
     target = 0.99 * total
-    cum = 0.0
-    for bound, d in zip(bounds, deltas):
-        cum += d
+    for bound, cum in zip(bounds, deltas):
         if cum >= target:
             return float(bound)
     return float("inf")

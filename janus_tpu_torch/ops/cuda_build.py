@@ -60,9 +60,11 @@ log = logging.getLogger(__name__)
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-KERNELS = ("keccak", "expand_f128", "keccak_sponge", "scatter_rows")
-# the kernel wrappers' names, rows 1-4 of PERF.md's table
-KERNEL_WRAPPERS = ("keccak_single_block", "expand_f128", "keccak_sponge", "scatter_rows")
+KERNELS = ("keccak", "expand_f128", "keccak_sponge", "scatter_rows", "field_arith", "ntt", "field_rows",
+           "limb_contract")
+# the kernel wrappers' names (their launch counters), rows 1-8 of PERF.md's table
+KERNEL_WRAPPERS = ("keccak_single_block", "expand_f128", "keccak_sponge", "scatter_rows", "field_arith",
+                   "ntt_transform", "field_rows", "limb_contract")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -270,6 +272,15 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(path))
                 _loaded[name] = lib
     return lib
+
+
+class LaunchCount:
+    """The launch count of a kernel whose wrapper has several entries,
+    named as the kernel's wrapper in KERNEL_WRAPPERS."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
 
 
 def count_launch(wrapper) -> None:

@@ -24,6 +24,10 @@ int8 tensor-core kernel for it is future work.
 The diagonal groups are then recombined in 64-bit limbs with full
 carries and reduced mod p by the sparse-moduli folds of fields/tfield.py;
 the result is the field element that fsum(mul) gives.
+
+On the card the decomposition and the recombination are launches of
+csrc/limb_contract.cu (ops/limb_cuda.py) around the torch.bmm;
+`decompose7_plain` and `recombine_plain` are their plain versions.
 """
 
 from __future__ import annotations
@@ -32,13 +36,20 @@ import numpy as np
 import torch
 
 from ..fields.tfield import _f64_reduce_wide, _f128_fold, _f128_reduce256, add_limbs, lsr
+from . import limb_cuda
 
-_NLIMB = {1: 10, 2: 19}  # 7-bit limbs per element, by 64-bit limb count
+_NLIMB = limb_cuda.NLIMB  # 7-bit limbs per element, by 64-bit limb count
 
 
 def decompose7(tf, v, dim: int):
     """Field value (limb tuple, any shape S) -> float64 tensor of its
-    7-bit limbs, little-endian, on a new axis of nlimbs at `dim`.
+    7-bit limbs, little-endian, on a new axis of nlimbs at `dim`: one
+    launch of csrc/limb_contract.cu on the card (ops/limb_cuda.py)."""
+    return limb_cuda.decompose7(tf, v, dim)
+
+
+def decompose7_plain(tf, v, dim: int):
+    """The plain version of decompose7.
 
     Each limb is written straight into the one float64 result, so a
     call holds that result and one int64 limb at a time: 19 x 8 bytes a
@@ -79,7 +90,9 @@ def fold_contract(tf, w, X):
     w: field value [batch, W, calls] (weight rows; W small).
     X: field value [batch, calls, C].
     Returns a reduced field value [batch, W, C], equal to
-    fsum(tf, tf.mul(w[..., None], X[:, None]), axis=2).
+    fsum(tf, tf.mul(w[..., None], X[:, None]), axis=2): decompose7 twice,
+    the float64 product, recombine (on the card, three launches of
+    csrc/limb_contract.cu around torch.bmm).
     """
     nl = _NLIMB[tf.LIMBS]
     b, W, calls = w[0].shape
@@ -89,7 +102,21 @@ def fold_contract(tf, w, X):
     # limbs laid out as the product wants them: rows (w, l1), columns (l2, c)
     dl = decompose7(tf, w, dim=2).reshape(b, W * nl, calls)
     dr = decompose7(tf, X, dim=2).reshape(b, calls, nl * C)
-    acc = torch.bmm(dl, dr).to(torch.int64).reshape(b, W, nl * nl, C)
+    return recombine(tf, torch.bmm(dl, dr), W, C)
+
+
+def recombine(tf, acc, W: int, C: int):
+    """The product's exact column sums acc [b, W * nl, nl * C] (rows
+    (w, l1), columns (l2, c)) -> the reduced field value [b, W, C]: one
+    launch of csrc/limb_contract.cu on the card (ops/limb_cuda.py)."""
+    return limb_cuda.recombine(tf, acc, W, C)
+
+
+def recombine_plain(tf, acc, W: int, C: int):
+    """The plain version of recombine."""
+    nl = _NLIMB[tf.LIMBS]
+    b = acc.shape[0]
+    acc = acc.to(torch.int64).reshape(b, W, nl * nl, C)
 
     # diagonal groups: value = sum_s 2^(7s) colsum[s], s = l1 + l2
     n_s = 2 * nl - 1

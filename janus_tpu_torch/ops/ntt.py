@@ -14,6 +14,11 @@ a bit-reversal gather):
 
 Twiddle plans are cached per (field, n, direction), and their tensors
 per device. The domain order matches the JAX package's ops/ntt.py.
+
+On the card a transform is one launch of csrc/ntt.cu (ops/ntt_cuda.py),
+and powers and poly_eval_powers one of csrc/field_rows.cu
+(ops/rows_cuda.py); `_transform_plain`, `powers_plain` and
+`poly_eval_powers_plain` are their plain versions.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..fields.tfield import fconst, fmap, fsum, i64
+from ..fields.tfield import fconst, fmap, fsum_plain, i64
+from . import ntt_cuda, rows_cuda
 
 
 def _bitrev_perm(n: int) -> np.ndarray:
@@ -71,7 +77,25 @@ def _plan_on(tf, n: int, inverse: bool, device: torch.device):
     )
 
 
+@lru_cache(maxsize=None)
+def _twiddles_on(tf, n: int, inverse: bool, device: torch.device):
+    """The plan's stage twiddles as one table a limb, [n - 1]: stage L
+    (L = 2, 4, ..., n) holds its L/2 twiddles at offset L/2 - 1 (the
+    layout csrc/ntt.cu reads)."""
+    _, stages, _ = _plan_on(tf, n, inverse, device)
+    if not stages:
+        return tuple(torch.zeros(1, dtype=torch.int64, device=device) for _ in range(tf.LIMBS))
+    return tuple(torch.cat([tw[li] for tw in stages]) for li in range(tf.LIMBS))
+
+
 def _transform(tf, v, n: int, inverse: bool):
+    """The transform of every row of v [..., n]: one launch of
+    csrc/ntt.cu on the card (ops/ntt_cuda.py), the plain version on the
+    CPU."""
+    return ntt_cuda.transform(tf, v, n, inverse)
+
+
+def _transform_plain(tf, v, n: int, inverse: bool):
     perm, stages, n_inv = _plan_on(tf, n, inverse, v[0].device)
     batch_shape = tuple(v[0].shape[:-1])
     a = fmap(lambda x: x.index_select(-1, perm), v)
@@ -80,12 +104,12 @@ def _transform(tf, v, n: int, inverse: bool):
         half = length // 2
         a = fmap(lambda x: x.reshape(batch_shape + (n // length, length)), a)
         u = fmap(lambda x: x[..., :half], a)
-        wv = tf.mul(fmap(lambda x: x[..., half:], a), w)
-        a = fmap(lambda p, q: torch.cat([p, q], dim=-1), tf.add(u, wv), tf.sub(u, wv))
+        wv = tf.mul_plain(fmap(lambda x: x[..., half:], a), w)
+        a = fmap(lambda p, q: torch.cat([p, q], dim=-1), tf.add_plain(u, wv), tf.sub_plain(u, wv))
         a = fmap(lambda x: x.reshape(batch_shape + (n,)), a)
         length <<= 1
     if inverse:
-        a = tf.mul(a, fconst(tf, n_inv, (), v[0].device))
+        a = tf.mul_plain(a, fconst(tf, n_inv, (), v[0].device))
     return a
 
 
@@ -120,18 +144,24 @@ def lagrange_eval_weights(tf, t_powers, m: int):
 
 
 def powers(tf, x, n: int):
-    """[x^0, x^1, ..., x^{n-1}] along a new trailing axis, log-depth.
+    """[x^0, x^1, ..., x^{n-1}] along a new trailing axis: one launch of
+    csrc/field_rows.cu on the card (ops/rows_cuda.py).
 
     x: field value of shape [...]; returns [..., n].
     """
+    return rows_cuda.powers(tf, x, n)
+
+
+def powers_plain(tf, x, n: int):
+    """The plain version of powers, log-depth."""
     assert n >= 1
     one = fconst(tf, 1, tuple(x[0].shape), x[0].device)
     acc = fmap(lambda a, b: torch.stack([a, b], dim=-1), one, x)  # [..., 2]
     cur = 2
     while cur < n:
         # acc holds x^0..x^{cur-1}; extend with acc * x^cur
-        xc = tf.mul(fmap(lambda a: a[..., -1], acc), x)  # x^cur
-        ext = tf.mul(acc, fmap(lambda a: a[..., None], xc))
+        xc = tf.mul_plain(fmap(lambda a: a[..., -1], acc), x)  # x^cur
+        ext = tf.mul_plain(acc, fmap(lambda a: a[..., None], xc))
         acc = fmap(lambda a, b: torch.cat([a, b], dim=-1), acc, ext)
         cur *= 2
     if cur != n:
@@ -140,10 +170,16 @@ def powers(tf, x, n: int):
 
 
 def poly_eval_powers(tf, coeffs, pw):
-    """Evaluate polynomials given precomputed point powers.
+    """Evaluate polynomials given precomputed point powers: one fused
+    launch of csrc/field_rows.cu on the card (ops/rows_cuda.py).
 
     coeffs: [..., k]; pw: [..., m] powers of the evaluation point with
     m >= k. Returns [...]: sum_i coeffs[i] * x^i.
     """
+    return rows_cuda.poly_eval_powers(tf, coeffs, pw)
+
+
+def poly_eval_powers_plain(tf, coeffs, pw):
+    """The plain version of poly_eval_powers."""
     k = coeffs[0].shape[-1]
-    return fsum(tf, tf.mul(coeffs, fmap(lambda a: a[..., :k], pw)), axis=-1)
+    return fsum_plain(tf, tf.mul_plain(coeffs, fmap(lambda a: a[..., :k], pw)), axis=-1)

@@ -30,7 +30,7 @@ copy launch zeroes, so threads and streams share nothing.
 Dispatch is by device: on a CUDA tensor `scatter_rows` launches the
 kernel (and raises if it cannot); on a CPU tensor it runs
 `scatter_rows_plain`, the JAX scan in plain PyTorch (one report at a
-time: a gather, a TF128.add, a set that drops the sentinel lanes), which
+time: a gather, a TF128.add_plain, a set that drops the sentinel lanes), which
 is also the kernel's yardstick on the card. The plain version takes the
 valid indices of one row to be distinct, as the block-index predicate
 makes them; the kernel does not need that.
@@ -54,7 +54,7 @@ def scatter_rows_plain(acc, values, flat_idx):
         ix = flat_idx[i].long()
         live = (ix >= 0) & (ix < L)
         g = torch.where(live, ix, torch.zeros_like(ix))
-        s_lo, s_hi = TF128.add((lo[g], hi[g]), (values[0][i], values[1][i]))
+        s_lo, s_hi = TF128.add_plain((lo[g], hi[g]), (values[0][i], values[1][i]))
         lo[ix[live]] = s_lo[live]
         hi[ix[live]] = s_hi[live]
     return lo, hi

@@ -184,7 +184,8 @@ def test_every_health_route_answers(deployment, name):
     assert statusz["process"]["devices"] == ["cpu"] and statusz["process"]["torch"].startswith("2.")
     # the kernels' launch totals: none on the CPU, where every wrapper runs its plain version
     assert statusz["process"]["kernel_launches"] == {
-        "keccak_single_block": 0, "expand_f128": 0, "keccak_sponge": 0, "scatter_rows": 0}
+        "keccak_single_block": 0, "expand_f128": 0, "keccak_sponge": 0, "scatter_rows": 0, "field_arith": 0,
+        "ntt_transform": 0, "field_rows": 0, "limb_contract": 0}
     if name != "aggregation_job_creator":
         deadline = time.monotonic() + 20
         while "job_health" not in statusz and time.monotonic() < deadline:

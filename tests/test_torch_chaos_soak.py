@@ -32,7 +32,9 @@ def test_chaos_soak_smoke(tmp_path):
     assert rec["trend_alert_fired_ok"] is True
     assert rec["conservation_ok"] is True
     assert rec["driver_devices"] == ["cpu"]
-    # the p99 verdict is janus_tpu's, read over halves of thousands of
+    # the p99 verdict is janus_tpu's rule (late over early at most 2.0) on
+    # the port's repaired estimate (a named divergence: flight_recorder's
+    # _p99_from_bucket_delta), read over halves of thousands of
     # transactions each
     assert rec["health_sampler_interval_s"] == 0.02
     (p99,) = rec["p99_windows"].values()

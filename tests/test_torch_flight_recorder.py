@@ -8,6 +8,7 @@ histogram in a fresh registry of each package, on one mock clock.
 """
 
 import json
+import math
 import time
 from pathlib import Path
 
@@ -36,15 +37,50 @@ def test_theil_sen_equal(seed):
     assert tfr.theil_sen([]) == jfr.theil_sen([])
 
 
+def _p99_bound(obs, bounds):
+    """The plain quantile of raw observations that a bucket estimate can
+    give: the least bound at or above the nearest-rank p99 observation
+    (the ceil(0.99 n)-th smallest), +Inf past the last bound; None for no
+    observations."""
+    if not len(obs):
+        return None
+    x = sorted(obs)[math.ceil(0.99 * len(obs)) - 1]
+    return next((float(b) for b in bounds if x <= b), float("inf"))
+
+
+def _cumulative(obs, bounds):
+    """Prometheus's cumulative bucket counts of `obs`, the +Inf total last."""
+    return [float(sum(1 for x in obs if x <= b)) for b in bounds] + [float(len(obs))]
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_p99_from_bucket_delta_equal(seed):
+    """The port's estimate (a named divergence) is the plain quantile's
+    bucket of the window's raw observations; janus_tpu's, which adds the
+    cumulative deltas up again, is never above it and reads low wherever
+    more than ~1 % of the window lies under a lower bound."""
     rng = np.random.default_rng(seed)
     bounds = tuple(sorted(rng.uniform(0.001, 10, 12)))
-    early_counts = rng.integers(0, 50, len(bounds) + 1)
-    late_counts = early_counts + rng.integers(0, 50 if seed else 1, len(bounds) + 1) * (seed != 5)
-    early = list(np.cumsum(early_counts[:-1]).astype(float)) + [float(early_counts.sum())]
-    late = list(np.cumsum(late_counts[:-1]).astype(float)) + [float(late_counts.sum())]
-    assert tfr._p99_from_bucket_delta(bounds, early, late) == jfr._p99_from_bucket_delta(bounds, early, late)
+    early_obs = list(rng.uniform(0, 12, int(rng.integers(0, 400))))
+    n_late = 0 if seed == 5 else int(rng.integers(101, 999)) // 100 * 100 + int(rng.integers(1, 99))
+    late_obs = list(rng.lognormal(0, 1.5, n_late))
+    early = _cumulative(early_obs, bounds)
+    late = [a + b for a, b in zip(early, _cumulative(late_obs, bounds))]
+    got = tfr._p99_from_bucket_delta(bounds, early, late)
+    assert got == _p99_bound(late_obs, bounds)
+    reference = jfr._p99_from_bucket_delta(bounds, early, late)
+    if got is None:
+        assert reference is None
+    else:
+        assert reference <= got
+        below = [b for b in bounds if b < got]
+        if below and sum(1 for x in late_obs if x <= below[-1]) >= 0.5 * len(late_obs):
+            assert reference < got
+    # the bucket of 0.004 s observations, of which 0.0005 s ones are half
+    ladder = (0.001, 0.0025, 0.005, 0.01)
+    obs = [0.0005] * 100 + [0.004] * 100
+    assert tfr._p99_from_bucket_delta(ladder, [0.0] * 5, _cumulative(obs, ladder)) == _p99_bound(obs, ladder) == 0.005
+    assert jfr._p99_from_bucket_delta(ladder, [0.0] * 5, _cumulative(obs, ladder)) == 0.0025
 
 
 class _Series:
@@ -134,17 +170,44 @@ def _drive(tmp_path, regs, seed=0, n=120, step=7.0, with_dir=True, lat=None):
     return recs, raws
 
 
+_P99_KEYS = ("p99_early_s", "p99_late_s", "p99_ratio")
+
+
+def _without_p99(doc):
+    """An analysis (or a document or status holding one) without the p99
+    estimates and their ratio: the port's estimator is a named divergence
+    from janus_tpu's (test_p99_from_bucket_delta_equal)."""
+    if isinstance(doc, dict):
+        return {k: _without_p99(v) for k, v in doc.items() if k not in _P99_KEYS}
+    if isinstance(doc, list):
+        return [_without_p99(v) for v in doc]
+    return doc
+
+
 def test_snapshots_verdicts_and_rollups_equal(tmp_path, fresh_latency):
+    n, step = 120, 7.0
     (jrec, trec), (jraw, traw) = _drive(tmp_path, fresh_latency)
     assert traw == jraw
     ja, ta = jrec.analyze(), trec.analyze()
-    assert ta == ja
+    assert _without_p99(ta) == _without_p99(ja)
+    # the port's p99s are the plain quantile's buckets of each half's raw
+    # observations (snapshot i, taken at start + (i + 1) step, holds lat[i]);
+    # janus_tpu's read no higher
+    lat, bounds = _latency(0, n), fresh_latency[1].get(LATENCY).buckets
+    doc, ref = ta["latency"][LATENCY], ja["latency"][LATENCY]
+    start = 1_700_000_000.0
+    (t0, tm_), (_, t1) = doc["early_window"], doc["late_window"]
+    idx = [round((t - start) / step) - 1 for t in (t0, tm_, t1)]
+    early = [x for i in range(idx[0] + 1, idx[1] + 1) for x in lat[i]]
+    late = [x for i in range(idx[1] + 1, idx[2] + 1) for x in lat[i]]
+    assert (doc["p99_early_s"], doc["p99_late_s"]) == (_p99_bound(early, bounds), _p99_bound(late, bounds))
+    assert ref["p99_early_s"] <= doc["p99_early_s"] and ref["p99_late_s"] <= doc["p99_late_s"]
     assert ta["series"]["leak_bytes"]["verdict"] == "leak"
     assert ta["series"]["flat_bytes"]["verdict"] == "flat"
     assert ta["series"]["counter_total"]["verdict"] == "flat"  # cumulative: never leak-gated
     assert ta["latency"][LATENCY]["verdict"] == "degraded"
     # a short trailing window has too few points
-    assert trec.analyze(window_s=30.0) == jrec.analyze(window_s=30.0)
+    assert _without_p99(trec.analyze(window_s=30.0)) == _without_p99(jrec.analyze(window_s=30.0))
     assert trec.analyze(window_s=30.0)["series"]["flat_bytes"]["verdict"] == "insufficient_data"
     # the ring: the same raw and rollup records (1m and 10m tiers)
     jrecs, trecs = jrec._ring.read(), trec._ring.read()
@@ -158,31 +221,44 @@ def test_snapshots_verdicts_and_rollups_equal(tmp_path, fresh_latency):
     def strip(doc):
         return {k: v for k, v in doc.items() if k not in ("overhead_ratio", "ring")}
 
-    assert strip(trec.document(max_points=50)) == strip(jrec.document(max_points=50))
-    assert strip(trec.status()) == strip(jrec.status())
+    assert _without_p99(strip(trec.document(max_points=50))) == _without_p99(strip(jrec.document(max_points=50)))
+    assert _without_p99(strip(trec.status())) == _without_p99(strip(jrec.status()))
     jring, tring = jrec._ring.state(), trec._ring.state()
     assert {k: v for k, v in tring.items() if k != "dir"} == {k: v for k, v in jring.items() if k != "dir"}
     jrec.stop()
     trec.stop()
 
 
-@pytest.mark.parametrize("late,late_p99,verdict", [
+@pytest.mark.parametrize("early,late,p99s,verdict,reference", [
     # one bucket up, at the ladder's 2.5x step
-    ([0.0005] * 10 + [0.002], 0.0025, "degraded"),
+    ([0.0005] * 10, [0.0005] * 10 + [0.002], (0.001, 0.0025), "degraded", (0.001, 0.0025, "degraded")),
     # two buckets up
-    ([0.0005] * 2 + [0.004] * 10, 0.005, "degraded"),
+    ([0.0005] * 10, [0.0005] * 2 + [0.004] * 10, (0.001, 0.005), "degraded", (0.001, 0.005, "degraded")),
     # no move
-    ([0.0005] * 10, 0.001, "stable"),
+    ([0.0005] * 10, [0.0005] * 10, (0.001, 0.001), "stable", (0.001, 0.001, "stable")),
+    # the named difference: half the late window at 4 ms reads 2.5 ms in
+    # janus_tpu's estimator (one bucket low)
+    ([0.0005] * 10, [0.0005] * 10 + [0.004] * 10, (0.001, 0.005), "degraded", (0.001, 0.0025, "degraded")),
+    # ... and a 5x tail move (4 ms to 20 ms, half of each window) reads
+    # 2.5 ms in both of janus_tpu's halves: `stable` there
+    ([0.0005] * 10 + [0.004] * 10, [0.0005] * 10 + [0.02] * 10, (0.005, 0.025), "degraded",
+     (0.0025, 0.0025, "stable")),
 ])
-def test_p99_verdict_of_a_bucket_move_equal(tmp_path, fresh_latency, late, late_p99, verdict):
-    """Early snapshots observe 0.5 ms ten times each, late ones `late`:
-    both packages give the same p99 estimates, ratio and verdict."""
+def test_p99_verdict_of_a_bucket_move_equal(tmp_path, fresh_latency, early, late, p99s, verdict, reference):
+    """Early snapshots observe `early` each, late ones `late`: the port's
+    p99 estimates, ratio and verdict, and janus_tpu's (its estimator reads
+    low where much of a window lies in lower buckets: the named
+    difference); every other field of the two documents is equal."""
     n = 60
-    lat = [[0.0005] * 10 if i <= n // 2 else list(late) for i in range(n)]
+    lat = [list(early) if i <= n // 2 else list(late) for i in range(n)]
     (jrec, trec), _ = _drive(tmp_path, fresh_latency, n=n, lat=lat)
     jdoc, tdoc = jrec.analyze()["latency"][LATENCY], trec.analyze()["latency"][LATENCY]
-    assert (tdoc["p99_early_s"], tdoc["p99_late_s"], tdoc["verdict"]) == (0.001, late_p99, verdict)
-    assert tdoc == jdoc
+    assert (tdoc["p99_early_s"], tdoc["p99_late_s"], tdoc["verdict"]) == (*p99s, verdict)
+    assert (jdoc["p99_early_s"], jdoc["p99_late_s"], jdoc["verdict"]) == reference
+    assert _without_p99({k: v for k, v in tdoc.items() if k != "verdict"}) == _without_p99(
+        {k: v for k, v in jdoc.items() if k != "verdict"})
+    if p99s == reference[:2]:
+        assert tdoc == jdoc
     jrec.stop()
     trec.stop()
 

@@ -999,3 +999,142 @@ def test_kernel_1_launches_on_its_inputs_card_not_the_current_one(cuda):
         tgot = keccak_cuda.keccak_tree_level(tparts, 4003, 6, 0, 32024, dev1)
         torch.cuda.synchronize(dev1)
     assert torch.equal(got, want) and torch.equal(tgot, twant)
+
+
+# -- kernels 5-8: the step's field arithmetic ------------------------------
+
+
+def _field(tf, shape, seed, device):
+    """Reduced field elements of `shape` on `device`, 0, 1, p - 1 and
+    p - 2 first."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape, dtype=np.int64))
+    p = tf.MODULUS
+    ints = [0, 1, p - 1, p - 2][:n] + [int.from_bytes(rng.bytes(24), "little") % p for _ in range(max(0, n - 4))]
+    return tuple(t.reshape(shape) for t in tf.from_ints(np.array(ints, dtype=object), device))
+
+
+def _same(got, want):
+    return all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("field", ["Field64", "Field128"])
+def test_field_arith_kernel_matches_plain(cuda, field):
+    """Kernel 5 on the step's operand layouts, every op one counted launch."""
+    from janus_tpu_torch.fields import tfield
+    from janus_tpu_torch.fields.tfield import TF64, TF128
+    from janus_tpu_torch.ops import field_cuda
+
+    tf = TF64 if field == "Field64" else TF128
+    big = _field(tf, (7, 510), 1, cuda)
+    layouts = [
+        (tuple(x[:, 3] for x in big), tuple(x[:, 8] for x in big)),
+        (tuple(x[:, :9] for x in big), tuple(x[:, 9:10] for x in big)),
+        (tuple(x[:, :16].reshape(7, 2, 8)[..., 4:] for x in big), tuple(x[0, 20:24] for x in big)),
+        (tuple(x[:, :126] for x in big), tfield.fconst(tf, 987654321987654321, (), cuda)),
+        (tuple(x[:, 1::2] for x in big), tuple(x.t().contiguous().t()[:, ::2] for x in big)),
+    ]
+    fa = field_cuda.field_arith
+    for a, b in layouts:
+        for op, args in (("add", (a, b)), ("sub", (a, b)), ("mul", (a, b)), ("neg", (a,))):
+            before = fa.launches
+            got = getattr(tf, op)(*args)
+            torch.cuda.synchronize()
+            assert fa.launches == before + 1
+            assert _same(got, getattr(tf, f"{op}_plain")(*args)), op
+        for k in (1, 32, 33, 63):
+            before = fa.launches
+            got = tfield.fmul_pow2(tf, a, k)
+            torch.cuda.synchronize()
+            assert fa.launches == before + 1 and _same(got, tfield.fmul_pow2_plain(tf, a, k)), k
+
+
+@pytest.mark.parametrize("field", ["Field64", "Field128"])
+@pytest.mark.parametrize("n", [1, 2, 128, 2048, 16384])
+def test_ntt_kernel_matches_plain(cuda, field, n):
+    """Kernel 6 on strided rows, both directions: one launch a transform
+    where a row fits a block, 1 + log2(n) beyond."""
+    from janus_tpu_torch.fields.tfield import TF64, TF128
+    from janus_tpu_torch.ops import ntt_cuda
+
+    tf = TF64 if field == "Field64" else TF128
+    rows = 3 if n >= 2048 else 17
+    v = tuple(x[:, :, ::2] for x in _field(tf, (rows, 2, 2 * n), n, cuda))
+    want_launches = 1 if ntt_cuda.block_geometry(n, tf.LIMBS) else 1 + (n.bit_length() - 1)
+    for inverse in (False, True):
+        before = ntt_cuda.ntt_transform.launches
+        got = ntt_cuda.transform(tf, v, n, inverse)
+        torch.cuda.synchronize()
+        assert ntt_cuda.ntt_transform.launches == before + want_launches
+        assert _same(got, ntt_cuda.ntt_transform_plain(tf, v, n, inverse))
+
+
+@pytest.mark.parametrize("field", ["Field64", "Field128"])
+def test_field_rows_kernel_matches_plain(cuda, field):
+    """Kernel 7: powers, sums along each axis (both modes), the broadcast
+    dot and the fused polynomial evaluation, one launch each."""
+    from janus_tpu_torch.fields.tfield import TF64, TF128
+    from janus_tpu_torch.ops import rows_cuda
+
+    tf = TF64 if field == "Field64" else TF128
+    fr = rows_cuda.field_rows
+    v = _field(tf, (33, 3, 257), 2, cuda)
+    col = tuple(x[:, 1, 5] for x in v)
+    calls = [(lambda n=n: rows_cuda.powers(tf, col, n), lambda n=n: rows_cuda.powers_plain(tf, col, n))
+             for n in (1, 2, 127, 255, 4095)]
+    for axis in (0, 1, 2):
+        calls.append((lambda axis=axis: rows_cuda.fsum(tf, v, axis), lambda axis=axis: rows_cuda.fsum_plain(tf, v, axis)))
+    long_row = _field(tf, (3, 5000), 3, cuda)
+    calls.append((lambda: rows_cuda.fsum(tf, long_row, -1), lambda: rows_cuda.fsum_plain(tf, long_row, -1)))
+    w = tuple(x[:1, 0] for x in v)
+    calls.append((lambda: rows_cuda.fdot(tf, v, w, -1), lambda: rows_cuda.fdot_plain(tf, v, w, -1)))
+    coeffs = tuple(x[:, 0, :100] for x in v)
+    pw = tuple(x[:, 2, :] for x in v)
+    calls.append((lambda: rows_cuda.poly_eval_powers(tf, coeffs, pw),
+                  lambda: rows_cuda.poly_eval_powers_plain(tf, coeffs, pw)))
+    for run, plain in calls:
+        before = fr.launches
+        got = run()
+        torch.cuda.synchronize()
+        assert fr.launches == before + 1 and _same(got, plain())
+
+
+@pytest.mark.parametrize("field", ["Field64", "Field128"])
+def test_limb_contract_kernel_matches_plain(cuda, field):
+    """Kernel 8: decompose7 of strided values at every axis, and
+    fold_contract as two decompositions, torch.bmm and one recombination."""
+    from janus_tpu_torch.fields.tfield import TF64, TF128
+    from janus_tpu_torch.ops import limb_cuda, limbmm
+
+    tf = TF64 if field == "Field64" else TF128
+    lc = limb_cuda.limb_contract
+    v = tuple(x[..., ::2] for x in _field(tf, (9, 4, 30), 4, cuda))
+    for dim in range(4):
+        before = lc.launches
+        got = limb_cuda.decompose7(tf, v, dim)
+        torch.cuda.synchronize()
+        assert lc.launches == before + 1 and torch.equal(got, limb_cuda.decompose7_plain(tf, v, dim))
+    w = tuple(x[:, :, ::3] for x in _field(tf, (9, 2, 381), 5, cuda))  # [9, 2, 127]
+    X = _field(tf, (9, 127, 126), 6, cuda)
+    before = lc.launches
+    got = limbmm.fold_contract(tf, w, X)
+    torch.cuda.synchronize()
+    assert lc.launches == before + 3
+    nl = limb_cuda.NLIMB[tf.LIMBS]
+    dl = limb_cuda.decompose7_plain(tf, w, 2).reshape(9, 2 * nl, 127)
+    dr = limb_cuda.decompose7_plain(tf, X, 2).reshape(9, 127, nl * 126)
+    assert _same(got, limb_cuda.recombine_plain(tf, torch.bmm(dl, dr), 2, 126))
+
+
+def test_field_kernels_refuse_mixed_devices(cuda):
+    from janus_tpu_torch.fields import tfield
+    from janus_tpu_torch.fields.tfield import TF128
+
+    a = _field(TF128, (4, 8), 7, cuda)
+    b = tuple(x.cpu() for x in a)
+    with pytest.raises(ValueError, match="more than one device"):
+        TF128.mul(a, b)
+    with pytest.raises(ValueError, match="more than one device"):
+        tfield.fdot(TF128, a, b)
+    with pytest.raises(ValueError, match="more than one device"):
+        TF128.add(a, tfield.fconst(TF128, 5, (), "cpu"))

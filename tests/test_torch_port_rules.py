@@ -22,7 +22,20 @@ from janus_tpu_torch.aggregator.engine_cache import EngineCache, engine_cache
 from janus_tpu_torch.datastore import EphemeralDatastore
 from janus_tpu_torch.device import resolve_device
 from janus_tpu_torch.messages import Role, TaskId, Time
-from janus_tpu_torch.ops import expand_cuda, keccak_cuda, scatter_cuda, sponge_cuda
+from janus_tpu_torch.fields.tfield import TF128
+from janus_tpu_torch.ops import (
+    cuda_build,
+    expand_cuda,
+    field_cuda,
+    keccak_cuda,
+    limb_cuda,
+    limbmm,
+    ntt,
+    ntt_cuda,
+    rows_cuda,
+    scatter_cuda,
+    sponge_cuda,
+)
 from janus_tpu_torch.parallel import api
 from janus_tpu_torch.task import QueryTypeConfig, TaskBuilder
 from janus_tpu_torch.vdaf.circuits import Count, SumVec
@@ -54,6 +67,10 @@ def test_port_files_include_every_module_of_the_package():
         "vdaf/keccak.py",
         "ops/keccak_cuda.py",
         "ops/sponge_cuda.py",
+        "ops/field_cuda.py",
+        "ops/ntt_cuda.py",
+        "ops/rows_cuda.py",
+        "ops/limb_cuda.py",
         "aggregator/engine_cache.py",
         "aggregator/core.py",
         "vdaf/wire.py",
@@ -281,6 +298,40 @@ def test_wrappers_refuse_other_devices():
     rows = (torch.empty((2, 4), dtype=torch.int64, device="meta"),) * 2
     with pytest.raises(ValueError):
         scatter_cuda.scatter_rows(acc, rows, torch.empty((2, 4), dtype=torch.int32, device="meta"))
+    v = (torch.empty((2, 4), dtype=torch.int64, device="meta"),) * 2
+    for entry in (lambda: TF128.mul(v, v), lambda: ntt.intt_batched(TF128, v), lambda: ntt.powers(TF128, v, 3),
+                  lambda: rows_cuda.fsum(TF128, v, 0), lambda: limbmm.decompose7(TF128, v, 0)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            entry()
+
+
+# Kernels 5-8: each wrapper module, its launch counter and its plain versions
+FIELD_KERNEL_MODULES = (
+    (field_cuda, "field_arith", ("field_arith_plain",)),
+    (ntt_cuda, "ntt_transform", ("ntt_transform_plain",)),
+    (rows_cuda, "field_rows", ("powers_plain", "fsum_plain", "fdot_plain", "poly_eval_powers_plain")),
+    (limb_cuda, "limb_contract", ("decompose7_plain", "recombine_plain")),
+)
+
+
+@pytest.mark.parametrize("module,counter,plains", FIELD_KERNEL_MODULES, ids=lambda x: getattr(x, "__name__", None))
+def test_field_kernel_modules_keep_the_kernel_rules(module, counter, plains):
+    """Each new kernel's wrapper module has its launch counter (named in
+    cuda_build.KERNEL_WRAPPERS, its source in KERNELS), its plain
+    versions, a note of the janus_tpu function it replaces and what
+    bounds it, and imports no jax."""
+    wrapper = getattr(module, counter)
+    assert wrapper.__name__ == counter and isinstance(wrapper.launches, int)
+    assert counter in cuda_build.KERNEL_WRAPPERS
+    source = module.__doc__.split("(csrc/")[1].split(".cu)")[0]
+    assert source in cuda_build.KERNELS and (ROOT / "janus_tpu_torch" / "csrc" / f"{source}.cu").exists()
+    for name in plains:
+        assert callable(getattr(module, name)), name
+    note = " ".join(module.__doc__.split())
+    assert "Replaces" in note and "janus_tpu/" in note and "bounds it on the H100" in note
+    cu = " ".join((ROOT / "janus_tpu_torch" / "csrc" / f"{source}.cu").read_text().split())
+    assert "Replaces" in cu and "janus_tpu/" in cu and "Bound on the H100" in cu
+    assert all(m.split(".")[0] not in ("jax", "jaxlib", "janus_tpu") for m in _imported_modules(Path(module.__file__)))
 
 
 @pytest.mark.parametrize("kind", ["count", "sumvec", "draft-count", "draft-sumvec", "sparse"])
@@ -293,7 +344,8 @@ def test_cpu_run_leaves_launch_counters_at_zero(kind):
     else:
         inst = VdafInstance("sumvec", bits=2, length=3, xof_mode=mode)
     counters = (keccak_cuda.keccak_single_block, expand_cuda.expand_f128, sponge_cuda.keccak_sponge,
-                scatter_cuda.scatter_rows)
+                scatter_cuda.scatter_rows, field_cuda.field_arith, ntt_cuda.ntt_transform, rows_cuda.field_rows,
+                limb_cuda.limb_contract)
     for fn in counters:
         fn.launches = 0
     meas = random_measurements(inst, 3, np.random.default_rng(1))
@@ -320,7 +372,7 @@ def test_cpu_run_leaves_launch_counters_at_zero(kind):
         assert [int(x) for x in p3.tf.to_ints(p3.merge_agg_shares(agg0, agg1))] == list(
             np.asarray(meas).sum(axis=0).reshape(-1)
         )
-    assert [fn.launches for fn in counters] == [0, 0, 0, 0]
+    assert [fn.launches for fn in counters] == [0] * 8
 
 
 def test_host_prio3_shards_and_has_no_prepare():

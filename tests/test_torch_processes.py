@@ -128,6 +128,17 @@ def pair(tmp_path_factory):
                 proc.wait()
 
 
+def _terminal_reports(task_id) -> int:
+    """Reports of the task the leader's job driver has booked aggregated
+    or rejected (its /debug/ledger)."""
+    import base64
+
+    label = base64.urlsafe_b64encode(task_id.to_bytes()).rstrip(b"=").decode()
+    doc = json.loads(fetch(f"http://127.0.0.1:{HEALTH['agg_driver']}/debug/ledger")[2])
+    books = (doc.get("tasks") or {}).get(label) or {}
+    return books.get("aggregated", 0) + sum((books.get("rejected") or {}).values())
+
+
 def _collect(tasks, case, measurements):
     from janus_tpu_torch.client import Client, ClientParameters
     from janus_tpu_torch.collector import Collector, CollectorParameters
@@ -145,8 +156,18 @@ def _collect(tasks, case, measurements):
         ClientParameters(leader.task_id, _url("leader"), _url(helper), leader.time_precision), leader.vdaf, http,
         clock=clock,
     )
+    books_before = _terminal_reports(leader.task_id)
     for m in measurements:
         client.upload(m)
+    # Both leaders (the port's and janus_tpu's) collect whatever batch
+    # aggregations exist when the collection job steps: a collection
+    # started before the creator and the job driver have aggregated
+    # every upload counts fewer reports. Wait until the leader's books
+    # hold a terminal outcome for each upload.
+    deadline = time.monotonic() + 180
+    while _terminal_reports(leader.task_id) < books_before + len(measurements):
+        assert time.monotonic() < deadline, "the leader did not aggregate every upload"
+        time.sleep(0.3)
     collector = Collector(CollectorParameters(leader.task_id, _url("leader"), leader.collector_auth_token, kp),
                           leader.vdaf, http)
     tp = leader.time_precision.seconds
