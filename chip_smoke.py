@@ -683,16 +683,21 @@ KECCAK_OPS_PER_ROUND = 180
 # two folds and two conditional corrections of carry-chained 32-bit adds,
 # about 40 instructions.
 F128_REDUCE_OPS = 40
-# 32-bit instructions an element of the field kernels (csrc/field_ops.cuh),
-# counted by hand from the plain versions' algorithms: a 64 x 64 -> 128
+# 32-bit instructions of one field op, counted by hand: a 64 x 64 -> 128
 # product is 8 multiplies and 8 adds; a Field128 mul is four of them, the
-# carries and three folds; add, sub and neg are carry chains and compares.
+# carries and three sparse-modulus folds; add, sub and neg are carry chains
+# and compares. A field kernel's bound counts the field ops its function
+# needs (an elementwise op one an element, a sum m - 1 adds an output, the
+# powers x^0..x^(n-1) n - 2 muls a row), not those its algorithm spends.
 FIELD_OPS = {1: {"add": 8, "sub": 8, "neg": 4, "mul": 32, "mul_pow2": 20},
              2: {"add": 24, "sub": 16, "neg": 10, "mul": 160, "mul_pow2": 80}}
-# kernels 5-8, which every Prio3 path runs (kernel 8 only on the circuits
-# that take the limb contraction: SumVec, its sparse form, Histogram)
+# kernels 5-7, which every Prio3 path and Poplar1 may run: the stray checks
+# exempt these alone. Kernel 8 runs only on the circuits that take the limb
+# contraction (SumVec, its sparse form, Histogram), whose paths name it.
 FIELD_KERNELS = ("field_arith", "ntt_transform", "field_rows")
 MM_KERNELS = FIELD_KERNELS + ("limb_contract",)
+# a fast-mode step of a contraction circuit: kernels 1, 2 and 8 (5-7 exempt)
+FAST_MM_KERNELS = ("keccak_single_block", "expand_f128", "limb_contract")
 # The two fields' moduli (the sponge kernel takes its modulus as an argument).
 F64 = 2**64 - 2**32 + 1
 F128 = 2**128 - 7 * 2**66 + 1
@@ -966,7 +971,7 @@ def field_kernel_cases(torch, dev, rng, batch: int = 1024):
     call one counted launch (the long NTT row one a stage), bit-exact."""
     from janus_tpu_torch.fields import tfield
     from janus_tpu_torch.fields.tfield import TF64, TF128
-    from janus_tpu_torch.ops import field_cuda, limb_cuda, limbmm, ntt_cuda, rows_cuda
+    from janus_tpu_torch.ops import field_cuda, limb_cuda, limbmm, ntt, ntt_cuda, rows_cuda
 
     def vals(tf, shape):
         return field_values(torch, dev, rng, tf, shape)
@@ -983,15 +988,20 @@ def field_kernel_cases(torch, dev, rng, batch: int = 1024):
         return kernel_case(torch, run, plain, reps, n_ops, moved, info)
 
     out = {"field_arith": [], "ntt_transform": [], "field_rows": [], "limb_contract": []}
-    fa = field_cuda.field_arith
+    fa = field_cuda.elementwise
+
+    def arith_plain(op, tf, a, b, k):
+        if op == "mul_pow2":
+            return tfield.fmul_pow2_plain(tf, a, k)
+        return tf.neg_plain(a) if op == "neg" else getattr(tf, f"{op}_plain")(a, b)
 
     def arith(name, tf, op, a, b=None, k=0):
         ops = FIELD_OPS[tf.LIMBS][op]
         res = fa(op, tf, a, b, k)
         n = res[0].numel()
         moved = nbytes(a, res) + (nbytes(b) if b is not None else 0)
-        out["field_arith"].append(case(fa, 1, lambda: fa(op, tf, a, b, k),
-                                       lambda: field_cuda.field_arith_plain(op, tf, a, b, k), n * ops, moved,
+        out["field_arith"].append(case(field_cuda.field_arith, 1, lambda: fa(op, tf, a, b, k),
+                                       lambda: arith_plain(op, tf, a, b, k), n * ops, moved,
                                        {"case": name, "field": tf.__name__, "op": op, "shape": list(res[0].shape)}))
 
     # the truncation's hot op: 2^b times bit b of every entry, a strided
@@ -1036,8 +1046,8 @@ def field_kernel_cases(torch, dev, rng, batch: int = 1024):
         ops_ = FIELD_OPS[tf.LIMBS]
         n_ops = bfly * (ops_["mul"] + ops_["add"] + ops_["sub"]) + (rows * n * ops_["mul"] if inverse else 0)
         out["ntt_transform"].append(case(
-            nt, launches, lambda tf=tf, v=v, n=n, inverse=inverse: ntt_cuda.transform(tf, v, n, inverse),
-            lambda tf=tf, v=v, n=n, inverse=inverse: ntt_cuda.ntt_transform_plain(tf, v, n, inverse),
+            nt, launches, lambda tf=tf, v=v, n=n, inverse=inverse: ntt._transform(tf, v, n, inverse),
+            lambda tf=tf, v=v, n=n, inverse=inverse: ntt._transform_plain(tf, v, n, inverse),
             n_ops, 2 * nbytes(v) + 8 * tf.LIMBS * n, {"case": name, "field": tf.__name__, "rows": rows, "n": n}))
 
     # kernel 7: the aggregate's masked sum over 1,024 reports of 16,000,
@@ -1048,31 +1058,28 @@ def field_kernel_cases(torch, dev, rng, batch: int = 1024):
     add128 = FIELD_OPS[2]["add"]
     agg = vals(TF128, (batch, 16000))
     out["field_rows"].append(case(
-        fr, 1, lambda: rows_cuda.fsum(TF128, agg, 0), lambda: rows_cuda.fsum_plain(TF128, agg, 0),
-        batch * 16000 * add128, nbytes(agg) + 16000 * 16, {"case": "aggregate: sum over 1,024 of [1024, 16000]"}))
+        fr, 1, lambda: rows_cuda.fsum(TF128, agg, 0), lambda: tfield.fsum_plain(TF128, agg, 0),
+        (batch - 1) * 16000 * add128, nbytes(agg) + 16000 * 16, {"case": "aggregate: sum over 1,024 of [1024, 16000]"}))
     del agg
     col = tuple(x[:, 5] for x in lag)
 
-    def pow_muls(n):
-        return sum(max(0, i.bit_length() - 1) + max(0, bin(i).count("1") - 1) for i in range(n))
-
     for n in (255, 127):
         out["field_rows"].append(case(
-            fr, 1, lambda n=n: rows_cuda.powers(TF128, col, n), lambda n=n: rows_cuda.powers_plain(TF128, col, n),
-            batch * pow_muls(n) * mul128, nbytes(col) + batch * n * 16,
+            fr, 1, lambda n=n: rows_cuda.powers(TF128, col, n), lambda n=n: ntt.powers_plain(TF128, col, n),
+            batch * (n - 2) * mul128, nbytes(col) + batch * n * 16,
             {"case": f"powers of a strided [b] column, n = {n}"}))
     out["field_rows"].append(case(
-        fr, 1, lambda: rows_cuda.fsum(TF128, rp, -1), lambda: rows_cuda.fsum_plain(TF128, rp, -1),
-        batch * 128 * add128, nbytes(rp) + batch * 16, {"case": "gadget sum over [b, 128]"}))
+        fr, 1, lambda: rows_cuda.fsum(TF128, rp, -1), lambda: tfield.fsum_plain(TF128, rp, -1),
+        batch * 127 * add128, nbytes(rp) + batch * 16, {"case": "gadget sum over [b, 128]"}))
     coeffs = tuple(x[:, 2:255] for x in lag)
     out["field_rows"].append(case(
         fr, 1, lambda: rows_cuda.poly_eval_powers(TF128, coeffs, lag),
-        lambda: rows_cuda.poly_eval_powers_plain(TF128, coeffs, lag), batch * 253 * (mul128 + add128),
+        lambda: ntt.poly_eval_powers_plain(TF128, coeffs, lag), batch * (253 * mul128 + 252 * add128),
         2 * batch * 253 * 16 + batch * 16, {"case": "proof evaluation: [b, 253] strided at [b, 255] powers"}))
     long_rows = vals(TF128, (16, 61936))
     out["field_rows"].append(case(
-        fr, 1, lambda: rows_cuda.fsum(TF128, long_rows, -1), lambda: rows_cuda.fsum_plain(TF128, long_rows, -1),
-        16 * 61936 * add128, nbytes(long_rows) + 16 * 16, {"case": "a streamed tile's sum, [16, 61936] (block mode)"}))
+        fr, 1, lambda: rows_cuda.fsum(TF128, long_rows, -1), lambda: tfield.fsum_plain(TF128, long_rows, -1),
+        16 * 61935 * add128, nbytes(long_rows) + 16 * 16, {"case": "a streamed tile's sum, [16, 61936] (block mode)"}))
     del long_rows
 
     # kernel 8: the contraction's two decompositions ([b, 2, 127] weights,
@@ -1085,14 +1092,14 @@ def field_kernel_cases(torch, dev, rng, batch: int = 1024):
                          ("decompose7 of the weights [b, 2, 127] at dim 2", w, 2)):
         out["limb_contract"].append(case(
             lc, 1, lambda v=v, dim=dim: limb_cuda.decompose7(TF128, v, dim),
-            lambda v=v, dim=dim: limb_cuda.decompose7_plain(TF128, v, dim), v[0].numel() * nl * 4,
+            lambda v=v, dim=dim: limbmm.decompose7_plain(TF128, v, dim), v[0].numel() * nl * 4,
             nbytes(v) + v[0].numel() * nl * 8, {"case": name}, reps=10))
     dl = limb_cuda.decompose7(TF128, w, 2).reshape(batch, 2 * nl, 127)
     dr = limb_cuda.decompose7(TF128, X, 2).reshape(batch, 127, nl * 126)
     acc = torch.bmm(dl, dr)
     del dl, dr
     out["limb_contract"].append(case(
-        lc, 1, lambda: limb_cuda.recombine(TF128, acc, 2, 126), lambda: limb_cuda.recombine_plain(TF128, acc, 2, 126),
+        lc, 1, lambda: limb_cuda.recombine(TF128, acc, 2, 126), lambda: limbmm.recombine_plain(TF128, acc, 2, 126),
         batch * 2 * 126 * 2300, acc.numel() * 8 + batch * 2 * 126 * 16,
         {"case": "recombine of the [b, 38, 2394] float64 product"}, reps=10))
     del acc
@@ -1672,9 +1679,9 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {name} path: {missing} ({launches})")
-    # kernels 5-8 are the field arithmetic every path may run; kernels 1-4
-    # belong to paths
-    stray = [k for k in counters if k not in kernels and k not in MM_KERNELS and launches[k] != 0]
+    # kernels 5-7 are the field arithmetic every path may run; kernels 1-4
+    # and 8 belong to paths
+    stray = [k for k in counters if k not in kernels and k not in FIELD_KERNELS and launches[k] != 0]
     if stray:
         raise AssertionError(f"kernels of another path launched on the {name} path: {stray} ({launches})")
 
@@ -1911,7 +1918,7 @@ def phase_serve(torch, dev, name: str, inst, batch: int, bad_rows, kernels, shar
         stages = dict(helper.task_aggregator_for(task.task_id).stage_seconds)
 
         missing = [k for k in kernels if launches[k] == 0]
-        stray = [k for k in counters if k not in kernels and k not in MM_KERNELS and launches[k] != 0]
+        stray = [k for k in counters if k not in kernels and k not in FIELD_KERNELS and launches[k] != 0]
         if missing or stray:
             raise AssertionError(f"serve {name}: kernels not launched {missing}, stray {stray} ({launches})")
         got = outcomes(resp)
@@ -2196,7 +2203,7 @@ def phase_drive(torch, dev, name: str, inst, batch: int, bad_rows, kernels):
         helper_stages = dict(helper.task_aggregator_for(helper_task.task_id).stage_seconds)
 
         missing = [k for k in kernels if launches[k] == 0]
-        stray = [k for k in counters if k not in kernels and k not in MM_KERNELS and launches[k] != 0]
+        stray = [k for k in counters if k not in kernels and k not in FIELD_KERNELS and launches[k] != 0]
         if missing or stray:
             raise AssertionError(f"drive {name}: kernels not launched {missing}, stray {stray} ({launches})")
         row = leader_eds.datastore.run_tx(lambda tx: tx._c.execute(
@@ -2708,7 +2715,8 @@ def phase_upload_drive(torch, dev, inst, n_client: int, n_wire: int, bad_rows, k
         if stepped != 1 or not driver.step_seconds:
             raise AssertionError(f"upload-drive: {stepped} jobs stepped")
         # a sparse job's accumulate scatters on kernel 4
-        check_launches("job step", launches, tuple(kernels) + (("scatter_rows",) if sparse else ()))
+        check_launches("job step", launches,
+                       tuple(kernels) + ("limb_contract",) + (("scatter_rows",) if sparse else ()))
         row = leader_eds.datastore.run_tx(lambda tx: tx._c.execute(
             "SELECT state, lease_token IS NULL, lease_attempts FROM aggregation_jobs").fetchall())
         if row != [("finished", 1, 0)]:
@@ -3359,7 +3367,7 @@ def phase_chaos_crash_storm(torch, dev):
     # Count path runs kernel 1 alone of kernels 1-4
     if dev.type == "cuda" and (not launches["keccak_single_block"]
                                or any(v for k, v in launches.items()
-                                      if k != "keccak_single_block" and k not in MM_KERNELS)):
+                                      if k != "keccak_single_block" and k not in FIELD_KERNELS)):
         raise AssertionError(f"chaos-crash-storm: launches in this process {launches}")
     return {"path": "chaos-crash-storm", "device": device, "launches": launches, "record": rec,
             "phase_s": phase_s}
@@ -3438,7 +3446,7 @@ def phase_chaos_fleet(torch, dev):
     # the helper's Count inits in this process: kernel 1 alone of kernels 1-4
     if dev.type == "cuda" and (not launches["keccak_single_block"]
                                or any(v for k, v in launches.items()
-                                      if k != "keccak_single_block" and k not in MM_KERNELS)):
+                                      if k != "keccak_single_block" and k not in FIELD_KERNELS)):
         raise AssertionError(f"chaos-fleet: launches in this process {launches}")
     return {"path": "chaos-fleet", "device": device, "launches": launches,
             "fleet_scaling": rec["fleet_scaling"],
@@ -3589,10 +3597,9 @@ def phase_poplar1(torch, dev):
     # kernels 1-4 exactly; of the field kernels the sketch's muls and dots
     # (kernels 5 and 7), no NTT and no limb contraction
     want_launches = {"keccak_single_block": 2 * (2 * (level + 1) + 1), "expand_f128": 0, "keccak_sponge": 0,
-                     "scatter_rows": 0}
-    if ({k: v for k, v in launches.items() if k not in MM_KERNELS} != want_launches
-            or not (launches["field_arith"] and launches["field_rows"])
-            or launches["ntt_transform"] or launches["limb_contract"]):
+                     "scatter_rows": 0, "limb_contract": 0}
+    if ({k: v for k, v in launches.items() if k not in FIELD_KERNELS} != want_launches
+            or not (launches["field_arith"] and launches["field_rows"]) or launches["ntt_transform"]):
         raise AssertionError(f"poplar1: launches {launches}, not {want_launches} and kernels 5 and 7")
     ok = sketch_ok(outs)
     if [i for i in range(batch) if not ok[i]] != list(bad):
@@ -3781,7 +3788,7 @@ def phase_drive_poplar1(torch, dev, n_reports: int = 1024, threshold: int = 32, 
         with ThreadPoolExecutor(max_workers=threads) as pool:
             statuses = list(pool.map(upload, range(n_reports)))
         upload_s = time.perf_counter() - t0
-        if set(statuses) != {201} or any(fn.launches for k, fn in counters.items() if k not in MM_KERNELS):
+        if set(statuses) != {201} or any(fn.launches for k, fn in counters.items() if k not in FIELD_KERNELS):
             raise AssertionError(f"drive-poplar1: upload statuses {sorted(set(statuses))}")
 
         cfg = JobDriverConfig(max_concurrent_job_workers=1)
@@ -3858,10 +3865,10 @@ def phase_drive_poplar1(torch, dev, n_reports: int = 1024, threshold: int = 32, 
                             # kernels 1-4 exactly, and the sketch's muls and
                             # dots (kernels 5 and 7), no NTT, no contraction
                             want = {"keccak_single_block": 2 * per_side, "expand_f128": 0, "keccak_sponge": 0,
-                                    "scatter_rows": 0}
-                            if ({k: v for k, v in launched.items() if k not in MM_KERNELS} != want
+                                    "scatter_rows": 0, "limb_contract": 0}
+                            if ({k: v for k, v in launched.items() if k not in FIELD_KERNELS} != want
                                     or not (launched["field_arith"] and launched["field_rows"])
-                                    or launched["ntt_transform"] or launched["limb_contract"]):
+                                    or launched["ntt_transform"]):
                                 raise AssertionError(f"drive-poplar1 level {level}: an init step launched {launched}")
                     if not stepped and not ran_agg:
                         break
@@ -4209,7 +4216,7 @@ def _check_launches(torch, dev, what: str, launches, kernels=("keccak_single_blo
             raise AssertionError(f"{what}: a CPU run counted kernel launches ({launches})")
         return
     missing = [k for k in kernels if launches[k] == 0]
-    stray = [k for k, n in launches.items() if k not in kernels and k not in MM_KERNELS and n != 0]
+    stray = [k for k, n in launches.items() if k not in kernels and k not in FIELD_KERNELS and n != 0]
     if missing or stray:
         raise AssertionError(f"{what}: kernels not launched {missing}, stray {stray} ({launches})")
 
@@ -4273,7 +4280,7 @@ def phase_taskprov_histogram(pair: TaskprovPair, n_client: int = 8, n_wire: int 
     step_peak = torch.cuda.max_memory_allocated() - before if on_card else 0
     if stepped != 1 or not driver.step_seconds:
         raise AssertionError(f"taskprov: {stepped} jobs stepped")
-    _check_launches(torch, dev, "taskprov job step", launches)
+    _check_launches(torch, dev, "taskprov job step", launches, FAST_MM_KERNELS)
     helper_task = pair.helper_eds.datastore.run_tx(lambda tx: tx.get_task(pair.task_id))
     if helper_task is None or helper_task.hpke_keys or helper_task.vdaf != pair.inst \
             or helper_task.vdaf_verify_key != pair.task.vdaf_verify_key or opt_in_s["taskprov_opt_in"] <= 0:
@@ -4462,7 +4469,7 @@ def _outage_drill(pair: TaskprovPair, n_client: int, n_wire: int, bad_rows):
     app.handle = handle
     if stepped != 1:
         raise AssertionError(f"outage-drill: {stepped} jobs stepped after recovery")
-    _check_launches(torch, dev, "outage-drill completing step", launches)
+    _check_launches(torch, dev, "outage-drill completing step", launches, FAST_MM_KERNELS)
     ids = [r.metadata.report_id.data for r in wire]
     finished = pair.check_job(job, [ids[i] for i in bad_rows])
     accept = np.ones(batch, dtype=bool)
@@ -4867,7 +4874,7 @@ def phase_pipeline_resident(torch, dev, inst, keys, per_task: int, job_size: int
                         if launches[k] != want:
                             raise AssertionError(f"pipeline: {k} launched {launches[k]} times, not {want} for "
                                                  f"{len(leader_rounds)} leader and {len(helper_rounds)} helper rounds")
-                want_kernels = ("keccak_single_block", "expand_f128") + (("scatter_rows",) if sparse else ())
+                want_kernels = FAST_MM_KERNELS + (("scatter_rows",) if sparse else ())
                 _check_launches(torch, dev, "pipeline run", launches, want_kernels)
                 if sparse and launches["scatter_rows"] != 2 * jobs:
                     # a merge a job on the leader, an aggregate_sparse a request on the helper
@@ -5151,7 +5158,7 @@ def phase_device_hang_drill(torch, dev, inst, job_size: int = 128, lease_s: int 
             raise AssertionError("device-hang-drill: the healthy step did not run")
         rec["healthy_step_s"] = time.perf_counter() - t0
         rec["launches_healthy"] = _launches(counters)
-        _check_launches(torch, dev, "device-hang-drill healthy step", rec["launches_healthy"])
+        _check_launches(torch, dev, "device-hang-drill healthy step", rec["launches_healthy"], FAST_MM_KERNELS)
         if [r[0] for r in pair.job_rows()].count("finished") != 1:
             raise AssertionError(f"device-hang-drill: after the healthy step {pair.job_rows()}")
 
@@ -5230,7 +5237,7 @@ def phase_device_hang_drill(torch, dev, inst, job_size: int = 128, lease_s: int 
             stepped += 1
         rec["completing_steps_s"] = time.perf_counter() - t0
         rec["launches"] = _launches(counters)
-        _check_launches(torch, dev, "device-hang-drill completing steps", rec["launches"])
+        _check_launches(torch, dev, "device-hang-drill completing steps", rec["launches"], FAST_MM_KERNELS)
         rows = pair.job_rows()
         if stepped != 2 or rows != [("finished", 1, 0)] * 3:
             raise AssertionError(f"device-hang-drill: {stepped} completing steps, job rows {rows}")
@@ -5371,7 +5378,7 @@ def phase_peer_outage_drill(torch, dev, inst, job_size: int = 256):
             raise AssertionError("peer-outage-drill: the job did not step after the heal")
         rec["healed_step_s"] = time.perf_counter() - t0
         rec["launches"] = _launches(counters)
-        _check_launches(torch, dev, "peer-outage-drill healed step", rec["launches"])
+        _check_launches(torch, dev, "peer-outage-drill healed step", rec["launches"], FAST_MM_KERNELS)
         if pair.job_rows() != [("finished", 1, 0)]:
             raise AssertionError(f"peer-outage-drill: job rows {pair.job_rows()}")
         rec["step_backs"] = [[r, d] for r, d, _ in step_backs]
@@ -5556,7 +5563,7 @@ def phase_fleet_drill(torch, dev, inst, per_task: int = 256, job_size: int = 128
                 if not n:
                     break
                 step = _launches(counters)
-                _check_launches(torch, dev, f"fleet-drill step {len(step_s)}", step)
+                _check_launches(torch, dev, f"fleet-drill step {len(step_s)}", step, FAST_MM_KERNELS)
                 launches = {k: launches[k] + step[k] for k in launches}
                 claimed[stage].append(held[-1][1])
                 if held[-1][1] == handed:
@@ -5669,7 +5676,7 @@ def phase_mesh(torch, dev, inst, batch: int, bad_rows):
     by_shard = cuda_build.shard_launches()
     mesh_s2, got2 = serve(meshed)
     single_s2, want2 = serve(single)
-    _check_launches(torch, dev, "mesh-sumvec", launches, fast)
+    _check_launches(torch, dev, "mesh-sumvec", launches, fast + ("limb_contract",))
     if _on_card(torch, dev):
         for kernel in fast:
             shards = by_shard.get(kernel, {})
@@ -5733,7 +5740,7 @@ def phase_mesh_step(torch, dev, big, args, want, bad_count: int):
     _sync(torch, dev)
     step_s = time.perf_counter() - t0
     launches = _launches(counters)
-    _check_launches(torch, dev, "mesh-sumvec100k", launches, ("keccak_single_block", "expand_f128"))
+    _check_launches(torch, dev, "mesh-sumvec100k", launches, FAST_MM_KERNELS)
     err = max(max_abs_err(torch, tuple(a), tuple(b)) for a, b in ((agg0, want[0]), (agg1, want[1])))
     batch = args[0].shape[0]
     if err or int(count) != int(want[2]) or int(count) != batch - bad_count:
@@ -5883,10 +5890,11 @@ def main() -> int:
         emit({"sponge": {"batch": 1024, **sponge}})
     serves = {}
     for name, inst, kernels_of_path, batch, bad, chunk, streamed in (
-        ("sumvec", VdafInstance.sum_vec(1000, 16), fast, 1024, (5, 300, 1000), 256, False),
-        ("draft-sumvec", VdafInstance("sumvec", bits=16, length=1000, xof_mode="draft"), ("keccak_sponge",), 1024,
-         (5, 300, 1000), 256, False),
-        ("sumvec100k", big, fast, 16, (3, 7, 14), 16, True),  # halved from 64 (past 60 s), then from 32 (the script past 480 s)
+        ("sumvec", VdafInstance.sum_vec(1000, 16), fast + MM_KERNELS, 1024, (5, 300, 1000), 256, False),
+        ("draft-sumvec", VdafInstance("sumvec", bits=16, length=1000, xof_mode="draft"),
+         ("keccak_sponge",) + MM_KERNELS, 1024, (5, 300, 1000), 256, False),
+        # halved from 64 (past 60 s), then from 32 (the script past 480 s)
+        ("sumvec100k", big, fast + MM_KERNELS, 16, (3, 7, 14), 16, True),
     ):
         out = phase(f"serve-{name}", phase_serve, torch, dev, name, inst, batch, bad, kernels_of_path, chunk,
                     streamed, 1 if streamed else 2) if not failed else None
@@ -5894,8 +5902,9 @@ def main() -> int:
             serves[out["path"]] = out
             emit({"serve": out})
     for name, inst, kernels_of_path in (
-        ("sumvec", VdafInstance.sum_vec(1000, 16), fast),
-        ("draft-sumvec", VdafInstance("sumvec", bits=16, length=1000, xof_mode="draft"), ("keccak_sponge",)),
+        ("sumvec", VdafInstance.sum_vec(1000, 16), fast + MM_KERNELS),
+        ("draft-sumvec", VdafInstance("sumvec", bits=16, length=1000, xof_mode="draft"),
+         ("keccak_sponge",) + MM_KERNELS),
     ):
         out = phase(f"drive-{name}", phase_drive, torch, dev, name, inst, 1024, (5, 300, 1000),
                     kernels_of_path) if not failed else None

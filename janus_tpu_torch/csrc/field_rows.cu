@@ -13,12 +13,14 @@
 //
 // Modular addition of reduced elements is exact and commutative, so every
 // order of the sum gives the same canonical element, the plain version's
-// (ops/rows_cuda.py); x^i is unique too, so square-and-multiply gives the
+// (ops/ntt.py, fields/tfield.py); x^i is unique too, so square-and-multiply gives the
 // plain version's doubling result.
 //
 // Bound on the H100: bytes for sum (16 B read an element against ~20
-// instructions), operations for powers (~8 squarings and muls an element)
-// and for dot (a mul an element). Design: powers, one thread an output
+// instructions), operations for powers (the function needs a mul an
+// element, x^i = x^(i-1) x; square-and-multiply spends ~9, so the kernel
+// runs at a few per cent of that bound) and for dot (a mul an element).
+// Design: powers, one thread an output
 // element, x read through its strides (the step's [b] column slices) and
 // raised by its own square-and-multiply, no sequential dependence along
 // the row. sum and dot, two modes the wrapper picks from the shape: one

@@ -24,7 +24,8 @@ mul and fmul_pow2 are one launch of csrc/field_arith.cu each
 (ops/field_cuda.py), fsum and fdot one of csrc/field_rows.cu
 (ops/rows_cuda.py). The eager bodies here (`add_plain`, ...,
 `fmul_pow2_plain`, `fsum_plain`, `fdot_plain`) are their plain versions,
-which CPU tensors run.
+which CPU tensors run: each op sends its operands by their device
+(`_on_card`).
 """
 
 from __future__ import annotations
@@ -37,6 +38,13 @@ from ..ops import rows_cuda as _rows_cuda
 from .field import Field64, Field128
 
 I64 = torch.int64
+
+
+def _on_card(what: str, *values) -> bool:
+    """True where the values' limbs lie on one CUDA device (the kernel's
+    route), False on the CPU (the plain version's); raises ValueError for
+    limbs on two devices."""
+    return _field_cuda.on_card(what, [t for v in values for t in v])
 MASK64 = (1 << 64) - 1
 MIN64 = -(1 << 63)
 M32 = 0xFFFFFFFF
@@ -207,7 +215,7 @@ class TF64:
 
     @staticmethod
     def add(a, b):
-        return _field_cuda.field_arith("add", TF64, a, b)
+        return _field_cuda.elementwise("add", TF64, a, b) if _on_card("add", a, b) else TF64.add_plain(a, b)
 
     @staticmethod
     def add_plain(a, b):
@@ -218,7 +226,7 @@ class TF64:
 
     @staticmethod
     def sub(a, b):
-        return _field_cuda.field_arith("sub", TF64, a, b)
+        return _field_cuda.elementwise("sub", TF64, a, b) if _on_card("sub", a, b) else TF64.sub_plain(a, b)
 
     @staticmethod
     def sub_plain(a, b):
@@ -229,7 +237,7 @@ class TF64:
 
     @staticmethod
     def neg(a):
-        return _field_cuda.field_arith("neg", TF64, a)
+        return _field_cuda.elementwise("neg", TF64, a) if _on_card("neg", a) else TF64.neg_plain(a)
 
     @staticmethod
     def neg_plain(a):
@@ -238,16 +246,12 @@ class TF64:
 
     @staticmethod
     def mul(a, b):
-        return _field_cuda.field_arith("mul", TF64, a, b)
+        return _field_cuda.elementwise("mul", TF64, a, b) if _on_card("mul", a, b) else TF64.mul_plain(a, b)
 
     @staticmethod
     def mul_plain(a, b):
         (x,), (y,) = a, b
         return (_f64_reduce_wide(*mul64wide(x, y)),)
-
-    @staticmethod
-    def mul_pow2_plain(v, k: int):
-        return fmul_pow2_plain(TF64, v, k)
 
     @classmethod
     def from_ints(cls, arr, device) -> tuple:
@@ -330,7 +334,7 @@ class TF128:
 
     @staticmethod
     def add(a, b):
-        return _field_cuda.field_arith("add", TF128, a, b)
+        return _field_cuda.elementwise("add", TF128, a, b) if _on_card("add", a, b) else TF128.add_plain(a, b)
 
     @staticmethod
     def add_plain(a, b):
@@ -353,7 +357,7 @@ class TF128:
 
     @staticmethod
     def sub(a, b):
-        return _field_cuda.field_arith("sub", TF128, a, b)
+        return _field_cuda.elementwise("sub", TF128, a, b) if _on_card("sub", a, b) else TF128.sub_plain(a, b)
 
     @staticmethod
     def sub_plain(a, b):
@@ -368,7 +372,7 @@ class TF128:
 
     @staticmethod
     def neg(a):
-        return _field_cuda.field_arith("neg", TF128, a)
+        return _field_cuda.elementwise("neg", TF128, a) if _on_card("neg", a) else TF128.neg_plain(a)
 
     @staticmethod
     def neg_plain(a):
@@ -380,7 +384,7 @@ class TF128:
 
     @staticmethod
     def mul(a, b):
-        return _field_cuda.field_arith("mul", TF128, a, b)
+        return _field_cuda.elementwise("mul", TF128, a, b) if _on_card("mul", a, b) else TF128.mul_plain(a, b)
 
     @staticmethod
     def mul_plain(a, b):
@@ -395,10 +399,6 @@ class TF128:
         r2, c4 = adc(r2, l11, c2)
         r3 = h11 + c3 + c4
         return _f128_reduce256(l00, r1, r2, r3)
-
-    @staticmethod
-    def mul_pow2_plain(v, k: int):
-        return fmul_pow2_plain(TF128, v, k)
 
     @classmethod
     def from_ints(cls, arr, device) -> tuple:
@@ -421,7 +421,7 @@ def fmul_pow2(tf, v, k: int):
     assert 0 <= k < 64, k
     if k == 0:
         return v
-    return _field_cuda.field_arith("mul_pow2", tf, v, k=k)
+    return _field_cuda.elementwise("mul_pow2", tf, v, k=k) if _on_card("fmul_pow2", v) else fmul_pow2_plain(tf, v, k)
 
 
 def fmul_pow2_plain(tf, v, k: int):
@@ -539,7 +539,7 @@ def finv(tf, x):
 def fsum(tf, v, axis: int):
     """Sum a field value along an axis (one launch of csrc/field_rows.cu
     on the card)."""
-    return _rows_cuda.fsum(tf, v, axis)
+    return _rows_cuda.fsum(tf, v, axis) if _on_card("fsum", v) else fsum_plain(tf, v, axis)
 
 
 def fsum_plain(tf, v, axis: int):
@@ -566,7 +566,7 @@ def fsum_plain(tf, v, axis: int):
 def fdot(tf, a, b, axis=-1):
     """Inner product along an axis (one fused launch of csrc/field_rows.cu
     on the card)."""
-    return _rows_cuda.fdot(tf, a, b, axis)
+    return _rows_cuda.fdot(tf, a, b, axis) if _on_card("fdot", a, b) else fdot_plain(tf, a, b, axis)
 
 
 def fdot_plain(tf, a, b, axis=-1):

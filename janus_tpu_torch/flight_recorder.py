@@ -268,25 +268,30 @@ def theil_sen(points: list[tuple[float, float]]) -> tuple[float, float, float]:
 def _p99_from_bucket_delta(
     bounds: tuple, early: list[float], late: list[float]
 ) -> float | None:
-    """p99 upper-bound estimate from cumulative-bucket deltas
-    (late - early, both cumulative counts per bound + the +Inf total
-    appended last): the least bucket bound at or under which 99 % of
-    the window's observations lie, so the bound of the bucket that holds
-    the nearest-rank p99 observation (+Inf past the last bound). None
-    when the delta window saw no observations.
+    """p99 estimate from cumulative-bucket deltas (late - early, both
+    cumulative counts per bound + the +Inf total appended last): the
+    rank 0.99 n interpolated linearly inside the bucket that holds it,
+    as Prometheus's histogram_quantile does (the first bucket from 0),
+    so the estimate lies in the bucket of the window's nearest-rank p99
+    observation. +Inf past the last bound; None when the delta window
+    saw no observations.
 
     A named divergence from janus_tpu/flight_recorder.py:270, which adds
     the deltas up again as if they were per-bucket counts, although each
     is already cumulative, and so reads one or more buckets low (0.004 s
-    observations as 0.0025 s)."""
+    observations as 0.0025 s), and which returns a bucket's bound: on
+    the ladder's 2.5x steps a p99 that moves across one bound by a hair
+    reads as a 2.5x move, past the verdict's 2.0."""
     deltas = [b - a for a, b in zip(early, late)]
     total = deltas[-1]
     if total <= 0:
         return None
     target = 0.99 * total
+    lower, below = 0.0, 0.0
     for bound, cum in zip(bounds, deltas):
         if cum >= target:
-            return float(bound)
+            return lower + (bound - lower) * (target - below) / (cum - below)
+        lower, below = float(bound), cum
     return float("inf")
 
 

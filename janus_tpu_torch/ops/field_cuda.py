@@ -4,8 +4,9 @@ Replaces the field ops that XLA fuses into janus_tpu's jitted step, not
 Pallas kernels: janus_tpu/fields/jfield.py JF64 (:170: add :178, sub :186,
 neg :194, mul :199), JF128 (:277: add :285, sub :306, neg :317, mul :325)
 and fmul_pow2 (:359). The port's TF64/TF128 methods and fmul_pow2
-(fields/tfield.py) call `field_arith`; their eager bodies are the plain
-version (`TF64.add_plain`, ..., `fmul_pow2_plain`), 26 to 589 int64
+(fields/tfield.py) call `elementwise` on the card; their eager bodies are
+the plain version (TF64's and TF128's `add_plain`, `sub_plain`,
+`neg_plain` and `mul_plain`, and `fmul_pow2_plain`), 26 to 589 int64
 PyTorch ops an op, which a SumVec step once ran tens of thousands of.
 
 What bounds it on the H100: bytes for add, sub, neg and mul_pow2, about
@@ -17,12 +18,13 @@ stride 0 (`launch_geometry`), so the step's strided slices, [b, n] x
 result is a new contiguous tensor of the broadcast shape, as the plain
 version's torch.where gives it.
 
-Dispatch is by device: on CUDA tensors `field_arith` launches the kernel
-(and raises if it cannot); on CPU tensors it runs the plain version.
-Operands on two devices raise. The same module holds the launch-geometry
-helpers (`launch_geometry`, `merge_axes`) and the field constants
-(`field_consts`) that the other field kernels' wrappers (ntt_cuda,
-rows_cuda, limb_cuda) share.
+Dispatch is by device, in the callers: `on_card` sends CUDA operands to
+`elementwise`, which launches the kernel (or raises, as it does for CPU
+operands), and CPU operands to the plain version. Operands on two devices
+raise. Each launch counts on `field_arith`. The same module holds the
+launch-geometry helpers (`launch_geometry`, `merge_axes`), the device
+checks and the field constants (`field_consts`) that the other field
+kernels' wrappers (ntt_cuda, rows_cuda, limb_cuda) share.
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ from . import cuda_build
 MAX_RANK = 8
 OPS = {"add": 0, "sub": 1, "neg": 2, "mul": 3, "mul_pow2": 4}
 _BINARY = ("add", "sub", "mul")
+
+# the kernel's launch count, which every launch adds to
+field_arith = cuda_build.LaunchCount("field_arith")
 
 
 @lru_cache(maxsize=None)
@@ -108,6 +113,22 @@ def check_operands(what: str, tensors, dtype=torch.int64) -> torch.device:
     return device
 
 
+def on_card(what: str, tensors, dtype=torch.int64) -> bool:
+    """True where the operands lie on one CUDA device (the kernel's
+    route), False where they lie on the CPU (the plain version's); raises
+    ValueError as check_operands does."""
+    return check_operands(what, tensors, dtype).type == "cuda"
+
+
+def cuda_operands(what: str, tensors, dtype=torch.int64) -> torch.device:
+    """The one CUDA device the operands lie on; raises ValueError for any
+    other: a kernel's launcher takes no CPU tensor."""
+    device = check_operands(what, tensors, dtype)
+    if device.type != "cuda":
+        raise ValueError(f"{what}: the kernel takes CUDA tensors; CPU ones take the plain version")
+    return device
+
+
 def limb_rows(tf, rows, rank: int, n_values: int) -> list:
     """Each limb tensor's stride row, padded to the kernels' (a.lo, a.hi
     [, b.lo, b.hi]) with zeros for the hi limb Field64 values lack, then
@@ -134,15 +155,6 @@ def stream_of(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def field_arith_plain(op: str, tf, a, b=None, k: int = 0):
-    """Plain PyTorch version of the kernel: tfield's eager bodies."""
-    if op == "mul_pow2":
-        return tf.mul_pow2_plain(a, k)
-    if op == "neg":
-        return tf.neg_plain(a)
-    return getattr(tf, f"{op}_plain")(a, b)
-
-
 def _lib():
     lib = cuda_build.load("field_arith")
     fn = lib.field_arith_launch
@@ -153,19 +165,17 @@ def _lib():
     return fn
 
 
-def field_arith(op: str, tf, a, b=None, k: int = 0):
+def elementwise(op: str, tf, a, b=None, k: int = 0):
     """a op b (add, sub, mul), -a (neg) or a * 2^k (mul_pow2, 0 < k < 64)
-    mod p, elementwise over broadcast limb tuples: a new field value of
-    the broadcast shape."""
+    mod p, elementwise over broadcast limb tuples on the card: a new field
+    value of the broadcast shape, in one launch."""
     if op not in OPS:
         raise ValueError(f"field_arith: unknown op {op!r}")
     binary = op in _BINARY
     if len(a) != tf.LIMBS or (binary and (b is None or len(b) != tf.LIMBS)):
         raise ValueError(f"field_arith: {op} takes {'two' if binary else 'one'} {tf.LIMBS}-limb value(s)")
     tensors = list(a) + (list(b) if binary else [])
-    device = check_operands("field_arith", tensors)
-    if device.type == "cpu":
-        return field_arith_plain(op, tf, a, b, k)
+    device = cuda_operands("field_arith", tensors)
     if op == "mul_pow2" and not 0 < k < 64:
         raise ValueError(f"field_arith: mul_pow2 takes 0 < k < 64, not {k}")
     shape, per = launch_geometry([t.shape for t in tensors], [t.stride() for t in tensors])
@@ -188,6 +198,3 @@ def field_arith(op: str, tf, a, b=None, k: int = 0):
     cuda_build.check(rc, "field_arith")
     cuda_build.count_launch(field_arith)
     return outs
-
-
-field_arith.launches = 0

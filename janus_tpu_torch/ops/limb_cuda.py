@@ -5,8 +5,9 @@ Replaces janus_tpu/ops/limbmm.py:64 `decompose7` and the recombination of
 `_reduce_limbs`), which XLA compiles around the MXU's product in
 janus_tpu's jitted step: not Pallas kernels. The port's ops/limbmm.py
 `fold_contract` is `decompose7` twice, one torch.bmm in float64 and
-`recombine`; the eager versions of the two (`decompose7_plain`,
-`recombine_plain`, in limbmm.py) are the plain versions.
+`recombine`, which call the entries here on the card; their eager
+versions (limbmm.py's `decompose7_plain`, `recombine_plain`) are the
+plain versions.
 
 What bounds it on the H100: bytes. decompose7 writes 8 bytes a 7-bit limb
 (152 bytes a Field128 element) against a few instructions a limb;
@@ -19,8 +20,9 @@ threads on neighbouring columns. The product itself stays torch.bmm, a
 plain matrix product janus_tpu leaves to XLA; an int8 tensor-core
 contraction is future work.
 
-Both entries count on `limb_contract`. Dispatch is by device: CUDA
-tensors launch the kernel or raise; CPU tensors run the plain versions;
+Both entries count on `limb_contract`. Dispatch is by device, in the
+callers (field_cuda.on_card): CUDA tensors come here, which launches the
+kernel or raises (CPU tensors raise: they take the plain versions);
 operands on two devices raise.
 """
 
@@ -31,7 +33,7 @@ import ctypes
 import torch
 
 from . import cuda_build
-from .field_cuda import MAX_RANK, c_array, check_operands, field_consts, limb_ptrs, limb_rows, merge_axes, stream_of
+from .field_cuda import MAX_RANK, c_array, cuda_operands, field_consts, limb_ptrs, limb_rows, merge_axes, stream_of
 
 NLIMB = {1: 10, 2: 19}  # 7-bit limbs an element, by 64-bit limb count
 
@@ -63,20 +65,12 @@ def _fn(name: str):
     return fn
 
 
-def decompose7_plain(tf, v, dim: int):
-    from . import limbmm
-
-    return limbmm.decompose7_plain(tf, v, dim)
-
-
 def decompose7(tf, v, dim: int):
     """Field value (any shape S) -> float64 tensor of its 7-bit limbs,
     little-endian, on a new axis of NLIMB[tf.LIMBS] at `dim`."""
     if len(v) != tf.LIMBS:
         raise ValueError(f"decompose7: a {tf.LIMBS}-limb value")
-    device = check_operands("decompose7", list(v))
-    if device.type == "cpu":
-        return decompose7_plain(tf, v, dim)
+    device = cuda_operands("decompose7", list(v))
     nl = NLIMB[tf.LIMBS]
     out_shape, inner, mshape, mst = decompose_geometry(tuple(v[0].shape), [x.stride() for x in v], dim, nl)
     out = torch.empty(out_shape, dtype=torch.float64, device=device)
@@ -97,20 +91,12 @@ def decompose7(tf, v, dim: int):
     return out
 
 
-def recombine_plain(tf, acc, W: int, C: int):
-    from . import limbmm
-
-    return limbmm.recombine_plain(tf, acc, W, C)
-
-
 def recombine(tf, acc, W: int, C: int):
     """acc: float64 [b, W * nl, nl * C], the exact product of the two
     decompositions (rows (w, l1), columns (l2, c)) -> the reduced field
     value [b, W, C] of sum_{l1, l2} 2^(7 (l1 + l2)) acc[b, (w, l1), (l2, c)]."""
     nl = NLIMB[tf.LIMBS]
-    device = check_operands("recombine", [acc], torch.float64)
-    if device.type == "cpu":
-        return recombine_plain(tf, acc, W, C)
+    device = cuda_operands("recombine", [acc], torch.float64)
     if acc.dim() != 3 or acc.shape[1:] != (W * nl, nl * C):
         raise ValueError(f"recombine: a float64 [b, {W * nl}, {nl * C}] product wanted, not {tuple(acc.shape)}")
     b = acc.shape[0]

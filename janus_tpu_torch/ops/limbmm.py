@@ -37,6 +37,7 @@ import torch
 
 from ..fields.tfield import _f64_reduce_wide, _f128_fold, _f128_reduce256, add_limbs, lsr
 from . import limb_cuda
+from .field_cuda import on_card
 
 _NLIMB = limb_cuda.NLIMB  # 7-bit limbs per element, by 64-bit limb count
 
@@ -45,7 +46,7 @@ def decompose7(tf, v, dim: int):
     """Field value (limb tuple, any shape S) -> float64 tensor of its
     7-bit limbs, little-endian, on a new axis of nlimbs at `dim`: one
     launch of csrc/limb_contract.cu on the card (ops/limb_cuda.py)."""
-    return limb_cuda.decompose7(tf, v, dim)
+    return limb_cuda.decompose7(tf, v, dim) if on_card("decompose7", v) else decompose7_plain(tf, v, dim)
 
 
 def decompose7_plain(tf, v, dim: int):
@@ -109,7 +110,9 @@ def recombine(tf, acc, W: int, C: int):
     """The product's exact column sums acc [b, W * nl, nl * C] (rows
     (w, l1), columns (l2, c)) -> the reduced field value [b, W, C]: one
     launch of csrc/limb_contract.cu on the card (ops/limb_cuda.py)."""
-    return limb_cuda.recombine(tf, acc, W, C)
+    if on_card("recombine", [acc], torch.float64):
+        return limb_cuda.recombine(tf, acc, W, C)
+    return recombine_plain(tf, acc, W, C)
 
 
 def recombine_plain(tf, acc, W: int, C: int):

@@ -30,6 +30,7 @@ import torch
 
 from ..fields.tfield import fconst, fmap, fsum_plain, i64
 from . import ntt_cuda, rows_cuda
+from .field_cuda import on_card
 
 
 def _bitrev_perm(n: int) -> np.ndarray:
@@ -92,7 +93,10 @@ def _transform(tf, v, n: int, inverse: bool):
     """The transform of every row of v [..., n]: one launch of
     csrc/ntt.cu on the card (ops/ntt_cuda.py), the plain version on the
     CPU."""
-    return ntt_cuda.transform(tf, v, n, inverse)
+    if on_card("ntt_transform", v):
+        device = v[0].device
+        return ntt_cuda.transform(tf, v, n, inverse, _twiddles_on(tf, n, inverse, device), _plan(tf, n, inverse)[2])
+    return _transform_plain(tf, v, n, inverse)
 
 
 def _transform_plain(tf, v, n: int, inverse: bool):
@@ -149,7 +153,7 @@ def powers(tf, x, n: int):
 
     x: field value of shape [...]; returns [..., n].
     """
-    return rows_cuda.powers(tf, x, n)
+    return rows_cuda.powers(tf, x, n) if on_card("powers", x) else powers_plain(tf, x, n)
 
 
 def powers_plain(tf, x, n: int):
@@ -176,7 +180,9 @@ def poly_eval_powers(tf, coeffs, pw):
     coeffs: [..., k]; pw: [..., m] powers of the evaluation point with
     m >= k. Returns [...]: sum_i coeffs[i] * x^i.
     """
-    return rows_cuda.poly_eval_powers(tf, coeffs, pw)
+    if on_card("poly_eval_powers", (*coeffs, *pw)):
+        return rows_cuda.poly_eval_powers(tf, coeffs, pw)
+    return poly_eval_powers_plain(tf, coeffs, pw)
 
 
 def poly_eval_powers_plain(tf, coeffs, pw):

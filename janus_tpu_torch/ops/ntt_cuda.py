@@ -4,10 +4,10 @@ Replaces janus_tpu/ops/ntt.py:80 `_transform` (ntt_batched :108,
 intt_batched :121, lagrange_eval_weights :128), which XLA compiles into
 janus_tpu's jitted step with its stages split by anti_recompute_barrier:
 not a Pallas kernel. The port's ops/ntt.py `_transform` calls
-`transform`, counted on `ntt_transform`; its eager body is the plain
-version (`ntt_transform_plain`, ntt.py's `_transform_plain`: a
-bit-reversal gather, then log2(n) stages of field mul, add, sub and cat,
-3,995 int64 PyTorch ops for n = 64).
+`transform` on the card, counted on `ntt_transform`; its eager body is
+the plain version (ntt.py's `_transform_plain`: a bit-reversal gather,
+then log2(n) stages of field mul, add, sub and cat, 3,995 int64 PyTorch
+ops for n = 64).
 
 What bounds it on the H100: operations (a butterfly is a field mul, add
 and sub against the 32 bytes it reads and writes once, in shared memory).
@@ -21,11 +21,12 @@ take that route. Longer rows take 1 + log2(n) launches on the same
 arithmetic: the gather, then a launch a stage in place in global memory,
 the inverse's scale fused into the last; each launch counts.
 
-Twiddles come from ntt.py's per-device plan (`_twiddles_on`: every
-stage's twiddles in one table a limb, stage L at offset L/2 - 1), n^-1
-from the same plan. Dispatch is by device: CUDA tensors launch the kernel
-or raise; CPU tensors run the plain version; operands on two devices
-raise.
+The caller passes the twiddles and n^-1 from ntt.py's per-device plan
+(`_twiddles_on`: every stage's twiddles in one table a limb, stage L at
+offset L/2 - 1). Dispatch is by device, in the caller
+(field_cuda.on_card): CUDA tensors come here, which launches the kernel
+or raises (CPU tensors raise: they take the plain version); operands on
+two devices raise.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import ctypes
 import torch
 
 from . import cuda_build
-from .field_cuda import MAX_RANK, c_array, check_operands, field_consts, limb_ptrs, limb_rows, merge_axes, stream_of
+from .field_cuda import MAX_RANK, c_array, cuda_operands, field_consts, limb_ptrs, limb_rows, merge_axes, stream_of
 
 ROW_BYTES_IN_ONE_BLOCK = 128 * 1024
 # threads a block: up to this many a row, rows packed up to it
@@ -77,27 +78,17 @@ def _fn(name: str):
     return fn
 
 
-def ntt_transform_plain(tf, v, n: int, inverse: bool):
-    from . import ntt
-
-    return ntt._transform_plain(tf, v, n, inverse)
-
-
-def transform(tf, v, n: int, inverse: bool):
+def transform(tf, v, n: int, inverse: bool, tw, n_inv):
     """The NTT (inverse: n^-1 times the inverse NTT) of every row of the
-    field value v [..., n]: a new contiguous field value [..., n]."""
-    from . import ntt
-
+    field value v [..., n] on the card: a new contiguous field value
+    [..., n]. tw: the plan's twiddle table a limb ([n - 1], on v's
+    device); n_inv: n^-1 as an int (None for the forward transform)."""
     if len(v) != tf.LIMBS:
         raise ValueError(f"ntt_transform: a {tf.LIMBS}-limb value")
-    device = check_operands("ntt_transform", list(v))
-    if device.type == "cpu":
-        return ntt_transform_plain(tf, v, n, inverse)
+    device = cuda_operands("ntt_transform", list(v) + list(tw))
     if n < 1 or n & (n - 1) or v[0].shape[-1] != n or any(x.shape != v[0].shape for x in v):
         raise ValueError(f"ntt_transform: rows of n = {n} (a power of two) wanted, not {tuple(v[0].shape)}")
     log2n = n.bit_length() - 1
-    _, _, n_inv = ntt._plan(tf, n, inverse)
-    tw = ntt._twiddles_on(tf, n, inverse, device)
     ninv = n_inv or 0
     ninv_words = (ninv & ((1 << 64) - 1), ninv >> 64)
     batch = tuple(v[0].shape[:-1])

@@ -5,13 +5,14 @@ janus_tpu/ops/ntt.py:147 `powers` and :172 `poly_eval_powers`,
 janus_tpu/fields/jfield.py:487 `fsum` (aggregate's sum over the batch
 axis, vdaf/prio3.py:311, among its callers) and :516 `fdot`. The port's
 ops/ntt.py `powers` and `poly_eval_powers` and fields/tfield.py `fsum`
-and `fdot` call the entries here; their eager bodies are the plain
-versions (`powers_plain`, `poly_eval_powers_plain`, `fsum_plain`,
-`fdot_plain`): log-depth doublings and halvings of field ops, 5,926
-int64 PyTorch ops for powers(n = 64).
+and `fdot` call the entries here on the card; their eager bodies are the
+plain versions (ntt.py's `powers_plain`, `poly_eval_powers_plain`,
+tfield.py's `fsum_plain`, `fdot_plain`): log-depth doublings and halvings
+of field ops, 5,926 int64 PyTorch ops for powers(n = 64).
 
-What bounds it on the H100: bytes for a sum, operations for powers (~8
-muls an element) and a dot (a mul an element). Each entry is one launch
+What bounds it on the H100: bytes for a sum, operations for powers and
+a dot (the functions need a mul an element; powers' square-and-multiply
+spends ~9, so it runs at a few per cent of its bound). Each entry is one launch
 of the kernel, counted on `field_rows`. powers: a thread an output
 element, x^i by square-and-multiply, x read through its strides. sum and
 dot: a thread an output element walking the summed axis where there are
@@ -25,8 +26,9 @@ is: modular addition of reduced elements is exact and commutative, so
 any summation order gives the plain version's canonical element, and
 x^i is unique.
 
-Dispatch is by device: CUDA tensors launch the kernel or raise, CPU
-tensors run the plain versions, operands on two devices raise.
+Dispatch is by device, in the callers (field_cuda.on_card): CUDA
+tensors come here, which launches the kernel or raises (CPU tensors
+raise: they take the plain versions); operands on two devices raise.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from . import cuda_build
 from .field_cuda import (
     MAX_RANK,
     c_array,
-    check_operands,
+    cuda_operands,
     field_consts,
     launch_geometry,
     limb_ptrs,
@@ -59,13 +61,6 @@ def block_mode(outputs: int, m: int) -> int:
     return 1 if m >= 1024 and outputs < 2048 else 0
 
 
-def _plain():
-    from ..fields import tfield
-    from . import ntt
-
-    return tfield, ntt
-
-
 def _fn(name: str):
     fn = getattr(cuda_build.load("field_rows"), name)
     if fn.argtypes is None:
@@ -78,19 +73,13 @@ def _fn(name: str):
     return fn
 
 
-def powers_plain(tf, x, n: int):
-    return _plain()[1].powers_plain(tf, x, n)
-
-
 def powers(tf, x, n: int):
     """[x^0, x^1, ..., x^{n-1}] along a new trailing axis: x [...] ->
     a field value [..., n]."""
     assert n >= 1
     if len(x) != tf.LIMBS:
         raise ValueError(f"powers: a {tf.LIMBS}-limb value")
-    device = check_operands("powers", list(x))
-    if device.type == "cpu":
-        return powers_plain(tf, x, n)
+    device = cuda_operands("powers", list(x))
     shape = tuple(x[0].shape)
     outs = tuple(torch.empty(shape + (n,), dtype=torch.int64, device=device) for _ in range(tf.LIMBS))
     total = outs[0].numel()
@@ -152,36 +141,20 @@ def _reduce(tf, values, axis: int, what: str):
     return outs
 
 
-def fsum_plain(tf, v, axis: int):
-    return _plain()[0].fsum_plain(tf, v, axis)
-
-
 def fsum(tf, v, axis: int):
     """The mod-p sum of a field value along `axis`."""
     if len(v) != tf.LIMBS:
         raise ValueError(f"fsum: a {tf.LIMBS}-limb value")
-    device = check_operands("fsum", list(v))
-    if device.type == "cpu":
-        return fsum_plain(tf, v, axis)
+    cuda_operands("fsum", list(v))
     return _reduce(tf, (v,), axis, "fsum")
-
-
-def fdot_plain(tf, a, b, axis=-1):
-    return _plain()[0].fdot_plain(tf, a, b, axis)
 
 
 def fdot(tf, a, b, axis=-1):
     """The inner product of a and b (broadcast) along `axis`."""
     if len(a) != tf.LIMBS or len(b) != tf.LIMBS:
         raise ValueError(f"fdot: two {tf.LIMBS}-limb values")
-    device = check_operands("fdot", list(a) + list(b))
-    if device.type == "cpu":
-        return fdot_plain(tf, a, b, axis)
+    cuda_operands("fdot", list(a) + list(b))
     return _reduce(tf, (a, b), axis, "fdot")
-
-
-def poly_eval_powers_plain(tf, coeffs, pw):
-    return _plain()[1].poly_eval_powers_plain(tf, coeffs, pw)
 
 
 def poly_eval_powers(tf, coeffs, pw):
@@ -189,8 +162,6 @@ def poly_eval_powers(tf, coeffs, pw):
     polynomials at the point whose powers pw [..., >= k] holds."""
     if len(coeffs) != tf.LIMBS or len(pw) != tf.LIMBS:
         raise ValueError(f"poly_eval_powers: two {tf.LIMBS}-limb values")
-    device = check_operands("poly_eval_powers", list(coeffs) + list(pw))
-    if device.type == "cpu":
-        return poly_eval_powers_plain(tf, coeffs, pw)
+    cuda_operands("poly_eval_powers", list(coeffs) + list(pw))
     k = coeffs[0].shape[-1]
     return _reduce(tf, (coeffs, tuple(x[..., :k] for x in pw)), -1, "poly_eval_powers")

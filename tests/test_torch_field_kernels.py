@@ -1,9 +1,10 @@
 """The field kernels' plain versions and launch geometry, on the CPU.
 
 Kernels 5-8 (csrc/field_arith.cu, ntt.cu, field_rows.cu, limb_contract.cu)
-run only on the card; their arithmetic is their plain versions' (ops/
-field_cuda.py, ntt_cuda.py, rows_cuda.py, limb_cuda.py), which are held
-here against janus_tpu's jfield, ntt and limbmm functions (JAX on the CPU)
+run only on the card (their wrappers: ops/field_cuda.py, ntt_cuda.py,
+rows_cuda.py, limb_cuda.py); their arithmetic is their plain versions'
+(the eager bodies in fields/tfield.py, ops/ntt.py and ops/limbmm.py),
+which are held here against janus_tpu's jfield, ntt and limbmm functions (JAX on the CPU)
 at the operand layouts a step passes: a strided column against a column,
 [b, n] against [b, 1], an NTT stage's half rows against its twiddles,
 [b, 126] against a 0-d constant and two strided [b, 255] views, with the
@@ -12,7 +13,8 @@ are made with numpy from a seed; the tolerance is exact equality. Then
 each wrapper's launch geometry (the shape, strides and stride-0 axes it
 passes a kernel) is held against torch.broadcast_shapes and against the
 views it describes, CPU tensors are shown to take the plain route with
-every launch counter unchanged, and operands on two devices to raise.
+every launch counter unchanged, the launchers to refuse them, and
+operands on two devices to raise.
 The card's checks of the kernels themselves are in
 tests/test_torch_kernels_cuda.py.
 """
@@ -100,11 +102,11 @@ def test_elementwise_plain_matches_janus_tpu(field, layout, op):
     (ta, ja), (tb, jb) = _layout(field, layout)
     if op.startswith("mul_pow2"):
         k = int(op.split()[1])
-        got, want = field_cuda.field_arith_plain("mul_pow2", tf, ta, k=k), jf_mod.fmul_pow2(jf, ja, k)
+        got, want = tfield.fmul_pow2_plain(tf, ta, k), jf_mod.fmul_pow2(jf, ja, k)
     elif op == "neg":
-        got, want = field_cuda.field_arith_plain("neg", tf, ta), jf.neg(ja)
+        got, want = tf.neg_plain(ta), jf.neg(ja)
     else:
-        got, want = field_cuda.field_arith_plain(op, tf, ta, tb), getattr(jf, op)(ja, jb)
+        got, want = getattr(tf, f"{op}_plain")(ta, tb), getattr(jf, op)(ja, jb)
     assert _equal(got, want)
     # the dispatching entry takes the plain route on the CPU
     if op.startswith("mul_pow2"):
@@ -124,7 +126,7 @@ def test_ntt_plain_matches_janus_tpu(field, n, inverse):
     element of [b, 2, 2n]) against janus_tpu's _transform."""
     jf, tf = FIELDS[field]
     tv, jv = _values(tf, (B, 2, 2 * n), lambda x: x[..., ::2], 30 + n)
-    got = ntt_cuda.ntt_transform_plain(tf, tv, n, inverse)
+    got = ntt._transform_plain(tf, tv, n, inverse)
     assert _equal(got, j_ntt._transform(jf, jv, n, inverse))
 
 
@@ -134,7 +136,7 @@ def test_powers_plain_matches_janus_tpu(field, n):
     """Kernel 7's powers on a strided column [b] (x = r[:, 0] of [b, 3])."""
     jf, tf = FIELDS[field]
     tx, jx = _values(tf, (B, 3), lambda x: x[:, 0], 40 + n)
-    assert _equal(rows_cuda.powers_plain(tf, tx, n), j_ntt.powers(jf, jx, n))
+    assert _equal(ntt.powers_plain(tf, tx, n), j_ntt.powers(jf, jx, n))
 
 
 @pytest.mark.parametrize("axis", [0, -1])
@@ -145,8 +147,8 @@ def test_fsum_and_fdot_plain_match_janus_tpu(field, axis):
     jf, tf = FIELDS[field]
     tv, jv = _values(tf, (7, 3, B), lambda x: x.swapaxes(0, 2), 50)
     tw, jw = _values(tf, (B, 1, 7), lambda x: x, 51)
-    assert _equal(rows_cuda.fsum_plain(tf, tv, axis), jf_mod.fsum(jf, jv, axis))
-    assert _equal(rows_cuda.fdot_plain(tf, tv, tw, axis), jf_mod.fdot(jf, jv, jw, axis))
+    assert _equal(tfield.fsum_plain(tf, tv, axis), jf_mod.fsum(jf, jv, axis))
+    assert _equal(tfield.fdot_plain(tf, tv, tw, axis), jf_mod.fdot(jf, jv, jw, axis))
 
 
 @pytest.mark.parametrize("field", list(FIELDS))
@@ -156,7 +158,7 @@ def test_poly_eval_powers_plain_matches_janus_tpu(field):
     jf, tf = FIELDS[field]
     tc, jc = _values(tf, (B, 9), lambda x: x, 60)
     tp, jp = _values(tf, (B, 2, 20), lambda x: x[:, 1, :], 61)
-    assert _equal(rows_cuda.poly_eval_powers_plain(tf, tc, tp), j_ntt.poly_eval_powers(jf, jc, jp))
+    assert _equal(ntt.poly_eval_powers_plain(tf, tc, tp), j_ntt.poly_eval_powers(jf, jc, jp))
 
 
 @pytest.mark.parametrize("field", list(FIELDS))
@@ -168,16 +170,16 @@ def test_limb_contract_plain_matches_janus_tpu(field):
     tv, jv = _values(tf, (B, 2, 14), lambda x: x[..., ::2], 70)
     want = np.asarray(j_limbmm.decompose7(jf, jv)).astype(np.int64)  # [b, 2, 7, nl]
     for dim in (0, 2, 3):
-        got = limb_cuda.decompose7_plain(tf, tv, dim).to(torch.int64).numpy()
+        got = limbmm.decompose7_plain(tf, tv, dim).to(torch.int64).numpy()
         assert (np.moveaxis(got, dim, -1) == want).all(), dim
     tw, jw = _values(tf, (B, 2, 40), lambda x: x[..., ::2], 71)
     tX, jX = _values(tf, (B, 20, 6), lambda x: x, 72)
     got = limbmm.fold_contract(tf, tw, tX)
     assert _equal(got, j_limbmm.fold_contract(jf, jw, jX))
     nl = limb_cuda.NLIMB[tf.LIMBS]
-    dl = limb_cuda.decompose7_plain(tf, tw, 2).reshape(B, 2 * nl, 20)
-    dr = limb_cuda.decompose7_plain(tf, tX, 2).reshape(B, 20, nl * 6)
-    assert all(torch.equal(x, y) for x, y in zip(limb_cuda.recombine_plain(tf, torch.bmm(dl, dr), 2, 6), got))
+    dl = limbmm.decompose7_plain(tf, tw, 2).reshape(B, 2 * nl, 20)
+    dr = limbmm.decompose7_plain(tf, tX, 2).reshape(B, 20, nl * 6)
+    assert all(torch.equal(x, y) for x, y in zip(limbmm.recombine_plain(tf, torch.bmm(dl, dr), 2, 6), got))
 
 
 # -- launch geometry (pure functions) -------------------------------------
@@ -324,14 +326,33 @@ def test_cpu_tensors_take_the_plain_route_and_count_nothing(field):
     plain = [
         tf.add_plain(v, w), tf.sub_plain(v, w), tf.neg_plain(v), tf.mul_plain(v, w),
         tfield.fmul_pow2_plain(tf, v, 40),
-        ntt.ntt_batched(tf, v, 8), ntt.intt_batched(tf, v),
-        rows_cuda.powers_plain(tf, tuple(x[:, 0] for x in v), 9), rows_cuda.fsum_plain(tf, v, 0),
-        rows_cuda.fdot_plain(tf, v, w, -1), rows_cuda.poly_eval_powers_plain(tf, v, w),
-        limb_cuda.decompose7_plain(tf, v, 1),
+        ntt._transform_plain(tf, v, 8, False), ntt._transform_plain(tf, v, 8, True),
+        ntt.powers_plain(tf, tuple(x[:, 0] for x in v), 9), tfield.fsum_plain(tf, v, 0),
+        tfield.fdot_plain(tf, v, w, -1), ntt.poly_eval_powers_plain(tf, v, w),
+        limbmm.decompose7_plain(tf, v, 1),
     ]
     for got, want in zip(results, plain):
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_launchers_refuse_cpu_tensors(field):
+    """The kernels' launchers take CUDA tensors only: the callers send
+    CPU ones to the plain versions, so a CPU tensor that reaches a
+    launcher raises, and nothing counts."""
+    _, tf = FIELDS[field]
+    v, _ = _values(tf, (B, 8), lambda x: x, 83)
+    before = [c.launches for c in COUNTERS]
+    tw = tuple(torch.zeros(7, dtype=torch.int64) for _ in range(tf.LIMBS))
+    for fn in (lambda: field_cuda.elementwise("add", tf, v, v), lambda: ntt_cuda.transform(tf, v, 8, False, tw, None),
+               lambda: rows_cuda.powers(tf, v, 3), lambda: rows_cuda.fsum(tf, v, 0),
+               lambda: rows_cuda.fdot(tf, v, v, -1), lambda: rows_cuda.poly_eval_powers(tf, v, v),
+               lambda: limb_cuda.decompose7(tf, v, 0),
+               lambda: limb_cuda.recombine(tf, torch.zeros((B, 2 * 19, 19 * 3), dtype=torch.float64), 2, 3)):
+        with pytest.raises(ValueError, match="takes CUDA tensors"):
+            fn()
+    assert [c.launches for c in COUNTERS] == before
 
 
 @pytest.mark.parametrize("field", list(FIELDS))

@@ -1055,7 +1055,7 @@ def test_ntt_kernel_matches_plain(cuda, field, n):
     """Kernel 6 on strided rows, both directions: one launch a transform
     where a row fits a block, 1 + log2(n) beyond."""
     from janus_tpu_torch.fields.tfield import TF64, TF128
-    from janus_tpu_torch.ops import ntt_cuda
+    from janus_tpu_torch.ops import ntt, ntt_cuda
 
     tf = TF64 if field == "Field64" else TF128
     rows = 3 if n >= 2048 else 17
@@ -1063,35 +1063,36 @@ def test_ntt_kernel_matches_plain(cuda, field, n):
     want_launches = 1 if ntt_cuda.block_geometry(n, tf.LIMBS) else 1 + (n.bit_length() - 1)
     for inverse in (False, True):
         before = ntt_cuda.ntt_transform.launches
-        got = ntt_cuda.transform(tf, v, n, inverse)
+        got = ntt._transform(tf, v, n, inverse)
         torch.cuda.synchronize()
         assert ntt_cuda.ntt_transform.launches == before + want_launches
-        assert _same(got, ntt_cuda.ntt_transform_plain(tf, v, n, inverse))
+        assert _same(got, ntt._transform_plain(tf, v, n, inverse))
 
 
 @pytest.mark.parametrize("field", ["Field64", "Field128"])
 def test_field_rows_kernel_matches_plain(cuda, field):
     """Kernel 7: powers, sums along each axis (both modes), the broadcast
     dot and the fused polynomial evaluation, one launch each."""
+    from janus_tpu_torch.fields import tfield
     from janus_tpu_torch.fields.tfield import TF64, TF128
-    from janus_tpu_torch.ops import rows_cuda
+    from janus_tpu_torch.ops import ntt, rows_cuda
 
     tf = TF64 if field == "Field64" else TF128
     fr = rows_cuda.field_rows
     v = _field(tf, (33, 3, 257), 2, cuda)
     col = tuple(x[:, 1, 5] for x in v)
-    calls = [(lambda n=n: rows_cuda.powers(tf, col, n), lambda n=n: rows_cuda.powers_plain(tf, col, n))
+    calls = [(lambda n=n: rows_cuda.powers(tf, col, n), lambda n=n: ntt.powers_plain(tf, col, n))
              for n in (1, 2, 127, 255, 4095)]
     for axis in (0, 1, 2):
-        calls.append((lambda axis=axis: rows_cuda.fsum(tf, v, axis), lambda axis=axis: rows_cuda.fsum_plain(tf, v, axis)))
+        calls.append((lambda axis=axis: rows_cuda.fsum(tf, v, axis), lambda axis=axis: tfield.fsum_plain(tf, v, axis)))
     long_row = _field(tf, (3, 5000), 3, cuda)
-    calls.append((lambda: rows_cuda.fsum(tf, long_row, -1), lambda: rows_cuda.fsum_plain(tf, long_row, -1)))
+    calls.append((lambda: rows_cuda.fsum(tf, long_row, -1), lambda: tfield.fsum_plain(tf, long_row, -1)))
     w = tuple(x[:1, 0] for x in v)
-    calls.append((lambda: rows_cuda.fdot(tf, v, w, -1), lambda: rows_cuda.fdot_plain(tf, v, w, -1)))
+    calls.append((lambda: rows_cuda.fdot(tf, v, w, -1), lambda: tfield.fdot_plain(tf, v, w, -1)))
     coeffs = tuple(x[:, 0, :100] for x in v)
     pw = tuple(x[:, 2, :] for x in v)
     calls.append((lambda: rows_cuda.poly_eval_powers(tf, coeffs, pw),
-                  lambda: rows_cuda.poly_eval_powers_plain(tf, coeffs, pw)))
+                  lambda: ntt.poly_eval_powers_plain(tf, coeffs, pw)))
     for run, plain in calls:
         before = fr.launches
         got = run()
@@ -1113,7 +1114,7 @@ def test_limb_contract_kernel_matches_plain(cuda, field):
         before = lc.launches
         got = limb_cuda.decompose7(tf, v, dim)
         torch.cuda.synchronize()
-        assert lc.launches == before + 1 and torch.equal(got, limb_cuda.decompose7_plain(tf, v, dim))
+        assert lc.launches == before + 1 and torch.equal(got, limbmm.decompose7_plain(tf, v, dim))
     w = tuple(x[:, :, ::3] for x in _field(tf, (9, 2, 381), 5, cuda))  # [9, 2, 127]
     X = _field(tf, (9, 127, 126), 6, cuda)
     before = lc.launches
@@ -1121,9 +1122,9 @@ def test_limb_contract_kernel_matches_plain(cuda, field):
     torch.cuda.synchronize()
     assert lc.launches == before + 3
     nl = limb_cuda.NLIMB[tf.LIMBS]
-    dl = limb_cuda.decompose7_plain(tf, w, 2).reshape(9, 2 * nl, 127)
-    dr = limb_cuda.decompose7_plain(tf, X, 2).reshape(9, 127, nl * 126)
-    assert _same(got, limb_cuda.recombine_plain(tf, torch.bmm(dl, dr), 2, 126))
+    dl = limbmm.decompose7_plain(tf, w, 2).reshape(9, 2 * nl, 127)
+    dr = limbmm.decompose7_plain(tf, X, 2).reshape(9, 127, nl * 126)
+    assert _same(got, limbmm.recombine_plain(tf, torch.bmm(dl, dr), 2, 126))
 
 
 def test_field_kernels_refuse_mixed_devices(cuda):

@@ -22,7 +22,8 @@ from janus_tpu_torch.aggregator.engine_cache import EngineCache, engine_cache
 from janus_tpu_torch.datastore import EphemeralDatastore
 from janus_tpu_torch.device import resolve_device
 from janus_tpu_torch.messages import Role, TaskId, Time
-from janus_tpu_torch.fields.tfield import TF128
+from janus_tpu_torch.fields import tfield
+from janus_tpu_torch.fields.tfield import TF64, TF128
 from janus_tpu_torch.ops import (
     cuda_build,
     expand_cuda,
@@ -305,28 +306,30 @@ def test_wrappers_refuse_other_devices():
             entry()
 
 
-# Kernels 5-8: each wrapper module, its launch counter and its plain versions
+# Kernels 5-8: each wrapper module, its launch counter and its plain
+# versions (the eager bodies the callers run on CPU tensors)
 FIELD_KERNEL_MODULES = (
-    (field_cuda, "field_arith", ("field_arith_plain",)),
-    (ntt_cuda, "ntt_transform", ("ntt_transform_plain",)),
-    (rows_cuda, "field_rows", ("powers_plain", "fsum_plain", "fdot_plain", "poly_eval_powers_plain")),
-    (limb_cuda, "limb_contract", ("decompose7_plain", "recombine_plain")),
+    (field_cuda, "field_arith", (TF64.add_plain, TF64.sub_plain, TF64.neg_plain, TF64.mul_plain, TF128.add_plain,
+                                 TF128.sub_plain, TF128.neg_plain, TF128.mul_plain, tfield.fmul_pow2_plain)),
+    (ntt_cuda, "ntt_transform", (ntt._transform_plain,)),
+    (rows_cuda, "field_rows", (ntt.powers_plain, tfield.fsum_plain, tfield.fdot_plain, ntt.poly_eval_powers_plain)),
+    (limb_cuda, "limb_contract", (limbmm.decompose7_plain, limbmm.recombine_plain)),
 )
 
 
 @pytest.mark.parametrize("module,counter,plains", FIELD_KERNEL_MODULES, ids=lambda x: getattr(x, "__name__", None))
 def test_field_kernel_modules_keep_the_kernel_rules(module, counter, plains):
-    """Each new kernel's wrapper module has its launch counter (named in
-    cuda_build.KERNEL_WRAPPERS, its source in KERNELS), its plain
-    versions, a note of the janus_tpu function it replaces and what
-    bounds it, and imports no jax."""
+    """Each new kernel's wrapper module has its launch counter (a
+    cuda_build.LaunchCount named in KERNEL_WRAPPERS, its source in
+    KERNELS), names its plain versions, notes the janus_tpu function it
+    replaces and what bounds it, and imports no jax."""
     wrapper = getattr(module, counter)
-    assert wrapper.__name__ == counter and isinstance(wrapper.launches, int)
-    assert counter in cuda_build.KERNEL_WRAPPERS
+    assert isinstance(wrapper, cuda_build.LaunchCount) and wrapper.__name__ == counter
+    assert isinstance(wrapper.launches, int) and counter in cuda_build.KERNEL_WRAPPERS
     source = module.__doc__.split("(csrc/")[1].split(".cu)")[0]
     assert source in cuda_build.KERNELS and (ROOT / "janus_tpu_torch" / "csrc" / f"{source}.cu").exists()
-    for name in plains:
-        assert callable(getattr(module, name)), name
+    for fn in plains:
+        assert callable(fn) and fn.__name__.split(".")[-1] in module.__doc__, fn.__name__
     note = " ".join(module.__doc__.split())
     assert "Replaces" in note and "janus_tpu/" in note and "bounds it on the H100" in note
     cu = " ".join((ROOT / "janus_tpu_torch" / "csrc" / f"{source}.cu").read_text().split())
