@@ -11,8 +11,8 @@ Phases, each of which must pass:
                    expansion, the whole draft sponge, the sparse
                    scatter-merge, and the step's field arithmetic: the
                    elementwise Field64/Field128 ops, the NTT, the row
-                   functions (powers, sums, dots) and the limb
-                   contraction's decompose and recombine;
+                   functions (powers, sums, dots) and the fused limb
+                   contraction (byte limbs on the int8 tensor cores);
   2. kernels       each kernel against its plain PyTorch version on the
                    card, bit for bit, at the shapes of the paths that run it
                    (24 rounds, plus a reduced-round case), with its time, the
@@ -41,15 +41,19 @@ Phases, each of which must pass:
                    rows (all sentinel); kernels 5-8 (the field
                    arithmetic) at the SumVec(1000, 16) step's shapes and
                    operand layouts, 1,024 reports: strided and broadcast
-                   elementwise ops, the truncation's mul_pow2 over a
-                   strided [1024, 1000] view, the NTT and inverse NTT of
+                   elementwise ops, the truncation's fused pow2 sum of
+                   the bits-major [1024, 16, 1000] view (and its former
+                   chain's mul_pow2 and add over strided [1024, 1000]
+                   views), the NTT and inverse NTT of
                    n = 128 rows (a strided Lagrange row among them) and a
                    16,384-element row on the stage-a-launch route, powers
                    of 127 and 255, the aggregate's sum over 1,024 reports
-                   of 16,000, a long sum, the fused dot, and the limb
-                   contraction's decompositions and recombination, each
-                   call one counted launch (the long row 1 + 14), each
-                   bit-exact (max_abs_err 0);
+                   of 16,000, a long sum, the fused dot, and the fused
+                   limb contraction ([1024, 2, 127] x [1024, 127, 126],
+                   sumvec100k's strided tile, Field64, 2^17 + 5 calls past
+                   its int32 flush, every element p - 1), each call one
+                   counted launch (the long row 1 + 14), each bit-exact
+                   (max_abs_err 0);
   3. sumvec        the fast-mode main path: Prio3SumVec(length=1000, bits=16)
                    at batch 1024 through make_report_batch and two_party_step,
                    with a few reports corrupted; the count must exclude
@@ -674,6 +678,9 @@ HIST_BLOCKS = -(-HIST_LENGTH // 7)
 # clock behind the published 67 TFLOP/s fp32 rate.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# the dense int8 tensor-core rate (NVIDIA's data sheet, H100 SXM): the
+# bound of kernel 8's byte-limb product
+INT8_TC_OPS_PER_S = 1.979e15
 # A Keccak-f[1600] round in the fewest 32-bit instructions, counting
 # 3-input logic (LOP3) and funnel shifts: theta 80 (column parities 20,
 # rotations 10, the 3-input update of 25 lanes 50), rho 48 (24 rotations),
@@ -691,6 +698,11 @@ F128_REDUCE_OPS = 40
 # powers x^0..x^(n-1) n - 2 muls a row), not those its algorithm spends.
 FIELD_OPS = {1: {"add": 8, "sub": 8, "neg": 4, "mul": 32, "mul_pow2": 20},
              2: {"add": 24, "sub": 16, "neg": 10, "mul": 160, "mul_pow2": 80}}
+# The truncation's weighted sum of bits, sum_i 2^i v_i: an input is a
+# shift into an unreduced sum and a carry chain (Field64 6, Field128 10
+# instructions), an output one reduction (16; 96, a Field128 mul less its
+# four products): (per input, per output)
+POW2_SUM_OPS = {1: (6, 16), 2: (10, 96)}
 # kernels 5-7, which every Prio3 path and Poplar1 may run: the stray checks
 # exempt these alone. Kernel 8 runs only on the circuits that take the limb
 # contraction (SumVec, its sparse form, Histogram), whose paths name it.
@@ -698,6 +710,15 @@ FIELD_KERNELS = ("field_arith", "ntt_transform", "field_rows")
 MM_KERNELS = FIELD_KERNELS + ("limb_contract",)
 # a fast-mode step of a contraction circuit: kernels 1, 2 and 8 (5-7 exempt)
 FAST_MM_KERNELS = ("keccak_single_block", "expand_f128", "limb_contract")
+# launches of the fused kernels a step, by path: one contraction (kernel 8)
+# a party, the truncation's weighted sum one launch of kernel 5 a party
+FUSED_STEP_LAUNCHES = {"sumvec": {"limb_contract": 2, "field_arith": 35},
+                       "draft-sumvec": {"limb_contract": 2, "field_arith": 35}}
+# the step's profile before kernels 8 and 5 were fused (PERF.md, PR 22, call 6)
+STEP_PROFILE_BEFORE = {
+    "sumvec": {"kernel_launches": 257, "device_ms_total": 13.20, "device_busy_share": 0.764},
+    "draft-sumvec": {"kernel_launches": 366, "device_ms_total": 40.93, "device_busy_share": 0.971},
+}
 # The two fields' moduli (the sponge kernel takes its modulus as an argument).
 F64 = 2**64 - 2**32 + 1
 F128 = 2**128 - 7 * 2**66 + 1
@@ -781,7 +802,8 @@ def device_ms_by_kernel(torch, fn, reps: int) -> dict:
     return out
 
 
-def kernel_case(torch, run, plain, reps: int, n_ops: float, nbytes: float, info: dict) -> dict:
+def kernel_case(torch, run, plain, reps: int, n_ops: float, nbytes: float, info: dict,
+                ops_per_s: float = INT32_OPS_PER_S) -> dict:
     """A kernel against its plain version on the same inputs: max_abs_err,
     its time call by call as a caller sees it (`ms`, the yardstick of
     every kernel's rows), its device time with the launches queued ahead
@@ -795,7 +817,7 @@ def kernel_case(torch, run, plain, reps: int, n_ops: float, nbytes: float, info:
     ms = time_cuda(torch, run, reps)
     device_ms = time_queued(torch, run, reps)
     plain_ms = time_cuda(torch, plain, reps=1, warmup=0)
-    b_ms, b_by = bound_ms(n_ops, nbytes)
+    b_ms, b_by = bound_ms(n_ops, nbytes, ops_per_s)
     return {**info, "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "share_of_bound": b_ms / ms if ms else None, "case_s": time.perf_counter() - t0}
 
@@ -818,8 +840,8 @@ def max_abs_err(torch, got, want) -> int:
     return worst
 
 
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+def bound_ms(ops: float, nbytes: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
+    t_ops = ops / ops_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -979,13 +1001,13 @@ def field_kernel_cases(torch, dev, rng, batch: int = 1024):
     def nbytes(*values):
         return sum(x.numel() * 8 for v in values for x in (v if isinstance(v, tuple) else (v,)))
 
-    def case(counter, launches, run, plain, n_ops, moved, info, reps=20):
+    def case(counter, launches, run, plain, n_ops, moved, info, reps=20, ops_per_s=INT32_OPS_PER_S):
         before = counter.launches
         run()
         torch.cuda.synchronize()
         if counter.launches != before + launches:
             raise AssertionError(f"{info}: {counter.launches - before} launches, want {launches}")
-        return kernel_case(torch, run, plain, reps, n_ops, moved, info)
+        return kernel_case(torch, run, plain, reps, n_ops, moved, info, ops_per_s)
 
     out = {"field_arith": [], "ntt_transform": [], "field_rows": [], "limb_contract": []}
     fa = field_cuda.elementwise
@@ -1004,14 +1026,24 @@ def field_kernel_cases(torch, dev, rng, batch: int = 1024):
                                        lambda: arith_plain(op, tf, a, b, k), n * ops, moved,
                                        {"case": name, "field": tf.__name__, "op": op, "shape": list(res[0].shape)}))
 
-    # the truncation's hot op: 2^b times bit b of every entry, a strided
-    # [1024, 1000] view of the [1024, 1000, 16] bits (30 such launches a step)
+    # the truncation: sum_b 2^b bit b of every entry over the bits-major
+    # [1024, 16, 1000] view of the [1024, 16000] share, one launch (two a
+    # step); then its former chain's ops, 2^b times bit b over a strided
+    # [1024, 1000] view, and an add of two such views
     bits = vals(TF128, (batch, 1000, 16))
+    view = tuple(x.transpose(1, 2) for x in bits)
+    per_in, per_out = POW2_SUM_OPS[2]
+    out["field_arith"].append(case(
+        field_cuda.field_arith, 1, lambda: tfield.fpow2_weighted_sum(TF128, view, 16, 1),
+        lambda: tfield.fpow2_weighted_sum_plain(TF128, view, 16, 1), batch * 1000 * (16 * per_in + per_out),
+        nbytes(view) + batch * 1000 * 16,
+        {"case": "truncate: the pow2 sum of the bits-major [1024, 16, 1000] view", "field": "TF128",
+         "op": "pow2_weighted_sum", "shape": [batch, 1000]}))
     arith("truncate: mul_pow2 of bit 15, [1024, 1000] of stride 16", TF128, "mul_pow2",
           tuple(x[..., 15] for x in bits), k=15)
     arith("truncate: add of two strided [1024, 1000] bits", TF128, "add", tuple(x[..., 3] for x in bits),
           tuple(x[..., 4] for x in bits))
-    del bits
+    del bits, view
     lag = vals(TF128, (batch, 255))
     rp = vals(TF128, (batch, 128))
     arith("[b] strided column x [b]", TF128, "mul", tuple(x[:, 7] for x in lag), tuple(x[:, 0] for x in rp))
@@ -1082,33 +1114,45 @@ def field_kernel_cases(torch, dev, rng, batch: int = 1024):
         16 * 61935 * add128, nbytes(long_rows) + 16 * 16, {"case": "a streamed tile's sum, [16, 61936] (block mode)"}))
     del long_rows
 
-    # kernel 8: the contraction's two decompositions ([b, 2, 127] weights,
-    # [b, 127, 126] chunked shares) and the recombination of their product
+    # kernel 8: the fused contraction at the step's shape ([b, 2, 127]
+    # weights, [b, 127, 126] chunked shares) first, then sumvec100k's
+    # streamed tile (a strided w tile, a reshaped X tile), Field64, past
+    # the int32 flush (2^17 + 5 calls) and every element p - 1
     lc = limb_cuda.limb_contract
+
+    def contract(name, tf, w, X):
+        b_, W, calls = w[0].shape
+        C = X[0].shape[2]
+        nb = 8 * tf.LIMBS  # the kernel's byte limbs an element
+        out["limb_contract"].append(case(
+            lc, 1, lambda: limbmm.fold_contract(tf, w, X), lambda: limbmm.fold_contract_plain(tf, w, X),
+            2 * b_ * (W * nb) * calls * (nb * C), nbytes(w, X) + b_ * W * C * 8 * tf.LIMBS,
+            {"case": name, "field": tf.__name__, "w": [b_, W, calls], "X": [b_, calls, C]}, reps=10,
+            ops_per_s=INT8_TC_OPS_PER_S))
+
     w = vals(TF128, (batch, 2, 127))
     X = tuple(x.reshape(batch, 127, 126) for x in vals(TF128, (batch, 127 * 126)))
-    nl = limb_cuda.NLIMB[2]
-    for name, v, dim in (("decompose7 of the chunked shares [b, 127, 126] at dim 2", X, 2),
-                         ("decompose7 of the weights [b, 2, 127] at dim 2", w, 2)):
-        out["limb_contract"].append(case(
-            lc, 1, lambda v=v, dim=dim: limb_cuda.decompose7(TF128, v, dim),
-            lambda v=v, dim=dim: limbmm.decompose7_plain(TF128, v, dim), v[0].numel() * nl * 4,
-            nbytes(v) + v[0].numel() * nl * 8, {"case": name}, reps=10))
-    dl = limb_cuda.decompose7(TF128, w, 2).reshape(batch, 2 * nl, 127)
-    dr = limb_cuda.decompose7(TF128, X, 2).reshape(batch, 127, nl * 126)
-    acc = torch.bmm(dl, dr)
-    del dl, dr
-    out["limb_contract"].append(case(
-        lc, 1, lambda: limb_cuda.recombine(TF128, acc, 2, 126), lambda: limbmm.recombine_plain(TF128, acc, 2, 126),
-        batch * 2 * 126 * 2300, acc.numel() * 8 + batch * 2 * 126 * 16,
-        {"case": "recombine of the [b, 38, 2394] float64 product"}, reps=10))
-    del acc
+    contract("the step's [1024, 2, 127] x [1024, 127, 126]", TF128, w, X)
     got = limbmm.fold_contract(TF128, w, X)
     want = tfield.fsum_plain(TF128, TF128.mul_plain(tuple(x[..., None] for x in w), tuple(x[:, None] for x in X)), 2)
     torch.cuda.synchronize()
     err = max_abs_err(torch, got, want)
-    out["limb_contract"][-1]["fold_contract_vs_definition_max_abs_err"] = err
-    out["limb_contract"][-1]["max_abs_err"] = max(out["limb_contract"][-1]["max_abs_err"], err)
+    out["limb_contract"][0]["fold_contract_vs_definition_max_abs_err"] = err
+    out["limb_contract"][0]["max_abs_err"] = max(out["limb_contract"][0]["max_abs_err"], err)
+    del got, want
+    w_full = vals(TF128, (16, 2, 49 * 26))
+    x_tile = vals(TF128, (16, 61936))
+    contract("sumvec100k's streamed tile: [16, 2, 49] of [16, 2, 1274] x [16, 49, 1264]", TF128,
+             tuple(x[:, :, 49 * 5:49 * 6] for x in w_full), tuple(x.reshape(16, 49, 1264) for x in x_tile))
+    del w_full, x_tile
+    contract("Field64 [1024, 2, 127] x [1024, 127, 126]", TF64, vals(TF64, (batch, 2, 127)),
+             vals(TF64, (batch, 127, 126)))
+    big = (1 << 17) + 5
+    contract("past the int32 flush: [2, 2, 2^17 + 5] x [2, 2^17 + 5, 3]", TF128, vals(TF128, (2, 2, big)),
+             vals(TF128, (2, big, 3)))
+    pm1 = TF128.MODULUS - 1
+    contract("every element p - 1: [1024, 2, 127] x [1024, 127, 126]", TF128,
+             tfield.fconst(TF128, pm1, (batch, 2, 127), dev), tfield.fconst(TF128, pm1, (batch, 127, 126), dev))
     return out
 
 
@@ -1684,6 +1728,9 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
     stray = [k for k in counters if k not in kernels and k not in FIELD_KERNELS and launches[k] != 0]
     if stray:
         raise AssertionError(f"kernels of another path launched on the {name} path: {stray} ({launches})")
+    want = FUSED_STEP_LAUNCHES.get(name, {})
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
 
     # a small batch agrees with the plain path on the CPU
     if small_batch:
@@ -1768,10 +1815,11 @@ def run_path(torch, dev, name: str, inst, batch: int, bad_rows, kernels, reps: i
         # one step under torch.profiler: the CUDA kernels it launched and
         # the card's busy share, beside the eager field arithmetic's
         prof = profile_step(torch, step, args, sum(two_s) / len(two_s))
-        rec["step_profile"] = {**{k: prof[k] for k in ("kernel_launches", "device_ms_total", "step_s",
-                                                       "device_busy_share", "top")},
-                               "before": {"kernel_launches": 93_614, "device_busy_share": 0.195,
-                                          "origin": "a draft-sumvec step, PR 12, call 33"}}
+        if prof["gemm_launches"]:
+            raise AssertionError(f"{name}: the step launched {prof['gemm_launches']} library matrix products")
+        rec["step_profile"] = {**{k: prof[k] for k in ("kernel_launches", "gemm_launches", "device_ms_total",
+                                                       "step_s", "device_busy_share", "top")},
+                               "before": STEP_PROFILE_BEFORE[name]}
     if plan is not None:
         rec["stream_plan"] = {"tile_elems": plan[0], "gcalls": plan[1], "n_steps": plan[2]}
         rec["routes_agree"] = identity
@@ -5777,6 +5825,8 @@ def profile_step(torch, step, args, step_s: float):
     return {
         "device_ms_total": device_ms,
         "kernel_launches": sum(r[2] for r in kernels_only),
+        # library matrix products (cuBLAS's gemm kernels): none since kernel 8 is fused
+        "gemm_launches": sum(r[2] for r in kernels_only if "gemm" in r[0].lower()),
         "step_s": step_s,
         "device_busy_share": device_ms / 1e3 / step_s,
         "top": [[k, ms, c] for k, ms, c in kernels_only[:15]],
@@ -6066,7 +6116,7 @@ def main() -> int:
                 "field_arith": "janus_tpu/fields/jfield.py:277",
                 "ntt_transform": "janus_tpu/ops/ntt.py:80",
                 "field_rows": "janus_tpu/ops/ntt.py:147",
-                "limb_contract": "janus_tpu/ops/limbmm.py:64"}
+                "limb_contract": "janus_tpu/ops/limbmm.py:95"}
     kernels = []
     for name, cases in checks.items():
         main_case = cases[0]

@@ -20,10 +20,11 @@ Reduction exploits the sparse moduli (no Montgomery form):
   Field128: 2^128 = 7*2^66 - 1                   (mod p)
 
 On the card the field ops are kernels: TF64/TF128's add, sub, neg and
-mul and fmul_pow2 are one launch of csrc/field_arith.cu each
-(ops/field_cuda.py), fsum and fdot one of csrc/field_rows.cu
-(ops/rows_cuda.py). The eager bodies here (`add_plain`, ...,
-`fmul_pow2_plain`, `fsum_plain`, `fdot_plain`) are their plain versions,
+mul, fmul_pow2 and fpow2_weighted_sum are one launch of
+csrc/field_arith.cu each (ops/field_cuda.py), fsum and fdot one of
+csrc/field_rows.cu (ops/rows_cuda.py). The eager bodies here
+(`add_plain`, ..., `fmul_pow2_plain`, `fpow2_weighted_sum_plain`,
+`fsum_plain`, `fdot_plain`) are their plain versions,
 which CPU tensors run: each op sends its operands by their device
 (`_on_card`).
 """
@@ -439,6 +440,24 @@ def fmul_pow2_plain(tf, v, k: int):
         return _f128_finalize(*c)
     # k up to 63: 7*top*2^66 can reach 2^133 — full 256-bit reduction
     return _f128_reduce256(nlo, nhi, top, torch.zeros_like(top))
+
+
+def fpow2_weighted_sum(tf, v, bits: int, axis: int = 1):
+    """sum_{b < bits} 2^b * v[..., b, ...] along `axis` (1 <= bits <= 64):
+    the truncation's weighted sum of bits, one launch of
+    csrc/field_arith.cu on the card (ops/field_cuda.py pow2_weighted_sum)."""
+    if _on_card("fpow2_weighted_sum", v):
+        return _field_cuda.pow2_weighted_sum(tf, v, bits, axis)
+    return fpow2_weighted_sum_plain(tf, v, bits, axis)
+
+
+def fpow2_weighted_sum_plain(tf, v, bits: int, axis: int = 1):
+    """The plain version of fpow2_weighted_sum: bits - 1 shift-based
+    constant multiplies (fmul_pow2_plain) and as many adds."""
+    acc = fmap(lambda x: x.select(axis, 0), v)
+    for b in range(1, bits):
+        acc = tf.add_plain(acc, fmul_pow2_plain(tf, fmap(lambda x: x.select(axis, b), v), b))
+    return acc
 
 
 def fmap(fn, *vals):

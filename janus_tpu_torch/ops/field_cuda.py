@@ -18,13 +18,25 @@ stride 0 (`launch_geometry`), so the step's strided slices, [b, n] x
 result is a new contiguous tensor of the broadcast shape, as the plain
 version's torch.where gives it.
 
+A second entry, `pow2_weighted_sum`, fuses the truncation's chain
+(janus_tpu/vdaf/engine.py:374 `_pow2_weighted_sum`: bits - 1 fmul_pow2
+and as many adds, which XLA fuses into one loop) into one launch: a
+block stages 128 outputs' inputs in shared memory (a warp reading 256
+contiguous bytes where the summed axis is contiguous, as at every step
+layout), then a thread an output shifts its inputs into an unreduced sum
+and reduces once, writing no intermediate. Bytes bound it too; its plain
+version is fields/tfield.py's `fpow2_weighted_sum_plain` (the loop of
+fmul_pow2_plain and add_plain), and its caller tfield.fpow2_weighted_sum,
+which vdaf/engine.py's `_pow2_weighted_sum` calls.
+
 Dispatch is by device, in the callers: `on_card` sends CUDA operands to
-`elementwise`, which launches the kernel (or raises, as it does for CPU
-operands), and CPU operands to the plain version. Operands on two devices
-raise. Each launch counts on `field_arith`. The same module holds the
-launch-geometry helpers (`launch_geometry`, `merge_axes`), the device
-checks and the field constants (`field_consts`) that the other field
-kernels' wrappers (ntt_cuda, rows_cuda, limb_cuda) share.
+`elementwise` or `pow2_weighted_sum`, which launch the kernel (or raise,
+as they do for CPU operands), and CPU operands to the plain version.
+Operands on two devices raise. Each launch counts on `field_arith`. The
+same module holds the launch-geometry helpers (`launch_geometry`,
+`merge_axes`, `reduce_geometry`), the device checks and the field
+constants (`field_consts`) that the other field kernels' wrappers
+(ntt_cuda, rows_cuda, limb_cuda) share.
 """
 
 from __future__ import annotations
@@ -99,6 +111,21 @@ def merge_axes(shape, strides):
     return tuple(n for n, _ in merged), [tuple(m[1][t] for m in merged) for t in range(len(strides))]
 
 
+def reduce_geometry(shapes, strides, axis: int):
+    """The launch geometry of a sum over `axis` of operands broadcast
+    against each other: (the output shape, its merged axes, each
+    operand's strides along them, the summed length, each operand's
+    stride along the summed axis). field_rows' sums and dots and
+    field_arith's pow2 sum take it."""
+    shape, per = launch_geometry(shapes, strides)
+    if not shape:
+        raise ValueError("no axis to sum over")
+    axis = axis % len(shape)
+    out_shape = shape[:axis] + shape[axis + 1:]
+    mshape, mst = merge_axes(out_shape, [st[:axis] + st[axis + 1:] for st in per])
+    return out_shape, mshape, mst, shape[axis], [st[axis] for st in per]
+
+
 def check_operands(what: str, tensors, dtype=torch.int64) -> torch.device:
     """The device every tensor lies on; raises ValueError where they lie
     on two, or where a CUDA operand is not of `dtype` (int64 limbs)."""
@@ -155,12 +182,14 @@ def stream_of(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _lib():
-    lib = cuda_build.load("field_arith")
-    fn = lib.field_arith_launch
+def _lib(name: str = "field_arith_launch"):
+    fn = getattr(cuda_build.load("field_arith"), name)
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, p, ll, p]
+        fn.argtypes = {
+            "field_arith_launch": [i, i, i, i, p, p, p, p, p, p, p, p, p, ll, p],
+            "pow2_sum_launch": [i, i, p, p, p, i, p, p, p, p, p, ll, p],
+        }[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -194,6 +223,45 @@ def elementwise(op: str, tf, a, b=None, k: int = 0):
         rc = _lib()(
             OPS[op], tf.LIMBS, k, rank, c_array(mshape), c_array([s for row in rows for s in row]), field_consts(),
             *ptrs, *limb_ptrs(tf, outs, 1)[:2], n, stream_of(device),
+        )
+    cuda_build.check(rc, "field_arith")
+    cuda_build.count_launch(field_arith)
+    return outs
+
+
+def pow2_geometry(shape, strides, axis: int, bits: int):
+    """The launch geometry of pow2_weighted_sum over a value's limbs of
+    `shape` and `strides`: reduce_geometry's (output shape, merged axes,
+    each limb's strides along them, each limb's stride along the summed
+    axis); raises ValueError unless 1 <= bits <= min(64, the axis's
+    length)."""
+    out_shape, mshape, mst, m, axis_st = reduce_geometry([shape] * len(strides), strides, axis)
+    if not 1 <= bits <= min(m, 64):
+        raise ValueError(f"pow2_weighted_sum: bits {bits} outside 1..min({m}, 64)")
+    return out_shape, mshape, mst, axis_st
+
+
+def pow2_weighted_sum(tf, v, bits: int, axis: int = 1):
+    """sum_{i < bits} 2^i v[..., i, ...] along `axis` mod p (1 <= bits <=
+    64, v's axis at least bits long) on the card: a new field value of
+    v's shape less `axis`, in one launch."""
+    if len(v) != tf.LIMBS:
+        raise ValueError(f"pow2_weighted_sum: a {tf.LIMBS}-limb value")
+    device = cuda_operands("pow2_weighted_sum", list(v))
+    out_shape, mshape, mst, axis_st = pow2_geometry(tuple(v[0].shape), [t.stride() for t in v], axis, bits)
+    outs = tuple(torch.empty(out_shape, dtype=torch.int64, device=device) for _ in range(tf.LIMBS))
+    n = outs[0].numel()
+    if n == 0:
+        return outs
+    rank = len(mshape)
+    if rank > MAX_RANK:
+        raise ValueError(f"pow2_weighted_sum: {rank} axes after merging, more than {MAX_RANK}")
+    rows = limb_rows(tf, mst, rank, 1)[:2]
+    with torch.cuda.device(device):
+        rc = _lib("pow2_sum_launch")(
+            tf.LIMBS, rank, c_array(mshape), c_array([s for row in rows for s in row]), field_consts(), bits,
+            c_array(list(axis_st) + [0] * (2 - len(axis_st))), *limb_ptrs(tf, v, 1)[:2],
+            *limb_ptrs(tf, outs, 1)[:2], n, stream_of(device),
         )
     cuda_build.check(rc, "field_arith")
     cuda_build.count_launch(field_arith)

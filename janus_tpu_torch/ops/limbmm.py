@@ -1,33 +1,29 @@
-"""Exact field contractions as one batched matrix product over 7-bit limbs.
+"""Exact field contractions over limbs: the plain version as one batched float64 product of 7-bit limbs.
 
 The FLP query's hot loop is a contraction over gadget calls:
 wire_t[j] = sum_call w[call] * X[call, j] in Field64/Field128, per report
 a [W x calls] @ [calls x chunk] product. Field elements are split into
-7-bit limbs and the contraction runs as one batched product:
+limbs and the contraction runs as one matrix product:
 
-  a = sum_l1 A_l1 2^(7 l1),  b = sum_l2 B_l2 2^(7 l2)   (A, B < 2^7)
-  sum_call a b = sum_{l1,l2} 2^(7(l1+l2)) sum_call A_l1 B_l2
+  a = sum_l1 A_l1 2^(k l1),  b = sum_l2 B_l2 2^(k l2)   (A, B < 2^k)
+  sum_call a b = sum_{l1,l2} 2^(k(l1+l2)) sum_call A_l1 B_l2
 
-Field64 uses 10 limbs (70 bits), Field128 19 (133 bits); the (l1, l2)
-grid rides as extra rows and columns of one product:
-[batch, W*19, calls] @ [batch, calls, 19*C].
+On the card `fold_contract` is one launch of csrc/limb_contract.cu
+(ops/limb_cuda.py `fold_contract`): byte limbs (k = 8) on the int8
+tensor cores, the limbs only in shared memory and registers, the
+diagonal groups carried and reduced in the same kernel.
 
-The product runs in float64 with torch.bmm. Every limb product is
-< 2^14 and every column sum is < calls * 2^14, far below 2^53, so the
-float64 result is the exact integer in any summation order and the
-contraction needs no segmenting. Not float32: a float32 product may run
-in TF32 and is exact only up to 2^24 (the JAX package segments it at
-1024 calls for that reason). torch has no batched int8 product on CUDA,
-which is why this is not int8 x int8 -> int32 as on the TPU's MXU; an
-int8 tensor-core kernel for it is future work.
-
-The diagonal groups are then recombined in 64-bit limbs with full
-carries and reduced mod p by the sparse-moduli folds of fields/tfield.py;
-the result is the field element that fsum(mul) gives.
-
-On the card the decomposition and the recombination are launches of
-csrc/limb_contract.cu (ops/limb_cuda.py) around the torch.bmm;
-`decompose7_plain` and `recombine_plain` are their plain versions.
+CPU tensors take the plain version, `fold_contract_plain`: 7-bit limbs
+(k = 7; Field64 10 limbs, 70 bits; Field128 19, 133 bits) as in the JAX
+package, the (l1, l2) grid riding as extra rows and columns of one
+[batch, W*19, calls] @ [batch, calls, 19*C] torch.bmm in float64
+(`decompose7_plain` twice), then `recombine_plain`. Every limb product
+is < 2^14 and every column sum is < calls * 2^14, far below 2^53, so the
+float64 result is the exact integer in any summation order and needs no
+segmenting. The diagonal groups are recombined in 64-bit limbs with full
+carries and reduced mod p by the sparse-moduli folds of
+fields/tfield.py: the field element that fsum(mul) gives, which the
+kernel gives too, bit for bit.
 """
 
 from __future__ import annotations
@@ -39,24 +35,18 @@ from ..fields.tfield import _f64_reduce_wide, _f128_fold, _f128_reduce256, add_l
 from . import limb_cuda
 from .field_cuda import on_card
 
-_NLIMB = limb_cuda.NLIMB  # 7-bit limbs per element, by 64-bit limb count
-
-
-def decompose7(tf, v, dim: int):
-    """Field value (limb tuple, any shape S) -> float64 tensor of its
-    7-bit limbs, little-endian, on a new axis of nlimbs at `dim`: one
-    launch of csrc/limb_contract.cu on the card (ops/limb_cuda.py)."""
-    return limb_cuda.decompose7(tf, v, dim) if on_card("decompose7", v) else decompose7_plain(tf, v, dim)
+NLIMB = {1: 10, 2: 19}  # the plain version's 7-bit limbs an element, by 64-bit limb count
 
 
 def decompose7_plain(tf, v, dim: int):
-    """The plain version of decompose7.
+    """Field value (limb tuple, any shape S) -> float64 tensor of its
+    7-bit limbs, little-endian, on a new axis of nlimbs at `dim`.
 
     Each limb is written straight into the one float64 result, so a
     call holds that result and one int64 limb at a time: 19 x 8 bytes a
     Field128 element (10 x 8 a Field64 one), plus a few int64 element
     temporaries (vdaf/feasibility.py counts both)."""
-    nl = _NLIMB[tf.LIMBS]
+    nl = NLIMB[tf.LIMBS]
     shape = list(v[0].shape)
     dim = dim % (len(shape) + 1)
     shape.insert(dim, nl)
@@ -91,33 +81,33 @@ def fold_contract(tf, w, X):
     w: field value [batch, W, calls] (weight rows; W small).
     X: field value [batch, calls, C].
     Returns a reduced field value [batch, W, C], equal to
-    fsum(tf, tf.mul(w[..., None], X[:, None]), axis=2): decompose7 twice,
-    the float64 product, recombine (on the card, three launches of
-    csrc/limb_contract.cu around torch.bmm).
+    fsum(tf, tf.mul(w[..., None], X[:, None]), axis=2): one launch of
+    csrc/limb_contract.cu on the card (ops/limb_cuda.py), the plain
+    version on the CPU.
     """
-    nl = _NLIMB[tf.LIMBS]
+    if on_card("fold_contract", list(w) + list(X)):
+        return limb_cuda.fold_contract(tf, w, X)
+    return fold_contract_plain(tf, w, X)
+
+
+def fold_contract_plain(tf, w, X):
+    """The plain version of fold_contract: decompose7_plain twice, the
+    float64 product, recombine_plain."""
+    nl = NLIMB[tf.LIMBS]
     b, W, calls = w[0].shape
     C = X[0].shape[2]
     # the sum of all terms stays below 2^(64 * limbs) with room to spare
     assert calls < 1 << 30
     # limbs laid out as the product wants them: rows (w, l1), columns (l2, c)
-    dl = decompose7(tf, w, dim=2).reshape(b, W * nl, calls)
-    dr = decompose7(tf, X, dim=2).reshape(b, calls, nl * C)
-    return recombine(tf, torch.bmm(dl, dr), W, C)
-
-
-def recombine(tf, acc, W: int, C: int):
-    """The product's exact column sums acc [b, W * nl, nl * C] (rows
-    (w, l1), columns (l2, c)) -> the reduced field value [b, W, C]: one
-    launch of csrc/limb_contract.cu on the card (ops/limb_cuda.py)."""
-    if on_card("recombine", [acc], torch.float64):
-        return limb_cuda.recombine(tf, acc, W, C)
-    return recombine_plain(tf, acc, W, C)
+    dl = decompose7_plain(tf, w, dim=2).reshape(b, W * nl, calls)
+    dr = decompose7_plain(tf, X, dim=2).reshape(b, calls, nl * C)
+    return recombine_plain(tf, torch.bmm(dl, dr), W, C)
 
 
 def recombine_plain(tf, acc, W: int, C: int):
-    """The plain version of recombine."""
-    nl = _NLIMB[tf.LIMBS]
+    """The product's exact column sums acc [b, W * nl, nl * C] (rows
+    (w, l1), columns (l2, c)) -> the reduced field value [b, W, C]."""
+    nl = NLIMB[tf.LIMBS]
     b = acc.shape[0]
     acc = acc.to(torch.int64).reshape(b, W, nl * nl, C)
 

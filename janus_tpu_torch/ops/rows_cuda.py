@@ -43,10 +43,10 @@ from .field_cuda import (
     c_array,
     cuda_operands,
     field_consts,
-    launch_geometry,
     limb_ptrs,
     limb_rows,
     merge_axes,
+    reduce_geometry,
     stream_of,
 )
 
@@ -96,20 +96,6 @@ def powers(tf, x, n: int):
     cuda_build.check(rc, "field_rows")
     cuda_build.count_launch(field_rows)
     return outs
-
-
-def reduce_geometry(shapes, strides, axis: int):
-    """The launch geometry of a sum over `axis` of operands broadcast
-    against each other: (the output shape, its merged axes, each
-    operand's strides along them, the summed length, each operand's
-    stride along the summed axis)."""
-    shape, per = launch_geometry(shapes, strides)
-    if not shape:
-        raise ValueError("no axis to sum over")
-    axis = axis % len(shape)
-    out_shape = shape[:axis] + shape[axis + 1:]
-    mshape, mst = merge_axes(out_shape, [st[:axis] + st[axis + 1:] for st in per])
-    return out_shape, mshape, mst, shape[axis], [st[axis] for st in per]
 
 
 def _reduce(tf, values, axis: int, what: str):

@@ -32,8 +32,8 @@ from ..fields.tfield import (
     TF128,
     fconst,
     fmap,
-    fmul_pow2,
     fpad_axis,
+    fpow2_weighted_sum,
     fpow_const,
     fput_tile,
     freshape,
@@ -308,12 +308,10 @@ def _two_power_consts(tf, bits: int, device):
 
 
 def _pow2_weighted_sum(tf, v, bits: int, axis: int = 1):
-    """sum_b 2^b * v[:, b, ...] over a bits-major axis, by shift-based
-    constant multiplies (fmul_pow2)."""
-    acc = fmap(lambda x: x.select(axis, 0), v)
-    for b in range(1, bits):
-        acc = tf.add(acc, fmul_pow2(tf, fmap(lambda x: x.select(axis, b), v), b))
-    return acc
+    """sum_b 2^b * v[:, b, ...] over a bits-major axis: one launch of
+    kernel 5's fused entry on the card (tfield.fpow2_weighted_sum), the
+    loop of shift-based constant multiplies and adds on the CPU."""
+    return fpow2_weighted_sum(tf, v, bits, axis)
 
 
 def batched_circuit(circ: Circuit) -> BatchedCircuit:

@@ -31,6 +31,7 @@ from janus_tpu.fields import jfield as jf_mod
 from janus_tpu.fields.jfield import JF64, JF128
 from janus_tpu.ops import limbmm as j_limbmm
 from janus_tpu.ops import ntt as j_ntt
+from janus_tpu.vdaf import engine as j_engine
 from janus_tpu_torch.fields import tfield
 from janus_tpu_torch.fields.tfield import TF64, TF128
 from janus_tpu_torch.ops import cuda_build, field_cuda, limb_cuda, limbmm, ntt, ntt_cuda, rows_cuda
@@ -176,10 +177,35 @@ def test_limb_contract_plain_matches_janus_tpu(field):
     tX, jX = _values(tf, (B, 20, 6), lambda x: x, 72)
     got = limbmm.fold_contract(tf, tw, tX)
     assert _equal(got, j_limbmm.fold_contract(jf, jw, jX))
-    nl = limb_cuda.NLIMB[tf.LIMBS]
+    assert all(torch.equal(x, y) for x, y in zip(limbmm.fold_contract_plain(tf, tw, tX), got))
+    nl = limbmm.NLIMB[tf.LIMBS]
     dl = limbmm.decompose7_plain(tf, tw, 2).reshape(B, 2 * nl, 20)
     dr = limbmm.decompose7_plain(tf, tX, 2).reshape(B, 20, nl * 6)
     assert all(torch.equal(x, y) for x, y in zip(limbmm.recombine_plain(tf, torch.bmm(dl, dr), 2, 6), got))
+
+
+# The truncation's layouts: (name, the physical shape, the view, the axis)
+# for `bits` (SumVec's bits-major view of its share, Sum's axis -1, the
+# streamed tile's view of a [b, 3 x 7 x bits] tile)
+def _pow2_layouts(bits: int):
+    return {
+        "bits-major transpose": ((B, 9 * bits), lambda x: x.reshape(B, 9, bits).swapaxes(1, 2), 1),
+        "axis -1": ((B, bits), lambda x: x, -1),
+        "streamed tile": ((B, 2, 21 * bits), lambda x: x[:, 1].reshape(B, 21, bits).swapaxes(1, 2), 1),
+    }
+
+
+@pytest.mark.parametrize("bits", [1, 2, 16, 63, 64])
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_pow2_weighted_sum_plain_matches_janus_tpu(field, bits):
+    """Kernel 5's fused truncation entry: its plain version against
+    janus_tpu's _pow2_weighted_sum at each layout its callers pass."""
+    jf, tf = FIELDS[field]
+    for i, (name, (phys, view, axis)) in enumerate(_pow2_layouts(bits).items()):
+        tv, jv = _values(tf, phys, view, 90 + 10 * bits + i)
+        got = tfield.fpow2_weighted_sum_plain(tf, tv, bits, axis)
+        assert _equal(got, j_engine._pow2_weighted_sum(jf, jv, bits, axis)), name
+        assert all(torch.equal(x, y) for x, y in zip(tfield.fpow2_weighted_sum(tf, tv, bits, axis), got)), name
 
 
 # -- launch geometry (pure functions) -------------------------------------
@@ -253,6 +279,47 @@ def test_launch_geometry_of_the_step_layouts():
                                  ) == ((B * 2, 4), [(8, 1), (0, 1)])
 
 
+def test_fused_launch_geometry_of_the_step_layouts():
+    """The two fused entries' geometry against the views they describe:
+    the pow2 sum's output axes and its summed axis at each truncation
+    layout (at the step's, one output axis whose outputs' inputs follow
+    one another, so the kernel's staging reads are contiguous), and the
+    contraction's strides of the whole-share query's X and w and of the
+    streamed query's w tile and reshaped X tile."""
+    for bits in (1, 2, 16, 63, 64):
+        for name, (phys, view, axis) in _pow2_layouts(bits).items():
+            v = view(torch.arange(int(np.prod(phys))).reshape(phys))
+            out_shape, mshape, mst, axis_st = field_cuda.pow2_geometry(tuple(v.shape), [v.stride()], axis, bits)
+            whole = v.movedim(axis % v.dim(), -1)
+            assert out_shape == tuple(whole.shape[:-1])
+            for i in range(bits):
+                sl = torch.as_strided(v, mshape, mst[0], v.storage_offset() + i * axis_st[0])
+                assert torch.equal(sl.reshape(-1), whole[..., i].reshape(-1)), (name, i)
+    step = torch.zeros(B, 16000, dtype=torch.int64).reshape(B, 1000, 16).transpose(1, 2)
+    assert field_cuda.pow2_geometry(tuple(step.shape), [step.stride()] * 2, 1, 16) == (
+        (B, 1000), (B * 1000,), [(16,), (16,)], [1, 1])
+    with pytest.raises(ValueError):
+        field_cuda.pow2_geometry((B, 4), [(4, 1)], -1, 5)
+    with pytest.raises(ValueError):
+        field_cuda.pow2_geometry((B, 70), [(70, 1)], -1, 65)
+    X = torch.zeros(B, 127 * 126, dtype=torch.int64).reshape(B, 127, 126)
+    w = torch.zeros(B, 2, 127, dtype=torch.int64)
+    assert limb_cuda.contract_geometry(w.shape, [w.stride()], X.shape, [X.stride()]) == (
+        B, 2, 127, 126, [(254, 127, 1)], [(127 * 126, 126, 1)])
+    w_full = torch.arange(B * 2 * 300).reshape(B, 2, 300)
+    wt = w_full[:, :, 49:98]
+    Xt = torch.arange(B * 3000).reshape(B, 3000)[:, 40:40 + 49 * 40].reshape(B, 49, 40)
+    b, W, calls, C, wst, xst = limb_cuda.contract_geometry(wt.shape, [wt.stride()], Xt.shape, [Xt.stride()])
+    assert (b, W, calls, C) == (B, 2, 49, 40)
+    assert torch.equal(torch.as_strided(w_full, wt.shape, wst[0], wt.storage_offset()), wt)
+    assert torch.equal(torch.as_strided(Xt, Xt.shape, xst[0], Xt.storage_offset()), Xt)
+    one = torch.zeros(B, 1, 5, dtype=torch.int64)
+    assert limb_cuda.contract_geometry(one.shape, [one.stride()], (B, 5, 1), [(5, 1, 1)])[4:] == (
+        [(5, 0, 1)], [(5, 1, 0)])
+    with pytest.raises(ValueError):
+        limb_cuda.contract_geometry((B, 2, 7), [(14, 7, 1)], (B, 8, 3), [(24, 3, 1)])
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_reduce_geometry_is_the_summed_broadcast(seed):
     """field_rows' sum and dot: the output drops the summed axis of the
@@ -276,8 +343,10 @@ def test_reduce_geometry_is_the_summed_broadcast(seed):
 
 
 def test_ntt_and_decompose_geometry():
-    """The NTT's batch axes and row stride, the one-block switch, and
-    decompose7's output shape and limb spacing."""
+    """The NTT's batch axes and row stride, the one-block switch, and the
+    fused contraction's operands (the launcher that took decompose7's
+    place) read through strides: every [b, W, calls] x [b, calls, C] view
+    is walked as itself."""
     rows = torch.zeros(B, 2, 256, dtype=torch.int64)[..., ::2]  # [b, 2, 128], row stride 2
     bshape, per = ntt_cuda.row_geometry(rows.shape[:-1], [rows.stride()] * 2)
     assert bshape == (B * 2,) and per == [(256, 2)] * 2
@@ -285,13 +354,14 @@ def test_ntt_and_decompose_geometry():
     assert ntt_cuda.block_geometry(1, 1) == (1, 256, 256 * 8)
     assert ntt_cuda.block_geometry(8192, 2) is not None and ntt_cuda.block_geometry(16384, 2) is None
     assert ntt_cuda.block_geometry(16384, 1) is not None and ntt_cuda.block_geometry(32768, 1) is None
-    v = torch.zeros(B, 2, 40, dtype=torch.int64)[..., ::2]
-    for dim, inner in ((0, B * 2 * 20), (2, 20), (3, 1), (-1, 1)):
-        shape, got_inner, mshape, mst = limb_cuda.decompose_geometry(tuple(v.shape), [v.stride()], dim, 19)
-        want = list(v.shape)
-        want.insert(dim % 4, 19)
-        assert shape == tuple(want) and got_inner == inner
-        assert torch.equal(torch.as_strided(v, mshape, mst[0], v.storage_offset()).reshape(-1), v.reshape(-1))
+    base = torch.arange(B * 2 * 40).reshape(B, 2, 40)
+    for w in (base[..., ::2], base.transpose(1, 2)[:, :20:2], base[:, :1, 3:9]):
+        flat = torch.arange(B * 100).reshape(B, 100)[:, 3:]
+        for X in (base[:, :, : w.shape[2]].transpose(1, 2), flat[:, : 4 * w.shape[2]].reshape(B, w.shape[2], 4)):
+            _, W, calls, C, wst, xst = limb_cuda.contract_geometry(w.shape, [w.stride()] * 2, X.shape, [X.stride()] * 2)
+            assert (W, calls, C) == (w.shape[1], w.shape[2], X.shape[2]) and wst[0] == wst[1]
+            assert torch.equal(torch.as_strided(w, w.shape, wst[0], w.storage_offset()), w)
+            assert torch.equal(torch.as_strided(X, X.shape, xst[0], X.storage_offset()), X)
 
 
 # -- the CPU route, and operands on two devices ---------------------------
@@ -308,7 +378,7 @@ def _entries(tf, v, w):
         lambda: ntt.ntt_batched(tf, v, 8), lambda: ntt.intt_batched(tf, v),
         lambda: ntt.powers(tf, col, 9), lambda: tfield.fsum(tf, v, 0), lambda: tfield.fdot(tf, v, w, -1),
         lambda: ntt.poly_eval_powers(tf, v, w),
-        lambda: limbmm.decompose7(tf, v, 1),
+        lambda: tfield.fpow2_weighted_sum(tf, v, 8, 1),
         lambda: limbmm.fold_contract(tf, tuple(x[:, None, :] for x in v), tuple(x[:, :, None] for x in w)),
     ]
 
@@ -329,8 +399,10 @@ def test_cpu_tensors_take_the_plain_route_and_count_nothing(field):
         ntt._transform_plain(tf, v, 8, False), ntt._transform_plain(tf, v, 8, True),
         ntt.powers_plain(tf, tuple(x[:, 0] for x in v), 9), tfield.fsum_plain(tf, v, 0),
         tfield.fdot_plain(tf, v, w, -1), ntt.poly_eval_powers_plain(tf, v, w),
-        limbmm.decompose7_plain(tf, v, 1),
+        tfield.fpow2_weighted_sum_plain(tf, v, 8, 1),
+        limbmm.fold_contract_plain(tf, tuple(x[:, None, :] for x in v), tuple(x[:, :, None] for x in w)),
     ]
+    assert len(results) == len(plain)
     for got, want in zip(results, plain):
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         assert all(torch.equal(x, y) for x, y in zip(got, want))
@@ -348,8 +420,8 @@ def test_launchers_refuse_cpu_tensors(field):
     for fn in (lambda: field_cuda.elementwise("add", tf, v, v), lambda: ntt_cuda.transform(tf, v, 8, False, tw, None),
                lambda: rows_cuda.powers(tf, v, 3), lambda: rows_cuda.fsum(tf, v, 0),
                lambda: rows_cuda.fdot(tf, v, v, -1), lambda: rows_cuda.poly_eval_powers(tf, v, v),
-               lambda: limb_cuda.decompose7(tf, v, 0),
-               lambda: limb_cuda.recombine(tf, torch.zeros((B, 2 * 19, 19 * 3), dtype=torch.float64), 2, 3)):
+               lambda: field_cuda.pow2_weighted_sum(tf, v, 8, 1),
+               lambda: limb_cuda.fold_contract(tf, tuple(x[:, None, :] for x in v), tuple(x[:, :, None] for x in v))):
         with pytest.raises(ValueError, match="takes CUDA tensors"):
             fn()
     assert [c.launches for c in COUNTERS] == before
@@ -371,7 +443,7 @@ def test_operands_on_two_devices_raise(field):
     mixed = (v[0], w[1]) if tf.LIMBS == 2 else None
     if mixed is not None:
         for fn in (lambda: tf.neg(mixed), lambda: ntt.intt_batched(tf, mixed), lambda: tfield.fsum(tf, mixed, 0),
-                   lambda: ntt.powers(tf, mixed, 3), lambda: limbmm.decompose7(tf, mixed, 0)):
+                   lambda: ntt.powers(tf, mixed, 3), lambda: tfield.fpow2_weighted_sum(tf, mixed, 8, 1)):
             with pytest.raises(ValueError, match="more than one device"):
                 fn()
     with pytest.raises(ValueError, match="unsupported device"):

@@ -1100,31 +1100,91 @@ def test_field_rows_kernel_matches_plain(cuda, field):
         assert fr.launches == before + 1 and _same(got, plain())
 
 
+def _field_fast(tf, shape, device, seed, fill=None):
+    """Reduced field elements of `shape` on `device` from vectorised
+    draws (0, 1, p - 1 and p - 2 first), or every element `fill`."""
+    n = int(np.prod(shape, dtype=np.int64))
+    p = tf.MODULUS
+    if fill is not None:
+        words = np.array([[(fill >> (64 * i)) & (2**64 - 1)] * n for i in range(tf.LIMBS)], dtype=np.uint64)
+    else:
+        words = np.random.default_rng(seed).integers(0, 2**64 - 1, size=(tf.LIMBS, n), dtype=np.uint64,
+                                                     endpoint=True)
+        if tf.LIMBS == 2:
+            words[1][words[1] >= np.uint64(p >> 64)] &= np.uint64(2**63 - 1)
+        else:
+            words[0] %= np.uint64(p)
+        for i, e in enumerate((0, 1, p - 1, p - 2)[:n]):
+            for li in range(tf.LIMBS):
+                words[li][i] = np.uint64((e >> (64 * li)) & (2**64 - 1))
+    return tuple(torch.from_numpy(w.reshape(shape).view(np.int64)).to(device) for w in words)
+
+
 @pytest.mark.parametrize("field", ["Field64", "Field128"])
 def test_limb_contract_kernel_matches_plain(cuda, field):
-    """Kernel 8: decompose7 of strided values at every axis, and
-    fold_contract as two decompositions, torch.bmm and one recombination."""
+    """Kernel 8: fold_contract in one launch, bit-exact against its plain
+    version (two 7-bit decompositions, a float64 torch.bmm and the
+    recombination) at the SumVec(1000, 16) step's [1024, 2, 127] x
+    [1024, 127, 126], at W = 1, at calls and C off the tiles (1, 33, 127),
+    on the streamed query's strided w tile and reshaped X tile
+    (vdaf/engine.py's flp_query_streamed), at 2^17 + 5 calls (past the
+    kernel's int32 flushes into 64-bit sums), and with every element
+    p - 1."""
     from janus_tpu_torch.fields.tfield import TF64, TF128
     from janus_tpu_torch.ops import limb_cuda, limbmm
 
     tf = TF64 if field == "Field64" else TF128
     lc = limb_cuda.limb_contract
-    v = tuple(x[..., ::2] for x in _field(tf, (9, 4, 30), 4, cuda))
-    for dim in range(4):
+    cases = [("step", _field_fast(tf, (1024, 2, 127), cuda, 5), _field_fast(tf, (1024, 127, 126), cuda, 6)),
+             ("W = 1", _field_fast(tf, (9, 1, 127), cuda, 7), _field_fast(tf, (9, 127, 126), cuda, 8))]
+    for calls in (1, 33, 127):
+        for C in (1, 33, 127):
+            cases.append((f"calls {calls}, C {C}", _field_fast(tf, (3, 3, calls), cuda, calls),
+                          _field_fast(tf, (3, calls, C), cuda, C)))
+    w_full = _field_fast(tf, (16, 2, 49 * 26 + 20), cuda, 9)
+    x_tile = _field_fast(tf, (16, 49 * 1264 + 16), cuda, 10)
+    cases.append(("streamed tile", tuple(x[:, :, 49 * 3:49 * 4] for x in w_full),
+                  tuple(x[:, 16:].reshape(16, 49, 1264) for x in x_tile)))
+    big = (1 << 17) + 5
+    cases.append(("2^17 + 5 calls", _field_fast(tf, (2, 2, big), cuda, 11), _field_fast(tf, (2, big, 3), cuda, 12)))
+    cases.append(("p - 1", _field_fast(tf, (64, 2, 127), cuda, 0, tf.MODULUS - 1),
+                  _field_fast(tf, (64, 127, 126), cuda, 0, tf.MODULUS - 1)))
+    for name, w, X in cases:
         before = lc.launches
-        got = limb_cuda.decompose7(tf, v, dim)
+        got = limbmm.fold_contract(tf, w, X)
         torch.cuda.synchronize()
-        assert lc.launches == before + 1 and torch.equal(got, limbmm.decompose7_plain(tf, v, dim))
-    w = tuple(x[:, :, ::3] for x in _field(tf, (9, 2, 381), 5, cuda))  # [9, 2, 127]
-    X = _field(tf, (9, 127, 126), 6, cuda)
-    before = lc.launches
-    got = limbmm.fold_contract(tf, w, X)
-    torch.cuda.synchronize()
-    assert lc.launches == before + 3
-    nl = limb_cuda.NLIMB[tf.LIMBS]
-    dl = limbmm.decompose7_plain(tf, w, 2).reshape(9, 2 * nl, 127)
-    dr = limbmm.decompose7_plain(tf, X, 2).reshape(9, 127, nl * 126)
-    assert _same(got, limbmm.recombine_plain(tf, torch.bmm(dl, dr), 2, 126))
+        assert lc.launches == before + 1, name
+        assert _same(got, limbmm.fold_contract_plain(tf, w, X)), name
+
+
+@pytest.mark.parametrize("field", ["Field64", "Field128"])
+def test_pow2_weighted_sum_kernel_matches_plain(cuda, field):
+    """Kernel 5's fused truncation: one launch, bit-exact against the
+    plain loop of fmul_pow2 and add, at the step's layouts (SumVec's
+    bits-major view of [1024, 16000], Sum's axis -1, FixedPointVec's
+    entry bits, the streamed tile's view) and bits 1, 2, 16, 63, 64."""
+    from janus_tpu_torch.fields import tfield
+    from janus_tpu_torch.fields.tfield import TF64, TF128
+    from janus_tpu_torch.ops import field_cuda
+
+    tf = TF64 if field == "Field64" else TF128
+    fa = field_cuda.field_arith
+    share = _field_fast(tf, (1024, 16000), cuda, 13)
+    cases = [("sumvec truncate", tuple(x.reshape(1024, 1000, 16).transpose(1, 2) for x in share), 16, 1)]
+    for bits in (1, 2, 16, 63, 64):
+        sums = _field_fast(tf, (257, bits), cuda, 14 + bits)
+        cases.append((f"sum, bits {bits}", sums, bits, -1))
+        fp = _field_fast(tf, (33, 10 * bits + 7), cuda, 20 + bits)
+        cases.append((f"fixedpoint entries, bits {bits}",
+                      tuple(x[:, :10 * bits].reshape(33, 10, bits).transpose(1, 2) for x in fp), bits, 1))
+    tile = _field_fast(tf, (16, 61936), cuda, 15)
+    cases.append(("streamed tile", tuple(x.reshape(16, 3871, 16).transpose(1, 2) for x in tile), 16, 1))
+    for name, v, bits, axis in cases:
+        before = fa.launches
+        got = tfield.fpow2_weighted_sum(tf, v, bits, axis)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1, name
+        assert _same(got, tfield.fpow2_weighted_sum_plain(tf, v, bits, axis)), name
 
 
 def test_field_kernels_refuse_mixed_devices(cuda):

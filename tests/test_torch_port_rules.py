@@ -300,8 +300,10 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         scatter_cuda.scatter_rows(acc, rows, torch.empty((2, 4), dtype=torch.int32, device="meta"))
     v = (torch.empty((2, 4), dtype=torch.int64, device="meta"),) * 2
+    v3 = (torch.empty((2, 4, 4), dtype=torch.int64, device="meta"),) * 2
     for entry in (lambda: TF128.mul(v, v), lambda: ntt.intt_batched(TF128, v), lambda: ntt.powers(TF128, v, 3),
-                  lambda: rows_cuda.fsum(TF128, v, 0), lambda: limbmm.decompose7(TF128, v, 0)):
+                  lambda: rows_cuda.fsum(TF128, v, 0), lambda: limbmm.fold_contract(TF128, v3, v3),
+                  lambda: tfield.fpow2_weighted_sum(TF128, v, 2, 1)):
         with pytest.raises(ValueError, match="unsupported device"):
             entry()
 
@@ -310,10 +312,11 @@ def test_wrappers_refuse_other_devices():
 # versions (the eager bodies the callers run on CPU tensors)
 FIELD_KERNEL_MODULES = (
     (field_cuda, "field_arith", (TF64.add_plain, TF64.sub_plain, TF64.neg_plain, TF64.mul_plain, TF128.add_plain,
-                                 TF128.sub_plain, TF128.neg_plain, TF128.mul_plain, tfield.fmul_pow2_plain)),
+                                 TF128.sub_plain, TF128.neg_plain, TF128.mul_plain, tfield.fmul_pow2_plain,
+                                 tfield.fpow2_weighted_sum_plain)),
     (ntt_cuda, "ntt_transform", (ntt._transform_plain,)),
     (rows_cuda, "field_rows", (ntt.powers_plain, tfield.fsum_plain, tfield.fdot_plain, ntt.poly_eval_powers_plain)),
-    (limb_cuda, "limb_contract", (limbmm.decompose7_plain, limbmm.recombine_plain)),
+    (limb_cuda, "limb_contract", (limbmm.fold_contract_plain, limbmm.decompose7_plain, limbmm.recombine_plain)),
 )
 
 

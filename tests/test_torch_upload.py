@@ -321,9 +321,12 @@ UPLOAD_CASES = ["accepted", "replayed", "rejected", "outdated-config", "too-earl
 def upload_apps():
     """janus_tpu and port leader apps over one task: `plain` without
     buckets, `bucket` with an upload bucket of burst 1 that barely
-    refills."""
+    refills. The two upload buckets read one shared stepped clock (it
+    moves only where a test steps it), so both see the same refill and
+    advertise the same Retry-After wherever the host's clock stands."""
     task, helper_kp = leader_task("count")
     made, apps = [], {}
+    bucket_now = [0.0]
     for kind, kw in (("plain", {}), ("bucket", {"upload_bucket_rate": 0.001, "upload_bucket_burst": 1})):
         j_eph = j_store.EphemeralDatastore(j_time.MockClock(jm.Time(NOW)))
         t_eph = EphemeralDatastore(MockClock(tm.Time(NOW)))
@@ -331,6 +334,11 @@ def upload_apps():
         t_eph.datastore.run_tx(lambda tx: tx.put_task(Task.from_dict(task.to_dict())))
         j_app = j_http.DapHttpApp(j_core.Aggregator(j_eph.datastore, j_eph.clock, j_core.Config(**kw)))
         t_app = t_http.DapHttpApp(t_core.Aggregator(t_eph.datastore, t_eph.clock, t_core.Config(**kw), device="cpu"))
+        if kind == "bucket":
+            for app, adm in ((j_app, j_admission), (t_app, t_admission)):
+                _, controller = app._ensure_ingest()
+                controller._buckets["upload"] = adm.TokenBucket(
+                    kw["upload_bucket_rate"], kw["upload_bucket_burst"], clock=lambda: bucket_now[0])
         apps[kind] = (j_app, t_app)
         made += [(j_app, j_eph), (t_app, t_eph)]
     yield task, helper_kp, apps
